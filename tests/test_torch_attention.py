@@ -9,7 +9,13 @@ order (and, for the Pallas kernel, exp2 with a fixed bias instead of a
 running max) -- at unit-variance inputs the outputs are O(1) and fp32
 rounding stays near 1e-6.
 
-The tolerance the CUDA kernel is held to on the card (``attention_error``)
+The plain version is also held against the two-pass kernel
+``flash_attention_maxpass`` in interpret mode (K4b, the depth UNet's opt-in
+kernel), at unbounded scores, all-negative score rows and padded keys.  The
+depth UNet's routing rule (which attention shapes launch a kernel) is
+checked from its shapes at 576x1024.
+
+The tolerance the CUDA kernels are held to on the card (``attention_error``)
 is checked here too: it passes a sound bf16 answer and fails planted faults.
 """
 
@@ -20,12 +26,23 @@ import torch
 
 from trajectorycrafter_tpu.ops.attention import _xla_attention
 from trajectorycrafter_tpu.ops.pallas.flash_exp2 import flash_attention_exp2_t
+from trajectorycrafter_tpu.ops.pallas.flash_max import flash_attention_maxpass
+from trajectorycrafter_tpu_torch.models.depthcrafter import (
+    DEPTH_ATTN_ENV,
+    UNetSpatioTemporalConditionModel,
+    depth_attention_impl,
+)
 from trajectorycrafter_tpu_torch.ops.attention import (
     attention_error,
     attention_reference,
+    maxpass_plain_inputs,
     multi_head_attention,
 )
-from trajectorycrafter_tpu_torch.ops.kernels import FLASH_KEY_TILE, flash_attention
+from trajectorycrafter_tpu_torch.ops.kernels import (
+    FLASH_KEY_TILE,
+    flash_attention,
+    flash_maxpass,
+)
 
 torch.set_num_threads(1)
 ATOL = 1e-5
@@ -80,17 +97,111 @@ def test_reference_matches_flash_exp2_interpret():
 
 def test_multi_head_attention_takes_plain_version_on_cpu():
     """On CPU tensors the dispatch computes the plain version and never
-    touches the kernel: the launch counter stays put."""
+    touches a kernel: the launch counters stay put, whichever impl."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(2, 2, 4, 33, 21, 64))
-    before = flash_attention.launches
-    got = multi_head_attention(q, k, v, scale=0.2)
-    assert flash_attention.launches == before
-    assert got.shape == (2, 33, 4 * 64)
+    before = flash_attention.launches, flash_maxpass.launches
     want = attention_reference(q, k, v, 0.2).reshape(2, 33, 4 * 64)
-    torch.testing.assert_close(got, want, atol=0, rtol=0)
-    # "reference" is the same plain version on any device
-    torch.testing.assert_close(multi_head_attention(q, k, v, 0.2, impl="reference"), want,
-                               atol=0, rtol=0)
+    # "reference" and "xla" are the same plain version on any device
+    for impl in ("auto", "flash_stock", "flash_max", "reference", "xla"):
+        got = multi_head_attention(q, k, v, scale=0.2, impl=impl)
+        assert got.shape == (2, 33, 4 * 64)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert (flash_attention.launches, flash_maxpass.launches) == before
+
+
+@pytest.mark.parametrize("case", ["unbounded", "all_negative", "padded_keys"])
+def test_reference_matches_flash_maxpass_interpret(case):
+    """Against the two-pass Pallas kernel in interpret mode, as
+    tests/test_flash_max.py runs it: scores spanning ~[-90, 90] (no
+    QK-norm), rows whose every score is far below zero, and 200 real keys
+    zero-padded to 256 with the kernel's ``kv_pad`` count."""
+    rng = np.random.default_rng(5)
+    b, h, s, d = 1, 2, 256, 32
+    q = rng.standard_normal((b, s, h, d)) * 6
+    k = rng.standard_normal((b, s, h, d)) * 6
+    v = rng.standard_normal((b, s, h, d))
+    s_real = s
+    if case == "all_negative":
+        q = rng.standard_normal((b, s, h, d)) + 4.0
+        k = -(rng.standard_normal((b, s, h, d)) * 0.1 + 4.0)
+    elif case == "padded_keys":
+        s_real = 200
+        k[:, s_real:] = 0.0
+        v[:, s_real:] = 0.0
+    q, k, v = (x.astype(np.float32) for x in (q, k, v))
+    scale = d ** -0.5
+
+    def kernel(qt, kt, vt):
+        out_t = flash_attention_maxpass(qt, kt, vt, kv_pad=s - s_real, sm_scale=scale,
+                                        block_q=128, block_k=128, interpret=True)
+        return jnp.swapaxes(out_t, 2, 3)
+
+    want = _jax_bshd(kernel, q, k, v)
+    got = attention_reference(*(torch.from_numpy(x) for x in (q, k[:, :s_real], v[:, :s_real])),
+                              scale)
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-4)
+
+
+def test_flash_maxpass_in_bf16_is_the_attention_of_its_rounded_q():
+    """In bf16 the two-pass Pallas kernel (interpret mode) rounds q * scale *
+    log2(e) to bf16 before the product: with peaked scores (q x 6) it sits
+    outside the bound around the unrounded attention, and well inside it
+    around ``attention_reference`` on ``maxpass_plain_inputs`` -- the plain
+    version the CUDA two-pass kernel is held to."""
+    q, k, v = _qkv(6, 1, 2, 128, 256, 64)
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in (q * 6.0, k, v))
+    scale = 64 ** -0.5
+    to_jax = lambda x: jnp.asarray(x.float().numpy()).astype(jnp.bfloat16).swapaxes(1, 2)
+    out_t = flash_attention_maxpass(to_jax(q), to_jax(k), to_jax(v), sm_scale=scale,
+                                    block_q=128, block_k=128, interpret=True)
+    out = torch.from_numpy(np.array(out_t.transpose(0, 3, 1, 2).astype(jnp.float32))).bfloat16()
+    q_rounded, scale_base2 = maxpass_plain_inputs(q, scale)
+    own = attention_error(out, q_rounded, k, v, scale_base2)
+    assert own["ok"] and own["max_row_rel_err"] < 2 ** -7, own
+    assert not attention_error(out, q, k, v, scale)["ok"]
+
+
+def test_depth_unet_routing_rule(monkeypatch):
+    """At 576x1024 (latents 72 x 128) the rule sends the spatial
+    self-attention of the 9,216- and 2,304-token levels to a kernel (10 per
+    UNet forward: 2 + 2 down, 3 + 3 up), and the 576- and 144-token
+    levels, all temporal attention over 49 frames and all cross-attention
+    to the one CLIP token to the plain version; nothing launches off the
+    card."""
+    monkeypatch.delenv(DEPTH_ATTN_ENV, raising=False)
+    assert depth_attention_impl(9216, 9216, True) == "flash_stock"
+    assert depth_attention_impl(2304, 2304, True) == "flash_stock"
+    assert depth_attention_impl(1024, 1024, True) == "flash_stock"  # 2^20, the threshold
+    for s, s_kv in ((576, 576), (144, 144), (49, 49), (9216, 1), (1023, 1024)):
+        assert depth_attention_impl(s, s_kv, True) == "xla"
+    assert depth_attention_impl(9216, 9216, False) == "xla"
+    assert depth_attention_impl(9216, 9216, True, "reference") == "reference"
+    monkeypatch.setenv(DEPTH_ATTN_ENV, "flash_max")
+    assert depth_attention_impl(9216, 9216, True) == "flash_max"
+    assert depth_attention_impl(9216, 9216, True, "flash_stock") == "flash_stock"
+    monkeypatch.setenv(DEPTH_ATTN_ENV, "flash_pv8")
+    with pytest.raises(ValueError, match="flash_pv8"):
+        depth_attention_impl(9216, 9216, True)
+    monkeypatch.delenv(DEPTH_ATTN_ENV)
+
+    # the count per UNet forward, from the deployed module's attention layers
+    with torch.device("meta"):
+        unet = UNetSpatioTemporalConditionModel()
+    tokens = {0: 72 * 128, 1: 36 * 64, 2: 18 * 32, 3: 9 * 16}
+    kernel_calls = 0
+    for part, levels in (("down", unet.down_blocks), ("up", unet.up_blocks)):
+        for i, level in enumerate(levels):
+            depth = i if part == "down" else len(levels) - 1 - i
+            for attn in level.attentions:
+                for blk in attn.transformer_blocks:
+                    n = tokens[depth]
+                    kernel_calls += depth_attention_impl(n, n, True) != "xla"
+                    assert depth_attention_impl(n, 1, True) == "xla"  # attn2, CLIP
+                for blk in attn.temporal_transformer_blocks:
+                    assert depth_attention_impl(49, 49, True) == "xla"
+    assert depth_attention_impl(tokens[3], tokens[3], True) == "xla"  # mid block
+    assert kernel_calls == 10
 
 
 def _exact_bf16(q, k, v, scale):
@@ -126,9 +237,10 @@ def test_attention_error_passes_sound_and_rejects_planted_faults(shape, gain):
 def test_dispatch_and_wrapper_reject_what_they_do_not_take():
     q, k, v = (torch.from_numpy(x) for x in _qkv(3, 1, 2, 8, 8, 64))
     with pytest.raises(ValueError, match="unknown attention impl"):
-        multi_head_attention(q, k, v, impl="flash_stock")
-    # the kernel wrapper takes CUDA tensors only: it never falls back
-    before = flash_attention.launches
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), 0.125)
-    assert flash_attention.launches == before
+        multi_head_attention(q, k, v, impl="flash_pv8")  # K6, not ported
+    # the kernel wrappers take CUDA tensors only: they never fall back
+    for wrapper in (flash_attention, flash_maxpass):
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(q.bfloat16(), k.bfloat16(), v.bfloat16(), 0.125)
+        assert wrapper.launches == before

@@ -19,8 +19,9 @@ REPO = Path(__file__).resolve().parents[1]
 def test_port_modules_import_without_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         trajectorycrafter_tpu_torch.__path__, "trajectorycrafter_tpu_torch."))
-    assert "trajectorycrafter_tpu_torch.ops.kernels" in modules
-    assert "trajectorycrafter_tpu_torch.cli" in modules
+    for name in ("ops.kernels", "cli", "models.depthcrafter", "models.svd_vae", "models.clip",
+                 "models.t5", "pipelines.depth", "schedulers.euler", "ops.resize"):
+        assert f"trajectorycrafter_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r}:\n"

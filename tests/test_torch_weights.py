@@ -1,4 +1,5 @@
-"""JAX tree -> torch state_dict (trajectorycrafter_tpu_torch/utils/weights.py).
+"""JAX tree -> torch state_dict (trajectorycrafter_tpu_torch/utils/weights.py),
+for the DiT and VAE, and for the depth stack (SVD UNet, SVD VAE, CLIP) and T5.
 
 The port's modules carry the reference checkpoint's names: at the deployed
 widths their state_dict keys are exactly ``expected_dit_keys`` /
@@ -19,14 +20,30 @@ from torch_parity import jax_tree
 from trajectorycrafter_tpu.models.dit import CrossTransformer3DModel as JaxDiT
 from trajectorycrafter_tpu.models.vae import AutoencoderKLCogVideoX as JaxVAE
 from trajectorycrafter_tpu.utils.convert import (
+    RecordingDict,
+    convert_clip_vision,
     convert_dit,
+    convert_svd_unet,
+    convert_svd_vae,
+    convert_t5_encoder,
     convert_vae,
     expected_dit_keys,
     expected_vae_keys,
 )
+from trajectorycrafter_tpu_torch.models.clip import CLIPVisionModelWithProjection
+from trajectorycrafter_tpu_torch.models.depthcrafter import UNetSpatioTemporalConditionModel
 from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
+from trajectorycrafter_tpu_torch.models.svd_vae import AutoencoderKLTemporalDecoder
+from trajectorycrafter_tpu_torch.models.t5 import T5EncoderModel
 from trajectorycrafter_tpu_torch.models.vae import AutoencoderKLCogVideoX
-from trajectorycrafter_tpu_torch.utils.weights import dit_from_jax, vae_from_jax
+from trajectorycrafter_tpu_torch.utils.weights import (
+    clip_from_jax,
+    dit_from_jax,
+    svd_unet_from_jax,
+    svd_vae_from_jax,
+    t5_from_jax,
+    vae_from_jax,
+)
 
 torch.set_num_threads(1)
 
@@ -97,3 +114,56 @@ def test_vae_round_trip_and_strict_load(vae_params):
     sd = vae_from_jax(vae_params)
     _assert_trees_equal(convert_vae(sd, layers_per_block=1), vae_params)
     AutoencoderKLCogVideoX(**DEV_VAE).load_state_dict(sd, strict=True)
+
+
+DEPTH_TINY = {
+    "svd_unet": (dict(block_out_channels=(8, 16, 16, 16), layers_per_block=1,
+                      num_attention_heads=(2, 2, 2, 2), cross_attention_dim=12,
+                      norm_num_groups=4), dict(layers_per_block=1)),
+    "svd_vae": (dict(block_out_channels=(32, 32, 64, 64)), {}),
+    "clip": (dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                  num_attention_heads=4, image_size=28, patch_size=14, projection_dim=16),
+             dict(num_layers=2)),
+    "t5": (dict(vocab_size=100, d_model=32, d_kv=8, d_ff=64, num_layers=3, num_heads=4),
+           dict(num_layers=3)),
+}
+_BRIDGES = {
+    "svd_unet": (UNetSpatioTemporalConditionModel, convert_svd_unet, svd_unet_from_jax),
+    "svd_vae": (AutoencoderKLTemporalDecoder, convert_svd_vae, svd_vae_from_jax),
+    "clip": (CLIPVisionModelWithProjection, convert_clip_vision, clip_from_jax),
+    "t5": (T5EncoderModel, convert_t5_encoder, t5_from_jax),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_BRIDGES))
+def test_depth_stack_and_t5_round_trip_and_strict_load(name):
+    """``convert_x(x_from_jax(p)) == p`` exactly and the state_dict loads
+    strictly into a fresh port module (the flax paths and shapes of each
+    tree are checked in tests/test_torch_depth.py and test_torch_t5.py)."""
+    module_cls, convert, from_jax = _BRIDGES[name]
+    kwargs, convert_kwargs = DEPTH_TINY[name]
+    params = jax_tree(module_cls(**kwargs), 3, convert, **convert_kwargs)
+    sd = from_jax(params)
+    _assert_trees_equal(convert(sd, **convert_kwargs), params)
+    module_cls(**kwargs).load_state_dict(sd, strict=True)
+
+
+@pytest.mark.parametrize("name,convert_kwargs,n_params", [
+    ("svd_unet", {}, (1.45e9, 1.6e9)),  # the SVD img2vid UNet, 1.5B
+    ("svd_vae", {}, (0.08e9, 0.11e9)),
+    ("clip", dict(num_layers=32), (0.6e9, 0.66e9)),  # ViT-H/14 + projection
+    ("t5", dict(num_layers=24), (4.7e9, 4.8e9)),  # T5-XXL encoder
+])
+def test_deployed_depth_stack_and_t5_keys_are_the_converters(name, convert_kwargs, n_params):
+    """At the deployed widths (meta device, no memory) the converter reads
+    every key of the port module's state_dict and the size is the published
+    model's."""
+    module_cls, convert, _ = _BRIDGES[name]
+    with torch.device("meta"):
+        module = module_cls()
+    sd = RecordingDict({k: np.broadcast_to(np.float32(0), v.shape)
+                        for k, v in module.state_dict().items()})
+    convert(sd, **convert_kwargs)
+    assert sd.consumed == set(sd)
+    n = sum(p.numel() for p in module.parameters())
+    assert n_params[0] < n < n_params[1], n

@@ -13,10 +13,14 @@ import torch
 
 @torch.no_grad()
 def fill_from_numpy_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
-    """Weights N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2), biases N(0, 0.1^2)."""
+    """Weights N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2), biases N(0, 0.1^2);
+    the SVD blocks' spatial/temporal mix factors U(-1.5, 1.5), so that a
+    blend taken the wrong way round cannot pass as sigmoid(0) = 1/2."""
     rng = np.random.default_rng(seed)
     for name, p in module.named_parameters():
-        if p.dim() >= 2:
+        if name.endswith("mix_factor"):
+            values = rng.uniform(-1.5, 1.5, p.shape)
+        elif p.dim() >= 2:
             values = rng.standard_normal(p.shape) / np.sqrt(p[0].numel())
         elif name.endswith("weight"):
             values = 1.0 + 0.1 * rng.standard_normal(p.shape)

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Profile one denoise step of the PyTorch port on a CUDA card.
 
-    python3 tools/profile_dit_step.py        # from the root of a checkout
+    python3 tools/profile_dit_step.py           # from the root of a checkout
+    python3 tools/profile_dit_step.py --depth   # the depth stage's step instead
 
 One step is one forward of the full-width CrossTransformer3D DiT (random
 bf16 weights from seed 0) on the CFG pair at the main path's shapes: 49
 frames at 384x672 (13 latent frames, 13,330 joint tokens), 10 reference
-frames for the Perceiver (3 latent frames, 3,024 tokens), RoPE on.  After two
-warm-up forwards it times one forward unprofiled (host clock ending in a
-synchronize), then one under ``torch.profiler``, and prints the device time
-per kernel group, the top kernels, and the device's idle share (1 - summed
-kernel time / profiled wall time).
+frames for the Perceiver (3 latent frames, 3,024 tokens), RoPE on.  With
+``--depth`` it is one forward of the DepthCrafter SVD UNet on the depth
+stage's window: 49 frames of 72 x 128 latents (576x1024 frames), and the
+depth stage's parts are timed first (CLIP embedding, VAE encode, the 5
+Euler steps, the chunked VAE decode, each after a warm-up run of the whole
+stage).  After two warm-up forwards it times one forward unprofiled (host
+clock ending in a synchronize), then one under ``torch.profiler``, and
+prints the device time per kernel group, the top kernels, and the device's
+idle share (1 - summed kernel time / profiled wall time).
 """
 
 import subprocess
@@ -31,10 +36,16 @@ def kernel_group(name: str) -> str:
         return "flash self-attention (d 64)"
     if "flash_attention_kernel<128>" in name:
         return "flash Perceiver (d 128)"
+    if "row_max_kernel" in name or "attention_kernel<" in name:
+        return "two-pass flash self-attention"
+    if any(key in name.lower() for key in ("conv", "fprop", "implicit")):
+        return "convolutions (cuDNN)"
     if "nvjet" in name or "gemm" in name.lower() or "cutlass" in name.lower():
         return "bf16 GEMMs"
     if "layer_norm" in name:
         return "layer norm"
+    if "reduce" in name.lower():
+        return "reductions (group-norm statistics)"
     if "Cat" in name:
         return "concatenation"
     if "copy" in name:
@@ -42,21 +53,23 @@ def kernel_group(name: str) -> str:
     return "other elementwise"
 
 
-def main() -> None:
+def _synced_ms(fn) -> float:
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from trajectorycrafter_tpu_torch.cli import parse_config
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def dit_step(models, cfg):
+    """(label, forward) of one denoise step: the DiT on the CFG pair."""
+    import torch
+
     from trajectorycrafter_tpu_torch.ops.rope import rope_for_sample
-    from trajectorycrafter_tpu_torch.orchestrator import build_full_scale_models
 
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_dit_step: needs a CUDA card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
-    cfg = parse_config(ARGV)
-    dit = build_full_scale_models(cfg, "cuda").pipeline.transformer
+    dit = models.pipeline.transformer
     hs, ws = cfg.diffusion.sample_size
     b, f, h, w = 2, (cfg.video_length - 1) // 4 + 1, hs // 8, ws // 8
     f_ref = (cfg.diffusion.ref_frames - 1) // 4 + 1
@@ -66,21 +79,69 @@ def main() -> None:
     args = (randn(b, f, h, w, 16), randn(b, 226, 4096), torch.full((b,), 999.0, device="cuda"))
     kwargs = dict(inpaint_latents=randn(b, f, h, w, 17), cross_latents=randn(b, f_ref, h, w, 16),
                   image_rotary_emb=(torch.from_numpy(cos).cuda(), torch.from_numpy(sin).cuda()))
+    label = (f"DiT forward on (B, F, H, W) = {(b, f, h, w)}, {f_ref} reference latent "
+             "frames")
+    return label, lambda: dit(*args, **kwargs)
 
-    def step() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dit(*args, **kwargs)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
+
+def depth_step(models, cfg):
+    """Time the depth stage's parts; (label, forward) of one Euler step: the
+    SVD UNet on the 49-frame window."""
+    import numpy as np
+    import torch
+
+    from trajectorycrafter_tpu_torch.models.svd_vae import (
+        svd_decode_chunked,
+        svd_encode_chunked,
+    )
+
+    demo = models.depth_infer.__self__
+    pipe = demo.pipe
+    f, (hh, ww) = cfg.video_length, cfg.warp_size
+    frames = np.random.default_rng(0).uniform(0, 1, (f, hh, ww, 3)).astype(np.float32)
+    first = _synced_ms(lambda: demo.infer(frames, cfg.render.near, cfg.render.far))
+    whole = _synced_ms(lambda: demo.infer(frames, cfg.render.near, cfg.render.far))
+    ft = torch.from_numpy(frames).cuda()
+    state = pipe.scheduler.set_timesteps(cfg.depth.num_inference_steps)
+    with torch.no_grad():
+        parts = {"CLIP embedding": lambda: pipe.encode_image_embeddings(ft)}
+        parts["VAE encode"] = lambda: svd_encode_chunked(pipe.vae, (ft * 2 - 1)[None].bfloat16())
+        lat = torch.randn((f, hh // 8, ww // 8, 4), device="cuda")
+        ctx = torch.randn((f, 1, 1024), device="cuda").bfloat16()
+        parts[f"{cfg.depth.num_inference_steps} Euler steps"] = lambda: pipe._denoise_window(
+            state, lat * state.init_noise_sigma, lat, ctx, cfg.depth.num_inference_steps, 1.0)
+        parts["VAE decode (chunks of 4)"] = lambda: svd_decode_chunked(pipe.vae, lat[None].bfloat16())
+        times = {name: _synced_ms(fn) for name, fn in parts.items()}
+    print(f"depth stage, {f} frames at {hh}x{ww}: first call {first:.1f} ms, then {whole:.1f} ms; "
+          + ", ".join(f"{name} {ms:.1f} ms" for name, ms in times.items()))
+    args = (lat[None].repeat(1, 1, 1, 1, 2).bfloat16(), torch.full((1,), 1.6, device="cuda"),
+            ctx[None], torch.tensor([[6.0, 127.0, 0.02]], device="cuda"))
+    label = f"depth UNet forward on (B, F, h, w) = {(1, f, hh // 8, ww // 8)}"
+    return label, lambda: pipe.unet(*args)
+
+
+def main() -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from trajectorycrafter_tpu_torch.cli import parse_config
+    from trajectorycrafter_tpu_torch.orchestrator import build_full_scale_models
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_dit_step: needs a CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    cfg = parse_config(ARGV)
+    models = build_full_scale_models(cfg, "cuda")
+    label, forward = (depth_step if "--depth" in sys.argv[1:] else dit_step)(models, cfg)
 
     with torch.no_grad():
-        step(), step()
-        wall = step()
+        _synced_ms(forward), _synced_ms(forward)
+        wall = _synced_ms(forward)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiled_wall = step()
-    print(f"DiT forward on (B, F, H, W) = {(b, f, h, w)}, {f_ref} reference latent frames: "
-          f"{wall:.1f} ms unprofiled, {profiled_wall:.1f} ms profiled")
+            profiled_wall = _synced_ms(forward)
+    print(f"{label}: {wall:.1f} ms unprofiled, {profiled_wall:.1f} ms profiled")
 
     kernels = defaultdict(lambda: [0.0, 0])  # name -> [device us, launches]
     for event in prof.events():
@@ -95,7 +156,7 @@ def main() -> None:
         groups[kernel_group(name)][0] += t
         groups[kernel_group(name)][1] += n
     for group, (t, n) in sorted(groups.items(), key=lambda x: -x[1][0]):
-        print(f"{group:28s} {t / 1e3:9.2f} ms {100 * t / total_us:5.1f}%  x{n}")
+        print(f"{group:36s} {t / 1e3:9.2f} ms {100 * t / total_us:5.1f}%  x{n}")
     print("top kernels:")
     for name, (t, n) in sorted(kernels.items(), key=lambda x: -x[1][0])[:15]:
         print(f"{t / 1e3:9.2f} ms {100 * t / total_us:5.1f}%  x{n:5d}  {name[:100]}")

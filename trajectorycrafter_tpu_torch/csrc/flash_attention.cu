@@ -10,6 +10,12 @@
 // This kernel computes the function itself, with an online running max, so it
 // is exact for the Perceiver's unnormalised scores too.
 //
+// It also replaces trajectorycrafter_tpu/ops/attention.py `_flash_attention`,
+// JAX's library Pallas flash kernel (online running max, padded keys masked
+// by segment ids), which carries the DepthCrafter UNet's large spatial
+// self-attention (49 frames x 5 heads x 9,216 tokens x 64 and 49 x 10 x
+// 2,304 x 64 at 576x1024): the same exact function, so the same kernel.
+//
 // What bounds it on the H100: at the DiT shape (2 x 48 heads x 13,330 tokens x
 // 64) one call does ~4.4 TFLOP against ~0.3 GB of q/k/v, so it is bound by
 // tensor-core throughput and by the fp32 softmax work between the two matrix
@@ -37,7 +43,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
+
 namespace {
+
+using tc_attn::load_u32;
+using tc_attn::mma_bf16_16816;
+using tc_attn::pack_bf16;
 
 constexpr int kWarps = 4;
 constexpr int kBlockM = 16 * kWarps;  // query rows per block
@@ -62,37 +74,6 @@ struct Params {
   int skv;
   float scale_log2;  // softmax scale * log2(e): scores live in the exp2 domain
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low 16 bits)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 accumulate.
-// Fragment ownership (g = lane / 4, t = lane % 4):
-//   a[0] = A[g][2t..2t+1]   a[1] = A[g+8][2t..2t+1]
-//   a[2] = A[g][2t+8..+9]   a[3] = A[g+8][2t+8..+9]
-//   b0   = B[2t..2t+1][g]   b1   = B[2t+8..2t+9][g]
-//   d[0..1] = D[g][2t..2t+1]  d[2..3] = D[g+8][2t..2t+1]
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)

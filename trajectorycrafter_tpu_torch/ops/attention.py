@@ -1,23 +1,29 @@
-"""Attention dispatch: the hand-written CUDA kernel on the card, its plain
+"""Attention dispatch: the hand-written CUDA kernels on the card, their plain
 PyTorch version on the CPU.
 
 Counterpart of trajectorycrafter_tpu/ops/attention.py.  The DiT's joint
 text+video self-attention runs over 13,330 tokens at 384x672 and the
-Perceiver cross-attention over 13,104 x 3,024; both go through
-``multi_head_attention``.  For a CUDA tensor it launches the flash kernel
-(ops/kernels.py, csrc/flash_attention.cu) whatever the size: there is no
-size threshold and no fallback.  For a CPU tensor it takes
-``attention_reference``, the plain version the tests and chip_smoke.py hold
-the kernel against.
+Perceiver cross-attention over 13,104 x 3,024; the DepthCrafter UNet's
+large spatial self-attention over 9,216 and 2,304 tokens per frame at
+576x1024.  All go through ``multi_head_attention``, whose ``impl`` names
+the JAX package's: ``"auto"`` (the DiT) and ``"flash_stock"`` launch the
+running-max kernel (csrc/flash_attention.cu), ``"flash_max"`` the two-pass
+kernel (csrc/flash_maxpass.cu), for CUDA tensors and whatever the size:
+there is no size threshold (the depth UNet routes by size itself) and no
+fallback.  For a CPU tensor they take ``attention_reference``, the plain
+version of both kernels, which the tests and chip_smoke.py hold them
+against; ``"xla"`` (the JAX name of the plain einsum) and ``"reference"``
+take it on any device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from trajectorycrafter_tpu_torch.ops.kernels import flash_attention
+from trajectorycrafter_tpu_torch.ops.kernels import flash_attention, flash_maxpass
 
 # Query rows per step of the plain version: bounds its fp32 score block to
 # B * H * 1024 * Skv floats (5.2 GB at the DiT's 2 x 48 x 13,330).
@@ -40,6 +46,17 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         weights = torch.softmax(scores, dim=-1).to(v.dtype)
         out[:, :, i:i + chunk] = torch.matmul(weights, vt)
     return out.transpose(1, 2)
+
+
+def maxpass_plain_inputs(q: torch.Tensor, scale: float):
+    """(q', scale') that make ``attention_reference`` the plain version of the
+    two-pass kernel: like the TPU kernel it replaces (flash_max.py), the
+    kernel multiplies q by scale * log2(e) and rounds it to q's dtype (bf16)
+    before the product, then takes the softmax in base 2, which is the
+    natural-base softmax of the scores times ln 2.  The rounding moves
+    peaked rows by up to ~2% against the unrounded attention, so the kernel
+    is held against this, its own function, not the running-max kernel's."""
+    return (q.float() * (scale * math.log2(math.e))).to(q.dtype), math.log(2.0)
 
 
 # Tolerance of a bf16 attention kernel against ``attention_reference``:
@@ -82,6 +99,21 @@ def attention_error(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torc
             and row_rel <= ATTN_ROW_TOL}
 
 
+def kernel_error(kernel, out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, scale: float) -> dict:
+    """``attention_error`` of ``kernel``'s output against the plain version of
+    the kernel's own function: the two-pass kernel's rounds the scaled q
+    first (``maxpass_plain_inputs``)."""
+    if kernel is flash_maxpass:
+        q, scale = maxpass_plain_inputs(q, scale)
+    return attention_error(out, q, k, v, scale)
+
+
+# impl -> the kernel it launches for CUDA tensors (None: the plain version)
+_IMPLS = {"auto": flash_attention, "flash_stock": flash_attention,
+          "flash_max": flash_maxpass, "reference": None, "xla": None}
+
+
 def multi_head_attention(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, S_kv, H, D)
@@ -91,17 +123,20 @@ def multi_head_attention(
 ) -> torch.Tensor:
     """Full (non-causal) MHA.  Returns (B, S, H*D).
 
-    ``impl="auto"`` launches the kernel for CUDA tensors and takes the plain
-    version for CPU tensors; ``impl="reference"`` takes the plain version on
-    either, for holding a whole model's kernel run against it.
+    ``impl`` ``"auto"`` / ``"flash_stock"`` and ``"flash_max"`` launch their
+    kernel for CUDA tensors and take the plain version for CPU tensors;
+    ``"reference"`` / ``"xla"`` take the plain version on either, for
+    holding a whole model's kernel run against it.
     """
     b, s, h, d = q.shape
     if scale is None:
         scale = d ** -0.5
-    if impl == "auto":
-        out = flash_attention(q, k, v, scale) if q.is_cuda else attention_reference(q, k, v, scale)
-    elif impl == "reference":
-        out = attention_reference(q, k, v, scale)
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r} (expected one of {sorted(_IMPLS)})")
+    kernel = _IMPLS[impl]
+    if kernel is not None and q.is_cuda:
+        out = kernel(q, k, v, scale)
     else:
-        raise ValueError(f"unknown attention impl {impl!r} (expected 'auto' or 'reference')")
+        out = attention_reference(q, k, v, scale)
     return out.reshape(b, s, h * d)
+

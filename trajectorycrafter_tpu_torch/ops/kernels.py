@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 FLASH_HEAD_DIMS = (64, 128)
-FLASH_KEY_TILE = 64  # keys per shared-memory tile (kBlockN in csrc/flash_attention.cu)
+FLASH_KEY_TILE = 64  # keys per shared-memory tile (kBlockN in both csrc/ kernels)
 
 
 def _nvcc() -> str:
@@ -51,7 +51,9 @@ def build_library(source_name: str) -> dict:
     """Compile ``csrc/<source_name>`` unless a build of the same source and
     flags exists.  Returns {"path", "seconds" (0.0 when cached), "log"}."""
     source = CSRC_DIR / source_name
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the key covers the shared headers too: a source includes them
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
     lib_path = out_dir / (Path(source_name).stem + ".so")
     log_path = out_dir / (Path(source_name).stem + ".log")
@@ -73,15 +75,22 @@ def build_library(source_name: str) -> dict:
     return {"path": lib_path, "seconds": seconds, "log": log}
 
 
+_STRIDES = [ctypes.c_longlong] * 12  # (batch, sequence, head) strides of q, k, v, out
+
+
 @functools.lru_cache(maxsize=None)
-def _flash_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library("flash_attention.cu")["path"]))
-    lib.flash_attention_fwd.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
-    lib.flash_attention_fwd.restype = ctypes.c_int
-    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
+def _library(name: str, n_ptrs: int) -> ctypes.CDLL:
+    """Build and load ``csrc/<name>.cu``, whose entry point is ``<name>_fwd``:
+    (device, ``n_ptrs`` pointers -- q, k, v, out and any scratch -- batch,
+    heads, sq, skv, head_dim, strides..., scale, stream) -> cudaError_t."""
+    lib = ctypes.CDLL(str(build_library(f"{name}.cu")["path"]))
+    fwd = getattr(lib, f"{name}_fwd")
+    fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+                    + _STRIDES + [ctypes.c_float, ctypes.c_void_p])
+    fwd.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
@@ -97,18 +106,15 @@ def _check_bshd(name: str, x: torch.Tensor) -> None:
             "multiples of 8 elements and the data pointer 16-byte aligned)")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """Non-causal softmax(q k^T * scale) v on the card, (B, S, H, D) in and out.
-
-    q: (B, Sq, H, D), k and v: (B, Skv, H, D); bf16 CUDA tensors on one
-    device, D in {64, 128}.  Counts each launch in ``flash_attention.launches``.
-    """
+def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            scale: float) -> torch.Tensor:
+    """Check q, k, v (B, S, H, D) as both kernels take them, launch
+    ``kernel`` into a new output and raise on a nonzero launch status."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
-            raise ValueError(f"flash_attention takes CUDA tensors; {name} is on {x.device}")
+            raise ValueError(f"{kernel} takes CUDA tensors; {name} is on {x.device}")
         if x.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention takes bf16; {name} is {x.dtype}")
+            raise ValueError(f"{kernel} takes bf16; {name} is {x.dtype}")
         _check_bshd(name, x)
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
@@ -122,12 +128,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq == 0 or skv == 0 or b * h > 65535:
         raise ValueError(f"unsupported sizes: B*H={b * h}, Sq={sq}, Skv={skv}")
 
-    lib = _flash_library()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    # the two-pass kernel keeps its row maxima in an fp32 scratch
+    scratch = ([torch.empty(b * h * sq, dtype=torch.float32, device=q.device)]
+               if kernel == "flash_maxpass" else [])
+    lib = _library(kernel, 4 + len(scratch))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = lib.flash_attention_fwd(
+    status = getattr(lib, f"{kernel}_fwd")(
         q.device.index if q.device.index is not None else torch.cuda.current_device(),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() for t in scratch),
         b, h, sq, skv, d,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
@@ -135,10 +145,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.stride(0), out.stride(1), out.stride(2),
         float(scale), stream)
     if status != 0:
-        raise RuntimeError("flash_attention launch failed: "
-                           + lib.flash_attention_error_string(status).decode())
+        raise RuntimeError(f"{kernel} launch failed: "
+                           + getattr(lib, f"{kernel}_error_string")(status).decode())
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Non-causal softmax(q k^T * scale) v on the card with an online running
+    max (csrc/flash_attention.cu), (B, S, H, D) in and out.
+
+    q: (B, Sq, H, D), k and v: (B, Skv, H, D); bf16 CUDA tensors on one
+    device, D in {64, 128}.  Counts each launch in ``flash_attention.launches``.
+    """
+    out = _launch("flash_attention", q, k, v, scale)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_maxpass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """The same attention in two passes (csrc/flash_maxpass.cu): the exact
+    row max of the scaled scores first, then exp2 attention against it.
+    Takes what ``flash_attention`` takes.  Counts each call, which launches
+    both passes, in ``flash_maxpass.launches``."""
+    out = _launch("flash_maxpass", q, k, v, scale)
+    flash_maxpass.launches += 1
+    return out
+
+
+flash_maxpass.launches = 0

@@ -7,10 +7,14 @@ runs the diffusion pipeline and writes the five mp4s (input, render, mask,
 gen, viz).  The other three modes are not ported yet.
 
 Checkpoint loading is not ported yet either: without weights, and only with
-``--allow_dev_stubs``, the models are randomly initialised from a seed, with
-the stand-ins the JAX package uses when checkpoints are missing -- a
-plane-depth stub for DepthCrafter and seeded gaussian prompt embeddings for
-T5-XXL.
+``--allow_dev_stubs``, the models are randomly initialised from a seed at
+their deployed widths on the card -- the DiT and CogVideoX VAE, T5-XXL, and
+DepthCrafter's SVD UNet, SVD VAE and CLIP-H.  The tokenizer is not ported
+(its ``spiece.model`` is not in the repository), so T5 reads stand-in token
+ids drawn from a generator seeded by the prompt's sha256.  The tiny CPU
+stack of the tests (``build_dev_models``) keeps the JAX package's stand-ins
+for missing checkpoints: a plane-depth stub and seeded gaussian prompt
+embeddings.
 """
 
 from __future__ import annotations
@@ -42,9 +46,14 @@ from trajectorycrafter_tpu_torch.geometry.trajectory import (
     generate_traj_txt,
     load_traj_txt,
 )
+from trajectorycrafter_tpu_torch.models.clip import CLIPVisionModelWithProjection
+from trajectorycrafter_tpu_torch.models.depthcrafter import UNetSpatioTemporalConditionModel
 from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
+from trajectorycrafter_tpu_torch.models.svd_vae import AutoencoderKLTemporalDecoder
+from trajectorycrafter_tpu_torch.models.t5 import T5EncoderModel
 from trajectorycrafter_tpu_torch.models.vae import AutoencoderKLCogVideoX
 from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
+from trajectorycrafter_tpu_torch.pipelines.depth import DepthCrafterDemo, DepthCrafterPipeline
 from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
 from trajectorycrafter_tpu_torch.schedulers.ddim import DDIMScheduler
 from trajectorycrafter_tpu_torch.utils.timing import StageTimer
@@ -66,12 +75,45 @@ class ModelBundle:
 # ----------------------------------------------------------------------------
 
 
+def _prompt_seed(prompt: str) -> int:
+    return int.from_bytes(hashlib.sha256(prompt.encode()).digest()[:4], "little")
+
+
 def _pseudo_text_embeds(prompt: str, length: int, dim: int, device) -> torch.Tensor:
-    """Stand-in embeddings when no T5 checkpoint is present: each prompt maps
-    to gaussian token embeddings drawn from a generator seeded by its sha256."""
-    seed = int.from_bytes(hashlib.sha256(prompt.encode()).digest()[:4], "little")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    """Stand-in embeddings of the tiny stack: each prompt maps to gaussian
+    token embeddings drawn from a generator seeded by its sha256."""
+    gen = torch.Generator(device=device).manual_seed(_prompt_seed(prompt))
     return torch.randn((1, length, dim), generator=gen, device=device)
+
+
+def stand_in_token_ids(prompt: str, length: int, vocab_size: int) -> torch.Tensor:
+    """(1, length) T5 token ids for ``prompt`` until the tokenizer is ported:
+    drawn on the CPU from a generator seeded by the prompt's sha256, so the
+    same prompt gives the same ids in every process and on every device."""
+    gen = torch.Generator().manual_seed(_prompt_seed(prompt))
+    return torch.randint(0, vocab_size, (1, length), generator=gen)
+
+
+def t5_prompt_encoder(t5: T5EncoderModel, text_len: int) -> Callable:
+    """``encode_prompt`` of a bundle: T5 on the stand-in ids of the prompt
+    and of the negative prompt, one batch of two."""
+
+    @torch.no_grad()
+    def encode_prompt(prompt, negative):
+        ids = torch.cat([stand_in_token_ids(text or "", text_len, t5.shared.num_embeddings)
+                         for text in (prompt, negative)])
+        out = t5(ids.to(t5.shared.weight.device))
+        return out[:1], out[1:]
+
+    return encode_prompt
+
+
+def depth_stage(unet: UNetSpatioTemporalConditionModel, vae: AutoencoderKLTemporalDecoder,
+                image_encoder: Optional[CLIPVisionModelWithProjection],
+                dtype: torch.dtype) -> Callable:
+    """``depth_infer`` of a bundle: the DepthCrafter pipeline over these models."""
+    return DepthCrafterDemo(DepthCrafterPipeline(
+        unet=unet, vae=vae, image_encoder=image_encoder, dtype=dtype)).infer
 
 
 def _plane_depth_infer(frames, near, far, *a, **kw):
@@ -88,6 +130,10 @@ def check_supported(cfg: TrajCrafterConfig) -> None:
         raise NotImplementedError(
             f"--quant {cfg.diffusion.quant} is not ported yet (ROADMAP queue 1 item 10, "
             "the int8 DiT path); run with --quant none (bf16)")
+    if cfg.depth.quant != "none":
+        raise NotImplementedError(
+            f"--quant_depth {cfg.depth.quant} is not ported yet (ROADMAP queue 1 item 10, "
+            "int8); run with --quant_depth none (bf16)")
     if cfg.diffusion.sampler_name != "DDIM_Origin":
         raise NotImplementedError(
             f"sampler {cfg.diffusion.sampler_name!r} is not ported yet (ROADMAP queue 1 "
@@ -113,23 +159,15 @@ def _on_device(make: Callable[[], torch.nn.Module], device, dtype) -> torch.nn.M
     return module.to(dtype=dtype).to_empty(device=device).eval()
 
 
-def _bundle(cfg, pipeline, text_len, text_dim) -> ModelBundle:
-    device = pipeline.device
-
-    def encode_prompt(prompt, negative):
-        return (_pseudo_text_embeds(prompt or "", text_len, text_dim, device),
-                _pseudo_text_embeds(negative or "", text_len, text_dim, device))
-
-    return ModelBundle(
-        pipeline=pipeline,
-        depth_infer=_plane_depth_infer,
-        encode_prompt=encode_prompt,
-        get_caption=lambda frame: cfg.diffusion.prompt or "a video",
-    )
+def _bundle(cfg, pipeline, depth_infer, encode_prompt) -> ModelBundle:
+    return ModelBundle(pipeline=pipeline, depth_infer=depth_infer,
+                       encode_prompt=encode_prompt,
+                       get_caption=lambda frame: cfg.diffusion.prompt or "a video")
 
 
 def build_dev_models(cfg: TrajCrafterConfig, device="cpu", seed: int = 0) -> ModelBundle:
-    """Randomly initialised tiny stack (the JAX package's dev widths), fp32."""
+    """Randomly initialised tiny diffusion stack (the JAX package's dev
+    widths), fp32, with the plane-depth and pseudo-embedding stand-ins."""
     check_supported(cfg)
     lc, text_len, text_dim = 4, 16, 64
     vae = _on_device(lambda: AutoencoderKLCogVideoX(
@@ -143,16 +181,22 @@ def build_dev_models(cfg: TrajCrafterConfig, device="cpu", seed: int = 0) -> Mod
     pipeline = TrajCrafterPipeline(
         vae=random_init_(vae, seed), transformer=random_init_(dit, seed + 1),
         scheduler=DDIMScheduler(), dtype=torch.float32)
-    return _bundle(cfg, pipeline, text_len, text_dim)
+
+    def encode_prompt(prompt, negative):
+        return (_pseudo_text_embeds(prompt or "", text_len, text_dim, device),
+                _pseudo_text_embeds(negative or "", text_len, text_dim, device))
+
+    return _bundle(cfg, pipeline, _plane_depth_infer, encode_prompt)
 
 
 def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0) -> ModelBundle:
-    """The diffusion stack at its deployed widths, bf16, randomly initialised
-    straight on ``device``: the CrossTransformer3D DiT (48 heads x 64, 42
-    layers, text 226 x 4096, Perceiver 16 x 128 every 2 blocks) and the
-    CogVideoX VAE ((128, 256, 256, 512), 3 layers per block, 16 latent
-    channels), DDIM_Origin, the plane-depth stand-in and pseudo prompt
-    embeddings at T5-XXL's width."""
+    """Every model at its deployed width, bf16, randomly initialised straight
+    on ``device`` (the JAX package's full-scale synthetic bundle): the
+    CrossTransformer3D DiT (48 heads x 64, 42 layers, text 226 x 4096,
+    Perceiver 16 x 128 every 2 blocks) and the CogVideoX VAE ((128, 256,
+    256, 512), 3 layers per block, 16 latent channels) with DDIM_Origin;
+    T5-XXL; DepthCrafter's SVD UNet ((320, 640, 1280, 1280), heads (5, 10,
+    20, 20)), SVD VAE and CLIP ViT-H/14."""
     check_supported(cfg)
     dtype = torch.bfloat16
     vae = _on_device(lambda: AutoencoderKLCogVideoX(), device, dtype)
@@ -164,7 +208,12 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
     pipeline = TrajCrafterPipeline(
         vae=random_init_(vae, seed), transformer=random_init_(dit, seed + 1),
         scheduler=DDIMScheduler(), dtype=dtype)
-    return _bundle(cfg, pipeline, T5_TEXT_LEN, T5_TEXT_DIM)
+    t5 = random_init_(_on_device(T5EncoderModel, device, dtype), seed + 2)
+    unet = random_init_(_on_device(UNetSpatioTemporalConditionModel, device, dtype), seed + 3)
+    svd_vae = random_init_(_on_device(AutoencoderKLTemporalDecoder, device, dtype), seed + 4)
+    clip = random_init_(_on_device(CLIPVisionModelWithProjection, device, dtype), seed + 5)
+    return _bundle(cfg, pipeline, depth_stage(unet, svd_vae, clip, dtype),
+                   t5_prompt_encoder(t5, T5_TEXT_LEN))
 
 
 def build_models(cfg: TrajCrafterConfig) -> ModelBundle:
@@ -179,7 +228,7 @@ def build_models(cfg: TrajCrafterConfig) -> ModelBundle:
     if not cfg.allow_dev_stubs:
         raise FileNotFoundError(
             f"model checkpoints not found at '{model_dir}'; pass --allow_dev_stubs to "
-            "run randomly initialised models with the depth and prompt stand-ins")
+            "run randomly initialised models")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available: the deployed-width models are "
                            "built on the card (build_dev_models makes the tiny CPU stack)")

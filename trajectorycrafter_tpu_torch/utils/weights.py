@@ -1,10 +1,11 @@
-"""JAX parameter tree -> PyTorch state_dict, for the DiT and the VAE.
+"""JAX parameter tree -> PyTorch state_dict, for every model the port runs.
 
-The inverse of trajectorycrafter_tpu/utils/convert.py ``convert_dit`` and
-``convert_vae``: given the flax tree (numpy arrays), return a state_dict
-under the reference checkpoint's names, which the port's modules keep, so
-``module.load_state_dict(sd, strict=True)`` loads it and
-``convert_dit(dit_from_jax(p)) == p``.  This module needs neither jax nor
+The inverses of trajectorycrafter_tpu/utils/convert.py ``convert_dit``,
+``convert_vae``, ``convert_svd_unet``, ``convert_svd_vae``,
+``convert_clip_vision`` and ``convert_t5_encoder``: given the flax tree
+(numpy arrays), return a state_dict under the reference checkpoint's names,
+which the port's modules keep, so ``module.load_state_dict(sd, strict=True)``
+loads it and ``convert_dit(dit_from_jax(p)) == p`` (and likewise for each).  This module needs neither jax nor
 flax: the tree is plain nested dicts of arrays.
 
 Layout rules (the converter's, reversed):
@@ -131,4 +132,143 @@ def vae_from_jax(params: Tree) -> StateDict:
     _causal_conv(sd, "decoder.norm_out.conv_y", norm_out["conv_y"])
     _causal_conv(sd, "decoder.norm_out.conv_b", norm_out["conv_b"])
     _causal_conv(sd, "decoder.conv_out", dec["conv_out"])
+    return sd
+
+
+# ----------------------------------------------------------------------------
+# the depth stack (inverses of convert_svd_unet, convert_svd_vae,
+# convert_clip_vision) and the T5 encoder (of convert_t5_encoder)
+# ----------------------------------------------------------------------------
+
+
+def _put_each(sd: StateDict, prefix: str, tree: Tree, names) -> None:
+    for name in names:
+        if name in tree:
+            _put(sd, f"{prefix}.{name}", tree[name])
+
+
+def _res(sd: StateDict, prefix: str, tree: Tree) -> None:
+    """A spatial or temporal resnet: the converter's ``_res2d`` / ``_res_temporal``."""
+    _put_each(sd, prefix, tree, ("norm1", "norm2", "conv1", "conv2", "time_emb_proj",
+                                 "conv_shortcut"))
+
+
+def _mixer(sd: StateDict, prefix: str, tree: Tree) -> None:
+    sd[prefix + ".time_mixer.mix_factor"] = _tensor(tree["time_mixer"]["mix_factor"])
+
+
+def _st_resblock(sd: StateDict, prefix: str, tree: Tree) -> None:
+    _res(sd, prefix + ".spatial_res_block", tree["spatial_res_block"])
+    _res(sd, prefix + ".temporal_res_block", tree["temporal_res_block"])
+    _mixer(sd, prefix, tree)
+
+
+def _attention(sd: StateDict, prefix: str, tree: Tree) -> None:
+    _put_each(sd, prefix, tree, ("group_norm", "to_q", "to_k", "to_v"))
+    _put(sd, prefix + ".to_out.0", tree["to_out"])
+
+
+def _feed_forward(sd: StateDict, prefix: str, tree: Tree) -> None:
+    _put(sd, prefix + ".net.0.proj", tree["proj_in"])
+    _put(sd, prefix + ".net.2", tree["proj_out"])
+
+
+def _st_transformer(sd: StateDict, prefix: str, tree: Tree) -> None:
+    _put_each(sd, prefix, tree, ("norm", "proj_in", "proj_out"))
+    _put(sd, prefix + ".time_pos_embed.linear_1", tree["time_pos_embed_linear_1"])
+    _put(sd, prefix + ".time_pos_embed.linear_2", tree["time_pos_embed_linear_2"])
+    _mixer(sd, prefix, tree)
+    for kind in ("transformer_blocks", "temporal_transformer_blocks"):
+        for i, blk in _indexed(tree, kind):
+            p = f"{prefix}.{kind}.{i}"
+            _put_each(sd, p, blk, ("norm_in", "norm1", "norm2", "norm3"))
+            _attention(sd, p + ".attn1", blk["attn1"])
+            _attention(sd, p + ".attn2", blk["attn2"])
+            _feed_forward(sd, p + ".ff", blk["ff"])
+            if "ff_in" in blk:
+                _feed_forward(sd, p + ".ff_in", blk["ff_in"])
+
+
+def _levels(sd: StateDict, params: Tree, prefix: str, res, attn) -> None:
+    """``{down,up}_{i}_{res,attn}_{j}`` and ``{down,up}_{i}_{down,up}sample``
+    entries -> ``{prefix}{down,up}_blocks.{i}.{resnets,attentions}.{j}`` and
+    ``...{down,up}samplers.0.conv``."""
+    for key, tree in params.items():
+        parts = key.split("_")
+        if parts[0] not in ("down", "up") or not parts[1].isdigit():
+            continue
+        level = f"{prefix}{parts[0]}_blocks.{parts[1]}"
+        if parts[2] == "res":
+            res(sd, f"{level}.resnets.{parts[3]}", tree)
+        elif parts[2] == "attn":
+            attn(sd, f"{level}.attentions.{parts[3]}", tree)
+        else:  # downsample / upsample
+            _put(sd, f"{level}.{parts[2]}rs.0.conv", tree)
+
+
+def svd_unet_from_jax(params: Tree) -> StateDict:
+    """UNetSpatioTemporalConditionModel flax tree -> torch state_dict."""
+    sd: StateDict = {}
+    for name in ("conv_in", "conv_out", "conv_norm_out"):
+        _put(sd, name, params[name])
+    for name in ("time_embedding", "add_embedding"):
+        for layer in ("linear_1", "linear_2"):
+            _put(sd, f"{name}.{layer}", params[f"{name}_{layer}"])
+    _levels(sd, params, "", _st_resblock, _st_transformer)
+    _st_resblock(sd, "mid_block.resnets.0", params["mid_res_0"])
+    _st_resblock(sd, "mid_block.resnets.1", params["mid_res_1"])
+    _st_transformer(sd, "mid_block.attentions.0", params["mid_attn"])
+    return sd
+
+
+def svd_vae_from_jax(params: Tree) -> StateDict:
+    """AutoencoderKLTemporalDecoder flax tree -> torch state_dict."""
+    sd: StateDict = {}
+    enc, dec = params["encoder"], params["decoder"]
+    _put(sd, "quant_conv", enc["quant_conv"])
+    for part, tree, mid_res in (("encoder", enc, _res), ("decoder", dec, _st_resblock)):
+        _put_each(sd, part, tree, ("conv_in", "conv_out", "conv_norm_out", "time_conv_out"))
+        mid_res(sd, f"{part}.mid_block.resnets.0", tree["mid_res_0"])
+        mid_res(sd, f"{part}.mid_block.resnets.1", tree["mid_res_1"])
+        _attention(sd, f"{part}.mid_block.attentions.0", tree["mid_attn"])
+        _levels(sd, tree, part + ".", mid_res, None)
+    return sd
+
+
+def clip_from_jax(params: Tree) -> StateDict:
+    """CLIPVisionModelWithProjection flax tree -> torch state_dict."""
+    v = "vision_model."
+    sd: StateDict = {
+        v + "embeddings.class_embedding": _tensor(params["class_embedding"]),
+        v + "embeddings.position_embedding.weight": _tensor(params["position_embedding"]),
+    }
+    _put(sd, v + "embeddings.patch_embedding", params["patch_embedding"])
+    _put(sd, v + "pre_layrnorm", params["pre_layrnorm"])
+    _put(sd, v + "post_layernorm", params["post_layernorm"])
+    _put(sd, "visual_projection", params["visual_projection"])
+    for i, layer in _indexed(params, "layers"):
+        p = f"{v}encoder.layers.{i}"
+        _put_each(sd, p, layer, ("layer_norm1", "layer_norm2"))
+        _put_each(sd, p + ".self_attn", layer["self_attn"],
+                  ("q_proj", "k_proj", "v_proj", "out_proj"))
+        _put_each(sd, p + ".mlp", layer["mlp"], ("fc1", "fc2"))
+    return sd
+
+
+def t5_from_jax(params: Tree) -> StateDict:
+    """T5EncoderModel flax tree -> torch state_dict."""
+    sd: StateDict = {
+        "shared.weight": _tensor(params["shared_embedding"]),
+        "encoder.final_layer_norm.weight": _tensor(params["final_layer_norm"]["weight"]),
+    }
+    for i, blk in _indexed(params, "block"):
+        p = f"encoder.block.{i}.layer"
+        attn = blk["attention"]
+        _put_each(sd, f"{p}.0.SelfAttention", attn, ("q", "k", "v", "o"))
+        if "relative_attention_bias" in attn:
+            sd[f"{p}.0.SelfAttention.relative_attention_bias.weight"] = _tensor(
+                attn["relative_attention_bias"])
+        sd[f"{p}.0.layer_norm.weight"] = _tensor(blk["attn_layer_norm"]["weight"])
+        sd[f"{p}.1.layer_norm.weight"] = _tensor(blk["ff_layer_norm"]["weight"])
+        _put_each(sd, f"{p}.1.DenseReluDense", blk, ("wi_0", "wi_1", "wo"))
     return sd
