@@ -10,17 +10,26 @@ prints no result line):
      one nvcc per source, all started together;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the shapes the main path gives it, within a stated tolerance
-     that must also reject two planted faults; then kernels and plain
-     version timed at the DiT's and the depth UNet's full attention shapes;
+     that must also reject planted faults; then each kernel, its plain
+     version and (for the int8 GEMMs) the bf16 ``F.linear`` they replace,
+     timed at full shape, in turns;
   4. main path: ``TrajCrafter.infer_gradual`` at the deployed widths (random
      weights from a seed; T5-XXL prompt encode; the DepthCrafter depth
      stage, 5 Euler steps over one 49-frame window at 576x1024; 2 denoise
-     steps, diffusion at 384x672), once with the default depth attention
-     (``flash_stock``) and once with ``TRAJCRAFTER_DEPTH_ATTN=flash_max``,
-     counting each kernel's launches per stage; then the whole DiT and the
-     whole depth UNet at full width on a small input, kernel against the
-     plain attention;
-  5. a JSON line of kernel results, and a final JSON line with the device.
+     steps, diffusion at 384x672), three times on one set of weights:
+     A, the default: int8 DiT (``--quant int8``, unfused feed-forward),
+       bf16 depth UNet, depth attention ``flash_stock``;
+     B: int8 DiT with the fused int8 feed-forward, ``--quant_depth int8``,
+       ``TRAJCRAFTER_DEPTH_ATTN=flash_max``;
+     C: ``--quant none``, the bf16 DiT and UNet, ``flash_stock``;
+     the int8 models are quantizations of the bf16 models' own weights.
+     Each kernel's launches are counted per stage and held to counts derived
+     from the modules; the PSNR and SSIM of A's video against C's are
+     printed as information;
+  5. whole models: the bf16 and int8 DiT (unfused and fused) and the bf16
+     and int8 depth UNet at full width on small inputs, kernels against the
+     plain versions;
+  6. a JSON line of kernel results, and a final JSON line with the device.
 
 Imports nothing of JAX and no module of the JAX package itself; the port
 underneath reuses the JAX package's JAX-free config, CLI parser and video
@@ -47,16 +56,26 @@ REPO = Path(__file__).resolve().parent
 # 10%, and the last quarter of the key tiles skipped (the kernel, both
 # passes of the two-pass one, run on the first three quarters of k and v).
 
-# Whole DiT / whole depth UNet, kernel vs plain attention, on a small input:
-# dozens of blocks of bf16 arithmetic carry the per-call bf16 differences
-# forward; relative to the output's largest magnitude.
+# The int8 kernels: ``int8_quantize_rows`` bit-equal to its plain version;
+# ``int8_gemm`` and ``int8_gemm_gscale`` within one bf16 ulp of theirs
+# (``gemm_error``), ``int8_gemm_gelu_quant`` within ``gelu_quant_error``
+# (trajectorycrafter_tpu_torch/ops/int8_matmul.py states the reasons).  At
+# the feed-forward shapes each bound must reject two planted faults, made
+# with the sound kernels: a K step of 32 skipped (the last 32 of K zeroed)
+# and the bias dropped or the column scales shifted by one (K2b, K3b); a
+# group of 512 columns in place of 1,024 and the gelu dropped (K3a).
+
+# Whole DiT / whole depth UNet, kernels vs plain versions, on a small input:
+# dozens of blocks of bf16 arithmetic carry the per-call bf16 differences of
+# the attention kernels forward (and int8 codes flip where they move a value
+# across a rounding boundary); relative to the output's largest magnitude.
 DIT_REL_TOL = 5e-2
 UNET_REL_TOL = 5e-2
 
 MAIN_ARGV = [
     "--video_path", "test/videos/synth.mp4", "--camera", "traj",
     "--traj_txt", "test/trajs/loop1.txt", "--mode", "gradual",
-    "--prompt", "a scene", "--quant", "none", "--diffusion_inference_steps", "2",
+    "--prompt", "a scene", "--diffusion_inference_steps", "2",
     "--out_dir", "build/chip_smoke", "--exp_name", "smoke",
 ]
 DIT_LAYERS, PERCEIVER_INTERVAL = 42, 2
@@ -66,9 +85,37 @@ DIT_LAYERS, PERCEIVER_INTERVAL = 42, 2
 # (down 2 + up 3); tests/test_torch_attention.py derives it from the module.
 DEPTH_KERNEL_LAUNCHES_PER_FORWARD = 10
 MP4S = ("input.mp4", "render.mp4", "mask.mp4", "gen.mp4", "viz.mp4")
-KERNEL_SOURCES = ("flash_attention.cu", "flash_maxpass.cu")
+KERNEL_SOURCES = ("flash_attention.cu", "flash_maxpass.cu", "int8_quantize_rows.cu",
+                  "int8_gemm.cu", "int8_gemm_gelu_quant.cu", "int8_gemm_gscale.cu")
+KERNELS = ("flash_attention", "flash_maxpass", "int8_quantize_rows", "int8_gemm",
+           "int8_gemm_gelu_quant", "int8_gemm_gscale")
 # depth attention shapes (B = frames, H, S, D) at 576x1024 and 49 frames
 DEPTH_SHAPES = {"depth_9216": (49, 5, 9216, 64), "depth_2304": (49, 10, 2304, 64)}
+# int8 GEMMs of the main path, (M, K, N, bias): the DiT's blocks at M = 2 x
+# 13,330 tokens (the CFG pair, text + video) -- q/k/v/out and the feed-
+# forward; its Perceivers (queries from 2 x 13,104 video tokens, keys and
+# values from 2 x 3,024 reference tokens, no biases); the depth UNet's
+# level 0 under --quant_depth int8 (49 frames x 9,216 tokens, 320 channels:
+# attention/proj and the GEGLU's first projection); a small ragged M
+INT8_SHAPES = {
+    "dit_qkvo": (26660, 3072, 3072, True),
+    "dit_ff1": (26660, 3072, 12288, True),
+    "dit_ff2": (26660, 12288, 3072, True),
+    "perceiver_to_q": (26208, 3072, 2048, False),
+    "perceiver_to_kv": (6048, 3072, 4096, False),
+    "perceiver_to_out": (26208, 2048, 3072, False),
+    "depth_320": (451584, 320, 320, True),
+    "depth_geglu": (451584, 320, 2560, True),
+    "ragged_small": (70, 256, 512, True),
+}
+TPU_KERNELS = {
+    "flash_attention": "trajectorycrafter_tpu/ops/pallas/flash_exp2.py:212",
+    "flash_maxpass": "trajectorycrafter_tpu/ops/pallas/flash_max.py:110",
+    "int8_quantize_rows": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:363",
+    "int8_gemm": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:62",
+    "int8_gemm_gelu_quant": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:154",
+    "int8_gemm_gscale": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:238",
+}
 
 
 def log(msg: str) -> None:
@@ -234,31 +281,217 @@ def phase_kernels():
     return max_err, timing
 
 
-def run_gradual(tc, depth_attn: str) -> dict:
+def _readings(r: dict) -> str:
+    return ", ".join(f"{k} {v:.3e}" for k, v in r.items() if k != "ok")
+
+
+def check_readings(label: str, readings: dict, faults: dict) -> None:
+    """Log a kernel's readings and its planted faults' against one bound;
+    raise if the kernel fails it or the bound accepts a fault."""
+    log(f"{label}: {_readings(readings)}")
+    for fault, r in faults.items():
+        log(f"  planted fault {fault}: {_readings(r)} -> "
+            f"{'rejected' if not r['ok'] else 'ACCEPTED'}")
+    if not readings["ok"]:
+        raise AssertionError(f"{label} disagrees with its plain version: {readings}")
+    accepted = [fault for fault, r in faults.items() if r["ok"]]
+    if accepted:
+        raise AssertionError(f"the tolerance at {label} accepts planted faults {accepted}")
+
+
+def in_turns(fns: dict, iters: dict) -> dict:
+    """Mean ms per call of each function, timed in the order given and then
+    in reverse (plain, kernel, ..., kernel, plain); the two readings averaged."""
+    first = {name: cuda_ms(fn, iters[name]) for name, fn in fns.items()}
+    second = {name: cuda_ms(fn, iters[name]) for name, fn in reversed(list(fns.items()))}
+    return {name: (first[name] + second[name]) / 2 for name in fns}
+
+
+def _k_step_skipped(q):
+    """Planted fault: the codes with the last 32 of K zeroed, so the sound
+    kernel computes what one skipping its last 32-wide K step would."""
+    q = q.clone()
+    q[:, -32:] = 0
+    return q
+
+
+def phase_int8_kernels():
+    """The int8 kernels vs their plain versions at the main path's shapes,
+    with planted faults at the feed-forward shapes; then each timed beside
+    its plain version and the bf16 ``F.linear`` it replaces."""
+    import torch
+    import torch.nn.functional as F
+
+    from trajectorycrafter_tpu_torch.ops import int8_matmul as im
+    from trajectorycrafter_tpu_torch.ops.int8 import quantize_dense
+    from trajectorycrafter_tpu_torch.ops.kernels import (
+        int8_gemm,
+        int8_gemm_gelu_quant,
+        int8_gemm_gscale,
+        int8_quantize_rows,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    group = im.FF_GROUP
+    max_err = dict.fromkeys(KERNELS[2:], 0.0)
+    per_shape = {}
+    ff1 = None
+    for name, (m, k, n, bias) in INT8_SHAPES.items():
+        label = f"{name} (M {m}, K {k}, N {n})"
+        x = (randn(m, k) * 2.0).bfloat16()
+        w = (randn(n, k) * k ** -0.5).bfloat16()
+        wq, ws = quantize_dense(w)
+        b = (randn(n) * 0.1).bfloat16() if bias else None
+
+        xq, xs = int8_quantize_rows(x)
+        xq_ref, xs_ref = im.quantize_rows_reference(x)
+        if not (torch.equal(xq, xq_ref) and torch.equal(xs, xs_ref)):
+            raise AssertionError(f"int8_quantize_rows {label} is not bit-equal to its plain "
+                                 f"version: {(xq != xq_ref).sum().item()} codes, "
+                                 f"{(xs != xs_ref).sum().item()} scales differ")
+        log(f"int8_quantize_rows {label}: bit-equal to its plain version")
+        del xq_ref, xs_ref
+
+        ref = im.int8_matmul_reference(xq, wq, xs, ws, b)
+        faults = {}
+        if name in ("dit_ff1", "dit_ff2"):
+            faults = {
+                "last_k_step_of_32_skipped": im.gemm_error(
+                    int8_gemm(_k_step_skipped(xq), wq, xs, ws, b), ref),
+                "bias_dropped": im.gemm_error(int8_gemm(xq, wq, xs, ws, None), ref),
+                "column_scales_shifted_by_one": im.gemm_error(
+                    int8_gemm(xq, wq, xs, ws.roll(1), b), ref),
+            }
+        readings = im.gemm_error(int8_gemm(xq, wq, xs, ws, b), ref)
+        check_readings(f"int8_gemm {label}", readings, faults)
+        max_err["int8_gemm"] = max(max_err["int8_gemm"], readings["max_abs_err"])
+        del ref
+        torch.cuda.empty_cache()
+
+        fns = {"plain_ms": lambda: im.int8_matmul_reference(xq, wq, xs, ws, b),
+               "quantize_plain_ms": lambda: im.quantize_rows_reference(x),
+               "quantize_ms": lambda: int8_quantize_rows(x),
+               "gemm_ms": lambda: int8_gemm(xq, wq, xs, ws, b),
+               "bf16_linear_ms": lambda: F.linear(x, w, b)}
+        iters = {"plain_ms": 2, "quantize_plain_ms": 3, "quantize_ms": 10, "gemm_ms": 10,
+                 "bf16_linear_ms": 10}
+
+        if name == "dit_ff1":
+            hq_ref, hs_ref = im.int8_matmul_gelu_quant_reference(xq, wq, xs, ws, b, group)
+            hq512, hs512 = int8_gemm_gelu_quant(xq, wq, xs, ws, b, group // 2)
+            faults = {
+                "group_of_512_columns": im.gelu_quant_error(
+                    hq512, hs512[:, ::2].contiguous(), hq_ref, hs_ref),
+                "gelu_dropped": im.gelu_quant_error(
+                    *im.quantize_groups(int8_gemm(xq, wq, xs, ws, b).float(), group),
+                    hq_ref, hs_ref),
+            }
+            del hq512, hs512
+            readings = im.gelu_quant_error(*int8_gemm_gelu_quant(xq, wq, xs, ws, b, group),
+                                           hq_ref, hs_ref)
+            check_readings(f"int8_gemm_gelu_quant {label}, group {group}", readings, faults)
+            max_err["int8_gemm_gelu_quant"] = readings["max_abs_err"]
+            ff1 = (hq_ref, hs_ref)
+            fns["fused_plain_ms"] = lambda: im.int8_matmul_gelu_quant_reference(
+                xq, wq, xs, ws, b, group)
+            fns["fused_ms"] = lambda: int8_gemm_gelu_quant(xq, wq, xs, ws, b, group)
+            iters.update(fused_plain_ms=2, fused_ms=10)
+        if name == "dit_ff2":
+            hq, hs = ff1
+            ref = im.int8_matmul_gscale_reference(hq, wq, hs, ws, b, group)
+            faults = {
+                "last_k_step_of_32_skipped": im.gemm_error(
+                    int8_gemm_gscale(_k_step_skipped(hq), wq, hs, ws, b, group), ref),
+                "bias_dropped": im.gemm_error(int8_gemm_gscale(hq, wq, hs, ws, None, group), ref),
+                "column_scales_shifted_by_one": im.gemm_error(
+                    int8_gemm_gscale(hq, wq, hs, ws.roll(1), b, group), ref),
+            }
+            readings = im.gemm_error(int8_gemm_gscale(hq, wq, hs, ws, b, group), ref)
+            check_readings(f"int8_gemm_gscale {label}, group {group}", readings, faults)
+            max_err["int8_gemm_gscale"] = readings["max_abs_err"]
+            del ref
+            fns["fused_plain_ms"] = lambda: im.int8_matmul_gscale_reference(
+                hq, wq, hs, ws, b, group)
+            fns["fused_ms"] = lambda: int8_gemm_gscale(hq, wq, hs, ws, b, group)
+            iters.update(fused_plain_ms=2, fused_ms=10)
+        torch.cuda.empty_cache()
+
+        t = per_shape[name] = in_turns(fns, iters)
+        ops = 2 * m * k * n
+        line = (f"{name} timed: int8_quantize_rows {t['quantize_ms']:.3f} ms (plain "
+                f"{t['quantize_plain_ms']:.3f}), int8_gemm {t['gemm_ms']:.3f} ms "
+                f"({ops / t['gemm_ms'] / 1e9:.1f} TOP/s; plain {t['plain_ms']:.3f}), "
+                f"bf16 F.linear {t['bf16_linear_ms']:.3f} ms "
+                f"({ops / t['bf16_linear_ms'] / 1e9:.1f} TFLOP/s)")
+        if "fused_ms" in t:
+            fused = "int8_gemm_gelu_quant" if name == "dit_ff1" else "int8_gemm_gscale"
+            line += (f"; {fused} {t['fused_ms']:.3f} ms ({ops / t['fused_ms'] / 1e9:.1f} "
+                     f"TOP/s; plain {t['fused_plain_ms']:.3f})")
+        log(line)
+        del x, w, wq, ws, b, xq, xs, fns
+        torch.cuda.empty_cache()
+    return max_err, per_shape
+
+
+def _int8_entries(runs: dict, max_err: dict, per_shape: dict) -> list:
+    """The int8 kernels' entries of the kernels JSON line."""
+    src = "trajectorycrafter_tpu_torch/csrc/"
+    shape = lambda name: "(M {}, K {}, N {})".format(*INT8_SHAPES[name][:3])
+    per_path = lambda kern: {f"run {r} {p}": runs[r]["per_path"][p][kern]
+                             for r in runs for p in ("depth", "denoise")}
+    entry = lambda kern, run, **kw: {
+        "name": kern, "route": "cuda", "source": f"{src}{kern}.cu",
+        "replaces": TPU_KERNELS[kern],
+        "launches": sum(runs[run]["per_path"][p][kern] for p in ("depth", "denoise")),
+        "launches_run": run, "launches_per_path": per_path(kern),
+        "max_abs_err": max_err[kern], **kw}
+    ff1, ff2, qkvo = per_shape["dit_ff1"], per_shape["dit_ff2"], per_shape["dit_qkvo"]
+    return [
+        entry("int8_quantize_rows", "A", ms=qkvo["quantize_ms"],
+              plain_ms=qkvo["quantize_plain_ms"], bf16_linear_ms=qkvo["bf16_linear_ms"],
+              shape=f"x {shape('dit_qkvo')} (bf16_linear_ms: the q/k/v/out linear it feeds)"),
+        entry("int8_gemm", "A", ms=ff1["gemm_ms"], plain_ms=ff1["plain_ms"],
+              bf16_linear_ms=ff1["bf16_linear_ms"], shape=shape("dit_ff1"),
+              per_shape={name: {key: t[key] for key in
+                                ("quantize_ms", "gemm_ms", "plain_ms", "bf16_linear_ms")}
+                         for name, t in per_shape.items()}),
+        entry("int8_gemm_gelu_quant", "B", ms=ff1["fused_ms"], plain_ms=ff1["fused_plain_ms"],
+              bf16_linear_ms=ff1["bf16_linear_ms"], shape=shape("dit_ff1")),
+        entry("int8_gemm_gscale", "B", ms=ff2["fused_ms"], plain_ms=ff2["fused_plain_ms"],
+              bf16_linear_ms=ff2["bf16_linear_ms"], shape=shape("dit_ff2")),
+    ]
+
+
+def _kernel_counters():
+    from trajectorycrafter_tpu_torch.ops import kernels
+
+    return [getattr(kernels, name) for name in KERNELS]
+
+
+def run_gradual(tc, run: str, depth_attn: str) -> dict:
     """One ``infer_gradual`` with ``TRAJCRAFTER_DEPTH_ATTN=depth_attn``; the
     kernel launches of the run, split into the depth stage and the rest (the
     denoise: no other stage launches a kernel)."""
     import numpy as np
     import torch
 
-    from trajectorycrafter_tpu_torch.ops.kernels import flash_attention, flash_maxpass
-
-    kernels = (flash_attention, flash_maxpass)
+    counters = _kernel_counters()
     depth_infer = tc.models.depth_infer
     seen = {}
 
     def counted_depth(*args, **kwargs):
-        before = [kern.launches for kern in kernels]
+        before = [kern.launches for kern in counters]
         seen["depth"] = depth_infer(*args, **kwargs)
         seen["depth_launches"] = {kern.__name__: kern.launches - b0
-                                  for kern, b0 in zip(kernels, before)}
+                                  for kern, b0 in zip(counters, before)}
         return seen["depth"]
 
     os.environ["TRAJCRAFTER_DEPTH_ATTN"] = depth_attn
     tc.models.depth_infer = counted_depth
     tc.timer.seconds.clear()
     torch.cuda.reset_peak_memory_stats()
-    for kern in kernels:
+    for kern in counters:
         kern.launches = 0
     t0 = time.perf_counter()
     try:
@@ -268,9 +501,10 @@ def run_gradual(tc, depth_attn: str) -> dict:
         tc.models.depth_infer = depth_infer
         del os.environ["TRAJCRAFTER_DEPTH_ATTN"]
     total = time.perf_counter() - t0
-    launches = {kern.__name__: kern.launches for kern in kernels}
-    log(f"infer_gradual, depth attention {depth_attn}: {total:.3f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {kern.__name__: kern.launches for kern in counters}
+    log(f"run {run}: infer_gradual, --quant {tc.cfg.diffusion.quant}, --quant_depth "
+        f"{tc.cfg.depth.quant}, depth attention {depth_attn}: {total:.3f} s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for stage, sec in tc.timer.seconds.items():
         log(f"  stage {stage}: {sec:.3f} s")
     per_path = {"depth": seen["depth_launches"],
@@ -300,31 +534,78 @@ def run_gradual(tc, depth_attn: str) -> dict:
         raise AssertionError("gen is constant")
     log(f"  gen {gen.shape} in [{gen.min():.4f}, {gen.max():.4f}], std {gen.std():.4f}; "
         f"five mp4s in {cfg.save_dir}")
-    return {"seconds": total, "per_path": per_path, "depth": depth}
+    return {"seconds": total, "per_path": per_path, "depth": depth, "gen": gen}
 
 
-def _expected_launches(cfg, kernel_name: str, depth_kernel: str) -> dict:
+def _int8_launches_per_forward(model) -> dict:
+    """Kernel launches of one forward of ``model`` through its int8 layers,
+    from its modules: an ``Int8Linear`` quantizes its input and runs one GEMM;
+    a fused int8 feed-forward replaces its two by one quantization, the
+    gelu-quant GEMM and the grouped GEMM."""
+    from trajectorycrafter_tpu_torch.models.dit import FeedForward
+    from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear
+
+    linears = sum(isinstance(m, Int8Linear) for m in model.modules())
+    fused = sum(isinstance(m, FeedForward) and bool(m.fuse)
+                and isinstance(m.net[2], Int8Linear) for m in model.modules())
+    return {"int8_quantize_rows": linears - fused, "int8_gemm": linears - 2 * fused,
+            "int8_gemm_gelu_quant": fused, "int8_gemm_gscale": fused}
+
+
+def _expected_launches(cfg, dit, unet, depth_kernel: str) -> dict:
+    """{stage: {kernel: launches}} of one ``infer_gradual``: one UNet forward
+    per Euler step and window, one DiT forward (the CFG pair as a batch of
+    2) per denoise step."""
     from trajectorycrafter_tpu_torch.pipelines.depth import window_starts
 
     windows = len(window_starts(cfg.video_length, cfg.depth.window_size, cfg.depth.overlap))
-    depth = cfg.depth.num_inference_steps * windows * DEPTH_KERNEL_LAUNCHES_PER_FORWARD
-    denoise = cfg.diffusion.num_inference_steps * (DIT_LAYERS + DIT_LAYERS // PERCEIVER_INTERVAL)
-    return {"depth": depth if kernel_name == depth_kernel else 0,
-            "denoise": denoise if kernel_name == "flash_attention" else 0}
+    unet_forwards = cfg.depth.num_inference_steps * windows
+    dit_forwards = cfg.diffusion.num_inference_steps
+    depth = {name: 0 for name in KERNELS}
+    depth[depth_kernel] = DEPTH_KERNEL_LAUNCHES_PER_FORWARD * unet_forwards
+    denoise = {name: 0 for name in KERNELS}
+    denoise["flash_attention"] = dit_forwards * (DIT_LAYERS + DIT_LAYERS // PERCEIVER_INTERVAL)
+    for name, n in _int8_launches_per_forward(unet).items():
+        depth[name] = n * unet_forwards
+    for name, n in _int8_launches_per_forward(dit).items():
+        denoise[name] = n * dit_forwards
+    return {"depth": depth, "denoise": denoise}
+
+
+def _set_fuse(dit, fuse) -> None:
+    for block in dit.transformer_blocks:
+        block.ff.fuse = fuse
 
 
 def phase_main_path():
+    import dataclasses
+
     import numpy as np
     import torch
 
     from trajectorycrafter_tpu_torch.cli import parse_config
+    from trajectorycrafter_tpu_torch.ops.int8 import (
+        quantize_depth_unet_,
+        quantize_dit_,
+        quantized_twin,
+    )
     from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter, build_full_scale_models
+    from trajectorycrafter_tpu_torch.utils.quality import video_quality
 
     cfg = parse_config(MAIN_ARGV)
+    if (cfg.diffusion.quant, cfg.depth.quant) != ("int8", "none"):
+        raise AssertionError(f"the CLI's default quantization is {cfg.diffusion.quant} / "
+                             f"{cfg.depth.quant}, expected int8 / none")
     t0 = time.perf_counter()
-    tc = TrajCrafter(cfg, models=build_full_scale_models(cfg, "cuda"))
+    # one set of seeded bf16 weights; the int8 models are their quantizations
+    bf16_cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(cfg.diffusion, quant="none"))
+    tc = TrajCrafter(cfg, models=build_full_scale_models(bf16_cfg, "cuda"))
+    dit = tc.models.pipeline.transformer
+    unet = tc.models.depth_infer.__self__.pipe.unet
+    dit8 = quantized_twin(dit, quantize_dit_)
+    unet8 = quantized_twin(unet, quantize_depth_unet_)
     torch.cuda.synchronize()
-    log(f"built the full-scale models in {time.perf_counter() - t0:.2f} s "
+    log(f"built the full-scale models and their int8 twins in {time.perf_counter() - t0:.2f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB of parameters)")
 
     pe, ne = tc.models.encode_prompt("a scene", cfg.diffusion.negative_prompt)
@@ -332,98 +613,130 @@ def phase_main_path():
         raise AssertionError(f"T5 prompt embeddings: shape {tuple(pe.shape)}, "
                              f"finite {bool(torch.isfinite(pe).all())}")
 
+    # run: (DiT, FF fused, UNet, --quant, --quant_depth, depth attention, its kernel)
+    plans = {
+        "A": (dit8, None, unet, "int8", "none", "flash_stock", "flash_attention"),
+        "B": (dit8, True, unet8, "int8", "int8", "flash_max", "flash_maxpass"),
+        "C": (dit, None, unet, "none", "none", "flash_stock", "flash_attention"),
+    }
+    pipe = tc.models.depth_infer.__self__.pipe
     runs = {}
-    for depth_kernel, depth_attn in (("flash_attention", "flash_stock"),
-                                     ("flash_maxpass", "flash_max")):
-        run = runs[depth_attn] = run_gradual(tc, depth_attn)
-        for name in ("flash_attention", "flash_maxpass"):
-            got = {path: run["per_path"][path][name] for path in ("depth", "denoise")}
-            want = _expected_launches(cfg, name, depth_kernel)
-            if got != want:
-                raise AssertionError(f"{name} launched {got} times per stage with depth "
-                                     f"attention {depth_attn}, expected {want}")
-    rel = np.abs(np.log(runs["flash_max"]["depth"] / runs["flash_stock"]["depth"]))
-    log(f"depth of the two runs (information): median |log ratio| {np.median(rel):.3e}, "
-        f"max {rel.max():.3e}")
-    return tc, runs
+    for run, (model, fuse, depth_unet, quant, quant_depth, depth_attn, depth_kernel) in \
+            plans.items():
+        tc.models.pipeline.transformer, pipe.unet = model, depth_unet
+        tc.cfg.diffusion.quant, tc.cfg.depth.quant = quant, quant_depth
+        _set_fuse(model, fuse)
+        try:
+            want = _expected_launches(tc.cfg, model, depth_unet, depth_kernel)
+            runs[run] = run_gradual(tc, run, depth_attn)
+        finally:
+            _set_fuse(model, None)
+        if runs[run]["per_path"] != want:
+            raise AssertionError(f"run {run}: kernel launches per stage "
+                                 f"{runs[run]['per_path']}, expected {want}")
+    tc.models.pipeline.transformer, pipe.unet = dit, unet
+    tc.cfg.diffusion.quant, tc.cfg.depth.quant = cfg.diffusion.quant, cfg.depth.quant
+
+    rel = np.abs(np.log(runs["B"]["depth"] / runs["A"]["depth"]))
+    log(f"depth of runs B (int8 UNet, flash_max) and A (information): median |log ratio| "
+        f"{np.median(rel):.3e}, max {rel.max():.3e}")
+    quality = video_quality(runs["A"]["gen"] * 255.0, runs["C"]["gen"] * 255.0)
+    log(f"gen of run A (int8 DiT) against run C (bf16 DiT), information only (random "
+        f"weights, 2 steps): {json.dumps(quality)}")
+    return tc, runs, (dit8, unet8)
 
 
-def phase_whole_models(tc):
-    """The whole DiT and the whole depth UNet at full width on small inputs,
-    kernel against the plain attention."""
+def phase_whole_models(tc, dit8, unet8):
+    """The whole DiT and the whole depth UNet, bf16 and int8, at full width on
+    small inputs: kernels against the plain versions."""
     import torch
 
     from trajectorycrafter_tpu_torch.ops.kernels import flash_attention, flash_maxpass
 
-    def set_impl(model, impl):
+    def set_impl(model, attention, int8="auto"):
         for m in model.modules():
             if hasattr(m, "attention_impl"):
-                m.attention_impl = impl
+                m.attention_impl = attention
+            if hasattr(m, "int8_impl"):
+                m.int8_impl = int8
+
+    def held(label, out_kernel, out_plain, limit):
+        rel = ((out_kernel - out_plain).abs().max() / out_plain.abs().max()).item()
+        log(f"{label}: max rel err {rel:.3e} (limit {limit})")
+        if not torch.isfinite(out_kernel).all() or rel > limit:
+            raise AssertionError(f"{label} disagrees: rel err {rel:.3e}")
 
     gen_in = torch.Generator(device="cuda").manual_seed(1)
     randn = lambda *shape: torch.randn(shape, generator=gen_in, device="cuda").bfloat16()
 
-    dit = tc.models.pipeline.transformer
     b, f, h, w = 2, 3, 8, 12
     args = (randn(b, f, h, w, 16), randn(b, 226, 4096), torch.full((b,), 500.0, device="cuda"))
     kwargs = dict(inpaint_latents=randn(b, f, h, w, 17), cross_latents=randn(b, 2, h, w, 16))
     with torch.no_grad():
-        out_kernel = dit(*args, **kwargs).float()
-        set_impl(dit, "reference")
-        out_plain = dit(*args, **kwargs).float()
-        set_impl(dit, "auto")
-    rel = ((out_kernel - out_plain).abs().max() / out_plain.abs().max()).item()
-    log(f"DiT {DIT_LAYERS} layers on {(b, f, h, w)}: kernel vs plain attention, "
-        f"max rel err {rel:.3e} (limit {DIT_REL_TOL})")
-    if not torch.isfinite(out_kernel).all() or rel > DIT_REL_TOL:
-        raise AssertionError(f"DiT output with the kernel disagrees: rel err {rel:.3e}")
+        for label, model, fuse in (("bf16 DiT", tc.models.pipeline.transformer, None),
+                                   ("int8 DiT", dit8, None), ("int8 DiT, fused FF", dit8, True)):
+            _set_fuse(model, fuse)
+            counts = [kern.launches for kern in _kernel_counters()]
+            out_kernel = model(*args, **kwargs).float()
+            torch.cuda.synchronize()
+            if [kern.launches for kern in _kernel_counters()] == counts:
+                raise AssertionError(f"{label}: no kernel launched")
+            set_impl(model, "reference", "reference")
+            counts = [kern.launches for kern in _kernel_counters()]
+            out_plain = model(*args, **kwargs).float()
+            if [kern.launches for kern in _kernel_counters()] != counts:
+                raise AssertionError(f"{label}: a kernel launched with impl reference")
+            set_impl(model, "auto")
+            _set_fuse(model, None)
+            held(f"{label}, {DIT_LAYERS} layers on {(b, f, h, w)}: kernels vs plain",
+                 out_kernel, out_plain, DIT_REL_TOL)
 
-    unet = tc.models.depth_infer.__self__.pipe.unet
     f, h, w = 2, 72, 128
     args = (randn(1, f, h, w, 8), torch.full((1,), 1.6, device="cuda"),
             randn(1, f, 1, 1024), torch.tensor([[6.0, 127.0, 0.02]], device="cuda"))
-    outs = {}
     with torch.no_grad():
-        for impl in ("flash_stock", "flash_max", "reference"):
-            set_impl(unet, impl)
-            before = flash_attention.launches + flash_maxpass.launches
-            outs[impl] = unet(*args).float()
-            torch.cuda.synchronize()
-            launches = flash_attention.launches + flash_maxpass.launches - before
-            expected = 0 if impl == "reference" else DEPTH_KERNEL_LAUNCHES_PER_FORWARD
-            if launches != expected:
-                raise AssertionError(f"depth UNet with {impl}: {launches} kernel launches, "
-                                     f"expected {expected}")
-        set_impl(unet, "auto")
-    for impl in ("flash_stock", "flash_max"):
-        rel = ((outs[impl] - outs["reference"]).abs().max()
-               / outs["reference"].abs().max()).item()
-        log(f"depth UNet on {(1, f, h, w)}, attention {impl} vs plain: max rel err "
-            f"{rel:.3e} (limit {UNET_REL_TOL})")
-        if not torch.isfinite(outs[impl]).all() or rel > UNET_REL_TOL:
-            raise AssertionError(f"depth UNet output with {impl} disagrees: {rel:.3e}")
+        for label, unet in (("bf16", tc.models.depth_infer.__self__.pipe.unet),
+                            ("int8", unet8)):
+            outs = {}
+            for impl in ("flash_stock", "flash_max", "reference"):
+                set_impl(unet, impl, "reference" if impl == "reference" else "auto")
+                before = flash_attention.launches + flash_maxpass.launches
+                outs[impl] = unet(*args).float()
+                torch.cuda.synchronize()
+                launches = flash_attention.launches + flash_maxpass.launches - before
+                expected = 0 if impl == "reference" else DEPTH_KERNEL_LAUNCHES_PER_FORWARD
+                if launches != expected:
+                    raise AssertionError(f"{label} depth UNet with {impl}: {launches} "
+                                         f"attention kernel launches, expected {expected}")
+            set_impl(unet, "auto")
+            for impl in ("flash_stock", "flash_max"):
+                held(f"{label} depth UNet on {(1, f, h, w)}, attention {impl} vs plain",
+                     outs[impl], outs["reference"], UNET_REL_TOL)
 
 
 def main() -> None:
     os.chdir(REPO)
     sys.path.insert(0, str(REPO))
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
     max_err, timing = phase_kernels()
-    tc, runs = phase_main_path()
-    phase_whole_models(tc)
+    int8_err, int8_timing = phase_int8_kernels()
+    tc, runs, (dit8, unet8) = phase_main_path()
+    phase_whole_models(tc, dit8, unet8)
 
     import torch
 
-    stock = runs["flash_stock"]["per_path"]
-    maxpass = runs["flash_max"]["per_path"]
+    per_path = lambda run, kern: {p: runs[run]["per_path"][p][kern] for p in ("depth", "denoise")}
     src = "trajectorycrafter_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda", "source": src + "flash_attention.cu",
-         "replaces": "trajectorycrafter_tpu/ops/pallas/flash_exp2.py:212",
+         "replaces": TPU_KERNELS["flash_attention"],
          "also_replaces": "trajectorycrafter_tpu/ops/attention.py:39",
-         "launches": sum(stock[p]["flash_attention"] for p in stock),
-         "launches_per_path": {p: stock[p]["flash_attention"] for p in stock},
+         "launches": sum(per_path("A", "flash_attention").values()),
+         "launches_run": "A",
+         "launches_per_path": {f"run {r} {p}": n for r in runs
+                               for p, n in per_path(r, "flash_attention").items()},
          "max_abs_err": max_err["flash_attention"],
          "ms": timing["dit"]["ms"], "plain_ms": timing["dit"]["plain_ms"],
          "shape": "(2, 48, 13330, 13330, 64)",
@@ -431,14 +744,17 @@ def main() -> None:
          "depth_plain_ms": timing["depth"]["plain_ms"],
          "depth_shape": "(49, 5, 9216, 9216, 64)"},
         {"name": "flash_maxpass", "route": "cuda", "source": src + "flash_maxpass.cu",
-         "replaces": "trajectorycrafter_tpu/ops/pallas/flash_max.py:110",
-         "launches": sum(maxpass[p]["flash_maxpass"] for p in maxpass),
-         "launches_per_path": {f"{p} (TRAJCRAFTER_DEPTH_ATTN=flash_max)":
-                               maxpass[p]["flash_maxpass"] for p in maxpass},
+         "replaces": TPU_KERNELS["flash_maxpass"],
+         "launches": sum(per_path("B", "flash_maxpass").values()),
+         "launches_run": "B (TRAJCRAFTER_DEPTH_ATTN=flash_max)",
+         "launches_per_path": {f"run {r} {p}": n for r in runs
+                               for p, n in per_path(r, "flash_maxpass").items()},
          "max_abs_err": max_err["flash_maxpass"],
          "ms": timing["depth"]["flash_maxpass"], "plain_ms": timing["depth"]["plain_ms"],
          "shape": "(49, 5, 9216, 9216, 64)"},
+        *_int8_entries(runs, int8_err, int8_timing),
     ]}), flush=True)
+    log(f"chip smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

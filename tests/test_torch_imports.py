@@ -20,7 +20,8 @@ def test_port_modules_import_without_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         trajectorycrafter_tpu_torch.__path__, "trajectorycrafter_tpu_torch."))
     for name in ("ops.kernels", "cli", "models.depthcrafter", "models.svd_vae", "models.clip",
-                 "models.t5", "pipelines.depth", "schedulers.euler", "ops.resize"):
+                 "models.t5", "pipelines.depth", "schedulers.euler", "ops.resize",
+                 "ops.int8", "ops.int8_matmul", "utils.quality"):
         assert f"trajectorycrafter_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -1,7 +1,7 @@
-"""The hand-written attention kernels on the card vs their plain version.
+"""The hand-written kernels on the card vs their plain versions.
 
-Needs an NVIDIA card with nvcc (the kernel is CUDA C++ for sm_90a and has no
-CPU mode); elsewhere every test here skips.  Run on the card with
+Needs an NVIDIA card with nvcc (the kernels are CUDA C++ for sm_90a and have
+no CPU mode); elsewhere every test here skips.  Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -19,6 +19,16 @@ chip_smoke.py -- per element 2^-6 (|ref| + P|v|), per row a relative L2
 error of 2^-6 (the reasons are stated there).  At the DiT and depth shapes
 the same bound must reject a row sum off by 10% and a run that skips the
 last quarter of the key tiles.
+
+The int8 family (ops/int8_matmul.py): ``int8_quantize_rows`` (K2a) bit-equal
+to its plain version; ``int8_gemm`` (K2b) and ``int8_gemm_gscale`` (K3b)
+within one bf16 ulp of theirs (``gemm_error``); ``int8_gemm_gelu_quant``
+(K3a) within ``gelu_quant_error`` (scales 1e-6 relative, codes off by at
+most 1 on at most 0.1% of the elements), at the shapes chip_smoke.py checks
+cut in M, with odd M.  At the feed-forward shapes the bounds must reject the
+planted faults: a K step of 32 skipped, the bias dropped and the column
+scales shifted by one (K2b, K3b); a group of 512 columns in place of 1,024
+and the gelu dropped (K3a).
 """
 
 import pytest
@@ -29,10 +39,16 @@ from trajectorycrafter_tpu_torch.ops.attention import (
     kernel_error,
     multi_head_attention,
 )
+from trajectorycrafter_tpu_torch.ops import int8_matmul as im
+from trajectorycrafter_tpu_torch.ops.int8 import quantize_dense
 from trajectorycrafter_tpu_torch.ops.kernels import (
     FLASH_KEY_TILE,
     flash_attention,
     flash_maxpass,
+    int8_gemm,
+    int8_gemm_gelu_quant,
+    int8_gemm_gscale,
+    int8_quantize_rows,
 )
 
 pytestmark = pytest.mark.cuda
@@ -159,3 +175,169 @@ def test_tolerance_rejects_planted_faults_at_the_depth_shapes(gen, kernel, b, h,
     keep = (tiles - tiles // 4) * FLASH_KEY_TILE
     tiles_skipped = kernel(q, k[:, :keep], v[:, :keep], d ** -0.5)
     assert not kernel_error(kernel, tiles_skipped, q, k, v, d ** -0.5)["ok"]
+
+
+# ----------------------------------------------------------------------------
+# the int8 GEMM family
+# ----------------------------------------------------------------------------
+
+
+def _int8_operands(gen, m, k, n, bias=True):
+    """bf16 activations (M, K), their per-row codes and scales (the plain
+    version's), a quantized (N, K) weight and a bf16 bias (or None)."""
+    x = _randn(gen, m, k)
+    wq, ws = quantize_dense(torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5)
+    b = (torch.randn(n, generator=gen, device="cuda") * 0.1).bfloat16() if bias else None
+    xq, xs = im.quantize_rows_reference(x)
+    return x, xq, xs, wq, ws, b
+
+
+def _counted(kernel, *args):
+    before = kernel.launches
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("m,k", [
+    (2084, 3072),  # the DiT's q/k/v/out and FF1 input, M cut (ragged)
+    (2084, 12288),  # the FF2 input
+    (4133, 320),  # depth level 0
+    (70, 2048), (1, 8), (3, 5120),
+])
+def test_quantize_rows_kernel_is_bit_equal(gen, m, k):
+    x = _randn(gen, m, k, gain=3.0)
+    x[m // 2] = 0  # a zero row: scale 1e-8 / 127, codes 0
+    xq, xs = _counted(int8_quantize_rows, x)
+    xq_ref, xs_ref = im.quantize_rows_reference(x)
+    assert torch.equal(xq, xq_ref) and torch.equal(xs, xs_ref)
+
+
+def test_quantize_rows_kernel_rounds_half_to_even_and_reads_strided_rows(gen):
+    wide = _randn(gen, 64, 336)
+    x = wide[:, :320]  # rows 672 bytes apart
+    x[0, :6] = torch.tensor([127.0, 62.5, -62.5, 0.5, 1.5, 2.5])
+    x[0, 6:] = 0  # scale 1: the codes are the rounded values themselves
+    xq, xs = _counted(int8_quantize_rows, x)
+    xq_ref, xs_ref = im.quantize_rows_reference(x)
+    assert torch.equal(xq, xq_ref) and torch.equal(xs, xs_ref)
+    assert xq[0, :6].tolist() == [127, 62, -62, 0, 2, 2]
+
+
+@pytest.mark.parametrize("m,k,n,bias", [
+    (2084, 3072, 3072, True),  # DiT q/k/v/out, M cut
+    (2084, 3072, 12288, True),  # unfused FF1
+    (2084, 12288, 3072, True),  # unfused FF2
+    (2084, 3072, 2048, False),  # Perceiver to_q
+    (1003, 3072, 4096, False),  # Perceiver to_kv
+    (2084, 2048, 3072, False),  # Perceiver to_out
+    (4133, 320, 320, True),  # depth level 0
+    (4133, 320, 2560, True),  # depth GEGLU proj_in
+    (70, 48, 48, True), (1, 16, 16, False), (37, 80, 144, True),
+])
+def test_int8_gemm_kernel_matches_plain(gen, m, k, n, bias):
+    _, xq, xs, wq, ws, b = _int8_operands(gen, m, k, n, bias)
+    out = _counted(int8_gemm, xq, wq, xs, ws, b)
+    readings = im.gemm_error(out, im.int8_matmul_reference(xq, wq, xs, ws, b))
+    assert out.dtype == torch.bfloat16 and readings["ok"], readings
+
+
+@pytest.mark.parametrize("m,k,n,group", [
+    (2084, 3072, 12288, 1024),  # the fused FF1, M cut
+    (70, 256, 512, 256), (33, 64, 128, 128), (130, 160, 1024, 512),
+])
+def test_gelu_quant_kernel_matches_plain(gen, m, k, n, group):
+    _, xq, xs, wq, ws, b = _int8_operands(gen, m, k, n)
+    hq, hs = _counted(int8_gemm_gelu_quant, xq, wq, xs, ws, b, group)
+    readings = im.gelu_quant_error(
+        hq, hs, *im.int8_matmul_gelu_quant_reference(xq, wq, xs, ws, b, group))
+    assert readings["ok"], readings
+
+
+@pytest.mark.parametrize("m,k,n,group", [
+    (2084, 12288, 3072, 1024),  # the fused FF2, M cut
+    (70, 512, 256, 256), (33, 128, 48, 64),
+])
+def test_gscale_kernel_matches_plain(gen, m, k, n, group):
+    _, xq, xs, wq1, ws1, b1 = _int8_operands(gen, m, 64, k)
+    hq, hs = im.int8_matmul_gelu_quant_reference(xq, wq1, xs, ws1, b1, group)
+    _, _, _, wq, ws, b = _int8_operands(gen, 1, k, n)
+    out = _counted(int8_gemm_gscale, hq, wq, hs, ws, b, group)
+    readings = im.gemm_error(out, im.int8_matmul_gscale_reference(hq, wq, hs, ws, b, group))
+    assert readings["ok"], readings
+
+
+def _k_step_skipped(q):
+    """The codes with the last 32 of K zeroed: the kernel then skips the
+    last 32-wide K step's products."""
+    q = q.clone()
+    q[:, -32:] = 0
+    return q
+
+
+def test_gemm_tolerances_reject_planted_faults_at_the_ff_shapes(gen):
+    m, dim, inner, group = 1060, 3072, 12288, 1024
+    _, xq, xs, wq1, ws1, b1 = _int8_operands(gen, m, dim, inner)
+    ref = im.int8_matmul_reference(xq, wq1, xs, ws1, b1)
+    assert im.gemm_error(int8_gemm(xq, wq1, xs, ws1, b1), ref)["ok"]
+    for fault in (int8_gemm(_k_step_skipped(xq), wq1, xs, ws1, b1),
+                  int8_gemm(xq, wq1, xs, ws1, None),
+                  int8_gemm(xq, wq1, xs, ws1.roll(1), b1)):
+        assert not im.gemm_error(fault, ref)["ok"]
+
+    hq_ref, hs_ref = im.int8_matmul_gelu_quant_reference(xq, wq1, xs, ws1, b1, group)
+    assert im.gelu_quant_error(*int8_gemm_gelu_quant(xq, wq1, xs, ws1, b1, group),
+                               hq_ref, hs_ref)["ok"]
+    hq512, hs512 = int8_gemm_gelu_quant(xq, wq1, xs, ws1, b1, 512)
+    no_gelu = im.quantize_groups(int8_gemm(xq, wq1, xs, ws1, b1).float(), group)
+    for hq, hs in ((hq512, hs512[:, ::2].contiguous()), no_gelu):
+        assert not im.gelu_quant_error(hq, hs, hq_ref, hs_ref)["ok"]
+
+    _, _, _, wq2, ws2, b2 = _int8_operands(gen, 1, inner, dim)
+    ref = im.int8_matmul_gscale_reference(hq_ref, wq2, hs_ref, ws2, b2, group)
+    assert im.gemm_error(int8_gemm_gscale(hq_ref, wq2, hs_ref, ws2, b2, group), ref)["ok"]
+    for fault in (int8_gemm_gscale(_k_step_skipped(hq_ref), wq2, hs_ref, ws2, b2, group),
+                  int8_gemm_gscale(hq_ref, wq2, hs_ref, ws2, None, group),
+                  int8_gemm_gscale(hq_ref, wq2, hs_ref, ws2.roll(1), b2, group)):
+        assert not im.gemm_error(fault, ref)["ok"]
+
+
+def test_int8_dispatch_launches_the_kernels(gen):
+    """``int8_dense_apply`` and ``int8_ff_apply`` on CUDA tensors run the
+    kernels, and agree with ``impl="reference"``."""
+    x, _, _, wq1, ws1, b1 = _int8_operands(gen, 300, 256, 1024)
+    _, _, _, wq2, ws2, b2 = _int8_operands(gen, 1, 1024, 256)
+    x = x.reshape(3, 100, 256)
+    launches = [kern.launches for kern in (int8_quantize_rows, int8_gemm)]
+    out = im.int8_dense_apply(x, wq1, ws1, b1)
+    ref = im.int8_dense_apply(x, wq1, ws1, b1, impl="reference")
+    assert [kern.launches for kern in (int8_quantize_rows, int8_gemm)] == \
+        [n + 1 for n in launches]
+    assert out.shape == (3, 100, 1024) and im.gemm_error(out, ref)["ok"]
+    before = int8_gemm_gelu_quant.launches, int8_gemm_gscale.launches
+    out = im.int8_ff_apply(x, wq1, ws1, b1, wq2, ws2, b2)
+    ref = im.int8_ff_apply(x, wq1, ws1, b1, wq2, ws2, b2, impl="reference")
+    assert (int8_gemm_gelu_quant.launches, int8_gemm_gscale.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.shape == (3, 100, 256) and im.gemm_error(out, ref)["ok"]
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x, xq, xs, wq, ws, b = _int8_operands(gen, 64, 256, 512)
+    with pytest.raises(ValueError, match="bfloat16"):
+        int8_quantize_rows(x.float())
+    with pytest.raises(ValueError, match="aligned"):
+        int8_quantize_rows(_randn(gen, 64, 257)[:, :256])
+    with pytest.raises(ValueError, match="int8"):
+        int8_gemm(xq.float(), wq, xs, ws, b)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        int8_gemm(xq[:, :40], wq[:, :40], xs, ws, b)  # rows aligned, K = 40
+    with pytest.raises(ValueError, match="shape"):
+        int8_gemm(xq, wq, xs[:10], ws, b)
+    with pytest.raises(ValueError, match="group"):
+        int8_gemm_gelu_quant(xq, wq, xs, ws, b, 384)
+    with pytest.raises(ValueError, match="group"):
+        int8_gemm_gscale(xq, wq, torch.ones((64, 2), device="cuda"), ws, b, 96)
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_gemm(xq.cpu(), wq, xs, ws, b)

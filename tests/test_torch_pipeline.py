@@ -10,11 +10,22 @@ Tolerance: 1e-4 absolute and relative.  Both sides are fp32; summation-order
 differences (~1e-6) pass through the VAE encoder, two DiT steps whose CFG
 combination multiplies the cond - uncond difference by 6, and the decoder.
 
+The int8 pipeline (``--quant int8``: the DiT's blocks and Perceivers
+quantized, tests/test_torch_int8.py) against the JAX int8 pipeline on the
+same seeded weights: 1e-4 of the latents' largest magnitude, since both
+quantize to the same codes at this size (the reason is stated in
+test_torch_int8.py); a per-tensor activation scale planted in the port's
+quantization fails it.  As the JAX package's own int8 pipeline test does,
+its latents also keep a cosine > 0.99 with the fp32 chain's.
+
 Then a tiny ``infer_gradual`` of the port on the CPU writes all five mp4s,
-and the entry points refuse what the port does not run yet.
+with the default ``--quant int8`` and with ``--quant none``, and the entry
+points refuse what the port does not run yet.
 """
 
+import dataclasses
 import math
+from unittest import mock
 from pathlib import Path
 
 import numpy as np
@@ -22,17 +33,20 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from torch_parity import jax_tree
+from torch_parity import jax_tree, per_tensor_quantize_rows
 
 from trajectorycrafter_tpu.cli import config_from_args, get_parser
 from trajectorycrafter_tpu.models.dit import CrossTransformer3DModel as JaxDiT
 from trajectorycrafter_tpu.models.vae import AutoencoderKLCogVideoX as JaxVAE
+from trajectorycrafter_tpu.ops.int8 import quantize_dit_params
 from trajectorycrafter_tpu.pipelines.trajcrafter import TrajCrafterPipeline as JaxPipeline
 from trajectorycrafter_tpu.schedulers.ddim import DDIMScheduler as JaxDDIM
 from trajectorycrafter_tpu.utils.convert import convert_dit, convert_vae
 from trajectorycrafter_tpu_torch import cli
 from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
 from trajectorycrafter_tpu_torch.models.vae import AutoencoderKLCogVideoX
+from trajectorycrafter_tpu_torch.ops import int8_matmul
+from trajectorycrafter_tpu_torch.ops.int8 import int8_linears, quantize_dit_, quantized_twin
 from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter, build_dev_models, build_models
 from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
 from trajectorycrafter_tpu_torch.schedulers.ddim import DDIMScheduler
@@ -122,11 +136,39 @@ def test_pipeline_matches_jax(pipelines, dynamic_cfg, strength):
     assert 0.0 <= out["np"].min() and out["np"].max() <= 1.0
 
 
+def test_int8_pipeline_matches_jax(pipelines):
+    jpipe, tpipe = pipelines
+    jpipe8 = dataclasses.replace(jpipe, transformer=jpipe.transformer.clone(quant="int8"),
+                                 transformer_params=quantize_dit_params(jpipe.transformer_params))
+    tpipe8 = dataclasses.replace(tpipe, transformer=quantized_twin(tpipe.transformer,
+                                                                   quantize_dit_))
+    assert int8_linears(tpipe8.transformer) == 2 * 6 + 1 * 3
+    assert int8_linears(tpipe.transformer) == 0  # the twin shares, and leaves, the fp32 DiT
+    args, latents, noise = _inputs(0, 1.0)
+    kw = dict(num_inference_steps=2, guidance_scale=6.0, output_type="latent")
+    want = np.asarray(jpipe8(*(jnp.asarray(a) for a in args), key=jax.random.PRNGKey(0),
+                             latents=jnp.asarray(latents),
+                             noise_override=tuple(jnp.asarray(n) for n in noise), **kw))
+
+    def run(pipe):
+        return pipe(*(torch.from_numpy(a) for a in args), latents=torch.from_numpy(latents),
+                    noise_override=tuple(torch.from_numpy(n) for n in noise), **kw).numpy()
+
+    got = run(tpipe8)
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-4 * scale
+    with mock.patch.object(int8_matmul, "quantize_rows_reference", per_tensor_quantize_rows):
+        assert np.abs(run(tpipe8) - want).max() > 1e-4 * scale
+    fp32 = run(tpipe).ravel()
+    cos = float(got.ravel() @ fp32 / (np.linalg.norm(got) * np.linalg.norm(fp32)))
+    assert cos > 0.99, f"int8 sampling diverged from fp32: cosine {cos}"
+
+
 def _cfg(tmp_path, *extra):
     args = get_parser().parse_args([
         "--video_path", str(REPO / "test/videos/synth.mp4"), "--camera", "traj",
         "--traj_txt", str(REPO / "test/trajs/loop1.txt"), "--mode", "gradual",
-        "--prompt", "a scene", "--quant", "none", "--diffusion_inference_steps", "2",
+        "--prompt", "a scene", "--diffusion_inference_steps", "2",
         "--video_length", "9", "--sample_size", "32", "48",
         "--model_name", str(tmp_path / "no_checkpoints"),
         "--out_dir", str(tmp_path), "--exp_name", "run", *extra])
@@ -135,8 +177,7 @@ def _cfg(tmp_path, *extra):
     return cfg
 
 
-def test_infer_gradual_writes_five_mp4s(tmp_path):
-    cfg = _cfg(tmp_path)
+def _infer_gradual_writes_five_mp4s(cfg):
     tc = TrajCrafter(cfg, models=build_dev_models(cfg, "cpu"))
     gen = tc.infer_gradual()
     assert gen.shape == (9, 32, 48, 3)
@@ -145,11 +186,30 @@ def test_infer_gradual_writes_five_mp4s(tmp_path):
         path = Path(cfg.save_dir) / f"{name}.mp4"
         assert path.is_file() and path.stat().st_size > 0, path
     assert {"warp", "vae_encode", "denoise", "vae_decode"} <= set(tc.timer.seconds)
+    return tc.models.pipeline.transformer
+
+
+def test_infer_gradual_writes_five_mp4s(tmp_path):
+    """The default ``--quant int8``: the DiT's blocks and Perceivers run int8."""
+    dit = _infer_gradual_writes_five_mp4s(_cfg(tmp_path))
+    assert int8_linears(dit) == 6 * len(dit.transformer_blocks) \
+        + 3 * len(dit.perceiver_cross_attention)
+
+
+def test_infer_gradual_bf16_writes_five_mp4s(tmp_path):
+    dit = _infer_gradual_writes_five_mp4s(_cfg(tmp_path, "--quant", "none"))
+    assert int8_linears(dit) == 0
 
 
 def test_entry_points_refuse_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="int8"):
-        build_dev_models(_cfg(tmp_path, "--quant", "int8"))
+    """int8 runs now (``--quant int8`` is the default); the samplers and
+    modes that are not ported are refused, and so is a quantization the
+    port does not have."""
+    cfg = _cfg(tmp_path, "--quant", "int8", "--quant_depth", "int8")
+    assert build_dev_models(cfg).pipeline.transformer is not None
+    cfg.diffusion.quant = "fp8"
+    with pytest.raises(NotImplementedError, match="--quant fp8"):
+        build_dev_models(cfg)
     with pytest.raises(NotImplementedError, match="sampler"):
         build_dev_models(_cfg(tmp_path, "--sampler_name", "Euler"))
     with pytest.raises(FileNotFoundError, match="--allow_dev_stubs"):
@@ -167,8 +227,6 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
             mode()
     argv = ["--video_path", str(REPO / "test/videos/synth.mp4"), "--camera", "traj",
             "--traj_txt", str(REPO / "test/trajs/loop1.txt"), "--out_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="int8"):  # the default --quant
-        cli.main(argv)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA"):
-            cli.main(argv + ["--quant", "none"])
+            cli.main(argv)  # the default --quant int8

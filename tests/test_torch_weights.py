@@ -8,6 +8,13 @@ with the flax model's exact parameter paths and shapes (checked against
 ``jax.eval_shape`` of its ``init``) loads with ``strict=True``, and
 ``convert_dit(dit_from_jax(p)) == p`` (likewise for the VAE) holds exactly:
 the bridge only transposes.
+
+The int8 trees (``quantize_dit_params``, ``quantize_depth_unet_params``) load
+with ``strict=True`` into the port's models quantized in place
+(``quantize_dit_``, ``quantize_depth_unet_``): each int8 leaf
+{kernel_q, scale, bias} becomes an ``Int8Linear``'s ``weight_q`` (transposed),
+``weight_scale`` and ``bias``, never a norm's ``weight``.  The scales stay
+fp32 when the model is cast to bf16.
 """
 
 import numpy as np
@@ -19,6 +26,7 @@ from torch_parity import jax_tree
 
 from trajectorycrafter_tpu.models.dit import CrossTransformer3DModel as JaxDiT
 from trajectorycrafter_tpu.models.vae import AutoencoderKLCogVideoX as JaxVAE
+from trajectorycrafter_tpu.ops.int8 import quantize_depth_unet_params, quantize_dit_params
 from trajectorycrafter_tpu.utils.convert import (
     RecordingDict,
     convert_clip_vision,
@@ -36,6 +44,7 @@ from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
 from trajectorycrafter_tpu_torch.models.svd_vae import AutoencoderKLTemporalDecoder
 from trajectorycrafter_tpu_torch.models.t5 import T5EncoderModel
 from trajectorycrafter_tpu_torch.models.vae import AutoencoderKLCogVideoX
+from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear, quantize_depth_unet_, quantize_dit_
 from trajectorycrafter_tpu_torch.utils.weights import (
     clip_from_jax,
     dit_from_jax,
@@ -167,3 +176,75 @@ def test_deployed_depth_stack_and_t5_keys_are_the_converters(name, convert_kwarg
     assert sd.consumed == set(sd)
     n = sum(p.numel() for p in module.parameters())
     assert n_params[0] < n < n_params[1], n
+
+
+def _int8_leaves(tree, path=()):
+    """{dotted flax path: leaf} of every int8 Dense leaf in ``tree``."""
+    if not isinstance(tree, dict):
+        return {}
+    if "kernel_q" in tree:
+        return {".".join(path): tree}
+    found = {}
+    for key, sub in tree.items():
+        found.update(_int8_leaves(sub, path + (key,)))
+    return found
+
+
+def _assert_int8_state(sd, qparams):
+    """Every int8 leaf is in ``sd`` as weight_q (transposed), weight_scale and
+    bias, and nothing of it as a ``.weight``."""
+    leaves = _int8_leaves(qparams)
+    weight_q = {k[:-len(".weight_q")]: v for k, v in sd.items() if k.endswith(".weight_q")}
+    assert len(leaves) == len(weight_q) > 0
+    pairs = {}
+    for prefix, wq in weight_q.items():
+        assert prefix + ".weight" not in sd
+        assert wq.dtype == torch.int8 and sd[prefix + ".weight_scale"].dtype == torch.float32
+        pairs[(wq.numpy().T.tobytes(), sd[prefix + ".weight_scale"].numpy().tobytes())] = prefix
+    for leaf in leaves.values():  # each leaf's codes and scales, once
+        assert (np.asarray(leaf["kernel_q"]).tobytes(), np.asarray(leaf["scale"]).tobytes()) \
+            in pairs
+
+
+def test_int8_dit_tree_strict_load(dit_params):
+    qparams = quantize_dit_params(dit_params)
+    sd = dit_from_jax(qparams)
+    _assert_int8_state(sd, qparams)
+    model = quantize_dit_(CrossTransformer3DModel(**TINY_DIT))
+    model.load_state_dict(sd, strict=True)
+    to_q = qparams["blocks_1"]["attn1"]["to_q"]
+    layer = model.transformer_blocks[1].attn1.to_q
+    assert torch.equal(layer.weight_q, torch.from_numpy(to_q["kernel_q"].T.copy()))
+    assert torch.equal(layer.weight_scale, torch.from_numpy(to_q["scale"]))
+    assert torch.equal(layer.bias.detach(), torch.from_numpy(np.asarray(to_q["bias"])))
+    # the bf16 layers around them load as before
+    assert torch.equal(model.transformer_blocks[1].norm1.norm.weight.detach(),
+                       torch.from_numpy(np.asarray(qparams["blocks_1"]["norm1"]["norm"]["scale"])))
+
+
+def test_int8_depth_unet_tree_strict_load():
+    kwargs, convert_kwargs = DEPTH_TINY["svd_unet"]
+    params = jax_tree(UNetSpatioTemporalConditionModel(**kwargs), 3, convert_svd_unet,
+                      **convert_kwargs)
+    qparams = quantize_depth_unet_params(params)
+    sd = svd_unet_from_jax(qparams)
+    _assert_int8_state(sd, qparams)
+    quantize_depth_unet_(UNetSpatioTemporalConditionModel(**kwargs)).load_state_dict(
+        sd, strict=True)
+
+
+def test_weight_scale_stays_fp32_when_the_model_is_cast():
+    """``module.to(torch.bfloat16)`` casts every floating buffer; the JAX
+    package keeps the scales fp32 and casts only the bias."""
+    layer = Int8Linear.from_linear(torch.nn.Linear(32, 16))
+    scale = layer.weight_scale.clone()
+    layer.to(torch.bfloat16)
+    assert layer.weight_scale.dtype == torch.float32 and torch.equal(layer.weight_scale, scale)
+    assert layer.bias.dtype == torch.bfloat16 and layer.weight_q.dtype == torch.int8
+    model = quantize_dit_(CrossTransformer3DModel(**TINY_DIT)).to(torch.bfloat16)
+    scales = [m.weight_scale for m in model.modules() if isinstance(m, Int8Linear)]
+    assert len(scales) == 30 and all(s.dtype == torch.float32 for s in scales)
+    with torch.device("meta"):
+        meta = quantize_dit_(CrossTransformer3DModel(**TINY_DIT))
+    meta = meta.to(torch.bfloat16).to_empty(device="cpu")
+    assert meta.transformer_blocks[0].ff.net[2].weight_scale.dtype == torch.float32

@@ -10,6 +10,8 @@ flax ``init`` compile.
 import numpy as np
 import torch
 
+from trajectorycrafter_tpu_torch.ops.int8_matmul import ieee_div
+
 
 @torch.no_grad()
 def fill_from_numpy_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
@@ -35,3 +37,12 @@ def jax_tree(module: torch.nn.Module, seed: int, convert, **convert_kwargs):
     fill_from_numpy_(module, seed)
     sd = {k: v.numpy() for k, v in module.state_dict().items()}
     return convert(sd, **convert_kwargs)
+
+
+def per_tensor_quantize_rows(x: torch.Tensor):
+    """Planted fault for the int8 tests: one activation scale for the whole
+    tensor in place of one per row (patched over
+    ``ops.int8_matmul.quantize_rows_reference``)."""
+    xf = x.float()
+    xs = ieee_div(xf.abs().amax().clamp_min(1e-8), 127.0).expand(x.shape[0]).contiguous()
+    return torch.clamp(torch.round(xf / xs[:, None]), -127, 127).to(torch.int8), xs

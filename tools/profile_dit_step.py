@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Profile one denoise step of the PyTorch port on a CUDA card.
 
-    python3 tools/profile_dit_step.py           # from the root of a checkout
-    python3 tools/profile_dit_step.py --depth   # the depth stage's step instead
+    python3 tools/profile_dit_step.py                # from the root of a checkout
+    python3 tools/profile_dit_step.py --quant int8   # the int8 DiT (unfused FF)
+    python3 tools/profile_dit_step.py --quant int8 --fuse   # ... with the fused FF
+    python3 tools/profile_dit_step.py --depth [--quant_depth int8]   # the depth stage
 
 One step is one forward of the full-width CrossTransformer3D DiT (random
-bf16 weights from seed 0) on the CFG pair at the main path's shapes: 49
+bf16 weights from seed 0, quantized by ``build_full_scale_models`` under
+``--quant int8``, as the CLI builds it) on the CFG pair at the main path's shapes: 49
 frames at 384x672 (13 latent frames, 13,330 joint tokens), 10 reference
 frames for the Perceiver (3 latent frames, 3,024 tokens), RoPE on.  With
 ``--depth`` it is one forward of the DepthCrafter SVD UNet on the depth
@@ -18,6 +21,7 @@ prints the device time per kernel group, the top kernels, and the device's
 idle share (1 - summed kernel time / profiled wall time).
 """
 
+import argparse
 import subprocess
 import sys
 import time
@@ -28,10 +32,18 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 ARGV = ["--video_path", str(REPO / "test/videos/synth.mp4"), "--camera", "traj",
-        "--traj_txt", str(REPO / "test/trajs/loop1.txt"), "--quant", "none"]
+        "--traj_txt", str(REPO / "test/trajs/loop1.txt")]
 
 
 def kernel_group(name: str) -> str:
+    if "quantize_rows_kernel" in name:
+        return "int8 row quantization"
+    if "int8_gemm_gelu_quant_kernel" in name:
+        return "int8 FF1 GEMM + gelu + requant"
+    if "int8_gemm_gscale_kernel" in name:
+        return "int8 FF2 grouped GEMM"
+    if "int8_gemm_kernel" in name:
+        return "int8 GEMMs"
     if "flash_attention_kernel<64>" in name:
         return "flash self-attention (d 64)"
     if "flash_attention_kernel<128>" in name:
@@ -128,13 +140,24 @@ def main() -> None:
     from trajectorycrafter_tpu_torch.cli import parse_config
     from trajectorycrafter_tpu_torch.orchestrator import build_full_scale_models
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--depth", action="store_true", help="profile the depth stage's step")
+    parser.add_argument("--quant", choices=("none", "int8"), default="none")
+    parser.add_argument("--quant_depth", choices=("none", "int8"), default="none")
+    parser.add_argument("--fuse", action="store_true",
+                        help="the int8 DiT's fused feed-forward (int8_ff_apply)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_dit_step: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    cfg = parse_config(ARGV)
+    cfg = parse_config(ARGV + ["--quant", args.quant, "--quant_depth", args.quant_depth])
     models = build_full_scale_models(cfg, "cuda")
-    label, forward = (depth_step if "--depth" in sys.argv[1:] else dit_step)(models, cfg)
+    for block in models.pipeline.transformer.transformer_blocks:
+        block.ff.fuse = args.fuse or None
+    label, forward = (depth_step if args.depth else dit_step)(models, cfg)
+    label += f", --quant {args.quant}{' (fused FF)' if args.fuse else ''}, --quant_depth " \
+             f"{args.quant_depth}"
 
     with torch.no_grad():
         _synced_ms(forward), _synced_ms(forward)

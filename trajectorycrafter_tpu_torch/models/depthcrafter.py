@@ -1,7 +1,9 @@
 """DepthCrafter video-depth UNet (the SVD spatio-temporal architecture) in PyTorch.
 
 Counterpart of trajectorycrafter_tpu/models/depthcrafter.py, bf16 branch
-(``quant="none"``):
+(``quant="none"``; ``quant="int8"`` is this model after ``ops/int8.py
+quantize_depth_unet_``, which swaps the transformers' linear layers for
+``Int8Linear`` ones):
   * 8-channel input (4 noisy latents + 4 per-frame conditioning latents);
   * blocks (320, 640, 1280, 1280), 2 layers per block, heads (5, 10, 20, 20)
     of 64, cross-attention to one 1024-d CLIP embedding per frame;

@@ -1,17 +1,21 @@
 """CrossTransformer3D: the dual-stream CogVideoX DiT with reference-view
 Perceiver cross-attention, in PyTorch.
 
-Counterpart of trajectorycrafter_tpu/models/dit.py, in bf16 (the JAX
-package's ``quant="none"`` branch):
+Counterpart of trajectorycrafter_tpu/models/dit.py, in bf16:
   * 42 CogVideoX blocks (AdaLN-Zero, joint text+video self-attention with
     per-head QK layernorm and 3D RoPE on the video tokens, gated tanh-gelu
     FF), with a Perceiver cross-attention over reference-view tokens after
     every ``cross_attn_interval``-th block;
   * patch embedding of the 33-channel latent input and the text projection;
   * channel-last (B, F, H, W, C) latents at the public interface;
-  * linear layers stay ``nn.Linear`` (plain matrix products); layer norms
+  * linear layers are ``nn.Linear`` (plain matrix products); layer norms
     and softmax run in fp32; attention goes through ops/attention.py, which
     launches the hand-written flash kernel for CUDA tensors.
+
+The JAX ``quant="int8"`` branch is this model after ``ops/int8.py
+quantize_dit_``, which swaps the blocks' and the Perceivers' linear layers
+for ``Int8Linear`` ones: on the card their GEMMs run in the hand-written
+int8 kernels (ops/int8_matmul.py).
 
 Module and parameter names are the reference checkpoint's
 (``utils/convert.py expected_dit_keys``), so ``load_state_dict(strict=True)``
@@ -27,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from trajectorycrafter_tpu_torch.ops.attention import multi_head_attention
+from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear
+from trajectorycrafter_tpu_torch.ops.int8_matmul import int8_ff_apply
 from trajectorycrafter_tpu_torch.ops.posemb import resized_pos_embedding, timestep_embedding
 from trajectorycrafter_tpu_torch.ops.rope import apply_rotary_emb
 
@@ -51,14 +57,28 @@ class _GELUProj(nn.Module):
 
 class FeedForward(nn.Module):
     """Linear -> tanh-gelu -> Linear, named as diffusers' ``net.0.proj`` /
-    ``net.2`` (``net.1`` is the reference's parameter-free dropout)."""
+    ``net.2`` (``net.1`` is the reference's parameter-free dropout).
+
+    Quantized (``ops/int8.py quantize_dit_``), ``fuse`` picks the int8 path
+    as the JAX module's field does: None (the default) or False runs the two
+    ``Int8Linear`` layers with the tanh-gelu between them, each quantizing
+    its input per row; True runs the fused chain (``int8_ff_apply``), whose
+    first GEMM applies bias and gelu and re-quantizes per (row, 1,024
+    columns) in its epilogue, so the (tokens, 4 x dim) intermediate stays
+    int8."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
+        self.fuse: Optional[bool] = None
         self.net = nn.ModuleList([_GELUProj(dim, dim * mult), nn.Identity(),
                                   nn.Linear(dim * mult, dim)])
 
     def forward(self, x):
+        proj_in, proj_out = self.net[0].proj, self.net[2]
+        if self.fuse and isinstance(proj_in, Int8Linear):
+            return int8_ff_apply(x, proj_in.weight_q, proj_in.weight_scale, proj_in.bias,
+                                 proj_out.weight_q, proj_out.weight_scale, proj_out.bias,
+                                 impl=proj_in.int8_impl)
         for layer in self.net:
             x = layer(x)
         return x

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -75,23 +76,41 @@ def build_library(source_name: str) -> dict:
     return {"path": lib_path, "seconds": seconds, "log": log}
 
 
-_STRIDES = [ctypes.c_longlong] * 12  # (batch, sequence, head) strides of q, k, v, out
+_PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name: str, n_ptrs: int) -> ctypes.CDLL:
-    """Build and load ``csrc/<name>.cu``, whose entry point is ``<name>_fwd``:
-    (device, ``n_ptrs`` pointers -- q, k, v, out and any scratch -- batch,
-    heads, sq, skv, head_dim, strides..., scale, stream) -> cudaError_t."""
+def _library(name: str, argtypes: tuple) -> ctypes.CDLL:
+    """Build and load ``csrc/<name>.cu``.  Its entry point ``<name>_fwd`` takes
+    ``argtypes`` (ctypes types; the device index first and the stream last)
+    and returns a cudaError_t, which ``<name>_error_string`` names."""
     lib = ctypes.CDLL(str(build_library(f"{name}.cu")["path"]))
     fwd = getattr(lib, f"{name}_fwd")
-    fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
-                    + _STRIDES + [ctypes.c_float, ctypes.c_void_p])
+    fwd.argtypes = list(argtypes)
     fwd.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return lib
+
+
+def _call(name: str, argtypes: tuple, device: torch.device, *args) -> None:
+    """Launch ``<name>_fwd(device index, *args, current stream)``; raise on a
+    nonzero launch status."""
+    lib = _library(name, argtypes)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = getattr(lib, f"{name}_fwd")(index, *args, stream)
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + getattr(lib, f"{name}_error_string")(status).decode())
+
+
+def _attention_argtypes(n_ptrs: int) -> tuple:
+    """(device, ``n_ptrs`` pointers -- q, k, v, out and any scratch -- batch,
+    heads, sq, skv, head_dim, the (batch, sequence, head) strides of q, k, v
+    and out, scale, stream)."""
+    return (_INT, *[_PTR] * n_ptrs, *[_INT] * 5, *[_LONG] * 12, ctypes.c_float, _PTR)
 
 
 def _check_bshd(name: str, x: torch.Tensor) -> None:
@@ -132,21 +151,15 @@ def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the two-pass kernel keeps its row maxima in an fp32 scratch
     scratch = ([torch.empty(b * h * sq, dtype=torch.float32, device=q.device)]
                if kernel == "flash_maxpass" else [])
-    lib = _library(kernel, 4 + len(scratch))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = getattr(lib, f"{kernel}_fwd")(
-        q.device.index if q.device.index is not None else torch.cuda.current_device(),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *(t.data_ptr() for t in scratch),
-        b, h, sq, skv, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        float(scale), stream)
-    if status != 0:
-        raise RuntimeError(f"{kernel} launch failed: "
-                           + getattr(lib, f"{kernel}_error_string")(status).decode())
+    _call(kernel, _attention_argtypes(4 + len(scratch)), q.device,
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+          *(t.data_ptr() for t in scratch),
+          b, h, sq, skv, d,
+          q.stride(0), q.stride(1), q.stride(2),
+          k.stride(0), k.stride(1), k.stride(2),
+          v.stride(0), v.stride(1), v.stride(2),
+          out.stride(0), out.stride(1), out.stride(2),
+          float(scale))
     return out
 
 
@@ -178,3 +191,162 @@ def flash_maxpass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_maxpass.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# the int8 GEMM family (csrc/int8_*.cu)
+# ----------------------------------------------------------------------------
+
+INT8_TILE_K = 64  # K per shared-memory tile (kBlockK of csrc/int8_gemm.cuh)
+INT8_TILE_N = 128  # output columns per thread block (kBlockN)
+INT8_MAX_GROUP = 1024  # the gelu-quant cluster spans at most 8 blocks of 128 columns
+
+_QUANT_ARGTYPES = (_INT, _PTR, _PTR, _PTR, _INT, _INT, _LONG, _PTR)
+_GEMM_ARGTYPES = (_INT, *[_PTR] * 6, _INT, _INT, _INT, _LONG, _LONG, _PTR)
+_GELU_QUANT_ARGTYPES = (_INT, *[_PTR] * 7, _INT, _INT, _INT, _LONG, _LONG, _INT, _PTR)
+_GSCALE_ARGTYPES = (_INT, *[_PTR] * 6, _INT, _INT, _INT, _LONG, _LONG, _INT, _PTR)
+
+
+def _check_tensor(kernel: str, name: str, x: torch.Tensor, dtype: torch.dtype,
+                  shape: tuple, device: torch.device) -> None:
+    if not x.is_cuda or x.device != device:
+        raise ValueError(f"{kernel} takes CUDA tensors on one device; {name} is on {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{kernel} takes {name} as {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+
+
+def _check_rows(kernel: str, name: str, x: torch.Tensor) -> None:
+    """The kernels move rows as 16-byte vectors."""
+    if x.stride(-1) != 1 or (x.stride(0) * x.element_size()) % 16 or x.data_ptr() % 16:
+        raise ValueError(f"{kernel}: {name} needs dense, 16-byte aligned rows "
+                         f"(strides {x.stride()}, data pointer {x.data_ptr():#x})")
+
+
+def _check_dense(kernel: str, name: str, x: torch.Tensor) -> None:
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous, strides {x.stride()}")
+
+
+def _check_gemm(kernel: str, xq: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                bias) -> tuple:
+    """Check the operands every int8 GEMM takes: xq (M, K) and wq (N, K) int8
+    with 16-byte aligned rows, ws (N,) fp32, bias None or (N,); returns
+    (M, N, K, bias as a dense fp32 tensor or None)."""
+    device = xq.device
+    if xq.dim() != 2 or wq.dim() != 2:
+        raise ValueError(f"{kernel} takes 2-D xq and wq, got {tuple(xq.shape)}, {tuple(wq.shape)}")
+    m, k = xq.shape
+    n = wq.shape[0]
+    _check_tensor(kernel, "xq", xq, torch.int8, (m, k), device)
+    _check_tensor(kernel, "wq", wq, torch.int8, (n, k), device)
+    _check_tensor(kernel, "ws", ws, torch.float32, (n,), device)
+    for name, x in (("xq", xq), ("wq", wq)):
+        _check_rows(kernel, name, x)
+    _check_dense(kernel, "ws", ws)
+    if m == 0 or k % 16 or n % 16 or k == 0 or n == 0:
+        raise ValueError(f"{kernel}: unsupported sizes M={m}, K={k}, N={n} "
+                         "(K and N must be positive multiples of 16)")
+    if bias is not None:
+        _check_tensor(kernel, "bias", bias, bias.dtype, (n,), device)
+        if not bias.is_floating_point():
+            raise ValueError(f"{kernel} takes a floating bias, got {bias.dtype}")
+        bias = bias.float().contiguous()
+    return m, n, k, bias
+
+
+def _ptr(x) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def int8_quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8 quantization on the card (csrc/
+    int8_quantize_rows.cu): (M, K) bf16 -> ((M, K) int8, (M,) fp32 scales).
+    K a multiple of 8, rows 16-byte aligned.  Counts each launch in
+    ``int8_quantize_rows.launches``."""
+    kernel = "int8_quantize_rows"
+    if x.dim() != 2:
+        raise ValueError(f"{kernel} takes (M, K), got shape {tuple(x.shape)}")
+    m, k = x.shape
+    _check_tensor(kernel, "x", x, torch.bfloat16, (m, k), x.device)
+    _check_rows(kernel, "x", x)
+    if m == 0 or k == 0 or k % 8:
+        raise ValueError(f"{kernel}: unsupported sizes M={m}, K={k} (K a positive multiple of 8)")
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    _call(kernel, _QUANT_ARGTYPES, x.device, x.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+          m, k, x.stride(0))
+    int8_quantize_rows.launches += 1
+    return xq, xs
+
+
+int8_quantize_rows.launches = 0
+
+
+def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(xq @ wq^T) * xs[:, None] * ws[None, :] + bias on the card (csrc/
+    int8_gemm.cu): xq (M, K), wq (N, K) int8, xs (M,) and ws (N,) fp32 ->
+    (M, N) bf16.  Counts each launch in ``int8_gemm.launches``."""
+    kernel = "int8_gemm"
+    m, n, k, bias = _check_gemm(kernel, xq, wq, ws, bias)
+    _check_tensor(kernel, "xs", xs, torch.float32, (m,), xq.device)
+    _check_dense(kernel, "xs", xs)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
+    _call(kernel, _GEMM_ARGTYPES, xq.device, xq.data_ptr(), wq.data_ptr(), xs.data_ptr(),
+          ws.data_ptr(), _ptr(bias), out.data_ptr(), m, n, k, xq.stride(0), wq.stride(0))
+    int8_gemm.launches += 1
+    return out
+
+
+int8_gemm.launches = 0
+
+
+def int8_gemm_gelu_quant(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
+                         ws: torch.Tensor, bias: Optional[torch.Tensor], group: int):
+    """The fused FF's first GEMM on the card (csrc/int8_gemm_gelu_quant.cu):
+    tanh-gelu of the dequantized product plus bias, re-quantized per (row,
+    ``group`` columns) -> ((M, N) int8, (M, N / group) fp32).  ``group`` a
+    multiple of 128 up to 1,024 that divides N.  Counts each launch in
+    ``int8_gemm_gelu_quant.launches``."""
+    kernel = "int8_gemm_gelu_quant"
+    m, n, k, bias = _check_gemm(kernel, xq, wq, ws, bias)
+    _check_tensor(kernel, "xs", xs, torch.float32, (m,), xq.device)
+    _check_dense(kernel, "xs", xs)
+    if group % INT8_TILE_N or not 0 < group <= INT8_MAX_GROUP or n % group:
+        raise ValueError(f"{kernel}: group {group} must be a multiple of {INT8_TILE_N} up to "
+                         f"{INT8_MAX_GROUP} that divides N={n}")
+    hq = torch.empty((m, n), dtype=torch.int8, device=xq.device)
+    hs = torch.empty((m, n // group), dtype=torch.float32, device=xq.device)
+    _call(kernel, _GELU_QUANT_ARGTYPES, xq.device, xq.data_ptr(), wq.data_ptr(), xs.data_ptr(),
+          ws.data_ptr(), _ptr(bias), hq.data_ptr(), hs.data_ptr(), m, n, k, xq.stride(0),
+          wq.stride(0), group)
+    int8_gemm_gelu_quant.launches += 1
+    return hq, hs
+
+
+int8_gemm_gelu_quant.launches = 0
+
+
+def int8_gemm_gscale(hq: torch.Tensor, wq: torch.Tensor, hs: torch.Tensor, ws: torch.Tensor,
+                     bias: Optional[torch.Tensor], group: int) -> torch.Tensor:
+    """The fused FF's second GEMM on the card (csrc/int8_gemm_gscale.cu): hq
+    (M, K) int8 with scales hs (M, K / group) fp32 per (row, ``group`` of K),
+    wq (N, K) int8 -> (M, N) bf16.  ``group`` a multiple of 64 that divides
+    K.  Counts each launch in ``int8_gemm_gscale.launches``."""
+    kernel = "int8_gemm_gscale"
+    m, n, k, bias = _check_gemm(kernel, hq, wq, ws, bias)
+    if group <= 0 or group % INT8_TILE_K or k % group:
+        raise ValueError(f"{kernel}: group {group} must be a multiple of {INT8_TILE_K} "
+                         f"that divides K={k}")
+    _check_tensor(kernel, "hs", hs, torch.float32, (m, k // group), hq.device)
+    _check_dense(kernel, "hs", hs)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=hq.device)
+    _call(kernel, _GSCALE_ARGTYPES, hq.device, hq.data_ptr(), wq.data_ptr(), hs.data_ptr(),
+          ws.data_ptr(), _ptr(bias), out.data_ptr(), m, n, k, hq.stride(0), wq.stride(0), group)
+    int8_gemm_gscale.launches += 1
+    return out
+
+
+int8_gemm_gscale.launches = 0

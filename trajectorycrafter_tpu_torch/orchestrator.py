@@ -52,6 +52,7 @@ from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
 from trajectorycrafter_tpu_torch.models.svd_vae import AutoencoderKLTemporalDecoder
 from trajectorycrafter_tpu_torch.models.t5 import T5EncoderModel
 from trajectorycrafter_tpu_torch.models.vae import AutoencoderKLCogVideoX
+from trajectorycrafter_tpu_torch.ops.int8 import quantize_depth_unet_, quantize_dit_
 from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
 from trajectorycrafter_tpu_torch.pipelines.depth import DepthCrafterDemo, DepthCrafterPipeline
 from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
@@ -124,16 +125,14 @@ def _plane_depth_infer(frames, near, far, *a, **kw):
     return np.tile(depth[None, None], (f, 1, 1, 1))
 
 
+QUANTS = ("none", "int8")
+
+
 def check_supported(cfg: TrajCrafterConfig) -> None:
     """Raise for a configuration the port does not run yet."""
-    if cfg.diffusion.quant != "none":
-        raise NotImplementedError(
-            f"--quant {cfg.diffusion.quant} is not ported yet (ROADMAP queue 1 item 10, "
-            "the int8 DiT path); run with --quant none (bf16)")
-    if cfg.depth.quant != "none":
-        raise NotImplementedError(
-            f"--quant_depth {cfg.depth.quant} is not ported yet (ROADMAP queue 1 item 10, "
-            "int8); run with --quant_depth none (bf16)")
+    for flag, quant in (("--quant", cfg.diffusion.quant), ("--quant_depth", cfg.depth.quant)):
+        if quant not in QUANTS:
+            raise NotImplementedError(f"{flag} {quant} is not ported; the port runs {QUANTS}")
     if cfg.diffusion.sampler_name != "DDIM_Origin":
         raise NotImplementedError(
             f"sampler {cfg.diffusion.sampler_name!r} is not ported yet (ROADMAP queue 1 "
@@ -159,6 +158,12 @@ def _on_device(make: Callable[[], torch.nn.Module], device, dtype) -> torch.nn.M
     return module.to(dtype=dtype).to_empty(device=device).eval()
 
 
+def quantize_dit(cfg: TrajCrafterConfig, dit: CrossTransformer3DModel) -> CrossTransformer3DModel:
+    """``dit`` quantized in place under ``--quant int8`` (after its random
+    init and cast, as the JAX orchestrator quantizes its initialised tree)."""
+    return quantize_dit_(dit) if cfg.diffusion.quant == "int8" else dit
+
+
 def _bundle(cfg, pipeline, depth_infer, encode_prompt) -> ModelBundle:
     return ModelBundle(pipeline=pipeline, depth_infer=depth_infer,
                        encode_prompt=encode_prompt,
@@ -167,7 +172,8 @@ def _bundle(cfg, pipeline, depth_infer, encode_prompt) -> ModelBundle:
 
 def build_dev_models(cfg: TrajCrafterConfig, device="cpu", seed: int = 0) -> ModelBundle:
     """Randomly initialised tiny diffusion stack (the JAX package's dev
-    widths), fp32, with the plane-depth and pseudo-embedding stand-ins."""
+    widths), fp32, with the plane-depth and pseudo-embedding stand-ins; the
+    DiT quantized under ``--quant int8``."""
     check_supported(cfg)
     lc, text_len, text_dim = 4, 16, 64
     vae = _on_device(lambda: AutoencoderKLCogVideoX(
@@ -179,7 +185,7 @@ def build_dev_models(cfg: TrajCrafterConfig, device="cpu", seed: int = 0) -> Mod
         max_text_seq_length=text_len, cross_attn_dim_head=16, cross_attn_num_heads=4),
         device, torch.float32)
     pipeline = TrajCrafterPipeline(
-        vae=random_init_(vae, seed), transformer=random_init_(dit, seed + 1),
+        vae=random_init_(vae, seed), transformer=quantize_dit(cfg, random_init_(dit, seed + 1)),
         scheduler=DDIMScheduler(), dtype=torch.float32)
 
     def encode_prompt(prompt, negative):
@@ -196,7 +202,10 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
     Perceiver 16 x 128 every 2 blocks) and the CogVideoX VAE ((128, 256,
     256, 512), 3 layers per block, 16 latent channels) with DDIM_Origin;
     T5-XXL; DepthCrafter's SVD UNet ((320, 640, 1280, 1280), heads (5, 10,
-    20, 20)), SVD VAE and CLIP ViT-H/14."""
+    20, 20)), SVD VAE and CLIP ViT-H/14.  ``--quant int8`` (the default)
+    quantizes the DiT and ``--quant_depth int8`` the UNet's transformers
+    after their init, so an int8 model is the quantization of the same
+    seeded bf16 weights."""
     check_supported(cfg)
     dtype = torch.bfloat16
     vae = _on_device(lambda: AutoencoderKLCogVideoX(), device, dtype)
@@ -206,10 +215,12 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
         cross_attn_interval=2, cross_attn_dim_head=128, cross_attn_num_heads=16,
         use_rotary_positional_embeddings=True), device, dtype)
     pipeline = TrajCrafterPipeline(
-        vae=random_init_(vae, seed), transformer=random_init_(dit, seed + 1),
+        vae=random_init_(vae, seed), transformer=quantize_dit(cfg, random_init_(dit, seed + 1)),
         scheduler=DDIMScheduler(), dtype=dtype)
     t5 = random_init_(_on_device(T5EncoderModel, device, dtype), seed + 2)
     unet = random_init_(_on_device(UNetSpatioTemporalConditionModel, device, dtype), seed + 3)
+    if cfg.depth.quant == "int8":
+        quantize_depth_unet_(unet)
     svd_vae = random_init_(_on_device(AutoencoderKLTemporalDecoder, device, dtype), seed + 4)
     clip = random_init_(_on_device(CLIPVisionModelWithProjection, device, dtype), seed + 5)
     return _bundle(cfg, pipeline, depth_stage(unet, svd_vae, clip, dtype),

@@ -10,6 +10,7 @@ flax: the tree is plain nested dicts of arrays.
 
 Layout rules (the converter's, reversed):
   flax Dense kernel (in, out)            -> Linear weight (out, in)
+  int8 Dense kernel_q (in, out), scale   -> Int8Linear weight_q (out, in), weight_scale
   flax Conv kernel (kh, kw, I, O)        -> Conv2d weight (O, I, kh, kw)
   flax Conv kernel (kt, kh, kw, I, O)    -> Conv3d weight (O, I, kt, kh, kw)
   flax LayerNorm / GroupNorm scale, bias -> weight, bias
@@ -33,7 +34,16 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _put(sd: StateDict, prefix: str, leaf: Tree) -> None:
-    """One Dense / Conv / norm leaf dict -> ``prefix.weight`` (+ ``.bias``)."""
+    """One Dense / Conv / norm leaf dict -> ``prefix.weight`` (+ ``.bias``);
+    an int8 Dense leaf {kernel_q (in, out), scale[, bias]} -> ``Int8Linear``'s
+    ``prefix.weight_q`` (out, in), ``.weight_scale`` (+ ``.bias``).  The int8
+    leaf is tested first: its ``scale`` is not a norm's."""
+    if "kernel_q" in leaf:
+        sd[prefix + ".weight_q"] = _tensor(np.asarray(leaf["kernel_q"]).T)
+        sd[prefix + ".weight_scale"] = _tensor(leaf["scale"])
+        if "bias" in leaf:
+            sd[prefix + ".bias"] = _tensor(leaf["bias"])
+        return
     if "kernel" in leaf:
         kernel = np.asarray(leaf["kernel"])
         sd[prefix + ".weight"] = _tensor(np.transpose(kernel, _KERNEL_PERM[kernel.ndim]))
