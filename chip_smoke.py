@@ -11,29 +11,39 @@ prints no result line):
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the shapes the main path gives it, within a stated tolerance
      that must also reject planted faults; then each kernel, its plain
-     version and (for the int8 GEMMs) the bf16 ``F.linear`` they replace,
-     timed at full shape, in turns;
-  4. main path: ``TrajCrafter.infer_gradual`` at the deployed widths (random
+     version and the one PyTorch call that computes the same function (the
+     "library" call: flash SDPA for attention, ``torch._int_mm`` for the
+     int8 GEMM's product; the port never calls it) and, for the int8 GEMMs,
+     the bf16 ``F.linear`` they replace, timed at full shape, in turns; each
+     kernel's bound (the least time the card could take for the same work)
+     computed from the data sheet;
+  4. the attention variants (K5 ``flash_lse``, K1b ``flash_exp2``, K6
+     ``flash_pv8``, K7 ``int8_flash_attention``) the same way, at the
+     attention bench's DiT shape and the main path's shapes;
+  5. main path: ``TrajCrafter.infer_gradual`` at the deployed widths (random
      weights from a seed; T5-XXL prompt encode; the DepthCrafter depth
      stage, 5 Euler steps over one 49-frame window at 576x1024; 2 denoise
-     steps, diffusion at 384x672), three times on one set of weights:
+     steps, diffusion at 384x672), four times on one set of weights:
      A, the default: int8 DiT (``--quant int8``, unfused feed-forward),
        bf16 depth UNet, depth attention ``flash_stock``;
      B: int8 DiT with the fused int8 feed-forward, ``--quant_depth int8``,
        ``TRAJCRAFTER_DEPTH_ATTN=flash_max``;
      C: ``--quant none``, the bf16 DiT and UNet, ``flash_stock``;
+     D: run A with the DiT's ``attention_impl="flash_pv8"`` and
+       ``TRAJCRAFTER_DEPTH_ATTN=flash_pv8``: every large attention on K6;
      the int8 models are quantizations of the bf16 models' own weights.
      Each kernel's launches are counted per stage and held to counts derived
      from the modules; the PSNR and SSIM of A's video against C's are
      printed as information;
-  5. whole models: the bf16 and int8 DiT (unfused and fused) and the bf16
-     and int8 depth UNet at full width on small inputs, kernels against the
-     plain versions;
-  6. a JSON line of kernel results, and a final JSON line with the device.
+  6. whole models: the bf16 and int8 DiT (unfused and fused), the DiT on
+     ``flash_pv8``, and the bf16 and int8 depth UNet at full width on small
+     inputs, kernels against the plain versions;
+  7. the attention bench (``python -m trajectorycrafter_tpu_torch.
+     bench_attention``), once;
+  8. a JSON line of kernel results, and a final JSON line with the device.
 
-Imports nothing of JAX and no module of the JAX package itself; the port
-underneath reuses the JAX package's JAX-free config, CLI parser and video
-I/O modules.
+Imports nothing of JAX and nothing of the JAX package: the port holds its
+own config, CLI and video I/O.
 """
 
 import json
@@ -65,6 +75,17 @@ REPO = Path(__file__).resolve().parent
 # and the bias dropped or the column scales shifted by one (K2b, K3b); a
 # group of 512 columns in place of 1,024 and the gelu dropped (K3a).
 
+# The attention variants (ops/attention.py): K5's output by
+# ``attention_error`` and its logsumexp by ``lse_error`` (2^-12 (1 + |lse|));
+# K1b by ``output_error`` against its own plain version (bf16 weights on
+# both sides); K6 and K7 by ``quantized_error`` against theirs (per row 2^-5,
+# at most 2^-10 of the elements outside the per-element bound: their integer
+# codes flip where a score sits on a rounding boundary).  The planted faults:
+# a row sum off by 10% and the last quarter of the key blocks skipped (all
+# four); an lse in base 2 (K5); the clamp dropped at scores above 110 (K1b);
+# zero-padded keys passed as real keys at a ragged shape where every score
+# is negative (K6, K7).
+
 # Whole DiT / whole depth UNet, kernels vs plain versions, on a small input:
 # dozens of blocks of bf16 arithmetic carry the per-call bf16 differences of
 # the attention kernels forward (and int8 codes flip where they move a value
@@ -86,9 +107,11 @@ DIT_LAYERS, PERCEIVER_INTERVAL = 42, 2
 DEPTH_KERNEL_LAUNCHES_PER_FORWARD = 10
 MP4S = ("input.mp4", "render.mp4", "mask.mp4", "gen.mp4", "viz.mp4")
 KERNEL_SOURCES = ("flash_attention.cu", "flash_maxpass.cu", "int8_quantize_rows.cu",
-                  "int8_gemm.cu", "int8_gemm_gelu_quant.cu", "int8_gemm_gscale.cu")
-KERNELS = ("flash_attention", "flash_maxpass", "int8_quantize_rows", "int8_gemm",
-           "int8_gemm_gelu_quant", "int8_gemm_gscale")
+                  "int8_gemm.cu", "int8_gemm_gelu_quant.cu", "int8_gemm_gscale.cu",
+                  "flash_pv8.cu", "int8_flash_attention.cu")
+INT8_KERNELS = ("int8_quantize_rows", "int8_gemm", "int8_gemm_gelu_quant", "int8_gemm_gscale")
+VARIANTS = ("flash_exp2", "flash_lse", "flash_pv8", "int8_flash_attention")
+KERNELS = ("flash_attention", "flash_maxpass", *INT8_KERNELS, *VARIANTS)
 # depth attention shapes (B = frames, H, S, D) at 576x1024 and 49 frames
 DEPTH_SHAPES = {"depth_9216": (49, 5, 9216, 64), "depth_2304": (49, 10, 2304, 64)}
 # int8 GEMMs of the main path, (M, K, N, bias): the DiT's blocks at M = 2 x
@@ -115,18 +138,68 @@ TPU_KERNELS = {
     "int8_gemm": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:62",
     "int8_gemm_gelu_quant": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:154",
     "int8_gemm_gscale": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:238",
+    "flash_exp2": "trajectorycrafter_tpu/ops/pallas/flash_exp2.py:83",
+    "flash_lse": "trajectorycrafter_tpu/ops/pallas/flash_lse.py:68",
+    "flash_pv8": "trajectorycrafter_tpu/ops/pallas/flash_pv8.py:98",
+    "int8_flash_attention": "trajectorycrafter_tpu/ops/pallas/int8_flash_attention.py:116",
 }
+# the entry points of csrc/flash_attention.cu besides its own
+SOURCE_OF = {"flash_exp2": "flash_attention", "flash_lse": "flash_attention"}
+# the attention bench's DiT shape: 226 text + 13 x 36 x 64 video tokens,
+# zero-padded to 30,720 (bench_attention.py)
+BENCH_DIT = (2, 48, 30178, 30720, 64)  # (B, H, real tokens, padded, D)
+DIT_SHAPE = (2, 48, 13330, 64)  # the main path's joint attention (B, H, S, D)
+
+# Data-sheet rates of an H100 SXM (dense): bf16 989 TFLOP/s, int8 1,979
+# TOP/s, 3.35 TB/s of device memory; the SFU's 16 exp2 per clock per SM x
+# 132 SMs at the card's maximum SM clock (nvidia-smi clocks.max.sm).
+BF16_OPS, INT8_OPS, MEM_BYTES = 989e12, 1979e12, 3.35e12
+SFU_EXP_PER_CLOCK = 16 * 132
+
+
+DEVICE = {}  # the card's max SM clock, read in phase_device
 
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call over ``iters`` calls, after one warm-up."""
+def bound(ops_bf16: float = 0.0, ops_int8: float = 0.0, nbytes: float = 0.0,
+          exps: float = 0.0) -> dict:
+    """The least time the card could take for a function's work: the larger
+    of its tensor-core operations over the data-sheet peaks and its bytes
+    (each input read once, each output written once) over the memory rate;
+    with ``exps``, also the exp count over the SFU rate (``sfu_ms``)."""
+    op_ms = (ops_bf16 / BF16_OPS + ops_int8 / INT8_OPS) * 1e3
+    byte_ms = nbytes / MEM_BYTES * 1e3
+    out = {"bound_ms": max(op_ms, byte_ms),
+           "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+    if exps:
+        out["sfu_ms"] = exps / (SFU_EXP_PER_CLOCK * DEVICE["sm_clock_hz"]) * 1e3
+    return out
+
+
+def attention_bound(b, h, sq, skv, d, pv_int8=False, qk_int8=False, in_bytes=2,
+                    extra_bytes=0) -> dict:
+    """``bound`` of one attention call over the keys it needs: two products of
+    2 B H Sq Skv D operations (bf16, or int8 where the kernel computes them
+    in int8), B H Sq Skv exps, q, k, v read (``in_bytes`` per element) and a
+    bf16 output written, plus ``extra_bytes``."""
+    prod = 2.0 * b * h * sq * skv * d
+    ops = {"ops_bf16": prod * ((not pv_int8) + (not qk_int8)),
+           "ops_int8": prod * (pv_int8 + qk_int8)}
+    nbytes = in_bytes * b * h * d * (sq + 2 * skv) + 2 * b * h * sq * d + extra_bytes
+    return bound(**ops, nbytes=nbytes, exps=float(b * h * sq * skv))
+
+
+def cuda_ms(fn, iters: int, warm_up: bool = True) -> float:
+    """Mean milliseconds per call over ``iters`` calls, after one warm-up
+    call unless ``warm_up`` is false (for the slow plain versions, timed
+    after their check has run them)."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -150,6 +223,11 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    DEVICE["sm_clock_hz"] = float(clock) * 1e6
+    log(f"max SM clock {clock} MHz: the SFU bound takes {SFU_EXP_PER_CLOCK} exp2 per clock")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}")
     return smi
@@ -245,37 +323,43 @@ def phase_kernels():
         max_err[kernel.__name__] = max(max_err[kernel.__name__], err)
         torch.cuda.empty_cache()
 
+    from trajectorycrafter_tpu_torch.bench_attention import sdpa_flash
+
     timing = {}
-    # the DiT shape, in turns: plain, kernel, kernel, plain
-    b, h, s, d = 2, 48, 13330, 64
+    # the DiT shape, in turns: plain, kernel, library, library, kernel, plain
+    b, h, s, d = DIT_SHAPE
     q, k, v = (randn(b, s, h, d).bfloat16() for _ in range(3))
-    kernel = lambda: flash_attention(q, k, v, d ** -0.5)
-    plain = lambda: attention_reference(q, k, v, d ** -0.5)
-    p1, k1, k2, p2 = cuda_ms(plain, 3), cuda_ms(kernel, 10), cuda_ms(kernel, 10), cuda_ms(plain, 3)
+    t = in_turns({"plain_ms": lambda: attention_reference(q, k, v, d ** -0.5),
+                  "ms": lambda: flash_attention(q, k, v, d ** -0.5),
+                  "library_ms": lambda: sdpa_flash(q, k, v, d ** -0.5)},
+                 {"plain_ms": 2, "ms": 10, "library_ms": 10})
+    timing["dit"] = {**t, **attention_bound(b, h, s, s, d)}
     flop = 4 * b * h * s * s * d
-    timing["dit"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
-    log(f"dit_self_full {(b, h, s, s, d)}: flash_attention {k1:.2f} / {k2:.2f} ms "
-        f"({flop / timing['dit']['ms'] / 1e9:.1f} TFLOP/s), plain {p1:.2f} / {p2:.2f} ms")
+    log(f"dit_self_full {(b, h, s, s, d)}: flash_attention {t['ms']:.2f} ms "
+        f"({flop / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.2f} ms, flash SDPA "
+        f"{t['library_ms']:.2f} ms; bound {timing['dit']['bound_ms']:.2f} ms "
+        f"({timing['dit']['bound_by']}), SFU {timing['dit']['sfu_ms']:.2f} ms")
     del q, k, v
     torch.cuda.empty_cache()
 
     # the depth UNet's level-0 shape at 49 frames, in turns: plain, K4, K4b,
-    # K4b, K4, plain (the plain version is the same function for both)
+    # library and back (the plain version is the same function for both)
     b, h, s, d = DEPTH_SHAPES["depth_9216"]
     q = (randn(b, s, h, d) * 4.0).bfloat16()
     k, v = randn(b, s, h, d).bfloat16(), randn(b, s, h, d).bfloat16()
-    plain = lambda: attention_reference(q, k, v, d ** -0.5)
-    stock = lambda: flash_attention(q, k, v, d ** -0.5)
-    maxpass = lambda: flash_maxpass(q, k, v, d ** -0.5)
-    p1, s1, m1 = cuda_ms(plain, 2), cuda_ms(stock, 5), cuda_ms(maxpass, 5)
-    m2, s2, p2 = cuda_ms(maxpass, 5), cuda_ms(stock, 5), cuda_ms(plain, 2)
+    t = in_turns({"plain_ms": lambda: attention_reference(q, k, v, d ** -0.5),
+                  "flash_attention": lambda: flash_attention(q, k, v, d ** -0.5),
+                  "flash_maxpass": lambda: flash_maxpass(q, k, v, d ** -0.5),
+                  "library_ms": lambda: sdpa_flash(q, k, v, d ** -0.5)},
+                 {"plain_ms": 2, "flash_attention": 5, "flash_maxpass": 5, "library_ms": 5})
+    timing["depth"] = {**t, **attention_bound(b, h, s, s, d)}
     flop = 4 * b * h * s * s * d
-    timing["depth"] = {"flash_attention": (s1 + s2) / 2, "flash_maxpass": (m1 + m2) / 2,
-                       "plain_ms": (p1 + p2) / 2}
-    log(f"depth_9216_full {(b, h, s, s, d)}: flash_attention {s1:.2f} / {s2:.2f} ms "
-        f"({flop / timing['depth']['flash_attention'] / 1e9:.1f} TFLOP/s), flash_maxpass "
-        f"{m1:.2f} / {m2:.2f} ms ({1.5 * flop / timing['depth']['flash_maxpass'] / 1e9:.1f} "
-        f"TFLOP/s of its 1.5x products), plain {p1:.2f} / {p2:.2f} ms")
+    log(f"depth_9216_full {(b, h, s, s, d)}: flash_attention {t['flash_attention']:.2f} ms "
+        f"({flop / t['flash_attention'] / 1e9:.1f} TFLOP/s), flash_maxpass "
+        f"{t['flash_maxpass']:.2f} ms ({1.5 * flop / t['flash_maxpass'] / 1e9:.1f} TFLOP/s "
+        f"of its 1.5x products), plain {t['plain_ms']:.2f} ms, flash SDPA "
+        f"{t['library_ms']:.2f} ms; bound {timing['depth']['bound_ms']:.2f} ms "
+        f"({timing['depth']['bound_by']}), SFU {timing['depth']['sfu_ms']:.2f} ms")
     del q, k, v
     torch.cuda.empty_cache()
     return max_err, timing
@@ -299,12 +383,219 @@ def check_readings(label: str, readings: dict, faults: dict) -> None:
         raise AssertionError(f"the tolerance at {label} accepts planted faults {accepted}")
 
 
-def in_turns(fns: dict, iters: dict) -> dict:
+def in_turns(fns: dict, iters: dict, cold: tuple = ()) -> dict:
     """Mean ms per call of each function, timed in the order given and then
-    in reverse (plain, kernel, ..., kernel, plain); the two readings averaged."""
-    first = {name: cuda_ms(fn, iters[name]) for name, fn in fns.items()}
-    second = {name: cuda_ms(fn, iters[name]) for name, fn in reversed(list(fns.items()))}
+    in reverse (plain, kernel, ..., kernel, plain); the two readings averaged.
+    The functions named in ``cold`` get no warm-up call (slow plain versions
+    whose check has run them already)."""
+    ms = lambda name, fn: cuda_ms(fn, iters[name], warm_up=name not in cold)
+    first = {name: ms(name, fn) for name, fn in fns.items()}
+    second = {name: ms(name, fn) for name, fn in reversed(list(fns.items()))}
     return {name: (first[name] + second[name]) / 2 for name in fns}
+
+
+def _skip_last_quarter(n: int, block: int) -> int:
+    """Keys kept when the last quarter (rounded up) of the ``block``-key
+    blocks over ``n`` keys is skipped."""
+    blocks = -(-n // block)
+    return (blocks - -(-blocks // 4)) * block
+
+
+def _all_negative(randn, b, s, h, d):
+    """q along +u, k along -80 u (|u| = 1): every score q.k / sqrt(d) near
+    -10 at d = 64, so zero-padded keys (score 0) would win every block max."""
+    import torch
+
+    u = torch.full((d,), d ** -0.5, device="cuda")
+    q = (u + 0.3 * randn(b, s, h, d) * d ** -0.5).bfloat16()
+    k = (-80.0 * u + randn(b, s, h, d) * d ** -0.5).bfloat16()
+    return q, k, randn(b, s, h, d).bfloat16()
+
+
+def phase_variants():
+    """K5, K1b, K6 and K7 against their plain versions at their paths'
+    shapes with the planted faults; then each timed at full shape in turns
+    with its plain version and the library call."""
+    import math
+
+    import torch
+
+    from trajectorycrafter_tpu_torch.bench_attention import sdpa_flash
+    from trajectorycrafter_tpu_torch.ops import attention_variants as av
+    from trajectorycrafter_tpu_torch.ops.attention import (
+        attention_reference,
+        lse_error,
+        output_error,
+        plain_refs,
+        quantized_error,
+    )
+    from trajectorycrafter_tpu_torch.ops.kernels import (
+        FLASH_KEY_TILE,
+        flash_exp2,
+        flash_lse,
+        flash_pv8,
+        int8_flash_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    max_err = dict.fromkeys(VARIANTS, 0.0)
+
+    def judge(kern, label, readings, faults):
+        check_readings(f"{kern} {label}", readings, faults)
+        max_err[kern] = max(max_err[kern], readings["max_abs_err"])
+
+    # K5 and K1b: the bench's DiT shape with its heads cut (keys past 30,178
+    # zero, as the bench gives them; K5 attends to all it is given, K1b masks
+    # them by kv_valid), and a ragged shape
+    _, _, s_real, s_pad, d = BENCH_DIT
+    scale = d ** -0.5
+    for label, (b, h, sq, skv, real) in {"bench_dit_heads4": (1, 4, s_pad, s_pad, s_real),
+                                         "ragged": (1, 2, 1000, 777, 700)}.items():
+        valid = (torch.arange(skv, device="cuda") < real).float()
+        q = randn(b, sq, h, d).bfloat16()
+        k, v = ((randn(b, skv, h, d) * valid[None, :, None, None]).bfloat16() for _ in range(2))
+        keep = _skip_last_quarter(skv, FLASH_KEY_TILE)
+        out, lse = flash_lse(q, k, v, scale)
+        refs = plain_refs(lambda x: attention_reference(q, k, x, scale), v)
+        judge("flash_lse", f"{label} {(b, h, sq, skv, d)}", output_error(out, *refs), {
+            "row_sum_x1.1": output_error((out.float() / 1.1).bfloat16(), *refs),
+            "last_quarter_of_key_tiles_skipped": output_error(
+                flash_lse(q, k[:, :keep], v[:, :keep], scale)[0], *refs)})
+        check_readings(f"flash_lse {label} logsumexp", lse_error(lse, q, k, scale),
+                       {"lse_in_base_2": lse_error(lse / math.log(2.0), q, k, scale)})
+        del refs
+        out = flash_exp2(q, k, v, scale, valid)
+        refs = plain_refs(lambda x: av.exp2_attention_reference(q, k, x, scale, valid), v)
+        judge("flash_exp2", f"{label} {(b, h, sq, skv, d)}, {real} valid keys",
+              output_error(out, *refs), {
+                  "row_sum_x1.1": output_error((out.float() / 1.1).bfloat16(), *refs),
+                  "last_quarter_of_key_tiles_skipped": output_error(
+                      flash_exp2(q, k[:, :keep], v[:, :keep], scale, valid[:keep]), *refs)})
+        del q, k, v, refs
+        torch.cuda.empty_cache()
+    # the clamp: q x 20 puts scores above 110 (exp2 domain) at a ragged shape
+    q, k, v = (randn(1, 1000, 2, d) * 20.0).bfloat16(), *(randn(1, 777, 2, d).bfloat16()
+                                                         for _ in range(2))
+    refs = plain_refs(lambda x: av.exp2_attention_reference(q, k, x, scale), v)
+    judge("flash_exp2", "ragged, scores above 110", output_error(flash_exp2(q, k, v, scale), *refs),
+          {"clamp_dropped": output_error(flash_exp2(q, k, v, scale, clamp=False), *refs)})
+
+    # K6 and K7 at the main path's shapes (heads or frames cut)
+    runs = {"flash_pv8": (av.pv8_attention, av.pv8_reference, av.pv8_block_k),
+            "int8_flash_attention": (av.int8_attention, av.int8_attention_reference,
+                                     av.int8_block_k)}
+    cases = [("flash_pv8", "dit_self_heads8", 1, 8, 13330, 13330, 64, 1.0),
+             ("flash_pv8", "perceiver_cross", 2, 16, 13104, 3024, 128, 4.0),
+             ("flash_pv8", "depth_9216_frames2", 2, 5, 9216, 9216, 64, 4.0),
+             ("flash_pv8", "depth_2304_frames8", 8, 10, 2304, 2304, 64, 4.0),
+             ("int8_flash_attention", "dit_self_heads8", 1, 8, 13330, 13330, 64, 1.0)]
+    for kern, label, b, h, sq, skv, d, gain in cases:
+        run, plain, block_of = runs[kern]
+        block_k, scale = block_of(sq), d ** -0.5
+        q = (randn(b, sq, h, d) * gain).bfloat16()
+        k, v = randn(b, skv, h, d).bfloat16(), randn(b, skv, h, d).bfloat16()
+        out = run(q, k, v, scale, block_k)
+        refs = plain_refs(lambda x: plain(q, k, x, scale, block_k), v)
+        keep = _skip_last_quarter(skv, block_k)
+        judge(kern, f"{label} {(b, h, sq, skv, d)} q x {gain:g}, key blocks of {block_k}",
+              quantized_error(out, *refs), {
+                  "row_sum_x1.1": quantized_error((out.float() / 1.1).bfloat16(), *refs),
+                  "last_quarter_of_key_blocks_skipped": quantized_error(
+                      run(q, k[:, :keep], v[:, :keep], scale, block_k), *refs)})
+        del q, k, v, refs, out
+        torch.cuda.empty_cache()
+    for kern, (run, plain, block_of) in runs.items():
+        s, d = 1000, 64
+        block_k, scale = block_of(s), d ** -0.5
+        q, k, v = _all_negative(randn, 1, s, 2, d)
+        refs = plain_refs(lambda x: plain(q, k, x, scale, block_k), v)
+        pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, block_k - s))
+        judge(kern, f"ragged all-negative (1, 2, {s}, {s}, {d})",
+              quantized_error(run(q, k, v, scale, block_k), *refs),
+              {"zero_padded_keys_as_real": quantized_error(
+                  run(q, pad(k), pad(v), scale, block_k), *refs)})
+
+    # timing at full shape: K5 and K1b at the bench's, K6 and K7 at the DiT's
+    timing = {}
+    b, h, s_real, s_pad, d = BENCH_DIT
+    scale = d ** -0.5
+    valid = (torch.arange(s_pad, device="cuda") < s_real).float()
+    q, k, v = ((randn(b, s_pad, h, d) * valid[None, :, None, None]).bfloat16() for _ in range(3))
+    bshd = lambda x: x.transpose(1, 2)
+    timing["flash_lse"] = {**in_turns(
+        {"plain_ms": lambda: (attention_reference(q, k, v, scale, chunk=512),
+                              av.lse_reference(q, k, scale, chunk=512)),
+         "ms": lambda: flash_lse(q, k, v, scale),
+         "library_ms": lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+             bshd(q), bshd(k), bshd(v), scale=scale)},
+        {"plain_ms": 1, "ms": 3, "library_ms": 3}, cold=("plain_ms",)),
+        **attention_bound(b, h, s_pad, s_pad, d, extra_bytes=4 * b * h * s_pad),
+        "shape": str((b, h, s_pad, s_pad, d)),
+        "library": "aten._scaled_dot_product_flash_attention (returns the logsumexp too)"}
+    timing["flash_exp2"] = {**in_turns(
+        {"plain_ms": lambda: av.exp2_attention_reference(q, k, v, scale, valid, chunk=512),
+         "ms": lambda: flash_exp2(q, k, v, scale, valid),
+         "library_ms": lambda: sdpa_flash(q, k[:, :s_real], v[:, :s_real], scale)},
+        {"plain_ms": 1, "ms": 3, "library_ms": 3}, cold=("plain_ms",)),
+        **attention_bound(b, h, s_pad, s_real, d, extra_bytes=s_pad),
+        "shape": f"{(b, h, s_pad, s_pad, d)}, {s_real} valid keys",
+        "library": "flash SDPA over the valid keys (no clamp)"}
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    b, h, s, d = DIT_SHAPE
+    scale = d ** -0.5
+    q, k, v = (randn(b, s, h, d).bfloat16() for _ in range(3))
+    v8, vs = av.quantize_per_head(v)
+    v8t, vs = av.keys_last(v8), vs.reshape(-1)
+    q8, k8, _, logit, v127 = av.int8_operands(q, k, v, scale)
+    pv8_block, int8_block = av.pv8_block_k(s), av.int8_block_k(s)
+    yardstick = "flash SDPA: the exact attention the kernel approximates (a yardstick, not the same function)"
+    timing["flash_pv8"] = {**in_turns(
+        {"plain_ms": lambda: av.pv8_reference(q, k, v, scale, pv8_block),
+         "ms": lambda: flash_pv8(q, k, v8t, vs, scale * av.LOG2E, pv8_block),
+         "with_quantization_ms": lambda: av.pv8_attention(q, k, v, scale, pv8_block),
+         "library_ms": lambda: sdpa_flash(q, k, v, scale)},
+        {"plain_ms": 1, "ms": 3, "with_quantization_ms": 3, "library_ms": 3}, cold=("plain_ms",)),
+        **attention_bound(b, h, s, s, d, pv_int8=True), "shape": str((b, h, s, s, d)),
+        "library": yardstick}
+    timing["int8_flash_attention"] = {**in_turns(
+        {"plain_ms": lambda: av.int8_attention_reference(q, k, v, scale, int8_block),
+         "ms": lambda: int8_flash_attention(q8, k8, v8t, logit, v127, int8_block),
+         "with_quantization_ms": lambda: av.int8_attention(q, k, v, scale, int8_block),
+         "library_ms": lambda: sdpa_flash(q, k, v, scale)},
+        {"plain_ms": 1, "ms": 3, "with_quantization_ms": 3, "library_ms": 3}, cold=("plain_ms",)),
+        **attention_bound(b, h, s, s, d, pv_int8=True, qk_int8=True, in_bytes=1),
+        "shape": str((b, h, s, s, d)), "library": yardstick}
+    del q, k, v, v8, v8t, q8, k8
+    torch.cuda.empty_cache()
+
+    # K6 also carries the depth UNet's attention (run D): its level-0 shape
+    b, h, s, d = DEPTH_SHAPES["depth_9216"]
+    scale = d ** -0.5
+    q = (randn(b, s, h, d) * 4.0).bfloat16()
+    k, v = randn(b, s, h, d).bfloat16(), randn(b, s, h, d).bfloat16()
+    v8, vs = av.quantize_per_head(v)
+    v8t, vs = av.keys_last(v8), vs.reshape(-1)
+    t = in_turns({"ms": lambda: flash_pv8(q, k, v8t, vs, scale * av.LOG2E, av.pv8_block_k(s)),
+                  "library_ms": lambda: sdpa_flash(q, k, v, scale)}, {"ms": 5, "library_ms": 5})
+    depth_bound = attention_bound(b, h, s, s, d, pv_int8=True)
+    timing["flash_pv8"].update(
+        depth_shape=str((b, h, s, s, d)), depth_ms=t["ms"], depth_library_ms=t["library_ms"],
+        depth_bound_ms=depth_bound["bound_ms"], depth_sfu_ms=depth_bound["sfu_ms"])
+    log(f"flash_pv8 timed at the depth shape {(b, h, s, s, d)}: {t['ms']:.2f} ms, library "
+        f"{t['library_ms']:.2f} ms; bound {depth_bound['bound_ms']:.2f} ms, SFU "
+        f"{depth_bound['sfu_ms']:.2f} ms")
+    del q, k, v, v8, v8t
+    torch.cuda.empty_cache()
+    for kern, t in timing.items():
+        log(f"{kern} timed at {t['shape']}: {t['ms']:.2f} ms, plain {t['plain_ms']:.2f} ms, "
+            f"library {t['library_ms']:.2f} ms; bound {t['bound_ms']:.2f} ms ({t['bound_by']}),"
+            f" SFU {t['sfu_ms']:.2f} ms"
+            + (f"; with its quantization pass {t['with_quantization_ms']:.2f} ms"
+               if "with_quantization_ms" in t else ""))
+    return max_err, timing
 
 
 def _k_step_skipped(q):
@@ -334,7 +625,7 @@ def phase_int8_kernels():
     gen = torch.Generator(device="cuda").manual_seed(2)
     randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
     group = im.FF_GROUP
-    max_err = dict.fromkeys(KERNELS[2:], 0.0)
+    max_err = dict.fromkeys(INT8_KERNELS, 0.0)
     per_shape = {}
     ff1 = None
     for name, (m, k, n, bias) in INT8_SHAPES.items():
@@ -373,9 +664,10 @@ def phase_int8_kernels():
                "quantize_plain_ms": lambda: im.quantize_rows_reference(x),
                "quantize_ms": lambda: int8_quantize_rows(x),
                "gemm_ms": lambda: int8_gemm(xq, wq, xs, ws, b),
+               "int_mm_ms": lambda: torch._int_mm(xq, wq.t()),
                "bf16_linear_ms": lambda: F.linear(x, w, b)}
         iters = {"plain_ms": 2, "quantize_plain_ms": 3, "quantize_ms": 10, "gemm_ms": 10,
-                 "bf16_linear_ms": 10}
+                 "int_mm_ms": 10, "bf16_linear_ms": 10}
 
         if name == "dit_ff1":
             hq_ref, hs_ref = im.int8_matmul_gelu_quant_reference(xq, wq, xs, ws, b, group)
@@ -421,8 +713,8 @@ def phase_int8_kernels():
         ops = 2 * m * k * n
         line = (f"{name} timed: int8_quantize_rows {t['quantize_ms']:.3f} ms (plain "
                 f"{t['quantize_plain_ms']:.3f}), int8_gemm {t['gemm_ms']:.3f} ms "
-                f"({ops / t['gemm_ms'] / 1e9:.1f} TOP/s; plain {t['plain_ms']:.3f}), "
-                f"bf16 F.linear {t['bf16_linear_ms']:.3f} ms "
+                f"({ops / t['gemm_ms'] / 1e9:.1f} TOP/s; plain {t['plain_ms']:.3f}; "
+                f"torch._int_mm {t['int_mm_ms']:.3f}), bf16 F.linear {t['bf16_linear_ms']:.3f} ms "
                 f"({ops / t['bf16_linear_ms'] / 1e9:.1f} TFLOP/s)")
         if "fused_ms" in t:
             fused = "int8_gemm_gelu_quant" if name == "dit_ff1" else "int8_gemm_gscale"
@@ -434,31 +726,65 @@ def phase_int8_kernels():
     return max_err, per_shape
 
 
+def _int8_bounds(name: str, group: int) -> dict:
+    """``bound`` of each int8 kernel at INT8_SHAPES[name]: K2a reads x (bf16)
+    and writes codes and row scales; the GEMMs read the codes, the scales
+    and the bias (fp32 once converted) and write their outputs."""
+    m, k, n, bias = INT8_SHAPES[name]
+    gemm_in = m * k + n * k + 4 * m + 4 * n + (4 * n if bias else 0)
+    ops = 2.0 * m * k * n
+    return {
+        "int8_quantize_rows": bound(nbytes=2 * m * k + m * k + 4 * m),
+        "int8_gemm": bound(ops_int8=ops, nbytes=gemm_in + 2 * m * n),
+        "int8_gemm_gelu_quant": bound(ops_int8=ops, nbytes=gemm_in + m * n + 4 * m * n / group),
+        "int8_gemm_gscale": bound(ops_int8=ops, nbytes=gemm_in - 4 * m + 4 * m * k / group
+                                  + 2 * m * n),
+    }
+
+
+def _launches_per_path(runs: dict, kern: str) -> dict:
+    """A kernel's launches in each stage of each main-path run."""
+    return {f"run {r} {p}": runs[r]["per_path"][p][kern]
+            for r in runs for p in ("depth", "denoise")}
+
+
+def _run_launches(runs: dict, run: str, kern: str) -> int:
+    return sum(runs[run]["per_path"][p][kern] for p in ("depth", "denoise"))
+
+
 def _int8_entries(runs: dict, max_err: dict, per_shape: dict) -> list:
     """The int8 kernels' entries of the kernels JSON line."""
+    from trajectorycrafter_tpu_torch.ops.int8_matmul import FF_GROUP
+
     src = "trajectorycrafter_tpu_torch/csrc/"
     shape = lambda name: "(M {}, K {}, N {})".format(*INT8_SHAPES[name][:3])
-    per_path = lambda kern: {f"run {r} {p}": runs[r]["per_path"][p][kern]
-                             for r in runs for p in ("depth", "denoise")}
     entry = lambda kern, run, **kw: {
         "name": kern, "route": "cuda", "source": f"{src}{kern}.cu",
-        "replaces": TPU_KERNELS[kern],
-        "launches": sum(runs[run]["per_path"][p][kern] for p in ("depth", "denoise")),
-        "launches_run": run, "launches_per_path": per_path(kern),
+        "replaces": TPU_KERNELS[kern], "launches": _run_launches(runs, run, kern),
+        "launches_run": run, "launches_per_path": _launches_per_path(runs, kern),
         "max_abs_err": max_err[kern], **kw}
     ff1, ff2, qkvo = per_shape["dit_ff1"], per_shape["dit_ff2"], per_shape["dit_qkvo"]
     return [
         entry("int8_quantize_rows", "A", ms=qkvo["quantize_ms"],
-              plain_ms=qkvo["quantize_plain_ms"], bf16_linear_ms=qkvo["bf16_linear_ms"],
+              plain_ms=qkvo["quantize_plain_ms"], library_ms=None,
+              **_int8_bounds("dit_qkvo", FF_GROUP)["int8_quantize_rows"],
+              bf16_linear_ms=qkvo["bf16_linear_ms"],
               shape=f"x {shape('dit_qkvo')} (bf16_linear_ms: the q/k/v/out linear it feeds)"),
         entry("int8_gemm", "A", ms=ff1["gemm_ms"], plain_ms=ff1["plain_ms"],
+              library_ms=ff1["int_mm_ms"],
+              library="torch._int_mm: the int32 product only, no dequantizing epilogue",
+              **_int8_bounds("dit_ff1", FF_GROUP)["int8_gemm"],
               bf16_linear_ms=ff1["bf16_linear_ms"], shape=shape("dit_ff1"),
-              per_shape={name: {key: t[key] for key in
-                                ("quantize_ms", "gemm_ms", "plain_ms", "bf16_linear_ms")}
+              per_shape={name: {**{key: t[key] for key in
+                                   ("quantize_ms", "gemm_ms", "plain_ms", "int_mm_ms",
+                                    "bf16_linear_ms")},
+                                **_int8_bounds(name, FF_GROUP)["int8_gemm"]}
                          for name, t in per_shape.items()}),
         entry("int8_gemm_gelu_quant", "B", ms=ff1["fused_ms"], plain_ms=ff1["fused_plain_ms"],
+              library_ms=None, **_int8_bounds("dit_ff1", FF_GROUP)["int8_gemm_gelu_quant"],
               bf16_linear_ms=ff1["bf16_linear_ms"], shape=shape("dit_ff1")),
         entry("int8_gemm_gscale", "B", ms=ff2["fused_ms"], plain_ms=ff2["fused_plain_ms"],
+              library_ms=None, **_int8_bounds("dit_ff2", FF_GROUP)["int8_gemm_gscale"],
               bf16_linear_ms=ff2["bf16_linear_ms"], shape=shape("dit_ff2")),
     ]
 
@@ -469,7 +795,7 @@ def _kernel_counters():
     return [getattr(kernels, name) for name in KERNELS]
 
 
-def run_gradual(tc, run: str, depth_attn: str) -> dict:
+def run_gradual(tc, run: str, depth_attn: str, dit_attn: str) -> dict:
     """One ``infer_gradual`` with ``TRAJCRAFTER_DEPTH_ATTN=depth_attn``; the
     kernel launches of the run, split into the depth stage and the rest (the
     denoise: no other stage launches a kernel)."""
@@ -503,7 +829,8 @@ def run_gradual(tc, run: str, depth_attn: str) -> dict:
     total = time.perf_counter() - t0
     launches = {kern.__name__: kern.launches for kern in counters}
     log(f"run {run}: infer_gradual, --quant {tc.cfg.diffusion.quant}, --quant_depth "
-        f"{tc.cfg.depth.quant}, depth attention {depth_attn}: {total:.3f} s, peak device "
+        f"{tc.cfg.depth.quant}, DiT attention {dit_attn}, depth attention {depth_attn}: "
+        f"{total:.3f} s, peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for stage, sec in tc.timer.seconds.items():
         log(f"  stage {stage}: {sec:.3f} s")
@@ -552,10 +879,11 @@ def _int8_launches_per_forward(model) -> dict:
             "int8_gemm_gelu_quant": fused, "int8_gemm_gscale": fused}
 
 
-def _expected_launches(cfg, dit, unet, depth_kernel: str) -> dict:
+def _expected_launches(cfg, dit, unet, depth_kernel: str, dit_kernel: str) -> dict:
     """{stage: {kernel: launches}} of one ``infer_gradual``: one UNet forward
     per Euler step and window, one DiT forward (the CFG pair as a batch of
-    2) per denoise step."""
+    2) per denoise step, each launching ``dit_kernel`` once per block and
+    once per Perceiver."""
     from trajectorycrafter_tpu_torch.pipelines.depth import window_starts
 
     windows = len(window_starts(cfg.video_length, cfg.depth.window_size, cfg.depth.overlap))
@@ -564,7 +892,7 @@ def _expected_launches(cfg, dit, unet, depth_kernel: str) -> dict:
     depth = {name: 0 for name in KERNELS}
     depth[depth_kernel] = DEPTH_KERNEL_LAUNCHES_PER_FORWARD * unet_forwards
     denoise = {name: 0 for name in KERNELS}
-    denoise["flash_attention"] = dit_forwards * (DIT_LAYERS + DIT_LAYERS // PERCEIVER_INTERVAL)
+    denoise[dit_kernel] = dit_forwards * (DIT_LAYERS + DIT_LAYERS // PERCEIVER_INTERVAL)
     for name, n in _int8_launches_per_forward(unet).items():
         depth[name] = n * unet_forwards
     for name, n in _int8_launches_per_forward(dit).items():
@@ -575,6 +903,15 @@ def _expected_launches(cfg, dit, unet, depth_kernel: str) -> dict:
 def _set_fuse(dit, fuse) -> None:
     for block in dit.transformer_blocks:
         block.ff.fuse = fuse
+
+
+def set_impl(model, attention, int8="auto") -> None:
+    """Set every ``attention_impl`` and ``int8_impl`` of ``model``."""
+    for m in model.modules():
+        if hasattr(m, "attention_impl"):
+            m.attention_impl = attention
+        if hasattr(m, "int8_impl"):
+            m.int8_impl = int8
 
 
 def phase_main_path():
@@ -613,36 +950,46 @@ def phase_main_path():
         raise AssertionError(f"T5 prompt embeddings: shape {tuple(pe.shape)}, "
                              f"finite {bool(torch.isfinite(pe).all())}")
 
-    # run: (DiT, FF fused, UNet, --quant, --quant_depth, depth attention, its kernel)
+    # run: (DiT, FF fused, DiT attention and its kernel, UNet, --quant,
+    # --quant_depth, depth attention and its kernel)
     plans = {
-        "A": (dit8, None, unet, "int8", "none", "flash_stock", "flash_attention"),
-        "B": (dit8, True, unet8, "int8", "int8", "flash_max", "flash_maxpass"),
-        "C": (dit, None, unet, "none", "none", "flash_stock", "flash_attention"),
+        "A": (dit8, None, "auto", "flash_attention", unet, "int8", "none", "flash_stock",
+              "flash_attention"),
+        "B": (dit8, True, "auto", "flash_attention", unet8, "int8", "int8", "flash_max",
+              "flash_maxpass"),
+        "C": (dit, None, "auto", "flash_attention", unet, "none", "none", "flash_stock",
+              "flash_attention"),
+        "D": (dit8, None, "flash_pv8", "flash_pv8", unet, "int8", "none", "flash_pv8",
+              "flash_pv8"),
     }
     pipe = tc.models.depth_infer.__self__.pipe
     runs = {}
-    for run, (model, fuse, depth_unet, quant, quant_depth, depth_attn, depth_kernel) in \
-            plans.items():
+    for run, (model, fuse, dit_attn, dit_kernel, depth_unet, quant, quant_depth, depth_attn,
+              depth_kernel) in plans.items():
         tc.models.pipeline.transformer, pipe.unet = model, depth_unet
         tc.cfg.diffusion.quant, tc.cfg.depth.quant = quant, quant_depth
         _set_fuse(model, fuse)
+        set_impl(model, dit_attn)
         try:
-            want = _expected_launches(tc.cfg, model, depth_unet, depth_kernel)
-            runs[run] = run_gradual(tc, run, depth_attn)
+            want = _expected_launches(tc.cfg, model, depth_unet, depth_kernel, dit_kernel)
+            runs[run] = run_gradual(tc, run, depth_attn, dit_attn)
         finally:
             _set_fuse(model, None)
+            set_impl(model, "auto")
         if runs[run]["per_path"] != want:
             raise AssertionError(f"run {run}: kernel launches per stage "
                                  f"{runs[run]['per_path']}, expected {want}")
     tc.models.pipeline.transformer, pipe.unet = dit, unet
     tc.cfg.diffusion.quant, tc.cfg.depth.quant = cfg.diffusion.quant, cfg.depth.quant
 
-    rel = np.abs(np.log(runs["B"]["depth"] / runs["A"]["depth"]))
-    log(f"depth of runs B (int8 UNet, flash_max) and A (information): median |log ratio| "
-        f"{np.median(rel):.3e}, max {rel.max():.3e}")
-    quality = video_quality(runs["A"]["gen"] * 255.0, runs["C"]["gen"] * 255.0)
-    log(f"gen of run A (int8 DiT) against run C (bf16 DiT), information only (random "
-        f"weights, 2 steps): {json.dumps(quality)}")
+    for run, what in (("B", "int8 UNet, flash_max"), ("D", "flash_pv8")):
+        rel = np.abs(np.log(runs[run]["depth"] / runs["A"]["depth"]))
+        log(f"depth of runs {run} ({what}) and A (information): median |log ratio| "
+            f"{np.median(rel):.3e}, max {rel.max():.3e}")
+    for run, what in (("C", "bf16 DiT"), ("D", "int8 DiT on flash_pv8")):
+        quality = video_quality(runs["A"]["gen"] * 255.0, runs[run]["gen"] * 255.0)
+        log(f"gen of run A (int8 DiT) against run {run} ({what}), information only (random "
+            f"weights, 2 steps): {json.dumps(quality)}")
     return tc, runs, (dit8, unet8)
 
 
@@ -651,14 +998,7 @@ def phase_whole_models(tc, dit8, unet8):
     small inputs: kernels against the plain versions."""
     import torch
 
-    from trajectorycrafter_tpu_torch.ops.kernels import flash_attention, flash_maxpass
-
-    def set_impl(model, attention, int8="auto"):
-        for m in model.modules():
-            if hasattr(m, "attention_impl"):
-                m.attention_impl = attention
-            if hasattr(m, "int8_impl"):
-                m.int8_impl = int8
+    from trajectorycrafter_tpu_torch.ops.kernels import flash_attention, flash_maxpass, flash_pv8
 
     def held(label, out_kernel, out_plain, limit):
         rel = ((out_kernel - out_plain).abs().max() / out_plain.abs().max()).item()
@@ -690,6 +1030,21 @@ def phase_whole_models(tc, dit8, unet8):
             _set_fuse(model, None)
             held(f"{label}, {DIT_LAYERS} layers on {(b, f, h, w)}: kernels vs plain",
                  out_kernel, out_plain, DIT_REL_TOL)
+        # the DiT on flash_pv8: K6 against its plain version (flash_pv8_reference)
+        model = tc.models.pipeline.transformer
+        outs = {}
+        for impl in ("flash_pv8", "flash_pv8_reference"):
+            set_impl(model, impl)
+            before = flash_pv8.launches
+            outs[impl] = model(*args, **kwargs).float()
+            torch.cuda.synchronize()
+            expected = DIT_LAYERS + DIT_LAYERS // PERCEIVER_INTERVAL if impl == "flash_pv8" else 0
+            if flash_pv8.launches - before != expected:
+                raise AssertionError(f"bf16 DiT with {impl}: {flash_pv8.launches - before} "
+                                     f"flash_pv8 launches, expected {expected}")
+        set_impl(model, "auto")
+        held(f"bf16 DiT on flash_pv8, {DIT_LAYERS} layers on {(b, f, h, w)}: kernel vs plain",
+             outs["flash_pv8"], outs["flash_pv8_reference"], DIT_REL_TOL)
 
     f, h, w = 2, 72, 128
     args = (randn(1, f, h, w, 8), torch.full((1,), 1.6, device="cuda"),
@@ -714,6 +1069,35 @@ def phase_whole_models(tc, dit8, unet8):
                      outs[impl], outs["reference"], UNET_REL_TOL)
 
 
+def phase_bench() -> dict:
+    """The attention bench, once, through its entry point; returns each
+    kernel's launches in that run (the counts set to 0 just before it)."""
+    from trajectorycrafter_tpu_torch import bench_attention
+
+    counters = _kernel_counters()
+    for kern in counters:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    bench_attention.main([])
+    launches = {kern.__name__: kern.launches for kern in counters}
+    log(f"attention bench: {time.perf_counter() - t0:.1f} s; kernel launches "
+        f"{json.dumps(launches)}")
+    idle = [name for name in ("flash_attention", "flash_maxpass", *VARIANTS) if not launches[name]]
+    if idle:
+        raise AssertionError(f"the attention bench launched no {idle}")
+    return launches
+
+
+def _attention_entry(name: str, t: dict, **kw) -> dict:
+    """An attention kernel's entry of the kernels JSON line."""
+    src = "trajectorycrafter_tpu_torch/csrc/"
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "sfu_ms")
+    return {"name": name, "route": "cuda", "source": f"{src}{SOURCE_OF.get(name, name)}.cu",
+            "replaces": TPU_KERNELS[name], **kw, **{key: t[key] for key in keys},
+            **{key: t[key] for key in t
+               if key in ("shape", "library", "with_quantization_ms") or key.startswith("depth_")}}
+
+
 def main() -> None:
     os.chdir(REPO)
     sys.path.insert(0, str(REPO))
@@ -722,38 +1106,46 @@ def main() -> None:
     phase_build()
     max_err, timing = phase_kernels()
     int8_err, int8_timing = phase_int8_kernels()
+    variant_err, variant_timing = phase_variants()
     tc, runs, (dit8, unet8) = phase_main_path()
     phase_whole_models(tc, dit8, unet8)
+    bench = phase_bench()
 
     import torch
 
-    per_path = lambda run, kern: {p: runs[run]["per_path"][p][kern] for p in ("depth", "denoise")}
-    src = "trajectorycrafter_tpu_torch/csrc/"
-    print(json.dumps({"kernels": [
-        {"name": "flash_attention", "route": "cuda", "source": src + "flash_attention.cu",
-         "replaces": TPU_KERNELS["flash_attention"],
-         "also_replaces": "trajectorycrafter_tpu/ops/attention.py:39",
-         "launches": sum(per_path("A", "flash_attention").values()),
-         "launches_run": "A",
-         "launches_per_path": {f"run {r} {p}": n for r in runs
-                               for p, n in per_path(r, "flash_attention").items()},
-         "max_abs_err": max_err["flash_attention"],
-         "ms": timing["dit"]["ms"], "plain_ms": timing["dit"]["plain_ms"],
-         "shape": "(2, 48, 13330, 13330, 64)",
-         "depth_ms": timing["depth"]["flash_attention"],
-         "depth_plain_ms": timing["depth"]["plain_ms"],
-         "depth_shape": "(49, 5, 9216, 9216, 64)"},
-        {"name": "flash_maxpass", "route": "cuda", "source": src + "flash_maxpass.cu",
-         "replaces": TPU_KERNELS["flash_maxpass"],
-         "launches": sum(per_path("B", "flash_maxpass").values()),
-         "launches_run": "B (TRAJCRAFTER_DEPTH_ATTN=flash_max)",
-         "launches_per_path": {f"run {r} {p}": n for r in runs
-                               for p, n in per_path(r, "flash_maxpass").items()},
-         "max_abs_err": max_err["flash_maxpass"],
-         "ms": timing["depth"]["flash_maxpass"], "plain_ms": timing["depth"]["plain_ms"],
-         "shape": "(49, 5, 9216, 9216, 64)"},
+    per_path = lambda kern: _launches_per_path(runs, kern)
+    run_launches = lambda run, kern: _run_launches(runs, run, kern)
+    depth = timing["depth"]
+    sdpa = "flash SDPA"
+    kernels_line = [
+        _attention_entry(
+            "flash_attention", {**timing["dit"], "shape": "(2, 48, 13330, 13330, 64)",
+                                "library": sdpa},
+            also_replaces="trajectorycrafter_tpu/ops/attention.py:39",
+            launches=run_launches("A", "flash_attention"), launches_run="A",
+            launches_per_path=per_path("flash_attention"),
+            bench_launches=bench["flash_attention"], max_abs_err=max_err["flash_attention"],
+            depth_shape="(49, 5, 9216, 9216, 64)", depth_ms=depth["flash_attention"],
+            depth_plain_ms=depth["plain_ms"], depth_library_ms=depth["library_ms"],
+            depth_bound_ms=depth["bound_ms"], depth_sfu_ms=depth["sfu_ms"]),
+        _attention_entry(
+            "flash_maxpass", {**depth, "ms": depth["flash_maxpass"],
+                              "shape": "(49, 5, 9216, 9216, 64)", "library": sdpa},
+            launches=run_launches("B", "flash_maxpass"),
+            launches_run="B (TRAJCRAFTER_DEPTH_ATTN=flash_max)",
+            launches_per_path=per_path("flash_maxpass"), bench_launches=bench["flash_maxpass"],
+            max_abs_err=max_err["flash_maxpass"]),
         *_int8_entries(runs, int8_err, int8_timing),
-    ]}), flush=True)
+        *(_attention_entry(name, variant_timing[name], launches=bench[name],
+                           launches_run="the attention bench", max_abs_err=variant_err[name])
+          for name in ("flash_exp2", "flash_lse", "int8_flash_attention")),
+        _attention_entry("flash_pv8", variant_timing["flash_pv8"],
+                         launches=run_launches("D", "flash_pv8"),
+                         launches_run="D (attention_impl and TRAJCRAFTER_DEPTH_ATTN flash_pv8)",
+                         launches_per_path=per_path("flash_pv8"),
+                         bench_launches=bench["flash_pv8"], max_abs_err=variant_err["flash_pv8"]),
+    ]
+    print(json.dumps({"kernels": kernels_line}), flush=True)
     log(f"chip smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ The plain version is also held against the two-pass kernel
 ``flash_attention_maxpass`` in interpret mode (K4b, the depth UNet's opt-in
 kernel), at unbounded scores, all-negative score rows and padded keys.  The
 depth UNet's routing rule (which attention shapes launch a kernel) is
-checked from its shapes at 576x1024.
+checked from its shapes at 576x1024; ``flash_pv8`` is routed there too.
 
 The tolerance the CUDA kernels are held to on the card (``attention_error``)
 is checked here too: it passes a sound bf16 answer and fails planted faults.
@@ -38,10 +38,14 @@ from trajectorycrafter_tpu_torch.ops.attention import (
     maxpass_plain_inputs,
     multi_head_attention,
 )
+from trajectorycrafter_tpu_torch.ops.attention_variants import pv8_block_k, pv8_reference
 from trajectorycrafter_tpu_torch.ops.kernels import (
     FLASH_KEY_TILE,
     flash_attention,
+    flash_exp2,
+    flash_lse,
     flash_maxpass,
+    flash_pv8,
 )
 
 torch.set_num_threads(1)
@@ -107,6 +111,22 @@ def test_multi_head_attention_takes_plain_version_on_cpu():
         assert got.shape == (2, 33, 4 * 64)
         torch.testing.assert_close(got, want, atol=0, rtol=0)
     assert (flash_attention.launches, flash_maxpass.launches) == before
+
+
+def test_flash_pv8_takes_its_plain_version_on_cpu():
+    """``flash_pv8`` computes K6's quantized function, not the exact
+    attention: on CPU tensors it takes K6's plain version (with the JAX
+    dispatch's key block), as ``flash_pv8_reference`` does on any device,
+    and launches nothing."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 2, 4, 33, 21, 64))
+    before = flash_pv8.launches
+    want = pv8_reference(q, k, v, 0.2, pv8_block_k(33)).reshape(2, 33, 4 * 64)
+    for impl in ("flash_pv8", "flash_pv8_reference"):
+        got = multi_head_attention(q, k, v, scale=0.2, impl=impl)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert flash_pv8.launches == before
+    exact = multi_head_attention(q, k, v, scale=0.2, impl="reference")
+    assert (got - exact).abs().max() > 1e-3  # a function of its own
 
 
 @pytest.mark.parametrize("case", ["unbounded", "all_negative", "padded_keys"])
@@ -180,8 +200,11 @@ def test_depth_unet_routing_rule(monkeypatch):
     monkeypatch.setenv(DEPTH_ATTN_ENV, "flash_max")
     assert depth_attention_impl(9216, 9216, True) == "flash_max"
     assert depth_attention_impl(9216, 9216, True, "flash_stock") == "flash_stock"
-    monkeypatch.setenv(DEPTH_ATTN_ENV, "flash_pv8")
-    with pytest.raises(ValueError, match="flash_pv8"):
+    monkeypatch.setenv(DEPTH_ATTN_ENV, "flash_pv8")  # routed, as the JAX UNet passes it on
+    assert depth_attention_impl(9216, 9216, True) == "flash_pv8"
+    assert depth_attention_impl(576, 576, True) == "xla"
+    monkeypatch.setenv(DEPTH_ATTN_ENV, "flash_bogus")
+    with pytest.raises(ValueError, match="flash_bogus"):
         depth_attention_impl(9216, 9216, True)
     monkeypatch.delenv(DEPTH_ATTN_ENV)
 
@@ -237,10 +260,26 @@ def test_attention_error_passes_sound_and_rejects_planted_faults(shape, gain):
 def test_dispatch_and_wrapper_reject_what_they_do_not_take():
     q, k, v = (torch.from_numpy(x) for x in _qkv(3, 1, 2, 8, 8, 64))
     with pytest.raises(ValueError, match="unknown attention impl"):
-        multi_head_attention(q, k, v, impl="flash_pv8")  # K6, not ported
+        multi_head_attention(q, k, v, impl="ring")  # multi-chip, not ported
     # the kernel wrappers take CUDA tensors only: they never fall back
-    for wrapper in (flash_attention, flash_maxpass):
+    for wrapper in (flash_attention, flash_maxpass, flash_lse, flash_exp2):
         before = wrapper.launches
         with pytest.raises(ValueError, match="CUDA"):
             wrapper(q.bfloat16(), k.bfloat16(), v.bfloat16(), 0.125)
         assert wrapper.launches == before
+
+
+def test_quantized_wrappers_reject_cpu_tensors():
+    """K6's and K7's wrappers take CUDA tensors only, as the others do."""
+    from trajectorycrafter_tpu_torch.ops.attention_variants import keys_last, quantize_per_head
+    from trajectorycrafter_tpu_torch.ops.kernels import int8_flash_attention
+
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(3, 1, 2, 8, 8, 64))
+    v8, vs = quantize_per_head(v)
+    q8, _ = quantize_per_head(q)
+    for call in (lambda: flash_pv8(q, k, keys_last(v8), vs.reshape(-1), 0.18, 512),
+                 lambda: int8_flash_attention(q8, q8, keys_last(v8), vs.reshape(-1),
+                                              vs.reshape(-1), 128)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert flash_pv8.launches == 0 and int8_flash_attention.launches == 0

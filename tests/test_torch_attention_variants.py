@@ -1,0 +1,196 @@
+"""The port's attention variants (trajectorycrafter_tpu_torch/ops/
+attention_variants.py) vs the JAX package's Pallas kernels in interpret mode.
+
+Plain versions of K5 (``flash_attention_with_lse``), K1b
+(``flash_attention_exp2``), K6 (``flash_attention_exp2_t_pv8``) and K7
+(``int8_flash_attention``) against the JAX functions, and the port's
+``multi_head_attention(impl="flash_pv8")`` against the JAX dispatch with
+the Pallas kernel patched to interpret mode.  Inputs are fp32 from
+``np.random.default_rng``; each side runs in fp32 on the CPU.
+
+Tolerances:
+  * K5 and K1b: 1e-5 absolute on outputs of O(1) (fp32 softmax on both
+    sides, summed in another order), 1e-5 relative on the lse.
+  * K6 and K7 quantize the softmax weights to integer codes p8 = rint(.):
+    where the two sides' fp32 scores (K6: q'.k summed in another order) or
+    exponentials (K7: XLA's and torch's exp) differ in their last bit on a
+    rounding boundary of the code, one code moves by 1, which moves that
+    row's output by |v| / (the row's code sum) -- at most ~1e-2 at these
+    shapes.  So the outputs agree to 1e-5 on all but a few elements (at most
+    0.1%), and every element within 2e-2.
+"""
+
+import unittest.mock as mock
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from trajectorycrafter_tpu.ops import attention as jax_attention
+from trajectorycrafter_tpu.ops.pallas import flash_pv8 as jax_flash_pv8
+from trajectorycrafter_tpu.ops.pallas.flash_exp2 import flash_attention_exp2 as jax_exp2
+from trajectorycrafter_tpu.ops.pallas.flash_lse import flash_attention_with_lse as jax_lse
+from trajectorycrafter_tpu.ops.pallas.int8_flash_attention import int8_flash_attention as jax_int8
+from trajectorycrafter_tpu_torch.ops import attention_variants as av
+from trajectorycrafter_tpu_torch.ops.attention import multi_head_attention
+from trajectorycrafter_tpu_torch.ops.kernels import flash_pv8, int8_flash_attention
+
+torch.set_num_threads(1)
+QUANT_CLOSE, QUANT_FAR, QUANT_SHARE = 1e-5, 2e-2, 1e-3
+
+
+def _rng_bhsd(seed, b, h, s, d, n=3):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(n)]
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
+
+
+def _assert_quantized_close(got, want):
+    """The quantized tolerance of the module docstring."""
+    err = np.abs(np.asarray(got, np.float32) - np.asarray(want, np.float32))
+    assert np.isfinite(got).all() and got.shape == want.shape
+    assert err.max() <= QUANT_FAR, err.max()
+    assert (err > QUANT_CLOSE).mean() <= QUANT_SHARE, (err > QUANT_CLOSE).mean()
+
+
+# ----------------------------------------------------------------------------
+# K6: flash_pv8
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s,pad,d,block_k,case", [
+    (256, 0, 64, 128, "random"),
+    (256, 40, 64, 128, "random"),  # padded keys
+    (256, 40, 64, 128, "all_negative"),  # pad must not win the block max
+    (1024, 124, 64, 512, "random"),
+    (384, 130, 128, 128, "random"),  # the Perceiver's head dim
+], ids=["bk128", "bk128_pad40", "bk128_all_negative", "bk512_pad124", "d128_pad130"])
+def test_pv8_plain_matches_jax_interpret(s, pad, d, block_k, case):
+    b, h = 1, 2
+    q, k, v = _rng_bhsd(3, b, h, s, d)
+    if case == "all_negative":
+        rng = np.random.default_rng(4)
+        u = np.full(d, d ** -0.5, np.float32)
+        q = (u + 0.01 * rng.standard_normal((b, h, s, d))).astype(np.float32)
+        k = (-80.0 * u + 0.01 * rng.standard_normal((b, h, s, d))).astype(np.float32)
+    valid = s - pad
+    k[:, :, valid:] = 0.0
+    v[:, :, valid:] = 0.0
+    scale = d ** -0.5
+    want = jax_flash_pv8.flash_attention_exp2_t_pv8(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_pad=pad, sm_scale=scale,
+        block_q=128, block_k=block_k, interpret=True)
+    want = np.asarray(jnp.swapaxes(want, 2, 3))
+    tq, tk, tv = _t(q, k[:, :, :valid], v[:, :, :valid])
+    got = av.flash_attention_exp2_t_pv8(tq, tk, tv, sm_scale=scale, block_k=block_k).numpy()
+    if case == "all_negative":
+        assert np.abs(got).max() > 0.01, "all-zeros output: a pad key won the block max"
+    _assert_quantized_close(got, want)
+
+
+@pytest.mark.parametrize("s", [200, 2100], ids=["s200_block512", "s2100_block1024"])
+def test_flash_pv8_dispatch_matches_jax_dispatch(s):
+    """``multi_head_attention(impl="flash_pv8")`` on CPU tensors against the
+    JAX dispatch (which pads to its blocks and passes ``kv_pad``) with the
+    Pallas kernel in interpret mode: 512-key blocks below 2,048 queries,
+    1,024-key blocks from 2,048 on.  No kernel launches."""
+    b, h, d = 1, 1, 64
+    q, k, v = (np.swapaxes(x, 1, 2) for x in _rng_bhsd(5, b, h, s, d))  # (B, S, H, D)
+    orig = jax_flash_pv8.flash_attention_exp2_t_pv8
+
+    def interp(*a, **kw):
+        return orig(*a, **{**kw, "interpret": True})
+
+    with mock.patch.object(jax_flash_pv8, "flash_attention_exp2_t_pv8", interp):
+        want = np.asarray(jax_attention.multi_head_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="flash_pv8"))
+    before = flash_pv8.launches
+    got = multi_head_attention(*_t(q, k, v), impl="flash_pv8").numpy()
+    assert flash_pv8.launches == before
+    assert got.shape == (b, s, h * d)
+    _assert_quantized_close(got, want)
+
+
+# ----------------------------------------------------------------------------
+# K7: int8 flash attention
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s", [200, 256, 384])
+def test_int8_attention_plain_matches_jax_interpret(s):
+    b, h, d = 1, 2, 64
+    q, k, v = _rng_bhsd(6, b, h, s, d)
+    want = np.asarray(jax_int8(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    before = int8_flash_attention.launches
+    got = av.int8_flash_attention(*_t(q, k, v)).numpy()
+    assert int8_flash_attention.launches == before
+    _assert_quantized_close(got, want)
+
+
+# ----------------------------------------------------------------------------
+# K5: attention with its logsumexp; K1b: exp2 attention with a fixed bias
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sq,skv,d", [(256, 256, 64), (128, 384, 128)])
+def test_lse_plain_matches_jax_interpret(sq, skv, d):
+    b, h = 1, 2
+    q, = _rng_bhsd(7, b, h, sq, d, n=1)
+    k, v = _rng_bhsd(8, b, h, skv, d, n=2)
+    k[:, :, -30:] = 0.0  # zero keys count, with score 0, on both sides
+    out_j, lse_j = jax_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           block_q=128, block_k=128, interpret=True)
+    out, lse = av.flash_attention_with_lse(*_t(q, k, v))
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=0, rtol=1e-5)
+    out_f, lse_f = av.flash_lse_inner(*_t(q, k, v), d ** -0.5)
+    assert out_f.dtype == torch.float32 and torch.equal(lse_f, lse)
+
+
+@pytest.mark.parametrize("bias,clamp,gain,masked", [
+    (0.0, True, 1.0, 0),
+    (3.0, True, 1.0, 56),  # a nonzero bias and kv_valid
+    (0.0, True, 30.0, 56),  # scores above 110: the clamp changes the answer
+    (0.0, False, 1.0, 56),
+], ids=["plain", "bias_valid", "clamped", "no_clamp"])
+def test_exp2_plain_matches_jax_interpret(bias, clamp, gain, masked):
+    b, h, s, d = 1, 2, 256, 64
+    q, k, v = _rng_bhsd(9, b, h, s, d)
+    q = q * gain
+    valid = (np.arange(s) < s - masked).astype(np.float32)
+    want = np.asarray(jax_exp2(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               kv_valid=jnp.asarray(valid), bias=bias, clamp=clamp,
+                               block_q=128, block_k=128, interpret=True))
+    got = av.flash_attention_exp2(*_t(q, k, v), kv_valid=torch.from_numpy(valid), bias=bias,
+                                  clamp=clamp).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    if gain > 1.0:  # the clamp engaged: without it exp2 overflows or weighs otherwise
+        unclamped = av.flash_attention_exp2(*_t(q, k, v), kv_valid=torch.from_numpy(valid),
+                                            clamp=False).numpy()
+        assert not np.allclose(unclamped, want, atol=0.1)
+
+
+def test_plain_versions_use_the_jax_key_blocks():
+    """The block rules: K6 as the JAX dispatch picks it, K7 as the JAX
+    function does."""
+    assert [av.pv8_block_k(s) for s in (200, 2047, 2048, 13330)] == [512, 512, 1024, 1024]
+    assert [av.int8_block_k(s) for s in (1, 100, 200, 256, 384, 1000, 13330)] == \
+        [128, 128, 256, 256, 512, 1024, 1024]
+
+
+def test_quantize_per_head_matches_jax():
+    """q, k, v quantization per (batch, head) of both quantized kernels."""
+    from trajectorycrafter_tpu.ops.pallas.int8_flash_attention import _quantize
+
+    x, = _rng_bhsd(10, 2, 3, 50, 64, n=1)
+    x[1, 2] = 0.0  # an all-zero head: scale 1e-8 / 127
+    want_q, want_s = (np.asarray(a) for a in _quantize(jnp.asarray(x)))
+    got_q, got_s = av.quantize_per_head(torch.from_numpy(np.swapaxes(x, 1, 2).copy()))
+    np.testing.assert_allclose(got_s.numpy(), want_s, rtol=2e-7, atol=0)
+    diff = np.abs(np.swapaxes(got_q.numpy(), 1, 2).astype(int) - want_q.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3

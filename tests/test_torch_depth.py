@@ -31,7 +31,7 @@ import pytest
 import torch
 from torch_parity import fill_from_numpy_, jax_tree
 
-from trajectorycrafter_tpu.cli import config_from_args, get_parser
+from trajectorycrafter_tpu_torch.cli import config_from_args, get_parser
 from trajectorycrafter_tpu.models.clip import CLIPVisionConfig
 from trajectorycrafter_tpu.models.clip import CLIPVisionModelWithProjection as JaxCLIP
 from trajectorycrafter_tpu.models.depthcrafter import UNetSpatioTemporalConditionModel as JaxUNet

@@ -118,3 +118,44 @@ def test_timestep_embedding_matches_jax():
     got = timestep_embedding(torch.from_numpy(t), 3072).numpy()
     # sin/cos of arguments up to 999 rad: fp32 argument rounding is ~6e-5
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+
+
+def test_dit_flash_pv8_matches_jax():
+    """``attention_impl="flash_pv8"`` on both sides: the joint self-attention
+    and the Perceivers run K6's function (the port's plain version on the
+    CPU, the JAX Pallas kernel in interpret mode, patched in as
+    tests/test_int8_attention.py does).  Tolerance as the exact model's
+    plus K6's: a softmax code that the two sides' fp32 scores round
+    differently moves an attention output by |v| / (its row's code sum), and
+    four blocks carry that on; 2e-3 absolute on O(1) outputs, and the
+    output moves well beyond it against the exact-attention model."""
+    import unittest.mock as mock
+
+    from trajectorycrafter_tpu.ops.pallas import flash_pv8 as jax_flash_pv8
+
+    rope = jax_rope_for_sample(16, 8 * 8, 12 * 8, 3)
+    jmodel = JaxDiT(**TINY, attention_impl="flash_pv8")
+    make = lambda: CrossTransformer3DModel(**TINY, attention_impl="flash_pv8")
+    params = jax_tree(make(), 0, convert_dit, num_layers=TINY["num_layers"])
+    tmodel = make()
+    tmodel.load_state_dict(dit_from_jax(params), strict=True)
+    args = _inputs(1)
+    orig = jax_flash_pv8.flash_attention_exp2_t_pv8
+
+    def interp(*a, **kw):
+        return orig(*a, **{**kw, "interpret": True})
+
+    with mock.patch.object(jax_flash_pv8, "flash_attention_exp2_t_pv8", interp):
+        want = np.asarray(jax.jit(jmodel.apply)(
+            {"params": params}, *(jnp.asarray(a) for a in args),
+            image_rotary_emb=tuple(jnp.asarray(t) for t in rope)))
+    trope = tuple(torch.from_numpy(t) for t in rope)
+    with torch.no_grad():
+        got = tmodel.eval()(*(torch.from_numpy(a) for a in args), image_rotary_emb=trope).numpy()
+        for m in tmodel.modules():
+            if hasattr(m, "attention_impl"):
+                m.attention_impl = "reference"
+        exact = tmodel(*(torch.from_numpy(a) for a in args), image_rotary_emb=trope).numpy()
+    assert got.shape == (1, 3, 8, 12, 4)
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
+    assert np.abs(exact - want).max() > 1e-2

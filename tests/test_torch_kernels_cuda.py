@@ -29,22 +29,42 @@ cut in M, with odd M.  At the feed-forward shapes the bounds must reject the
 planted faults: a K step of 32 skipped, the bias dropped and the column
 scales shifted by one (K2b, K3b); a group of 512 columns in place of 1,024
 and the gelu dropped (K3a).
+
+The attention variants (ops/attention_variants.py): ``flash_lse`` (K5) by
+``attention_error`` and ``lse_error``, ``flash_exp2`` (K1b) by
+``output_error``, ``flash_pv8`` (K6) and ``int8_flash_attention`` (K7) by
+``quantized_error``, each against its own plain version, at the shapes
+chip_smoke.py checks (heads or frames cut) and ragged ones; the bounds
+reject an lse in base 2, a dropped clamp, a row sum off by 10%, the last
+quarter of the key blocks skipped and zero-padded keys taken as real ones
+where every score is negative.
 """
+
+import math
 
 import pytest
 import torch
 
+from trajectorycrafter_tpu_torch.ops import attention_variants as av
 from trajectorycrafter_tpu_torch.ops.attention import (
     attention_error,
     kernel_error,
+    lse_error,
     multi_head_attention,
+    output_error,
+    plain_refs,
+    quantized_error,
 )
 from trajectorycrafter_tpu_torch.ops import int8_matmul as im
 from trajectorycrafter_tpu_torch.ops.int8 import quantize_dense
 from trajectorycrafter_tpu_torch.ops.kernels import (
     FLASH_KEY_TILE,
     flash_attention,
+    flash_exp2,
+    flash_lse,
     flash_maxpass,
+    flash_pv8,
+    int8_flash_attention,
     int8_gemm,
     int8_gemm_gelu_quant,
     int8_gemm_gscale,
@@ -341,3 +361,151 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(gen):
         int8_gemm_gscale(xq, wq, torch.ones((64, 2), device="cuda"), ws, b, 96)
     with pytest.raises(ValueError, match="CUDA"):
         int8_gemm(xq.cpu(), wq, xs, ws, b)
+
+
+# ----------------------------------------------------------------------------
+# the attention variants: K5 (flash_lse), K1b (flash_exp2), K6 (flash_pv8),
+# K7 (int8_flash_attention), each held to its plain version with
+# ops/attention.py's bounds (attention_error / output_error, lse_error,
+# quantized_error)
+# ----------------------------------------------------------------------------
+
+
+def _pv8_plain(q, k, block_k):
+    return lambda x: av.pv8_reference(q, k, x, q.shape[-1] ** -0.5, block_k)
+
+
+def _int8_plain(q, k, block_k):
+    return lambda x: av.int8_attention_reference(q, k, x, q.shape[-1] ** -0.5, block_k)
+
+
+def _all_negative(gen, b, s, h, d):
+    """q along +u, k along -80 u (|u| = 1): at d = 64 every score q.k / 8
+    lies near -10."""
+    u = torch.full((d,), d ** -0.5, device="cuda")
+    q = u + 0.3 * torch.randn((b, s, h, d), generator=gen, device="cuda") * d ** -0.5
+    k = -80.0 * u + torch.randn((b, s, h, d), generator=gen, device="cuda") * d ** -0.5
+    return q.bfloat16(), k.bfloat16(), _randn(gen, b, s, h, d)
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,gain", [
+    (1, 4, 30720, 30720, 64, 1.0),  # the bench's DiT shape, heads cut
+    (1, 2, 1000, 777, 64, 4.0),
+    (2, 3, 17, 129, 128, 2.0),
+    (1, 1, 1, 1, 64, 1.0),
+])
+def test_lse_kernel_matches_plain(gen, b, h, sq, skv, d, gain):
+    q = _randn(gen, b, sq, h, d, gain=gain)
+    k, v = _randn(gen, b, skv, h, d), _randn(gen, b, skv, h, d)
+    out, lse = _counted(flash_lse, q, k, v, d ** -0.5)
+    _check(out, q, k, v, d ** -0.5)
+    readings = lse_error(lse, q, k, d ** -0.5)
+    assert lse.shape == (b, h, sq) and readings["ok"], readings
+    assert not lse_error(lse / math.log(2.0), q, k, d ** -0.5)["ok"]  # lse in base 2
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,gain,masked", [
+    (1, 4, 30720, 30720, 64, 1.0, 542),  # the bench's DiT shape: 30,178 real keys
+    (1, 2, 1000, 777, 64, 1.0, 100),
+    (2, 3, 17, 129, 128, 2.0, 0),
+])
+def test_exp2_kernel_matches_plain(gen, b, h, sq, skv, d, gain, masked):
+    q = _randn(gen, b, sq, h, d, gain=gain)
+    k, v = _randn(gen, b, skv, h, d), _randn(gen, b, skv, h, d)
+    valid = (torch.arange(skv, device="cuda") < skv - masked).float() if masked else None
+    scale = d ** -0.5
+    out = _counted(flash_exp2, q, k, v, scale, valid, 0.5, True)
+    plain = lambda x: av.exp2_attention_reference(q, k, x, scale, valid, 0.5, True)
+    readings = output_error(out, *plain_refs(plain, v))
+    assert readings["ok"], readings
+
+
+def test_exp2_tolerance_rejects_a_dropped_clamp(gen):
+    """Scores up to ~120 in the exp2 domain: the clamp at 110 changes the
+    function, and the kernel run without it fails the bound."""
+    b, h, s, d = 1, 2, 4096, 64
+    q, k, v = _randn(gen, b, s, h, d, gain=20.0), _randn(gen, b, s, h, d), _randn(gen, b, s, h, d)
+    scale = d ** -0.5
+    plain = lambda x: av.exp2_attention_reference(q, k, x, scale)
+    refs = plain_refs(plain, v)
+    assert output_error(flash_exp2(q, k, v, scale), *refs)["ok"]
+    assert not output_error(flash_exp2(q, k, v, scale, clamp=False), *refs)["ok"]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,gain", [
+    (1, 8, 13330, 13330, 64, 1.0),  # the DiT self-attention, heads cut
+    (2, 16, 13104, 3024, 128, 4.0),  # the Perceiver
+    (2, 5, 9216, 9216, 64, 4.0),  # depth level 0, frames cut
+    (8, 10, 2304, 2304, 64, 4.0),  # depth level 1, frames cut
+    (1, 2, 200, 200, 64, 1.0), (2, 3, 17, 129, 128, 2.0),
+])
+def test_pv8_kernel_matches_plain(gen, b, h, sq, skv, d, gain):
+    q = _randn(gen, b, sq, h, d, gain=gain)
+    k, v = _randn(gen, b, skv, h, d), _randn(gen, b, skv, h, d)
+    block_k = av.pv8_block_k(sq)
+    before = flash_pv8.launches
+    out = av.pv8_attention(q, k, v, d ** -0.5, block_k)
+    torch.cuda.synchronize()
+    assert flash_pv8.launches == before + 1
+    readings = quantized_error(out, *plain_refs(_pv8_plain(q, k, block_k), v))
+    assert readings["ok"], readings
+
+
+@pytest.mark.parametrize("b,h,s,d", [
+    (1, 8, 13330, 64),  # the DiT shape, heads cut
+    (1, 2, 200, 64), (1, 2, 384, 64), (2, 3, 129, 128),
+])
+def test_int8_attention_kernel_matches_plain(gen, b, h, s, d):
+    q, k, v = (_randn(gen, b, s, h, d) for _ in range(3))
+    block_k = av.int8_block_k(s)
+    before = int8_flash_attention.launches
+    out = av.int8_attention(q, k, v, d ** -0.5, block_k)
+    torch.cuda.synchronize()
+    assert int8_flash_attention.launches == before + 1
+    readings = quantized_error(out, *plain_refs(_int8_plain(q, k, block_k), v))
+    assert readings["ok"], readings
+
+
+@pytest.mark.parametrize("variant", ["pv8", "int8"])
+def test_quantized_tolerances_reject_planted_faults(gen, variant):
+    """At the DiT shape (heads cut): a row sum off by 10% and the last quarter
+    of the key blocks skipped; at a ragged shape with every score negative,
+    zero-padded keys passed as real keys."""
+    b, h, s, d = 1, 4, 13330, 64
+    run, plain, block_k = ((av.pv8_attention, _pv8_plain, av.pv8_block_k(s))
+                           if variant == "pv8" else
+                           (av.int8_attention, _int8_plain, av.int8_block_k(s)))
+    q, k, v = (_randn(gen, b, s, h, d) for _ in range(3))
+    out = run(q, k, v, d ** -0.5, block_k)
+    refs = plain_refs(plain(q, k, block_k), v)
+    assert quantized_error(out, *refs)["ok"]
+    assert not quantized_error((out.float() / 1.1).bfloat16(), *refs)["ok"]
+    blocks = -(-s // block_k)
+    keep = (blocks - -(-blocks // 4)) * block_k
+    skipped = run(q, k[:, :keep], v[:, :keep], d ** -0.5, block_k)
+    assert not quantized_error(skipped, *refs)["ok"]
+
+    s = 1000
+    q, k, v = _all_negative(gen, 1, s, 2, d)
+    block_k = av.pv8_block_k(s) if variant == "pv8" else av.int8_block_k(s)
+    out = run(q, k, v, d ** -0.5, block_k)
+    refs = plain_refs(plain(q, k, block_k), v)
+    assert quantized_error(out, *refs)["ok"]
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, block_k - s))
+    padded = run(q, pad(k), pad(v), d ** -0.5, block_k)
+    assert not quantized_error(padded, *refs)["ok"]
+
+
+def test_attention_variant_wrappers_reject_what_the_kernels_do_not_take(gen):
+    q = _randn(gen, 1, 64, 2, 64)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_lse(q.float(), q.float(), q.float(), 0.125)
+    with pytest.raises(ValueError, match="kv_valid"):
+        flash_exp2(q, q, q, 0.125, torch.ones(3, device="cuda"))
+    v8, vs = av.quantize_per_head(q)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        flash_pv8(q, q, av.keys_last(v8)[:, :, :32].contiguous(), vs.reshape(-1), 0.18, 512)
+    with pytest.raises(ValueError, match="block_k"):
+        flash_pv8(q, q, av.keys_last(v8), vs.reshape(-1), 0.18, 100)
+    with pytest.raises(ValueError, match="int8"):
+        int8_flash_attention(q, q, av.keys_last(v8), vs.reshape(-1), vs.reshape(-1), 64)

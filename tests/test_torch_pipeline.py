@@ -35,7 +35,7 @@ import pytest
 import torch
 from torch_parity import jax_tree, per_tensor_quantize_rows
 
-from trajectorycrafter_tpu.cli import config_from_args, get_parser
+from trajectorycrafter_tpu_torch.cli import config_from_args, get_parser
 from trajectorycrafter_tpu.models.dit import CrossTransformer3DModel as JaxDiT
 from trajectorycrafter_tpu.models.vae import AutoencoderKLCogVideoX as JaxVAE
 from trajectorycrafter_tpu.ops.int8 import quantize_dit_params

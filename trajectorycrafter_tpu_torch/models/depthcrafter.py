@@ -21,7 +21,8 @@ view, which cuDNN takes as it is); group and layer norms run in fp32.
 Attention routing mirrors the JAX ``CrossAttention``: on the card a
 self-attention with at least 2^20 scores per (frame, head) goes to a
 hand-written kernel, chosen by ``TRAJCRAFTER_DEPTH_ATTN`` (``flash_stock``,
-the default, or ``flash_max``) or by a module's ``attention_impl``; every
+the default, ``flash_max`` or ``flash_pv8``) or by a module's
+``attention_impl``; every
 other attention (the 576- and 144-token levels, all temporal attention over
 the frames, all cross-attention to the single CLIP token) is the plain
 matmul / fp32 softmax.
@@ -47,7 +48,7 @@ from trajectorycrafter_tpu_torch.ops.posemb import timestep_embedding
 # routing threshold); at 576x1024 that is the 9,216- and 2,304-token levels
 DEPTH_KERNEL_MIN_SCORES = 1024 * 1024
 DEPTH_ATTN_ENV = "TRAJCRAFTER_DEPTH_ATTN"
-DEPTH_ATTN_IMPLS = ("flash_stock", "flash_max", "reference")
+DEPTH_ATTN_IMPLS = ("flash_stock", "flash_max", "flash_pv8", "reference")
 
 
 def depth_attention_impl(s: int, s_kv: int, on_card: bool, impl: str = "auto") -> str:
@@ -55,7 +56,8 @@ def depth_attention_impl(s: int, s_kv: int, on_card: bool, impl: str = "auto") -
 
     ``impl`` is the module's ``attention_impl``: ``"auto"`` reads
     ``TRAJCRAFTER_DEPTH_ATTN`` (default ``flash_stock``, the K4 kernel;
-    ``flash_max`` is the two-pass K4b kernel); ``"reference"`` takes the
+    ``flash_max`` is the two-pass K4b kernel, ``flash_pv8`` the PV-int8 K6
+    kernel, as the JAX UNet passes any value on); ``"reference"`` takes the
     plain version.  That choice applies on the card at ``s * s_kv >= 2^20``;
     everything else is ``"xla"``, the plain matmul / softmax.
     """

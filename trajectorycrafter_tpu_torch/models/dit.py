@@ -10,7 +10,10 @@ Counterpart of trajectorycrafter_tpu/models/dit.py, in bf16:
   * channel-last (B, F, H, W, C) latents at the public interface;
   * linear layers are ``nn.Linear`` (plain matrix products); layer norms
     and softmax run in fp32; attention goes through ops/attention.py, which
-    launches the hand-written flash kernel for CUDA tensors.
+    launches the hand-written flash kernel for CUDA tensors.  The model's
+    ``attention_impl`` reaches both the joint self-attention and the
+    Perceivers, as in the JAX model: ``"flash_pv8"`` runs both on the
+    PV-int8 kernel.
 
 The JAX ``quant="int8"`` branch is this model after ``ops/int8.py
 quantize_dit_``, which swaps the blocks' and the Perceivers' linear layers

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 FLASH_HEAD_DIMS = (64, 128)
-FLASH_KEY_TILE = 64  # keys per shared-memory tile (kBlockN in both csrc/ kernels)
+FLASH_KEY_TILE = 64  # keys per shared-memory tile of every attention kernel in csrc/
 
 
 def _nvcc() -> str:
@@ -80,37 +80,41 @@ _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name: str, argtypes: tuple) -> ctypes.CDLL:
-    """Build and load ``csrc/<name>.cu``.  Its entry point ``<name>_fwd`` takes
-    ``argtypes`` (ctypes types; the device index first and the stream last)
-    and returns a cudaError_t, which ``<name>_error_string`` names."""
+def _library(name: str) -> ctypes.CDLL:
+    """Build and load ``csrc/<name>.cu``; its ``<name>_error_string`` names a
+    cudaError_t."""
     lib = ctypes.CDLL(str(build_library(f"{name}.cu")["path"]))
-    fwd = getattr(lib, f"{name}_fwd")
-    fwd.argtypes = list(argtypes)
-    fwd.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return lib
 
 
-def _call(name: str, argtypes: tuple, device: torch.device, *args) -> None:
-    """Launch ``<name>_fwd(device index, *args, current stream)``; raise on a
-    nonzero launch status."""
-    lib = _library(name, argtypes)
+@functools.lru_cache(maxsize=None)
+def _entry(source: str, entry: str, argtypes: tuple):
+    """The entry point ``<entry>_fwd`` of ``csrc/<source>.cu``: it takes
+    ``argtypes`` (ctypes types; the device index first and the stream last)
+    and returns a cudaError_t."""
+    fwd = getattr(_library(source), f"{entry}_fwd")
+    fwd.argtypes = list(argtypes)
+    fwd.restype = ctypes.c_int
+    return fwd
+
+
+def _call(name: str, argtypes: tuple, device: torch.device, *args, source: str = None) -> None:
+    """Launch ``<name>_fwd(device index, *args, current stream)`` of
+    ``csrc/<source or name>.cu``; raise on a nonzero launch status."""
+    source = source or name
+    fwd = _entry(source, name, argtypes)
     index = device.index if device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(device).cuda_stream
-    status = getattr(lib, f"{name}_fwd")(index, *args, stream)
+    status = fwd(index, *args, stream)
     if status != 0:
         raise RuntimeError(f"{name} launch failed: "
-                           + getattr(lib, f"{name}_error_string")(status).decode())
+                           + getattr(_library(source), f"{source}_error_string")(status).decode())
 
 
-def _attention_argtypes(n_ptrs: int) -> tuple:
-    """(device, ``n_ptrs`` pointers -- q, k, v, out and any scratch -- batch,
-    heads, sq, skv, head_dim, the (batch, sequence, head) strides of q, k, v
-    and out, scale, stream)."""
-    return (_INT, *[_PTR] * n_ptrs, *[_INT] * 5, *[_LONG] * 12, ctypes.c_float, _PTR)
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.int8: "int8"}
 
 
 def _check_bshd(name: str, x: torch.Tensor) -> None:
@@ -118,48 +122,59 @@ def _check_bshd(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name} must be (B, S, H, D), got shape {tuple(x.shape)}")
     if x.stride(-1) != 1:
         raise ValueError(f"{name} must be dense in the head dim, strides {x.stride()}")
-    # the kernel moves rows as 16-byte vectors
-    if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
+    # the kernels move rows as 16-byte vectors
+    if any(s * x.element_size() % 16 for s in x.stride()[:3]) or x.data_ptr() % 16:
         raise ValueError(
-            f"{name} needs 16-byte aligned rows (strides {x.stride()} must be "
-            "multiples of 8 elements and the data pointer 16-byte aligned)")
+            f"{name} needs 16-byte aligned rows (strides {x.stride()} and the data "
+            "pointer must be multiples of 16 bytes)")
 
 
-def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            scale: float) -> torch.Tensor:
-    """Check q, k, v (B, S, H, D) as both kernels take them, launch
-    ``kernel`` into a new output and raise on a nonzero launch status."""
+def _check_attention(kernel: str, q: torch.Tensor, k: torch.Tensor, v,
+                     dtype=torch.bfloat16) -> tuple:
+    """Check q (B, Sq, H, D) and k (and v unless None) (B, Skv, H, D): CUDA
+    tensors of ``dtype`` on one device with aligned rows, D in
+    ``FLASH_HEAD_DIMS``; returns (B, Sq, Skv, H, D)."""
     for name, x in (("q", q), ("k", k), ("v", v)):
+        if x is None:
+            continue
         if not x.is_cuda:
             raise ValueError(f"{kernel} takes CUDA tensors; {name} is on {x.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{kernel} takes bf16; {name} is {x.dtype}")
+        if x.dtype != dtype:
+            raise ValueError(f"{kernel} takes {_DTYPE_NAMES[dtype]}; {name} is {x.dtype}")
         _check_bshd(name, x)
-    if not (q.device == k.device == v.device):
+    if q.device != k.device or (v is not None and v.device != q.device):
         raise ValueError("q, k and v must be on one device")
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    if k.shape != (b, skv, h, d) or v.shape != k.shape:
+    if k.shape != (b, skv, h, d) or (v is not None and v.shape != k.shape):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
+                         f"v {None if v is None else tuple(v.shape)}")
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {FLASH_HEAD_DIMS}")
     if sq == 0 or skv == 0 or b * h > 65535:
         raise ValueError(f"unsupported sizes: B*H={b * h}, Sq={sq}, Skv={skv}")
+    return b, sq, skv, h, d
 
+
+def _strides(*xs) -> list:
+    """The (batch, sequence, head) strides of each (B, S, H, D) tensor."""
+    return [s for x in xs for s in x.stride()[:3]]
+
+
+def _launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            extra_ptrs=(), tail=(), tail_types=(), source: str = "flash_attention"
+            ) -> torch.Tensor:
+    """Check q, k, v (B, S, H, D) as the bf16 attention kernels take them,
+    launch ``<kernel>_fwd(device, q, k, v, out, *extra_ptrs, B, H, Sq, Skv, D,
+    strides of q, k, v and out, scale, *tail, stream)`` of ``csrc/<source>.cu``
+    into a new output and raise on a nonzero launch status."""
+    b, sq, skv, h, d = _check_attention(kernel, q, k, v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    # the two-pass kernel keeps its row maxima in an fp32 scratch
-    scratch = ([torch.empty(b * h * sq, dtype=torch.float32, device=q.device)]
-               if kernel == "flash_maxpass" else [])
-    _call(kernel, _attention_argtypes(4 + len(scratch)), q.device,
-          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-          *(t.data_ptr() for t in scratch),
-          b, h, sq, skv, d,
-          q.stride(0), q.stride(1), q.stride(2),
-          k.stride(0), k.stride(1), k.stride(2),
-          v.stride(0), v.stride(1), v.stride(2),
-          out.stride(0), out.stride(1), out.stride(2),
-          float(scale))
+    argtypes = (_INT, *[_PTR] * (4 + len(extra_ptrs)), *[_INT] * 5, *[_LONG] * 12,
+                ctypes.c_float, *tail_types, _PTR)
+    _call(kernel, argtypes, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+          *extra_ptrs, b, h, sq, skv, d, *_strides(q, k, v, out), float(scale), *tail,
+          source=source)
     return out
 
 
@@ -185,12 +200,142 @@ def flash_maxpass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row max of the scaled scores first, then exp2 attention against it.
     Takes what ``flash_attention`` takes.  Counts each call, which launches
     both passes, in ``flash_maxpass.launches``."""
-    out = _launch("flash_maxpass", q, k, v, scale)
+    b, sq, _, h, _ = _check_attention("flash_maxpass", q, k, v)
+    # the row maxima of the first pass, an fp32 work buffer
+    row_max = torch.empty(b * h * sq, dtype=torch.float32, device=q.device)
+    out = _launch("flash_maxpass", q, k, v, scale, extra_ptrs=(row_max.data_ptr(),),
+                  source="flash_maxpass")
     flash_maxpass.launches += 1
     return out
 
 
 flash_maxpass.launches = 0
+
+
+def flash_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+    """``flash_attention``'s attention, which also returns the natural-log
+    logsumexp of each query row's scaled scores (csrc/flash_attention.cu,
+    entry point flash_lse): -> (out (B, Sq, H, D) bf16, lse (B, H, Sq) fp32).
+    Takes what ``flash_attention`` takes.  Counts each launch in
+    ``flash_lse.launches``."""
+    b, sq, _, h, _ = _check_attention("flash_lse", q, k, v)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    out = _launch("flash_lse", q, k, v, scale, extra_ptrs=(lse.data_ptr(),))
+    flash_lse.launches += 1
+    return out, lse
+
+
+flash_lse.launches = 0
+
+
+def flash_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+               kv_valid: Optional[torch.Tensor] = None, bias: float = 0.0,
+               clamp: bool = True) -> torch.Tensor:
+    """exp2 attention with a fixed bias and no running max (csrc/
+    flash_attention.cu, entry point flash_exp2): q rounded to bf16 after the
+    scale * log2(e), p = bf16(exp2(min(q.k - bf16(bias), 110))) (no cap
+    unless ``clamp``), normalised by the sum of the same p over the keys
+    ``kv_valid`` marks (a (Skv,) tensor, nonzero = a real key; None = all).
+    Takes what ``flash_attention`` takes.  Counts each launch in
+    ``flash_exp2.launches``."""
+    _, _, skv, _, _ = _check_attention("flash_exp2", q, k, v)
+    mask = None
+    if kv_valid is not None:
+        if tuple(kv_valid.shape) != (skv,) or kv_valid.device != q.device:
+            raise ValueError(f"flash_exp2: kv_valid must be ({skv},) on {q.device}, got "
+                             f"{tuple(kv_valid.shape)} on {kv_valid.device}")
+        mask = (kv_valid != 0).to(torch.uint8).contiguous()
+    bias_bf16 = float(torch.tensor(bias, dtype=torch.bfloat16))  # the bias lane is bf16
+    out = _launch("flash_exp2", q, k, v, scale, extra_ptrs=(_ptr(mask),),
+                  tail=(bias_bf16, int(bool(clamp))), tail_types=(ctypes.c_float, _INT))
+    flash_exp2.launches += 1
+    return out
+
+
+flash_exp2.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# the quantized attention kernels (csrc/flash_pv8.cu, csrc/int8_flash_attention.cu)
+# ----------------------------------------------------------------------------
+
+_PV8_ARGTYPES = (_INT, *[_PTR] * 5, *[_INT] * 6, *[_LONG] * 10, ctypes.c_float, _PTR)
+_INT8_ATTN_ARGTYPES = (_INT, *[_PTR] * 6, *[_INT] * 6, *[_LONG] * 10, _PTR)
+
+
+def _check_vt(kernel: str, vt: torch.Tensor, b: int, h: int, d: int, skv: int,
+              device: torch.device) -> None:
+    """V quantized and laid out for the int8 PV product: (B * H, D, L) int8,
+    contiguous, with L a multiple of 64 that covers Skv (the keys past Skv
+    zero)."""
+    if vt.dim() != 3:
+        raise ValueError(f"{kernel}: v8 must be (B*H, D, L), got shape {tuple(vt.shape)}")
+    _check_tensor(kernel, "v8", vt, torch.int8, (b * h, d, vt.shape[2]), device)
+    _check_dense(kernel, "v8", vt)
+    if vt.shape[2] % FLASH_KEY_TILE or vt.shape[2] < skv:
+        raise ValueError(f"{kernel}: v8 holds {vt.shape[2]} keys per row; it needs a "
+                         f"multiple of {FLASH_KEY_TILE} that covers Skv={skv}")
+
+
+def _check_per_head(kernel: str, name: str, x: torch.Tensor, n: int,
+                    device: torch.device) -> None:
+    _check_tensor(kernel, name, x, torch.float32, (n,), device)
+    _check_dense(kernel, name, x)
+
+
+def _check_block_k(kernel: str, block_k: int) -> None:
+    if block_k <= 0 or block_k % FLASH_KEY_TILE:
+        raise ValueError(f"{kernel}: block_k {block_k} must be a positive multiple of "
+                         f"{FLASH_KEY_TILE}")
+
+
+def flash_pv8(q: torch.Tensor, k: torch.Tensor, v8: torch.Tensor, vs: torch.Tensor,
+              scale_log2: float, block_k: int) -> torch.Tensor:
+    """PV-int8 attention on the card (csrc/flash_pv8.cu): bf16 q k^T, the
+    softmax weights of each ``block_k``-key block quantized to int8 against
+    the block's row max, int8 PV.  q (B, Sq, H, D), k (B, Skv, H, D) bf16;
+    v8 the per-(batch, head) int8 V as ``_check_vt`` lays it out, vs (B * H,)
+    fp32 its scales; ``scale_log2`` the softmax scale times log2(e).  ->
+    (B, Sq, H, D) bf16.  Counts each launch in ``flash_pv8.launches``."""
+    kernel = "flash_pv8"
+    b, sq, skv, h, d = _check_attention(kernel, q, k, None)
+    _check_vt(kernel, v8, b, h, d, skv, q.device)
+    _check_per_head(kernel, "vs", vs, b * h, q.device)
+    _check_block_k(kernel, block_k)
+    out = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device)
+    _call(kernel, _PV8_ARGTYPES, q.device, q.data_ptr(), k.data_ptr(), v8.data_ptr(),
+          vs.data_ptr(), out.data_ptr(), b, h, sq, skv, d, block_k, *_strides(q, k),
+          v8.shape[2], *_strides(out), float(scale_log2))
+    flash_pv8.launches += 1
+    return out
+
+
+flash_pv8.launches = 0
+
+
+def int8_flash_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                         logit_scale: torch.Tensor, v_scale: torch.Tensor,
+                         block_k: int) -> torch.Tensor:
+    """int8 flash attention on the card (csrc/int8_flash_attention.cu): q8
+    (B, Sq, H, D) and k8 (B, Skv, H, D) int8 codes, v8 as ``_check_vt`` lays
+    it out; logit_scale (B * H,) = qs * ks * softmax scale and v_scale (B * H,)
+    = vs / 127, fp32; online softmax per ``block_k``-key block.  -> (B, Sq, H,
+    D) bf16.  Counts each launch in ``int8_flash_attention.launches``."""
+    kernel = "int8_flash_attention"
+    b, sq, skv, h, d = _check_attention(kernel, q8, k8, None, dtype=torch.int8)
+    _check_vt(kernel, v8, b, h, d, skv, q8.device)
+    _check_per_head(kernel, "logit_scale", logit_scale, b * h, q8.device)
+    _check_per_head(kernel, "v_scale", v_scale, b * h, q8.device)
+    _check_block_k(kernel, block_k)
+    out = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q8.device)
+    _call(kernel, _INT8_ATTN_ARGTYPES, q8.device, q8.data_ptr(), k8.data_ptr(), v8.data_ptr(),
+          logit_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), b, h, sq, skv, d,
+          block_k, *_strides(q8, k8), v8.shape[2], *_strides(out))
+    int8_flash_attention.launches += 1
+    return out
+
+
+int8_flash_attention.launches = 0
 
 
 # ----------------------------------------------------------------------------

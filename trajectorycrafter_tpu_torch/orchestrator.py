@@ -29,13 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from trajectorycrafter_tpu.config import TrajCrafterConfig
-from trajectorycrafter_tpu.utils.video import (
-    VideoSaveQueue,
-    pad_to_length,
-    read_video_frames,
-    save_video,
-)
+from trajectorycrafter_tpu_torch.config import TrajCrafterConfig
 from trajectorycrafter_tpu_torch.geometry.cameras import (
     default_c2w,
     intrinsics_matrix,
@@ -58,6 +52,12 @@ from trajectorycrafter_tpu_torch.pipelines.depth import DepthCrafterDemo, DepthC
 from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
 from trajectorycrafter_tpu_torch.schedulers.ddim import DDIMScheduler
 from trajectorycrafter_tpu_torch.utils.timing import StageTimer
+from trajectorycrafter_tpu_torch.utils.video import (
+    VideoSaveQueue,
+    pad_to_length,
+    read_video_frames,
+    save_video,
+)
 
 # deployed widths: T5-XXL prompt embeddings (tokens, channels)
 T5_TEXT_LEN, T5_TEXT_DIM = 226, 4096
@@ -195,7 +195,8 @@ def build_dev_models(cfg: TrajCrafterConfig, device="cpu", seed: int = 0) -> Mod
     return _bundle(cfg, pipeline, _plane_depth_infer, encode_prompt)
 
 
-def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0) -> ModelBundle:
+def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0,
+                            attention_impl: str = "auto") -> ModelBundle:
     """Every model at its deployed width, bf16, randomly initialised straight
     on ``device`` (the JAX package's full-scale synthetic bundle): the
     CrossTransformer3D DiT (48 heads x 64, 42 layers, text 226 x 4096,
@@ -205,7 +206,9 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
     20, 20)), SVD VAE and CLIP ViT-H/14.  ``--quant int8`` (the default)
     quantizes the DiT and ``--quant_depth int8`` the UNet's transformers
     after their init, so an int8 model is the quantization of the same
-    seeded bf16 weights."""
+    seeded bf16 weights.  ``attention_impl`` is the DiT's (``"flash_pv8"``
+    routes its joint self-attention and its Perceivers through the PV-int8
+    kernel), as the JAX builders take it."""
     check_supported(cfg)
     dtype = torch.bfloat16
     vae = _on_device(lambda: AutoencoderKLCogVideoX(), device, dtype)
@@ -213,7 +216,7 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
         num_attention_heads=48, attention_head_dim=64, num_layers=42,
         max_text_seq_length=T5_TEXT_LEN, text_embed_dim=T5_TEXT_DIM,
         cross_attn_interval=2, cross_attn_dim_head=128, cross_attn_num_heads=16,
-        use_rotary_positional_embeddings=True), device, dtype)
+        use_rotary_positional_embeddings=True, attention_impl=attention_impl), device, dtype)
     pipeline = TrajCrafterPipeline(
         vae=random_init_(vae, seed), transformer=quantize_dit(cfg, random_init_(dit, seed + 1)),
         scheduler=DDIMScheduler(), dtype=dtype)
