@@ -10,13 +10,15 @@ prints no result line):
      one nvcc per source, all started together;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the shapes the main path gives it, within a stated tolerance
-     that must also reject planted faults; then each kernel, its plain
+     that must also reject planted faults (the bf16 attention kernels also
+     at ragged lengths and on strided views); then each kernel, its plain
      version and the one PyTorch call that computes the same function (the
      "library" call: flash SDPA for attention, ``torch._int_mm`` for the
      int8 GEMM's product; the port never calls it) and, for the int8 GEMMs,
-     the bf16 ``F.linear`` they replace, timed at full shape, in turns; each
+     the bf16 ``F.linear`` they replace, timed at full shape, in turns (K1
+     at the DiT's, the Perceiver's and the depth UNet's two shapes); each
      kernel's bound (the least time the card could take for the same work)
-     computed from the data sheet;
+     computed from the data sheet, and its TFLOP/s;
   4. the attention variants (K5 ``flash_lse``, K1b ``flash_exp2``, K6
      ``flash_pv8``, K7 ``int8_flash_attention``) the same way, at the
      attention bench's DiT shape and the main path's shapes;
@@ -149,6 +151,12 @@ SOURCE_OF = {"flash_exp2": "flash_attention", "flash_lse": "flash_attention"}
 # zero-padded to 30,720 (bench_attention.py)
 BENCH_DIT = (2, 48, 30178, 30720, 64)  # (B, H, real tokens, padded, D)
 DIT_SHAPE = (2, 48, 13330, 64)  # the main path's joint attention (B, H, S, D)
+# the Perceiver's cross-attention (B, H, Sq, Skv, D): 2 x 13,104 video
+# tokens against 2 x 3,024 reference tokens, 16 heads of 128
+PERCEIVER_SHAPE = (2, 16, 13104, 3024, 128)
+# ragged lengths around the bf16 attention kernels' 64-row boxes and 128-key
+# tiles, checked on the query and on the key side
+EDGE_LENGTHS = (1, 63, 65, 127, 129, 777, 1000)
 
 # Data-sheet rates of an H100 SXM (dense): bf16 989 TFLOP/s, int8 1,979
 # TOP/s, 3.35 TB/s of device memory; the SFU's 16 exp2 per clock per SM x
@@ -242,7 +250,8 @@ def phase_build():
     for info in infos:
         log(f"built {info['path'].name} in {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            # C75xx: ptxas notes on `wgmma`, e.g. products serialized
+            if "registers" in line or "spill" in line or "C75" in line:
                 log("  ptxas: " + line.strip())
     log(f"kernel builds: {time.perf_counter() - t0:.2f} s wall")
 
@@ -257,7 +266,7 @@ def check_kernel_case(kernel, name, b, h, sq, skv, d, gain, randn) -> float:
         attention_error,
         kernel_error,
     )
-    from trajectorycrafter_tpu_torch.ops.kernels import FLASH_KEY_TILE
+    from trajectorycrafter_tpu_torch.ops.kernels import ATTENTION_KEY_TILE
 
     q = (randn(b, sq, h, d) * gain).bfloat16()
     k, v = randn(b, skv, h, d).bfloat16(), randn(b, skv, h, d).bfloat16()
@@ -265,8 +274,8 @@ def check_kernel_case(kernel, name, b, h, sq, skv, d, gain, randn) -> float:
     out = kernel(q, k, v, scale)
     torch.cuda.synchronize()
     sound = kernel_error(kernel, out, q, k, v, scale)
-    tiles = -(-skv // FLASH_KEY_TILE)
-    keep = (tiles - tiles // 4) * FLASH_KEY_TILE
+    # the key tiles of the kernel under test (both run ATTENTION_KEY_TILE)
+    keep = _skip_last_quarter(skv, ATTENTION_KEY_TILE)
     faults = {
         "row_sum_x1.1": kernel_error(kernel, (out.float() / 1.1).bfloat16(), q, k, v, scale),
         "last_quarter_of_key_tiles_skipped": kernel_error(
@@ -297,7 +306,11 @@ def phase_kernels():
     """Each kernel vs the plain version at the main path's shapes, then timed."""
     import torch
 
-    from trajectorycrafter_tpu_torch.ops.attention import attention_reference
+    from trajectorycrafter_tpu_torch.ops.attention import (
+        ATTN_ROW_TOL,
+        attention_reference,
+        kernel_error,
+    )
     from trajectorycrafter_tpu_torch.ops.kernels import flash_attention, flash_maxpass
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -322,6 +335,20 @@ def phase_kernels():
         err = check_kernel_case(kernel, *case, randn)
         max_err[kernel.__name__] = max(max_err[kernel.__name__], err)
         torch.cuda.empty_cache()
+    # the ragged edges and strided views, sound answers only (a run on one
+    # key tile has no quarter to skip)
+    for kernel in (flash_attention, flash_maxpass):
+        rows = []
+        for name, q, k, v in edge_inputs(randn):
+            d = q.shape[-1]
+            r = kernel_error(kernel, kernel(q, k, v, d ** -0.5), q, k, v, d ** -0.5)
+            if not r["ok"]:
+                raise AssertionError(f"{kernel.__name__} {name} disagrees with its plain "
+                                     f"version: {r}")
+            rows.append(r["max_row_rel_err"])
+            max_err[kernel.__name__] = max(max_err[kernel.__name__], r["max_abs_err"])
+        log(f"{kernel.__name__} at {len(rows)} ragged and strided shapes: max row rel err "
+            f"{max(rows):.3e} (limit {ATTN_ROW_TOL:.3e})")
 
     from trajectorycrafter_tpu_torch.bench_attention import sdpa_flash
 
@@ -337,7 +364,8 @@ def phase_kernels():
     flop = 4 * b * h * s * s * d
     log(f"dit_self_full {(b, h, s, s, d)}: flash_attention {t['ms']:.2f} ms "
         f"({flop / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.2f} ms, flash SDPA "
-        f"{t['library_ms']:.2f} ms; bound {timing['dit']['bound_ms']:.2f} ms "
+        f"{t['library_ms']:.2f} ms ({flop / t['library_ms'] / 1e9:.1f} TFLOP/s); bound "
+        f"{timing['dit']['bound_ms']:.2f} ms "
         f"({timing['dit']['bound_by']}), SFU {timing['dit']['sfu_ms']:.2f} ms")
     del q, k, v
     torch.cuda.empty_cache()
@@ -358,11 +386,55 @@ def phase_kernels():
         f"({flop / t['flash_attention'] / 1e9:.1f} TFLOP/s), flash_maxpass "
         f"{t['flash_maxpass']:.2f} ms ({1.5 * flop / t['flash_maxpass'] / 1e9:.1f} TFLOP/s "
         f"of its 1.5x products), plain {t['plain_ms']:.2f} ms, flash SDPA "
-        f"{t['library_ms']:.2f} ms; bound {timing['depth']['bound_ms']:.2f} ms "
+        f"{t['library_ms']:.2f} ms ({flop / t['library_ms'] / 1e9:.1f} TFLOP/s); bound "
+        f"{timing['depth']['bound_ms']:.2f} ms "
         f"({timing['depth']['bound_by']}), SFU {timing['depth']['sfu_ms']:.2f} ms")
     del q, k, v
     torch.cuda.empty_cache()
+
+    # K1 at the Perceiver's shape and K4 at the depth UNet's 2,304-token level
+    b, h, s, d = DEPTH_SHAPES["depth_2304"]
+    for name, (b, h, sq, skv, d) in (("perceiver", PERCEIVER_SHAPE),
+                                     ("depth_2304", (b, h, s, s, d))):
+        q = (randn(b, sq, h, d) * 4.0).bfloat16()  # no QK-norm at either: peaked rows
+        k, v = randn(b, skv, h, d).bfloat16(), randn(b, skv, h, d).bfloat16()
+        t = in_turns({"plain_ms": lambda: attention_reference(q, k, v, d ** -0.5),
+                      "ms": lambda: flash_attention(q, k, v, d ** -0.5),
+                      "library_ms": lambda: sdpa_flash(q, k, v, d ** -0.5)},
+                     {"plain_ms": 2, "ms": 10, "library_ms": 10})
+        timing[name] = {**t, **attention_bound(b, h, sq, skv, d),
+                        "shape": str((b, h, sq, skv, d))}
+        flop = 4 * b * h * sq * skv * d
+        log(f"{name} {(b, h, sq, skv, d)}: flash_attention {t['ms']:.3f} ms "
+            f"({flop / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.2f} ms, flash SDPA "
+            f"{t['library_ms']:.3f} ms ({flop / t['library_ms'] / 1e9:.1f} TFLOP/s); bound "
+            f"{timing[name]['bound_ms']:.3f} ms ({timing[name]['bound_by']}), SFU "
+            f"{timing[name]['sfu_ms']:.3f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
     return max_err, timing
+
+
+def edge_inputs(randn):
+    """(name, q, k, v) at the ragged lengths around the bf16 kernels' 64-row
+    boxes and 128-key tiles (``EDGE_LENGTHS`` paired with themselves
+    reversed, d 64 and 128), and as strided views: k and v the halves of one
+    projection and q a slice of a wider one (the Perceiver's layout), and
+    (B, H, S, D) tensors seen as (B, S, H, D)."""
+    out = []
+    for sq, skv in zip(EDGE_LENGTHS, reversed(EDGE_LENGTHS)):
+        for d in (64, 128):
+            q = (randn(1, sq, 2, d) * 2.0).bfloat16()
+            k, v = randn(1, skv, 2, d).bfloat16(), randn(1, skv, 2, d).bfloat16()
+            out.append((f"ragged {(1, 2, sq, skv, d)}", q, k, v))
+    b, s, h, d = 2, 300, 4, 128
+    k, v = (x.unflatten(-1, (h, d)) for x in randn(b, s, 2 * h * d).bfloat16().chunk(2, dim=-1))
+    q = randn(b, 77, 3 * h * d).bfloat16()[..., h * d:2 * h * d].unflatten(-1, (h, d))
+    out.append(("strided, the Perceiver's k / v halves", q, k, v))
+    d = 64
+    q, k, v = (randn(b, h, n, d).bfloat16().transpose(1, 2) for n in (77, s, s))
+    out.append(("strided, (B, H, S, D) seen as (B, S, H, D)", q, k, v))
+    return out
 
 
 def _readings(r: dict) -> str:
@@ -430,7 +502,7 @@ def phase_variants():
         quantized_error,
     )
     from trajectorycrafter_tpu_torch.ops.kernels import (
-        FLASH_KEY_TILE,
+        ATTENTION_KEY_TILE,
         flash_exp2,
         flash_lse,
         flash_pv8,
@@ -455,7 +527,7 @@ def phase_variants():
         valid = (torch.arange(skv, device="cuda") < real).float()
         q = randn(b, sq, h, d).bfloat16()
         k, v = ((randn(b, skv, h, d) * valid[None, :, None, None]).bfloat16() for _ in range(2))
-        keep = _skip_last_quarter(skv, FLASH_KEY_TILE)
+        keep = _skip_last_quarter(skv, ATTENTION_KEY_TILE)
         out, lse = flash_lse(q, k, v, scale)
         refs = plain_refs(lambda x: attention_reference(q, k, x, scale), v)
         judge("flash_lse", f"{label} {(b, h, sq, skv, d)}", output_error(out, *refs), {
@@ -480,6 +552,31 @@ def phase_variants():
     refs = plain_refs(lambda x: av.exp2_attention_reference(q, k, x, scale), v)
     judge("flash_exp2", "ragged, scores above 110", output_error(flash_exp2(q, k, v, scale), *refs),
           {"clamp_dropped": output_error(flash_exp2(q, k, v, scale, clamp=False), *refs)})
+    del q, k, v, refs
+    # the ragged edges and strided views (sound answers only): K5's output
+    # and lse; K1b with the last fifth of the keys masked by kv_valid
+    rows = {"flash_lse": [], "flash_exp2": []}
+    for name, q, k, v in edge_inputs(randn):
+        scale = q.shape[-1] ** -0.5
+        out, lse = flash_lse(q, k, v, scale)
+        readings = output_error(out, *plain_refs(lambda x: attention_reference(q, k, x, scale), v))
+        check = lse_error(lse, q, k, scale)
+        if not (readings["ok"] and check["ok"]):
+            raise AssertionError(f"flash_lse {name} disagrees with its plain version: "
+                                 f"{readings}, lse {check}")
+        rows["flash_lse"].append(readings["max_row_rel_err"])
+        max_err["flash_lse"] = max(max_err["flash_lse"], readings["max_abs_err"])
+        skv = k.shape[1]
+        valid = (torch.arange(skv, device="cuda") < skv - skv // 5).float()
+        readings = output_error(flash_exp2(q, k, v, scale, valid), *plain_refs(
+            lambda x: av.exp2_attention_reference(q, k, x, scale, valid), v))
+        if not readings["ok"]:
+            raise AssertionError(f"flash_exp2 {name} disagrees with its plain version: "
+                                 f"{readings}")
+        rows["flash_exp2"].append(readings["max_row_rel_err"])
+        max_err["flash_exp2"] = max(max_err["flash_exp2"], readings["max_abs_err"])
+    for kern, r in rows.items():
+        log(f"{kern} at {len(r)} ragged and strided shapes: max row rel err {max(r):.3e}")
 
     # K6 and K7 at the main path's shapes (heads or frames cut)
     runs = {"flash_pv8": (av.pv8_attention, av.pv8_reference, av.pv8_block_k),
@@ -531,7 +628,7 @@ def phase_variants():
              bshd(q), bshd(k), bshd(v), scale=scale)},
         {"plain_ms": 1, "ms": 3, "library_ms": 3}, cold=("plain_ms",)),
         **attention_bound(b, h, s_pad, s_pad, d, extra_bytes=4 * b * h * s_pad),
-        "shape": str((b, h, s_pad, s_pad, d)),
+        "flop": 4.0 * b * h * s_pad * s_pad * d, "shape": str((b, h, s_pad, s_pad, d)),
         "library": "aten._scaled_dot_product_flash_attention (returns the logsumexp too)"}
     timing["flash_exp2"] = {**in_turns(
         {"plain_ms": lambda: av.exp2_attention_reference(q, k, v, scale, valid, chunk=512),
@@ -539,6 +636,7 @@ def phase_variants():
          "library_ms": lambda: sdpa_flash(q, k[:, :s_real], v[:, :s_real], scale)},
         {"plain_ms": 1, "ms": 3, "library_ms": 3}, cold=("plain_ms",)),
         **attention_bound(b, h, s_pad, s_real, d, extra_bytes=s_pad),
+        "flop": 4.0 * b * h * s_pad * s_real * d,
         "shape": f"{(b, h, s_pad, s_pad, d)}, {s_real} valid keys",
         "library": "flash SDPA over the valid keys (no clamp)"}
     del q, k, v
@@ -559,7 +657,7 @@ def phase_variants():
          "library_ms": lambda: sdpa_flash(q, k, v, scale)},
         {"plain_ms": 1, "ms": 3, "with_quantization_ms": 3, "library_ms": 3}, cold=("plain_ms",)),
         **attention_bound(b, h, s, s, d, pv_int8=True), "shape": str((b, h, s, s, d)),
-        "library": yardstick}
+        "flop": 4.0 * b * h * s * s * d, "library": yardstick}
     timing["int8_flash_attention"] = {**in_turns(
         {"plain_ms": lambda: av.int8_attention_reference(q, k, v, scale, int8_block),
          "ms": lambda: int8_flash_attention(q8, k8, v8t, logit, v127, int8_block),
@@ -567,7 +665,7 @@ def phase_variants():
          "library_ms": lambda: sdpa_flash(q, k, v, scale)},
         {"plain_ms": 1, "ms": 3, "with_quantization_ms": 3, "library_ms": 3}, cold=("plain_ms",)),
         **attention_bound(b, h, s, s, d, pv_int8=True, qk_int8=True, in_bytes=1),
-        "shape": str((b, h, s, s, d)), "library": yardstick}
+        "flop": 4.0 * b * h * s * s * d, "shape": str((b, h, s, s, d)), "library": yardstick}
     del q, k, v, v8, v8t, q8, k8
     torch.cuda.empty_cache()
 
@@ -584,14 +682,18 @@ def phase_variants():
     timing["flash_pv8"].update(
         depth_shape=str((b, h, s, s, d)), depth_ms=t["ms"], depth_library_ms=t["library_ms"],
         depth_bound_ms=depth_bound["bound_ms"], depth_sfu_ms=depth_bound["sfu_ms"])
-    log(f"flash_pv8 timed at the depth shape {(b, h, s, s, d)}: {t['ms']:.2f} ms, library "
-        f"{t['library_ms']:.2f} ms; bound {depth_bound['bound_ms']:.2f} ms, SFU "
+    flop = 4.0 * b * h * s * s * d
+    log(f"flash_pv8 timed at the depth shape {(b, h, s, s, d)}: {t['ms']:.2f} ms "
+        f"({flop / t['ms'] / 1e9:.1f} TFLOP/s), library {t['library_ms']:.2f} ms "
+        f"({flop / t['library_ms'] / 1e9:.1f} TFLOP/s); bound {depth_bound['bound_ms']:.2f} ms, SFU "
         f"{depth_bound['sfu_ms']:.2f} ms")
     del q, k, v, v8, v8t
     torch.cuda.empty_cache()
     for kern, t in timing.items():
-        log(f"{kern} timed at {t['shape']}: {t['ms']:.2f} ms, plain {t['plain_ms']:.2f} ms, "
-            f"library {t['library_ms']:.2f} ms; bound {t['bound_ms']:.2f} ms ({t['bound_by']}),"
+        log(f"{kern} timed at {t['shape']}: {t['ms']:.2f} ms ({t['flop'] / t['ms'] / 1e9:.1f} "
+            f"TFLOP/s), plain {t['plain_ms']:.2f} ms, library {t['library_ms']:.2f} ms "
+            f"({t['flop'] / t['library_ms'] / 1e9:.1f} TFLOP/s); bound {t['bound_ms']:.2f} ms "
+            f"({t['bound_by']}),"
             f" SFU {t['sfu_ms']:.2f} ms"
             + (f"; with its quantization pass {t['with_quantization_ms']:.2f} ms"
                if "with_quantization_ms" in t else ""))
@@ -1117,6 +1219,9 @@ def main() -> None:
     run_launches = lambda run, kern: _run_launches(runs, run, kern)
     depth = timing["depth"]
     sdpa = "flash SDPA"
+    # K1 at the Perceiver's shape and at the depth UNet's 2,304-token level
+    other_shapes = {f"{name}_{key}": timing[name][key] for name in ("perceiver", "depth_2304")
+                    for key in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "sfu_ms")}
     kernels_line = [
         _attention_entry(
             "flash_attention", {**timing["dit"], "shape": "(2, 48, 13330, 13330, 64)",
@@ -1127,7 +1232,7 @@ def main() -> None:
             bench_launches=bench["flash_attention"], max_abs_err=max_err["flash_attention"],
             depth_shape="(49, 5, 9216, 9216, 64)", depth_ms=depth["flash_attention"],
             depth_plain_ms=depth["plain_ms"], depth_library_ms=depth["library_ms"],
-            depth_bound_ms=depth["bound_ms"], depth_sfu_ms=depth["sfu_ms"]),
+            depth_bound_ms=depth["bound_ms"], depth_sfu_ms=depth["sfu_ms"], **other_shapes),
         _attention_entry(
             "flash_maxpass", {**depth, "ms": depth["flash_maxpass"],
                               "shape": "(49, 5, 9216, 9216, 64)", "library": sdpa},

@@ -40,7 +40,7 @@ from trajectorycrafter_tpu_torch.ops.attention import (
 )
 from trajectorycrafter_tpu_torch.ops.attention_variants import pv8_block_k, pv8_reference
 from trajectorycrafter_tpu_torch.ops.kernels import (
-    FLASH_KEY_TILE,
+    ATTENTION_KEY_TILE,
     flash_attention,
     flash_exp2,
     flash_lse,
@@ -251,8 +251,8 @@ def test_attention_error_passes_sound_and_rejects_planted_faults(shape, gain):
     assert attention_error(sound, q, k, v, scale)["ok"]
     row_sum_off = (sound.float() / 1.1).bfloat16()
     assert not attention_error(row_sum_off, q, k, v, scale)["ok"]
-    tiles = -(-skv // FLASH_KEY_TILE)
-    keep = (tiles - tiles // 4) * FLASH_KEY_TILE
+    tiles = -(-skv // ATTENTION_KEY_TILE)
+    keep = (tiles - tiles // 4) * ATTENTION_KEY_TILE
     tiles_skipped = _exact_bf16(q, k[:, :keep], v[:, :keep], scale)
     assert not attention_error(tiles_skipped, q, k, v, scale)["ok"]
 

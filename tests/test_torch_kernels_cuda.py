@@ -13,12 +13,14 @@ the depth UNet's K4) and ``flash_maxpass`` (csrc/flash_maxpass.cu, the
 depth UNet's two-pass K4b).  Shapes: those chip_smoke.py checks (the DiT
 self-attention with heads cut, the Perceiver cross-attention, the depth
 UNet's two kernel shapes cut in frames, a small ragged one) plus odd
-lengths that leave ragged query and key tiles.  Tolerance:
+lengths that leave ragged query and key tiles (``EDGE_LENGTHS``, in every
+mode of the bf16 kernels at d 64 and d 128) and q, k, v read as strided
+views.  Tolerance:
 ``attention_error`` in trajectorycrafter_tpu_torch/ops/attention.py, as in
 chip_smoke.py -- per element 2^-6 (|ref| + P|v|), per row a relative L2
 error of 2^-6 (the reasons are stated there).  At the DiT and depth shapes
 the same bound must reject a row sum off by 10% and a run that skips the
-last quarter of the key tiles.
+last quarter of the kernel's own key tiles (``ATTENTION_KEY_TILE``).
 
 The int8 family (ops/int8_matmul.py): ``int8_quantize_rows`` (K2a) bit-equal
 to its plain version; ``int8_gemm`` (K2b) and ``int8_gemm_gscale`` (K3b)
@@ -58,7 +60,7 @@ from trajectorycrafter_tpu_torch.ops.attention import (
 from trajectorycrafter_tpu_torch.ops import int8_matmul as im
 from trajectorycrafter_tpu_torch.ops.int8 import quantize_dense
 from trajectorycrafter_tpu_torch.ops.kernels import (
-    FLASH_KEY_TILE,
+    ATTENTION_KEY_TILE,
     flash_attention,
     flash_exp2,
     flash_lse,
@@ -91,6 +93,14 @@ def _check(out, q, k, v, scale, kernel=flash_attention):
     assert readings["ok"], readings
 
 
+# Ragged lengths around the bf16 kernels' 64-row boxes and 128-key tiles,
+# each on the query and on the key side: (Sq, Skv) pairs, Skv shorter than
+# one key tile in four of them; every mode runs them at d 64 and d 128.
+EDGE_LENGTHS = (1, 63, 65, 127, 129, 777, 1000)
+EDGE_CASES = [(sq, skv, d) for sq, skv in zip(EDGE_LENGTHS, reversed(EDGE_LENGTHS))
+              for d in (64, 128)]
+
+
 @pytest.mark.parametrize("b,h,sq,skv,d,gain", [
     (1, 8, 13330, 13330, 64, 1.0),  # DiT self-attention, heads cut
     (2, 16, 13104, 3024, 128, 4.0),  # Perceiver, unbounded scores
@@ -98,6 +108,7 @@ def _check(out, q, k, v, scale, kernel=flash_attention):
     (1, 1, 1, 1, 64, 1.0),
     (2, 3, 17, 129, 128, 2.0),
     (1, 4, 65, 63, 64, 1.0),
+    *[(1, 2, sq, skv, d, 2.0) for sq, skv, d in EDGE_CASES],
 ])
 def test_kernel_matches_reference(gen, b, h, sq, skv, d, gain):
     q = _randn(gen, b, sq, h, d, gain=gain)
@@ -115,6 +126,7 @@ def test_kernel_matches_reference(gen, b, h, sq, skv, d, gain):
     (1, 4, 65, 63, 64, 6.0),
     (2, 3, 17, 129, 128, 2.0),
     (1, 2, 1000, 777, 64, 1.0),
+    *[(1, 2, sq, skv, d, 4.0) for sq, skv, d in EDGE_CASES],
 ])
 def test_maxpass_kernel_matches_reference(gen, b, h, sq, skv, d, gain):
     q = _randn(gen, b, sq, h, d, gain=gain)
@@ -126,9 +138,10 @@ def test_maxpass_kernel_matches_reference(gen, b, h, sq, skv, d, gain):
     _check(out, q, k, v, d ** -0.5, flash_maxpass)
 
 
-def test_maxpass_all_negative_rows(gen):
+@pytest.mark.parametrize("d", [64, 128])
+def test_maxpass_all_negative_rows(gen, d):
     """Every score far below zero: the exact row max keeps exp2 in range."""
-    b, h, s, d = 1, 2, 500, 64
+    b, h, s = 1, 2, 500
     q = (torch.randn((b, s, h, d), generator=gen, device="cuda") + 4.0).bfloat16()
     k = (-(torch.randn((b, s, h, d), generator=gen, device="cuda") * 0.1 + 4.0)).bfloat16()
     v = _randn(gen, b, s, h, d)
@@ -144,6 +157,43 @@ def test_kernel_reads_strided_views(gen):
     out = multi_head_attention(q, k, v, scale=d ** -0.5).unflatten(-1, (h, d))
     torch.cuda.synchronize()
     _check(out, q, k, v, d ** -0.5)
+
+
+def _held_to_plain(kernel, q, k, v, scale):
+    """Run a bf16 attention kernel and hold it to its plain version: K1/K4
+    and K4b by ``kernel_error``, K5 by ``attention_error`` and ``lse_error``,
+    K1b (no mask, with the clamp) by ``output_error``."""
+    if kernel is flash_lse:
+        out, lse = kernel(q, k, v, scale)
+        readings = lse_error(lse, q, k, scale)
+        assert readings["ok"], readings
+        _check(out, q, k, v, scale)
+    elif kernel is flash_exp2:
+        out = kernel(q, k, v, scale)
+        plain = lambda x: av.exp2_attention_reference(q, k, x, scale)
+        readings = output_error(out, *plain_refs(plain, v))
+        assert readings["ok"], readings
+    else:
+        _check(kernel(q, k, v, scale), q, k, v, scale, kernel)
+
+
+@pytest.mark.parametrize("kernel", [flash_attention, flash_maxpass, flash_lse, flash_exp2])
+@pytest.mark.parametrize("layout", ["perceiver_kv", "bhsd"])
+def test_every_mode_reads_strided_views(gen, kernel, layout):
+    """q, k and v as strided views, read in place by the TMA unit: k and v
+    the halves of one projection with q a slice of a wider one (the
+    Perceiver's layout, d 128), or (B, H, S, D) tensors seen as (B, S, H, D)
+    (d 64)."""
+    if layout == "perceiver_kv":
+        b, s, h, d = 2, 300, 4, 128
+        k, v = (t.unflatten(-1, (h, d)) for t in _randn(gen, b, s, 2 * h * d).chunk(2, dim=-1))
+        q = _randn(gen, b, 77, 3 * h * d)[..., h * d:2 * h * d].unflatten(-1, (h, d))
+    else:
+        b, s, h, d = 2, 300, 4, 64
+        q, k, v = (_randn(gen, b, h, n, d).transpose(1, 2) for n in (77, s, s))
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    _held_to_plain(kernel, q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kernel", [flash_attention, flash_maxpass])
@@ -169,8 +219,8 @@ def test_tolerance_rejects_planted_faults_at_the_dit_shape(gen):
     _check(out, q, k, v, d ** -0.5)
     row_sum_off = (out.float() / 1.1).bfloat16()
     assert not attention_error(row_sum_off, q, k, v, d ** -0.5)["ok"]
-    tiles = -(-s // FLASH_KEY_TILE)
-    keep = (tiles - tiles // 4) * FLASH_KEY_TILE
+    tiles = -(-s // ATTENTION_KEY_TILE)
+    keep = (tiles - tiles // 4) * ATTENTION_KEY_TILE
     tiles_skipped = flash_attention(q, k[:, :keep], v[:, :keep], d ** -0.5)
     assert not attention_error(tiles_skipped, q, k, v, d ** -0.5)["ok"]
 
@@ -191,8 +241,8 @@ def test_tolerance_rejects_planted_faults_at_the_depth_shapes(gen, kernel, b, h,
     _check(out, q, k, v, d ** -0.5, kernel)
     row_sum_off = (out.float() / 1.1).bfloat16()
     assert not kernel_error(kernel, row_sum_off, q, k, v, d ** -0.5)["ok"]
-    tiles = -(-s // FLASH_KEY_TILE)
-    keep = (tiles - tiles // 4) * FLASH_KEY_TILE
+    tiles = -(-s // ATTENTION_KEY_TILE)
+    keep = (tiles - tiles // 4) * ATTENTION_KEY_TILE
     tiles_skipped = kernel(q, k[:, :keep], v[:, :keep], d ** -0.5)
     assert not kernel_error(kernel, tiles_skipped, q, k, v, d ** -0.5)["ok"]
 
@@ -393,6 +443,7 @@ def _all_negative(gen, b, s, h, d):
     (1, 2, 1000, 777, 64, 4.0),
     (2, 3, 17, 129, 128, 2.0),
     (1, 1, 1, 1, 64, 1.0),
+    *[(1, 2, sq, skv, d, 2.0) for sq, skv, d in EDGE_CASES],
 ])
 def test_lse_kernel_matches_plain(gen, b, h, sq, skv, d, gain):
     q = _randn(gen, b, sq, h, d, gain=gain)
@@ -408,6 +459,8 @@ def test_lse_kernel_matches_plain(gen, b, h, sq, skv, d, gain):
     (1, 4, 30720, 30720, 64, 1.0, 542),  # the bench's DiT shape: 30,178 real keys
     (1, 2, 1000, 777, 64, 1.0, 100),
     (2, 3, 17, 129, 128, 2.0, 0),
+    # the last fifth of the keys masked by kv_valid, besides the ragged edge
+    *[(1, 2, sq, skv, d, 2.0, skv // 5) for sq, skv, d in EDGE_CASES],
 ])
 def test_exp2_kernel_matches_plain(gen, b, h, sq, skv, d, gain, masked):
     q = _randn(gen, b, sq, h, d, gain=gain)
@@ -420,11 +473,12 @@ def test_exp2_kernel_matches_plain(gen, b, h, sq, skv, d, gain, masked):
     assert readings["ok"], readings
 
 
-def test_exp2_tolerance_rejects_a_dropped_clamp(gen):
-    """Scores up to ~120 in the exp2 domain: the clamp at 110 changes the
+@pytest.mark.parametrize("s,d,gain", [(4096, 64, 20.0), (777, 128, 30.0)])
+def test_exp2_tolerance_rejects_a_dropped_clamp(gen, s, d, gain):
+    """Scores above 110 in the exp2 domain: the clamp at 110 changes the
     function, and the kernel run without it fails the bound."""
-    b, h, s, d = 1, 2, 4096, 64
-    q, k, v = _randn(gen, b, s, h, d, gain=20.0), _randn(gen, b, s, h, d), _randn(gen, b, s, h, d)
+    b, h = 1, 2
+    q, k, v = _randn(gen, b, s, h, d, gain=gain), _randn(gen, b, s, h, d), _randn(gen, b, s, h, d)
     scale = d ** -0.5
     plain = lambda x: av.exp2_attention_reference(q, k, x, scale)
     refs = plain_refs(plain, v)

@@ -44,12 +44,13 @@ def kernel_group(name: str) -> str:
         return "int8 FF2 grouped GEMM"
     if "int8_gemm_kernel" in name:
         return "int8 GEMMs"
-    if "flash_attention_kernel<64>" in name:
-        return "flash self-attention (d 64)"
-    if "flash_attention_kernel<128>" in name:
-        return "flash Perceiver (d 128)"
-    if "row_max_kernel" in name or "attention_kernel<" in name:
+    # hopper_attn::attention_kernel<head dim, mode>: mode 3 is the two-pass K4b
+    if "hopper_attn::attention_kernel<64, 3>" in name:
         return "two-pass flash self-attention"
+    if "hopper_attn::attention_kernel<64," in name:
+        return "flash self-attention (d 64)"
+    if "hopper_attn::attention_kernel<128," in name:
+        return "flash Perceiver (d 128)"
     if any(key in name.lower() for key in ("conv", "fprop", "implicit")):
         return "convolutions (cuDNN)"
     if "nvjet" in name or "gemm" in name.lower() or "cutlass" in name.lower():

@@ -33,8 +33,7 @@
 // What bounds it on the H100: at the DiT shape (2 x 48 x 13,330 x 64) it does
 // 2 x 2.2 TFLOP of bf16 products and 2.2 T int8 operations against ~0.3 GB,
 // so tensor-core throughput and the per-score exp2, not device memory.
-// Tiles as flash_attention.cu: one block per (batch * head, 64-query tile),
-// four warps of 16 rows, 64-key K and V tiles staged in shared memory, the
+// Tiles: one block per (batch * head, 64-query tile), four warps of 16 rows, 64-key K and V tiles staged in shared memory, the
 // scores kept in registers.  `wgmma`/TMA are left for a later change.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared

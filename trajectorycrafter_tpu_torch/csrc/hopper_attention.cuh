@@ -1,0 +1,825 @@
+// The Hopper (sm_90a) attention main loop shared by csrc/flash_attention.cu
+// (K1, K4, K5, K1b) and csrc/flash_maxpass.cu (K4b).
+//
+// What bounds it on the H100: at the DiT shape (2 x 48 heads x 13,330 tokens
+// x 64) one call does ~4.4 TFLOP against ~0.3 GB of q/k/v, so it is bound by
+// the tensor cores (4.42 ms at 989 TFLOP/s) and, at head dim 64, almost as
+// much by the SFU's exp2 (one per score: 4.08 ms), not by device memory.  A
+// kernel near that bound has to keep the tensor cores fed from shared memory
+// without any thread spending time on copies, and has to run the softmax of
+// one tile while the tensor cores multiply another.  The design:
+//
+// - TMA.  q, k and v are read straight from the (B, S, H, D) layout the
+//   projections produce, by the caller's strides, through one 4-D tensor map
+//   per operand over (D, H, S, B).  A box is (64 columns, 1 head, 128 or 192
+//   rows, 1 batch) with the 128-byte swizzle, the layout `wgmma` reads
+//   without bank conflicts; at head dim 128 a tile is two such boxes side by
+//   side.  The Perceiver's k and v, strided views of one projection, go
+//   through as they are.  Rows past the sequence are zero-filled by the TMA
+//   unit.
+// - A K/V ring.  Two stages of K and two of V in shared memory, each with an
+//   mbarrier pair (full: the TMA unit has landed the tile; empty: every
+//   consumer warp is done with it).  One producer warp issues every load and
+//   gives its registers to the consumers (`setmaxnreg`).
+// - Consumer warpgroups of 64 query rows: three at head dim 64 (a 192-row
+//   query tile), two at 128 (`Tiles`).  QK^T
+//   is `wgmma` m64n128k16 with q and k both read from shared memory; PV is
+//   `wgmma` m64nDk16 with P as bf16 A fragments taken straight from the
+//   score accumulators (the fp32 accumulator layout of two 8-key column
+//   blocks is the A fragment of one 16-key chunk) and V read from shared
+//   memory as an MN-major B operand.  The row max and row sum stay in fp32
+//   registers.
+// - Overlap of the exps and the products.  Each warpgroup issues the QK of
+//   tile j together with the PV of tile j - 1, then runs the softmax of tile
+//   j while that PV is still in flight; and the warpgroups take turns
+//   issuing their products (named barriers), so one's softmax runs while
+//   the tensor cores work on the others' products.
+// - The ragged edge is masked in the kernel: keys past Skv score -inf (or
+//   are left out of the exp2 modes' sums) in the last key tile only, and
+//   query rows past Sq are not stored.  The output is bf16 (B, Sq, H, D),
+//   written by strides.
+//
+// The modes (the function each computes is stated in the .cu that binds it):
+//   kExact    online running max (K1, K4);
+//   kLse      kExact, and the natural-log logsumexp of each row (K5);
+//   kExp2     fixed bias, no running max, q rounded to bf16 after the scale,
+//             bf16 weights in both sums, optional clamp and key mask (K1b);
+//   kMaxPass  pass 1 the exact row max, pass 2 exp2 attention against it,
+//             q rounded as in kExp2 (K4b).
+//
+// Host side: the tensor maps are built per call with cuTensorMapEncodeTiled,
+// fetched through cudaGetDriverEntryPoint, so the library needs neither
+// -lcuda nor PyTorch's headers.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: nothing here links libcuda
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace hopper_attn {
+
+constexpr int kBlockN = 128;                 // keys per K/V tile (ops/kernels.py ATTENTION_KEY_TILE)
+constexpr int kBoxCols = 64;                 // bf16 columns of a 128-byte swizzled row
+constexpr int kProducerRegs = 24;
+constexpr float kMasked = -1e30f;            // score of a key past the end (kMaxPass)
+constexpr float kExp2Clamp = 110.f;          // exp2 argument cap of kExp2
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The block's shape at head dim D: consumer warpgroups of 64 query rows, K
+// and V tiles in flight, registers per consumer thread (the producer
+// warpgroup keeps kProducerRegs: 128 x 24 + 384 x 160 and 128 x 24 + 256 x
+// 240 both fit the SM's 65,536).  At d 64 a consumer holds 64 score, 32
+// output and 32 P registers, so three fit in 160 registers and the third
+// hides more of the softmax; at d 128 the 64 output registers need 240.
+// Two stages keep each K and V tile in flight a whole step ahead of its use.
+template <int D>
+struct Tiles {
+  static constexpr int kConsumers = D == 64 ? 3 : 2;
+  static constexpr int kStages = 2;
+  static constexpr int kBlockM = 64 * kConsumers;  // query rows per block
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
+};
+
+enum Mode { kExact = 0, kLse = 1, kExp2 = 2, kMaxPass = 3 };
+
+// Named barriers (0 is __syncthreads): the consumers' turns at the tensor
+// cores, then each consumer's own 128-thread barrier.
+constexpr int kTurnBarrier = 1;
+constexpr int kGroupBarrier = 8;
+
+struct Params {
+  __nv_bfloat16* o;
+  long long o_sb, o_ss, o_sh;  // output strides in elements (batch, sequence, head)
+  float* lse;                  // kLse: (batch * heads, sq)
+  const uint8_t* kv_valid;     // kExp2: (skv,) 1 = a real key, or null = all
+  int heads, sq, skv;
+  float scale_log2;  // softmax scale * log2(e): scores live in the exp2 domain
+  float bias;        // kExp2: subtracted from every score (bf16-rounded)
+  int clamp;         // kExp2: cap the exp2 argument at 110
+};
+
+// Shared memory of one block.  An operand tile of R rows is D / 64 column
+// halves of R rows x 128 bytes, each 1024-byte aligned (the 128-byte swizzle
+// repeats every 8 rows).
+template <int D>
+struct Smem {
+  static constexpr int kStages = Tiles<D>::kStages;
+  __nv_bfloat16 q[Tiles<D>::kBlockM * D];
+  __nv_bfloat16 k[kStages][kBlockN * D];
+  __nv_bfloat16 v[kStages][kBlockN * D];
+  uint64_t q_full;
+  uint64_t k_full[kStages], k_empty[kStages];
+  uint64_t v_full[kStages], v_empty[kStages];
+};
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed (a fresh barrier
+// counts its phase of parity 1 as completed).  No tile takes seconds to
+// arrive: a wait that outlasts ~2^33 clocks traps, so a broken ring fails
+// the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 33)) {
+      __trap();
+    }
+  }
+}
+
+// One TMA box of a 4-D (D, H, S, B) tensor map into shared memory.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that a `wgmma`
+// in flight owns across the wait that hands them back.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+  }
+}
+
+// A `wgmma` shared-memory matrix descriptor with the 128-byte swizzle.
+// K-major operands (q, k: the contraction dim contiguous): SBO 1024 bytes
+// between 8-row groups, LBO unused.  The MN-major operand (v: the output
+// dim contiguous): SBO 1024 bytes between 8-key groups, LBO the distance
+// between 64-column halves.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint64_t enc = (smem_u32(p) & 0x3FFFF) >> 4;
+  return enc | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+#define HA_D8(i)                                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),            \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HA_D32 HA_D8(0), HA_D8(8), HA_D8(16), HA_D8(24)
+#define HA_D64 HA_D32, HA_D8(32), HA_D8(40), HA_D8(48), HA_D8(56)
+
+// d (64 x 128, fp32) (+)= A (64 x 16, shared) B (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : HA_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 registers) B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, bf16 registers) B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : HA_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef HA_D64
+#undef HA_D32
+#undef HA_D8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the SFU, one instruction (exp2f adds a subnormal range fix-up);
+// results below 2^-126 flush to 0, far below a softmax weight that counts.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// The two products of one warpgroup
+// ---------------------------------------------------------------------------
+
+// S (64 x 128) = q (the warpgroup's 64 rows) k^T (one key tile).
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[64], const __nv_bfloat16* q_wg,
+                                         const __nv_bfloat16* k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int half = kk / 4, col = (kk % 4) * 16;  // 16 columns = 32 bytes into the row
+    const uint64_t da =
+        make_desc(q_wg + half * Tiles<D>::kBlockM * kBoxCols + col, 16, 1024);
+    const uint64_t db = make_desc(k_tile + half * kBlockN * kBoxCols + col, 16, 1024);
+    wgmma_ss_n128(s, da, db, kk > 0);
+  }
+}
+
+// O (64 x D) += P (64 x 128, bf16 registers) V (one key tile).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[kBlockN / 16][4],
+                                         const __nv_bfloat16* v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk) {  // 16 keys = two 8-key groups = 2048 bytes
+    const uint64_t db = make_desc(v_tile + kk * 16 * kBoxCols, kBlockN * 128, 1024);
+    wgmma_rs(o, p[kk], db);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+// Per-thread view of a 64 x N accumulator: register i holds row
+// r0 + 8 * ((i >> 1) & 1) and column 8 * (i / 4) + 2 * t + (i & 1), with
+// r0 = 16 * warp + lane / 4 and t = lane % 4.
+__device__ __forceinline__ int acc_row(int i) { return (i >> 1) & 1; }
+__device__ __forceinline__ int acc_col(int i, int t) { return 8 * (i / 4) + 2 * t + (i & 1); }
+
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int row, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < D / kBoxCols; ++c) {
+    tma_load_4d(dst + c * kRows * kBoxCols, map, bar, c * kBoxCols, h, row, b);
+  }
+}
+
+// A consumer warpgroup's state and steps.
+template <int D, int kMode>
+struct Consumer {
+  static constexpr int kConsumers = Tiles<D>::kConsumers;
+  static constexpr int kStages = Tiles<D>::kStages;
+  static constexpr int kBlockM = Tiles<D>::kBlockM;
+  Smem<D>& sm;
+  const Params& p;
+  int me;          // 0 .. kConsumers - 1
+  int lane, t;     // lane % 4
+  int kc, vc;      // tiles of the K and V rings consumed so far
+  const __nv_bfloat16* q_wg;
+  float m[2], l[2];  // running max (or fixed offset) and this thread's row sums
+  float o[D / 2];
+  uint32_t pf[kBlockN / 16][4];
+
+  __device__ __forceinline__ Consumer(Smem<D>& sm_, const Params& p_, int me_, int tid)
+      : sm(sm_), p(p_), me(me_), lane(tid % 32), t(tid % 4), kc(0), vc(0),
+        q_wg(sm_.q + me_ * 64 * kBoxCols) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    l[0] = l[1] = 0.f;
+    m[0] = m[1] = (kMode == kExp2) ? p_.bias : -1e30f;  // finite: exp2(old - new) is 0, not NaN
+  }
+
+  __device__ __forceinline__ void wait_k() {
+    mbar_wait(&sm.k_full[kc % kStages], (kc / kStages) & 1);
+  }
+  __device__ __forceinline__ void release_k() {
+    if (lane == 0) mbar_arrive(&sm.k_empty[kc % kStages]);
+    ++kc;
+  }
+  __device__ __forceinline__ void wait_v() {
+    mbar_wait(&sm.v_full[vc % kStages], (vc / kStages) & 1);
+  }
+  __device__ __forceinline__ void release_v() {
+    if (lane == 0) mbar_arrive(&sm.v_empty[vc % kStages]);
+    ++vc;
+  }
+  __device__ __forceinline__ const __nv_bfloat16* k_tile() const { return sm.k[kc % kStages]; }
+  __device__ __forceinline__ const __nv_bfloat16* v_tile() const { return sm.v[vc % kStages]; }
+
+  // kExp2 and kMaxPass: q * scale * log2(e) rounded to bf16 in place, over
+  // this warpgroup's rows (an elementwise pass, blind to the swizzle); the
+  // proxy fence makes the generic-proxy stores visible to `wgmma`.
+  __device__ __forceinline__ void scale_q(int tid) {
+    constexpr int kVecs = 64 * kBoxCols / 8;  // 16-byte vectors per half
+#pragma unroll
+    for (int half = 0; half < D / kBoxCols; ++half) {
+      uint4* base = reinterpret_cast<uint4*>(sm.q + half * kBlockM * kBoxCols +
+                                             me * 64 * kBoxCols);
+#pragma unroll
+      for (int i = tid; i < kVecs; i += 128) {
+        uint4 x = base[i];
+        uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+          w[e] = pack_bf16(f.x * p.scale_log2, f.y * p.scale_log2);
+        }
+        base[i] = x;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(kGroupBarrier + me, 128);
+  }
+
+  // Valid-key bits of the tile at n0 for kExp2's mask: word w, bit b is key
+  // n0 + 32 w + b, read once per tile (each lane one byte of each word).
+  __device__ __forceinline__ void key_bytes(int n0, uint32_t (&mask)[4]) const {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int key = n0 + 32 * w + lane;
+      mask[w] = key < p.skv && (p.kv_valid == nullptr || p.kv_valid[key]);
+    }
+  }
+
+  // The softmax of the scores in s for the key tile at n0, in place:
+  // s becomes the weights (fp32, or bf16-rounded in the exp2 modes) and the
+  // row sums take them in; returns the factor the accumulated output of the
+  // earlier tiles must be multiplied by (1 in the fixed-offset modes).
+  __device__ __forceinline__ void softmax(float (&s)[64], int n0, const uint32_t (&mask)[4],
+                                          float (&corr)[2]) {
+    const int limit = p.skv - n0;  // keys of this tile inside the sequence
+    if (kMode == kExact || kMode == kLse) {
+      // two partial maxima and sums per row shorten the dependent chains
+      float part[2][2];
+      if (limit < kBlockN) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          if (acc_col(i, t) >= limit) s[i] = -INFINITY;
+        }
+      }
+      part[0][0] = part[0][1] = part[1][0] = part[1][1] = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        float& x = part[acc_row(i)][(i / 4) & 1];
+        x = fmaxf(x, s[i]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
+        float mx = fmaxf(part[r][0], part[r][1]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx * p.scale_log2);
+        corr[r] = exp2_ftz(m[r] - m_new);
+        m[r] = m_new;
+      }
+      part[0][0] = part[0][1] = part[1][0] = part[1][1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        s[i] = exp2_ftz(fmaf(s[i], p.scale_log2, -m[acc_row(i)]));
+        part[acc_row(i)][(i / 4) & 1] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], corr[r], part[r][0] + part[r][1]);
+    } else {
+      // fixed offset: kExp2's bias, kMaxPass's exact row max (all args <= 0).
+      // Keys past the end, or marked invalid (kExp2), weigh 0; only a tile
+      // that holds such keys pays for the per-key test.
+      const bool check = kMode == kExp2 ? (p.kv_valid != nullptr || limit < kBlockN)
+                                        : limit < kBlockN;
+      uint32_t bits[4] = {~0u, ~0u, ~0u, ~0u};
+      if (check) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) bits[w] = __ballot_sync(0xffffffffu, mask[w] != 0);
+      }
+      // the same ballots in every lane: the branch is uniform
+      if ((bits[0] & bits[1] & bits[2] & bits[3]) == ~0u) {
+        fixed_weights<false>(s, bits);
+      } else {
+        fixed_weights<true>(s, bits);
+      }
+      corr[0] = corr[1] = 1.f;
+    }
+  }
+
+  // The weights of the fixed-offset modes in place, rounded to bf16 (the
+  // row sums add the rounded weights, as the PV product takes them).  With
+  // kMask, column acc_col(i, t) weighs 0 unless bit 8 (i / 4 % 4) + 2 t +
+  // (i & 1) of bits[i / 16] is set.  exp2 on the SFU flushes weights below
+  // 2^-126 to 0; they count only in a row whose every weight lies there.
+  template <bool kMask>
+  __device__ __forceinline__ void fixed_weights(float (&s)[64], const uint32_t (&bits)[4]) {
+    float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {  // i, i + 1: one row, adjacent columns
+      const int r = acc_row(i);
+      float a0 = s[i] - m[r], a1 = s[i + 1] - m[r];
+      if (kMode == kExp2 && p.clamp) {
+        a0 = fminf(a0, kExp2Clamp);
+        a1 = fminf(a1, kExp2Clamp);
+      }
+      float e0 = exp2_ftz(a0), e1 = exp2_ftz(a1);
+      if (kMask) {
+        const uint32_t w = bits[i / 16] >> (8 * (i / 4 % 4) + 2 * t);
+        e0 = (w & 1u) ? e0 : 0.f;
+        e1 = (w & 2u) ? e1 : 0.f;
+      }
+      const uint32_t pair = pack_bf16(e0, e1);
+      s[i] = __uint_as_float(pair << 16);
+      s[i + 1] = __uint_as_float(pair & 0xffff0000u);
+      part[r][(i / 4) & 1] += s[i] + s[i + 1];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] += part[r][0] + part[r][1];
+  }
+
+  // P for the PV product: the accumulators of column blocks 2kk and 2kk + 1
+  // are the A fragment of 16-key chunk kk.
+  __device__ __forceinline__ void pack_p(const float (&s)[64]) {
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+    }
+  }
+
+  __device__ __forceinline__ void rescale(const float (&corr)[2]) {
+    if (kMode == kExact || kMode == kLse) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[acc_row(i)];
+    }
+  }
+
+  // kMaxPass pass 1: the row max of the scaled scores over the valid keys,
+  // with the same products the second pass runs.
+  __device__ __forceinline__ void row_max_pass(int n_tiles) {
+    float mx[2] = {kMasked, kMasked};
+    float s[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int limit = p.skv - j * kBlockN;
+      wait_k();
+      fence_regs(s);
+      wgmma_fence();
+      issue_qk<D>(s, q_wg, k_tile());
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      release_k();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const float x = (limit < kBlockN && acc_col(i, t) >= limit) ? kMasked : s[i];
+        mx[acc_row(i)] = fmaxf(mx[acc_row(i)], x);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      m[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+  }
+
+  // One key tile of the main loop: the QK of tile j and (kWithPv) the PV of
+  // tile j - 1 issued together in this warpgroup's turn, then the softmax of
+  // tile j while the PV runs.  The register fences before `wgmma.fence`
+  // finish every write to the operands first, so the compiler adds no fence
+  // of its own.
+  template <bool kWithPv>
+  __device__ __forceinline__ void step(int j, int n_tiles, float (&s)[64]) {
+    const int turn = kTurnBarrier + me, next = kTurnBarrier + (me + 1) % kConsumers;
+    const int pair = 128 * 2;  // a turn barrier joins this warpgroup and the one before
+    const int n0 = j * kBlockN;
+    uint32_t mask[4] = {1u, 1u, 1u, 1u};
+    float corr[2];
+    if (kMode == kExp2 || kMode == kMaxPass) key_bytes(n0, mask);
+    wait_k();
+    if (kWithPv) wait_v();
+    named_sync(turn, pair);
+    fence_regs(s);
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+    issue_qk<D>(s, q_wg, k_tile());
+    wgmma_commit();
+    if (kWithPv) issue_pv<D>(o, pf, v_tile());
+    wgmma_commit();
+    // hand the turn on; the last consumer's last turn has no successor
+    if (!(me == kConsumers - 1 && j == n_tiles - 1)) named_arrive(next, pair);
+    wgmma_wait<1>();
+    fence_regs(s);
+    release_k();
+    softmax(s, n0, mask, corr);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+    if (kWithPv) release_v();
+    rescale(corr);
+    pack_p(s);
+  }
+
+  __device__ __forceinline__ void attend(int n_tiles) {
+    // the turns go round; the first consumer goes first
+    if (me == kConsumers - 1) named_arrive(kTurnBarrier, 128 * 2);
+    float s[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    step<false>(0, n_tiles, s);
+    for (int j = 1; j < n_tiles; ++j) step<true>(j, n_tiles, s);
+    wait_v();
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+    issue_pv<D>(o, pf, v_tile());
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+    release_v();
+  }
+
+  // Full row sums over the quad, normalise, store bf16 pairs (and kLse's lse).
+  __device__ __forceinline__ void store(int row0, int b, int h) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (kMode != kExact) l[r] = fmaxf(l[r], 1e-30f);
+    }
+    const int rows[2] = {row0, row0 + 8};
+    if (kMode == kLse && t == 0) {
+      float* lse = p.lse + static_cast<long long>(b * p.heads + h) * p.sq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < p.sq) lse[rows[r]] = m[r] * kLn2 + logf(l[r]);
+      }
+    }
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    __nv_bfloat16* out = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= p.sq) continue;
+      __nv_bfloat16* row = out + rows[r] * p.o_ss;
+#pragma unroll
+      for (int jd = 0; jd < D / 8; ++jd) {
+        *reinterpret_cast<uint32_t*>(row + 8 * jd + 2 * t) =
+            pack_bf16(o[4 * jd + 2 * r] * inv[r], o[4 * jd + 2 * r + 1] * inv[r]);
+      }
+    }
+  }
+};
+
+template <int D, int kMode>
+__global__ void __launch_bounds__(Tiles<D>::kThreads, 1)
+attention_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, const __grid_constant__ Params p) {
+  static_assert(D % kBoxCols == 0, "head dim must be a multiple of 64");
+  constexpr int kConsumers = Tiles<D>::kConsumers;
+  constexpr int kStages = Tiles<D>::kStages;
+  constexpr int kBlockM = Tiles<D>::kBlockM;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern follows the address bits: align the tiles to 1024
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + pad);
+
+  // the warpgroup index through a shuffle, which the compiler knows to be
+  // uniform across the warp: the role branches below then hold no divergence
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  const int tid = threadIdx.x % 128;
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
+  const int m0 = blockIdx.x * kBlockM;
+  const int n_tiles = (p.skv + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.k_full[i], 1);
+      mbar_init(&sm.v_full[i], 1);
+      mbar_init(&sm.k_empty[i], 4 * kConsumers);  // one arrival per consumer warp
+      mbar_init(&sm.v_empty[i], 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      constexpr uint32_t kTileBytes = kBlockN * D * sizeof(__nv_bfloat16);
+      mbar_expect_tx(&sm.q_full, kBlockM * D * sizeof(__nv_bfloat16));
+      load_tile<D, kBlockM>(sm.q, &q_map, &sm.q_full, m0, h, b);
+      int kl = 0, vl = 0;  // tiles issued into each ring
+      const int passes = kMode == kMaxPass ? 2 : 1;
+      for (int pass = 0; pass < passes; ++pass) {
+        const bool with_v = pass == passes - 1;
+        for (int j = 0; j < n_tiles; ++j) {
+          int st = kl % kStages;
+          mbar_wait(&sm.k_empty[st], ((kl / kStages) & 1) ^ 1);
+          mbar_expect_tx(&sm.k_full[st], kTileBytes);
+          load_tile<D, kBlockN>(sm.k[st], &k_map, &sm.k_full[st], j * kBlockN, h, b);
+          ++kl;
+          if (with_v) {
+            st = vl % kStages;
+            mbar_wait(&sm.v_empty[st], ((vl / kStages) & 1) ^ 1);
+            mbar_expect_tx(&sm.v_full[st], kTileBytes);
+            load_tile<D, kBlockN>(sm.v[st], &v_map, &sm.v_full[st], j * kBlockN, h, b);
+            ++vl;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Tiles<D>::kConsumerRegs));
+    Consumer<D, kMode> c(sm, p, wg - 1, tid);
+    mbar_wait(&sm.q_full, 0);
+    if (kMode == kExp2 || kMode == kMaxPass) c.scale_q(tid);
+    if (kMode == kMaxPass) c.row_max_pass(n_tiles);
+    c.attend(n_tiles);
+    c.store(m0 + (wg - 1) * 64 + 16 * (tid / 32) + (tid % 32) / 4, b, h);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// The caller's arguments: bf16 (B, S, H, D) q, k, v and output, strides in
+// elements over (batch, sequence, head), the head dim dense.
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  int batch, heads, sq, skv, head_dim;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
+  float scale;
+  float* lse;
+  const uint8_t* kv_valid;
+  float bias;
+  int clamp;
+};
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver the runtime already loaded.
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A 4-D tiled map over (D, H, S, B) of a bf16 (B, S, H, D) tensor; a box is
+// 64 columns x 1 head x `rows` rows x 1 batch, 128-byte swizzled; rows past
+// S read as zero.
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
+                            int d, long long sb, long long ss, long long sh, int rows) {
+  EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBoxCols), 1u,
+                             static_cast<cuuint32_t>(rows), 1u};
+  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D, int kMode>
+cudaError_t launch_d(const Args& a, cudaStream_t stream) {
+  constexpr int kBlockM = Tiles<D>::kBlockM;
+  CUtensorMap qm, km, vm;
+  cudaError_t err = make_map(&qm, a.q, a.batch, a.sq, a.heads, D, a.q_sb, a.q_ss, a.q_sh, kBlockM);
+  if (err == cudaSuccess)
+    err = make_map(&km, a.k, a.batch, a.skv, a.heads, D, a.k_sb, a.k_ss, a.k_sh, kBlockN);
+  if (err == cudaSuccess)
+    err = make_map(&vm, a.v, a.batch, a.skv, a.heads, D, a.v_sb, a.v_ss, a.v_sh, kBlockN);
+  if (err != cudaSuccess) return err;
+  Params p;
+  p.o = static_cast<__nv_bfloat16*>(a.o);
+  p.o_sb = a.o_sb;
+  p.o_ss = a.o_ss;
+  p.o_sh = a.o_sh;
+  p.lse = a.lse;
+  p.kv_valid = a.kv_valid;
+  p.heads = a.heads;
+  p.sq = a.sq;
+  p.skv = a.skv;
+  p.scale_log2 = a.scale * 1.4426950408889634f;
+  p.bias = a.bias;
+  p.clamp = a.clamp;
+  const int smem = static_cast<int>(sizeof(Smem<D>)) + 1024;  // + the alignment pad
+  err = cudaFuncSetAttribute(attention_kernel<D, kMode>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.batch * a.heads);
+  attention_kernel<D, kMode><<<grid, Tiles<D>::kThreads, smem, stream>>>(qm, km, vm, p);
+  return cudaGetLastError();
+}
+
+// Launch on `stream` of `device`; returns the cudaError_t (0 = success).
+template <int kMode>
+int launch(int device, const Args& a, void* stream) {
+  // make the caller's device current for this runtime, as PyTorch has it
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.head_dim == 64) return static_cast<int>(launch_d<64, kMode>(a, s));
+  if (a.head_dim == 128) return static_cast<int>(launch_d<128, kMode>(a, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace hopper_attn

@@ -28,12 +28,20 @@ import torch
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / "csrc"
 BUILD_ROOT = _PACKAGE_DIR.parent / "build" / "trajectorycrafter_tpu_torch"
+# sm_90a, not sm_90: the attention kernels use `wgmma` and `setmaxnreg`.  No
+# -lcuda: their TMA tensor maps are encoded through the CUDA driver entry point
+# the runtime hands out (cudaGetDriverEntryPoint).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 FLASH_HEAD_DIMS = (64, 128)
-FLASH_KEY_TILE = 64  # keys per shared-memory tile of every attention kernel in csrc/
+# keys per K/V tile of the bf16 attention kernels: flash_attention,
+# flash_lse, flash_exp2 and flash_maxpass (csrc/hopper_attention.cuh kBlockN)
+ATTENTION_KEY_TILE = 128
+# keys per tile of the quantized attention kernels, flash_pv8 and
+# int8_flash_attention, whose int8 V layout is cut in tiles of 64 keys
+FLASH_KEY_TILE = 64
 
 
 def _nvcc() -> str:
@@ -122,7 +130,8 @@ def _check_bshd(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name} must be (B, S, H, D), got shape {tuple(x.shape)}")
     if x.stride(-1) != 1:
         raise ValueError(f"{name} must be dense in the head dim, strides {x.stride()}")
-    # the kernels move rows as 16-byte vectors
+    # the kernels move rows as 16-byte vectors, or by TMA, which takes
+    # 16-byte aligned base addresses and strides
     if any(s * x.element_size() % 16 for s in x.stride()[:3]) or x.data_ptr() % 16:
         raise ValueError(
             f"{name} needs 16-byte aligned rows (strides {x.stride()} and the data "
@@ -197,14 +206,10 @@ flash_attention.launches = 0
 def flash_maxpass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """The same attention in two passes (csrc/flash_maxpass.cu): the exact
-    row max of the scaled scores first, then exp2 attention against it.
-    Takes what ``flash_attention`` takes.  Counts each call, which launches
-    both passes, in ``flash_maxpass.launches``."""
-    b, sq, _, h, _ = _check_attention("flash_maxpass", q, k, v)
-    # the row maxima of the first pass, an fp32 work buffer
-    row_max = torch.empty(b * h * sq, dtype=torch.float32, device=q.device)
-    out = _launch("flash_maxpass", q, k, v, scale, extra_ptrs=(row_max.data_ptr(),),
-                  source="flash_maxpass")
+    row max of the scaled scores first, then exp2 attention against it, both
+    in one launch.  Takes what ``flash_attention`` takes.  Counts each call
+    in ``flash_maxpass.launches``."""
+    out = _launch("flash_maxpass", q, k, v, scale, source="flash_maxpass")
     flash_maxpass.launches += 1
     return out
 
