@@ -69,7 +69,8 @@ REPO = Path(__file__).resolve().parent
 # passes of the two-pass one, run on the first three quarters of k and v).
 
 # The int8 kernels: ``int8_quantize_rows`` bit-equal to its plain version;
-# ``int8_gemm`` and ``int8_gemm_gscale`` within one bf16 ulp of theirs
+# ``int8_gemm`` and ``int8_gemm_gscale`` (the `wgmma` main loop of
+# csrc/int8_gemm_hopper.cuh) within one bf16 ulp of theirs
 # (``gemm_error``), ``int8_gemm_gelu_quant`` within ``gelu_quant_error``
 # (trajectorycrafter_tpu_torch/ops/int8_matmul.py states the reasons).  At
 # the feed-forward shapes each bound must reject two planted faults, made
@@ -813,15 +814,18 @@ def phase_int8_kernels():
 
         t = per_shape[name] = in_turns(fns, iters)
         ops = 2 * m * k * n
-        line = (f"{name} timed: int8_quantize_rows {t['quantize_ms']:.3f} ms (plain "
-                f"{t['quantize_plain_ms']:.3f}), int8_gemm {t['gemm_ms']:.3f} ms "
-                f"({ops / t['gemm_ms'] / 1e9:.1f} TOP/s; plain {t['plain_ms']:.3f}; "
-                f"torch._int_mm {t['int_mm_ms']:.3f}), bf16 F.linear {t['bf16_linear_ms']:.3f} ms "
-                f"({ops / t['bf16_linear_ms'] / 1e9:.1f} TFLOP/s)")
+        rate = lambda key: f"{t[key]:.3f} ms ({ops / t[key] / 1e9:.1f} TOP/s)"
+        bounds = _int8_bounds(name, group)
+        line = (f"{name} timed: int8_gemm {rate('gemm_ms')}, torch._int_mm {rate('int_mm_ms')}, "
+                f"bf16 F.linear {t['bf16_linear_ms']:.3f} ms "
+                f"({ops / t['bf16_linear_ms'] / 1e9:.1f} TFLOP/s); int8_gemm bound "
+                f"{bounds['int8_gemm']['bound_ms']:.3f} ms ({bounds['int8_gemm']['bound_by']}), "
+                f"plain {t['plain_ms']:.3f} ms; int8_quantize_rows {t['quantize_ms']:.3f} ms "
+                f"(plain {t['quantize_plain_ms']:.3f})")
         if "fused_ms" in t:
             fused = "int8_gemm_gelu_quant" if name == "dit_ff1" else "int8_gemm_gscale"
-            line += (f"; {fused} {t['fused_ms']:.3f} ms ({ops / t['fused_ms'] / 1e9:.1f} "
-                     f"TOP/s; plain {t['fused_plain_ms']:.3f})")
+            line += (f"; {fused} {rate('fused_ms')}, bound {bounds[fused]['bound_ms']:.3f} ms, "
+                     f"plain {t['fused_plain_ms']:.3f} ms")
         log(line)
         del x, w, wq, ws, b, xq, xs, fns
         torch.cuda.empty_cache()

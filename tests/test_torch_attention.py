@@ -36,7 +36,9 @@ from trajectorycrafter_tpu_torch.ops.attention import (
     attention_error,
     attention_reference,
     maxpass_plain_inputs,
+    maxpass_reference,
     multi_head_attention,
+    output_error,
 )
 from trajectorycrafter_tpu_torch.ops.attention_variants import pv8_block_k, pv8_reference
 from trajectorycrafter_tpu_torch.ops.kernels import (
@@ -106,11 +108,39 @@ def test_multi_head_attention_takes_plain_version_on_cpu():
     before = flash_attention.launches, flash_maxpass.launches
     want = attention_reference(q, k, v, 0.2).reshape(2, 33, 4 * 64)
     # "reference" and "xla" are the same plain version on any device
-    for impl in ("auto", "flash_stock", "flash_max", "reference", "xla"):
+    for impl in ("auto", "flash_stock", "reference", "xla"):
         got = multi_head_attention(q, k, v, scale=0.2, impl=impl)
         assert got.shape == (2, 33, 4 * 64)
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+    # "flash_max" computes the two-pass kernel's own function
+    got = multi_head_attention(q, k, v, scale=0.2, impl="flash_max")
+    torch.testing.assert_close(got, maxpass_reference(q, k, v, 0.2).reshape(2, 33, 4 * 64),
+                               atol=0, rtol=0)
     assert (flash_attention.launches, flash_maxpass.launches) == before
+
+
+def test_flash_max_on_cpu_is_the_two_pass_kernels_function():
+    """On a CPU tensor ``impl="flash_max"`` computes what the two-pass Pallas
+    kernel (interpret mode) computes in bf16 -- the attention of q * scale *
+    log2(e) rounded to bf16 -- within ``output_error``'s bound around the
+    kernel's output; with peaked scores (q x 6) it sits outside the bound
+    around the unrounded attention."""
+    q, k, v = _qkv(6, 1, 2, 128, 256, 64)
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in (q * 6.0, k, v))
+    scale = 64 ** -0.5
+    to_jax = lambda x: jnp.asarray(x.float().numpy()).astype(jnp.bfloat16).swapaxes(1, 2)
+
+    def pallas(v_in):
+        out_t = flash_attention_maxpass(to_jax(q), to_jax(k), to_jax(v_in), sm_scale=scale,
+                                        block_q=128, block_k=128, interpret=True)
+        return torch.from_numpy(np.array(out_t.transpose(0, 3, 1, 2).astype(jnp.float32)))
+
+    before = flash_maxpass.launches
+    got = multi_head_attention(q, k, v, scale=scale, impl="flash_max").reshape(q.shape)
+    assert flash_maxpass.launches == before
+    held = output_error(got, pallas(v), pallas(v.abs()))
+    assert held["ok"] and held["max_row_rel_err"] < 2 ** -7, held
+    assert not attention_error(got, q, k, v, scale)["ok"]
 
 
 def test_flash_pv8_takes_its_plain_version_on_cpu():

@@ -5,6 +5,8 @@ The same option strings, defaults, choices and types; the same config
 (``dataclasses.asdict``) for several command lines; the same ``SystemExit``
 messages from ``validate``; the same arrays from the video functions on the
 repository's test clip and on random frames.  Everything is compared exactly.
+Also: the port's CLI refuses what it does not run yet before it builds a
+model.
 """
 
 import dataclasses
@@ -16,7 +18,7 @@ import pytest
 from trajectorycrafter_tpu import cli as jax_cli
 from trajectorycrafter_tpu import config as jax_config
 from trajectorycrafter_tpu.utils import video as jax_video
-from trajectorycrafter_tpu_torch import cli, config
+from trajectorycrafter_tpu_torch import cli, config, orchestrator
 from trajectorycrafter_tpu_torch.utils import video
 
 REPO = Path(__file__).resolve().parents[1]
@@ -83,6 +85,43 @@ def test_validate_raises_the_jax_messages(argv):
 def test_validate_passes_a_good_config():
     argv = ["--video_path", CLIP, "--traj_txt", TRAJ, "--exp_name", "run"]
     cli.validate(cli.config_from_args(cli.get_parser().parse_args(argv)))
+
+
+def _refuse_builds(monkeypatch):
+    def build(*args, **kwargs):
+        raise AssertionError("a model was built")
+
+    for name in ("build_models", "build_full_scale_models", "build_dev_models"):
+        monkeypatch.setattr(orchestrator, name, build)
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--mode", "direct"], "--mode direct .*ROADMAP queue 1 item 6"),
+    (["--mode", "bullet"], "--mode bullet .*ROADMAP queue 1 item 6"),
+    (["--mode", "zoom"], "--mode zoom .*ROADMAP queue 1 item 6"),
+    (["--mask"], "--mask .*ROADMAP queue 1 item 4"),
+], ids=["direct", "bullet", "zoom", "mask"])
+def test_cli_refuses_what_is_not_ported_before_any_model_is_built(monkeypatch, tmp_path,
+                                                                   extra, message):
+    """The modes and the mask morphology the port does not run are refused by
+    ``parse_config`` (``check_supported``), so ``main`` stops before it
+    builds a model."""
+    _refuse_builds(monkeypatch)
+    argv = ["--video_path", CLIP, "--traj_txt", TRAJ, "--exp_name", "run",
+            "--out_dir", str(tmp_path / "out"), *extra]
+    with pytest.raises(NotImplementedError, match=message):
+        cli.parse_config(argv)
+    with pytest.raises(NotImplementedError, match=message):
+        cli.main(argv)
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_passes_the_gradual_mode(monkeypatch):
+    _refuse_builds(monkeypatch)
+    argv = ["--video_path", CLIP, "--traj_txt", TRAJ, "--exp_name", "run", "--mode", "gradual"]
+    cfg = cli.parse_config(argv)
+    assert (cfg.render.mode, cfg.render.mask) == ("gradual", False)
+    orchestrator.check_supported(cfg)
 
 
 @pytest.mark.parametrize("kwargs", [

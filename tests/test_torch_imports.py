@@ -4,9 +4,9 @@ module of the JAX package, and builds no kernel.
 Runs in a fresh interpreter: this test process has jax and the JAX package
 loaded already (tests/conftest.py and the other tests), so the check is on
 ``sys.modules`` after importing every module of the port.  The port's
-scripts outside the package (``chip_smoke.py``, ``tools/profile_dit_step.py``)
-are checked statically: no import statement of theirs names jax or the JAX
-package.
+scripts outside the package (``chip_smoke.py``, ``tools/profile_dit_step.py``,
+``tools/int8_gemm_ab.py``) are checked statically: no import statement of
+theirs names jax or the JAX package.
 """
 
 import ast
@@ -55,7 +55,8 @@ def _imported_roots(path: Path) -> set:
     return roots
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_dit_step.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_dit_step.py",
+                                    "tools/int8_gemm_ab.py"])
 def test_port_scripts_import_neither_jax_nor_the_jax_package(script):
     roots = _imported_roots(REPO / script)
     assert "trajectorycrafter_tpu_torch" in roots or "torch" in roots

@@ -27,7 +27,10 @@ to its plain version; ``int8_gemm`` (K2b) and ``int8_gemm_gscale`` (K3b)
 within one bf16 ulp of theirs (``gemm_error``); ``int8_gemm_gelu_quant``
 (K3a) within ``gelu_quant_error`` (scales 1e-6 relative, codes off by at
 most 1 on at most 0.1% of the elements), at the shapes chip_smoke.py checks
-cut in M, with odd M.  At the feed-forward shapes the bounds must reject the
+cut in M, with odd M, and at the edges of K2b's and K3b's `wgmma` main loop
+(csrc/int8_gemm_hopper.cuh: K past its 128-byte K tile, N past the block,
+ragged M, A a strided view, one and twelve K groups), there bit-equal (0
+ulps).  At the feed-forward shapes the bounds must reject the
 planted faults: a K step of 32 skipped, the bias dropped and the column
 scales shifted by one (K2b, K3b); a group of 512 columns in place of 1,024
 and the gelu dropped (K3a).
@@ -327,7 +330,7 @@ def test_gelu_quant_kernel_matches_plain(gen, m, k, n, group):
 
 @pytest.mark.parametrize("m,k,n,group", [
     (2084, 12288, 3072, 1024),  # the fused FF2, M cut
-    (70, 512, 256, 256), (33, 128, 48, 64),
+    (70, 512, 256, 256), (33, 128, 48, 128),
 ])
 def test_gscale_kernel_matches_plain(gen, m, k, n, group):
     _, xq, xs, wq1, ws1, b1 = _int8_operands(gen, m, 64, k)
@@ -336,6 +339,61 @@ def test_gscale_kernel_matches_plain(gen, m, k, n, group):
     out = _counted(int8_gemm_gscale, hq, wq, hs, ws, b, group)
     readings = im.gemm_error(out, im.int8_matmul_gscale_reference(hq, wq, hs, ws, b, group))
     assert readings["ok"], readings
+
+
+# The edges of the wgmma main loop (csrc/int8_gemm_hopper.cuh): its K tile is
+# 128 bytes, int8_gemm's block 128 x 256 and int8_gemm_gscale's 128 x 128;
+# the TMA unit zero-fills past K, N and M.  Each case bit-equal (0 ulps).
+@pytest.mark.parametrize("m,k,n", [
+    (70, 48, 256), (70, 160, 256), (70, 320, 256),  # K not a multiple of the K tile
+    (129, 256, 48), (129, 256, 320),  # N not a multiple of the block
+    (70, 384, 512), (2084, 384, 512),  # ragged M
+], ids=["k48", "k160", "k320", "n48", "n320", "m70", "m2084"])
+def test_int8_gemm_main_loop_edges_are_bit_equal(gen, m, k, n):
+    _, xq, xs, wq, ws, b = _int8_operands(gen, m, k, n)
+    out = _counted(int8_gemm, xq, wq, xs, ws, b)
+    readings = im.gemm_error(out, im.int8_matmul_reference(xq, wq, xs, ws, b))
+    assert readings["ok"] and readings["max_ulps"] == 0, readings
+
+
+def test_int8_gemms_read_a_as_a_strided_view(gen):
+    """A column slice of a wider int8 tensor: row stride lda > K and a data
+    pointer 32 bytes into the row, read through the tensor map as it is."""
+    m, k, n, group = 300, 1024, 320, 256
+    _, xq, xs, wq, ws, b = _int8_operands(gen, m, k, n)
+    wide = torch.zeros((m, k + 96), dtype=torch.int8, device="cuda")
+    wide[:, 32:32 + k] = xq
+    view = wide[:, 32:32 + k]
+    assert view.stride(0) == k + 96 and not view.is_contiguous()
+    out = _counted(int8_gemm, view, wq, xs, ws, b)
+    readings = im.gemm_error(out, im.int8_matmul_reference(xq, wq, xs, ws, b))
+    assert readings["ok"] and readings["max_ulps"] == 0, readings
+    hs = torch.rand((m, k // group), generator=gen, device="cuda") * 0.01 + 1e-3
+    out = _counted(int8_gemm_gscale, view, wq, hs, ws, b, group)
+    readings = im.gemm_error(out, im.int8_matmul_gscale_reference(xq, wq, hs, ws, b, group))
+    assert readings["ok"] and readings["max_ulps"] == 0, readings
+
+
+@pytest.mark.parametrize("m,k,n,group", [
+    (300, 1024, 256, 1024),  # one group
+    (300, 12 * 128, 320, 128),  # 12 groups, N not a multiple of the block
+], ids=["one_group", "twelve_groups"])
+def test_gscale_kernel_groups_are_bit_equal(gen, m, k, n, group):
+    _, xq, xs, wq1, ws1, b1 = _int8_operands(gen, m, 64, k)
+    hq, hs = im.int8_matmul_gelu_quant_reference(xq, wq1, xs, ws1, b1, group)
+    _, _, _, wq, ws, b = _int8_operands(gen, 1, k, n)
+    out = _counted(int8_gemm_gscale, hq, wq, hs, ws, b, group)
+    readings = im.gemm_error(out, im.int8_matmul_gscale_reference(hq, wq, hs, ws, b, group))
+    assert readings["ok"] and readings["max_ulps"] == 0, readings
+
+
+def test_gscale_wrapper_refuses_a_group_of_64(gen):
+    """A K group must be a whole number of the main loop's 128-byte K tiles."""
+    _, xq, _, wq, ws, b = _int8_operands(gen, 33, 128, 48)
+    before = int8_gemm_gscale.launches
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int8_gemm_gscale(xq, wq, torch.ones((33, 2), device="cuda"), ws, b, 64)
+    assert int8_gemm_gscale.launches == before
 
 
 def _k_step_skipped(q):

@@ -17,8 +17,10 @@ depth stage's parts are timed first (CLIP embedding, VAE encode, the 5
 Euler steps, the chunked VAE decode, each after a warm-up run of the whole
 stage).  After two warm-up forwards it times one forward unprofiled (host
 clock ending in a synchronize), then one under ``torch.profiler``, and
-prints the device time per kernel group, the top kernels, and the device's
-idle share (1 - summed kernel time / profiled wall time).
+prints the device time per kernel group (with the int8 GEMM groups' int8
+operations, counted by hooks on the int8 layers in the first warm-up
+forward, and their TOP/s), the top kernels, and the device's idle share
+(1 - summed kernel time / profiled wall time).
 """
 
 import argparse
@@ -133,6 +135,42 @@ def depth_step(models, cfg):
     return label, lambda: pipe.unet(*args)
 
 
+def int8_ops(model, forward) -> dict:
+    """{kernel group: int8 operations} of one ``forward``, counted by forward
+    hooks on ``model``'s int8 layers (2 M K N per GEMM): an ``Int8Linear``
+    runs one ``int8_gemm``; a fused feed-forward runs the gelu-quant GEMM and
+    the grouped GEMM in place of its two layers."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.models.dit import FeedForward
+    from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear
+
+    ops = defaultdict(float)
+
+    def rows(x):
+        return x.numel() // x.shape[-1]
+
+    def linear(mod, inputs, out):
+        ops["int8 GEMMs"] += 2.0 * rows(inputs[0]) * mod.weight_q.numel()
+
+    def fused_ff(mod, inputs, out):
+        if mod.fuse and isinstance(mod.net[0].proj, Int8Linear):
+            ops["int8 FF1 GEMM + gelu + requant"] += 2.0 * rows(inputs[0]) * \
+                mod.net[0].proj.weight_q.numel()
+            ops["int8 FF2 grouped GEMM"] += 2.0 * rows(inputs[0]) * mod.net[2].weight_q.numel()
+
+    hooks = [m.register_forward_hook(linear) for m in model.modules() if isinstance(m, Int8Linear)]
+    hooks += [m.register_forward_hook(fused_ff) for m in model.modules()
+              if isinstance(m, FeedForward)]
+    try:
+        with torch.no_grad():
+            forward()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return ops
+
+
 def main() -> None:
     import torch
     from torch.autograd import DeviceType
@@ -159,9 +197,11 @@ def main() -> None:
     label, forward = (depth_step if args.depth else dit_step)(models, cfg)
     label += f", --quant {args.quant}{' (fused FF)' if args.fuse else ''}, --quant_depth " \
              f"{args.quant_depth}"
+    model = models.depth_infer.__self__.pipe.unet if args.depth else models.pipeline.transformer
+    ops = int8_ops(model, forward)  # also the first warm-up forward
 
     with torch.no_grad():
-        _synced_ms(forward), _synced_ms(forward)
+        _synced_ms(forward)
         wall = _synced_ms(forward)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled_wall = _synced_ms(forward)
@@ -180,7 +220,9 @@ def main() -> None:
         groups[kernel_group(name)][0] += t
         groups[kernel_group(name)][1] += n
     for group, (t, n) in sorted(groups.items(), key=lambda x: -x[1][0]):
-        print(f"{group:36s} {t / 1e3:9.2f} ms {100 * t / total_us:5.1f}%  x{n}")
+        rate = f"  {ops[group] / 1e12:.1f} T int8 operations, {ops[group] / t / 1e6:.0f} TOP/s" \
+            if ops.get(group) else ""
+        print(f"{group:36s} {t / 1e3:9.2f} ms {100 * t / total_us:5.1f}%  x{n}{rate}")
     print("top kernels:")
     for name, (t, n) in sorted(kernels.items(), key=lambda x: -x[1][0])[:15]:
         print(f"{t / 1e3:9.2f} ms {100 * t / total_us:5.1f}%  x{n:5d}  {name[:100]}")

@@ -45,8 +45,8 @@ from trajectorycrafter_tpu_torch.ops import attention_variants as av
 from trajectorycrafter_tpu_torch.ops import kernels
 from trajectorycrafter_tpu_torch.ops.attention import (
     attention_error,
+    kernel_error,
     lse_error,
-    maxpass_plain_inputs,
     multi_head_attention,
     output_error,
     plain_refs,
@@ -74,11 +74,10 @@ def check_kernels(scale: float) -> None:
     """Each kernel against its plain version at 1 x 2 x 1,000 (ragged) x 64."""
     q, k, v, valid = make_qkv(1, 2, 1000, 64, "cuda", block=1, seed=1)
     block, block_int8 = av.pv8_block_k(q.shape[1]), av.int8_block_k(q.shape[1])
-    q_rounded, scale_base2 = maxpass_plain_inputs(q, scale)
     checks = {
         "flash_stock": attention_error(kernels.flash_attention(q, k, v, scale), q, k, v, scale),
-        "flash_max": attention_error(kernels.flash_maxpass(q, k, v, scale), q_rounded, k, v,
-                                     scale_base2),
+        "flash_max": kernel_error(kernels.flash_maxpass, kernels.flash_maxpass(q, k, v, scale),
+                                  q, k, v, scale),
         "flash_exp2": output_error(
             kernels.flash_exp2(q, k, v, scale),
             *plain_refs(lambda x: av.exp2_attention_reference(q, k, x, scale), v)),

@@ -1,5 +1,8 @@
-// The int8 GEMM main loop shared by the int8 kernels of this directory
-// (int8_gemm.cu, int8_gemm_gelu_quant.cu, int8_gemm_gscale.cu).
+// The `mma.sync` int8 GEMM main loop of int8_gemm_gelu_quant.cu (K3a), its
+// only user: its cluster reduction of the group max is tied to this loop's
+// 128-column block.  K2b and K3b run on the `wgmma` / TMA main loop of
+// int8_gemm_hopper.cuh.  The quantized attention kernels (int8_attention.cuh)
+// take `mma_s8_16832` and `lds32` from here.
 //
 // C (M x N, int32) = A (M x K, int8, row-major) * B, where B is given as the
 // weight W (N x K, int8, row-major): torch's Linear layout, whose K-contiguous
@@ -13,9 +16,7 @@
 // of 3 stages, so the loads of tile k + 2 overlap the products of tile k.
 // Rows of A past M, rows of W past N and columns past K load as zeros
 // (`cp.async` with a source size of 0), so the ragged edges add nothing and
-// no operand is padded in device memory.  `wgmma` and TMA would raise the
-// tensor-core share; they are left out so that these first kernels stay
-// simple.
+// no operand is padded in device memory.
 
 #pragma once
 

@@ -8,14 +8,19 @@
 // `int8_matmul_gscale` (body `_kernel_gscale`), whose K block is the group:
 // each grid step's int32 partial product is dequantized into an fp32 VMEM
 // accumulator.  Here the int32 accumulators of a group stay in registers over
-// the group's 64-deep K tiles (int8_gemm.cuh); at the group's end each is
+// the group's 128-byte K tiles (the main loop of int8_gemm_hopper.cuh); after
+// the group's last tile the products are waited for, each accumulator is
 // converted, multiplied by the row's group scale and added into an fp32
-// accumulator, also in registers, and reset.  The group must be a multiple of
-// the 64-deep K tile, so a K tile never straddles two groups.
+// accumulator, also in registers, and the next group's first `wgmma`
+// overwrites the int32 set.  The group must be a multiple of the 128-byte K
+// tile, so a K tile never straddles two groups.
 //
 // What bounds it on the H100: tensor-core throughput (26,660 x 12,288 -> 3,072
-// is 2.0 T int8 operations), plus the fp32 work of the 12 group flushes; the
-// second set of accumulators doubles the registers a thread holds.
+// is 2.0 T int8 operations), plus the fp32 work and the drained product
+// pipeline of the 12 group ends.  The fp32 set doubles the registers a
+// thread holds, so the block tile is 128 x 128 (`wgmma` m64n128k32: 64 int32
+// and 64 fp32 accumulators per consumer thread; m64n256 would need 256),
+// with 6 stages of 32 KB in the ring.
 //
 // The fp32 operations are rounded one by one in the JAX function's order (no
 // fused multiply-add), so the kernel computes what the plain version computes.
@@ -24,92 +29,80 @@
 //        -Xcompiler -fPIC -o libint8_gemm_gscale.so int8_gemm_gscale.cu
 // (trajectorycrafter_tpu_torch/ops/kernels.py does this at first use).
 
-#include "int8_gemm.cuh"
+#include "int8_gemm_hopper.cuh"
 
 namespace {
 
-using namespace int8_gemm;
+using namespace int8_hopper;
+using Loop = MainLoop<128, 6>;
 
-__global__ void __launch_bounds__(kThreads)
-int8_gemm_gscale_kernel(const Operands op, const float* __restrict__ hs, int n_groups,
-                        int tiles_per_group, const float* __restrict__ ws,
-                        const float* __restrict__ bias, __nv_bfloat16* __restrict__ out) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int m0 = blockIdx.x * kBlockM;
-  const int n0 = blockIdx.y * kBlockN;
-  Acc acc;
-  float facc[kMTiles][kNTiles][4];
-#pragma unroll
-  for (int mi = 0; mi < kMTiles; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < kNTiles; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[mi][ni][e] = 0;
-        facc[mi][ni][e] = 0.f;
-      }
+struct Params {
+  const float* __restrict__ hs;  // dense (M, n_groups)
+  int n_groups;
+  const float* __restrict__ ws;
+  const float* __restrict__ bias;  // or null (a bias of 0 adds nothing)
+  __nv_bfloat16* __restrict__ out;  // dense (M, N)
+};
 
-  gemm_mainloop(op, m0, n0, smem, acc, [&](int kt) {
-    if ((kt + 1) % tiles_per_group != 0) return;
-    const int group = kt / tiles_per_group;
-#pragma unroll
-    for (int mi = 0; mi < kMTiles; ++mi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + acc_row(mi, 2 * h);
-        const float s = row < op.m ? hs[(long long)row * n_groups + group] : 0.f;
-#pragma unroll
-        for (int ni = 0; ni < kNTiles; ++ni) {
-#pragma unroll
-          for (int e = 2 * h; e < 2 * h + 2; ++e) {
-            facc[mi][ni][e] = __fadd_rn(facc[mi][ni][e], __fmul_rn(__int2float_rn(acc[mi][ni][e]), s));
-            acc[mi][ni][e] = 0;
-          }
-        }
-      }
-    }
-  });
-
-#pragma unroll
-  for (int mi = 0; mi < kMTiles; ++mi) {
+__global__ void __launch_bounds__(kThreads, 1)
+int8_gemm_gscale_kernel(const __grid_constant__ CUtensorMap a_map,
+                        const __grid_constant__ CUtensorMap b_map,
+                        const __grid_constant__ Shape sh, const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  float facc[Loop::kAcc];
+  float s_next[2];  // the group scales of this thread's two rows for the group in flight
+  const auto load_scales = [&](int row0, int group) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = m0 + acc_row(mi, 2 * h);
-      if (row >= op.m) continue;
-#pragma unroll
-      for (int ni = 0; ni < kNTiles; ++ni) {
-        const int col = n0 + acc_col(ni, 0);  // even; N is a multiple of 16
-        if (col >= op.n) continue;
-        const float b0 = bias != nullptr ? bias[col] : 0.f;
-        const float b1 = bias != nullptr ? bias[col + 1] : 0.f;
-        const float y0 = __fadd_rn(__fmul_rn(facc[mi][ni][2 * h], ws[col]), b0);
-        const float y1 = __fadd_rn(__fmul_rn(facc[mi][ni][2 * h + 1], ws[col + 1]), b1);
-        *reinterpret_cast<uint32_t*>(out + (long long)row * op.n + col) = pack_bf16(y0, y1);
-      }
+      const int row = row0 + 8 * h;
+      s_next[h] = row < sh.m && group < p.n_groups
+                      ? __ldg(p.hs + static_cast<long long>(row) * p.n_groups + group)
+                      : 0.f;
     }
-  }
+  };
+  Loop::run(
+      smem_raw, &a_map, &b_map, sh, p.ws, p.bias, p.out,
+      [&](int row0) { load_scales(row0, 0); },
+      [&](const int (&acc)[Loop::kAcc], int group, int row0) {
+        const float s[2] = {s_next[0], s_next[1]};
+        load_scales(row0, group + 1);  // lands during the next group's products
+        // 0 + x for the first group, as the plain version adds into zeros
+#pragma unroll
+        for (int i = 0; i < Loop::kAcc; ++i) {
+          facc[i] = __fadd_rn(group == 0 ? 0.f : facc[i],
+                              __fmul_rn(__int2float_rn(acc[i]), s[(i >> 1) & 1]));
+        }
+      },
+      [&](const int (&)[Loop::kAcc], int i, float cw, float cb) {
+        return __fadd_rn(__fmul_rn(facc[i], cw), cb);
+      });
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes.  Launches on `stream` of `device` and returns
 // the cudaError_t of the launch (0 = success); it does not synchronise.
-// `bias` may be null.  hs: dense (M, K / group) fp32; out: dense (M, N) bf16.
-// `group` is a multiple of 64 that divides K.
+// `bias` may be null.  hq (M, K) and wq (N, K) by row strides lda and ldb
+// (multiples of 16 bytes, 16-byte aligned); hs: dense (M, K / group) fp32;
+// out: dense (M, N) bf16.  `group` is a multiple of 128 that divides K.
 extern "C" int int8_gemm_gscale_fwd(int device, const void* hq, const void* wq, const void* hs,
                                     const void* ws, const void* bias, void* out, int m, int n, int k,
                                     long long lda, long long ldb, int group, void* stream) {
-  if (group % kBlockK != 0 || k % group != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (group <= 0 || group % kBlockK != 0 || k % group != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_ring_smem(int8_gemm_gscale_kernel);
+  Loop::Launch l;
+  err = Loop::prepare(device, hq, wq, m, n, k, lda, ldb, group, l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Operands op{static_cast<const int8_t*>(hq), static_cast<const int8_t*>(wq), m, n, k, lda, ldb};
-  const dim3 grid((m + kBlockM - 1) / kBlockM, (n + kBlockN - 1) / kBlockN);
-  int8_gemm_gscale_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      op, static_cast<const float*>(hs), k / group, group / kBlockK,
-      static_cast<const float*>(ws), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out));
+  err = cudaFuncSetAttribute(int8_gemm_gscale_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Loop::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Params p{static_cast<const float*>(hs), k / group, static_cast<const float*>(ws),
+                 static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out)};
+  int8_gemm_gscale_kernel<<<l.grid, kThreads, Loop::kSmemBytes,
+                            static_cast<cudaStream_t>(stream)>>>(l.a_map, l.b_map, l.shape, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,8 +12,9 @@ kernel (csrc/flash_maxpass.cu), ``"flash_pv8"`` the PV-int8 kernel
 (csrc/flash_pv8.cu, a quantized function of its own), for CUDA tensors and
 whatever the size: there is no size threshold (the depth UNet routes by
 size itself) and no fallback.  For a CPU tensor they take their plain
-version: ``attention_reference`` for the first three, ``pv8_reference``
-(ops/attention_variants.py) for ``"flash_pv8"``.  ``"xla"`` (the JAX name
+version: ``attention_reference`` for the first two, ``maxpass_reference``
+(the attention of the rounded scaled q) for ``"flash_max"``,
+``pv8_reference`` (ops/attention_variants.py) for ``"flash_pv8"``.  ``"xla"`` (the JAX name
 of the plain einsum) and ``"reference"`` take ``attention_reference`` on any
 device, ``"flash_pv8_reference"`` K6's plain version on any device, for
 holding a whole model's kernel run against it.
@@ -61,6 +62,14 @@ def maxpass_plain_inputs(q: torch.Tensor, scale: float):
     peaked rows by up to ~2% against the unrounded attention, so the kernel
     is held against this, its own function, not the running-max kernel's."""
     return (q.float() * (scale * math.log2(math.e))).to(q.dtype), math.log(2.0)
+
+
+def maxpass_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float, chunk: int = REFERENCE_CHUNK) -> torch.Tensor:
+    """The plain version of the two-pass kernel: ``attention_reference`` on
+    ``maxpass_plain_inputs(q, scale)``."""
+    q, scale = maxpass_plain_inputs(q, scale)
+    return attention_reference(q, k, v, scale, chunk)
 
 
 # Tolerance of a bf16 attention kernel against ``attention_reference``:
@@ -171,12 +180,11 @@ def lse_error(lse: torch.Tensor, q: torch.Tensor, k: torch.Tensor, scale: float)
 
 def kernel_error(kernel, out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, scale: float) -> dict:
-    """``attention_error`` of ``kernel``'s output against the plain version of
+    """``output_error`` of ``kernel``'s output against the plain version of
     the kernel's own function: the two-pass kernel's rounds the scaled q
-    first (``maxpass_plain_inputs``)."""
-    if kernel is flash_maxpass:
-        q, scale = maxpass_plain_inputs(q, scale)
-    return attention_error(out, q, k, v, scale)
+    first (``maxpass_reference``)."""
+    plain = maxpass_reference if kernel is flash_maxpass else attention_reference
+    return output_error(out, *plain_refs(lambda x: plain(q, k, x, scale), v))
 
 
 def _pv8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -191,7 +199,7 @@ def _pv8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) 
 # impl -> (what it launches for CUDA tensors, or None; its plain version)
 _IMPLS = {"auto": (flash_attention, attention_reference),
           "flash_stock": (flash_attention, attention_reference),
-          "flash_max": (flash_maxpass, attention_reference),
+          "flash_max": (flash_maxpass, maxpass_reference),
           "flash_pv8": (_pv8, _pv8_plain),
           "flash_pv8_reference": (None, _pv8_plain),
           "reference": (None, attention_reference), "xla": (None, attention_reference)}

@@ -56,12 +56,14 @@ def _nvcc() -> str:
     return found
 
 
-def build_library(source_name: str) -> dict:
+def build_library(source_name: str, csrc: Path = CSRC_DIR) -> dict:
     """Compile ``csrc/<source_name>`` unless a build of the same source and
-    flags exists.  Returns {"path", "seconds" (0.0 when cached), "log"}."""
-    source = CSRC_DIR / source_name
+    flags exists (``csrc``: this package's sources, or another checkout's, as
+    tools/int8_gemm_ab.py builds them).  Returns {"path", "seconds" (0.0
+    when cached), "log"}."""
+    source = csrc / source_name
     # the key covers the shared headers too: a source includes them
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    headers = b"".join(h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
     digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
     lib_path = out_dir / (Path(source_name).stem + ".so")
@@ -347,9 +349,13 @@ int8_flash_attention.launches = 0
 # the int8 GEMM family (csrc/int8_*.cu)
 # ----------------------------------------------------------------------------
 
-INT8_TILE_K = 64  # K per shared-memory tile (kBlockK of csrc/int8_gemm.cuh)
-INT8_TILE_N = 128  # output columns per thread block (kBlockN)
-INT8_MAX_GROUP = 1024  # the gelu-quant cluster spans at most 8 blocks of 128 columns
+# K per shared-memory stage of the wgmma main loop (kBlockK of
+# csrc/int8_gemm_hopper.cuh): a K group of int8_gemm_gscale is a multiple of it
+INT8_TILE_K = 128
+# output columns per thread block of int8_gemm_gelu_quant (kBlockN of
+# csrc/int8_gemm.cuh); its cluster spans at most 8 such blocks
+INT8_TILE_N = 128
+INT8_MAX_GROUP = 1024
 
 _QUANT_ARGTYPES = (_INT, _PTR, _PTR, _PTR, _INT, _INT, _LONG, _PTR)
 _GEMM_ARGTYPES = (_INT, *[_PTR] * 6, _INT, _INT, _INT, _LONG, _LONG, _PTR)
@@ -368,7 +374,8 @@ def _check_tensor(kernel: str, name: str, x: torch.Tensor, dtype: torch.dtype,
 
 
 def _check_rows(kernel: str, name: str, x: torch.Tensor) -> None:
-    """The kernels move rows as 16-byte vectors."""
+    """The kernels move rows as 16-byte vectors, or by TMA, which takes
+    16-byte aligned base addresses and row strides."""
     if x.stride(-1) != 1 or (x.stride(0) * x.element_size()) % 16 or x.data_ptr() % 16:
         raise ValueError(f"{kernel}: {name} needs dense, 16-byte aligned rows "
                          f"(strides {x.stride()}, data pointer {x.data_ptr():#x})")
@@ -483,8 +490,9 @@ def int8_gemm_gscale(hq: torch.Tensor, wq: torch.Tensor, hs: torch.Tensor, ws: t
                      bias: Optional[torch.Tensor], group: int) -> torch.Tensor:
     """The fused FF's second GEMM on the card (csrc/int8_gemm_gscale.cu): hq
     (M, K) int8 with scales hs (M, K / group) fp32 per (row, ``group`` of K),
-    wq (N, K) int8 -> (M, N) bf16.  ``group`` a multiple of 64 that divides
-    K.  Counts each launch in ``int8_gemm_gscale.launches``."""
+    wq (N, K) int8 -> (M, N) bf16.  ``group`` a multiple of ``INT8_TILE_K``
+    (128) that divides K.  Counts each launch in
+    ``int8_gemm_gscale.launches``."""
     kernel = "int8_gemm_gscale"
     m, n, k, bias = _check_gemm(kernel, hq, wq, ws, bias)
     if group <= 0 or group % INT8_TILE_K or k % group:

@@ -142,7 +142,7 @@ def forward_warp_batch(
     if use_mask_clean:
         raise NotImplementedError(
             "use_mask_clean (mask morphology, --mask) is not ported yet: "
-            "ROADMAP queue 1 item 7")
+            "ROADMAP queue 1 item 4")
     if intrinsics2 is None:
         intrinsics2 = intrinsics1
     n, h, w = depths.shape

@@ -129,14 +129,22 @@ QUANTS = ("none", "int8")
 
 
 def check_supported(cfg: TrajCrafterConfig) -> None:
-    """Raise for a configuration the port does not run yet."""
+    """Raise for a configuration the port does not run yet, before any model
+    is built."""
     for flag, quant in (("--quant", cfg.diffusion.quant), ("--quant_depth", cfg.depth.quant)):
         if quant not in QUANTS:
             raise NotImplementedError(f"{flag} {quant} is not ported; the port runs {QUANTS}")
     if cfg.diffusion.sampler_name != "DDIM_Origin":
         raise NotImplementedError(
             f"sampler {cfg.diffusion.sampler_name!r} is not ported yet (ROADMAP queue 1 "
-            "item 9); DDIM_Origin is")
+            "item 5); DDIM_Origin is")
+    if cfg.render.mode != "gradual":
+        raise NotImplementedError(
+            f"--mode {cfg.render.mode} is not ported yet (ROADMAP queue 1 item 6); "
+            "--mode gradual is")
+    if cfg.render.mask:
+        raise NotImplementedError(
+            "--mask (mask morphology) is not ported yet (ROADMAP queue 1 item 4)")
 
 
 @torch.no_grad()
@@ -238,7 +246,7 @@ def build_models(cfg: TrajCrafterConfig) -> ModelBundle:
     if os.path.isdir(model_dir):
         raise NotImplementedError(
             f"checkpoints found at '{model_dir}', but checkpoint loading is not ported "
-            "yet (ROADMAP queue 1 item 9)")
+            "yet (ROADMAP queue 1 item 1)")
     if not cfg.allow_dev_stubs:
         raise FileNotFoundError(
             f"model checkpoints not found at '{model_dir}'; pass --allow_dev_stubs to "
@@ -396,10 +404,10 @@ class TrajCrafter:
                                       ref_slice=slice(0, cfg.diffusion.ref_frames))
 
     def infer_direct(self):
-        raise NotImplementedError("--mode direct is not ported yet (ROADMAP queue 1 item 9)")
+        raise NotImplementedError("--mode direct is not ported yet (ROADMAP queue 1 item 6)")
 
     def infer_bullet(self):
-        raise NotImplementedError("--mode bullet is not ported yet (ROADMAP queue 1 item 9)")
+        raise NotImplementedError("--mode bullet is not ported yet (ROADMAP queue 1 item 6)")
 
     def infer_zoom(self):
-        raise NotImplementedError("--mode zoom is not ported yet (ROADMAP queue 1 item 9)")
+        raise NotImplementedError("--mode zoom is not ported yet (ROADMAP queue 1 item 6)")
