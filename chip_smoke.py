@@ -647,13 +647,13 @@ def phase_variants():
     scale = d ** -0.5
     q, k, v = (randn(b, s, h, d).bfloat16() for _ in range(3))
     v8, vs = av.quantize_per_head(v)
-    v8t, vs = av.keys_last(v8), vs.reshape(-1)
+    v8t, v8p, vs = av.keys_last(v8), av.pv8_keys_last(v8), vs.reshape(-1)
     q8, k8, _, logit, v127 = av.int8_operands(q, k, v, scale)
     pv8_block, int8_block = av.pv8_block_k(s), av.int8_block_k(s)
     yardstick = "flash SDPA: the exact attention the kernel approximates (a yardstick, not the same function)"
     timing["flash_pv8"] = {**in_turns(
         {"plain_ms": lambda: av.pv8_reference(q, k, v, scale, pv8_block),
-         "ms": lambda: flash_pv8(q, k, v8t, vs, scale * av.LOG2E, pv8_block),
+         "ms": lambda: flash_pv8(q, k, v8p, vs, scale * av.LOG2E, pv8_block),
          "with_quantization_ms": lambda: av.pv8_attention(q, k, v, scale, pv8_block),
          "library_ms": lambda: sdpa_flash(q, k, v, scale)},
         {"plain_ms": 1, "ms": 3, "with_quantization_ms": 3, "library_ms": 3}, cold=("plain_ms",)),
@@ -667,29 +667,40 @@ def phase_variants():
         {"plain_ms": 1, "ms": 3, "with_quantization_ms": 3, "library_ms": 3}, cold=("plain_ms",)),
         **attention_bound(b, h, s, s, d, pv_int8=True, qk_int8=True, in_bytes=1),
         "flop": 4.0 * b * h * s * s * d, "shape": str((b, h, s, s, d)), "library": yardstick}
-    del q, k, v, v8, v8t, q8, k8
+    del q, k, v, v8, v8t, v8p, q8, k8
     torch.cuda.empty_cache()
 
-    # K6 also carries the depth UNet's attention (run D): its level-0 shape
-    b, h, s, d = DEPTH_SHAPES["depth_9216"]
-    scale = d ** -0.5
-    q = (randn(b, s, h, d) * 4.0).bfloat16()
-    k, v = randn(b, s, h, d).bfloat16(), randn(b, s, h, d).bfloat16()
-    v8, vs = av.quantize_per_head(v)
-    v8t, vs = av.keys_last(v8), vs.reshape(-1)
-    t = in_turns({"ms": lambda: flash_pv8(q, k, v8t, vs, scale * av.LOG2E, av.pv8_block_k(s)),
-                  "library_ms": lambda: sdpa_flash(q, k, v, scale)}, {"ms": 5, "library_ms": 5})
-    depth_bound = attention_bound(b, h, s, s, d, pv_int8=True)
-    timing["flash_pv8"].update(
-        depth_shape=str((b, h, s, s, d)), depth_ms=t["ms"], depth_library_ms=t["library_ms"],
-        depth_bound_ms=depth_bound["bound_ms"], depth_sfu_ms=depth_bound["sfu_ms"])
-    flop = 4.0 * b * h * s * s * d
-    log(f"flash_pv8 timed at the depth shape {(b, h, s, s, d)}: {t['ms']:.2f} ms "
-        f"({flop / t['ms'] / 1e9:.1f} TFLOP/s), library {t['library_ms']:.2f} ms "
-        f"({flop / t['library_ms'] / 1e9:.1f} TFLOP/s); bound {depth_bound['bound_ms']:.2f} ms, SFU "
-        f"{depth_bound['sfu_ms']:.2f} ms")
-    del q, k, v, v8, v8t
-    torch.cuda.empty_cache()
+    # K6 also carries the Perceiver (d 128) and the depth UNet's two kernel
+    # levels in run D: "perceiver_*", "depth_*" (9,216 tokens) and
+    # "depth_2304_*" keys of its entry
+    other = {"perceiver": PERCEIVER_SHAPE,
+             "depth": (*DEPTH_SHAPES["depth_9216"][:3], *DEPTH_SHAPES["depth_9216"][2:]),
+             "depth_2304": (*DEPTH_SHAPES["depth_2304"][:3], *DEPTH_SHAPES["depth_2304"][2:])}
+    for name, (b, h, sq, skv, d) in other.items():
+        scale = d ** -0.5
+        q = (randn(b, sq, h, d) * 4.0).bfloat16()  # no QK-norm at any of them: peaked rows
+        k, v = randn(b, skv, h, d).bfloat16(), randn(b, skv, h, d).bfloat16()
+        v8, vs = av.quantize_per_head(v)
+        v8t, vs = av.pv8_keys_last(v8), vs.reshape(-1)
+        block_k = av.pv8_block_k(sq)
+        t = in_turns({"plain_ms": lambda: av.pv8_reference(q, k, v, scale, block_k),
+                      "ms": lambda: flash_pv8(q, k, v8t, vs, scale * av.LOG2E, block_k),
+                      "library_ms": lambda: sdpa_flash(q, k, v, scale)},
+                     {"plain_ms": 1, "ms": 5, "library_ms": 5})
+        bnd = attention_bound(b, h, sq, skv, d, pv_int8=True)
+        timing["flash_pv8"].update({f"{name}_shape": str((b, h, sq, skv, d)),
+                                    f"{name}_ms": t["ms"], f"{name}_plain_ms": t["plain_ms"],
+                                    f"{name}_library_ms": t["library_ms"],
+                                    f"{name}_bound_ms": bnd["bound_ms"],
+                                    f"{name}_sfu_ms": bnd["sfu_ms"]})
+        flop = 4.0 * b * h * sq * skv * d
+        log(f"flash_pv8 timed at the {name} shape {(b, h, sq, skv, d)}: {t['ms']:.3f} ms "
+            f"({flop / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.2f} ms, "
+            f"library {t['library_ms']:.3f} ms "
+            f"({flop / t['library_ms'] / 1e9:.1f} TFLOP/s); bound {bnd['bound_ms']:.3f} ms, SFU "
+            f"{bnd['sfu_ms']:.3f} ms")
+        del q, k, v, v8, v8t
+        torch.cuda.empty_cache()
     for kern, t in timing.items():
         log(f"{kern} timed at {t['shape']}: {t['ms']:.2f} ms ({t['flop'] / t['ms'] / 1e9:.1f} "
             f"TFLOP/s), plain {t['plain_ms']:.2f} ms, library {t['library_ms']:.2f} ms "
@@ -1201,7 +1212,8 @@ def _attention_entry(name: str, t: dict, **kw) -> dict:
     return {"name": name, "route": "cuda", "source": f"{src}{SOURCE_OF.get(name, name)}.cu",
             "replaces": TPU_KERNELS[name], **kw, **{key: t[key] for key in keys},
             **{key: t[key] for key in t
-               if key in ("shape", "library", "with_quantization_ms") or key.startswith("depth_")}}
+               if key in ("shape", "library", "with_quantization_ms")
+               or key.startswith(("depth_", "perceiver_"))}}
 
 
 def main() -> None:

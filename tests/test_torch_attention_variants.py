@@ -3,7 +3,8 @@ attention_variants.py) vs the JAX package's Pallas kernels in interpret mode.
 
 Plain versions of K5 (``flash_attention_with_lse``), K1b
 (``flash_attention_exp2``), K6 (``flash_attention_exp2_t_pv8``) and K7
-(``int8_flash_attention``) against the JAX functions, and the port's
+(``int8_flash_attention``) against the JAX functions, K6 also with its PV
+product taken on the kernel's V^T layout (``pv8_keys_last``), and the port's
 ``multi_head_attention(impl="flash_pv8")`` against the JAX dispatch with
 the Pallas kernel patched to interpret mode.  Inputs are fp32 from
 ``np.random.default_rng``; each side runs in fp32 on the CPU.
@@ -113,6 +114,91 @@ def test_flash_pv8_dispatch_matches_jax_dispatch(s):
     got = multi_head_attention(*_t(q, k, v), impl="flash_pv8").numpy()
     assert flash_pv8.launches == before
     assert got.shape == (b, s, h * d)
+    _assert_quantized_close(got, want)
+
+
+def _fragment_key_order():
+    """The key each slot of K6's s8 A fragment holds, derived from the
+    registers: thread t of a quad holds keys 8 j + 2 t and 8 j + 2 t + 1 of
+    each 8-key column j of the scores, and packs keys 2t, 2t+1, 8+2t, 9+2t
+    of a 32-key chunk into slots 4t..4t+3 (the same 16 on into 16+4t..)."""
+    order = [0] * 32
+    for t in range(4):
+        held = (2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t)
+        for h in range(2):
+            for e in range(4):
+                order[16 * h + 4 * t + e] = 16 * h + held[e]
+    return order
+
+
+def test_pv8_key_order_is_the_fragment_order():
+    assert av.pv8_key_order().tolist() == _fragment_key_order()
+
+
+def test_pv8_key_blocks_are_whole_key_tiles():
+    """K6 takes key blocks and V^T rows of whole 128-key tiles (both of the
+    JAX dispatch's block sizes are); K7 keeps its 64-key tiles."""
+    from trajectorycrafter_tpu_torch.ops import kernels
+
+    tile = kernels.PV8_KEY_TILE
+    assert all(av.pv8_block_k(s) % tile == 0 for s in (1, 2047, 2048, 13330))
+    for block_k in (128, 512, 1024):
+        kernels._check_block_k("flash_pv8", block_k, tile)
+    for block_k in (0, 64, 192):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            kernels._check_block_k("flash_pv8", block_k, tile)
+    kernels._check_block_k("int8_flash_attention", 192, kernels.FLASH_KEY_TILE)
+    v8 = torch.ones((2, 130, 3, 64), dtype=torch.int8)
+    assert av.pv8_keys_last(v8).shape == (6, 64, 256)
+    assert av.keys_last(v8).shape == (6, 64, 192)
+
+
+def _pv8_on_kernel_layout(q, k, v, scale, block_k):
+    """K6 with its PV product taken as the kernel pairs the operands, (B, S,
+    H, D) fp32 in and out: per key block, the codes of each 32-key chunk in
+    the A fragment's slot order against ``pv8_keys_last``'s V^T; the rest in
+    ``pv8_reference``'s operation order."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    v8, vs = av.quantize_per_head(v)
+    vt = av.pv8_keys_last(v8).float()  # (B * H, D, L)
+    assert vt.shape[-1] % 128 == 0 and not vt[..., -(-skv // 32) * 32:].any()  # zero-padded
+    qt = av.scaled_q(q, scale).transpose(1, 2).reshape(b * h, sq, d)
+    kt = k.transpose(1, 2).reshape(b * h, skv, d)
+    order = torch.tensor(_fragment_key_order())
+    acc = torch.zeros((b * h, sq, d))
+    den = torch.zeros((b * h, sq, 1))
+    for j in range(0, skv, block_k):
+        s_ = (qt @ kt[:, j:j + block_k].transpose(1, 2)).clamp_max(av.PV8_CLAMP)
+        m_adj = (s_.amax(-1, keepdim=True) - av.LOG2_127).clamp_min(-av.PV8_CLAMP)
+        p8 = torch.round(torch.exp2(s_ - m_adj))
+        width = -(-p8.shape[-1] // 32) * 32
+        p8 = torch.nn.functional.pad(p8, (0, width - p8.shape[-1]))
+        slots = p8.unflatten(-1, (-1, 32))[..., order].flatten(-2)
+        w = torch.exp2(m_adj)
+        acc = acc + (slots @ vt[:, :, j:j + width].transpose(1, 2)) * w
+        den = den + (p8.sum(-1, keepdim=True) * 127.0) * w
+    out = acc / den.clamp_min(av.LSE_FLOOR) * (vs.reshape(-1, 1, 1) * 127.0)
+    return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("s,pad,d,block_k", [(384, 84, 64, 128), (1024, 24, 128, 512)],
+                         ids=["d64_bk128_pad84", "d128_bk512_pad24"])
+def test_pv8_kernel_layout_matches_jax_interpret(s, pad, d, block_k):
+    """``pv8_keys_last`` pairs every code with its own key's values: K6 taken
+    on that layout matches the JAX Pallas kernel in interpret mode."""
+    b, h = 1, 2
+    q, k, v = _rng_bhsd(6, b, h, s, d)
+    valid = s - pad
+    k[:, :, valid:] = 0.0
+    v[:, :, valid:] = 0.0
+    scale = d ** -0.5
+    want = jax_flash_pv8.flash_attention_exp2_t_pv8(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_pad=pad, sm_scale=scale,
+        block_q=128, block_k=block_k, interpret=True)
+    want = np.asarray(jnp.swapaxes(want, 2, 3))
+    tq, tk, tv = (x.transpose(1, 2) for x in _t(q, k[:, :, :valid], v[:, :, :valid]))
+    got = _pv8_on_kernel_layout(tq, tk, tv, scale, block_k).transpose(1, 2).numpy()
     _assert_quantized_close(got, want)
 
 

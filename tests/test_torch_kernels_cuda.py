@@ -27,7 +27,8 @@ to its plain version; ``int8_gemm`` (K2b) and ``int8_gemm_gscale`` (K3b)
 within one bf16 ulp of theirs (``gemm_error``); ``int8_gemm_gelu_quant``
 (K3a) within ``gelu_quant_error`` (scales 1e-6 relative, codes off by at
 most 1 on at most 0.1% of the elements), at the shapes chip_smoke.py checks
-cut in M, with odd M, and at the edges of K2b's and K3b's `wgmma` main loop
+cut in M and in full (K3a at every cluster size its groups give: 1, 2, 3,
+4 and 7 blocks), with odd M, and at the edges of K2b's and K3b's `wgmma` main loop
 (csrc/int8_gemm_hopper.cuh: K past its 128-byte K tile, N past the block,
 ragged M, A a strided view, one and twelve K groups), there bit-equal (0
 ulps).  At the feed-forward shapes the bounds must reject the
@@ -39,7 +40,9 @@ The attention variants (ops/attention_variants.py): ``flash_lse`` (K5) by
 ``attention_error`` and ``lse_error``, ``flash_exp2`` (K1b) by
 ``output_error``, ``flash_pv8`` (K6) and ``int8_flash_attention`` (K7) by
 ``quantized_error``, each against its own plain version, at the shapes
-chip_smoke.py checks (heads or frames cut) and ragged ones; the bounds
+chip_smoke.py checks (heads or frames cut) and ragged ones (K6 also at
+both of its key block sizes and head dims, and on the Perceiver's strided
+views); the bounds
 reject an lse in base 2, a dropped clamp, a row sum off by 10%, the last
 quarter of the key blocks skipped and zero-padded keys taken as real ones
 where every score is negative.
@@ -318,6 +321,10 @@ def test_int8_gemm_kernel_matches_plain(gen, m, k, n, bias):
 
 @pytest.mark.parametrize("m,k,n,group", [
     (2084, 3072, 12288, 1024),  # the fused FF1, M cut
+    (26660, 3072, 12288, 1024),  # the fused FF1 in full: a ragged last M tile
+    (2084, 3072, 12288, 512), (2084, 3072, 12288, 256),  # clusters of 2 and 1
+    (2084, 3072, 12288, 384),  # 128-column tiles, clusters of 3
+    (300, 256, 1792, 896),  # 128-column tiles, clusters of 7
     (70, 256, 512, 256), (33, 64, 128, 128), (130, 160, 1024, 512),
 ])
 def test_gelu_quant_kernel_matches_plain(gen, m, k, n, group):
@@ -483,6 +490,15 @@ def _pv8_plain(q, k, block_k):
     return lambda x: av.pv8_reference(q, k, x, q.shape[-1] ** -0.5, block_k)
 
 
+def _pv8_launched(q, k, v, block_k):
+    """K6 through ``pv8_attention`` (V quantized and laid out first), one launch."""
+    before = flash_pv8.launches
+    out = av.pv8_attention(q, k, v, q.shape[-1] ** -0.5, block_k)
+    torch.cuda.synchronize()
+    assert flash_pv8.launches == before + 1
+    return out
+
+
 def _int8_plain(q, k, block_k):
     return lambda x: av.int8_attention_reference(q, k, x, q.shape[-1] ** -0.5, block_k)
 
@@ -563,6 +579,34 @@ def test_pv8_kernel_matches_plain(gen, b, h, sq, skv, d, gain):
     assert readings["ok"], readings
 
 
+# K6's key blocks are whole 128-key tiles: both of the JAX dispatch's block
+# sizes at both head dims, against the Perceiver's 3,024 keys (a last block
+# of 976) and lengths that leave a ragged last key tile.
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block_k", [512, 1024])
+@pytest.mark.parametrize("skv", [3024, 1000, 129, 1])
+def test_pv8_kernel_blocks_and_ragged_keys(gen, d, block_k, skv):
+    b, h, sq = 1, 2, 300
+    q = _randn(gen, b, sq, h, d, gain=2.0)
+    k, v = _randn(gen, b, skv, h, d), _randn(gen, b, skv, h, d)
+    out = _pv8_launched(q, k, v, block_k)
+    readings = quantized_error(out, *plain_refs(_pv8_plain(q, k, block_k), v))
+    assert readings["ok"], readings
+
+
+def test_pv8_kernel_reads_the_perceivers_strided_views(gen):
+    """q a slice of a wider projection, k (and v) halves of one: the
+    Perceiver's layout, read in place by the TMA unit."""
+    b, sq, skv, h, d = 2, 333, 3024, 4, 128
+    k, v = (t.unflatten(-1, (h, d)) for t in _randn(gen, b, skv, 2 * h * d).chunk(2, dim=-1))
+    q = _randn(gen, b, sq, 3 * h * d, gain=4.0)[..., h * d:2 * h * d].unflatten(-1, (h, d))
+    assert not (q.is_contiguous() or k.is_contiguous())
+    block_k = av.pv8_block_k(sq)
+    out = _pv8_launched(q, k, v, block_k)
+    readings = quantized_error(out, *plain_refs(_pv8_plain(q, k, block_k), v))
+    assert readings["ok"], readings
+
+
 @pytest.mark.parametrize("b,h,s,d", [
     (1, 8, 13330, 64),  # the DiT shape, heads cut
     (1, 2, 200, 64), (1, 2, 384, 64), (2, 3, 129, 128),
@@ -615,9 +659,11 @@ def test_attention_variant_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="kv_valid"):
         flash_exp2(q, q, q, 0.125, torch.ones(3, device="cuda"))
     v8, vs = av.quantize_per_head(q)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        flash_pv8(q, q, av.keys_last(v8)[:, :, :32].contiguous(), vs.reshape(-1), 0.18, 512)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        flash_pv8(q, q, av.keys_last(v8), vs.reshape(-1), 0.18, 512)  # 64 keys a row
     with pytest.raises(ValueError, match="block_k"):
-        flash_pv8(q, q, av.keys_last(v8), vs.reshape(-1), 0.18, 100)
+        flash_pv8(q, q, av.pv8_keys_last(v8), vs.reshape(-1), 0.18, 100)
+    with pytest.raises(ValueError, match="block_k 192 must be a positive multiple of 128"):
+        flash_pv8(q, q, av.pv8_keys_last(v8), vs.reshape(-1), 0.18, 192)
     with pytest.raises(ValueError, match="int8"):
         int8_flash_attention(q, q, av.keys_last(v8), vs.reshape(-1), vs.reshape(-1), 64)

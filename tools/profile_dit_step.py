@@ -40,12 +40,14 @@ ARGV = ["--video_path", str(REPO / "test/videos/synth.mp4"), "--camera", "traj",
 def kernel_group(name: str) -> str:
     if "quantize_rows_kernel" in name:
         return "int8 row quantization"
-    if "int8_gemm_gelu_quant_kernel" in name:
+    if "gelu_quant_kernel" in name:
         return "int8 FF1 GEMM + gelu + requant"
     if "int8_gemm_gscale_kernel" in name:
         return "int8 FF2 grouped GEMM"
     if "int8_gemm_kernel" in name:
         return "int8 GEMMs"
+    if "pv8_kernel" in name:
+        return "PV-int8 attention (K6)"
     # hopper_attn::attention_kernel<head dim, mode>: mode 3 is the two-pass K4b
     if "hopper_attn::attention_kernel<64, 3>" in name:
         return "two-pass flash self-attention"

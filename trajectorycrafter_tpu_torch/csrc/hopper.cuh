@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the attention main loop
 // (hopper_attention.cuh) and the int8 GEMM main loop (int8_gemm_hopper.cuh):
-// mbarriers, TMA loads, `wgmma` fences / commit / wait, the shared-memory
-// matrix descriptor of a 128-byte-swizzled operand, and the host-side fetch
-// of cuTensorMapEncodeTiled from the driver the runtime already loaded (so a
-// library needs neither -lcuda nor PyTorch's headers).
+// mbarriers, TMA loads, cluster barriers and stores into another block's
+// shared memory, `wgmma` fences / commit / wait, the shared-memory matrix
+// descriptor of a 128-byte-swizzled operand, and the host side: the fetch of
+// cuTensorMapEncodeTiled from the driver the runtime already loaded (so a
+// library needs neither -lcuda nor PyTorch's headers) and the 2-D int8 map.
 
 #pragma once
 
@@ -38,21 +39,33 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 }
 
 // Wait until the phase of parity `parity` has completed (a fresh barrier
-// counts its phase of parity 1 as completed).  No tile takes seconds to
-// arrive: a wait that outlasts ~2^33 clocks traps, so a broken ring fails
-// the launch instead of hanging the card.
+// counts its phase of parity 1 as completed); kCluster: a phase completed by
+// other blocks' stores (st_async), so the acquire reaches across the
+// cluster.  No tile takes seconds to arrive: a wait that outlasts ~2^33
+// clocks traps, so a broken ring fails the launch instead of hanging the card.
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
   long long start = 0;
   while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
+    if (kCluster) {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    } else {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    }
     if (done) return;
     if (start == 0) {
       start = clock64();
@@ -81,6 +94,35 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters
+// ---------------------------------------------------------------------------
+
+// Every thread of every block of the cluster arrives; the writes before it
+// are seen by the reads after it, across the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// Store 4 bytes into a block of the cluster and count them on its mbarrier
+// (both shared::cluster addresses from cluster_addr).
+__device__ __forceinline__ void st_async(uint32_t addr, float value, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr),
+      "r"(__float_as_uint(value)), "r"(bar)
       : "memory");
 }
 
@@ -176,6 +218,25 @@ inline EncodeTiled tensor_map_encoder() {
     }
   }
   return fn;
+}
+
+// A 2-D tiled map over a (rows x cols) byte array with row stride `stride`
+// bytes (a multiple of 16); a box is `box_cols` (128: one swizzled row) x
+// `box_rows`, 128-byte swizzled; boxes past the edges read as zero.
+inline cudaError_t make_map_u8(CUtensorMap* map, const void* ptr, int rows, int cols,
+                               long long stride, int box_cols, int box_rows,
+                               CUtensorMapL2promotion promotion) {
+  EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1u, 1u};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

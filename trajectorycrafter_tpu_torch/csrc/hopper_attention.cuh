@@ -1,5 +1,7 @@
-// The Hopper (sm_90a) attention main loop shared by csrc/flash_attention.cu
-// (K1, K4, K5, K1b) and csrc/flash_maxpass.cu (K4b).
+// The Hopper (sm_90a) attention main loops: the bf16 loop shared by
+// csrc/flash_attention.cu (K1, K4, K5, K1b) and csrc/flash_maxpass.cu (K4b),
+// and at the end of this file the PV-int8 loop of csrc/flash_pv8.cu (K6),
+// built from the same pieces (TMA maps, the ring, the QK product, the q scaling).
 //
 // What bounds it on the H100: at the DiT shape (2 x 48 heads x 13,330 tokens
 // x 64) one call does ~4.4 TFLOP against ~0.3 GB of q/k/v, so it is bound by
@@ -184,15 +186,15 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 // The two products of one warpgroup
 // ---------------------------------------------------------------------------
 
-// S (64 x 128) = q (the warpgroup's 64 rows) k^T (one key tile).
-template <int D>
+// S (64 x 128) = q (the warpgroup's 64 rows of a kBlockM-row query tile)
+// k^T (one key tile).
+template <int D, int kBlockM = Tiles<D>::kBlockM>
 __device__ __forceinline__ void issue_qk(float (&s)[64], const __nv_bfloat16* q_wg,
                                          const __nv_bfloat16* k_tile) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int half = kk / 4, col = (kk % 4) * 16;  // 16 columns = 32 bytes into the row
-    const uint64_t da =
-        make_desc(q_wg + half * Tiles<D>::kBlockM * kBoxCols + col, 16, 1024);
+    const uint64_t da = make_desc(q_wg + half * kBlockM * kBoxCols + col, 16, 1024);
     const uint64_t db = make_desc(k_tile + half * kBlockN * kBoxCols + col, 16, 1024);
     wgmma_ss_n128(s, da, db, kk > 0);
   }
@@ -207,6 +209,32 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[
     const uint64_t db = make_desc(v_tile + kk * 16 * kBoxCols, kBlockN * 128, 1024);
     wgmma_rs(o, p[kk], db);
   }
+}
+
+// q * scale_log2 rounded to bf16 in place over warpgroup `me`'s 64 rows of a
+// kBlockM-row query tile (an elementwise pass, blind to the swizzle); the
+// proxy fence makes the generic-proxy stores visible to `wgmma`, and the
+// warpgroup's barrier waits for all of its threads' stores.
+template <int D, int kBlockM>
+__device__ __forceinline__ void scale_rows(__nv_bfloat16* q, int me, int tid, float scale_log2) {
+  constexpr int kVecs = 64 * kBoxCols / 8;  // 16-byte vectors per half
+#pragma unroll
+  for (int half = 0; half < D / kBoxCols; ++half) {
+    uint4* base = reinterpret_cast<uint4*>(q + half * kBlockM * kBoxCols + me * 64 * kBoxCols);
+#pragma unroll
+    for (int i = tid; i < kVecs; i += 128) {
+      uint4 x = base[i];
+      uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+        w[e] = pack_bf16(f.x * scale_log2, f.y * scale_log2);
+      }
+      base[i] = x;
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(kGroupBarrier + me, 128);
 }
 
 // ---------------------------------------------------------------------------
@@ -270,29 +298,9 @@ struct Consumer {
   __device__ __forceinline__ const __nv_bfloat16* k_tile() const { return sm.k[kc % kStages]; }
   __device__ __forceinline__ const __nv_bfloat16* v_tile() const { return sm.v[vc % kStages]; }
 
-  // kExp2 and kMaxPass: q * scale * log2(e) rounded to bf16 in place, over
-  // this warpgroup's rows (an elementwise pass, blind to the swizzle); the
-  // proxy fence makes the generic-proxy stores visible to `wgmma`.
+  // kExp2 and kMaxPass: q * scale * log2(e) rounded to bf16 in place.
   __device__ __forceinline__ void scale_q(int tid) {
-    constexpr int kVecs = 64 * kBoxCols / 8;  // 16-byte vectors per half
-#pragma unroll
-    for (int half = 0; half < D / kBoxCols; ++half) {
-      uint4* base = reinterpret_cast<uint4*>(sm.q + half * kBlockM * kBoxCols +
-                                             me * 64 * kBoxCols);
-#pragma unroll
-      for (int i = tid; i < kVecs; i += 128) {
-        uint4 x = base[i];
-        uint32_t* w = reinterpret_cast<uint32_t*>(&x);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
-          w[e] = pack_bf16(f.x * p.scale_log2, f.y * p.scale_log2);
-        }
-        base[i] = x;
-      }
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    named_sync(kGroupBarrier + me, 128);
+    scale_rows<D, kBlockM>(sm.q, me, tid, p.scale_log2);
   }
 
   // Valid-key bits of the tile at n0 for kExp2's mask: word w, bit b is key
@@ -688,5 +696,472 @@ int launch(int device, const Args& a, void* stream) {
   if (a.head_dim == 128) return static_cast<int>(launch_d<128, kMode>(a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// ---------------------------------------------------------------------------
+// The PV-int8 loop (K6, csrc/flash_pv8.cu)
+// ---------------------------------------------------------------------------
+//
+// The function is stated in flash_pv8.cu.  Its softmax weights are int8
+// codes quantized against the row max of their key block, so the block's
+// max must be known before any of its codes: each block of `block_k` keys
+// makes two passes over its 128-key tiles, the same QK `wgmma` sequence in
+// both (bit-equal scores, so s - m_adj <= log2 127 holds exactly).  Pass 1
+// keeps only the row max.  Pass 2 turns the scores into codes in registers,
+// takes their exact int32 row sum, and runs PV as `wgmma` m64nDk32 s8 with
+// the codes as the A operand from registers and the int8 V^T tile (D rows x
+// 128 keys, K-major) from shared memory.  After the block, its int32 sums
+// are folded into the fp32 output and denominator.
+//
+// The codes' register layout.  The score accumulator gives a thread keys
+// 8j + 2t + {0, 1} of each 8-key column block j; an s8 A fragment for k32
+// wants keys 4t..4t+3 (a0, a1) and 16+4t..16+4t+3 (a2, a3) of its 32-key
+// chunk.  Rather than permute bytes across the quad, the A fragment is built
+// from the keys the thread holds, in the order 2t, 2t+1, 8+2t, 9+2t (and 16
+// on for a2, a3), and V^T's keys are laid out in the same order inside each
+// 32-key chunk by the caller (ops/attention_variants.py pv8_keys_last): the
+// int32 sums are exact under any key order, so this costs nothing.
+//
+// Consumer warpgroups of 64 rows: three at head dim 64 (a 192-row query
+// tile), two at 128.  Pass 2 holds 64 score, D / 2 int32 and 16 code
+// registers; the fp32 output numerator is folded once per key block, so it
+// stays in shared memory, and three warpgroups fit in 160 registers each at
+// d 64, as the bf16 loop's do.  Each issues the QK of tile j with the PV of
+// tile j - 1 and quantizes tile j while that PV runs, as the bf16 loop does,
+// but without its turns: the warpgroups' products interleave as they come,
+// and the ring (3 stages at d 64) lets one run ahead of another.  Measured
+// on an H100 (tools/flash_pv8_ab.py): dropping the turns and a third stage
+// ran the DiT shape 4.7% faster, a third warpgroup 8.4% more.
+
+namespace pv8 {
+
+// The block's shape at head dim D: consumer warpgroups of 64 rows, their
+// registers (128 x 24 + 384 x 160 and 128 x 24 + 256 x 240 both fit the
+// SM's 65,536), and the stages of the K / V^T ring.
+template <int D>
+struct Geometry {
+  static constexpr int kConsumers = D == 64 ? 3 : 2;
+  static constexpr int kBlockM = 64 * kConsumers;  // query rows per block
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
+  static constexpr int kStages = D == 64 ? 3 : 2;
+};
+constexpr int kChunks = kBlockN / 32;     // 32-key chunks of a key tile
+constexpr float kClamp = 88.f;            // exp2 argument cap: 2^88 x int32 sums < fp32 max
+constexpr float kLog2_127 = 6.988684686772166f;
+constexpr float kRound = 12582912.f;      // 1.5 x 2^23: x + kRound rounds x to an integer
+constexpr int kRoundBits = 0x4B400000;    // the bits of kRound
+
+struct Params {
+  __nv_bfloat16* o;
+  long long o_sb, o_ss, o_sh;  // output strides in elements (batch, sequence, head)
+  const float* vs;             // (batch * heads,) V scales
+  int heads, sq, skv;
+  int block_tiles;             // 128-key tiles per quantization block
+  float scale_log2;
+};
+
+template <int D>
+struct Smem {
+  static constexpr int kStages = Geometry<D>::kStages;
+  __nv_bfloat16 q[Geometry<D>::kBlockM * D];
+  __nv_bfloat16 k[kStages][kBlockN * D];
+  uint8_t vt[kStages][D * kBlockN];  // D rows of 128 keys, 128-byte swizzled
+  // each consumer thread's fp32 output numerator, register i of the
+  // accumulator layout at [i][thread]: folded once per key block, so it
+  // needs no registers
+  float acc[Geometry<D>::kConsumers][D / 2][128];
+  uint64_t q_full;
+  uint64_t k_full[kStages], k_empty[kStages];
+  uint64_t v_full[kStages], v_empty[kStages];
+};
+
+#define PV_D8(i)                                                                         \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),            \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define PV_D32 PV_D8(0), PV_D8(8), PV_D8(16), PV_D8(24)
+#define PV_D64 PV_D32, PV_D8(32), PV_D8(40), PV_D8(48), PV_D8(56)
+
+// d (64 x 64, int32) (+)= A (64 x 32, s8 registers) B (64 x 32, s8, shared, K-major)
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : PV_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, int32) (+)= A (64 x 32, s8 registers) B (128 x 32, s8, shared, K-major)
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : PV_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+#undef PV_D64
+#undef PV_D32
+#undef PV_D8
+
+// Bytes 0 of four registers, in order, as one register.
+__device__ __forceinline__ uint32_t low_bytes(uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040), 0x5410);
+}
+
+template <int D>
+struct Consumer {
+  static constexpr int kBlockM = Geometry<D>::kBlockM;
+  static constexpr int kStages = Geometry<D>::kStages;
+  Smem<D>& sm;
+  const Params& p;
+  int me;          // 0 .. kConsumers - 1
+  int lane, t;     // lane % 4
+  int kc, vc;      // tiles of the K and V rings consumed so far
+  const __nv_bfloat16* q_wg;
+  float* acc;        // this thread's output numerator in shared memory, stride 128
+  float den[2];      // this thread's two rows' denominators (full over the quad)
+  int pv[D / 2];     // the int32 PV sums of the block in flight
+  uint32_t pf[kChunks][4];  // the codes of one key tile as s8 A fragments
+
+  __device__ __forceinline__ Consumer(Smem<D>& sm_, const Params& p_, int me_, int tid)
+      : sm(sm_), p(p_), me(me_), lane(tid % 32), t(tid % 4), kc(0), vc(0),
+        q_wg(sm_.q + me_ * 64 * kBoxCols), acc(&sm_.acc[me_][0][tid]) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      acc[128 * i] = 0.f;
+      pv[i] = 0;
+    }
+    den[0] = den[1] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) pf[c][0] = pf[c][1] = pf[c][2] = pf[c][3] = 0u;
+  }
+
+  __device__ __forceinline__ void wait_k() {
+    mbar_wait(&sm.k_full[kc % kStages], (kc / kStages) & 1);
+  }
+  __device__ __forceinline__ void release_k() {
+    if (lane == 0) mbar_arrive(&sm.k_empty[kc % kStages]);
+    ++kc;
+  }
+  __device__ __forceinline__ void wait_v() {
+    mbar_wait(&sm.v_full[vc % kStages], (vc / kStages) & 1);
+  }
+  __device__ __forceinline__ void release_v() {
+    if (lane == 0) mbar_arrive(&sm.v_empty[vc % kStages]);
+    ++vc;
+  }
+
+  // pv (+)= the codes in pf x the V^T tile in flight.
+  __device__ __forceinline__ void issue_pv(int accumulate) {
+    const uint8_t* vt = sm.vt[vc % kStages];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      wgmma_rs_s8(pv, pf[c], make_desc(vt + 32 * c, 16, 1024), c > 0 || accumulate);
+    }
+  }
+
+  // Pass 1 over tiles [t0, t1): the row max of min(s, 88) over the valid keys.
+  __device__ __forceinline__ void row_max(int t0, int t1, float (&s)[64], float (&m_adj)[2]) {
+    float mx[2] = {kMasked, kMasked};
+    for (int j = t0; j < t1; ++j) {
+      const int limit = p.skv - j * kBlockN;
+      wait_k();
+      fence_regs(s);
+      wgmma_fence();
+      issue_qk<D, kBlockM>(s, q_wg, sm.k[kc % kStages]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      release_k();
+      if (limit < kBlockN) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          if (acc_col(i, t) >= limit) s[i] = kMasked;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) mx[acc_row(i)] = fmaxf(mx[acc_row(i)], s[i]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_adj[r] = fmaxf(__fsub_rn(fminf(mx[r], kClamp), kLog2_127), -kClamp);
+    }
+  }
+
+  // The codes rint(exp2(min(s, 88) - m_adj)) of the scores in s, in place
+  // (as int bits), 0 past the end; their sums into psum.  rint is taken by
+  // adding 1.5 x 2^23 (round half to even, as rintf; the codes are < 2^22).
+  __device__ __forceinline__ void codes(float (&s)[64], int limit, const float (&m_adj)[2],
+                                        int (&psum)[2]) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const float e = exp2_ftz(__fsub_rn(fminf(s[i], kClamp), m_adj[acc_row(i)]));
+      s[i] = __int_as_float(__float_as_int(__fadd_rn(e, kRound)) - kRoundBits);
+    }
+    if (limit < kBlockN) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        if (acc_col(i, t) >= limit) s[i] = __int_as_float(0);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) psum[acc_row(i)] += __float_as_int(s[i]);
+  }
+
+  // The A fragments of the tile's codes: chunk c is column blocks 4c..4c+3;
+  // a0 / a1 the thread's keys 2t, 2t+1, 8+2t, 9+2t of rows r0 / r0 + 8, a2 /
+  // a3 the same 16 keys on.
+  __device__ __forceinline__ void pack(const float (&s)[64]) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const float* x = s + 16 * c;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {      // keys 0..15 / 16..31 of the chunk
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {    // row r0 / r0 + 8
+          const float* y = x + 8 * h + 2 * r;
+          pf[c][2 * h + r] = low_bytes(__float_as_uint(y[0]), __float_as_uint(y[1]),
+                                       __float_as_uint(y[4]), __float_as_uint(y[5]));
+        }
+      }
+    }
+  }
+
+  // One tile j of pass 2: its QK issued (kWithPv: with the PV of tile j - 1,
+  // which accumulates unless j - 1 starts the block), its codes taken while
+  // the PV runs, then packed for its own PV.
+  template <bool kWithPv>
+  __device__ __forceinline__ void pv_step(int j, int accumulate, float (&s)[64],
+                                          const float (&m_adj)[2], int (&psum)[2]) {
+    wait_k();
+    if (kWithPv) wait_v();
+    fence_regs(s);
+    fence_regs(pv);
+    fence_regs(pf);
+    wgmma_fence();
+    issue_qk<D, kBlockM>(s, q_wg, sm.k[kc % kStages]);
+    wgmma_commit();
+    if (kWithPv) issue_pv(accumulate);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    release_k();
+    codes(s, p.skv - j * kBlockN, m_adj, psum);
+    wgmma_wait<0>();
+    fence_regs(pv);
+    fence_regs(pf);
+    if (kWithPv) release_v();
+    pack(s);
+  }
+
+  // Pass 2 over tiles [t0, t1) and the block's fold.
+  __device__ __forceinline__ void block_pv(int t0, int t1, float (&s)[64],
+                                           const float (&m_adj)[2]) {
+    int psum[2] = {0, 0};
+    pv_step<false>(t0, 0, s, m_adj, psum);
+    for (int j = t0 + 1; j < t1; ++j) pv_step<true>(j, j - 1 > t0, s, m_adj, psum);
+    wait_v();
+    fence_regs(pv);
+    fence_regs(pf);
+    wgmma_fence();
+    issue_pv(t1 - 1 > t0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pv);
+    fence_regs(pf);
+    release_v();
+    // acc += float(int32) * exp2(m_adj), the same for den: each operation
+    // rounded on its own, in the plain version's order
+    float w[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      w[r] = exp2f(m_adj[r]);
+      int n = psum[r];
+      n += __shfl_xor_sync(0xffffffffu, n, 1);
+      n += __shfl_xor_sync(0xffffffffu, n, 2);
+      den[r] = __fadd_rn(den[r], __fmul_rn(__int2float_rn(127 * n), w[r]));
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      acc[128 * i] = __fadd_rn(acc[128 * i], __fmul_rn(__int2float_rn(pv[i]), w[acc_row(i)]));
+    }
+  }
+
+  __device__ __forceinline__ void attend(int n_tiles) {
+    float s[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int t0 = 0; t0 < n_tiles; t0 += p.block_tiles) {
+      const int t1 = min(t0 + p.block_tiles, n_tiles);
+      float m_adj[2];
+      row_max(t0, t1, s, m_adj);
+      block_pv(t0, t1, s, m_adj);
+    }
+  }
+
+  // out = acc / max(den, 1e-30) * (127 vs), bf16 pairs.
+  __device__ __forceinline__ void store(int row0, int b, int h) {
+    const float out_scale = __fmul_rn(127.f, p.vs[b * p.heads + h]);
+    const int rows[2] = {row0, row0 + 8};
+    __nv_bfloat16* out = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= p.sq) continue;
+      const float d = fmaxf(den[r], 1e-30f);
+      __nv_bfloat16* row = out + rows[r] * p.o_ss;
+#pragma unroll
+      for (int jd = 0; jd < D / 8; ++jd) {
+        *reinterpret_cast<uint32_t*>(row + 8 * jd + 2 * t) =
+            pack_bf16(__fmul_rn(__fdiv_rn(acc[128 * (4 * jd + 2 * r)], d), out_scale),
+                      __fmul_rn(__fdiv_rn(acc[128 * (4 * jd + 2 * r + 1)], d), out_scale));
+      }
+    }
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(Geometry<D>::kThreads, 1)
+pv8_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap vt_map, const __grid_constant__ Params p) {
+  static_assert(D % kBoxCols == 0, "head dim must be a multiple of 64");
+  constexpr int kConsumers = Geometry<D>::kConsumers;
+  constexpr int kBlockM = Geometry<D>::kBlockM;
+  constexpr int kStages = Geometry<D>::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + pad);
+
+  // the warpgroup index through a shuffle: uniform, so no divergence around
+  // the products
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  const int tid = threadIdx.x % 128;
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int m0 = blockIdx.x * kBlockM;
+  const int n_tiles = (p.skv + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.k_full[i], 1);
+      mbar_init(&sm.v_full[i], 1);
+      mbar_init(&sm.k_empty[i], 4 * kConsumers);  // one arrival per consumer warp
+      mbar_init(&sm.v_empty[i], 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every TMA load, in the order the consumers
+    // take them: per key block, its K tiles (pass 1), then K and V^T tile by
+    // tile (pass 2)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      constexpr uint32_t kKBytes = kBlockN * D * sizeof(__nv_bfloat16);
+      constexpr uint32_t kVBytes = D * kBlockN;
+      mbar_expect_tx(&sm.q_full, kBlockM * D * sizeof(__nv_bfloat16));
+      load_tile<D, kBlockM>(sm.q, &q_map, &sm.q_full, m0, h, b);
+      int kl = 0, vl = 0;  // tiles issued into each ring
+      const auto load_k = [&](int j) {
+        const int st = kl % kStages;
+        mbar_wait(&sm.k_empty[st], ((kl / kStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.k_full[st], kKBytes);
+        load_tile<D, kBlockN>(sm.k[st], &k_map, &sm.k_full[st], j * kBlockN, h, b);
+        ++kl;
+      };
+      for (int t0 = 0; t0 < n_tiles; t0 += p.block_tiles) {
+        const int t1 = min(t0 + p.block_tiles, n_tiles);
+        for (int j = t0; j < t1; ++j) load_k(j);
+        for (int j = t0; j < t1; ++j) {
+          load_k(j);
+          const int st = vl % kStages;
+          mbar_wait(&sm.v_empty[st], ((vl / kStages) & 1) ^ 1);
+          mbar_expect_tx(&sm.v_full[st], kVBytes);
+          tma_load_2d(sm.vt[st], &vt_map, &sm.v_full[st], j * kBlockN, bh * D);
+          ++vl;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Geometry<D>::kConsumerRegs));
+    Consumer<D> c(sm, p, wg - 1, tid);
+    mbar_wait(&sm.q_full, 0);
+    scale_rows<D, kBlockM>(sm.q, wg - 1, tid, p.scale_log2);
+    c.attend(n_tiles);
+    c.store(m0 + (wg - 1) * 64 + 16 * (tid / 32) + (tid % 32) / 4, b, h);
+  }
+}
+
+// The caller's arguments: q (B, Sq, H, D) and k (B, Skv, H, D) bf16 by
+// strides in elements over (batch, sequence, head), the head dim dense; vt
+// the (B * H, D, vt_ld) int8 V^T in the key order stated above, vt_ld a
+// multiple of 128; the output bf16 (B, Sq, H, D) by strides.
+struct Args {
+  const void *q, *k, *vt, *vs;
+  void* o;
+  int batch, heads, sq, skv, head_dim, block_k;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, vt_ld, o_sb, o_ss, o_sh;
+  float scale_log2;
+};
+
+template <int D>
+cudaError_t launch_d(const Args& a, cudaStream_t stream) {
+  constexpr int kBlockM = Geometry<D>::kBlockM;
+  CUtensorMap qm, km, vm;
+  cudaError_t err = make_map(&qm, a.q, a.batch, a.sq, a.heads, D, a.q_sb, a.q_ss, a.q_sh, kBlockM);
+  if (err == cudaSuccess)
+    err = make_map(&km, a.k, a.batch, a.skv, a.heads, D, a.k_sb, a.k_ss, a.k_sh, kBlockN);
+  if (err == cudaSuccess)
+    err = make_map_u8(&vm, a.vt, a.batch * a.heads * D, static_cast<int>(a.vt_ld), a.vt_ld,
+                      kBlockN, D, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+  if (err != cudaSuccess) return err;
+  Params p;
+  p.o = static_cast<__nv_bfloat16*>(a.o);
+  p.o_sb = a.o_sb;
+  p.o_ss = a.o_ss;
+  p.o_sh = a.o_sh;
+  p.vs = static_cast<const float*>(a.vs);
+  p.heads = a.heads;
+  p.sq = a.sq;
+  p.skv = a.skv;
+  p.block_tiles = a.block_k / kBlockN;
+  p.scale_log2 = a.scale_log2;
+  const int smem = static_cast<int>(sizeof(Smem<D>)) + 1024;  // + the alignment pad
+  err = cudaFuncSetAttribute(pv8_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.batch * a.heads);
+  pv8_kernel<D><<<grid, Geometry<D>::kThreads, smem, stream>>>(qm, km, vm, p);
+  return cudaGetLastError();
+}
+
+// Launch on `stream` of `device`; returns the cudaError_t (0 = success).
+inline int launch(int device, const Args& a, void* stream) {
+  if (a.block_k <= 0 || a.block_k % kBlockN || a.vt_ld % kBlockN || a.vt_ld < a.skv) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.head_dim == 64) return static_cast<int>(launch_d<64>(a, s));
+  if (a.head_dim == 128) return static_cast<int>(launch_d<128>(a, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace pv8
 
 }  // namespace hopper_attn

@@ -1,7 +1,7 @@
-// The int8 probability x value product shared by the quantized attention
-// kernels of this directory (flash_pv8.cu, int8_flash_attention.cu).
+// The int8 probability x value product of int8_flash_attention.cu (K7), on
+// `mma.sync` (K6, flash_pv8.cu, runs its own on `wgmma`: hopper_attention.cuh).
 //
-// Both kernels hold a 16-row x 64-key tile of scores in the accumulator
+// The kernel holds a 16-row x 64-key tile of scores in the accumulator
 // layout of `mma.sync` m16n8k{16,32} (thread g = lane / 4, t = lane % 4 owns
 // keys 8j + 2t and 8j + 2t + 1 of rows g and g + 8, for j = 0..7), quantize
 // the softmax weights of the tile to int8 codes p8 in [0, 127], and add

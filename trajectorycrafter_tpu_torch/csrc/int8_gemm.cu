@@ -48,7 +48,7 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
   extern __shared__ uint8_t smem_raw[];
   float x_s[2];  // the row scales of this thread's two rows
   Loop::run(
-      smem_raw, &a_map, &b_map, sh, p.ws, p.bias, p.out,
+      smem_raw, &a_map, &b_map, sh, p.ws, p.bias,
       [&](int row0) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -56,8 +56,11 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
         }
       },
       [](const int (&)[Loop::kAcc], int, int) {},
-      [&](const int (&acc)[Loop::kAcc], int i, float cw, float cb) {
-        return dequant(acc[i], x_s[(i >> 1) & 1], cw, cb);
+      [&](const int (&acc)[Loop::kAcc], const Tile& tile) {
+        Loop::store_bf16(acc, tile, sh, p.out,
+                         [&](const int (&a)[Loop::kAcc], int i, float cw, float cb) {
+                           return dequant(a[i], x_s[(i >> 1) & 1], cw, cb);
+                         });
       });
 }
 

@@ -61,7 +61,7 @@ int8_gemm_gscale_kernel(const __grid_constant__ CUtensorMap a_map,
     }
   };
   Loop::run(
-      smem_raw, &a_map, &b_map, sh, p.ws, p.bias, p.out,
+      smem_raw, &a_map, &b_map, sh, p.ws, p.bias,
       [&](int row0) { load_scales(row0, 0); },
       [&](const int (&acc)[Loop::kAcc], int group, int row0) {
         const float s[2] = {s_next[0], s_next[1]};
@@ -73,8 +73,11 @@ int8_gemm_gscale_kernel(const __grid_constant__ CUtensorMap a_map,
                               __fmul_rn(__int2float_rn(acc[i]), s[(i >> 1) & 1]));
         }
       },
-      [&](const int (&)[Loop::kAcc], int i, float cw, float cb) {
-        return __fadd_rn(__fmul_rn(facc[i], cw), cb);
+      [&](const int (&acc)[Loop::kAcc], const Tile& tile) {
+        Loop::store_bf16(acc, tile, sh, p.out, [&](const int (&)[Loop::kAcc], int i, float cw,
+                                                   float cb) {
+          return __fadd_rn(__fmul_rn(facc[i], cw), cb);
+        });
       });
 }
 

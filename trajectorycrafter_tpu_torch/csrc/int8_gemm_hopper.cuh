@@ -1,5 +1,5 @@
-// The Hopper (sm_90a) int8 GEMM main loop shared by int8_gemm.cu (K2b) and
-// int8_gemm_gscale.cu (K3b).
+// The Hopper (sm_90a) int8 GEMM main loop shared by int8_gemm.cu (K2b),
+// int8_gemm_gscale.cu (K3b) and int8_gemm_gelu_quant.cu (K3a).
 //
 // C (M x N, int32) = A (M x K, int8) * W^T, with W (N x K, int8): torch's
 // Linear layout.  Both operands are K-major, the only layout `wgmma` takes
@@ -36,15 +36,19 @@
 //   A tiles and a band's A (kBandTiles x 128 rows) stays in L2 while W
 //   streams past it (at the feed-forward, W is 37.7 MB and A 81.9 MB against
 //   the 50 MB L2; bands of 16 ran FF1 faster than bands of 8 or 32).  A
-//   block's next tile loads while it stores the last one.
+//   block's next tile loads while it stores the last one.  With a cluster of
+//   `cluster` blocks along N (K3a's), the grid walks units of one M tile x
+//   `cluster` N tiles, each block of a cluster taking the N tile of its rank.
 // - The epilogue.  The column scales and bias of a tile are loaded before
-//   its products and staged in shared memory; each consumer then turns its
-//   accumulators into bf16 64 columns at a time, through shared memory, so
-//   that C is written in whole 128-byte rows, masked at the ragged edges.
+//   its products and staged in shared memory; then the kernel's epilogue
+//   hook takes the accumulators in registers.  K2b's and K3b's
+//   (`store_bf16`) turn them into bf16 64 columns at a time, through shared
+//   memory, so that C is written in whole 128-byte rows, masked at the
+//   ragged edges; K3a's quantizes them to int8 the same way.
 //
 // The kernels that include this header state what they compute in the hooks
-// (`after_group`, `value`), which read the accumulators as `wgmma` lays them
-// out: register i of a consumer thread holds row row0 + 8 ((i >> 1) & 1) and
+// (`after_group`, the epilogue), which read the accumulators as `wgmma` lays
+// them out: register i of a consumer thread holds row row0 + 8 ((i >> 1) & 1) and
 // column col0 + 8 (i / 4) + (i & 1), with row0 = 64 (warpgroup) + 16 (warp) +
 // lane / 4 and col0 = 2 (lane % 4) inside the block tile.
 
@@ -78,6 +82,19 @@ struct Shape {
   int tiles_m, tiles_n;
   int k_tiles;      // K tiles of 128 bytes (the last one zero-filled past K)
   int group_tiles;  // K tiles per call of the hook; k_tiles for one call at the end
+  int cluster;      // blocks of a cluster along N (1: none); it divides tiles_n
+};
+
+// What the epilogue hook is told of the tile it stores.
+struct Tile {
+  int m0, n0;        // the tile's origin in C
+  int local;         // tiles this block stored before this one
+  int me, tid;       // the consumer warpgroup and the thread in it
+  int row_in;        // the thread's first row in the tile (the second is 8 on)
+  int col_in;        // the thread's first column in each 8-column block
+  const float* cw;   // the tile's column scales and bias, staged in shared memory
+  const float* cb;
+  uint8_t* stage;    // this consumer's staging chunk: 64 rows x kChunkPitch bytes
 };
 
 #define I8_D8(i)                                                                         \
@@ -136,8 +153,10 @@ __device__ __forceinline__ float dequant(int acc, float xs, float ws, float bias
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws), bias);
 }
 
-// The main loop at a block tile of kBlockM x BN with a ring of kStages.
-template <int BN, int kStages>
+// The main loop at a block tile of kBlockM x BN with a ring of kStages;
+// kClustered: launched in clusters of sh.cluster blocks along N (else the
+// schedule is fixed at compile time to single blocks).
+template <int BN, int kStages, bool kClustered = false>
 struct MainLoop {
   static constexpr int kAcc = BN / 2;  // int32 accumulators of a consumer thread
   static constexpr uint32_t kStageBytes = (kBlockM + BN) * kBlockK;
@@ -154,41 +173,48 @@ struct MainLoop {
   };
   static constexpr int kSmemBytes = static_cast<int>(sizeof(Smem)) + 1024;  // + the pad
 
-  // The origin of output tile `tile`: bands of kBandTiles M tiles, each
-  // swept along N before the next band starts.
-  static __device__ __forceinline__ void tile_origin(const Shape& sh, int tile, int& m0,
-                                                     int& n0) {
-    const int band_size = kBandTiles * sh.tiles_n;
-    const int band = tile / band_size;
-    const int first = band * kBandTiles;
-    const int rows = min(kBandTiles, sh.tiles_m - first);
-    const int local = tile - band * band_size;
-    m0 = (first + local % rows) * kBlockM;
-    n0 = (local / rows) * BN;
+  // Blocks of a cluster: 1 unless kClustered.
+  static __device__ __forceinline__ int cluster(const Shape& sh) {
+    return kClustered ? sh.cluster : 1;
   }
 
-  // Run the block's share of the output tiles of C = A W^T and write them in
-  // bf16 to `out` (dense M x N).  The dequantizing epilogue takes the column
-  // scales `ws` and the bias `bias` (or null: 0) of C's columns.  The hooks,
-  // with row0 in C (the header comment gives the accumulator layout):
+  // The origin of the output tile of cluster rank `rank` in unit `unit`:
+  // bands of kBandTiles M tiles, each swept along N before the next band
+  // starts; a unit is one M tile x cluster(sh) N tiles.
+  static __device__ __forceinline__ void tile_origin(const Shape& sh, int unit, int rank,
+                                                     int& m0, int& n0) {
+    const int band_size = kBandTiles * (sh.tiles_n / cluster(sh));
+    const int band = unit / band_size;
+    const int first = band * kBandTiles;
+    const int rows = min(kBandTiles, sh.tiles_m - first);
+    const int local = unit - band * band_size;
+    m0 = (first + local % rows) * kBlockM;
+    n0 = ((local / rows) * cluster(sh) + rank) * BN;
+  }
+
+  // Run the block's share of the output tiles of C = A W^T.  The epilogue
+  // takes the column scales `ws` and the bias `bias` (or null: 0) of C's
+  // columns.  The hooks, with row0 in C (the header comment gives the
+  // accumulator layout):
   //   begin(row0)                     at a tile's start: loads of per-row
   //                                   scales issued here land during the
   //                                   products;
   //   after_group(acc, group, row0)   after every sh.group_tiles K tiles,
   //                                   with the products of those in acc;
-  //   value(acc, i, cw, cb)           after the last: the fp32 output of
-  //                                   accumulator register i, whose column
-  //                                   has scale cw and bias cb.
-  template <class Begin, class AfterGroup, class Value>
+  //   epilogue(acc, tile)             after the last, with the tile's column
+  //                                   scales and bias staged (Tile); it may
+  //                                   reuse acc.
+  template <class Begin, class AfterGroup, class Epilogue>
   static __device__ __forceinline__ void run(uint8_t* smem_raw, const CUtensorMap* a_map,
                                              const CUtensorMap* b_map, const Shape& sh,
                                              const float* __restrict__ ws,
-                                             const float* __restrict__ bias,
-                                             __nv_bfloat16* __restrict__ out, Begin begin,
-                                             AfterGroup after_group, Value value) {
+                                             const float* __restrict__ bias, Begin begin,
+                                             AfterGroup after_group, Epilogue epilogue) {
     const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
     Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
-    const int n_tiles = sh.tiles_m * sh.tiles_n;
+    const int n_units = sh.tiles_m * (sh.tiles_n / cluster(sh));
+    const int rank = blockIdx.x % cluster(sh);  // the grid is 1-D, clusters along x
+    const int first = blockIdx.x / cluster(sh), stride = gridDim.x / cluster(sh);
     // the warpgroup index through a shuffle, which the compiler knows to be
     // uniform across the warp: the role branch then holds no divergence
     const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
@@ -209,9 +235,9 @@ struct MainLoop {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
       if (tid == 0) {
         int it = 0;  // stages filled so far
-        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        for (int unit = first; unit < n_units; unit += stride) {
           int m0, n0;
-          tile_origin(sh, tile, m0, n0);
+          tile_origin(sh, unit, rank, m0, n0);
           for (int kt = 0; kt < sh.k_tiles; ++kt, ++it) {
             const int s = it % kStages;
             mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
@@ -236,10 +262,11 @@ struct MainLoop {
 #pragma unroll
       for (int i = 0; i < kAcc; ++i) acc[i] = 0;
       int it = 0;  // stages consumed so far
-      int parity = 0;
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, parity ^= 1) {
+      int local = 0;
+      for (int unit = first; unit < n_units; unit += stride, ++local) {
+        const int parity = local & 1;
         int m0, n0;
-        tile_origin(sh, tile, m0, n0);
+        tile_origin(sh, unit, rank, m0, n0);
         // the tile's column scale and bias: loaded now, staged after the products
         float my_w = 0.f, my_b = 0.f;
         if (ct < BN && n0 + ct < sh.n) {
@@ -282,73 +309,73 @@ struct MainLoop {
         // every column of this tile is staged, and no consumer still reads
         // the buffer of two tiles back (each passed this barrier since)
         named_sync(kColsBarrier, 128 * kConsumers);
-        const float* cw = sm.cols[parity][0];
-        const float* cb = sm.cols[parity][1];
-        uint8_t* stage = sm.c_stage[me];
+        const Tile tile{m0,     n0,     local, me, tid, row_in, col_in,
+                        sm.cols[parity][0], sm.cols[parity][1], sm.c_stage[me]};
+        epilogue(acc, tile);
+      }
+    }
+  }
+
+  // The bf16 epilogue of K2b and K3b: value(acc, i, cw, cb) is the fp32
+  // output of accumulator register i, whose column has scale cw and bias cb;
+  // written to `out` (dense M x N) in whole 128-byte rows.
+  template <class Value>
+  static __device__ __forceinline__ void store_bf16(const int (&acc)[kAcc], const Tile& tl,
+                                                    const Shape& sh,
+                                                    __nv_bfloat16* __restrict__ out,
+                                                    Value value) {
 #pragma unroll  // constant register indices: acc stays in registers
-        for (int chunk = 0; chunk < BN / kChunkCols; ++chunk) {
-          const int c0 = n0 + chunk * kChunkCols;
-          if (c0 >= sh.n) break;  // the same for the whole block
-          // this thread's bf16 pairs of the chunk into the stage ...
+    for (int chunk = 0; chunk < BN / kChunkCols; ++chunk) {
+      const int c0 = tl.n0 + chunk * kChunkCols;
+      if (c0 >= sh.n) break;  // the same for the whole block
+      // this thread's bf16 pairs of the chunk into the stage ...
 #pragma unroll
-          for (int jj = 0; jj < kChunkCols / 8; ++jj) {
-            const int i0 = 4 * (chunk * kChunkCols / 8 + jj);  // registers of column block j
-            const int c = chunk * kChunkCols + 8 * jj + col_in;  // column in the tile
+      for (int jj = 0; jj < kChunkCols / 8; ++jj) {
+        const int i0 = 4 * (chunk * kChunkCols / 8 + jj);  // registers of column block j
+        const int c = chunk * kChunkCols + 8 * jj + tl.col_in;  // column in the tile
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int i = i0 + 2 * h;
-              *reinterpret_cast<uint32_t*>(stage + (row_in - 64 * me + 8 * h) * kChunkPitch +
-                                           2 * (8 * jj + col_in)) =
-                  pack_bf16(value(acc, i, cw[c], cb[c]), value(acc, i + 1, cw[c + 1], cb[c + 1]));
-            }
-          }
-          named_sync(kStoreBarrier + me, 128);
-          // ... then whole 128-byte rows to C: 16 bytes a thread, 16 rows a pass
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int r = tid / 8 + 16 * q;
-            const int row = m0 + 64 * me + r, col = c0 + 8 * (tid % 8);
-            if (row < sh.m && col < sh.n) {  // N is a multiple of 16: a vector is in or out
-              *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * sh.n + col) =
-                  *reinterpret_cast<const uint4*>(stage + r * kChunkPitch + 16 * (tid % 8));
-            }
-          }
-          named_sync(kStoreBarrier + me, 128);  // the stage is read before it is rewritten
+        for (int h = 0; h < 2; ++h) {
+          const int i = i0 + 2 * h;
+          *reinterpret_cast<uint32_t*>(tl.stage + (tl.row_in - 64 * tl.me + 8 * h) * kChunkPitch +
+                                       2 * (8 * jj + tl.col_in)) =
+              pack_bf16(value(acc, i, tl.cw[c], tl.cb[c]),
+                        value(acc, i + 1, tl.cw[c + 1], tl.cb[c + 1]));
         }
       }
+      named_sync(kStoreBarrier + tl.me, 128);
+      // ... then whole 128-byte rows to C: 16 bytes a thread, 16 rows a pass
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = tl.tid / 8 + 16 * q;
+        const int row = tl.m0 + 64 * tl.me + r, col = c0 + 8 * (tl.tid % 8);
+        if (row < sh.m && col < sh.n) {  // N is a multiple of 16: a vector is in or out
+          *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * sh.n + col) =
+              *reinterpret_cast<const uint4*>(tl.stage + r * kChunkPitch + 16 * (tl.tid % 8));
+        }
+      }
+      named_sync(kStoreBarrier + tl.me, 128);  // the stage is read before it is rewritten
     }
   }
 
   // The tensor maps and the persistent grid of one launch: A (m x k) and W
   // (n x k) int8 by row strides lda and ldb (multiples of 16 bytes), the
   // hook every `group` of K (a multiple of kBlockK), or once at the end
-  // when group is 0.
+  // when group is 0; clusters of `cluster` blocks along N (it divides the N
+  // tiles), at most `max_clusters` of them in flight.
   struct Launch {
     CUtensorMap a_map, b_map;
     Shape shape;
     dim3 grid;
   };
 
-  static cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                              long long stride, int box_rows) {
-    EncodeTiled encode = tensor_map_encoder();
-    if (encode == nullptr) return cudaErrorNotSupported;
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBlockK),
-                               static_cast<cuuint32_t>(box_rows)};
-    const cuuint32_t unit[2] = {1u, 1u};
-    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
-                              strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-  }
-
   static cudaError_t prepare(int device, const void* a, const void* b, int m, int n, int k,
-                             long long lda, long long ldb, int group, Launch& l) {
-    cudaError_t err = make_map(&l.a_map, a, m, k, lda, kBlockM);
-    if (err == cudaSuccess) err = make_map(&l.b_map, b, n, k, ldb, BN);
+                             long long lda, long long ldb, int group, Launch& l,
+                             int cluster = 1, int max_clusters = 0) {
+    cudaError_t err = make_map_u8(&l.a_map, a, m, k, lda, kBlockK, kBlockM,
+                                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+    if (err == cudaSuccess) {
+      err = make_map_u8(&l.b_map, b, n, k, ldb, kBlockK, BN, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+    }
     if (err != cudaSuccess) return err;
     int sms = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -360,8 +387,11 @@ struct MainLoop {
     sh.tiles_n = (n + BN - 1) / BN;
     sh.k_tiles = (k + kBlockK - 1) / kBlockK;
     sh.group_tiles = group > 0 ? group / kBlockK : sh.k_tiles;
-    const int tiles = sh.tiles_m * sh.tiles_n;
-    l.grid = dim3(tiles < sms ? tiles : sms);
+    sh.cluster = cluster;
+    const int units = sh.tiles_m * (sh.tiles_n / cluster);
+    int clusters = sms / cluster;
+    if (max_clusters > 0 && max_clusters < clusters) clusters = max_clusters;
+    l.grid = dim3((units < clusters ? units : clusters) * cluster);
     return cudaSuccess;
   }
 };

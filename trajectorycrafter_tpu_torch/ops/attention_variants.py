@@ -79,12 +79,40 @@ def quantize_per_head(x: torch.Tensor):
 
 def keys_last(x8: torch.Tensor) -> torch.Tensor:
     """(B, S, H, D) int8 -> (B * H, D, L) int8, the keys on the last axis and
-    zero-padded to L, a multiple of 64: the V layout of the int8 PV kernels."""
+    zero-padded to L, a multiple of 64: K7's V layout."""
     b, s, h, d = x8.shape
     tile = kernels.FLASH_KEY_TILE
     out = torch.zeros((b * h, d, -(-s // tile) * tile), dtype=torch.int8, device=x8.device)
     out[:, :, :s] = x8.permute(0, 2, 3, 1).reshape(b * h, d, s)
     return out
+
+
+def pv8_key_order() -> torch.Tensor:
+    """The key order of K6's V^T inside each 32-key chunk: position 16 h +
+    4 t + e holds key 16 h + 8 (e // 2) + 2 t + e % 2 (h < 2, t < 4, e < 4).
+
+    K6's int8 PV takes the codes of a 32-key chunk from the registers that
+    hold the scores: thread t of a quad holds keys 8 j + 2 t and 8 j + 2 t + 1
+    of each 8-key column j, and packs keys 2t, 2t+1, 8+2t, 9+2t (then the
+    same 16 on) where the s8 A fragment reads positions 4t..4t+3 (16 on).
+    Its V^T is laid out in the same order, so each code meets its own key's
+    values; the int32 sums over a chunk are exact in any order
+    (csrc/hopper_attention.cuh, namespace pv8)."""
+    pos = torch.arange(32)
+    h, t, e = pos // 16, (pos % 16) // 4, pos % 4
+    return 16 * h + 8 * (e // 2) + 2 * t + e % 2
+
+
+def pv8_keys_last(v8: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) int8 -> (B * H, D, L) int8, K6's V layout: the keys on
+    the last axis, zero-padded to L, a multiple of ``kernels.PV8_KEY_TILE``,
+    and in ``pv8_key_order`` inside each 32-key chunk."""
+    b, s, h, d = v8.shape
+    tile = kernels.PV8_KEY_TILE
+    out = torch.zeros((b * h, d, -(-s // tile) * tile), dtype=torch.int8, device=v8.device)
+    out[:, :, :s] = v8.permute(0, 2, 3, 1).reshape(b * h, d, s)
+    order = pv8_key_order().to(v8.device)
+    return out.unflatten(-1, (-1, 32))[..., order].flatten(-2)
 
 
 def scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -226,7 +254,7 @@ def pv8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     if not q.is_cuda:
         return pv8_reference(q, k, v, scale, block_k)
     v8, vs = quantize_per_head(v)
-    return kernels.flash_pv8(q, k, keys_last(v8), vs.reshape(-1), scale * LOG2E, block_k)
+    return kernels.flash_pv8(q, k, pv8_keys_last(v8), vs.reshape(-1), scale * LOG2E, block_k)
 
 
 def flash_attention_exp2_t_pv8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -39,9 +39,12 @@ FLASH_HEAD_DIMS = (64, 128)
 # keys per K/V tile of the bf16 attention kernels: flash_attention,
 # flash_lse, flash_exp2 and flash_maxpass (csrc/hopper_attention.cuh kBlockN)
 ATTENTION_KEY_TILE = 128
-# keys per tile of the quantized attention kernels, flash_pv8 and
-# int8_flash_attention, whose int8 V layout is cut in tiles of 64 keys
+# keys per tile of int8_flash_attention, whose int8 V layout is cut in tiles
+# of 64 keys
 FLASH_KEY_TILE = 64
+# keys per K / V^T tile of flash_pv8 (csrc/hopper_attention.cuh kBlockN): its
+# key blocks and its V^T rows are multiples of it
+PV8_KEY_TILE = 128
 
 
 def _nvcc() -> str:
@@ -271,17 +274,17 @@ _INT8_ATTN_ARGTYPES = (_INT, *[_PTR] * 6, *[_INT] * 6, *[_LONG] * 10, _PTR)
 
 
 def _check_vt(kernel: str, vt: torch.Tensor, b: int, h: int, d: int, skv: int,
-              device: torch.device) -> None:
+              device: torch.device, tile: int) -> None:
     """V quantized and laid out for the int8 PV product: (B * H, D, L) int8,
-    contiguous, with L a multiple of 64 that covers Skv (the keys past Skv
-    zero)."""
+    contiguous, with L a multiple of the kernel's key ``tile`` that covers
+    Skv (the keys past Skv zero)."""
     if vt.dim() != 3:
         raise ValueError(f"{kernel}: v8 must be (B*H, D, L), got shape {tuple(vt.shape)}")
     _check_tensor(kernel, "v8", vt, torch.int8, (b * h, d, vt.shape[2]), device)
     _check_dense(kernel, "v8", vt)
-    if vt.shape[2] % FLASH_KEY_TILE or vt.shape[2] < skv:
+    if vt.shape[2] % tile or vt.shape[2] < skv:
         raise ValueError(f"{kernel}: v8 holds {vt.shape[2]} keys per row; it needs a "
-                         f"multiple of {FLASH_KEY_TILE} that covers Skv={skv}")
+                         f"multiple of {tile} that covers Skv={skv}")
 
 
 def _check_per_head(kernel: str, name: str, x: torch.Tensor, n: int,
@@ -290,25 +293,27 @@ def _check_per_head(kernel: str, name: str, x: torch.Tensor, n: int,
     _check_dense(kernel, name, x)
 
 
-def _check_block_k(kernel: str, block_k: int) -> None:
-    if block_k <= 0 or block_k % FLASH_KEY_TILE:
-        raise ValueError(f"{kernel}: block_k {block_k} must be a positive multiple of "
-                         f"{FLASH_KEY_TILE}")
+def _check_block_k(kernel: str, block_k: int, tile: int) -> None:
+    """A key block is a whole number of the kernel's key tiles."""
+    if block_k <= 0 or block_k % tile:
+        raise ValueError(f"{kernel}: block_k {block_k} must be a positive multiple of {tile}")
 
 
 def flash_pv8(q: torch.Tensor, k: torch.Tensor, v8: torch.Tensor, vs: torch.Tensor,
               scale_log2: float, block_k: int) -> torch.Tensor:
     """PV-int8 attention on the card (csrc/flash_pv8.cu): bf16 q k^T, the
-    softmax weights of each ``block_k``-key block quantized to int8 against
-    the block's row max, int8 PV.  q (B, Sq, H, D), k (B, Skv, H, D) bf16;
-    v8 the per-(batch, head) int8 V as ``_check_vt`` lays it out, vs (B * H,)
-    fp32 its scales; ``scale_log2`` the softmax scale times log2(e).  ->
-    (B, Sq, H, D) bf16.  Counts each launch in ``flash_pv8.launches``."""
+    softmax weights of each ``block_k``-key block (a multiple of
+    ``PV8_KEY_TILE``) quantized to int8 against the block's row max, int8 PV.
+    q (B, Sq, H, D), k (B, Skv, H, D) bf16; v8 the per-(batch, head) int8 V
+    as ``ops/attention_variants.py pv8_keys_last`` lays it out (its key order
+    cannot be checked here), vs (B * H,) fp32 its scales; ``scale_log2`` the
+    softmax scale times log2(e).  -> (B, Sq, H, D) bf16.  Counts each launch
+    in ``flash_pv8.launches``."""
     kernel = "flash_pv8"
     b, sq, skv, h, d = _check_attention(kernel, q, k, None)
-    _check_vt(kernel, v8, b, h, d, skv, q.device)
+    _check_vt(kernel, v8, b, h, d, skv, q.device, PV8_KEY_TILE)
     _check_per_head(kernel, "vs", vs, b * h, q.device)
-    _check_block_k(kernel, block_k)
+    _check_block_k(kernel, block_k, PV8_KEY_TILE)
     out = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device)
     _call(kernel, _PV8_ARGTYPES, q.device, q.data_ptr(), k.data_ptr(), v8.data_ptr(),
           vs.data_ptr(), out.data_ptr(), b, h, sq, skv, d, block_k, *_strides(q, k),
@@ -325,15 +330,15 @@ def int8_flash_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                          block_k: int) -> torch.Tensor:
     """int8 flash attention on the card (csrc/int8_flash_attention.cu): q8
     (B, Sq, H, D) and k8 (B, Skv, H, D) int8 codes, v8 as ``_check_vt`` lays
-    it out; logit_scale (B * H,) = qs * ks * softmax scale and v_scale (B * H,)
+    it out (``keys_last``); logit_scale (B * H,) = qs * ks * softmax scale and v_scale (B * H,)
     = vs / 127, fp32; online softmax per ``block_k``-key block.  -> (B, Sq, H,
     D) bf16.  Counts each launch in ``int8_flash_attention.launches``."""
     kernel = "int8_flash_attention"
     b, sq, skv, h, d = _check_attention(kernel, q8, k8, None, dtype=torch.int8)
-    _check_vt(kernel, v8, b, h, d, skv, q8.device)
+    _check_vt(kernel, v8, b, h, d, skv, q8.device, FLASH_KEY_TILE)
     _check_per_head(kernel, "logit_scale", logit_scale, b * h, q8.device)
     _check_per_head(kernel, "v_scale", v_scale, b * h, q8.device)
-    _check_block_k(kernel, block_k)
+    _check_block_k(kernel, block_k, FLASH_KEY_TILE)
     out = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q8.device)
     _call(kernel, _INT8_ATTN_ARGTYPES, q8.device, q8.data_ptr(), k8.data_ptr(), v8.data_ptr(),
           logit_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), b, h, sq, skv, d,
@@ -352,8 +357,10 @@ int8_flash_attention.launches = 0
 # K per shared-memory stage of the wgmma main loop (kBlockK of
 # csrc/int8_gemm_hopper.cuh): a K group of int8_gemm_gscale is a multiple of it
 INT8_TILE_K = 128
-# output columns per thread block of int8_gemm_gelu_quant (kBlockN of
-# csrc/int8_gemm.cuh); its cluster spans at most 8 such blocks
+# a group of int8_gemm_gelu_quant is a whole number of its narrower block
+# tile's columns (csrc/int8_gemm_gelu_quant.cu: 128 x 256 tiles where the
+# group is a multiple of 256, else 128 x 128); a cluster of blocks along N
+# covers one group
 INT8_TILE_N = 128
 INT8_MAX_GROUP = 1024
 
