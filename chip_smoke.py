@@ -21,7 +21,8 @@ prints no result line):
      computed from the data sheet, and its TFLOP/s;
   4. the attention variants (K5 ``flash_lse``, K1b ``flash_exp2``, K6
      ``flash_pv8``, K7 ``int8_flash_attention``) the same way, at the
-     attention bench's DiT shape and the main path's shapes;
+     attention bench's DiT shape and the main path's shapes (K7 also at
+     head dim 128, ``K7_D128_SHAPE``);
   5. main path: ``TrajCrafter.infer_gradual`` at the deployed widths (random
      weights from a seed; T5-XXL prompt encode; the DepthCrafter depth
      stage, 5 Euler steps over one 49-frame window at 576x1024; 2 denoise
@@ -155,6 +156,9 @@ DIT_SHAPE = (2, 48, 13330, 64)  # the main path's joint attention (B, H, S, D)
 # the Perceiver's cross-attention (B, H, Sq, Skv, D): 2 x 13,104 video
 # tokens against 2 x 3,024 reference tokens, 16 heads of 128
 PERCEIVER_SHAPE = (2, 16, 13104, 3024, 128)
+# K7 (bench only) is also checked and timed at head dim 128, at a
+# self-attention shape (B, H, Sq, Skv, D)
+K7_D128_SHAPE = (1, 16, 4096, 4096, 128)
 # ragged lengths around the bf16 attention kernels' 64-row boxes and 128-key
 # tiles, checked on the query and on the key side
 EDGE_LENGTHS = (1, 63, 65, 127, 129, 777, 1000)
@@ -587,7 +591,8 @@ def phase_variants():
              ("flash_pv8", "perceiver_cross", 2, 16, 13104, 3024, 128, 4.0),
              ("flash_pv8", "depth_9216_frames2", 2, 5, 9216, 9216, 64, 4.0),
              ("flash_pv8", "depth_2304_frames8", 8, 10, 2304, 2304, 64, 4.0),
-             ("int8_flash_attention", "dit_self_heads8", 1, 8, 13330, 13330, 64, 1.0)]
+             ("int8_flash_attention", "dit_self_heads8", 1, 8, 13330, 13330, 64, 1.0),
+             ("int8_flash_attention", "self_d128", *K7_D128_SHAPE, 1.0)]
     for kern, label, b, h, sq, skv, d, gain in cases:
         run, plain, block_of = runs[kern]
         block_k, scale = block_of(sq), d ** -0.5
@@ -647,13 +652,13 @@ def phase_variants():
     scale = d ** -0.5
     q, k, v = (randn(b, s, h, d).bfloat16() for _ in range(3))
     v8, vs = av.quantize_per_head(v)
-    v8t, v8p, vs = av.keys_last(v8), av.pv8_keys_last(v8), vs.reshape(-1)
+    v8t, vs = av.pv8_keys_last(v8), vs.reshape(-1)  # K6's and K7's V^T
     q8, k8, _, logit, v127 = av.int8_operands(q, k, v, scale)
     pv8_block, int8_block = av.pv8_block_k(s), av.int8_block_k(s)
     yardstick = "flash SDPA: the exact attention the kernel approximates (a yardstick, not the same function)"
     timing["flash_pv8"] = {**in_turns(
         {"plain_ms": lambda: av.pv8_reference(q, k, v, scale, pv8_block),
-         "ms": lambda: flash_pv8(q, k, v8p, vs, scale * av.LOG2E, pv8_block),
+         "ms": lambda: flash_pv8(q, k, v8t, vs, scale * av.LOG2E, pv8_block),
          "with_quantization_ms": lambda: av.pv8_attention(q, k, v, scale, pv8_block),
          "library_ms": lambda: sdpa_flash(q, k, v, scale)},
         {"plain_ms": 1, "ms": 3, "with_quantization_ms": 3, "library_ms": 3}, cold=("plain_ms",)),
@@ -667,7 +672,28 @@ def phase_variants():
         {"plain_ms": 1, "ms": 3, "with_quantization_ms": 3, "library_ms": 3}, cold=("plain_ms",)),
         **attention_bound(b, h, s, s, d, pv_int8=True, qk_int8=True, in_bytes=1),
         "flop": 4.0 * b * h * s * s * d, "shape": str((b, h, s, s, d)), "library": yardstick}
-    del q, k, v, v8, v8t, v8p, q8, k8
+    del q, k, v, v8, v8t, q8, k8
+    torch.cuda.empty_cache()
+
+    # K7 also at head dim 128, a self-attention shape: "d128_*" keys of its entry
+    b, h, sq, skv, d = K7_D128_SHAPE
+    scale, block_k = d ** -0.5, av.int8_block_k(sq)
+    q, k, v = (randn(b, sq, h, d).bfloat16() for _ in range(3))
+    q8, k8, v8, logit, v127 = av.int8_operands(q, k, v, scale)
+    v8t = av.pv8_keys_last(v8)
+    t = in_turns({"plain_ms": lambda: av.int8_attention_reference(q, k, v, scale, block_k),
+                  "ms": lambda: int8_flash_attention(q8, k8, v8t, logit, v127, block_k),
+                  "library_ms": lambda: sdpa_flash(q, k, v, scale)},
+                 {"plain_ms": 1, "ms": 5, "library_ms": 5})
+    bnd = attention_bound(b, h, sq, skv, d, pv_int8=True, qk_int8=True, in_bytes=1)
+    timing["int8_flash_attention"].update({
+        "d128_shape": str((b, h, sq, skv, d)), "d128_ms": t["ms"], "d128_plain_ms": t["plain_ms"],
+        "d128_library_ms": t["library_ms"], "d128_bound_ms": bnd["bound_ms"],
+        "d128_sfu_ms": bnd["sfu_ms"]})
+    log(f"int8_flash_attention timed at {(b, h, sq, skv, d)}: {t['ms']:.3f} ms, plain "
+        f"{t['plain_ms']:.2f} ms, library {t['library_ms']:.3f} ms; bound {bnd['bound_ms']:.3f} ms, "
+        f"SFU {bnd['sfu_ms']:.3f} ms")
+    del q, k, v, q8, k8, v8, v8t
     torch.cuda.empty_cache()
 
     # K6 also carries the Perceiver (d 128) and the depth UNet's two kernel
@@ -1213,7 +1239,7 @@ def _attention_entry(name: str, t: dict, **kw) -> dict:
             "replaces": TPU_KERNELS[name], **kw, **{key: t[key] for key in keys},
             **{key: t[key] for key in t
                if key in ("shape", "library", "with_quantization_ms")
-               or key.startswith(("depth_", "perceiver_"))}}
+               or key.startswith(("depth_", "perceiver_", "d128_"))}}
 
 
 def main() -> None:

@@ -301,14 +301,14 @@ def test_dispatch_and_wrapper_reject_what_they_do_not_take():
 
 def test_quantized_wrappers_reject_cpu_tensors():
     """K6's and K7's wrappers take CUDA tensors only, as the others do."""
-    from trajectorycrafter_tpu_torch.ops.attention_variants import keys_last, quantize_per_head
+    from trajectorycrafter_tpu_torch.ops.attention_variants import pv8_keys_last, quantize_per_head
     from trajectorycrafter_tpu_torch.ops.kernels import int8_flash_attention
 
     q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(3, 1, 2, 8, 8, 64))
     v8, vs = quantize_per_head(v)
     q8, _ = quantize_per_head(q)
-    for call in (lambda: flash_pv8(q, k, keys_last(v8), vs.reshape(-1), 0.18, 512),
-                 lambda: int8_flash_attention(q8, q8, keys_last(v8), vs.reshape(-1),
+    for call in (lambda: flash_pv8(q, k, pv8_keys_last(v8), vs.reshape(-1), 0.18, 512),
+                 lambda: int8_flash_attention(q8, q8, pv8_keys_last(v8), vs.reshape(-1),
                                               vs.reshape(-1), 128)):
         with pytest.raises(ValueError, match="CUDA"):
             call()

@@ -3,8 +3,11 @@ attention_variants.py) vs the JAX package's Pallas kernels in interpret mode.
 
 Plain versions of K5 (``flash_attention_with_lse``), K1b
 (``flash_attention_exp2``), K6 (``flash_attention_exp2_t_pv8``) and K7
-(``int8_flash_attention``) against the JAX functions, K6 also with its PV
-product taken on the kernel's V^T layout (``pv8_keys_last``), and the port's
+(``int8_flash_attention``) against the JAX functions; K6 and K7 also taken
+as their kernel pairs the operands (the codes in the A fragment's slot order
+against ``pv8_keys_last``'s V^T; K7 with the int32 row max converted once,
+the exp2 weights and the fp32 sum of the weights), with K7's exact score
+conversion and row max checked on their own; and the port's
 ``multi_head_attention(impl="flash_pv8")`` against the JAX dispatch with
 the Pallas kernel patched to interpret mode.  Inputs are fp32 from
 ``np.random.default_rng``; each side runs in fp32 on the CPU.
@@ -14,8 +17,9 @@ Tolerances:
     sides, summed in another order), 1e-5 relative on the lse.
   * K6 and K7 quantize the softmax weights to integer codes p8 = rint(.):
     where the two sides' fp32 scores (K6: q'.k summed in another order) or
-    exponentials (K7: XLA's and torch's exp) differ in their last bit on a
-    rounding boundary of the code, one code moves by 1, which moves that
+    exponentials (K7: XLA's and torch's exp, or the kernel's exp2 of its
+    offset) differ in their last bits on a rounding boundary of the code,
+    one code moves by 1, which moves that
     row's output by |v| / (the row's code sum) -- at most ~1e-2 at these
     shapes.  So the outputs agree to 1e-5 on all but a few elements (at most
     0.1%), and every element within 2e-2.
@@ -35,7 +39,7 @@ from trajectorycrafter_tpu.ops.pallas.flash_exp2 import flash_attention_exp2 as 
 from trajectorycrafter_tpu.ops.pallas.flash_lse import flash_attention_with_lse as jax_lse
 from trajectorycrafter_tpu.ops.pallas.int8_flash_attention import int8_flash_attention as jax_int8
 from trajectorycrafter_tpu_torch.ops import attention_variants as av
-from trajectorycrafter_tpu_torch.ops.attention import multi_head_attention
+from trajectorycrafter_tpu_torch.ops.attention import multi_head_attention, quantized_error
 from trajectorycrafter_tpu_torch.ops.kernels import flash_pv8, int8_flash_attention
 
 torch.set_num_threads(1)
@@ -136,21 +140,23 @@ def test_pv8_key_order_is_the_fragment_order():
 
 
 def test_pv8_key_blocks_are_whole_key_tiles():
-    """K6 takes key blocks and V^T rows of whole 128-key tiles (both of the
-    JAX dispatch's block sizes are); K7 keeps its 64-key tiles."""
+    """K6 and K7, both on the PV-int8 loop, take key blocks and V^T rows of
+    whole 128-key tiles: both of the JAX dispatch's block sizes for K6 and
+    every block K7's rule picks are."""
     from trajectorycrafter_tpu_torch.ops import kernels
 
     tile = kernels.PV8_KEY_TILE
     assert all(av.pv8_block_k(s) % tile == 0 for s in (1, 2047, 2048, 13330))
-    for block_k in (128, 512, 1024):
-        kernels._check_block_k("flash_pv8", block_k, tile)
-    for block_k in (0, 64, 192):
-        with pytest.raises(ValueError, match="multiple of 128"):
-            kernels._check_block_k("flash_pv8", block_k, tile)
-    kernels._check_block_k("int8_flash_attention", 192, kernels.FLASH_KEY_TILE)
+    assert all(av.int8_block_k(s) % tile == 0 for s in (1, 129, 700, 4096, 13330))
+    for kernel in ("flash_pv8", "int8_flash_attention"):
+        for block_k in (128, 512, 1024):
+            kernels._check_block_k(kernel, block_k, tile)
+        for block_k in (0, 64, 192):
+            with pytest.raises(ValueError, match="multiple of 128"):
+                kernels._check_block_k(kernel, block_k, tile)
     v8 = torch.ones((2, 130, 3, 64), dtype=torch.int8)
     assert av.pv8_keys_last(v8).shape == (6, 64, 256)
-    assert av.keys_last(v8).shape == (6, 64, 192)
+    assert av.pv8_keys_last(v8[:, :128]).shape == (6, 64, 128)
 
 
 def _pv8_on_kernel_layout(q, k, v, scale, block_k):
@@ -216,6 +222,107 @@ def test_int8_attention_plain_matches_jax_interpret(s):
     got = av.int8_flash_attention(*_t(q, k, v)).numpy()
     assert int8_flash_attention.launches == before
     _assert_quantized_close(got, want)
+
+
+INT32_SCORE_BOUND = 127 * 127 * 128  # |q8 . k8| at head dim 128: below 2^22
+
+
+def _exact_float(x: np.ndarray) -> np.ndarray:
+    """The kernel's int32 -> fp32 conversion of a score: the bits of 1.5 x
+    2^23 + x, less 1.5 x 2^23 (an integer add and an fp32 subtraction)."""
+    return (x.astype(np.int32) + np.int32(0x4B400000)).view(np.float32) - np.float32(12582912.0)
+
+
+def test_int8_score_conversion_is_exact():
+    """Every score of the int32 QK, |x| <= 127^2 x 128 = 2,064,512, converts
+    exactly: at 0, +-1, the bound and every integer between."""
+    edges = np.array([0, 1, -1, INT32_SCORE_BOUND, -INT32_SCORE_BOUND], np.int32)
+    np.testing.assert_array_equal(_exact_float(edges), edges.astype(np.float32))
+    every = np.arange(-INT32_SCORE_BOUND, INT32_SCORE_BOUND + 1, dtype=np.int32)
+    assert np.array_equal(_exact_float(every), every.astype(np.float32))
+
+
+@pytest.mark.parametrize("logit", [1e-7, 3.1e-5, 2.7e-3, 0.37])
+def test_int8_row_max_converted_once_is_the_max_of_the_products(logit):
+    """K7 takes a key block's row max on the int32 scores and converts it
+    once: for logit = qs ks scale > 0 that is exactly the max of the rounded
+    fp32 products float(x) * logit the plain version takes."""
+    rng = np.random.default_rng(12)
+    x = rng.integers(-INT32_SCORE_BOUND, INT32_SCORE_BOUND + 1, size=(64, 1024))
+    x[0] = rng.integers(-INT32_SCORE_BOUND, -INT32_SCORE_BOUND + 64, size=1024)  # all negative
+    x[1, :2] = [INT32_SCORE_BOUND - 1, INT32_SCORE_BOUND]  # neighbours at the top
+    x[2] = 7  # one value throughout
+    xt = torch.from_numpy(x).float()  # exact: below 2^24
+    lg = torch.tensor(logit, dtype=torch.float32)
+    assert torch.equal((xt * lg).amax(-1), xt.amax(-1) * lg)
+
+
+def _round_up_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> the least float32 >= it (``__fmul_ru`` of an exact product)."""
+    f = x.float()
+    return torch.where(f.double() < x, torch.nextafter(f, torch.tensor(float("inf"))), f)
+
+
+def _int8_on_kernel_layout(q, k, v, scale, block_k):
+    """K7 as the kernel computes it, (B, S, H, D) fp32 in and out: the int32
+    scores; per key block the int32 row max x_max converted once, m_new =
+    max(m, x_max logit), alpha = exp(m - m_new) and the exp2 offset max(x_max
+    l2 rounded up, m log2 e) with l2 = logit log2 e; each weight p = exp2(x
+    l2 - offset) rounded once (the kernel's fused multiply-add), its code
+    rint(127 p) rounded once, the codes of each 32-key chunk in the A
+    fragment's slot order against ``pv8_keys_last``'s V^T, and the fp32 sum
+    of the p; the fold in ``int8_attention_reference``'s order."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    q8, k8, v8, logit, v127 = av.int8_operands(q, k, v, scale)
+    vt = av.pv8_keys_last(v8).float()  # (B * H, D, L)
+    qt = q8.transpose(1, 2).reshape(b * h, sq, d).float()
+    kt = k8.transpose(1, 2).reshape(b * h, skv, d).float()
+    logit, v127 = logit.reshape(-1, 1, 1), v127.reshape(-1, 1, 1)
+    log2e = torch.tensor(av.LOG2E, dtype=torch.float32)
+    l2 = logit * log2e
+    order = torch.tensor(_fragment_key_order())
+    m = torch.full((b * h, sq, 1), -1e30)
+    den = torch.zeros((b * h, sq, 1))
+    acc = torch.zeros((b * h, sq, d))
+    for j in range(0, skv, block_k):
+        x = qt @ kt[:, j:j + block_k].transpose(1, 2)  # the int32 scores, exact in fp32
+        x_max = x.amax(-1, keepdim=True)
+        m_new = torch.maximum(m, x_max * logit)
+        alpha = torch.exp(m - m_new)
+        offset = torch.maximum(_round_up_f32(x_max.double() * l2.double()), m * log2e)
+        p = torch.exp2((x.double() * l2.double() - offset.double()).float())
+        p8 = torch.round(p.double() * 127.0).float()
+        width = -(-p8.shape[-1] // 32) * 32
+        p8 = torch.nn.functional.pad(p8, (0, width - p8.shape[-1]))
+        slots = p8.unflatten(-1, (-1, 32))[..., order].flatten(-2)
+        acc = acc * alpha + (slots @ vt[:, :, j:j + width].transpose(1, 2)) * v127
+        den = den * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    out = acc / den.clamp_min(av.INT8_ATTN_FLOOR)
+    return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("s,d,block_k", [(300, 64, 128), (300, 128, 128), (700, 64, 512),
+                                         (700, 128, 512)],
+                         ids=["d64_bk128_s300", "d128_bk128_s300", "d64_bk512_s700",
+                              "d128_bk512_s700"])
+def test_int8_kernel_layout_matches_jax_interpret(s, d, block_k):
+    """K7 taken as the kernel pairs its operands (``_int8_on_kernel_layout``)
+    matches the JAX Pallas kernel in interpret mode within
+    ``quantized_error`` (the JAX kernel run on |v| weighs the codes), with
+    ragged lengths (the last key block and the last 128-key tile part
+    full)."""
+    b, h = 1, 2
+    q, k, v = _rng_bhsd(13, b, h, s, d)
+    want, weighted_v = (
+        torch.from_numpy(np.asarray(jax_int8(jnp.asarray(q), jnp.asarray(k), jnp.asarray(x),
+                                             block_k=block_k, interpret=True))).transpose(1, 2)
+        for x in (v, np.abs(v)))
+    tq, tk, tv = (x.transpose(1, 2) for x in _t(q, k, v))
+    got = _int8_on_kernel_layout(tq, tk, tv, d ** -0.5, block_k)
+    readings = quantized_error(got, want, weighted_v)
+    assert readings["ok"], readings
 
 
 # ----------------------------------------------------------------------------

@@ -5,7 +5,8 @@ Runs in a fresh interpreter: this test process has jax and the JAX package
 loaded already (tests/conftest.py and the other tests), so the check is on
 ``sys.modules`` after importing every module of the port.  The port's
 scripts outside the package (``chip_smoke.py``, ``tools/profile_dit_step.py``,
-``tools/int8_gemm_ab.py``, ``tools/flash_pv8_ab.py``) are checked statically:
+``tools/int8_gemm_ab.py``, ``tools/flash_pv8_ab.py``,
+``tools/int8_attention_ab.py``) are checked statically:
 no import statement of theirs names jax or the JAX package.
 """
 
@@ -56,7 +57,8 @@ def _imported_roots(path: Path) -> set:
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_dit_step.py",
-                                    "tools/int8_gemm_ab.py", "tools/flash_pv8_ab.py"])
+                                    "tools/int8_gemm_ab.py", "tools/flash_pv8_ab.py",
+                                    "tools/int8_attention_ab.py"])
 def test_port_scripts_import_neither_jax_nor_the_jax_package(script):
     roots = _imported_roots(REPO / script)
     assert "trajectorycrafter_tpu_torch" in roots or "torch" in roots

@@ -40,9 +40,10 @@ The attention variants (ops/attention_variants.py): ``flash_lse`` (K5) by
 ``attention_error`` and ``lse_error``, ``flash_exp2`` (K1b) by
 ``output_error``, ``flash_pv8`` (K6) and ``int8_flash_attention`` (K7) by
 ``quantized_error``, each against its own plain version, at the shapes
-chip_smoke.py checks (heads or frames cut) and ragged ones (K6 also at
-both of its key block sizes and head dims, and on the Perceiver's strided
-views); the bounds
+chip_smoke.py checks (heads or frames cut) and ragged ones (K6 at both of
+its key block sizes and head dims and on the Perceiver's strided views; K7
+at both head dims, key blocks of 128, 512 and 1,024 and strided views); the
+bounds
 reject an lse in base 2, a dropped clamp, a row sum off by 10%, the last
 quarter of the key blocks skipped and zero-padded keys taken as real ones
 where every score is negative.
@@ -607,17 +608,54 @@ def test_pv8_kernel_reads_the_perceivers_strided_views(gen):
     assert readings["ok"], readings
 
 
-@pytest.mark.parametrize("b,h,s,d", [
-    (1, 8, 13330, 64),  # the DiT shape, heads cut
-    (1, 2, 200, 64), (1, 2, 384, 64), (2, 3, 129, 128),
-])
-def test_int8_attention_kernel_matches_plain(gen, b, h, s, d):
-    q, k, v = (_randn(gen, b, s, h, d) for _ in range(3))
-    block_k = av.int8_block_k(s)
+def _int8_launched(q, k, v, block_k):
+    """K7 through ``int8_attention`` (q, k, v quantized and V laid out
+    first), one launch."""
     before = int8_flash_attention.launches
-    out = av.int8_attention(q, k, v, d ** -0.5, block_k)
+    out = av.int8_attention(q, k, v, q.shape[-1] ** -0.5, block_k)
     torch.cuda.synchronize()
     assert int8_flash_attention.launches == before + 1
+    return out
+
+
+# K7 on the PV-int8 loop: its own block rule at the DiT shape (heads cut)
+# and at small ones, both head dims, key blocks of 128, 512 and 1,024 keys,
+# Skv that is a multiple of neither the 128-key tile nor the 192-row query
+# tile (nor Sq), and q, k, v read as strided views.
+@pytest.mark.parametrize("b,h,sq,skv,d,block_k", [
+    (1, 8, 13330, 13330, 64, None),  # the DiT shape, heads cut
+    (1, 2, 200, 200, 64, None), (1, 2, 384, 384, 64, None), (2, 3, 129, 129, 128, None),
+    (1, 16, 4096, 4096, 128, None),  # chip_smoke.py's d-128 shape
+    (1, 2, 500, 1000, 64, 128), (1, 2, 1000, 777, 64, 512), (1, 2, 300, 3001, 64, 1024),
+    (1, 2, 500, 1000, 128, 128), (1, 2, 1000, 777, 128, 512), (1, 2, 300, 3001, 128, 1024),
+    (2, 3, 65, 1, 64, 128), (1, 2, 1, 130, 128, 512),
+])
+def test_int8_attention_kernel_matches_plain(gen, b, h, sq, skv, d, block_k):
+    q = _randn(gen, b, sq, h, d)
+    k, v = _randn(gen, b, skv, h, d), _randn(gen, b, skv, h, d)
+    block_k = block_k or av.int8_block_k(sq)
+    out = _int8_launched(q, k, v, block_k)
+    readings = quantized_error(out, *plain_refs(_int8_plain(q, k, block_k), v))
+    assert readings["ok"], readings
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_int8_attention_kernel_reads_strided_views(gen, d):
+    """q a slice of a wider projection, k and v halves of one: read in place
+    by the TMA unit, after quantization (which keeps the layout)."""
+    b, sq, skv, h = 2, 333, 1000, 4
+    k, v = (t.unflatten(-1, (h, d)) for t in _randn(gen, b, skv, 2 * h * d).chunk(2, dim=-1))
+    q = _randn(gen, b, sq, 3 * h * d)[..., h * d:2 * h * d].unflatten(-1, (h, d))
+    assert not (q.is_contiguous() or k.is_contiguous())
+    q8, k8, v8, logit, v127 = av.int8_operands(q, k, v, d ** -0.5)
+    q8s = torch.zeros((b, sq, 3 * h * d), dtype=torch.int8, device="cuda")
+    q8s[..., h * d:2 * h * d] = q8.flatten(-2)
+    kv8 = torch.cat([k8.flatten(-2), v8.flatten(-2)], dim=-1)
+    q8v = q8s[..., h * d:2 * h * d].unflatten(-1, (h, d))
+    k8v = kv8[..., :h * d].unflatten(-1, (h, d))
+    assert not (q8v.is_contiguous() or k8v.is_contiguous())
+    block_k = av.int8_block_k(sq)
+    out = int8_flash_attention(q8v, k8v, av.pv8_keys_last(v8), logit, v127, block_k)
     readings = quantized_error(out, *plain_refs(_int8_plain(q, k, block_k), v))
     assert readings["ok"], readings
 
@@ -659,11 +697,20 @@ def test_attention_variant_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="kv_valid"):
         flash_exp2(q, q, q, 0.125, torch.ones(3, device="cuda"))
     v8, vs = av.quantize_per_head(q)
+    vt = av.pv8_keys_last(v8)
+    vt64 = vt[..., :64].contiguous()  # 64 keys a row: not whole 128-key tiles
     with pytest.raises(ValueError, match="multiple of 128"):
-        flash_pv8(q, q, av.keys_last(v8), vs.reshape(-1), 0.18, 512)  # 64 keys a row
+        flash_pv8(q, q, vt64, vs.reshape(-1), 0.18, 512)
     with pytest.raises(ValueError, match="block_k"):
-        flash_pv8(q, q, av.pv8_keys_last(v8), vs.reshape(-1), 0.18, 100)
+        flash_pv8(q, q, vt, vs.reshape(-1), 0.18, 100)
     with pytest.raises(ValueError, match="block_k 192 must be a positive multiple of 128"):
-        flash_pv8(q, q, av.pv8_keys_last(v8), vs.reshape(-1), 0.18, 192)
+        flash_pv8(q, q, vt, vs.reshape(-1), 0.18, 192)
     with pytest.raises(ValueError, match="int8"):
-        int8_flash_attention(q, q, av.keys_last(v8), vs.reshape(-1), vs.reshape(-1), 64)
+        int8_flash_attention(q, q, vt, vs.reshape(-1), vs.reshape(-1), 128)
+    # K7 takes K6's 128-key tiles: V^T rows and key blocks
+    q8 = v8
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int8_flash_attention(q8, q8, vt64, vs.reshape(-1), vs.reshape(-1), 128)
+    for block_k in (64, 192):
+        with pytest.raises(ValueError, match=f"block_k {block_k} must be a positive multiple of 128"):
+            int8_flash_attention(q8, q8, vt, vs.reshape(-1), vs.reshape(-1), block_k)

@@ -54,8 +54,8 @@ extern "C" int flash_pv8_fwd(int device, const void* q, const void* k, const voi
                              float scale_log2, void* stream) {
   const hopper_attn::pv8::Args a{q,    k,    vt,   vs,   o,    batch, heads, sq,   skv,
                                  head_dim, block_k, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                 vt_ld, o_sb, o_ss, o_sh, scale_log2};
-  return hopper_attn::pv8::launch(device, a, stream);
+                                 vt_ld, o_sb, o_ss, o_sh, scale_log2, nullptr};
+  return hopper_attn::pv8::launch<hopper_attn::pv8::kBf16>(device, a, stream);
 }
 
 extern "C" const char* flash_pv8_error_string(int code) {

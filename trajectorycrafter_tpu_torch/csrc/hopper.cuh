@@ -2,7 +2,8 @@
 // (hopper_attention.cuh) and the int8 GEMM main loop (int8_gemm_hopper.cuh):
 // mbarriers, TMA loads, cluster barriers and stores into another block's
 // shared memory, `wgmma` fences / commit / wait, the shared-memory matrix
-// descriptor of a 128-byte-swizzled operand, and the host side: the fetch of
+// descriptor of a swizzled operand, the s8 `wgmma` with both operands in
+// shared memory, and the host side: the fetch of
 // cuTensorMapEncodeTiled from the driver the runtime already loaded (so a
 // library needs neither -lcuda nor PyTorch's headers) and the 2-D int8 map.
 
@@ -174,17 +175,69 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   }
 }
 
-// A `wgmma` shared-memory matrix descriptor with the 128-byte swizzle.
-// K-major operands (the contraction dim contiguous, 128 bytes per row):
-// SBO 1024 bytes between 8-row groups, LBO unused, the start advanced 32
-// bytes per k step inside the swizzle atom.  The MN-major operand: SBO 1024
-// bytes between 8-row groups of K, LBO the distance between 128-byte-wide
-// column halves.
-__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+// A `wgmma` shared-memory matrix descriptor of a swizzled operand, by
+// default with the 128-byte swizzle (kSwizzle64: rows of 64 bytes, whose
+// pattern repeats every 8 rows = 512 bytes).  K-major operands (the
+// contraction dim contiguous): SBO the bytes between 8-row groups (1024 at
+// 128 bytes a row, 512 at 64), LBO unused, the start advanced 32 bytes per k
+// step inside the swizzle atom.  The MN-major operand: SBO 1024 bytes between
+// 8-row groups of K, LBO the distance between 128-byte-wide column halves.
+constexpr uint64_t kSwizzle128 = 1, kSwizzle64 = 2;  // the descriptor's layout type
+
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo,
+                                              uint64_t swizzle = kSwizzle128) {
   const uint64_t enc = (smem_u32(p) & 0x3FFFF) >> 4;
   return enc | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (swizzle << 62);
 }
+
+#define I8_D8(i)                                                                         \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),            \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define I8_D32 I8_D8(0), I8_D8(8), I8_D8(16), I8_D8(24)
+#define I8_D64 I8_D32, I8_D8(32), I8_D8(40), I8_D8(48), I8_D8(56)
+#define I8_D128 I8_D64, I8_D8(64), I8_D8(72), I8_D8(80), I8_D8(88), I8_D8(96), I8_D8(104), \
+                I8_D8(112), I8_D8(120)
+
+// d (64 x 256, int32) (+)= A (64 x 32, s8, shared) W (256 x 32, s8, shared), both K-major
+__device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127}, "
+      "%128, %129, p;\n}\n"
+      : I8_D128
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, int32) (+)= A (64 x 32, s8, shared) W (128 x 32, s8, shared), both K-major
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : I8_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef I8_D128
+#undef I8_D64
+#undef I8_D32
+#undef I8_D8
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low 16 bits)

@@ -1,7 +1,8 @@
 // The Hopper (sm_90a) attention main loops: the bf16 loop shared by
 // csrc/flash_attention.cu (K1, K4, K5, K1b) and csrc/flash_maxpass.cu (K4b),
-// and at the end of this file the PV-int8 loop of csrc/flash_pv8.cu (K6),
-// built from the same pieces (TMA maps, the ring, the QK product, the q scaling).
+// and at the end of this file the PV-int8 loop of csrc/flash_pv8.cu (K6) and
+// csrc/int8_flash_attention.cu (K7), built from the same pieces (TMA maps,
+// the ring, the QK product, the q scaling).
 //
 // What bounds it on the H100: at the DiT shape (2 x 48 heads x 13,330 tokens
 // x 64) one call does ~4.4 TFLOP against ~0.3 GB of q/k/v, so it is bound by
@@ -632,24 +633,30 @@ struct Args {
   int clamp;
 };
 
-// A 4-D tiled map over (D, H, S, B) of a bf16 (B, S, H, D) tensor; a box is
-// 64 columns x 1 head x `rows` rows x 1 batch, 128-byte swizzled; rows past
-// S read as zero.
+// A 4-D tiled map over (D, H, S, B) of a (B, S, H, D) tensor of Elem (bf16,
+// or the int8 codes as bytes); a box is one swizzled row of the head dim
+// (64 bf16 columns, or D bytes: 64 with the 64-byte swizzle, 128 with the
+// 128-byte one) x 1 head x `rows` rows x 1 batch; rows past S read as zero.
+template <typename Elem = __nv_bfloat16>
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
                             int d, long long sb, long long ss, long long sh, int rows) {
+  constexpr int kBytes = sizeof(Elem);
   EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const int box_bytes = d * kBytes < 128 ? d * kBytes : 128;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBoxCols), 1u,
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * kBytes,
+                                 static_cast<cuuint64_t>(ss) * kBytes,
+                                 static_cast<cuuint64_t>(sb) * kBytes};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_bytes / kBytes), 1u,
                              static_cast<cuuint32_t>(rows), 1u};
   const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(
+      map, kBytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
+      const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -697,20 +704,35 @@ int launch(int device, const Args& a, void* stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
 // ---------------------------------------------------------------------------
-// The PV-int8 loop (K6, csrc/flash_pv8.cu)
+// The PV-int8 loop (K6, csrc/flash_pv8.cu; K7, csrc/int8_flash_attention.cu)
 // ---------------------------------------------------------------------------
 //
-// The function is stated in flash_pv8.cu.  Its softmax weights are int8
-// codes quantized against the row max of their key block, so the block's
-// max must be known before any of its codes: each block of `block_k` keys
-// makes two passes over its 128-key tiles, the same QK `wgmma` sequence in
-// both (bit-equal scores, so s - m_adj <= log2 127 holds exactly).  Pass 1
+// The functions are stated in flash_pv8.cu and int8_flash_attention.cu.
+// Their softmax weights are int8 codes quantized against the row max of
+// their key block, so the block's max must be known before any of its
+// codes: each block of `block_k` keys makes two passes over its 128-key
+// tiles, the same QK `wgmma` sequence in both (bit-equal scores).  Pass 1
 // keeps only the row max.  Pass 2 turns the scores into codes in registers,
-// takes their exact int32 row sum, and runs PV as `wgmma` m64nDk32 s8 with
-// the codes as the A operand from registers and the int8 V^T tile (D rows x
-// 128 keys, K-major) from shared memory.  After the block, its int32 sums
-// are folded into the fp32 output and denominator.
+// takes the block's row sums (K6: the exact int32 sum of the codes; K7: the
+// fp32 sum of the weights before quantization), and runs PV as `wgmma`
+// m64nDk32 s8 with the codes as the A operand from registers and the int8
+// V^T tile (D rows x 128 keys, K-major) from shared memory.  After the
+// block, its sums are folded into the fp32 output and denominator.
+//
+// The loop is templated on the kind of QK (`Qk`):
+//   kBf16 (K6)  q' (bf16, scaled by scale * log2 e in shared memory) k^T,
+//               `wgmma` m64n128k16 into fp32 scores of the exp2 domain;
+//   kS8   (K7)  q8 k8^T, `wgmma` m64n128k32 s8 into int32 scores, both
+//               operands read from shared memory (K-major).  A row of D
+//               int8 columns is one TMA box: 64 bytes with the 64-byte
+//               swizzle at d 64 (the descriptors say so: SBO 512, layout
+//               kSwizzle64), 128 bytes with the 128-byte swizzle at d 128.
+//               Pass 1 takes the row max on the int32 scores and converts it
+//               once per row; pass 2 converts each score exactly by an add
+//               of 1.5 x 2^23 (I2F would run at the SFU's rate beside the
+//               exp), so each score costs one SFU operation, its exp.
 //
 // The codes' register layout.  The score accumulator gives a thread keys
 // 8j + 2t + {0, 1} of each 8-key column block j; an s8 A fragment for k32
@@ -730,7 +752,7 @@ int launch(int device, const Args& a, void* stream) {
 // but without its turns: the warpgroups' products interleave as they come,
 // and the ring (3 stages at d 64) lets one run ahead of another.  Measured
 // on an H100 (tools/flash_pv8_ab.py): dropping the turns and a third stage
-// ran the DiT shape 4.7% faster, a third warpgroup 8.4% more.
+// ran K6 at the DiT shape 4.7% faster, a third warpgroup 8.4% more.
 
 namespace pv8 {
 
@@ -746,25 +768,48 @@ struct Geometry {
   static constexpr int kStages = D == 64 ? 3 : 2;
 };
 constexpr int kChunks = kBlockN / 32;     // 32-key chunks of a key tile
-constexpr float kClamp = 88.f;            // exp2 argument cap: 2^88 x int32 sums < fp32 max
+constexpr float kClamp = 88.f;            // K6's exp2 argument cap: 2^88 x int32 sums < fp32 max
 constexpr float kLog2_127 = 6.988684686772166f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kRound = 12582912.f;      // 1.5 x 2^23: x + kRound rounds x to an integer
 constexpr int kRoundBits = 0x4B400000;    // the bits of kRound
+constexpr int kMaskedInt = -(1 << 30);    // K7's int32 score of a key past the end
+
+enum Qk { kBf16 = 0, kS8 = 1 };
+
+// Per kind of QK: the operand element, the score accumulator, and the row
+// sum pass 2 takes (K6: the count of codes; K7: the sum of the weights).
+template <int kQk>
+struct QkTypes;
+template <>
+struct QkTypes<kBf16> {
+  using Elem = __nv_bfloat16;
+  using Score = float;
+  using Sum = int;
+};
+template <>
+struct QkTypes<kS8> {
+  using Elem = uint8_t;
+  using Score = int;
+  using Sum = float;
+};
 
 struct Params {
   __nv_bfloat16* o;
   long long o_sb, o_ss, o_sh;  // output strides in elements (batch, sequence, head)
-  const float* vs;             // (batch * heads,) V scales
+  const float* vs;             // (batch * heads,) K6: the V scales; K7: vs / 127
+  const float* logit;          // K7: (batch * heads,) qs * ks * softmax scale
   int heads, sq, skv;
   int block_tiles;             // 128-key tiles per quantization block
-  float scale_log2;
+  float scale_log2;            // K6: softmax scale * log2 e
 };
 
-template <int D>
+template <int D, int kQk>
 struct Smem {
+  using Elem = typename QkTypes<kQk>::Elem;
   static constexpr int kStages = Geometry<D>::kStages;
-  __nv_bfloat16 q[Geometry<D>::kBlockM * D];
-  __nv_bfloat16 k[kStages][kBlockN * D];
+  Elem q[Geometry<D>::kBlockM * D];
+  Elem k[kStages][kBlockN * D];
   uint8_t vt[kStages][D * kBlockN];  // D rows of 128 keys, 128-byte swizzled
   // each consumer thread's fp32 output numerator, register i of the
   // accumulator layout at [i][thread]: folded once per key block, so it
@@ -813,35 +858,90 @@ __device__ __forceinline__ void wgmma_rs_s8(int (&d)[64], const uint32_t (&a)[4]
 #undef PV_D32
 #undef PV_D8
 
+// S (64 x 128, int32) = q8 (the warpgroup's 64 rows) k8^T (one key tile):
+// rows of D bytes, swizzled at 64 bytes (d 64) or 128 (d 128).
+template <int D>
+__device__ __forceinline__ void issue_qk_s8(int (&s)[64], const uint8_t* q_wg,
+                                            const uint8_t* k_tile) {
+  constexpr uint64_t kSwizzle = D == 64 ? kSwizzle64 : kSwizzle128;
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk) {  // 32 bytes of the row per k step
+    wgmma_s8(s, make_desc(q_wg + 32 * kk, 16, 8 * D, kSwizzle),
+             make_desc(k_tile + 32 * kk, 16, 8 * D, kSwizzle), kk > 0);
+  }
+}
+
+// `rows` rows of q or k from row `row` of head h, batch b: K6's bf16 as
+// 64-column boxes side by side, K7's D bytes as one box.
+template <int D, int kQk, int kRows>
+__device__ __forceinline__ void load_rows(typename QkTypes<kQk>::Elem* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int row, int h, int b) {
+  if constexpr (kQk == kS8) {
+    tma_load_4d(dst, map, bar, 0, h, row, b);
+  } else {
+    load_tile<D, kRows>(dst, map, bar, row, h, b);
+  }
+}
+
+// The score of a key past the end in pass 1, of each kind.
+__device__ __forceinline__ constexpr float masked_score(float) { return kMasked; }
+__device__ __forceinline__ constexpr int masked_score(int) { return kMaskedInt; }
+__device__ __forceinline__ float larger(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int larger(int a, int b) { return max(a, b); }
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+__device__ __forceinline__ uint32_t bits(int x) { return static_cast<uint32_t>(x); }
+
 // Bytes 0 of four registers, in order, as one register.
 __device__ __forceinline__ uint32_t low_bytes(uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3) {
   return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040), 0x5410);
 }
 
-template <int D>
+// What pass 1 gives pass 2 and the fold, per row: the exp2 offset of the
+// block's weights (K6: m_adj; K7: m_new log2 e, rounded up so that no weight
+// exceeds 1) and K7's rescale of the earlier blocks' sums, exp(m - m_new).
+struct BlockStat {
+  float offset[2];
+  float alpha[2];
+};
+
+template <int D, int kQk>
 struct Consumer {
+  using Elem = typename QkTypes<kQk>::Elem;
+  using Score = typename QkTypes<kQk>::Score;
+  using Sum = typename QkTypes<kQk>::Sum;
+  static constexpr bool kInt8Qk = kQk == kS8;
   static constexpr int kBlockM = Geometry<D>::kBlockM;
   static constexpr int kStages = Geometry<D>::kStages;
-  Smem<D>& sm;
+  Smem<D, kQk>& sm;
   const Params& p;
   int me;          // 0 .. kConsumers - 1
   int lane, t;     // lane % 4
   int kc, vc;      // tiles of the K and V rings consumed so far
-  const __nv_bfloat16* q_wg;
+  const Elem* q_wg;
   float* acc;        // this thread's output numerator in shared memory, stride 128
   float den[2];      // this thread's two rows' denominators (full over the quad)
+  float m[2];        // K7: the rows' running max
+  float logit, l2;   // K7: qs * ks * scale, and it times log2 e
+  float v127;        // K7: vs / 127
   int pv[D / 2];     // the int32 PV sums of the block in flight
   uint32_t pf[kChunks][4];  // the codes of one key tile as s8 A fragments
 
-  __device__ __forceinline__ Consumer(Smem<D>& sm_, const Params& p_, int me_, int tid)
+  // q_wg: the warpgroup's 64 rows (of each 64-column half for bf16)
+  __device__ __forceinline__ Consumer(Smem<D, kQk>& sm_, const Params& p_, int me_, int tid, int bh)
       : sm(sm_), p(p_), me(me_), lane(tid % 32), t(tid % 4), kc(0), vc(0),
-        q_wg(sm_.q + me_ * 64 * kBoxCols), acc(&sm_.acc[me_][0][tid]) {
+        q_wg(sm_.q + me_ * 64 * (kInt8Qk ? D : kBoxCols)), acc(&sm_.acc[me_][0][tid]) {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) {
       acc[128 * i] = 0.f;
       pv[i] = 0;
     }
     den[0] = den[1] = 0.f;
+    m[0] = m[1] = -1e30f;  // finite: exp(m - m_new) of the first block is 0, not NaN
+    if constexpr (kInt8Qk) {
+      logit = p_.logit[bh];
+      l2 = __fmul_rn(logit, kLog2e);
+      v127 = p_.vs[bh];
+    }
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) pf[c][0] = pf[c][1] = pf[c][2] = pf[c][3] = 0u;
   }
@@ -861,6 +961,15 @@ struct Consumer {
     ++vc;
   }
 
+  // s = the QK of the warpgroup's rows and the K tile in flight.
+  __device__ __forceinline__ void qk(Score (&s)[64]) {
+    if constexpr (kInt8Qk) {
+      issue_qk_s8<D>(s, q_wg, sm.k[kc % kStages]);
+    } else {
+      issue_qk<D, kBlockM>(s, q_wg, sm.k[kc % kStages]);
+    }
+  }
+
   // pv (+)= the codes in pf x the V^T tile in flight.
   __device__ __forceinline__ void issue_pv(int accumulate) {
     const uint8_t* vt = sm.vt[vc % kStages];
@@ -870,15 +979,21 @@ struct Consumer {
     }
   }
 
-  // Pass 1 over tiles [t0, t1): the row max of min(s, 88) over the valid keys.
-  __device__ __forceinline__ void row_max(int t0, int t1, float (&s)[64], float (&m_adj)[2]) {
-    float mx[2] = {kMasked, kMasked};
+  // Pass 1 over tiles [t0, t1): the row max of the scores over the valid
+  // keys, then the block's statistics.  K6: m_adj = max(min(max, 88) - log2
+  // 127, -88).  K7: the int32 max x converted once (exact: |x| < 2^22), m_new
+  // = max(m, x * logit) -- logit > 0, so this is the max of the rounded
+  // products -- alpha = exp(m - m_new), and the offset max(x * l2 rounded
+  // up, m * log2 e) >= every key's x * l2.
+  __device__ __forceinline__ BlockStat row_max(int t0, int t1, Score (&s)[64]) {
+    constexpr Score kNone = masked_score(Score());
+    Score mx[2] = {kNone, kNone};
     for (int j = t0; j < t1; ++j) {
       const int limit = p.skv - j * kBlockN;
       wait_k();
       fence_regs(s);
       wgmma_fence();
-      issue_qk<D, kBlockM>(s, q_wg, sm.k[kc % kStages]);
+      qk(s);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -886,23 +1001,35 @@ struct Consumer {
       if (limit < kBlockN) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) {
-          if (acc_col(i, t) >= limit) s[i] = kMasked;
+          if (acc_col(i, t) >= limit) s[i] = kNone;
         }
       }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) mx[acc_row(i)] = fmaxf(mx[acc_row(i)], s[i]);
+      for (int i = 0; i < 64; ++i) mx[acc_row(i)] = larger(mx[acc_row(i)], s[i]);
     }
+    BlockStat st;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      m_adj[r] = fmaxf(__fsub_rn(fminf(mx[r], kClamp), kLog2_127), -kClamp);
+      mx[r] = larger(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = larger(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      if constexpr (kInt8Qk) {
+        const float x = __int2float_rn(mx[r]);
+        const float m_new = fmaxf(m[r], __fmul_rn(x, logit));
+        st.alpha[r] = expf(__fsub_rn(m[r], m_new));
+        st.offset[r] = fmaxf(__fmul_ru(x, l2), __fmul_rn(m[r], kLog2e));
+        m[r] = m_new;
+      } else {
+        st.offset[r] = fmaxf(__fsub_rn(fminf(mx[r], kClamp), kLog2_127), -kClamp);
+        st.alpha[r] = 1.f;
+      }
     }
+    return st;
   }
 
-  // The codes rint(exp2(min(s, 88) - m_adj)) of the scores in s, in place
-  // (as int bits), 0 past the end; their sums into psum.  rint is taken by
-  // adding 1.5 x 2^23 (round half to even, as rintf; the codes are < 2^22).
+  // K6: the codes rint(exp2(min(s, 88) - m_adj)) of the scores in s, in
+  // place (as int bits), 0 past the end; their sums into psum.  rint is
+  // taken by adding 1.5 x 2^23 (round half to even, as rintf; the codes are
+  // < 2^22).
   __device__ __forceinline__ void codes(float (&s)[64], int limit, const float (&m_adj)[2],
                                         int (&psum)[2]) {
 #pragma unroll
@@ -920,20 +1047,41 @@ struct Consumer {
     for (int i = 0; i < 64; ++i) psum[acc_row(i)] += __float_as_int(s[i]);
   }
 
+  // K7: the weights p = exp2(x * l2 - offset) of the int32 scores x in s
+  // (x converted exactly: 1.5 x 2^23 + x has the bits kRoundBits + x for
+  // |x| < 2^22), 0 past the end (kRagged); their fp32 sums into psum; the
+  // codes rint(127 p) in place as the bits of 1.5 x 2^23 + code, whose byte
+  // 0 is the code (one fused multiply-add: 127 p rounded once, half to even).
+  template <bool kRagged>
+  __device__ __forceinline__ void weights(int (&s)[64], int limit, const float (&offset)[2],
+                                          float (&psum)[2]) {
+    float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // two partial sums a row: shorter chains
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = acc_row(i);
+      const float x = __fsub_rn(__int_as_float(s[i] + kRoundBits), kRound);
+      float e = exp2_ftz(fmaf(x, l2, -offset[r]));
+      if (kRagged && acc_col(i, t) >= limit) e = 0.f;
+      part[r][(i / 4) & 1] += e;
+      s[i] = __float_as_int(fmaf(e, 127.f, kRound));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) psum[r] += part[r][0] + part[r][1];
+  }
+
   // The A fragments of the tile's codes: chunk c is column blocks 4c..4c+3;
   // a0 / a1 the thread's keys 2t, 2t+1, 8+2t, 9+2t of rows r0 / r0 + 8, a2 /
   // a3 the same 16 keys on.
-  __device__ __forceinline__ void pack(const float (&s)[64]) {
+  __device__ __forceinline__ void pack(const Score (&s)[64]) {
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-      const float* x = s + 16 * c;
+      const Score* x = s + 16 * c;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {      // keys 0..15 / 16..31 of the chunk
 #pragma unroll
         for (int r = 0; r < 2; ++r) {    // row r0 / r0 + 8
-          const float* y = x + 8 * h + 2 * r;
-          pf[c][2 * h + r] = low_bytes(__float_as_uint(y[0]), __float_as_uint(y[1]),
-                                       __float_as_uint(y[4]), __float_as_uint(y[5]));
+          const Score* y = x + 8 * h + 2 * r;
+          pf[c][2 * h + r] = low_bytes(bits(y[0]), bits(y[1]), bits(y[4]), bits(y[5]));
         }
       }
     }
@@ -943,22 +1091,31 @@ struct Consumer {
   // which accumulates unless j - 1 starts the block), its codes taken while
   // the PV runs, then packed for its own PV.
   template <bool kWithPv>
-  __device__ __forceinline__ void pv_step(int j, int accumulate, float (&s)[64],
-                                          const float (&m_adj)[2], int (&psum)[2]) {
+  __device__ __forceinline__ void pv_step(int j, int accumulate, Score (&s)[64],
+                                          const float (&offset)[2], Sum (&psum)[2]) {
     wait_k();
     if (kWithPv) wait_v();
     fence_regs(s);
     fence_regs(pv);
     fence_regs(pf);
     wgmma_fence();
-    issue_qk<D, kBlockM>(s, q_wg, sm.k[kc % kStages]);
+    qk(s);
     wgmma_commit();
     if (kWithPv) issue_pv(accumulate);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(s);
     release_k();
-    codes(s, p.skv - j * kBlockN, m_adj, psum);
+    const int limit = p.skv - j * kBlockN;
+    if constexpr (kInt8Qk) {
+      if (limit < kBlockN) {
+        weights<true>(s, limit, offset, psum);
+      } else {
+        weights<false>(s, limit, offset, psum);
+      }
+    } else {
+      codes(s, limit, offset, psum);
+    }
     wgmma_wait<0>();
     fence_regs(pv);
     fence_regs(pf);
@@ -966,12 +1123,14 @@ struct Consumer {
     pack(s);
   }
 
-  // Pass 2 over tiles [t0, t1) and the block's fold.
-  __device__ __forceinline__ void block_pv(int t0, int t1, float (&s)[64],
-                                           const float (&m_adj)[2]) {
-    int psum[2] = {0, 0};
-    pv_step<false>(t0, 0, s, m_adj, psum);
-    for (int j = t0 + 1; j < t1; ++j) pv_step<true>(j, j - 1 > t0, s, m_adj, psum);
+  // Pass 2 over tiles [t0, t1) and the block's fold, in the plain version's
+  // order with each fp32 operation rounded on its own.  K6: acc += float(pv)
+  // * exp2(m_adj), den += float(127 sum p8) * exp2(m_adj).  K7: acc = acc *
+  // alpha + float(pv) * (vs / 127), den = den * alpha + sum p.
+  __device__ __forceinline__ void block_pv(int t0, int t1, Score (&s)[64], const BlockStat& st) {
+    Sum psum[2] = {0, 0};
+    pv_step<false>(t0, 0, s, st.offset, psum);
+    for (int j = t0 + 1; j < t1; ++j) pv_step<true>(j, j - 1 > t0, s, st.offset, psum);
     wait_v();
     fence_regs(pv);
     fence_regs(pf);
@@ -982,66 +1141,76 @@ struct Consumer {
     fence_regs(pv);
     fence_regs(pf);
     release_v();
-    // acc += float(int32) * exp2(m_adj), the same for den: each operation
-    // rounded on its own, in the plain version's order
-    float w[2];
+    float w[2];  // the weight of this block's int32 sums
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      w[r] = exp2f(m_adj[r]);
-      int n = psum[r];
+      Sum n = psum[r];
       n += __shfl_xor_sync(0xffffffffu, n, 1);
       n += __shfl_xor_sync(0xffffffffu, n, 2);
-      den[r] = __fadd_rn(den[r], __fmul_rn(__int2float_rn(127 * n), w[r]));
+      if constexpr (kInt8Qk) {
+        w[r] = v127;
+        den[r] = __fadd_rn(__fmul_rn(den[r], st.alpha[r]), n);
+      } else {
+        w[r] = exp2f(st.offset[r]);
+        den[r] = __fadd_rn(den[r], __fmul_rn(__int2float_rn(127 * n), w[r]));
+      }
     }
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) {
-      acc[128 * i] = __fadd_rn(acc[128 * i], __fmul_rn(__int2float_rn(pv[i]), w[acc_row(i)]));
+      const float add = __fmul_rn(__int2float_rn(pv[i]), w[acc_row(i)]);
+      const float old = kInt8Qk ? __fmul_rn(acc[128 * i], st.alpha[acc_row(i)]) : acc[128 * i];
+      acc[128 * i] = __fadd_rn(old, add);
     }
   }
 
   __device__ __forceinline__ void attend(int n_tiles) {
-    float s[64];
+    Score s[64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int i = 0; i < 64; ++i) s[i] = 0;
     for (int t0 = 0; t0 < n_tiles; t0 += p.block_tiles) {
       const int t1 = min(t0 + p.block_tiles, n_tiles);
-      float m_adj[2];
-      row_max(t0, t1, s, m_adj);
-      block_pv(t0, t1, s, m_adj);
+      const BlockStat st = row_max(t0, t1, s);
+      block_pv(t0, t1, s, st);
     }
   }
 
-  // out = acc / max(den, 1e-30) * (127 vs), bf16 pairs.
+  // bf16 pairs of K6's acc / max(den, 1e-30) * (127 vs), or K7's acc /
+  // max(den, 1e-20).
   __device__ __forceinline__ void store(int row0, int b, int h) {
-    const float out_scale = __fmul_rn(127.f, p.vs[b * p.heads + h]);
+    const float out_scale = kInt8Qk ? 1.f : __fmul_rn(127.f, p.vs[b * p.heads + h]);
     const int rows[2] = {row0, row0 + 8};
     __nv_bfloat16* out = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (rows[r] >= p.sq) continue;
-      const float d = fmaxf(den[r], 1e-30f);
+      const float d = fmaxf(den[r], kInt8Qk ? 1e-20f : 1e-30f);
       __nv_bfloat16* row = out + rows[r] * p.o_ss;
 #pragma unroll
       for (int jd = 0; jd < D / 8; ++jd) {
-        *reinterpret_cast<uint32_t*>(row + 8 * jd + 2 * t) =
-            pack_bf16(__fmul_rn(__fdiv_rn(acc[128 * (4 * jd + 2 * r)], d), out_scale),
-                      __fmul_rn(__fdiv_rn(acc[128 * (4 * jd + 2 * r + 1)], d), out_scale));
+        float y[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          y[e] = __fdiv_rn(acc[128 * (4 * jd + 2 * r + e)], d);
+          if (!kInt8Qk) y[e] = __fmul_rn(y[e], out_scale);
+        }
+        *reinterpret_cast<uint32_t*>(row + 8 * jd + 2 * t) = pack_bf16(y[0], y[1]);
       }
     }
   }
 };
 
-template <int D>
+template <int D, int kQk>
 __global__ void __launch_bounds__(Geometry<D>::kThreads, 1)
 pv8_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap vt_map, const __grid_constant__ Params p) {
   static_assert(D % kBoxCols == 0, "head dim must be a multiple of 64");
+  using Elem = typename QkTypes<kQk>::Elem;
   constexpr int kConsumers = Geometry<D>::kConsumers;
   constexpr int kBlockM = Geometry<D>::kBlockM;
   constexpr int kStages = Geometry<D>::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + pad);
+  Smem<D, kQk>& sm = *reinterpret_cast<Smem<D, kQk>*>(smem_raw + pad);
 
   // the warpgroup index through a shuffle: uniform, so no divergence around
   // the products
@@ -1072,16 +1241,16 @@ pv8_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     // tile (pass 2)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (tid == 0) {
-      constexpr uint32_t kKBytes = kBlockN * D * sizeof(__nv_bfloat16);
+      constexpr uint32_t kKBytes = kBlockN * D * sizeof(Elem);
       constexpr uint32_t kVBytes = D * kBlockN;
-      mbar_expect_tx(&sm.q_full, kBlockM * D * sizeof(__nv_bfloat16));
-      load_tile<D, kBlockM>(sm.q, &q_map, &sm.q_full, m0, h, b);
+      mbar_expect_tx(&sm.q_full, kBlockM * D * sizeof(Elem));
+      load_rows<D, kQk, kBlockM>(sm.q, &q_map, &sm.q_full, m0, h, b);
       int kl = 0, vl = 0;  // tiles issued into each ring
       const auto load_k = [&](int j) {
         const int st = kl % kStages;
         mbar_wait(&sm.k_empty[st], ((kl / kStages) & 1) ^ 1);
         mbar_expect_tx(&sm.k_full[st], kKBytes);
-        load_tile<D, kBlockN>(sm.k[st], &k_map, &sm.k_full[st], j * kBlockN, h, b);
+        load_rows<D, kQk, kBlockN>(sm.k[st], &k_map, &sm.k_full[st], j * kBlockN, h, b);
         ++kl;
       };
       for (int t0 = 0; t0 < n_tiles; t0 += p.block_tiles) {
@@ -1099,33 +1268,38 @@ pv8_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Geometry<D>::kConsumerRegs));
-    Consumer<D> c(sm, p, wg - 1, tid);
+    Consumer<D, kQk> c(sm, p, wg - 1, tid, bh);
     mbar_wait(&sm.q_full, 0);
-    scale_rows<D, kBlockM>(sm.q, wg - 1, tid, p.scale_log2);
+    if constexpr (kQk == kBf16) scale_rows<D, kBlockM>(sm.q, wg - 1, tid, p.scale_log2);
     c.attend(n_tiles);
     c.store(m0 + (wg - 1) * 64 + 16 * (tid / 32) + (tid % 32) / 4, b, h);
   }
 }
 
-// The caller's arguments: q (B, Sq, H, D) and k (B, Skv, H, D) bf16 by
-// strides in elements over (batch, sequence, head), the head dim dense; vt
-// the (B * H, D, vt_ld) int8 V^T in the key order stated above, vt_ld a
-// multiple of 128; the output bf16 (B, Sq, H, D) by strides.
+// The caller's arguments: q (B, Sq, H, D) and k (B, Skv, H, D) by strides
+// in elements over (batch, sequence, head), the head dim dense (K6: bf16;
+// K7: int8 codes); vt the (B * H, D, vt_ld) int8 V^T in the key order stated
+// above, vt_ld a multiple of 128; vs (B * H,) fp32 (K6: V's scales; K7: vs /
+// 127); the output bf16 (B, Sq, H, D) by strides; K6's scale_log2 and K7's
+// logit (B * H,) fp32, qs * ks * softmax scale.
 struct Args {
   const void *q, *k, *vt, *vs;
   void* o;
   int batch, heads, sq, skv, head_dim, block_k;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, vt_ld, o_sb, o_ss, o_sh;
   float scale_log2;
+  const void* logit;
 };
 
-template <int D>
+template <int D, int kQk>
 cudaError_t launch_d(const Args& a, cudaStream_t stream) {
+  using Elem = typename QkTypes<kQk>::Elem;
   constexpr int kBlockM = Geometry<D>::kBlockM;
   CUtensorMap qm, km, vm;
-  cudaError_t err = make_map(&qm, a.q, a.batch, a.sq, a.heads, D, a.q_sb, a.q_ss, a.q_sh, kBlockM);
+  cudaError_t err =
+      make_map<Elem>(&qm, a.q, a.batch, a.sq, a.heads, D, a.q_sb, a.q_ss, a.q_sh, kBlockM);
   if (err == cudaSuccess)
-    err = make_map(&km, a.k, a.batch, a.skv, a.heads, D, a.k_sb, a.k_ss, a.k_sh, kBlockN);
+    err = make_map<Elem>(&km, a.k, a.batch, a.skv, a.heads, D, a.k_sb, a.k_ss, a.k_sh, kBlockN);
   if (err == cudaSuccess)
     err = make_map_u8(&vm, a.vt, a.batch * a.heads * D, static_cast<int>(a.vt_ld), a.vt_ld,
                       kBlockN, D, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
@@ -1136,29 +1310,32 @@ cudaError_t launch_d(const Args& a, cudaStream_t stream) {
   p.o_ss = a.o_ss;
   p.o_sh = a.o_sh;
   p.vs = static_cast<const float*>(a.vs);
+  p.logit = static_cast<const float*>(a.logit);
   p.heads = a.heads;
   p.sq = a.sq;
   p.skv = a.skv;
   p.block_tiles = a.block_k / kBlockN;
   p.scale_log2 = a.scale_log2;
-  const int smem = static_cast<int>(sizeof(Smem<D>)) + 1024;  // + the alignment pad
-  err = cudaFuncSetAttribute(pv8_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = static_cast<int>(sizeof(Smem<D, kQk>)) + 1024;  // + the alignment pad
+  err = cudaFuncSetAttribute(pv8_kernel<D, kQk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.batch * a.heads);
-  pv8_kernel<D><<<grid, Geometry<D>::kThreads, smem, stream>>>(qm, km, vm, p);
+  pv8_kernel<D, kQk><<<grid, Geometry<D>::kThreads, smem, stream>>>(qm, km, vm, p);
   return cudaGetLastError();
 }
 
 // Launch on `stream` of `device`; returns the cudaError_t (0 = success).
-inline int launch(int device, const Args& a, void* stream) {
+template <int kQk>
+int launch(int device, const Args& a, void* stream) {
   if (a.block_k <= 0 || a.block_k % kBlockN || a.vt_ld % kBlockN || a.vt_ld < a.skv) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.head_dim == 64) return static_cast<int>(launch_d<64>(a, s));
-  if (a.head_dim == 128) return static_cast<int>(launch_d<128>(a, s));
+  if (a.head_dim == 64) return static_cast<int>(launch_d<64, kQk>(a, s));
+  if (a.head_dim == 128) return static_cast<int>(launch_d<128, kQk>(a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -63,7 +63,8 @@ def pv8_block_k(sq: int) -> int:
 def int8_block_k(s: int) -> int:
     """K7's key block (int8_flash_attention.py:128-129): block_k = min(1024,
     block_q) with block_q = min(1024, max(128, the next power of two >= s)),
-    so block_q itself."""
+    so block_q itself: a power of two from 128 to 1,024, whole 128-key tiles
+    of the kernel."""
     return min(1024, max(128, 1 << (s - 1).bit_length()))
 
 
@@ -77,24 +78,16 @@ def quantize_per_head(x: torch.Tensor):
     return codes.to(torch.int8), scale
 
 
-def keys_last(x8: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, D) int8 -> (B * H, D, L) int8, the keys on the last axis and
-    zero-padded to L, a multiple of 64: K7's V layout."""
-    b, s, h, d = x8.shape
-    tile = kernels.FLASH_KEY_TILE
-    out = torch.zeros((b * h, d, -(-s // tile) * tile), dtype=torch.int8, device=x8.device)
-    out[:, :, :s] = x8.permute(0, 2, 3, 1).reshape(b * h, d, s)
-    return out
-
-
 def pv8_key_order() -> torch.Tensor:
-    """The key order of K6's V^T inside each 32-key chunk: position 16 h +
-    4 t + e holds key 16 h + 8 (e // 2) + 2 t + e % 2 (h < 2, t < 4, e < 4).
+    """The key order of K6's and K7's V^T inside each 32-key chunk: position
+    16 h + 4 t + e holds key 16 h + 8 (e // 2) + 2 t + e % 2 (h < 2, t < 4,
+    e < 4).
 
-    K6's int8 PV takes the codes of a 32-key chunk from the registers that
-    hold the scores: thread t of a quad holds keys 8 j + 2 t and 8 j + 2 t + 1
-    of each 8-key column j, and packs keys 2t, 2t+1, 8+2t, 9+2t (then the
-    same 16 on) where the s8 A fragment reads positions 4t..4t+3 (16 on).
+    The int8 PV of the PV-int8 loop takes the codes of a 32-key chunk from
+    the registers that hold the scores: thread t of a quad holds keys 8 j +
+    2 t and 8 j + 2 t + 1 of each 8-key column j, and packs keys 2t, 2t+1,
+    8+2t, 9+2t (then the same 16 on) where the s8 A fragment reads
+    positions 4t..4t+3 (16 on).
     Its V^T is laid out in the same order, so each code meets its own key's
     values; the int32 sums over a chunk are exact in any order
     (csrc/hopper_attention.cuh, namespace pv8)."""
@@ -104,9 +97,10 @@ def pv8_key_order() -> torch.Tensor:
 
 
 def pv8_keys_last(v8: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, D) int8 -> (B * H, D, L) int8, K6's V layout: the keys on
-    the last axis, zero-padded to L, a multiple of ``kernels.PV8_KEY_TILE``,
-    and in ``pv8_key_order`` inside each 32-key chunk."""
+    """(B, S, H, D) int8 -> (B * H, D, L) int8, K6's and K7's V layout: the
+    keys on the last axis, zero-padded to L, a multiple of
+    ``kernels.PV8_KEY_TILE``, and in ``pv8_key_order`` inside each 32-key
+    chunk."""
     b, s, h, d = v8.shape
     tile = kernels.PV8_KEY_TILE
     out = torch.zeros((b * h, d, -(-s // tile) * tile), dtype=torch.int8, device=v8.device)
@@ -320,7 +314,7 @@ def int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     if not q.is_cuda:
         return int8_attention_reference(q, k, v, scale, block_k)
     q8, k8, v8, logit, v127 = int8_operands(q, k, v, scale)
-    return kernels.int8_flash_attention(q8, k8, keys_last(v8), logit, v127, block_k)
+    return kernels.int8_flash_attention(q8, k8, pv8_keys_last(v8), logit, v127, block_k)
 
 
 def int8_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

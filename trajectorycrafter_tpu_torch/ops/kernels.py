@@ -39,11 +39,9 @@ FLASH_HEAD_DIMS = (64, 128)
 # keys per K/V tile of the bf16 attention kernels: flash_attention,
 # flash_lse, flash_exp2 and flash_maxpass (csrc/hopper_attention.cuh kBlockN)
 ATTENTION_KEY_TILE = 128
-# keys per tile of int8_flash_attention, whose int8 V layout is cut in tiles
-# of 64 keys
-FLASH_KEY_TILE = 64
-# keys per K / V^T tile of flash_pv8 (csrc/hopper_attention.cuh kBlockN): its
-# key blocks and its V^T rows are multiples of it
+# keys per K / V^T tile of the PV-int8 loop (csrc/hopper_attention.cuh
+# kBlockN), which runs flash_pv8 and int8_flash_attention: their key blocks
+# and their V^T rows are multiples of it
 PV8_KEY_TILE = 128
 
 
@@ -328,17 +326,20 @@ flash_pv8.launches = 0
 def int8_flash_attention(q8: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
                          logit_scale: torch.Tensor, v_scale: torch.Tensor,
                          block_k: int) -> torch.Tensor:
-    """int8 flash attention on the card (csrc/int8_flash_attention.cu): q8
-    (B, Sq, H, D) and k8 (B, Skv, H, D) int8 codes, v8 as ``_check_vt`` lays
-    it out (``keys_last``); logit_scale (B * H,) = qs * ks * softmax scale and v_scale (B * H,)
-    = vs / 127, fp32; online softmax per ``block_k``-key block.  -> (B, Sq, H,
-    D) bf16.  Counts each launch in ``int8_flash_attention.launches``."""
+    """int8 flash attention on the card (csrc/int8_flash_attention.cu, on
+    the PV-int8 loop): q8 (B, Sq, H, D) and k8 (B, Skv, H, D) int8 codes; v8
+    the per-(batch, head) int8 V as ``ops/attention_variants.py
+    pv8_keys_last`` lays it out (its key order cannot be checked here);
+    logit_scale (B * H,) = qs * ks * softmax scale and v_scale (B * H,) = vs
+    / 127, fp32; online softmax per ``block_k``-key block (a multiple of
+    ``PV8_KEY_TILE``).  -> (B, Sq, H, D) bf16.  Counts each launch in
+    ``int8_flash_attention.launches``."""
     kernel = "int8_flash_attention"
     b, sq, skv, h, d = _check_attention(kernel, q8, k8, None, dtype=torch.int8)
-    _check_vt(kernel, v8, b, h, d, skv, q8.device, FLASH_KEY_TILE)
+    _check_vt(kernel, v8, b, h, d, skv, q8.device, PV8_KEY_TILE)
     _check_per_head(kernel, "logit_scale", logit_scale, b * h, q8.device)
     _check_per_head(kernel, "v_scale", v_scale, b * h, q8.device)
-    _check_block_k(kernel, block_k, FLASH_KEY_TILE)
+    _check_block_k(kernel, block_k, PV8_KEY_TILE)
     out = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q8.device)
     _call(kernel, _INT8_ATTN_ARGTYPES, q8.device, q8.data_ptr(), k8.data_ptr(), v8.data_ptr(),
           logit_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), b, h, sq, skv, d,
