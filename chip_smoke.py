@@ -43,16 +43,38 @@ prints no result line):
      inputs, kernels against the plain versions;
   7. the attention bench (``python -m trajectorycrafter_tpu_torch.
      bench_attention``), once;
-  8. a JSON line of kernel results, and a final JSON line with the device.
+  8. checkpoints: once the random bundle's compute is done, its seeded
+     weights are written as an HF-layout checkpoint tree on the local disk
+     (the DiT cut to 6 layers by its config.json, T5-XXL in two shards, the
+     CogVideoX VAE, SVD UNet, SVD VAE and CLIP-H whole, BLIP-2 at full width
+     cut to 4 vision / 2 Q-Former / 4 OPT layers, a 32,000-piece Unigram
+     ``spiece.model``, a byte-level BPE vocabulary of OPT's size), a
+     per-tensor checksum of every written tensor taken, and the random bundle
+     freed; the tree is then loaded through the normal entry point
+     (``TrajCrafter(parse_config(argv))``, no ``--allow_dev_stubs``) and run
+     with no ``--prompt`` (BLIP-2 captions the middle frame), ``--mask`` and
+     the default ``--quant int8``: every loaded tensor must be bit-equal to
+     the written one (the int8 DiT to ``quantize_dense`` of it), two damaged
+     DiT trees must fail in ``verify_state_dict`` before any model computes,
+     the caption must be the decode of the greedy ids, T5 must read the
+     tokenizer's ids, ``--mask`` must leave fewer known pixels than run A,
+     and K1, K2a and K2b must launch the counts derived from the 6-layer DiT;
+     the load seconds per family, GB/s, peak memory and the ``caption``
+     stage are logged; then BLIP-2 at full depth (39 / 12 / 32 layers,
+     seeded on the card) captions one frame;
+  9. a JSON line of kernel results, and a final JSON line with the device.
 
 Imports nothing of JAX and nothing of the JAX package: the port holds its
 own config, CLI and video I/O.
 """
 
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -945,9 +967,17 @@ def run_gradual(tc, run: str, depth_attn: str, dit_attn: str) -> dict:
     import numpy as np
     import torch
 
+    from trajectorycrafter_tpu_torch import orchestrator
+
     counters = _kernel_counters()
     depth_infer = tc.models.depth_infer
+    warp = orchestrator.forward_warp_batch
     seen = {}
+
+    def recorded_warp(*args, **kwargs):
+        out = warp(*args, **kwargs)
+        seen["mask"] = out[1]
+        return out
 
     def counted_depth(*args, **kwargs):
         before = [kern.launches for kern in counters]
@@ -958,6 +988,7 @@ def run_gradual(tc, run: str, depth_attn: str, dit_attn: str) -> dict:
 
     os.environ["TRAJCRAFTER_DEPTH_ATTN"] = depth_attn
     tc.models.depth_infer = counted_depth
+    orchestrator.forward_warp_batch = recorded_warp
     tc.timer.seconds.clear()
     torch.cuda.reset_peak_memory_stats()
     for kern in counters:
@@ -968,8 +999,10 @@ def run_gradual(tc, run: str, depth_attn: str, dit_attn: str) -> dict:
         torch.cuda.synchronize()
     finally:
         tc.models.depth_infer = depth_infer
+        orchestrator.forward_warp_batch = warp
         del os.environ["TRAJCRAFTER_DEPTH_ATTN"]
     total = time.perf_counter() - t0
+    known_share = seen.pop("mask").float().mean().item()
     launches = {kern.__name__: kern.launches for kern in counters}
     log(f"run {run}: infer_gradual, --quant {tc.cfg.diffusion.quant}, --quant_depth "
         f"{tc.cfg.depth.quant}, DiT attention {dit_attn}, depth attention {depth_attn}: "
@@ -1003,8 +1036,9 @@ def run_gradual(tc, run: str, depth_attn: str, dit_attn: str) -> dict:
     if gen.max() == gen.min():
         raise AssertionError("gen is constant")
     log(f"  gen {gen.shape} in [{gen.min():.4f}, {gen.max():.4f}], std {gen.std():.4f}; "
-        f"five mp4s in {cfg.save_dir}")
-    return {"seconds": total, "per_path": per_path, "depth": depth, "gen": gen}
+        f"five mp4s in {cfg.save_dir}; known share of the warp {known_share:.6f}")
+    return {"seconds": total, "per_path": per_path, "depth": depth, "gen": gen,
+            "known_share": known_share, "stages": dict(tc.timer.seconds)}
 
 
 def _int8_launches_per_forward(model) -> dict:
@@ -1026,7 +1060,7 @@ def _expected_launches(cfg, dit, unet, depth_kernel: str, dit_kernel: str) -> di
     """{stage: {kernel: launches}} of one ``infer_gradual``: one UNet forward
     per Euler step and window, one DiT forward (the CFG pair as a batch of
     2) per denoise step, each launching ``dit_kernel`` once per block and
-    once per Perceiver."""
+    once per Perceiver of ``dit``."""
     from trajectorycrafter_tpu_torch.pipelines.depth import window_starts
 
     windows = len(window_starts(cfg.video_length, cfg.depth.window_size, cfg.depth.overlap))
@@ -1035,7 +1069,8 @@ def _expected_launches(cfg, dit, unet, depth_kernel: str, dit_kernel: str) -> di
     depth = {name: 0 for name in KERNELS}
     depth[depth_kernel] = DEPTH_KERNEL_LAUNCHES_PER_FORWARD * unet_forwards
     denoise = {name: 0 for name in KERNELS}
-    denoise[dit_kernel] = dit_forwards * (DIT_LAYERS + DIT_LAYERS // PERCEIVER_INTERVAL)
+    denoise[dit_kernel] = dit_forwards * (len(dit.transformer_blocks)
+                                          + len(dit.perceiver_cross_attention or ()))
     for name, n in _int8_launches_per_forward(unet).items():
         depth[name] = n * unet_forwards
     for name, n in _int8_launches_per_forward(dit).items():
@@ -1231,6 +1266,410 @@ def phase_bench() -> dict:
     return launches
 
 
+# The checkpoint tree of phase 8: the directories the config defaults name,
+# under one temporary root on the local disk.  The DiT is cut to 6 layers by
+# its config.json (3 Perceivers), BLIP-2 by its config.json; the rest whole.
+TREE_DIRS = {
+    "vae": "CogVideoX-Fun-V1.1-5b-InP/vae",
+    "text_encoder": "CogVideoX-Fun-V1.1-5b-InP/text_encoder",
+    "tokenizer": "CogVideoX-Fun-V1.1-5b-InP/tokenizer",
+    "dit": "TrajectoryCrafter",
+    "svd_unet": "DepthCrafter",
+    "svd_vae": "stable-video-diffusion-img2vid/vae",
+    "clip": "stable-video-diffusion-img2vid/image_encoder",
+    "blip2": "blip2-opt-2.7b",
+}
+TREE_DIT_LAYERS = 6
+TREE_BLIP2_LAYERS = {"vision": 4, "qformer": 2, "opt": 4}
+TREE_FREE_GB = 24.0  # the tree is 17.90 GB; the damaged DiT copies link to it
+SPIECE_PIECES = 32000
+BPE_MERGES = 50005  # + 256 bytes + 4 specials: OPT's 50,265-entry vocab.json
+DIT_HEAD_KEYS = ("norm_final.", "norm_out.", "proj_out.")  # the DiT's second shard
+
+
+def bits_checksum(t) -> tuple:
+    """A checksum of a tensor's raw bits, on its device: the sum of its words
+    (as int64) and their sum weighted by position, with dtype and shape."""
+    import torch
+
+    flat = t.detach().contiguous().reshape(-1)
+    words = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[flat.element_size()])
+    total = weighted = 0
+    chunk = 1 << 26
+    for start in range(0, words.numel(), chunk):
+        w = words[start:start + chunk].to(torch.int64)
+        idx = torch.arange(start, start + w.numel(), device=w.device) % 65521 + 1
+        total += int(w.sum())
+        weighted += int((w * idx).sum())
+    return str(t.dtype), tuple(t.shape), total, weighted
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        byte, n = n & 0x7F, n >> 7
+        out.append(byte | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb_field(number: int, wire: int, payload: bytes) -> bytes:
+    if wire == 2:
+        payload = _pb_varint(len(payload)) + payload
+    return _pb_varint(number << 3 | wire) + payload
+
+
+def spiece_model_bytes(n_pieces: int = SPIECE_PIECES, seed: int = 0) -> bytes:
+    """A serialized sentencepiece Unigram ``ModelProto``: T5's control pieces
+    (<pad> 0, </s> 1, <unk> 2), "▁", every printable ASCII character with
+    and without "▁", then seeded lowercase words up to ``n_pieces``."""
+    import random
+    import string
+    import struct
+
+    rng = random.Random(seed)
+    chars = string.ascii_letters + string.digits + string.punctuation
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2), ("▁", -2.0, 1)]
+    pieces += [(p + c, -8.0 - 0.01 * i, 1) for p in ("", "▁") for i, c in enumerate(chars)]
+    seen = {p for p, _, _ in pieces}
+    while len(pieces) < n_pieces:
+        word = "".join(rng.choice(string.ascii_lowercase) for _ in range(rng.randint(2, 8)))
+        word = ("▁" if rng.random() < 0.6 else "") + word
+        if word not in seen:
+            seen.add(word)
+            pieces.append((word, -rng.uniform(3.0, 14.0), 1))
+    body = b"".join(_pb_field(1, 2, _pb_field(1, 2, p.encode()) + _pb_field(2, 5, struct.pack("<f", s))
+                                  + _pb_field(3, 0, _pb_varint(kind)))
+                    for p, s, kind in pieces)
+    trainer = _pb_field(3, 0, _pb_varint(1)) + _pb_field(40, 0, _pb_varint(2))  # Unigram, unk 2
+    return body + _pb_field(2, 2, trainer)
+
+
+def write_bpe_files(path: Path) -> None:
+    """A byte-level BPE vocabulary of OPT's size: the 4 OPT specials, the 256
+    byte characters, and one merge per pair of byte characters up to
+    ``BPE_MERGES``."""
+    from trajectorycrafter_tpu_torch.utils.bpe import bytes_to_unicode
+
+    byte_chars = list(bytes_to_unicode().values())
+    vocab = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>", *byte_chars])}
+    merges = []
+    for a in byte_chars:
+        for b in byte_chars:
+            if len(merges) == BPE_MERGES:
+                break
+            merges.append(f"{a} {b}")
+            vocab[a + b] = len(vocab)
+    (path / "vocab.json").write_text(json.dumps(vocab), encoding="utf-8")
+    (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n",
+                                     encoding="utf-8")
+    (path / "special_tokens_map.json").write_text(json.dumps(
+        {"bos_token": "</s>", "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>"}))
+
+
+def _save(sd: dict, path: Path, name: str = "model.safetensors") -> int:
+    """Write ``sd`` (device tensors) as one safetensors file; its bytes."""
+    from safetensors.torch import save_file
+
+    path.mkdir(parents=True, exist_ok=True)
+    cpu = {k: v.detach().contiguous().cpu() for k, v in sd.items()}
+    save_file(cpu, str(path / name))
+    return sum(v.numel() * v.element_size() for v in cpu.values())
+
+
+def write_checkpoint_tree(tc, root: Path) -> dict:
+    """Write the random bundle's seeded weights (and a cut BLIP-2 seeded on
+    the card) as an HF-layout tree under ``root``; return {"sums": {family:
+    {key: checksum}} of what each loaded module must hold, "dit_keys",
+    "damaged": {kind: transformer dir}}."""
+    import shutil
+
+    import torch
+
+    from trajectorycrafter_tpu_torch.models.blip2 import Blip2Captioner, Blip2Config
+    from trajectorycrafter_tpu_torch.ops.int8 import DIT_BLOCK_INT8, DIT_PERCEIVER_INT8, quantize_dense
+    from trajectorycrafter_tpu_torch.orchestrator import _on_device, random_init_
+
+    free = shutil.disk_usage(root).free / 1e9
+    if free < TREE_FREE_GB:
+        raise AssertionError(f"the checkpoint tree needs {TREE_FREE_GB:.0f} GB free under {root}, "
+                             f"which has {free:.1f} GB")
+    log(f"checkpoint tree under {root} ({free:.1f} GB free)")
+    t0 = time.perf_counter()
+    written = 0
+    sums = {}
+    pipe = tc.models.depth_infer.__self__.pipe
+    d = {name: root / rel for name, rel in TREE_DIRS.items()}
+
+    def family(label, sd, path, skipped=None, shards=1):
+        nonlocal written
+        sums[label] = {k: bits_checksum(v) for k, v in sd.items()}
+        full = {**sd, **(skipped or {})}
+        keys = list(full)
+        per = -(-len(keys) // shards)
+        for i in range(shards):
+            part = {k: full[k] for k in keys[i * per:(i + 1) * per]}
+            name = (f"model-{i + 1:05d}-of-{shards:05d}.safetensors" if shards > 1
+                    else "model.safetensors")
+            written += _save(part, path, name)
+
+    family("vae", tc.models.pipeline.vae.state_dict(), d["vae"])
+    t5 = tc.models.encode_prompt.t5
+    family("t5", t5.state_dict(), d["text_encoder"],
+           {"encoder.embed_tokens.weight": t5.shared.weight}, shards=2)
+    family("svd_unet", pipe.unet.state_dict(), d["svd_unet"])
+    family("svd_vae", pipe.vae.state_dict(), d["svd_vae"])
+    clip = pipe.image_encoder
+    n_pos = clip.vision_model.embeddings.position_embedding.weight.shape[0]
+    family("clip", clip.state_dict(), d["clip"],
+           {"vision_model.embeddings.position_ids": torch.arange(n_pos, device="cuda")[None]})
+
+    # the DiT: its first 6 blocks and 3 Perceivers, in two shards (the head
+    # keys second), with a config.json that says 6 layers
+    dit = tc.models.pipeline.transformer
+
+    def kept(key):
+        parts = key.split(".")
+        if parts[0] == "transformer_blocks":
+            return int(parts[1]) < TREE_DIT_LAYERS
+        if parts[0] == "perceiver_cross_attention":
+            return int(parts[1]) < TREE_DIT_LAYERS // PERCEIVER_INTERVAL
+        return True
+
+    dit_sd = {k: v for k, v in dit.state_dict().items() if kept(k)}
+    head = {k: v for k, v in dit_sd.items() if k.startswith(DIT_HEAD_KEYS)}
+    body = {k: v for k, v in dit_sd.items() if k not in head}
+    written += _save(body, d["dit"], "diffusion_pytorch_model-00001-of-00002.safetensors")
+    written += _save(head, d["dit"], "diffusion_pytorch_model-00002-of-00002.safetensors")
+    dit_config = {"num_attention_heads": 48, "attention_head_dim": 64,
+                  "num_layers": TREE_DIT_LAYERS, "in_channels": 33, "out_channels": 16,
+                  "use_rotary_positional_embeddings": True,
+                  "cross_attn_interval": PERCEIVER_INTERVAL, "cross_attn_dim_head": 128,
+                  "cross_attn_num_heads": 16, "time_embed_dim": 512, "text_embed_dim": 4096,
+                  "max_text_seq_length": 226}
+    (d["dit"] / "config.json").write_text(json.dumps(dit_config))
+    int8 = {f"transformer_blocks.{i}.{p}" for i in range(TREE_DIT_LAYERS) for p in DIT_BLOCK_INT8}
+    int8 |= {f"perceiver_cross_attention.{i}.{p}"
+             for i in range(TREE_DIT_LAYERS // PERCEIVER_INTERVAL) for p in DIT_PERCEIVER_INT8}
+    dit_sums = {}
+    for k, v in dit_sd.items():
+        prefix = k[:-len(".weight")]
+        if k.endswith(".weight") and prefix in int8:  # --quant int8 loads the codes
+            wq, ws = quantize_dense(v)
+            dit_sums[prefix + ".weight_q"], dit_sums[prefix + ".weight_scale"] = \
+                bits_checksum(wq), bits_checksum(ws)
+        else:
+            dit_sums[k] = bits_checksum(v)
+    sums["dit"] = dit_sums
+    # two damaged copies: the big shard linked, the head shard one key short / over
+    damaged = {}
+    for kind, shard in (("missing", {k: v for k, v in head.items() if k != "proj_out.bias"}),
+                        ("extra", {**head, "transformer_blocks.6.norm1.norm.weight":
+                                   dit_sd["transformer_blocks.0.norm1.norm.weight"]})):
+        path = root / f"TrajectoryCrafter_{kind}"
+        path.mkdir()
+        name = "diffusion_pytorch_model-00001-of-00002.safetensors"
+        (path / name).symlink_to(d["dit"] / name)
+        _save(shard, path, "diffusion_pytorch_model-00002-of-00002.safetensors")
+        (path / "config.json").write_text(json.dumps(dit_config))
+        damaged[kind] = path
+    del dit_sd, head, body
+
+    # BLIP-2 at its full widths and vocabulary, depth cut by its config.json
+    cut = Blip2Config(vision_layers=TREE_BLIP2_LAYERS["vision"],
+                      qformer_layers=TREE_BLIP2_LAYERS["qformer"],
+                      opt_layers=TREE_BLIP2_LAYERS["opt"])
+    blip = random_init_(_on_device(lambda: Blip2Captioner(cut), "cuda", torch.bfloat16), 6)
+    family("blip2", blip.state_dict(), d["blip2"],
+           {"language_model.lm_head.weight": blip.decoder.embed_tokens.weight})
+    del blip
+    (d["blip2"] / "config.json").write_text(json.dumps({
+        "vision_config": {"hidden_size": cut.vision_hidden, "intermediate_size":
+                          cut.vision_intermediate, "num_hidden_layers": cut.vision_layers,
+                          "num_attention_heads": cut.vision_heads, "image_size": cut.image_size,
+                          "patch_size": cut.patch_size},
+        "qformer_config": {"hidden_size": cut.qformer_hidden, "num_hidden_layers":
+                           cut.qformer_layers, "num_attention_heads": cut.qformer_heads,
+                           "intermediate_size": cut.qformer_intermediate,
+                           "cross_attention_frequency": cut.cross_attention_frequency},
+        "text_config": {"vocab_size": cut.vocab_size, "hidden_size": cut.opt_hidden,
+                        "num_hidden_layers": cut.opt_layers, "num_attention_heads": cut.opt_heads,
+                        "ffn_dim": cut.opt_ffn, "max_position_embeddings": cut.max_positions,
+                        "bos_token_id": cut.bos_token_id},
+        "num_query_tokens": cut.num_query_tokens}))
+    # blip2-opt-2.7b's generation config: stop at "\n", max_length 20 (19 new tokens)
+    (d["blip2"] / "generation_config.json").write_text(
+        json.dumps({"eos_token_id": 50118, "max_length": 20}))
+    write_bpe_files(d["blip2"])
+    d["tokenizer"].mkdir(parents=True, exist_ok=True)
+    (d["tokenizer"] / "spiece.model").write_bytes(spiece_model_bytes())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log(f"wrote the checkpoint tree: {written / 1e9:.2f} GB in {seconds:.1f} s "
+        f"({written / 1e9 / seconds:.2f} GB/s, checksums included)")
+    return {"root": root, "dirs": d, "sums": sums, "damaged": damaged, "gb": written / 1e9}
+
+
+def _tree_argv(tree: dict, transformer_path=None) -> list:
+    d = tree["dirs"]
+    argv = [a for a in MAIN_ARGV if a not in ("--prompt", "a scene")]
+    return argv + [
+        "--mask", "--exp_name", "smoke_checkpoints",
+        "--model_name", str(d["vae"].parent), "--transformer_path",
+        str(transformer_path or d["dit"]), "--unet_path", str(d["svd_unet"]),
+        "--pre_train_path", str(d["svd_vae"].parent), "--blip_path", str(d["blip2"])]
+
+
+def phase_checkpoints(tree: dict, runs: dict) -> None:
+    """Load the written tree through the normal entry point and run it."""
+    import numpy as np
+    import torch
+
+    from trajectorycrafter_tpu_torch.cli import parse_config
+    from trajectorycrafter_tpu_torch.models.blip2 import (
+        Blip2Captioner,
+        Blip2Config,
+        generate_caption_ids,
+        preprocess_frame,
+    )
+    from trajectorycrafter_tpu_torch.orchestrator import (
+        TrajCrafter,
+        _on_device,
+        random_init_,
+        stand_in_token_ids,
+    )
+
+    log(f"device memory before loading: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # the damaged DiT trees fail in verify_state_dict before any model computes
+    for kind, want in (("missing", "Missing: 1 keys (proj_out.bias). Unexpected: none."),
+                       ("extra", "Missing: none. Unexpected: 1 keys "
+                                 "(transformer_blocks.6.norm1.norm.weight).")):
+        counters = _kernel_counters()
+        for kern in counters:
+            kern.launches = 0
+        try:
+            TrajCrafter(parse_config(_tree_argv(tree, tree["damaged"][kind])))
+        except ValueError as e:
+            if "dit: checkpoint key set does not match the expected dit contract" not in str(e) \
+                    or want not in str(e):
+                raise AssertionError(f"the DiT tree with a key {kind} failed with {e}") from e
+            log(f"DiT tree with a key {kind}: refused by verify_state_dict: {e}")
+        else:
+            raise AssertionError(f"the DiT tree with a key {kind} loaded")
+        if any(kern.launches for kern in counters):
+            raise AssertionError(f"a kernel launched before the DiT tree with a key {kind} "
+                                 "was refused")
+    torch.cuda.empty_cache()
+
+    cfg = parse_config(_tree_argv(tree))
+    if cfg.diffusion.prompt is not None or not cfg.render.mask or cfg.allow_dev_stubs \
+            or cfg.diffusion.quant != "int8":
+        raise AssertionError("the checkpoint run must caption, mask and run int8 without stubs")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tc = TrajCrafter(cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    stats = tc.models.load_stats
+    total = sum(s["bytes"] for s in stats.values())
+    log(f"loaded the tree through TrajCrafter(cfg): {total / 1e9:.2f} GB on the card in "
+        f"{load_s:.2f} s ({total / 1e9 / load_s:.2f} GB/s), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for label, s in stats.items():
+        log(f"  load {label}: {s['tensors']} tensors, {s['bytes'] / 1e9:.3f} GB in "
+            f"{s['seconds']:.3f} s ({s['bytes'] / 1e9 / s['seconds']:.2f} GB/s)")
+    if set(stats) != set(tree["sums"]):
+        raise AssertionError(f"loaded families {sorted(stats)}, written {sorted(tree['sums'])}")
+
+    models = tc.models
+    pipe = models.depth_infer.__self__.pipe
+    dit = models.pipeline.transformer
+    loaded = {"vae": models.pipeline.vae, "t5": models.encode_prompt.t5, "svd_unet": pipe.unet,
+              "svd_vae": pipe.vae, "clip": pipe.image_encoder, "dit": dit,
+              "blip2": models.get_caption.model}
+    for label, module in loaded.items():
+        got = {k: bits_checksum(v) for k, v in module.state_dict().items()}
+        if got != tree["sums"][label]:
+            bad = sorted(k for k in set(got) | set(tree["sums"][label])
+                         if got.get(k) != tree["sums"][label].get(k))
+            raise AssertionError(f"{label}: {len(bad)} loaded tensors differ from the written "
+                                 f"ones: {bad[:5]}")
+        log(f"  {label}: {len(got)} tensors bit-equal to the written ones")
+    if len(dit.transformer_blocks) != TREE_DIT_LAYERS or not _int8_launches_per_forward(dit)[
+            "int8_gemm"]:
+        raise AssertionError("the loaded DiT is not the 6-layer int8 model")
+
+    # the run: caption, T5 on the tokenizer's ids, --mask, launches per stage
+    captioner = models.get_caption
+    seen = {}
+
+    def caption(frame):
+        seen["frame"] = frame
+        seen["caption"] = captioner(frame)
+        return seen["caption"]
+
+    def record_ids(module, args):
+        seen["ids"] = args[0].cpu()
+
+    models.get_caption = caption
+    hook = models.encode_prompt.t5.register_forward_pre_hook(record_ids)
+    try:
+        want = _expected_launches(cfg, dit, pipe.unet, "flash_attention", "flash_attention")
+        run = run_gradual(tc, "L (the loaded tree)", "flash_stock", "auto")
+    finally:
+        hook.remove()
+        models.get_caption = captioner
+    if run["per_path"] != want:
+        raise AssertionError(f"loaded run: kernel launches per stage {run['per_path']}, "
+                             f"expected {want}")
+    ids = captioner.last_ids
+    text = captioner.tokenizer.decode(ids.tolist()).strip()
+    if not seen["caption"] or seen["caption"] != text:
+        raise AssertionError(f"caption {seen['caption']!r} is not the decode {text!r} of {ids}")
+    log(f"  caption stage {run['stages']['caption']:.3f} s: {len(ids)} greedy ids "
+        f"{ids.tolist()} -> {seen['caption']!r}")
+    prompt = seen["caption"] + cfg.diffusion.refine_prompt
+    tokens = models.encode_prompt.tokenizer([prompt, cfg.diffusion.negative_prompt], 226)
+    stand_in = stand_in_token_ids(prompt, 226, models.encode_prompt.t5.shared.num_embeddings)
+    if not torch.equal(seen["ids"], tokens) or torch.equal(seen["ids"][:1], stand_in):
+        raise AssertionError("T5 did not read the tokenizer's ids of the captioned prompt")
+    log(f"  T5 read the tokenizer's ids: {int((tokens[0] != 0).sum())} and "
+        f"{int((tokens[1] != 0).sum())} tokens of 226")
+    if not run["known_share"] < runs["A"]["known_share"]:
+        raise AssertionError(f"--mask known share {run['known_share']} is not below run A's "
+                             f"{runs['A']['known_share']}")
+    rel = np.abs(np.log(run["depth"] / runs["A"]["depth"]))
+    log(f"  --mask: known share {run['known_share']:.6f} against run A's "
+        f"{runs['A']['known_share']:.6f}; depth against run A's (the same UNet weights, "
+        f"information): median |log ratio| {np.median(rel):.3e}, max {rel.max():.3e}")
+    frame = seen["frame"]
+    del tc, models, pipe, dit, loaded, captioner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # BLIP-2 at full depth and width, seeded on the card, captions one frame
+    t0 = time.perf_counter()
+    full = random_init_(_on_device(lambda: Blip2Captioner(Blip2Config()), "cuda",
+                                   torch.bfloat16), 7)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in full.parameters())
+    pixels = preprocess_frame(frame, device="cuda")
+    with torch.no_grad():
+        generate_caption_ids(full, pixels, max_new_tokens=19)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = generate_caption_ids(full, pixels, max_new_tokens=19)
+        torch.cuda.synchronize()
+    caption_s = time.perf_counter() - t0
+    log(f"BLIP-2 at full depth (39 / 12 / 32 layers, {n_params / 1e9:.3f} B parameters, "
+        f"built in {build_s:.2f} s): caption of the middle frame, 19 greedy steps, "
+        f"{caption_s:.3f} s; ids {ids[0].tolist()}")
+    del full
+    torch.cuda.empty_cache()
+
+
 def _attention_entry(name: str, t: dict, **kw) -> dict:
     """An attention kernel's entry of the kernels JSON line."""
     src = "trajectorycrafter_tpu_torch/csrc/"
@@ -1256,6 +1695,19 @@ def main() -> None:
     bench = phase_bench()
 
     import torch
+
+    # phase 8: write the random bundle's weights as a tree, free the bundle,
+    # load the tree through the entry point
+    del dit8, unet8
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tree_"))
+    try:
+        tree = write_checkpoint_tree(tc, root)
+        del tc
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_checkpoints(tree, runs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     per_path = lambda kern: _launches_per_path(runs, kern)
     run_launches = lambda run, kern: _run_launches(runs, run, kern)

@@ -61,7 +61,7 @@ from trajectorycrafter_tpu_torch.orchestrator import (
     build_dev_models,
     check_supported,
     depth_stage,
-    t5_prompt_encoder,
+    T5PromptEncoder,
 )
 from trajectorycrafter_tpu_torch.pipelines.depth import (
     DepthCrafterPipeline,
@@ -267,7 +267,7 @@ def test_infer_gradual_with_depth_and_t5_writes_five_mp4s(tmp_path, unets, vaes)
     models.depth_infer = lambda *a, **kw: seen.append(depth_infer(*a, **kw)) or seen[-1]
     t5 = fill_from_numpy_(T5EncoderModel(vocab_size=100, d_model=64, d_kv=8, d_ff=128,
                                          num_layers=2, num_heads=8), 7)
-    models.encode_prompt = t5_prompt_encoder(t5.eval(), 16)
+    models.encode_prompt = T5PromptEncoder(t5.eval(), 16)
     tc = TrajCrafter(cfg, models=models)
     gen = tc.infer_gradual()
     assert gen.shape == (9, 32, 48, 3) and np.isfinite(gen).all()

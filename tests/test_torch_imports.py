@@ -31,7 +31,9 @@ def test_port_modules_import_without_jax():
     for name in ("ops.kernels", "cli", "config", "utils.video", "models.depthcrafter",
                  "models.svd_vae", "models.clip", "models.t5", "pipelines.depth",
                  "schedulers.euler", "ops.resize", "ops.int8", "ops.int8_matmul",
-                 "ops.attention_variants", "bench_attention", "utils.quality"):
+                 "ops.attention_variants", "bench_attention", "utils.quality",
+                 "utils.checkpoints", "utils.tokenizer", "utils.bpe", "utils.caption",
+                 "models.blip2", "ops.morphology"):
         assert f"trajectorycrafter_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -714,3 +714,74 @@ def test_attention_variant_wrappers_reject_what_the_kernels_do_not_take(gen):
     for block_k in (64, 192):
         with pytest.raises(ValueError, match=f"block_k {block_k} must be a positive multiple of 128"):
             int8_flash_attention(q8, q8, vt, vs.reshape(-1), vs.reshape(-1), block_k)
+
+
+# ----------------------------------------------------------------------------
+# checkpoint loading onto the card (utils/checkpoints.py)
+# ----------------------------------------------------------------------------
+
+# a small DiT whose attention and int8 GEMMs take the kernels: head dim 64,
+# every linear's K and N multiples of 16
+CARD_DIT = dict(num_attention_heads=2, attention_head_dim=64, num_layers=2, in_channels=9,
+                out_channels=4, time_embed_dim=64, text_embed_dim=64, max_text_seq_length=16,
+                cross_attn_dim_head=64, cross_attn_num_heads=2, cross_attn_interval=2,
+                use_rotary_positional_embeddings=True)
+
+
+def _card_dit_tree(tmp_path):
+    """A seeded bf16 DiT written as two safetensors shards and a config.json
+    -> (dir, the written tensors)."""
+    import json
+
+    from safetensors.torch import save_file
+
+    from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
+
+    torch.manual_seed(0)
+    sd = {k: (v.detach() + 0.02 * torch.randn_like(v)).bfloat16().contiguous()
+          for k, v in CrossTransformer3DModel(**CARD_DIT).state_dict().items()}
+    keys = sorted(sd)
+    save_file({k: sd[k] for k in keys[::2]}, str(tmp_path / "model-00001-of-00002.safetensors"))
+    save_file({k: sd[k] for k in keys[1::2]}, str(tmp_path / "model-00002-of-00002.safetensors"))
+    (tmp_path / "config.json").write_text(json.dumps(CARD_DIT))
+    return tmp_path, sd
+
+
+def test_checkpoint_tree_loads_onto_the_card_bit_equal(gen, tmp_path):
+    from trajectorycrafter_tpu_torch.utils.checkpoints import load_dit
+
+    path, written = _card_dit_tree(tmp_path)
+    dit = load_dit(str(path), "cuda", torch.bfloat16)
+    got = dit.state_dict()
+    assert set(got) == set(written)
+    for key, value in got.items():
+        assert value.is_cuda and value.dtype == torch.bfloat16, key
+        assert torch.equal(value.cpu().view(torch.int16), written[key].view(torch.int16)), key
+
+
+def test_int8_dit_loaded_from_a_tree_launches_the_int8_kernels(gen, tmp_path):
+    from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear
+    from trajectorycrafter_tpu_torch.ops.rope import rope_for_sample
+    from trajectorycrafter_tpu_torch.utils.checkpoints import load_dit
+
+    path, written = _card_dit_tree(tmp_path)
+    dit = load_dit(str(path), "cuda", torch.bfloat16, quant="int8")
+    layers = {name: m for name, m in dit.named_modules() if isinstance(m, Int8Linear)}
+    assert len(layers) == 2 * 6 + 1 * 3
+    for name, layer in layers.items():  # quantized on the card from the written bf16 weight
+        wq, ws = quantize_dense(written[name + ".weight"].cuda())
+        assert torch.equal(layer.weight_q, wq) and torch.equal(layer.weight_scale, ws), name
+    b, f, h, w = 2, 3, 8, 12
+    args = (_randn(gen, b, f, h, w, 4), _randn(gen, b, 16, 64),
+            torch.full((b,), 500.0, device="cuda"))
+    kwargs = dict(inpaint_latents=_randn(gen, b, f, h, w, 5),
+                  cross_latents=_randn(gen, b, 2, h, w, 4),
+                  image_rotary_emb=tuple(torch.from_numpy(t).cuda()
+                                         for t in rope_for_sample(64, h * 8, w * 8, f)))
+    before = [k.launches for k in (int8_quantize_rows, int8_gemm, flash_attention)]
+    with torch.no_grad():
+        out = dit(*args, **kwargs)
+    torch.cuda.synchronize()
+    after = [k.launches for k in (int8_quantize_rows, int8_gemm, flash_attention)]
+    assert [a - b0 for a, b0 in zip(after, before)] == [15, 15, 2 + 1]
+    assert out.shape == (b, f, h, w, 4) and torch.isfinite(out).all()

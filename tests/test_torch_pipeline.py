@@ -217,9 +217,9 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             build_models(_cfg(tmp_path, "--allow_dev_stubs"))
-    (tmp_path / "no_checkpoints").mkdir()
-    with pytest.raises(NotImplementedError, match="checkpoint loading"):
-        build_models(_cfg(tmp_path, "--allow_dev_stubs"))
+    (tmp_path / "no_checkpoints").mkdir()  # a tree that exists is loaded: this one is empty
+    with pytest.raises(ValueError, match="vae: checkpoint key set does not match"):
+        build_models(_cfg(tmp_path, "--allow_dev_stubs"), device="cpu")
     cfg = _cfg(tmp_path)
     tc = TrajCrafter(cfg, models=build_dev_models(cfg, "cpu"))
     for mode in (tc.infer_direct, tc.infer_bullet, tc.infer_zoom):

@@ -22,7 +22,7 @@ from trajectorycrafter_tpu.models.t5 import T5EncoderModel as JaxT5
 from trajectorycrafter_tpu.models.t5 import relative_position_bucket as jax_bucket
 from trajectorycrafter_tpu.utils.convert import convert_t5_encoder
 from trajectorycrafter_tpu_torch.models.t5 import T5EncoderModel, relative_position_bucket
-from trajectorycrafter_tpu_torch.orchestrator import stand_in_token_ids, t5_prompt_encoder
+from trajectorycrafter_tpu_torch.orchestrator import stand_in_token_ids, T5PromptEncoder
 from trajectorycrafter_tpu_torch.utils.weights import t5_from_jax
 
 torch.set_num_threads(1)
@@ -77,7 +77,7 @@ def test_stand_in_token_ids_are_a_function_of_the_prompt(t5s):
     assert torch.equal(stand_in_token_ids("", 16, 100), stand_in_token_ids("", 16, 100))
     # the bundle's encode: both prompts in one batch, each row on its own ids
     _, t5 = t5s
-    pe, ne = t5_prompt_encoder(t5, 9)("a scene", None)
+    pe, ne = T5PromptEncoder(t5, 9)("a scene", None)
     assert pe.shape == ne.shape == (1, 9, 32)
     with torch.no_grad():
         torch.testing.assert_close(pe, t5(stand_in_token_ids("a scene", 9, 100)))

@@ -93,10 +93,3 @@ def test_forward_warp_batch_matches_jax(target):
     assert off[both].mean() <= KNIFE_EDGE_MAX, off[both].mean()
     assert np.all(warped[mask == 0] == -1.0)
 
-
-def test_mask_clean_is_not_ported_yet():
-    z = torch.zeros((1, 4, 4))
-    eye = torch.eye(4)[None]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward_warp_batch(torch.zeros((1, 4, 4, 3)), z + 1.0, eye, eye, torch.eye(3)[None],
-                           use_mask_clean=True)

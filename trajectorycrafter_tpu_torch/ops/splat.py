@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from trajectorycrafter_tpu_torch.ops.morphology import clean_mask
+
 _BEHIND_EPS = 0.01
 _BEHIND_FILL = 1000.0
 _DEPTH_SAT = 1000.0
@@ -138,11 +140,9 @@ def forward_warp_batch(
     use_mask_clean: bool = False,
 ):
     """Warp every frame of a clip -> (warped (n,h,w,3), mask (n,h,w),
-    warped depth (n,h,w), flow (n,h,w,2)).  All inputs on one device, fp32."""
-    if use_mask_clean:
-        raise NotImplementedError(
-            "use_mask_clean (mask morphology, --mask) is not ported yet: "
-            "ROADMAP queue 1 item 4")
+    warped depth (n,h,w), flow (n,h,w,2)).  All inputs on one device, fp32.
+    ``use_mask_clean`` (``--mask``): the holes of each frame are dilated and
+    blanked after the splat (ops/morphology.py ``clean_mask``)."""
     if intrinsics2 is None:
         intrinsics2 = intrinsics1
     n, h, w = depths.shape
@@ -156,4 +156,6 @@ def forward_warp_batch(
                                 trans_depth, flow)
     known = mask[..., None] > 0
     warped = torch.where(known, both[..., :3].clamp(-1.0, 1.0), torch.full_like(both[..., :3], -1.0))
+    if use_mask_clean:
+        warped, mask = clean_mask(warped, mask)
     return warped, mask, both[..., 3], flow

@@ -1,27 +1,29 @@
 """TrajCrafter orchestrator for the PyTorch port: the gradual mode end to end.
 
 Counterpart of trajectorycrafter_tpu/orchestrator.py.  ``infer_gradual``
-reads the frames, estimates depth, synthesises the poses, forward-splats the
-frames into the new camera on the device, resizes the warp outputs there,
-runs the diffusion pipeline and writes the five mp4s (input, render, mask,
-gen, viz).  The other three modes are not ported yet.
+captions the middle frame (BLIP-2, unless ``--prompt`` is given), reads the
+frames, estimates depth, synthesises the poses, forward-splats the frames
+into the new camera on the device (``--mask``: the holes dilated and
+blanked), resizes the warp outputs there, runs the diffusion pipeline and
+writes the five mp4s (input, render, mask, gen, viz).  The other three modes
+are not ported yet.
 
-Checkpoint loading is not ported yet either: without weights, and only with
+``build_models`` loads the checkpoints of an HF-layout tree
+(``load_full_bundle``, utils/checkpoints.py) onto the card, or onto the CPU
+when the caller passes ``device="cpu"``.  Without a tree, and only with
 ``--allow_dev_stubs``, the models are randomly initialised from a seed at
-their deployed widths on the card -- the DiT and CogVideoX VAE, T5-XXL, and
-DepthCrafter's SVD UNet, SVD VAE and CLIP-H.  The tokenizer is not ported
-(its ``spiece.model`` is not in the repository), so T5 reads stand-in token
-ids drawn from a generator seeded by the prompt's sha256.  The tiny CPU
-stack of the tests (``build_dev_models``) keeps the JAX package's stand-ins
-for missing checkpoints: a plane-depth stub and seeded gaussian prompt
-embeddings.
+their deployed widths (``build_full_scale_models``) and T5 reads stand-in
+token ids drawn from a generator seeded by the prompt's sha256.  The tiny
+CPU stack of the tests (``build_dev_models``) keeps the JAX package's
+stand-ins for missing checkpoints: a plane-depth stub and seeded gaussian
+prompt embeddings.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import cv2
@@ -51,7 +53,16 @@ from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
 from trajectorycrafter_tpu_torch.pipelines.depth import DepthCrafterDemo, DepthCrafterPipeline
 from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
 from trajectorycrafter_tpu_torch.schedulers.ddim import DDIMScheduler
+from trajectorycrafter_tpu_torch.utils.caption import build_captioner
+from trajectorycrafter_tpu_torch.utils.checkpoints import (
+    LOG,
+    load_depthcrafter,
+    load_dit,
+    load_t5,
+    load_vae,
+)
 from trajectorycrafter_tpu_torch.utils.timing import StageTimer
+from trajectorycrafter_tpu_torch.utils.tokenizer import T5Tokenizer
 from trajectorycrafter_tpu_torch.utils.video import (
     VideoSaveQueue,
     pad_to_length,
@@ -69,6 +80,8 @@ class ModelBundle:
     depth_infer: Callable  # (frames, near, far, steps, gs, window, overlap) -> (F,1,H,W)
     encode_prompt: Callable  # (prompt, negative) -> (pe, ne) each (1, L, D) on the device
     get_caption: Callable  # (frame_hw3) -> str
+    # {family: {"bytes", "seconds", "tensors"}} of a bundle loaded from checkpoints
+    load_stats: dict = field(default_factory=dict)
 
 
 # ----------------------------------------------------------------------------
@@ -88,25 +101,35 @@ def _pseudo_text_embeds(prompt: str, length: int, dim: int, device) -> torch.Ten
 
 
 def stand_in_token_ids(prompt: str, length: int, vocab_size: int) -> torch.Tensor:
-    """(1, length) T5 token ids for ``prompt`` until the tokenizer is ported:
-    drawn on the CPU from a generator seeded by the prompt's sha256, so the
-    same prompt gives the same ids in every process and on every device."""
+    """(1, length) T5 token ids for ``prompt`` in the random-weight bundle,
+    which has no tokenizer: drawn on the CPU from a generator seeded by the
+    prompt's sha256, so the same prompt gives the same ids in every process
+    and on every device."""
     gen = torch.Generator().manual_seed(_prompt_seed(prompt))
     return torch.randint(0, vocab_size, (1, length), generator=gen)
 
 
-def t5_prompt_encoder(t5: T5EncoderModel, text_len: int) -> Callable:
-    """``encode_prompt`` of a bundle: T5 on the stand-in ids of the prompt
-    and of the negative prompt, one batch of two."""
+class T5PromptEncoder:
+    """``encode_prompt`` of a bundle: T5 on the token ids of the prompt and
+    of the negative prompt, one batch of two, with no attention mask (as the
+    reference pipeline encodes).  The ids are ``tokenizer``'s (padded and
+    truncated to ``text_len``) or, without one, ``stand_in_token_ids``."""
+
+    def __init__(self, t5: T5EncoderModel, text_len: int,
+                 tokenizer: Optional[T5Tokenizer] = None):
+        self.t5, self.text_len, self.tokenizer = t5, text_len, tokenizer
+
+    def token_ids(self, texts) -> torch.Tensor:
+        if self.tokenizer is not None:
+            return self.tokenizer(list(texts), max_length=self.text_len)
+        return torch.cat([stand_in_token_ids(text, self.text_len, self.t5.shared.num_embeddings)
+                          for text in texts])
 
     @torch.no_grad()
-    def encode_prompt(prompt, negative):
-        ids = torch.cat([stand_in_token_ids(text or "", text_len, t5.shared.num_embeddings)
-                         for text in (prompt, negative)])
-        out = t5(ids.to(t5.shared.weight.device))
+    def __call__(self, prompt, negative):
+        ids = self.token_ids([prompt or "", negative or ""])
+        out = self.t5(ids.to(self.t5.shared.weight.device))
         return out[:1], out[1:]
-
-    return encode_prompt
 
 
 def depth_stage(unet: UNetSpatioTemporalConditionModel, vae: AutoencoderKLTemporalDecoder,
@@ -137,14 +160,11 @@ def check_supported(cfg: TrajCrafterConfig) -> None:
     if cfg.diffusion.sampler_name != "DDIM_Origin":
         raise NotImplementedError(
             f"sampler {cfg.diffusion.sampler_name!r} is not ported yet (ROADMAP queue 1 "
-            "item 5); DDIM_Origin is")
+            "item 1); DDIM_Origin is")
     if cfg.render.mode != "gradual":
         raise NotImplementedError(
-            f"--mode {cfg.render.mode} is not ported yet (ROADMAP queue 1 item 6); "
+            f"--mode {cfg.render.mode} is not ported yet (ROADMAP queue 1 item 2); "
             "--mode gradual is")
-    if cfg.render.mask:
-        raise NotImplementedError(
-            "--mask (mask morphology) is not ported yet (ROADMAP queue 1 item 4)")
 
 
 @torch.no_grad()
@@ -235,28 +255,92 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
     svd_vae = random_init_(_on_device(AutoencoderKLTemporalDecoder, device, dtype), seed + 4)
     clip = random_init_(_on_device(CLIPVisionModelWithProjection, device, dtype), seed + 5)
     return _bundle(cfg, pipeline, depth_stage(unet, svd_vae, clip, dtype),
-                   t5_prompt_encoder(t5, T5_TEXT_LEN))
+                   T5PromptEncoder(t5, T5_TEXT_LEN))
 
 
-def build_models(cfg: TrajCrafterConfig) -> ModelBundle:
-    """Checkpoint loading is not ported yet, so a model dir that exists is an
-    error; without one, only ``--allow_dev_stubs`` builds random models at
-    the deployed widths, on the CUDA card."""
+def load_full_bundle(cfg: TrajCrafterConfig, device="cuda") -> ModelBundle:
+    """The inference bundle from a checkpoint tree laid out as the
+    reference's: ``model_name/{vae,text_encoder,tokenizer}``,
+    ``transformer_path``, ``unet_path``, ``pre_train_path/{vae,
+    image_encoder}`` and ``blip_path``, every model on ``device`` in
+    bf16 (the DiT in int8 under ``--quant int8``, the UNet's
+    transformers under ``--quant_depth int8``).  A missing or unloadable T5 /
+    tokenizer or DepthCrafter raises, unless ``--allow_dev_stubs``: then the
+    pseudo prompt embeddings or the plane depth stand in, with a printed
+    line.  BLIP-2 captions unless ``--prompt`` is given."""
+    stats: dict = {}
+    dtype = torch.bfloat16
+    vae = load_vae(os.path.join(cfg.diffusion.model_name, "vae"), device, dtype, stats)
+    dit = load_dit(cfg.diffusion.transformer_path, device, dtype, quant=cfg.diffusion.quant,
+                   stats=stats)
+    pipeline = TrajCrafterPipeline(vae=vae, transformer=dit, scheduler=DDIMScheduler(),
+                                   dtype=dtype)
+
+    te_path = os.path.join(cfg.diffusion.model_name, "text_encoder")
+    tok_path = os.path.join(cfg.diffusion.model_name, "tokenizer")
+    try:
+        if not os.path.isdir(te_path):
+            raise FileNotFoundError(
+                f"text encoder directory missing: {te_path} -- download the "
+                "CogVideoX-Fun text_encoder/ + tokenizer/ folders")
+        encode_prompt = T5PromptEncoder(load_t5(te_path, device, dtype, stats), T5_TEXT_LEN,
+                                        T5Tokenizer(tok_path))
+    except Exception as e:
+        if not cfg.allow_dev_stubs:
+            raise RuntimeError(
+                f"text encoder/tokenizer unavailable ({e}). Real prompts are "
+                "load-bearing for output quality; pass --allow_dev_stubs to "
+                "run with deterministic pseudo text embeddings instead.") from e
+        print(f"{LOG} text encoder unavailable ({e}); falling back to pseudo-embeddings "
+              "(--allow_dev_stubs)")
+
+        def encode_prompt(prompt, negative):
+            return (_pseudo_text_embeds(prompt or "", T5_TEXT_LEN, T5_TEXT_DIM, device),
+                    _pseudo_text_embeds(negative or "", T5_TEXT_LEN, T5_TEXT_DIM, device))
+
+    try:
+        if not os.path.isdir(cfg.depth.unet_path):
+            raise FileNotFoundError(f"DepthCrafter UNet directory missing: {cfg.depth.unet_path}")
+        depth_infer = load_depthcrafter(cfg, device, dtype, stats)
+    except Exception as e:
+        if not cfg.allow_dev_stubs:
+            raise RuntimeError(
+                f"DepthCrafter unavailable ({e}). Depth drives the warp geometry; pass "
+                "--allow_dev_stubs to run with a constant-plane depth stub instead.") from e
+        print(f"{LOG} DepthCrafter unavailable ({e}); using plane-depth stub "
+              "(--allow_dev_stubs)")
+        depth_infer = _plane_depth_infer
+
+    if cfg.diffusion.prompt:
+        get_caption = lambda frame: cfg.diffusion.prompt
+    else:
+        get_caption = build_captioner(cfg.diffusion.blip_path, device, stats)
+    total = sum(s["bytes"] for s in stats.values())
+    print(f"{LOG} bundle loaded on {device}: {total / 1e9:.2f} GB")
+    return ModelBundle(pipeline=pipeline, depth_infer=depth_infer, encode_prompt=encode_prompt,
+                       get_caption=get_caption, load_stats=stats)
+
+
+def build_models(cfg: TrajCrafterConfig, device="cuda") -> ModelBundle:
+    """The bundle of a run, on ``device`` (the card unless the caller asks
+    for the CPU): loaded from the checkpoint tree at ``--model_name`` when it
+    exists; without one, only ``--allow_dev_stubs`` builds random models at
+    the deployed widths."""
+    check_supported(cfg)
     model_dir = cfg.diffusion.model_name
-    if os.path.isdir(model_dir):
-        raise NotImplementedError(
-            f"checkpoints found at '{model_dir}', but checkpoint loading is not ported "
-            "yet (ROADMAP queue 1 item 1)")
-    if not cfg.allow_dev_stubs:
+    exists = os.path.isdir(model_dir)
+    if not exists and not cfg.allow_dev_stubs:
         raise FileNotFoundError(
             f"model checkpoints not found at '{model_dir}'; pass --allow_dev_stubs to "
             "run randomly initialised models")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available: the deployed-width models are "
-                           "built on the card (build_dev_models makes the tiny CPU stack)")
-    print(f"[trajcrafter-torch] checkpoints not found at {model_dir}; building "
-          "randomly initialised models on cuda (--allow_dev_stubs)")
-    return build_full_scale_models(cfg, "cuda")
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: the models run on the card "
+                           "(pass device='cpu' to build them on the CPU)")
+    if exists:
+        return load_full_bundle(cfg, device)
+    print(f"{LOG} checkpoints not found at {model_dir}; building randomly initialised "
+          f"models on {device} (--allow_dev_stubs)")
+    return build_full_scale_models(cfg, device)
 
 
 # ----------------------------------------------------------------------------
@@ -387,8 +471,9 @@ class TrajCrafter:
         cfg = self.cfg
         with self.timer("read_frames"):
             frames = self._load_frames()
-        prompt = self.models.get_caption(frames[cfg.video_length // 2]) + \
-            cfg.diffusion.refine_prompt
+        with self.timer("caption"):
+            prompt = self.models.get_caption(frames[cfg.video_length // 2]) + \
+                cfg.diffusion.refine_prompt
         with self.timer("depth"):
             depths = self._estimate_depth(frames)
         with self.timer("poses"):
@@ -404,10 +489,10 @@ class TrajCrafter:
                                       ref_slice=slice(0, cfg.diffusion.ref_frames))
 
     def infer_direct(self):
-        raise NotImplementedError("--mode direct is not ported yet (ROADMAP queue 1 item 6)")
+        raise NotImplementedError("--mode direct is not ported yet (ROADMAP queue 1 item 2)")
 
     def infer_bullet(self):
-        raise NotImplementedError("--mode bullet is not ported yet (ROADMAP queue 1 item 6)")
+        raise NotImplementedError("--mode bullet is not ported yet (ROADMAP queue 1 item 2)")
 
     def infer_zoom(self):
-        raise NotImplementedError("--mode zoom is not ported yet (ROADMAP queue 1 item 6)")
+        raise NotImplementedError("--mode zoom is not ported yet (ROADMAP queue 1 item 2)")
