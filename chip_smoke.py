@@ -38,6 +38,18 @@ prints no result line):
      Each kernel's launches are counted per stage and held to counts derived
      from the modules; the PSNR and SSIM of A's video against C's are
      printed as information;
+  5b. modes and samplers, on run A's models: run E ``infer_direct`` with
+     DPM++ at 3 steps (step 1 second order; the mp4s drop the 20-frame
+     fly-in: 29, 29, 29, 29 and 57 frames), run F ``infer_bullet`` with
+     Euler A at 2 steps, run G ``infer_zoom`` with PNDM at 4 steps (13 DiT
+     forwards: 12 pseudo-RK calls and one PLMS call), each through
+     ``TrajCrafter``'s entry point with the sampler set in the config and
+     the pipeline's scheduler built from the registry; then Euler and
+     DDIM_Cog at 2 steps through the pipeline on the conditions recorded
+     from run E; launches held to the counts derived from the modules and
+     the scheduler's loop length, stage times and peak memory logged; then
+     one step of each of the six samplers on the card against the same step
+     on the CPU (``SAMPLER_STEP_TOL``);
   6. whole models: the bf16 and int8 DiT (unfused and fused), the DiT on
      ``flash_pv8``, and the bf16 and int8 depth UNet at full width on small
      inputs, kernels against the plain versions;
@@ -960,10 +972,34 @@ def _kernel_counters():
     return [getattr(kernels, name) for name in KERNELS]
 
 
-def run_gradual(tc, run: str, depth_attn: str, dit_attn: str) -> dict:
-    """One ``infer_gradual`` with ``TRAJCRAFTER_DEPTH_ATTN=depth_attn``; the
-    kernel launches of the run, split into the depth stage and the rest (the
-    denoise: no other stage launches a kernel)."""
+def mp4_frame_counts(save_dir) -> tuple:
+    import cv2
+
+    counts = []
+    for name in MP4S:
+        path = Path(save_dir) / name
+        if not path.is_file() or path.stat().st_size == 0:
+            raise AssertionError(f"missing or empty output {path}")
+        cap = cv2.VideoCapture(str(path))
+        counts.append(int(cap.get(cv2.CAP_PROP_FRAME_COUNT)))
+        cap.release()
+    return tuple(counts)
+
+
+def save_scheme_counts(n: int, save_skip: int = 0) -> tuple:
+    """Frames of input, render, mask, gen and viz (a boomerang) under the
+    save scheme of ``_diffuse_and_save``."""
+    kept = n - save_skip
+    return (kept, kept, kept, kept, 2 * kept - 1)
+
+
+def run_mode(tc, run: str, depth_attn: str, dit_attn: str, mode: str = "gradual",
+             save_skip: int = 0) -> dict:
+    """One ``infer_<mode>`` (``infer_gradual`` unless ``mode`` says otherwise)
+    with ``TRAJCRAFTER_DEPTH_ATTN=depth_attn``; the kernel launches of the
+    run, split into the depth stage and the rest (the denoise: no other
+    stage launches a kernel).  The five mp4s must hold the frame counts of
+    the save scheme with ``save_skip``."""
     import numpy as np
     import torch
 
@@ -995,7 +1031,7 @@ def run_gradual(tc, run: str, depth_attn: str, dit_attn: str) -> dict:
         kern.launches = 0
     t0 = time.perf_counter()
     try:
-        gen = tc.infer_gradual()
+        gen = getattr(tc, f"infer_{mode}")()
         torch.cuda.synchronize()
     finally:
         tc.models.depth_infer = depth_infer
@@ -1004,8 +1040,10 @@ def run_gradual(tc, run: str, depth_attn: str, dit_attn: str) -> dict:
     total = time.perf_counter() - t0
     known_share = seen.pop("mask").float().mean().item()
     launches = {kern.__name__: kern.launches for kern in counters}
-    log(f"run {run}: infer_gradual, --quant {tc.cfg.diffusion.quant}, --quant_depth "
-        f"{tc.cfg.depth.quant}, DiT attention {dit_attn}, depth attention {depth_attn}: "
+    log(f"run {run}: infer_{mode}, --sampler_name {tc.cfg.diffusion.sampler_name} at "
+        f"{tc.cfg.diffusion.num_inference_steps} steps, --quant {tc.cfg.diffusion.quant}, "
+        f"--quant_depth {tc.cfg.depth.quant}, DiT attention {dit_attn}, depth attention "
+        f"{depth_attn}: "
         f"{total:.3f} s, peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for stage, sec in tc.timer.seconds.items():
@@ -1024,10 +1062,10 @@ def run_gradual(tc, run: str, depth_attn: str, dit_attn: str) -> dict:
                              f"[{depth.min()}, {depth.max()}]")
     log(f"  depth {depth.shape} in [{depth.min():.4f}, {depth.max():.4f}], "
         f"median {np.median(depth):.4f}")
-    for name in MP4S:
-        path = Path(cfg.save_dir) / name
-        if not path.is_file() or path.stat().st_size == 0:
-            raise AssertionError(f"missing or empty output {path}")
+    counts = mp4_frame_counts(cfg.save_dir)
+    if counts != save_scheme_counts(cfg.video_length, save_skip):
+        raise AssertionError(f"mp4 frame counts {dict(zip(MP4S, counts))}, expected "
+                             f"{save_scheme_counts(cfg.video_length, save_skip)}")
     expected_shape = (cfg.video_length, *cfg.diffusion.sample_size, 3)
     if gen.shape != expected_shape:
         raise AssertionError(f"gen shape {gen.shape}, expected {expected_shape}")
@@ -1036,7 +1074,8 @@ def run_gradual(tc, run: str, depth_attn: str, dit_attn: str) -> dict:
     if gen.max() == gen.min():
         raise AssertionError("gen is constant")
     log(f"  gen {gen.shape} in [{gen.min():.4f}, {gen.max():.4f}], std {gen.std():.4f}; "
-        f"five mp4s in {cfg.save_dir}; known share of the warp {known_share:.6f}")
+        f"five mp4s in {cfg.save_dir} of {dict(zip(MP4S, counts))} frames; known share of "
+        f"the warp {known_share:.6f}")
     return {"seconds": total, "per_path": per_path, "depth": depth, "gen": gen,
             "known_share": known_share, "stages": dict(tc.timer.seconds)}
 
@@ -1056,26 +1095,37 @@ def _int8_launches_per_forward(model) -> dict:
             "int8_gemm_gelu_quant": fused, "int8_gemm_gscale": fused}
 
 
-def _expected_launches(cfg, dit, unet, depth_kernel: str, dit_kernel: str) -> dict:
-    """{stage: {kernel: launches}} of one ``infer_gradual``: one UNet forward
-    per Euler step and window, one DiT forward (the CFG pair as a batch of
-    2) per denoise step, each launching ``dit_kernel`` once per block and
-    once per Perceiver of ``dit``."""
+def dit_forwards(scheduler, steps: int) -> int:
+    """DiT forwards of one denoise at strength 1, as every ``infer_*`` runs
+    it: the scheduler's loop length (PNDM: 12 RK calls + S - 3)."""
+    return scheduler.num_loop_steps(steps)
+
+
+def _denoise_launches(dit, dit_kernel: str, forwards: int) -> dict:
+    """{kernel: launches} of ``forwards`` DiT forwards (the CFG pair as a
+    batch of 2), each launching ``dit_kernel`` once per block and once per
+    Perceiver of ``dit``."""
+    denoise = {name: 0 for name in KERNELS}
+    denoise[dit_kernel] = forwards * (len(dit.transformer_blocks)
+                                      + len(dit.perceiver_cross_attention or ()))
+    for name, n in _int8_launches_per_forward(dit).items():
+        denoise[name] = n * forwards
+    return denoise
+
+
+def _expected_launches(cfg, scheduler, dit, unet, depth_kernel: str, dit_kernel: str) -> dict:
+    """{stage: {kernel: launches}} of one ``infer_*``: one UNet forward per
+    Euler step and window, and ``dit_forwards`` DiT forwards."""
     from trajectorycrafter_tpu_torch.pipelines.depth import window_starts
 
     windows = len(window_starts(cfg.video_length, cfg.depth.window_size, cfg.depth.overlap))
     unet_forwards = cfg.depth.num_inference_steps * windows
-    dit_forwards = cfg.diffusion.num_inference_steps
     depth = {name: 0 for name in KERNELS}
     depth[depth_kernel] = DEPTH_KERNEL_LAUNCHES_PER_FORWARD * unet_forwards
-    denoise = {name: 0 for name in KERNELS}
-    denoise[dit_kernel] = dit_forwards * (len(dit.transformer_blocks)
-                                          + len(dit.perceiver_cross_attention or ()))
     for name, n in _int8_launches_per_forward(unet).items():
         depth[name] = n * unet_forwards
-    for name, n in _int8_launches_per_forward(dit).items():
-        denoise[name] = n * dit_forwards
-    return {"depth": depth, "denoise": denoise}
+    forwards = dit_forwards(scheduler, cfg.diffusion.num_inference_steps)
+    return {"depth": depth, "denoise": _denoise_launches(dit, dit_kernel, forwards)}
 
 
 def _set_fuse(dit, fuse) -> None:
@@ -1149,8 +1199,9 @@ def phase_main_path():
         _set_fuse(model, fuse)
         set_impl(model, dit_attn)
         try:
-            want = _expected_launches(tc.cfg, model, depth_unet, depth_kernel, dit_kernel)
-            runs[run] = run_gradual(tc, run, depth_attn, dit_attn)
+            want = _expected_launches(tc.cfg, tc.models.pipeline.scheduler, model, depth_unet,
+                                      depth_kernel, dit_kernel)
+            runs[run] = run_mode(tc, run, depth_attn, dit_attn)
         finally:
             _set_fuse(model, None)
             set_impl(model, "auto")
@@ -1169,6 +1220,173 @@ def phase_main_path():
         log(f"gen of run A (int8 DiT) against run {run} ({what}), information only (random "
             f"weights, 2 steps): {json.dumps(quality)}")
     return tc, runs, (dit8, unet8)
+
+
+# Runs E-G of the modes phase: run -> (mode, sampler, denoise steps, save_skip).
+# PNDM needs 4 steps (its pseudo-RK warm-up takes the last 4 timesteps): 13
+# DiT forwards.  DPM++ at 3 steps takes step 1 second order.
+MODE_RUNS = {
+    "E": ("direct", "DPM++", 3, 20),
+    "F": ("bullet", "Euler A", 2, 0),
+    "G": ("zoom", "PNDM", 4, 0),
+}
+# the samplers driven through the pipeline alone, on run E's conditions: steps
+PIPELINE_SAMPLERS = {"Euler": 2, "DDIM_Cog": 2}
+# one sampler step, card vs CPU, fp32: relative to the largest magnitude
+# (the card may fuse a multiply-add or divide by a scalar's reciprocal)
+SAMPLER_STEP_TOL = 1e-5
+LATENT_SHAPE = (1, 13, 48, 84, 16)  # the main path's latents at 384x672
+
+
+class _RecordedPipeline:
+    """The pipeline, with the arguments of each call kept."""
+
+    def __init__(self, pipeline):
+        self.pipeline, self.calls = pipeline, []
+
+    def __getattr__(self, name):
+        return getattr(self.pipeline, name)
+
+    def __call__(self, *args, **kwargs):
+        self.calls.append((args, kwargs))
+        return self.pipeline(*args, **kwargs)
+
+
+def sampler_step(name: str, device: str, draws: list):
+    """One step of sampler ``name`` (entry 3 of 6 steps: DPM++ second order,
+    PNDM the last call of its first RK step) -> every tensor it returns,
+    concatenated."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.schedulers import SCHEDULER_REGISTRY
+    from trajectorycrafter_tpu_torch.schedulers.pndm import PNDMLoopState
+
+    sched = SCHEDULER_REGISTRY[name]()
+    state, i = sched.set_timesteps(6), 3
+    sample, out, extra, ets = (x.to(device) for x in draws)
+    if name == "Euler A":
+        return sched.step(state, out, i, sample, noise=extra)
+    if name == "DPM++":
+        return torch.cat(sched.step(state, out, i, sample, prev_x0=extra, num_steps=6))
+    if name == "PNDM":
+        new, loop = sched.step(state, out, i, sample, PNDMLoopState(ets, i, extra, extra))
+        return torch.cat([new, loop.ets.flatten(0, 1), loop.cur_sample, loop.acc])
+    return sched.step(state, out, i, sample)
+
+
+def sampler_step_draws() -> list:
+    """The seeded fp32 inputs of ``sampler_step``, on the CPU."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    draws = [torch.randn(LATENT_SHAPE, generator=gen) for _ in range(3)]
+    draws.append(torch.randn((4, *LATENT_SHAPE), generator=gen))
+    return draws
+
+
+def sampler_step_error(name: str, draws: list) -> tuple:
+    """``sampler_step`` of ``name`` on the card against the CPU -> (max abs
+    error, scale); the card's step agrees when the error is at most
+    ``SAMPLER_STEP_TOL`` x scale, the largest magnitude involved."""
+    want = sampler_step(name, "cpu", draws)
+    got = sampler_step(name, "cuda", draws)
+    if not got.is_cuda or got.dtype != want.dtype:
+        raise AssertionError(f"sampler {name}: the card's step gave {got.device} {got.dtype}")
+    scale = max(1.0, max(x.abs().max().item() for x in draws), want.abs().max().item())
+    return (got.cpu() - want).abs().max().item(), scale
+
+
+def phase_modes(tc, dit8, runs: dict) -> None:
+    """Runs E-G: ``infer_direct`` (DPM++), ``infer_bullet`` (Euler A) and
+    ``infer_zoom`` (PNDM) through ``TrajCrafter``'s entry points on run A's
+    models (the int8 DiT, the bf16 UNet on ``flash_stock``), each with its
+    sampler set in the config and the pipeline's scheduler built from the
+    registry; then Euler and DDIM_Cog through the pipeline on the
+    conditions recorded from run E (no second depth stage); each with its
+    kernel launches held to the counts derived from the modules and the
+    scheduler's loop length.  Then one step of each of the six samplers on
+    the card against the same step on the CPU.  The runs join ``runs``."""
+    import numpy as np
+    import torch
+
+    from trajectorycrafter_tpu_torch.schedulers import SCHEDULER_REGISTRY
+
+    cfg = tc.cfg
+    pipeline = tc.models.pipeline
+    unet = tc.models.depth_infer.__self__.pipe.unet
+    saved = (pipeline.transformer, pipeline.scheduler, cfg.diffusion.sampler_name,
+             cfg.diffusion.num_inference_steps)
+    pipeline.transformer = dit8
+    recorder = _RecordedPipeline(pipeline)
+    try:
+        for run, (mode, sampler, steps, cut) in MODE_RUNS.items():
+            cfg.diffusion.sampler_name, cfg.diffusion.num_inference_steps = sampler, steps
+            pipeline.scheduler = SCHEDULER_REGISTRY[cfg.diffusion.sampler_name]()
+            want = _expected_launches(cfg, pipeline.scheduler, dit8, unet, "flash_attention",
+                                      "flash_attention")
+            if run == "E":
+                tc.models.pipeline = recorder
+            try:
+                runs[run] = run_mode(tc, run, "flash_stock", "auto", mode=mode,
+                                     save_skip=cut)
+            finally:
+                tc.models.pipeline = pipeline
+            runs[run].pop("gen")
+            if runs[run]["per_path"] != want:
+                raise AssertionError(f"run {run}: kernel launches per stage "
+                                     f"{runs[run]['per_path']}, expected {want}")
+            log(f"  run {run}: {dit_forwards(pipeline.scheduler, steps)} DiT forwards "
+                f"({sampler}, {steps} steps), launches as derived")
+
+        (args, kwargs), = recorder.calls
+        counters = _kernel_counters()
+        for sampler, steps in PIPELINE_SAMPLERS.items():
+            cfg.diffusion.sampler_name = sampler
+            pipeline.scheduler = SCHEDULER_REGISTRY[cfg.diffusion.sampler_name]()
+            pipeline.timer.seconds.clear()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in counters:
+                kern.launches = 0
+            t0 = time.perf_counter()
+            out = pipeline(*args, **{**kwargs, "num_inference_steps": steps,
+                                     "generator": torch.Generator(device="cuda").manual_seed(
+                                         cfg.seed)})
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            launches = {kern.__name__: kern.launches for kern in counters}
+            want = _denoise_launches(dit8, "flash_attention",
+                                     dit_forwards(pipeline.scheduler, steps))
+            log(f"{sampler} through the pipeline on run E's conditions, {steps} steps: "
+                f"{total:.3f} s, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            for stage, sec in pipeline.timer.seconds.items():
+                log(f"  stage {stage}: {sec:.3f} s")
+            log(f"  kernel launches: {json.dumps(launches)}")
+            if launches != want:
+                raise AssertionError(f"{sampler}: kernel launches {launches}, expected {want}")
+            shape = (1, cfg.video_length, *cfg.diffusion.sample_size, 3)
+            if tuple(out.shape) != shape or not torch.isfinite(out).all() or \
+                    out.min() < 0.0 or out.max() > 1.0 or out.max() == out.min():
+                raise AssertionError(f"{sampler}: output {tuple(out.shape)} is not a finite, "
+                                     f"non-constant {shape} video in [0, 1]")
+            log(f"  video {tuple(out.shape)} in [{out.min().item():.4f}, "
+                f"{out.max().item():.4f}], std {out.float().std().item():.4f}")
+            runs[sampler] = {"seconds": total, "stages": dict(pipeline.timer.seconds),
+                             "per_path": {"depth": {name: 0 for name in KERNELS},
+                                          "denoise": launches}}
+        del args, kwargs, out
+        recorder.calls.clear()
+    finally:
+        (pipeline.transformer, pipeline.scheduler, cfg.diffusion.sampler_name,
+         cfg.diffusion.num_inference_steps) = saved
+
+    draws = sampler_step_draws()
+    for name in SCHEDULER_REGISTRY:
+        err, scale = sampler_step_error(name, draws)
+        log(f"sampler {name}: one step on {LATENT_SHAPE}, card vs CPU: max abs err {err:.3e} "
+            f"(limit {SAMPLER_STEP_TOL} x {scale:.3f})")
+        if not np.isfinite(err) or err > SAMPLER_STEP_TOL * scale:
+            raise AssertionError(f"sampler {name}: the card's step disagrees with the CPU's")
 
 
 def phase_whole_models(tc, dit8, unet8):
@@ -1615,8 +1833,9 @@ def phase_checkpoints(tree: dict, runs: dict) -> None:
     models.get_caption = caption
     hook = models.encode_prompt.t5.register_forward_pre_hook(record_ids)
     try:
-        want = _expected_launches(cfg, dit, pipe.unet, "flash_attention", "flash_attention")
-        run = run_gradual(tc, "L (the loaded tree)", "flash_stock", "auto")
+        want = _expected_launches(cfg, tc.models.pipeline.scheduler, dit, pipe.unet,
+                                  "flash_attention", "flash_attention")
+        run = run_mode(tc, "L (the loaded tree)", "flash_stock", "auto")
     finally:
         hook.remove()
         models.get_caption = captioner
@@ -1691,6 +1910,7 @@ def main() -> None:
     int8_err, int8_timing = phase_int8_kernels()
     variant_err, variant_timing = phase_variants()
     tc, runs, (dit8, unet8) = phase_main_path()
+    phase_modes(tc, dit8, runs)
     phase_whole_models(tc, dit8, unet8)
     bench = phase_bench()
 

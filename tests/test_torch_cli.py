@@ -5,21 +5,24 @@ The same option strings, defaults, choices and types; the same config
 (``dataclasses.asdict``) for several command lines; the same ``SystemExit``
 messages from ``validate``; the same arrays from the video functions on the
 repository's test clip and on random frames.  Everything is compared exactly.
-Also: the port's CLI refuses what it does not run yet before it builds a
-model.
+Also: the port's CLI sends each mode through ``build_models`` to its
+``infer_*``.
 """
 
 import dataclasses
+import types
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from trajectorycrafter_tpu import cli as jax_cli
 from trajectorycrafter_tpu import config as jax_config
 from trajectorycrafter_tpu.utils import video as jax_video
 from trajectorycrafter_tpu_torch import cli, config, orchestrator
 from trajectorycrafter_tpu_torch.utils import video
+from trajectorycrafter_tpu_torch.utils.timing import StageTimer
 
 REPO = Path(__file__).resolve().parents[1]
 CLIP = str(REPO / "test/videos/synth.mp4")
@@ -95,24 +98,30 @@ def _refuse_builds(monkeypatch):
         monkeypatch.setattr(orchestrator, name, build)
 
 
-@pytest.mark.parametrize("extra,message", [
-    (["--mode", "direct"], "--mode direct .*ROADMAP queue 1 item 2"),
-    (["--mode", "bullet"], "--mode bullet .*ROADMAP queue 1 item 2"),
-    (["--mode", "zoom"], "--mode zoom .*ROADMAP queue 1 item 2"),
-], ids=["direct", "bullet", "zoom"])
-def test_cli_refuses_what_is_not_ported_before_any_model_is_built(monkeypatch, tmp_path,
-                                                                   extra, message):
-    """The modes the port does not run are refused by
-    ``parse_config`` (``check_supported``), so ``main`` stops before it
-    builds a model."""
-    _refuse_builds(monkeypatch)
+@pytest.mark.parametrize("mode", ["direct", "bullet", "zoom"])
+def test_cli_sends_each_mode_through_build_models_to_its_infer(monkeypatch, tmp_path, mode):
+    """``parse_config`` passes the three modes (``check_supported``), and
+    ``main`` builds the models with the mode's config and calls the mode's
+    ``infer_*`` (the card's check passed, the build and the mode recorded)."""
+    calls = []
+
+    def build(cfg, *args, **kwargs):
+        calls.append(("build_models", cfg.render.mode))
+        pipeline = types.SimpleNamespace(device=torch.device("cpu"), timer=StageTimer("cpu"))
+        return orchestrator.ModelBundle(pipeline=pipeline, depth_infer=None,
+                                        encode_prompt=None, get_caption=None)
+
+    monkeypatch.setattr(orchestrator, "build_models", build)
+    monkeypatch.setattr(cli.torch.cuda, "is_available", lambda: True)
+    for name in ("gradual", "direct", "bullet", "zoom"):
+        monkeypatch.setattr(orchestrator.TrajCrafter, f"infer_{name}",
+                            lambda self, name=name: calls.append(("infer", name)))
     argv = ["--video_path", CLIP, "--traj_txt", TRAJ, "--exp_name", "run",
-            "--out_dir", str(tmp_path / "out"), *extra]
-    with pytest.raises(NotImplementedError, match=message):
-        cli.parse_config(argv)
-    with pytest.raises(NotImplementedError, match=message):
-        cli.main(argv)
-    assert not (tmp_path / "out").exists()
+            "--out_dir", str(tmp_path / "out"), "--mode", mode]
+    assert cli.parse_config(argv).render.mode == mode
+    cli.main(argv)
+    assert calls == [("build_models", mode), ("infer", mode)]
+    assert (tmp_path / "out" / "run").is_dir()
 
 
 def test_cli_passes_the_gradual_mode(monkeypatch):

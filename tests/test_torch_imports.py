@@ -33,7 +33,8 @@ def test_port_modules_import_without_jax():
                  "schedulers.euler", "ops.resize", "ops.int8", "ops.int8_matmul",
                  "ops.attention_variants", "bench_attention", "utils.quality",
                  "utils.checkpoints", "utils.tokenizer", "utils.bpe", "utils.caption",
-                 "models.blip2", "ops.morphology"):
+                 "models.blip2", "ops.morphology", "schedulers", "schedulers.dpm",
+                 "schedulers.pndm", "geometry.warper"):
         assert f"trajectorycrafter_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

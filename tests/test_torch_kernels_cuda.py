@@ -785,3 +785,16 @@ def test_int8_dit_loaded_from_a_tree_launches_the_int8_kernels(gen, tmp_path):
     after = [k.launches for k in (int8_quantize_rows, int8_gemm, flash_attention)]
     assert [a - b0 for a, b0 in zip(after, before)] == [15, 15, 2 + 1]
     assert out.shape == (b, f, h, w, 4) and torch.isfinite(out).all()
+
+
+# The samplers have no kernel: one step of each on the card against the same
+# step on the CPU, from the same fp32 inputs, with chip_smoke.py's helpers
+# and bound (1e-5 of the largest magnitude involved: the card may contract
+# a multiply-add into an FMA and divide by a scalar as a multiply by its
+# reciprocal).
+@pytest.mark.parametrize("name", ["Euler", "Euler A", "DPM++", "PNDM", "DDIM_Cog"])
+def test_sampler_step_on_the_card_matches_the_cpu(gen, name):
+    from chip_smoke import SAMPLER_STEP_TOL, sampler_step_draws, sampler_step_error
+
+    err, scale = sampler_step_error(name, sampler_step_draws())
+    assert err <= SAMPLER_STEP_TOL * scale, (name, err, scale)

@@ -20,7 +20,7 @@ its latents also keep a cosine > 0.99 with the fp32 chain's.
 
 Then a tiny ``infer_gradual`` of the port on the CPU writes all five mp4s,
 with the default ``--quant int8`` and with ``--quant none``, and the entry
-points refuse what the port does not run yet.
+points refuse only an unknown quantization or sampler.
 """
 
 import dataclasses
@@ -40,6 +40,7 @@ from trajectorycrafter_tpu.models.dit import CrossTransformer3DModel as JaxDiT
 from trajectorycrafter_tpu.models.vae import AutoencoderKLCogVideoX as JaxVAE
 from trajectorycrafter_tpu.ops.int8 import quantize_dit_params
 from trajectorycrafter_tpu.pipelines.trajcrafter import TrajCrafterPipeline as JaxPipeline
+from trajectorycrafter_tpu.schedulers import SCHEDULER_REGISTRY as JAX_REGISTRY
 from trajectorycrafter_tpu.schedulers.ddim import DDIMScheduler as JaxDDIM
 from trajectorycrafter_tpu.utils.convert import convert_dit, convert_vae
 from trajectorycrafter_tpu_torch import cli
@@ -49,6 +50,7 @@ from trajectorycrafter_tpu_torch.ops import int8_matmul
 from trajectorycrafter_tpu_torch.ops.int8 import int8_linears, quantize_dit_, quantized_twin
 from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter, build_dev_models, build_models
 from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
+from trajectorycrafter_tpu_torch.schedulers import SCHEDULER_REGISTRY
 from trajectorycrafter_tpu_torch.schedulers.ddim import DDIMScheduler
 from trajectorycrafter_tpu_torch.utils.weights import dit_from_jax, vae_from_jax
 
@@ -103,18 +105,52 @@ def _dynamic_guidance(scale: float, steps: int, t: int) -> float:
     return 1.0 + scale * (1.0 - math.cos(math.pi * ((steps - t) / steps) ** 5.0)) / 2.0
 
 
-@pytest.mark.parametrize("dynamic_cfg,strength", [(False, 1.0), (True, 0.5)],
-                         ids=["static_cfg", "dynamic_cfg_img2img"])
-def test_pipeline_matches_jax(pipelines, dynamic_cfg, strength):
+SAMPLER_CASES = [
+    pytest.param("DDIM_Origin", False, 1.0, 2, id="static_cfg"),
+    pytest.param("DDIM_Origin", True, 0.5, 2, id="dynamic_cfg_img2img"),
+    pytest.param("DDIM_Cog", False, 1.0, 2, id="DDIM_Cog"),
+    pytest.param("Euler", False, 1.0, 2, id="Euler"),
+    pytest.param("Euler A", False, 1.0, 2, id="Euler_A"),
+    pytest.param("DPM++", False, 1.0, 3, id="DPM++"),
+    pytest.param("DPM++", False, 0.5, 6, id="DPM++_img2img"),
+    pytest.param("PNDM", False, 1.0, 4, id="PNDM"),
+]
+
+
+@pytest.mark.parametrize("sampler,dynamic_cfg,strength,steps", SAMPLER_CASES)
+def test_pipeline_matches_jax(pipelines, sampler, dynamic_cfg, strength, steps):
     """With ``use_dynamic_cfg`` the JAX side runs the port's guidance value as
     a static scale: the JAX package evaluates the dynamic-CFG cosine in fp32
     (pipelines/trajcrafter.py:497-499), where its argument pi*((N-t)/N)^5 is
     ~1e13 and fp32 rounding leaves the angle arbitrary, while the port, like
     the reference pipeline's Python math, evaluates it in float64.  At
-    strength 0.5 of 2 steps one step runs, so one static scale is exact."""
+    strength 0.5 of 2 steps one step runs, so one static scale is exact.
+
+    Every sampler of the registry runs with its deployed config: DPM++ at 3
+    steps (the middle one second order) and at strength 0.5 of 6 (steps 3-5:
+    first, second, first order), PNDM at 4 (its 12 pseudo-RK calls and one
+    PLMS call).  Euler and Euler A start from the latents times
+    ``init_noise_sigma`` (~4,096, so ~18,000 at most here), and their first
+    step cancels those down to O(1): a rounding there, where XLA fuses a
+    multiply-add and torch does not, is one fp32 ulp at that magnitude, ~2e-3.
+    Both Euler paths are held to that ulp, relative to the largest magnitude
+    they hold, in the latents and the decoded frames (they differ by ~2e-4).
+    Euler A takes the same ``ancestral_noise_override`` on both sides: the JAX
+    package draws its noise with ``fold_in``, which torch cannot replay."""
     jpipe, tpipe = pipelines
+    jpipe = dataclasses.replace(jpipe, scheduler=JAX_REGISTRY[sampler]())
+    tpipe = dataclasses.replace(tpipe, scheduler=SCHEDULER_REGISTRY[sampler]())
     args, latents, noise = _inputs(0, strength)
-    kw = dict(num_inference_steps=2, strength=strength)
+    kw = dict(num_inference_steps=steps, strength=strength)
+    jkw, tkw = {}, {}
+    if sampler == "Euler A":
+        ancestral = np.random.default_rng(9).standard_normal(
+            (steps, *latents.shape)).astype(np.float32)
+        jkw["ancestral_noise_override"] = jnp.asarray(ancestral)
+        tkw["ancestral_noise_override"] = torch.from_numpy(ancestral)
+    # one fp32 ulp at the largest magnitude the Euler samplers hold
+    sigma_max = tpipe.scheduler.set_timesteps(steps).init_noise_sigma
+    euler_bound = float(np.spacing(np.float32(np.abs(latents).max() * sigma_max)))
     jax_guidance = 6.0
     if dynamic_cfg:
         t = int(DDIMScheduler().set_timesteps(2).timesteps[1])
@@ -124,16 +160,35 @@ def test_pipeline_matches_jax(pipelines, dynamic_cfg, strength):
         want = np.asarray(jpipe(*(jnp.asarray(a) for a in args), key=jax.random.PRNGKey(0),
                                 latents=jnp.asarray(latents), output_type=output_type,
                                 noise_override=tuple(jnp.asarray(n) for n in noise),
-                                guidance_scale=jax_guidance, **kw))
+                                guidance_scale=jax_guidance, **kw, **jkw))
         got = tpipe(*(torch.from_numpy(a) for a in args), latents=torch.from_numpy(latents),
                     output_type=output_type,
                     noise_override=tuple(torch.from_numpy(n) for n in noise),
-                    guidance_scale=6.0, use_dynamic_cfg=dynamic_cfg, **kw).numpy()
-        np.testing.assert_allclose(got, want, **TOL, err_msg=output_type)
+                    guidance_scale=6.0, use_dynamic_cfg=dynamic_cfg, **kw, **tkw).numpy()
+        if sampler.startswith("Euler"):
+            assert np.abs(got - want).max() <= euler_bound, output_type
+        else:
+            np.testing.assert_allclose(got, want, **TOL, err_msg=output_type)
         out[output_type] = got
     assert out["latent"].shape == (1, 3, 4, 6, LC)
     assert out["np"].shape == (1, 9, 32, 48, 3)
     assert 0.0 <= out["np"].min() and out["np"].max() <= 1.0
+
+
+def test_pndm_refuses_img2img_as_jax(pipelines):
+    jpipe, tpipe = pipelines
+    jpipe = dataclasses.replace(jpipe, scheduler=JAX_REGISTRY["PNDM"]())
+    tpipe = dataclasses.replace(tpipe, scheduler=SCHEDULER_REGISTRY["PNDM"]())
+    args, latents, noise = _inputs(0, 0.5)
+    kw = dict(num_inference_steps=4, strength=0.5, output_type="latent")
+    with pytest.raises(NotImplementedError, match="PNDM") as want:
+        jpipe(*(jnp.asarray(a) for a in args), key=jax.random.PRNGKey(0),
+              latents=jnp.asarray(latents), noise_override=tuple(jnp.asarray(n) for n in noise),
+              **kw)
+    with pytest.raises(NotImplementedError, match="PNDM") as got:
+        tpipe(*(torch.from_numpy(a) for a in args), latents=torch.from_numpy(latents),
+              noise_override=tuple(torch.from_numpy(n) for n in noise), **kw)
+    assert str(got.value) == str(want.value)
 
 
 def test_int8_pipeline_matches_jax(pipelines):
@@ -201,17 +256,23 @@ def test_infer_gradual_bf16_writes_five_mp4s(tmp_path):
     assert int8_linears(dit) == 0
 
 
-def test_entry_points_refuse_what_is_not_ported(tmp_path):
-    """int8 runs now (``--quant int8`` is the default); the samplers and
-    modes that are not ported are refused, and so is a quantization the
-    port does not have."""
+def test_entry_points_refuse_only_an_unknown_quant_or_sampler(tmp_path):
+    """Every sampler of the registry and every mode runs now (the modes are
+    driven in tests/test_torch_modes.py); the entry points still refuse a
+    quantization the port does not have and a sampler name it does not
+    know, before any model is built."""
     cfg = _cfg(tmp_path, "--quant", "int8", "--quant_depth", "int8")
     assert build_dev_models(cfg).pipeline.transformer is not None
     cfg.diffusion.quant = "fp8"
     with pytest.raises(NotImplementedError, match="--quant fp8"):
         build_dev_models(cfg)
-    with pytest.raises(NotImplementedError, match="sampler"):
-        build_dev_models(_cfg(tmp_path, "--sampler_name", "Euler"))
+    for sampler in SCHEDULER_REGISTRY:
+        pipeline = build_dev_models(_cfg(tmp_path, "--sampler_name", sampler)).pipeline
+        assert type(pipeline.scheduler) is type(SCHEDULER_REGISTRY[sampler]())
+    cfg = _cfg(tmp_path)
+    cfg.diffusion.sampler_name = "Heun"
+    with pytest.raises(NotImplementedError, match="unknown sampler 'Heun'"):
+        build_dev_models(cfg)
     with pytest.raises(FileNotFoundError, match="--allow_dev_stubs"):
         build_models(_cfg(tmp_path))
     if not torch.cuda.is_available():
@@ -220,11 +281,6 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
     (tmp_path / "no_checkpoints").mkdir()  # a tree that exists is loaded: this one is empty
     with pytest.raises(ValueError, match="vae: checkpoint key set does not match"):
         build_models(_cfg(tmp_path, "--allow_dev_stubs"), device="cpu")
-    cfg = _cfg(tmp_path)
-    tc = TrajCrafter(cfg, models=build_dev_models(cfg, "cpu"))
-    for mode in (tc.infer_direct, tc.infer_bullet, tc.infer_zoom):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mode()
     argv = ["--video_path", str(REPO / "test/videos/synth.mp4"), "--camera", "traj",
             "--traj_txt", str(REPO / "test/trajs/loop1.txt"), "--out_dir", str(tmp_path)]
     if not torch.cuda.is_available():

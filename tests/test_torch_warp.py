@@ -93,3 +93,38 @@ def test_forward_warp_batch_matches_jax(target):
     assert off[both].mean() <= KNIFE_EDGE_MAX, off[both].mean()
     assert np.all(warped[mask == 0] == -1.0)
 
+
+
+def test_forward_warp_batch_with_per_frame_target_intrinsics_matches_jax():
+    """The zoom mode's warp: the source intrinsics of frame 0 for every frame,
+    the target focal ramped per frame (``intrinsics2`` != ``intrinsics1``)."""
+    n, h, w = 3, 24, 40
+    rng = np.random.default_rng(1)
+    frames = rng.uniform(-1, 1, (n, h, w, 3)).astype(np.float32)
+    yy = np.mgrid[0:h, 0:w][0]
+    depths = np.tile((2.0 + 2.0 * yy / h).astype(np.float32), (n, 1, 1))
+    depths += 0.05 * rng.standard_normal(depths.shape).astype(np.float32)
+    poses = generate_traj_specified(default_c2w(), 4.0, 7.0, 0.2, 0.0, 0.0, n + 1)
+    poses[:, 2, 3] += 3.0
+    pose_s, pose_t = poses[:1].repeat(n, 1, 1), poses[1:]
+    k1 = intrinsics_matrix(30.0, w / 2, h / 2)[None].repeat(n, 1, 1)
+    k2 = k1.clone()
+    k2[:, 0, 0] = k2[:, 1, 1] = torch.tensor([33.0, 27.5, 24.0])
+
+    want = [np.asarray(x) for x in jax_forward_warp_batch(
+        *(jnp.asarray(np.asarray(x)) for x in (frames, depths, pose_s, pose_t, k1, k2)))]
+    got = [x.numpy() for x in forward_warp_batch(
+        torch.from_numpy(frames), torch.from_numpy(depths), pose_s, pose_t, k1, k2)]
+    same_k = forward_warp_batch(torch.from_numpy(frames), torch.from_numpy(depths),
+                                pose_s, pose_t, k1)
+    assert np.abs(same_k[3].numpy() - got[3]).max() > 1.0  # the focal moves the flow
+
+    warped, mask, wdepth, flow = got
+    np.testing.assert_allclose(flow, want[3], atol=VALUE_ATOL, rtol=0)
+    disagree = np.mean(mask != want[1])
+    assert disagree <= MASK_DISAGREE_MAX, disagree
+    both = (mask > 0) & (want[1] > 0)
+    assert both.mean() > 0.5
+    off = (np.abs(warped - want[0]).max(-1) > VALUE_ATOL) | (np.abs(wdepth - want[2]) > VALUE_ATOL)
+    assert off[both].mean() <= KNIFE_EDGE_MAX, off[both].mean()
+    assert np.all(warped[mask == 0] == -1.0)

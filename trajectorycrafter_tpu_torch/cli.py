@@ -197,8 +197,9 @@ def validate(cfg: TrajCrafterConfig) -> None:
 
 
 def parse_config(argv=None) -> TrajCrafterConfig:
-    """A validated config from a command line; raises for what the port does
-    not run yet, before anything is built (int8 never becomes bf16)."""
+    """A validated config from a command line; raises for a quantization or
+    sampler the port does not have, before anything is built (int8 never
+    becomes bf16)."""
     cfg = config_from_args(get_parser().parse_args(argv))
     validate(cfg)
     check_supported(cfg)

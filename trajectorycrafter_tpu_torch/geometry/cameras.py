@@ -28,6 +28,15 @@ def intrinsics_matrix(f, cx, cy) -> torch.Tensor:
     return torch.tensor([[f, 0.0, cx], [0.0, f, cy], [0.0, 0.0, 1.0]], dtype=torch.float32)
 
 
+def zoom_intrinsics(f0: float, f1: float, num: int, cx: float, cy: float) -> torch.Tensor:
+    """(num, 3, 3) float32 intrinsics whose focal ramps linearly from f0 to
+    f1 (the dolly zoom): the linspace taken in float64 and rounded once."""
+    K = torch.zeros((num, 3, 3), dtype=torch.float32)
+    K[:, 0, 0] = K[:, 1, 1] = torch.from_numpy(np.linspace(f0, f1, num).astype(np.float32))
+    K[:, 0, 2], K[:, 1, 2], K[:, 2, 2] = cx, cy, 1.0
+    return K
+
+
 def _rot(angle: torch.Tensor, axis: str) -> torch.Tensor:
     """(n,) radians -> (n, 4, 4) rotations about world x or y."""
     c, s = torch.cos(angle), torch.sin(angle)

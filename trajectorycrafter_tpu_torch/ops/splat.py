@@ -95,16 +95,18 @@ def _splat_weights(trans_pos: torch.Tensor, h: int, w: int):
     return fyi, fxi, (py0 * px0, py0 * px1, py1 * px0, py1 * px1)
 
 
-def bilinear_splat(values: torch.Tensor, depth: torch.Tensor, flow: torch.Tensor):
+def bilinear_splat(values: torch.Tensor, depth: torch.Tensor, flow: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None):
     """Softly z-buffered bilinear forward splat of (n, h, w, c) values by
-    (n, h, w, 2) flow -> (weight-normalised values with 0 in holes, mask)."""
+    (n, h, w, 2) flow -> (weight-normalised values with 0 in holes, mask).
+    ``mask`` (n, h, w), 1 = known, weights the source pixels."""
     n, h, w, c = values.shape
     trans_pos = flow + _pixel_grid(h, w, values.device)
     fyi, fxi, slots = _splat_weights(trans_pos, h, w)
 
     log_depth = torch.log1p(depth.clamp(0.0, _DEPTH_SAT))
     log_max = log_depth.flatten(1).amax(dim=1)[:, None, None]
-    base_w = 1.0 / torch.exp(log_depth / log_max * _ZWEIGHT_SCALE)  # (n, h, w)
+    base_w = (1.0 if mask is None else mask) / torch.exp(log_depth / log_max * _ZWEIGHT_SCALE)
 
     # one payload row per source pixel: 4 slots x [values | 1]
     payload = torch.cat([values, torch.ones_like(values[..., :1])], dim=-1)

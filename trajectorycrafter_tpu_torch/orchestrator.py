@@ -1,12 +1,20 @@
-"""TrajCrafter orchestrator for the PyTorch port: the gradual mode end to end.
+"""TrajCrafter orchestrator for the PyTorch port: the four modes end to end.
 
-Counterpart of trajectorycrafter_tpu/orchestrator.py.  ``infer_gradual``
-captions the middle frame (BLIP-2, unless ``--prompt`` is given), reads the
-frames, estimates depth, synthesises the poses, forward-splats the frames
-into the new camera on the device (``--mask``: the holes dilated and
-blanked), resizes the warp outputs there, runs the diffusion pipeline and
-writes the five mp4s (input, render, mask, gen, viz).  The other three modes
-are not ported yet.
+Counterpart of trajectorycrafter_tpu/orchestrator.py.  Each mode reads the
+frames, captions the middle frame (BLIP-2, unless ``--prompt`` is given),
+estimates depth, synthesises the poses, forward-splats frames into the new
+cameras on the device (``--mask``: the holes dilated and blanked), resizes
+the warp outputs there, runs the diffusion pipeline with the
+``--sampler_name`` sampler and writes the five mp4s (input, render, mask,
+gen, viz).  The modes differ in what they warp:
+
+  * ``infer_gradual``: frame k from the anchor camera into camera k;
+  * ``infer_direct``: the camera flies in over the first ``cut`` frames on a
+    frozen first frame, then follows the source delayed by ``cut``; the
+    mp4s drop the fly-in (``_diffuse_and_save(save_skip=cut)``);
+  * ``infer_bullet``: the last frame, frozen, seen from the orbit; the
+    reference frames are the last ones;
+  * ``infer_zoom``: a dolly zoom, the target focal ramped per frame.
 
 ``build_models`` loads the checkpoints of an HF-layout tree
 (``load_full_bundle``, utils/checkpoints.py) onto the card, or onto the CPU
@@ -36,6 +44,7 @@ from trajectorycrafter_tpu_torch.geometry.cameras import (
     default_c2w,
     intrinsics_matrix,
     pose_radius_from_depth,
+    zoom_intrinsics,
 )
 from trajectorycrafter_tpu_torch.geometry.trajectory import (
     generate_traj_specified,
@@ -52,7 +61,7 @@ from trajectorycrafter_tpu_torch.ops.int8 import quantize_depth_unet_, quantize_
 from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
 from trajectorycrafter_tpu_torch.pipelines.depth import DepthCrafterDemo, DepthCrafterPipeline
 from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
-from trajectorycrafter_tpu_torch.schedulers.ddim import DDIMScheduler
+from trajectorycrafter_tpu_torch.schedulers import SCHEDULER_REGISTRY
 from trajectorycrafter_tpu_torch.utils.caption import build_captioner
 from trajectorycrafter_tpu_torch.utils.checkpoints import (
     LOG,
@@ -152,19 +161,15 @@ QUANTS = ("none", "int8")
 
 
 def check_supported(cfg: TrajCrafterConfig) -> None:
-    """Raise for a configuration the port does not run yet, before any model
-    is built."""
+    """Raise for a configuration the port does not run, before any model is
+    built: a quantization other than ``QUANTS`` or an unknown sampler."""
     for flag, quant in (("--quant", cfg.diffusion.quant), ("--quant_depth", cfg.depth.quant)):
         if quant not in QUANTS:
             raise NotImplementedError(f"{flag} {quant} is not ported; the port runs {QUANTS}")
-    if cfg.diffusion.sampler_name != "DDIM_Origin":
+    if cfg.diffusion.sampler_name not in SCHEDULER_REGISTRY:
         raise NotImplementedError(
-            f"sampler {cfg.diffusion.sampler_name!r} is not ported yet (ROADMAP queue 1 "
-            "item 1); DDIM_Origin is")
-    if cfg.render.mode != "gradual":
-        raise NotImplementedError(
-            f"--mode {cfg.render.mode} is not ported yet (ROADMAP queue 1 item 2); "
-            "--mode gradual is")
+            f"unknown sampler {cfg.diffusion.sampler_name!r}; the port runs "
+            f"{sorted(SCHEDULER_REGISTRY)}")
 
 
 @torch.no_grad()
@@ -214,7 +219,7 @@ def build_dev_models(cfg: TrajCrafterConfig, device="cpu", seed: int = 0) -> Mod
         device, torch.float32)
     pipeline = TrajCrafterPipeline(
         vae=random_init_(vae, seed), transformer=quantize_dit(cfg, random_init_(dit, seed + 1)),
-        scheduler=DDIMScheduler(), dtype=torch.float32)
+        scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](), dtype=torch.float32)
 
     def encode_prompt(prompt, negative):
         return (_pseudo_text_embeds(prompt or "", text_len, text_dim, device),
@@ -229,7 +234,8 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
     on ``device`` (the JAX package's full-scale synthetic bundle): the
     CrossTransformer3D DiT (48 heads x 64, 42 layers, text 226 x 4096,
     Perceiver 16 x 128 every 2 blocks) and the CogVideoX VAE ((128, 256,
-    256, 512), 3 layers per block, 16 latent channels) with DDIM_Origin;
+    256, 512), 3 layers per block, 16 latent channels) with the
+    ``--sampler_name`` sampler;
     T5-XXL; DepthCrafter's SVD UNet ((320, 640, 1280, 1280), heads (5, 10,
     20, 20)), SVD VAE and CLIP ViT-H/14.  ``--quant int8`` (the default)
     quantizes the DiT and ``--quant_depth int8`` the UNet's transformers
@@ -247,7 +253,7 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
         use_rotary_positional_embeddings=True, attention_impl=attention_impl), device, dtype)
     pipeline = TrajCrafterPipeline(
         vae=random_init_(vae, seed), transformer=quantize_dit(cfg, random_init_(dit, seed + 1)),
-        scheduler=DDIMScheduler(), dtype=dtype)
+        scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](), dtype=dtype)
     t5 = random_init_(_on_device(T5EncoderModel, device, dtype), seed + 2)
     unet = random_init_(_on_device(UNetSpatioTemporalConditionModel, device, dtype), seed + 3)
     if cfg.depth.quant == "int8":
@@ -273,7 +279,8 @@ def load_full_bundle(cfg: TrajCrafterConfig, device="cuda") -> ModelBundle:
     vae = load_vae(os.path.join(cfg.diffusion.model_name, "vae"), device, dtype, stats)
     dit = load_dit(cfg.diffusion.transformer_path, device, dtype, quant=cfg.diffusion.quant,
                    stats=stats)
-    pipeline = TrajCrafterPipeline(vae=vae, transformer=dit, scheduler=DDIMScheduler(),
+    pipeline = TrajCrafterPipeline(vae=vae, transformer=dit,
+                                   scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](),
                                    dtype=dtype)
 
     te_path = os.path.join(cfg.diffusion.model_name, "text_encoder")
@@ -356,12 +363,17 @@ class TrajCrafter:
         self.timer: StageTimer = self.models.pipeline.timer
 
     # -- pose synthesis --------------------------------------------------
-    def get_poses(self, depths: np.ndarray, num_frames: int):
-        """-> (pose_s, pose_t (n, 4, 4), K (n, 3, 3)), float32 on the host."""
+    def get_poses(self, depths: np.ndarray, num_frames: int, f_new: Optional[float] = None):
+        """-> (pose_s, pose_t (n, 4, 4), K (n, 3, 3)), float32 on the host;
+        with ``f_new`` the focal of K ramps from ``--focal`` to it."""
         cfg = self.cfg
         radius = pose_radius_from_depth(depths[0, 0], cfg.render.radius_scale)
-        K = intrinsics_matrix(cfg.render.focal, cfg.render.cx, cfg.render.cy)
-        K = K[None].repeat(num_frames, 1, 1)
+        if f_new is not None:
+            K = zoom_intrinsics(cfg.render.focal, f_new, num_frames, cfg.render.cx,
+                                cfg.render.cy)
+        else:
+            K = intrinsics_matrix(cfg.render.focal, cfg.render.cx, cfg.render.cy)
+            K = K[None].repeat(num_frames, 1, 1)
         c2w0 = default_c2w()
         if cfg.render.camera == "target":
             dtheta, dphi, dr, dx, dy = cfg.render.target_pose
@@ -420,24 +432,32 @@ class TrajCrafter:
         return torch.randn(shape, generator=gen).permute(0, 1, 3, 4, 2)
 
     def _diffuse_and_save(self, frames, cond_video, cond_masks, prompt,
-                          ref_slice=slice(0, None)):
+                          ref_slice=slice(0, None), save_skip: int = 0):
         """Resize the frames to sample_size, save input/render/mask, run the
         diffusion pipeline, save gen and viz.
 
         frames: (F, H, W, 3) in [0, 1] at the warp size; cond_video
         (F, hs, ws, 3) and cond_masks (F, hs, ws) already at sample_size.
+
+        ``save_skip`` is the direct mode's saving scheme: render, mask and
+        gen drop the first ``save_skip`` frames (the camera's fly-in), input
+        keeps the first ``F - save_skip`` source frames, and viz pairs
+        input[k] with gen[save_skip + k], which was generated from source
+        frame k.
         """
         cfg = self.cfg
         hs, ws = cfg.diffusion.sample_size
         device = self.device
+        f = frames.shape[0]
         frames_s = np.stack([cv2.resize(np.asarray(fr, np.float32), (ws, hs),
                                         interpolation=cv2.INTER_LINEAR) for fr in frames])
         os.makedirs(cfg.save_dir, exist_ok=True)
         # the condition mp4s encode on background threads during diffusion
         saves = VideoSaveQueue()
-        saves.save(frames_s, os.path.join(cfg.save_dir, "input.mp4"), fps=cfg.fps)
-        saves.save(cond_video, os.path.join(cfg.save_dir, "render.mp4"), fps=cfg.fps)
-        saves.save(np.repeat(cond_masks[..., None], 3, -1),
+        saves.save(frames_s[:f - save_skip], os.path.join(cfg.save_dir, "input.mp4"),
+                   fps=cfg.fps)
+        saves.save(cond_video[save_skip:], os.path.join(cfg.save_dir, "render.mp4"), fps=cfg.fps)
+        saves.save(np.repeat(cond_masks[save_skip:, ..., None], 3, -1),
                    os.path.join(cfg.save_dir, "mask.mp4"), fps=cfg.fps)
 
         with self.timer("prompt_encode"):
@@ -450,7 +470,7 @@ class TrajCrafter:
             guidance_scale=cfg.diffusion.guidance_scale,
             use_dynamic_cfg=cfg.diffusion.use_dynamic_cfg,
             generator=torch.Generator(device=device).manual_seed(cfg.seed),
-            latents=self._initial_latents(frames.shape[0]),
+            latents=self._initial_latents(f),
             noise_aug_strength=cfg.diffusion.noise_aug_strength,
         )
         with self.timer("write_mp4"):
@@ -458,16 +478,18 @@ class TrajCrafter:
             gen = torch.round(sample[0].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
             gen = gen.cpu().numpy().astype(np.float32) / 255.0
             saves.join()
-            save_video(gen, os.path.join(cfg.save_dir, "gen.mp4"), fps=cfg.fps)
+            save_video(gen[save_skip:], os.path.join(cfg.save_dir, "gen.mp4"), fps=cfg.fps)
             # side-by-side viz with a boomerang reverse
-            gap = np.ones((frames_s.shape[0], hs, 30, 3), np.float32)
-            viz = np.concatenate([frames_s, gap, gen], axis=2)
+            left, right = frames_s[:f - save_skip], gen[save_skip:]
+            gap = np.ones((left.shape[0], hs, 30, 3), np.float32)
+            viz = np.concatenate([left, gap, right], axis=2)
             viz = np.concatenate([viz, viz[::-1][1:]], axis=0)
             save_video(viz, os.path.join(cfg.save_dir, "viz.mp4"), fps=cfg.fps * 2)
         return gen
 
     # -- the modes -----------------------------------------------------------
-    def infer_gradual(self):
+    def _frames_prompt_depths(self):
+        """The stages every mode opens with: frames, caption, depth."""
         cfg = self.cfg
         with self.timer("read_frames"):
             frames = self._load_frames()
@@ -476,23 +498,80 @@ class TrajCrafter:
                 cfg.diffusion.refine_prompt
         with self.timer("depth"):
             depths = self._estimate_depth(frames)
+        return frames, prompt, depths
+
+    def _warp(self, frames_pm1, depths, pose_s, pose_t, K1, K2=None):
+        """Splat on the device, fetch the conditions at sample_size (host
+        arrays) -> (cond_video, cond_masks)."""
+        to_dev = lambda x: None if x is None else x.to(self.device)
+        warped, masks, _, _ = forward_warp_batch(
+            frames_pm1, depths, to_dev(pose_s), to_dev(pose_t), to_dev(K1), to_dev(K2),
+            use_mask_clean=self.cfg.render.mask)
+        return self._fetch_cond(warped, masks)
+
+    def _device_depths(self, depths: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(depths[:, 0]).to(self.device)
+
+    def infer_gradual(self):
+        cfg = self.cfg
+        frames, prompt, depths = self._frames_prompt_depths()
         with self.timer("poses"):
             pose_s, pose_t, K = self.get_poses(depths, cfg.video_length)
         with self.timer("warp"):
-            to_dev = lambda x: x.to(self.device)
-            warped, masks, _, _ = forward_warp_batch(
-                self._device_frames_pm1(frames), to_dev(torch.from_numpy(depths[:, 0])),
-                to_dev(pose_s), to_dev(pose_t), to_dev(K), use_mask_clean=cfg.render.mask)
-            cond_s, masks_s = self._fetch_cond(warped, masks)
-            warped = masks = None
+            cond_s, masks_s = self._warp(self._device_frames_pm1(frames),
+                                         self._device_depths(depths), pose_s, pose_t, K)
         return self._diffuse_and_save(frames, cond_s, masks_s, prompt,
                                       ref_slice=slice(0, cfg.diffusion.ref_frames))
 
-    def infer_direct(self):
-        raise NotImplementedError("--mode direct is not ported yet (ROADMAP queue 1 item 2)")
+    def infer_direct(self, cut: int = 20):
+        """The camera flies in over ``cut`` frames (clamped to [1, F // 2])
+        on the frozen first frame, then follows the source delayed by
+        ``cut``; returns the whole generated clip."""
+        cfg = self.cfg
+        n = cfg.video_length
+        cut = max(1, min(cut, n // 2))
+        frames, prompt, depths = self._frames_prompt_depths()
+        with self.timer("poses"):
+            pose_s, pose_t, K = self.get_poses(depths, cut)
+            # freeze-then-follow schedule of source and target frames
+            src_idx = torch.tensor([0 if i < cut else i - cut for i in range(n)])
+            tgt_idx = torch.tensor([i if i < cut else cut - 1 for i in range(n)])
+        with self.timer("warp"):
+            # the source frames gathered on the device
+            dev_idx = src_idx.to(self.device)
+            cond_s, masks_s = self._warp(
+                self._device_frames_pm1(frames)[dev_idx], self._device_depths(depths)[dev_idx],
+                pose_s[:1].repeat(n, 1, 1), pose_t[tgt_idx], K[:1].repeat(n, 1, 1))
+        return self._diffuse_and_save(frames, cond_s, masks_s, prompt,
+                                      ref_slice=slice(0, cfg.diffusion.ref_frames),
+                                      save_skip=cut)
 
     def infer_bullet(self):
-        raise NotImplementedError("--mode bullet is not ported yet (ROADMAP queue 1 item 2)")
+        """The last frame, frozen, seen from every camera of the orbit."""
+        cfg = self.cfg
+        n = cfg.video_length
+        frames, prompt, depths = self._frames_prompt_depths()
+        with self.timer("poses"):
+            pose_s, pose_t, K = self.get_poses(depths, n)
+        with self.timer("warp"):
+            cond_s, masks_s = self._warp(
+                self._device_frames_pm1(frames[-1:]).repeat(n, 1, 1, 1),
+                self._device_depths(depths[-1:]).repeat(n, 1, 1),
+                pose_s[:1].repeat(n, 1, 1), pose_t, K[:1].repeat(n, 1, 1))
+        return self._diffuse_and_save(frames, cond_s, masks_s, prompt,
+                                      ref_slice=slice(-cfg.diffusion.ref_frames, None))
 
-    def infer_zoom(self):
-        raise NotImplementedError("--mode zoom is not ported yet (ROADMAP queue 1 item 2)")
+    def infer_zoom(self, f_new: float = 250.0):
+        """A dolly zoom: the source intrinsics stay at frame 0's, the target
+        focal ramps from ``--focal`` to ``f_new``."""
+        cfg = self.cfg
+        n = cfg.video_length
+        frames, prompt, depths = self._frames_prompt_depths()
+        with self.timer("poses"):
+            pose_s, pose_t, K = self.get_poses(depths, n, f_new=f_new)
+        with self.timer("warp"):
+            cond_s, masks_s = self._warp(self._device_frames_pm1(frames),
+                                         self._device_depths(depths), pose_s, pose_t,
+                                         K[:1].repeat(n, 1, 1), K)
+        return self._diffuse_and_save(frames, cond_s, masks_s, prompt,
+                                      ref_slice=slice(0, cfg.diffusion.ref_frames))

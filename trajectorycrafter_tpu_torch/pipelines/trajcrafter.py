@@ -3,8 +3,16 @@
 Counterpart of trajectorycrafter_tpu/pipelines/trajcrafter.py
 ``TrajCrafterPipeline``: condition prep (VAE encodes of the reference clip
 and the masked warped video, latent-space mask resize, noise aug), the CFG
-denoise loop as a plain Python loop, and the VAE decode.  The CFG pair rides
-the batch axis (uncond first, then cond).
+denoise loop as a plain Python loop over any of the six samplers
+(schedulers/__init__.py), and the VAE decode.  The CFG pair rides the batch
+axis (uncond first, then cond).
+
+The loop is generic as the JAX package's ``_denoise_chunk_jit``: the model
+input is ``scheduler.scale_model_input`` of the CFG-doubled latents (Euler
+divides by sqrt(sigma^2 + 1)); PNDM runs ``num_loop_steps`` entries and
+carries its loop state; DPM++ carries the previous x0; Euler A draws its
+per-step noise from the pipeline's ``torch.Generator``, or takes it from
+``ancestral_noise_override`` (S, *latents), indexed by absolute step.
 
 Inputs are channel-last tensors on the pipeline's device: video
 (B, F, H, W, 3) in [0, 1], mask_video (B, F, H, W, 1) in [0, 255] where 255
@@ -29,7 +37,12 @@ from trajectorycrafter_tpu_torch.models.vae import (
     vae_encode,
 )
 from trajectorycrafter_tpu_torch.ops.rope import rope_for_sample
-from trajectorycrafter_tpu_torch.schedulers.ddim import DDIMScheduler
+from trajectorycrafter_tpu_torch.schedulers import (
+    DPMSolverMultistepScheduler,
+    EulerAncestralDiscreteScheduler,
+    PNDMScheduler,
+    Scheduler,
+)
 from trajectorycrafter_tpu_torch.utils.timing import StageTimer
 
 
@@ -50,7 +63,7 @@ def resize_mask_latent(mask: torch.Tensor, latent_shape: Tuple[int, int, int]) -
 class TrajCrafterPipeline:
     vae: AutoencoderKLCogVideoX
     transformer: CrossTransformer3DModel
-    scheduler: DDIMScheduler
+    scheduler: Scheduler
     vae_scale_factor_spatial: int = 8
     vae_scale_factor_temporal: int = 4
     dtype: torch.dtype = torch.bfloat16
@@ -121,6 +134,56 @@ class TrajCrafterPipeline:
         return inpaint_latents.to(self.dtype), ref_latents.to(self.dtype)
 
     # ------------------------------------------------------------------
+    def _model_call(self, state, latents, i, text, inpaint_in, ref_in, rope,
+                    num_inference_steps, guidance_scale, do_cfg, use_dynamic_cfg):
+        """The CFG-combined model output at loop entry ``i``."""
+        lat_in = torch.cat([latents] * 2, dim=0) if do_cfg else latents
+        lat_in = self.scheduler.scale_model_input(state, lat_in, i)
+        t = float(state.timesteps[i])
+        tvec = torch.full((lat_in.shape[0],), t, device=latents.device)
+        noise_pred = self.transformer(
+            lat_in.to(self.dtype), text, tvec, inpaint_latents=inpaint_in,
+            cross_latents=ref_in, image_rotary_emb=rope,
+        ).float()
+        if not do_cfg:
+            return noise_pred
+        uncond, cond = noise_pred.chunk(2, dim=0)
+        g = guidance_scale
+        if use_dynamic_cfg:  # cosine-power dynamic CFG, in float64
+            g = 1.0 + guidance_scale * (
+                (1.0 - math.cos(math.pi * ((num_inference_steps - t)
+                                           / num_inference_steps) ** 5.0)) / 2.0)
+        return uncond + g * (cond - uncond)
+
+    def _denoise(self, state, latents, text, inpaint_in, ref_in, rope, num_inference_steps,
+                 t_start, guidance_scale, do_cfg, use_dynamic_cfg, generator,
+                 ancestral_noise_override):
+        """The sampling loop from entry ``t_start`` to ``num_loop_steps``."""
+        sched = self.scheduler
+        loop = sched.init_loop_state(latents) if isinstance(sched, PNDMScheduler) else None
+        prev_x0 = None
+        for i in range(t_start, sched.num_loop_steps(num_inference_steps)):
+            noise_pred = self._model_call(state, latents, i, text, inpaint_in, ref_in, rope,
+                                          num_inference_steps, guidance_scale, do_cfg,
+                                          use_dynamic_cfg)
+            if isinstance(sched, PNDMScheduler):
+                latents, loop = sched.step(state, noise_pred, i, latents, loop)
+            elif isinstance(sched, DPMSolverMultistepScheduler):
+                latents, prev_x0 = sched.step(state, noise_pred, i, latents, prev_x0=prev_x0,
+                                              num_steps=num_inference_steps,
+                                              first_index=t_start)
+            elif isinstance(sched, EulerAncestralDiscreteScheduler):
+                if ancestral_noise_override is None:
+                    noise = torch.randn(latents.shape, generator=generator,
+                                        device=latents.device)
+                else:
+                    noise = ancestral_noise_override[i].to(latents.device, torch.float32)
+                latents = sched.step(state, noise_pred, i, latents, noise=noise)
+            else:
+                latents = sched.step(state, noise_pred, i, latents)
+        return latents
+
+    # ------------------------------------------------------------------
     @torch.no_grad()
     def __call__(
         self,
@@ -138,6 +201,7 @@ class TrajCrafterPipeline:
         noise_aug_strength: float = 0.0563,
         output_type: str = "np",
         noise_override: Optional[Tuple] = None,
+        ancestral_noise_override: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Full sampling run; returns (B, F, H, W, 3) video in [0, 1], or the
         final latents (B, F', h, w, C) with ``output_type="latent"``.
@@ -145,7 +209,8 @@ class TrajCrafterPipeline:
         ``strength`` < 1 is img2img: the first ``N - int(N * strength)``
         steps are skipped and the initial latents are the VAE-encoded warped
         video noised to the first kept timestep.  ``latents``, when given, is
-        the initial noise draw.
+        the initial noise draw.  PNDM does not take ``strength`` < 1 (its
+        warm-up cannot skip steps).
         """
         b, f, h, w, _ = video.shape
         f_lat = (f - 1) // self.vae_scale_factor_temporal + 1
@@ -174,6 +239,10 @@ class TrajCrafterPipeline:
         if t_start == 0:
             latents = latents * state.init_noise_sigma
         else:
+            if isinstance(self.scheduler, PNDMScheduler):
+                raise NotImplementedError(
+                    "strength < 1 is not supported with the PNDM sampler "
+                    "(its PRK warmup is incompatible with timestep skipping)")
             with self.timer("vae_encode"):
                 if noise_override is not None and len(noise_override) == 3:
                     vid_noise = noise_override[1].to(device, torch.float32)
@@ -183,7 +252,7 @@ class TrajCrafterPipeline:
                 video_latents = sample_posterior(moments.float(), self.vae.latent_channels,
                                                  noise=vid_noise) * self.vae.scaling_factor
             latents = self.scheduler.add_noise(state, video_latents.float(), latents,
-                                               int(state.timesteps[t_start]))
+                                               state.timesteps[t_start])
         # the conditioning videos are consumed: free them before the denoise
         video = mask_video = reference = None
 
@@ -204,23 +273,9 @@ class TrajCrafterPipeline:
         text = text.to(device, self.dtype)
 
         with self.timer("denoise"):
-            for i in range(t_start, num_inference_steps):
-                lat_in = torch.cat([latents] * 2, dim=0) if do_cfg else latents
-                t = int(state.timesteps[i])
-                tvec = torch.full((lat_in.shape[0],), float(t), device=device)
-                noise_pred = self.transformer(
-                    lat_in.to(self.dtype), text, tvec, inpaint_latents=inpaint_in,
-                    cross_latents=ref_in, image_rotary_emb=rope,
-                ).float()
-                if do_cfg:
-                    uncond, cond = noise_pred.chunk(2, dim=0)
-                    g = guidance_scale
-                    if use_dynamic_cfg:  # cosine-power dynamic CFG
-                        g = 1.0 + guidance_scale * (
-                            (1.0 - math.cos(math.pi * ((num_inference_steps - t)
-                                                       / num_inference_steps) ** 5.0)) / 2.0)
-                    noise_pred = uncond + g * (cond - uncond)
-                latents = self.scheduler.step(state, noise_pred, i, latents)
+            latents = self._denoise(state, latents, text, inpaint_in, ref_in, rope,
+                                    num_inference_steps, t_start, guidance_scale, do_cfg,
+                                    use_dynamic_cfg, generator, ancestral_noise_override)
 
         if output_type == "latent":
             return latents

@@ -2,10 +2,10 @@
 
 Counterpart of trajectorycrafter_tpu/schedulers/betas.py, which cannot be
 imported from here: its package's ``__init__`` imports jax.  Implements
-the beta schedules and the zero-terminal-SNR rescale used by the
-CogVideoX-Fun checkpoints (beta 0.00085->0.012 scaled_linear,
-rescale_betas_zero_snr, v-prediction, trailing spacing).  The SNR shift
-comes with the Cog sampler, which is not ported yet.
+the beta schedules, the CogVideoX SNR shift and the zero-terminal-SNR
+rescale used by the CogVideoX-Fun checkpoints (beta 0.00085->0.012
+scaled_linear, snr_shift_scale 3.0, rescale_betas_zero_snr, v-prediction,
+trailing spacing).
 """
 
 from __future__ import annotations
@@ -33,6 +33,11 @@ def make_betas(
 
         return np.minimum(1 - bar(t + 1) / bar(t), 0.999)
     raise ValueError(f"unknown beta schedule {beta_schedule}")
+
+
+def snr_shift(alphas_cumprod: np.ndarray, snr_shift_scale: float) -> np.ndarray:
+    """CogVideoX SNR shift: abar <- abar / (s - (s-1) * abar)."""
+    return alphas_cumprod / (snr_shift_scale - (snr_shift_scale - 1.0) * alphas_cumprod)
 
 
 def rescale_zero_terminal_snr(alphas_cumprod: np.ndarray) -> np.ndarray:

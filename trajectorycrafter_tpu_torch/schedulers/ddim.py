@@ -1,17 +1,19 @@
-"""DDIM sampler ('DDIM_Origin', diffusers DDIMScheduler semantics).
+"""DDIM samplers ('DDIM_Origin' and 'DDIM_Cog', diffusers DDIMScheduler
+semantics).
 
-Counterpart of trajectorycrafter_tpu/schedulers/ddim.py ``DDIMScheduler``.
-The per-step coefficients are precomputed on the host at ``set_timesteps``
-into a ``DDIMState`` of numpy arrays; ``step`` is deterministic (eta = 0,
-the reference default) and works in fp32.  Like the JAX package, plain DDIM
-ignores the checkpoint's ``snr_shift_scale`` (only the Cog variant, not
-ported yet, applies it).
+Counterpart of trajectorycrafter_tpu/schedulers/ddim.py ``DDIMScheduler``
+and ``CogVideoXDDIMScheduler``.  The per-step coefficients are precomputed
+on the host at ``set_timesteps`` into a ``DDIMState`` of numpy arrays;
+``step`` is deterministic (eta = 0, the reference default) and works in
+fp32.  Like the JAX package, plain DDIM ignores the checkpoint's
+``snr_shift_scale``; the Cog variant applies it (3.0) before the
+zero-terminal-SNR rescale.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -19,6 +21,7 @@ import torch
 from trajectorycrafter_tpu_torch.schedulers.betas import (
     make_betas,
     rescale_zero_terminal_snr,
+    snr_shift,
     spaced_timesteps,
 )
 
@@ -47,6 +50,7 @@ class DDIMScheduler:
         prediction_type: str = "v_prediction",
         timestep_spacing: str = "trailing",
         rescale_betas_zero_snr: bool = True,
+        snr_shift_scale: Optional[float] = None,  # set by the Cog subclass
     ):
         if prediction_type not in ("epsilon", "v_prediction", "sample"):
             raise ValueError(f"unknown prediction_type {prediction_type!r}")
@@ -59,6 +63,8 @@ class DDIMScheduler:
 
         betas = make_betas(num_train_timesteps, beta_start, beta_end, beta_schedule)
         alphas_cumprod = np.cumprod(1.0 - betas)
+        if snr_shift_scale is not None:
+            alphas_cumprod = snr_shift(alphas_cumprod, snr_shift_scale)
         if rescale_betas_zero_snr:
             alphas_cumprod = rescale_zero_terminal_snr(alphas_cumprod)
         self.alphas_cumprod = alphas_cumprod.astype(np.float32)
@@ -78,6 +84,14 @@ class DDIMScheduler:
             alphas_cumprod=self.alphas_cumprod,
             init_noise_sigma=1.0,
         )
+
+    @staticmethod
+    def num_loop_steps(num_inference_steps: int) -> int:
+        return num_inference_steps
+
+    @staticmethod
+    def scale_model_input(state: DDIMState, sample: torch.Tensor, i: int) -> torch.Tensor:
+        return sample
 
     def _predict_x0_eps(self, a_t: float, model_output, sample):
         b_t = 1.0 - a_t
@@ -105,6 +119,13 @@ class DDIMScheduler:
         return prev.to(sample.dtype)
 
     def add_noise(self, state: DDIMState, original: torch.Tensor, noise: torch.Tensor,
-                  timestep: int) -> torch.Tensor:
-        a = float(state.alphas_cumprod[timestep])
+                  timestep) -> torch.Tensor:
+        a = float(state.alphas_cumprod[int(timestep)])
         return math.sqrt(a) * original + math.sqrt(1.0 - a) * noise
+
+
+class CogVideoXDDIMScheduler(DDIMScheduler):
+    """DDIM with the CogVideoX SNR shift applied to alphas_cumprod."""
+
+    def __init__(self, *args, snr_shift_scale: float = 3.0, **kwargs):
+        super().__init__(*args, snr_shift_scale=snr_shift_scale, **kwargs)
