@@ -50,6 +50,20 @@ prints no result line):
      the scheduler's loop length, stage times and peak memory logged; then
      one step of each of the six samplers on the card against the same step
      on the CPU (``SAMPLER_STEP_TOL``);
+  5c. the long-trajectory and known-camera paths, on run A's models: run H
+     ``TrajCrafterAutoregressive.infer_autoregressive`` (v1: 90 poses in two
+     windows of 49 sharing 8, 2 depth stages, 2 diffusions, 90 frames), run
+     I ``TrajCrafterGlobalPointCloud.infer_autoregressive`` (v2: the clip
+     lifted into a 28.9 M-point cloud on the card, 98 z-buffer renders, the
+     merged 57.8 M-point cloud downsampled to 4 M, the PLY / COLMAP / HTML
+     scene), run J ``CameraPoseTrajCrafter.infer_camera_poses_smooth``
+     between two Panoptic-style cameras with a held-out target video
+     (``metrics.json``); each with its launches held to one depth stage's
+     and one diffusion's derived counts times its stages, finite output in
+     [0, 1] counted in frames, stage times and peak memory logged; then the
+     tiled VAE decode at 49 frames of 576x1024: one tile bit-equal to
+     ``vae_decode``, the JAX default tile and the auto route's strips finite
+     and of the right shape, each timed beside the one-shot decode;
   6. whole models: the bf16 and int8 DiT (unfused and fused), the DiT on
      ``flash_pv8``, and the bf16 and int8 depth UNet at full width on small
      inputs, kernels against the plain versions;
@@ -73,13 +87,20 @@ prints no result line):
      and K1, K2a and K2b must launch the counts derived from the 6-layer DiT;
      the load seconds per family, GB/s, peak memory and the ``caption``
      stage are logged; then BLIP-2 at full depth (39 / 12 / 32 layers,
-     seeded on the card) captions one frame;
+     seeded on the card) captions one frame; then each entry point of
+     ``trajectorycrafter_tpu_torch/scripts/`` once through ``main(argv)`` on
+     the tree at 25 frames (``inference_autoregressive`` and
+     ``autoregressive_global`` with 2 windows, ``run_w_cam_poses --smooth
+     --target_video``,
+     ``inference_orbits --test_run``), each with its launches held to run
+     L's per depth stage and diffusion and its outputs counted;
   9. a JSON line of kernel results, and a final JSON line with the device.
 
 Imports nothing of JAX and nothing of the JAX package: the port holds its
 own config, CLI and video I/O.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -972,18 +993,20 @@ def _kernel_counters():
     return [getattr(kernels, name) for name in KERNELS]
 
 
-def mp4_frame_counts(save_dir) -> tuple:
+def _mp4_frames(path) -> int:
     import cv2
 
-    counts = []
-    for name in MP4S:
-        path = Path(save_dir) / name
-        if not path.is_file() or path.stat().st_size == 0:
-            raise AssertionError(f"missing or empty output {path}")
-        cap = cv2.VideoCapture(str(path))
-        counts.append(int(cap.get(cv2.CAP_PROP_FRAME_COUNT)))
-        cap.release()
-    return tuple(counts)
+    path = Path(path)
+    if not path.is_file() or path.stat().st_size == 0:
+        raise AssertionError(f"missing or empty output {path}")
+    cap = cv2.VideoCapture(str(path))
+    n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    return n
+
+
+def mp4_frame_counts(save_dir) -> tuple:
+    return tuple(_mp4_frames(Path(save_dir) / name) for name in MP4S)
 
 
 def save_scheme_counts(n: int, save_skip: int = 0) -> tuple:
@@ -1387,6 +1410,281 @@ def phase_modes(tc, dit8, runs: dict) -> None:
             f"(limit {SAMPLER_STEP_TOL} x {scale:.3f})")
         if not np.isfinite(err) or err > SAMPLER_STEP_TOL * scale:
             raise AssertionError(f"sampler {name}: the card's step disagrees with the CPU's")
+
+
+# Runs H-J of phase 5c (the long-trajectory and known-camera paths), on run
+# A's models: the trajectory of H and I, 2 x (49 - 8) + 8 = 90 poses in the
+# windows [0, 48] and [41, 89]: 2 depth stages and 2 diffusions each.
+LONG_RUN = dict(n_splits=2, overlap_frames=8, theta=30.0)
+LONG_FRAMES = 2 * (49 - 8) + 8
+MAX_POINTS = 4_000_000  # v2's default cloud limit
+# Phase 8's scripts read 25 frames of the clip (one depth window and 2 x 25
+# x 576 x 1024 = 29.5 M merged points still; the launches per depth stage
+# and per DiT forward do not depend on the frame count): runs H-J drive the
+# same classes at 49 frames, and the cut keeps the smoke near 600 s.
+SCRIPT_FRAMES = 25
+# run J's two Panoptic-style cameras (t in cm), at the warp size's intrinsics
+PANOPTIC_CAMERAS = [
+    {"name": "00_00", "K": [[500.0, 0.0, 512.0], [0.0, 500.0, 288.0], [0.0, 0.0, 1.0]],
+     "R": [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], "t": [[0.0], [0.0], [0.0]],
+     "distCoef": [0.0, 0.0, 0.0, 0.0, 0.0]},
+    {"name": "00_01", "K": [[520.0, 0.0, 500.0], [0.0, 520.0, 290.0], [0.0, 0.0, 1.0]],
+     "R": [[0.98481, 0.0, 0.17365], [0.0, 1.0, 0.0], [-0.17365, 0.0, 0.98481]],
+     "t": [[30.0], [0.0], [5.0]], "distCoef": [0.0, 0.0, 0.0, 0.0, 0.0]},
+]
+# the tiled-decode check: the latents of 49 frames at 576x1024, and the
+# tilings -- one tile as large as the frame (no overlap), the JAX default
+# tile, the auto route's strips
+TILED_LATENTS = (1, 13, 72, 128, 16)
+TILINGS = {"one_tile": (72, 128, 0.0, 0.0), "jax_default": (30, 45, 1.0 / 6.0, 1.0 / 5.0),
+           "strips": (24, 128, 1.0 / 7.0, 0.0)}
+
+
+@contextlib.contextmanager
+def counted_depth(models=None):
+    """Within the block, each depth stage's kernel launches add into the
+    yielded {kernel: launches} and its outputs join ``["outputs"]``: through
+    ``models.depth_infer`` when ``models`` is given, else through every
+    ``DepthCrafterDemo`` built inside the block."""
+    import numpy as np
+
+    from trajectorycrafter_tpu_torch.pipelines.depth import DepthCrafterDemo
+
+    counters = _kernel_counters()
+    seen = {"launches": {kern.__name__: 0 for kern in counters}, "outputs": []}
+
+    def wrap(infer):
+        def counted(*args, **kwargs):
+            before = [kern.launches for kern in counters]
+            out = infer(*args, **kwargs)
+            for kern, b0 in zip(counters, before):
+                seen["launches"][kern.__name__] += kern.launches - b0
+            seen["outputs"].append((out.shape, float(out.min()), float(out.max()),
+                                    bool(np.isfinite(out).all())))
+            return out
+        return counted
+
+    if models is not None:
+        infer = models.depth_infer
+        models.depth_infer = wrap(infer)
+    else:
+        infer = DepthCrafterDemo.infer
+        DepthCrafterDemo.infer = lambda self, *a, **kw: wrap(infer.__get__(self))(*a, **kw)
+    try:
+        yield seen
+    finally:
+        if models is not None:
+            models.depth_infer = infer
+        else:
+            DepthCrafterDemo.infer = infer
+
+
+def drive(run: str, fn, models=None) -> dict:
+    """Run ``fn()`` with every kernel count set to 0 just before and read just
+    after, split into the depth stages (``counted_depth``) and the rest (the
+    denoise: no other stage launches a kernel) -> {"out", "seconds",
+    "per_path", "depth_outputs", "peak_gib"}."""
+    import torch
+
+    counters = _kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    with counted_depth(models) as seen:
+        for kern in counters:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {kern.__name__: kern.launches for kern in counters}
+    depth = seen["launches"]
+    per_path = {"depth": depth, "denoise": {n: launches[n] - depth[n] for n in launches}}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"run {run}: {seconds:.3f} s, peak device memory {peak:.2f} GiB")
+    log(f"  kernel launches per stage: {json.dumps(per_path)}")
+    return {"out": out, "seconds": seconds, "per_path": per_path,
+            "depth_outputs": seen["outputs"], "peak_gib": peak}
+
+
+def _times(launches: dict, k: int) -> dict:
+    return {stage: {name: n * k for name, n in per.items()} for stage, per in launches.items()}
+
+
+def _check_depths(run: str, outputs: list, count: int, cfg) -> None:
+    want = (cfg.video_length, 1, *cfg.warp_size)
+    if len(outputs) != count or any(
+            shape != want or not finite or lo < cfg.render.near or hi > cfg.render.far
+            for shape, lo, hi, finite in outputs):
+        raise AssertionError(f"run {run}: depth stages {outputs}, expected {count} of {want} "
+                             f"finite in [near, far]")
+
+
+def _check_video(run: str, video, frames: int, size) -> None:
+    import numpy as np
+
+    shape = (frames, *size, 3)
+    if video.shape != shape or not np.isfinite(video).all() or video.min() < 0.0 or \
+            video.max() > 1.0 or video.max() == video.min():
+        raise AssertionError(f"run {run}: output {video.shape} is not a finite, non-constant "
+                             f"{shape} video in [0, 1]")
+    log(f"  output {video.shape} in [{video.min():.4f}, {video.max():.4f}], "
+        f"std {video.std():.4f}")
+
+
+def ply_vertices(path) -> int:
+    with open(path) as f:
+        for line in f:
+            if line.startswith("element vertex"):
+                return int(line.split()[-1])
+    raise AssertionError(f"{path} has no vertex count")
+
+
+def _check_scene(run: str, scene: Path, vertices: int, cameras: int) -> None:
+    got = ply_vertices(scene / "points.ply")
+    cams = len((scene / "cameras.txt").read_text().splitlines()) - 1
+    if got != vertices or cams != cameras or not (scene / "viewer.html").stat().st_size or \
+            not (scene / "points3D.txt").stat().st_size:
+        raise AssertionError(f"run {run}: scene of {got} points and {cams} cameras, expected "
+                             f"{vertices} and {cameras}, with the viewer and points3D.txt")
+    log(f"  scene: {got} points (the merged cloud downsampled), {cams} cameras, "
+        f"points.ply {(scene / 'points.ply').stat().st_size / 1e6:.1f} MB, viewer.html "
+        f"{(scene / 'viewer.html').stat().st_size / 1e6:.1f} MB")
+
+
+def phase_long_paths(tc, dit8, runs: dict) -> None:
+    """Runs H-J on run A's models (the int8 DiT, the bf16 UNet on
+    ``flash_stock``): H ``TrajCrafterAutoregressive.infer_autoregressive``, I
+    ``TrajCrafterGlobalPointCloud.infer_autoregressive`` (the default
+    ``max_points``), J ``CameraPoseTrajCrafter.infer_camera_poses_smooth``
+    between two Panoptic-style cameras with a held-out target video; each
+    with its launches held to the counts of one depth stage and one
+    diffusion (``_expected_launches``) times its depth stages and diffusions.
+    Then the tiled VAE decode at 576x1024.  The runs join ``runs``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from trajectorycrafter_tpu_torch.autoregressive import (
+        TrajCrafterAutoregressive,
+        TrajCrafterGlobalPointCloud,
+    )
+    from trajectorycrafter_tpu_torch.known_poses import CameraPoseTrajCrafter, panoptic_to_camera
+
+    cfg = tc.cfg
+    pipeline = tc.models.pipeline
+    unet = tc.models.depth_infer.__self__.pipe.unet
+    saved = pipeline.transformer
+    pipeline.transformer = dit8
+    os.environ["TRAJCRAFTER_DEPTH_ATTN"] = "flash_stock"
+    one = _expected_launches(cfg, pipeline.scheduler, dit8, unet, "flash_attention",
+                             "flash_attention")
+    try:
+        for run, cls in (("H", TrajCrafterAutoregressive), ("I", TrajCrafterGlobalPointCloud)):
+            run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, f"long_{run}"))
+            variant = cls(run_cfg, models=tc.models)
+            variant.timer.seconds.clear()
+            log(f"run {run}: {cls.__name__}.infer_autoregressive({LONG_RUN}), "
+                f"{LONG_FRAMES} poses in 2 windows")
+            r = drive(run, lambda: variant.infer_autoregressive(**LONG_RUN), tc.models)
+            for stage, sec in variant.timer.seconds.items():
+                log(f"  stage {stage}: {sec:.3f} s")
+            _check_depths(run, r["depth_outputs"], 2, run_cfg)
+            _check_video(run, r.pop("out"), LONG_FRAMES, cfg.diffusion.sample_size)
+            counts = mp4_frame_counts(run_cfg.save_dir)
+            if counts != save_scheme_counts(cfg.video_length):
+                raise AssertionError(f"run {run}: mp4 frame counts {counts}")
+            if run == "I":
+                _check_scene(run, Path(run_cfg.save_dir) / "scene", MAX_POINTS, LONG_FRAMES)
+            runs[run] = {**r, "stages": dict(variant.timer.seconds)}
+            if r["per_path"] != _times(one, 2):
+                raise AssertionError(f"run {run}: kernel launches per stage {r['per_path']}, "
+                                     f"expected {_times(one, 2)}")
+
+        # J: the smooth camera fly between two calibrated cameras
+        run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, "known_J"))
+        variant = CameraPoseTrajCrafter(run_cfg, models=tc.models)
+        variant.timer.seconds.clear()
+        src, tgt = (panoptic_to_camera(c) for c in PANOPTIC_CAMERAS)
+        frames = variant._load_frames()
+        held_out = np.ascontiguousarray(frames[:, :, ::-1])  # a stand-in target view
+        log("run J: CameraPoseTrajCrafter.infer_camera_poses_smooth between two Panoptic "
+            "cameras, depth estimated, a held-out target video")
+        r = drive("J", lambda: variant.infer_camera_poses_smooth(
+            frames, None, src, tgt, target_frames=held_out), tc.models)
+        for stage, sec in variant.timer.seconds.items():
+            log(f"  stage {stage}: {sec:.3f} s")
+        gen, metrics = r.pop("out")
+        _check_depths("J", r["depth_outputs"], 1, run_cfg)
+        _check_video("J", gen, cfg.video_length, cfg.diffusion.sample_size)
+        written = json.loads((Path(run_cfg.save_dir) / "metrics.json").read_text())
+        if written["metrics"] != metrics["metrics"] or not all(
+                np.isfinite(v) for v in metrics["metrics"].values()):
+            raise AssertionError(f"run J: metrics {metrics['metrics']}, written {written}")
+        log(f"  metrics.json (information, random weights): {json.dumps(metrics['metrics'])}")
+        runs["J"] = {**r, "stages": dict(variant.timer.seconds)}
+        if r["per_path"] != one:
+            raise AssertionError(f"run J: kernel launches per stage {r['per_path']}, "
+                                 f"expected {one}")
+    finally:
+        pipeline.transformer = saved
+        del os.environ["TRAJCRAFTER_DEPTH_ATTN"]
+    phase_tiled_decode(pipeline.vae)
+
+
+def phase_tiled_decode(vae) -> None:
+    """The tiled VAE decode at 49 frames of 576x1024 on the card: one tile as
+    large as the frame bit-equal to ``vae_decode``, the JAX default tile and
+    the auto route's strips finite and of the decode's shape; each decode's
+    time and peak memory beside the one-shot decode's, and the auto route's
+    choice on this card."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.models.vae import (
+        decode_is_tiled,
+        decode_memory_bytes,
+        vae_decode,
+        vae_decode_tiled,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    latents = torch.randn(TILED_LATENTS, generator=gen, device="cuda").to(
+        next(vae.parameters()).dtype)
+    memory = decode_memory_bytes("cuda")
+    tiled = decode_is_tiled(latents.shape, memory)
+    log(f"tiled decode at {TILED_LATENTS}: vae_decode_auto on this card ({memory / 1e9:.1f} GB) "
+        f"picks {'strips' if tiled else 'the one-shot decode'}")
+    if tiled:
+        raise AssertionError("vae_decode_auto tiles 49 frames at 576x1024 on an 80 GB card")
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"  {label}: {seconds:.3f} s, peak {peak:.2f} GiB above the "
+            f"{base / 2**30:.2f} GiB resident")
+        return out
+
+    want = timed("one-shot vae_decode", lambda: vae_decode(vae, latents).float())
+    shape = (1, 49, 576, 1024, 3)
+    if tuple(want.shape) != shape or not torch.isfinite(want).all():
+        raise AssertionError(f"one-shot decode {tuple(want.shape)}")
+    for label, tiling in TILINGS.items():
+        got = timed(f"vae_decode_tiled {label} {tiling}",
+                    lambda: vae_decode_tiled(vae, latents, *tiling))
+        if tuple(got.shape) != shape or not torch.isfinite(got).all():
+            raise AssertionError(f"tiled decode {label}: {tuple(got.shape)}, not finite")
+        if label == "one_tile" and not torch.equal(got, want):
+            raise AssertionError("the tiled decode at one tile is not the one-shot decode")
+        log(f"    max |tiled - one-shot| {(got - want).abs().max().item():.4f} "
+            f"(one tile: bit-equal required)")
+        del got
+    del want, latents
+    torch.cuda.empty_cache()
 
 
 def phase_whole_models(tc, dit8, unet8):
@@ -1842,6 +2140,7 @@ def phase_checkpoints(tree: dict, runs: dict) -> None:
     if run["per_path"] != want:
         raise AssertionError(f"loaded run: kernel launches per stage {run['per_path']}, "
                              f"expected {want}")
+    runs["L"] = {key: run[key] for key in ("seconds", "per_path", "stages")}
     ids = captioner.last_ids
     text = captioner.tokenizer.decode(ids.tolist()).strip()
     if not seen["caption"] or seen["caption"] != text:
@@ -1889,6 +2188,83 @@ def phase_checkpoints(tree: dict, runs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_scripts(tree: dict, runs: dict) -> None:
+    """Each entry point of ``trajectorycrafter_tpu_torch/scripts/`` once,
+    through ``main(argv)`` (its real argument parsing), on the written tree
+    (the 6-layer DiT, BLIP-2 captions, ``--mask``): the launches held to run
+    L's per depth stage and per diffusion times the script's stages, the
+    outputs counted.  The orbit runner catches a variant's failure as the
+    root script does, so its mp4s and launches are what fails it."""
+    import numpy as np
+
+    from trajectorycrafter_tpu_torch.scripts import (
+        autoregressive_global,
+        inference_autoregressive,
+        inference_orbits,
+        run_w_cam_poses,
+    )
+
+    per_l = runs["L"]["per_path"]
+    frames = SCRIPT_FRAMES
+    joined = 2 * (frames - 8) + 8
+    root = tree["root"]
+    # the Panoptic cameras at the clip's native 512 x 288 (the script scales
+    # K to the warp size)
+    calib = [{**c, "K": [[v / 2 for v in row] for row in c["K"][:2]] + [c["K"][2]]}
+             for c in PANOPTIC_CAMERAS]
+    (root / "calib.json").write_text(json.dumps({"cameras": calib}))
+    long = ["--n_splits", "2", "--overlap_frames", "8", "--total_theta", "30"]
+    cut = ["--video_length", str(frames)]
+    scripts = {
+        "inference_autoregressive": (inference_autoregressive, long, 2),
+        "autoregressive_global": (autoregressive_global, long, 2),
+        "run_w_cam_poses": (run_w_cam_poses, [
+            "--calib_json", str(root / "calib.json"), "--source_cam", "00_00",
+            "--target_cam", "00_01", "--smooth", "--target_video", MAIN_ARGV[1]], 1),
+        "inference_orbits": (inference_orbits, ["--test_run"], 1),
+    }
+    for name, (module, extra, stages) in scripts.items():
+        argv = _tree_argv(tree) + ["--exp_name", f"script_{name}"] + cut + extra
+        log(f"script {name}: python -m trajectorycrafter_tpu_torch.scripts.{name} "
+            f"{' '.join(extra)} on the tree")
+        r = drive(f"script {name}", lambda: module.main(argv))
+        save_dir = Path(MAIN_ARGV[MAIN_ARGV.index("--out_dir") + 1]) / f"script_{name}"
+        out = r.pop("out")
+        if name == "run_w_cam_poses":
+            if json.loads((save_dir / "metrics.json").read_text())["metrics"] != \
+                    out["metrics"] or not all(np.isfinite(v) for v in out["metrics"].values()):
+                raise AssertionError(f"{name}: metrics {out}")
+        elif name == "inference_orbits":
+            if out != ["left30"]:
+                raise AssertionError(f"{name}: variants {out}")
+            save_dir = save_dir / "left30"
+        else:
+            _check_video(name, out, joined, (384, 672))
+            video = save_dir / f"{name}.mp4"
+            if name == "inference_autoregressive":
+                video = save_dir / "autoregressive.mp4"
+            if _mp4_frames(video) != joined:
+                raise AssertionError(f"{name}: {video} has {_mp4_frames(video)} frames")
+            if name == "autoregressive_global":
+                _check_scene(name, save_dir / "scene", MAX_POINTS, joined)
+        counts = mp4_frame_counts(save_dir)
+        if counts != save_scheme_counts(frames):
+            raise AssertionError(f"{name}: mp4 frame counts {counts} in {save_dir}")
+        _check_depths(name, r["depth_outputs"], stages, _script_cfg(argv))
+        if r["per_path"] != _times(per_l, stages):
+            raise AssertionError(f"{name}: kernel launches per stage {r['per_path']}, expected "
+                                 f"{_times(per_l, stages)}")
+        log(f"  {name}: launches as derived from run L's, five mp4s in {save_dir}")
+        runs[f"script {name}"] = {key: r[key] for key in ("seconds", "per_path")}
+        gc.collect()
+
+
+def _script_cfg(argv):
+    from trajectorycrafter_tpu_torch.cli import config_from_args, get_parser
+
+    return config_from_args(get_parser().parse_known_args(argv)[0])
+
+
 def _attention_entry(name: str, t: dict, **kw) -> dict:
     """An attention kernel's entry of the kernels JSON line."""
     src = "trajectorycrafter_tpu_torch/csrc/"
@@ -1911,6 +2287,7 @@ def main() -> None:
     variant_err, variant_timing = phase_variants()
     tc, runs, (dit8, unet8) = phase_main_path()
     phase_modes(tc, dit8, runs)
+    phase_long_paths(tc, dit8, runs)
     phase_whole_models(tc, dit8, unet8)
     bench = phase_bench()
 
@@ -1926,6 +2303,7 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         phase_checkpoints(tree, runs)
+        phase_scripts(tree, runs)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -34,7 +34,10 @@ def test_port_modules_import_without_jax():
                  "ops.attention_variants", "bench_attention", "utils.quality",
                  "utils.checkpoints", "utils.tokenizer", "utils.bpe", "utils.caption",
                  "models.blip2", "ops.morphology", "schedulers", "schedulers.dpm",
-                 "schedulers.pndm", "geometry.warper"):
+                 "schedulers.pndm", "geometry.warper", "geometry.pointcloud",
+                 "geometry.interpolate", "utils.export", "autoregressive", "known_poses",
+                 "scripts.inference_autoregressive", "scripts.autoregressive_global",
+                 "scripts.run_w_cam_poses", "scripts.inference_orbits"):
         assert f"trajectorycrafter_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -47,6 +47,11 @@ bounds
 reject an lse in base 2, a dropped clamp, a row sum off by 10%, the last
 quarter of the key blocks skipped and zero-padded keys taken as real ones
 where every score is negative.
+
+The long-trajectory path's device code, which has no kernel of its own:
+the z-buffer render on the card against the CPU's (the warp's bounds; two
+card renders bit-equal), and the tiled VAE decode at one tile bit-equal to
+the one-shot decode.
 """
 
 import math
@@ -798,3 +803,62 @@ def test_sampler_step_on_the_card_matches_the_cpu(gen, name):
 
     err, scale = sampler_step_error(name, sampler_step_draws())
     assert err <= SAMPLER_STEP_TOL * scale, (name, err, scale)
+
+
+# The long-trajectory path's device code without kernels of its own: the
+# z-buffer render (scatter_reduce over pixel bins) on the card against the
+# same render on the CPU, and the tiled VAE decode at one tile against the
+# one-shot decode.  The render holds ties (a clip lifted from one camera
+# over a plane, duplicated points) and is held to tests/test_torch_warp.py's
+# bounds (masks disagree on at most 0.5% of the pixels; colour and depth
+# within 1e-3 where both are known, but on at most 3% of them), and two
+# card renders are bit-equal (the tie rule decides every pixel).
+@pytest.mark.parametrize("point_size", [1, 3])
+def test_zbuffer_render_on_the_card_matches_the_cpu(gen, point_size):
+    from trajectorycrafter_tpu_torch.geometry.pointcloud import (
+        lift_video_to_pointcloud,
+        render_zbuffer,
+    )
+
+    f, h, w = 6, 96, 160
+    g = torch.Generator().manual_seed(1)
+    frames = torch.rand((f, h, w, 3), generator=g)
+    plane = (2.0 + 2.0 * torch.arange(h, dtype=torch.float32) / h)[:, None].expand(h, w)
+    K = torch.tensor([[120.0, 0, w / 2], [0, 120.0, h / 2], [0, 0, 1]])
+    anchor = torch.diag(torch.tensor([-1.0, 1.0, -1.0, 1.0]))
+    pts, cols = lift_video_to_pointcloud(frames, plane.expand(f, h, w).contiguous(),
+                                         K.expand(f, 3, 3), anchor.expand(f, 4, 4))
+    pts = torch.cat([pts, pts[:5000], torch.rand((3000, 3), generator=g) * 4 - 2])
+    cols = torch.cat([cols, torch.rand((8000, 3), generator=g)])
+    w2c = torch.linalg.inv(anchor.clone())
+    w2c[:3, 3] += torch.tensor([0.1, -0.05, 0.2])
+    want = render_zbuffer(pts, cols, K, w2c, h, w, point_size=point_size)
+    got = render_zbuffer(pts.cuda(), cols.cuda(), K.cuda(), w2c.cuda(), h, w,
+                         point_size=point_size)
+    again = render_zbuffer(pts.cuda(), cols.cuda(), K.cuda(), w2c.cuda(), h, w,
+                           point_size=point_size)
+    assert all(x.is_cuda for x in got) and all(torch.equal(a, b) for a, b in zip(got, again))
+    img, depth, mask = (x.cpu() for x in got)
+    assert (mask != want[2]).float().mean() <= 0.005
+    both = (mask > 0) & (want[2] > 0)
+    assert both.float().mean() > 0.3
+    off = ((img - want[0]).abs().amax(-1) > 1e-3) | ((depth - want[1]).abs() > 1e-3)
+    assert off[both].float().mean() <= 0.03
+
+
+def test_tiled_decode_at_one_tile_is_the_one_shot_decode_on_the_card(gen):
+    from trajectorycrafter_tpu_torch.models.vae import (
+        AutoencoderKLCogVideoX,
+        vae_decode,
+        vae_decode_tiled,
+    )
+    from trajectorycrafter_tpu_torch.orchestrator import random_init_
+
+    vae = AutoencoderKLCogVideoX(latent_channels=4, block_out_channels=(8, 16, 16, 32),
+                                 layers_per_block=1, norm_num_groups=4)
+    vae = random_init_(vae.to("cuda", torch.bfloat16).eval(), 0)
+    latents = torch.randn((1, 3, 9, 12, 4), generator=gen, device="cuda").bfloat16()
+    one_shot = vae_decode(vae, latents).float()
+    assert torch.equal(vae_decode_tiled(vae, latents, 9, 12, 0.0, 0.0), one_shot)
+    tiled = vae_decode_tiled(vae, latents, 4, 5, 1.0 / 6.0, 1.0 / 5.0)
+    assert tiled.shape == one_shot.shape and torch.isfinite(tiled).all()

@@ -252,3 +252,87 @@ def test_warper_forward_warp_matches_jax(use_src_mask, mask, twice, zoom):
     assert tuple(Warper.create_grid(2, 24, 40).shape) == tuple(JaxWarper.create_grid(2, 24, 40).shape)
     np.testing.assert_array_equal(Warper.create_grid(2, 24, 40).numpy(),
                                   np.asarray(JaxWarper.create_grid(2, 24, 40)))
+
+
+# ----------------------------------------------------------------------------
+# _diffuse_and_save: the conditions it hands the pipeline
+# ----------------------------------------------------------------------------
+
+
+class _RecordingPipeline:
+    """Records the pipeline's arguments; answers with a seeded video."""
+
+    def __init__(self, device, answer):
+        self.device, self.timer, self.answer, self.calls = device, StageTimer(device), answer, []
+
+    def __call__(self, *args, **kwargs):
+        self.calls.append((args, kwargs))
+        return self.answer
+
+
+def _diffuse_inputs(size, f=9):
+    rng = np.random.default_rng(11)
+    h, w = size
+    frames = rng.uniform(0, 1, (f, 48, 80, 3)).astype(np.float32)
+    cond = rng.uniform(0, 1, (f, h, w, 3)).astype(np.float32)
+    masks = (rng.uniform(size=(f, h, w)) > 0.3).astype(np.float32)
+    return frames, cond, masks
+
+
+def _port_diffuse(tmp_path, frames, cond, masks):
+    cfg = cli.parse_config(_argv(tmp_path, "gradual"))
+    answer = torch.from_numpy(np.random.default_rng(12).uniform(0, 1, (1, 9, 32, 48, 3))
+                              .astype(np.float32))
+    pipeline = _RecordingPipeline(torch.device("cpu"), answer)
+    models = orchestrator.ModelBundle(
+        pipeline=pipeline, depth_infer=None, get_caption=None,
+        encode_prompt=lambda p, n: (torch.zeros(1, 4, 8), torch.ones(1, 4, 8)))
+    tc = TrajCrafter(cfg, models=models)
+    gen = tc._diffuse_and_save(frames, cond, masks, "a scene", ref_slice=slice(0, 5))
+    (args, kwargs), = pipeline.calls
+    return cfg, gen, args, kwargs
+
+
+def test_diffuse_and_save_at_sample_size_is_bit_equal_to_before(tmp_path):
+    """Conditions already at sample_size (the modes' case) reach the
+    pipeline exactly as before the off-size resize existed: the condition
+    video and the 255-valued hole mask as given, the reference frames
+    resized by cv2, the same generated video back."""
+    frames, cond, masks = _diffuse_inputs((32, 48))
+    cfg, gen, args, kwargs = _port_diffuse(tmp_path, frames, cond, masks)
+    frames_s = np.stack([cv2.resize(fr, (48, 32), interpolation=cv2.INTER_LINEAR)
+                         for fr in frames])
+    assert torch.equal(args[2], torch.from_numpy(cond[None]))
+    assert torch.equal(args[3], torch.from_numpy((1.0 - masks)[None, ..., None] * 255.0))
+    assert torch.equal(args[4], torch.from_numpy(frames_s[0:5][None]))
+    answer = np.random.default_rng(12).uniform(0, 1, (9, 32, 48, 3)).astype(np.float32)
+    np.testing.assert_array_equal(gen, np.round(answer * 255.0).astype(np.uint8) / np.float32(255))
+    for name in MP4S:
+        assert (Path(cfg.save_dir) / f"{name}.mp4").stat().st_size > 0
+
+
+def test_diffuse_and_save_resizes_off_size_conditions_as_jax(tmp_path):
+    """Conditions at warp size (the long-trajectory and known-pose paths):
+    the videos by cv2 INTER_LINEAR and the masks by ``resize_nearest``, as
+    the JAX ``_diffuse_and_save`` does -- the pipeline gets the JAX inputs
+    exactly."""
+    frames, cond, masks = _diffuse_inputs((48, 80))
+    _, _, args, _ = _port_diffuse(tmp_path / "port", frames, cond, masks)
+
+    cfg = jax_cli.config_from_args(jax_cli.get_parser().parse_args(_argv(tmp_path / "jax",
+                                                                         "gradual")))
+    seen = []
+
+    def pipeline(*a, **kw):
+        seen.append(a)
+        return jnp.zeros((1, 9, 32, 48, 3))
+
+    models = jax_orchestrator.ModelBundle(
+        pipeline=pipeline, depth_infer=None, get_caption=None,
+        encode_prompt=lambda p, n: (jnp.zeros((1, 4, 8)), jnp.ones((1, 4, 8))))
+    jax_orchestrator.TrajCrafter(cfg, models=models)._diffuse_and_save(
+        frames, cond, masks, "a scene", ref_slice=slice(0, 5))
+    (want,) = seen
+    assert tuple(args[2].shape) == (1, 9, 32, 48, 3) and tuple(args[3].shape) == (1, 9, 32, 48, 1)
+    for got_x, want_x in zip(args[2:5], want[2:5]):
+        np.testing.assert_array_equal(got_x.numpy(), np.asarray(want_x))

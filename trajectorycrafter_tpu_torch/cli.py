@@ -206,10 +206,16 @@ def parse_config(argv=None) -> TrajCrafterConfig:
     return cfg
 
 
-def main(argv=None) -> None:
-    cfg = parse_config(argv)
+def require_card() -> None:
+    """Exit with an error when no CUDA device is available: the entry points
+    run on the card."""
     if not torch.cuda.is_available():
         raise SystemExit("error: no CUDA device is available; the port runs on a CUDA card")
+
+
+def main(argv=None) -> None:
+    cfg = parse_config(argv)
+    require_card()
     os.makedirs(cfg.save_dir, exist_ok=True)
     tc = TrajCrafter(cfg)
     modes = {"gradual": tc.infer_gradual, "direct": tc.infer_direct,

@@ -3,8 +3,8 @@
 Counterpart of trajectorycrafter_tpu/models/vae.py: 4x temporal + 8x8
 spatial compression, 16 latent channels, scaling factor 1.15258426.
 Modules work channels-first (N, C, T, H, W), as ``F.conv3d`` wants; the
-public ``vae_encode`` / ``vae_decode`` keep the JAX package's channel-last
-(B, T, H, W, C).
+public ``vae_encode`` / ``vae_decode`` / ``vae_decode_tiled`` /
+``vae_decode_auto`` keep the JAX package's channel-last (B, T, H, W, C).
 
 Each causal conv takes its streaming cache explicitly: ``forward(x, cache)``
 returns ``(y, new_cache)``, with nested dicts mirroring the module tree, so
@@ -19,6 +19,7 @@ Module and parameter names are the reference checkpoint's
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -349,6 +350,104 @@ def vae_decode(vae: AutoencoderKLCogVideoX, latents: torch.Tensor) -> torch.Tens
     t = z.shape[2]
     first = t if t <= 2 else 2 + t % 2
     return _chunked(vae.decoder, z, first, 2).permute(0, 2, 3, 4, 1)
+
+
+def _blend(a: torch.Tensor, b: torch.Tensor, extent: int, dim: int) -> torch.Tensor:
+    """``b`` with its first ``extent`` rows along ``dim`` ramped linearly in
+    from the last ``extent`` rows of ``a`` (weights arange(extent) / extent);
+    an extent of 0 leaves ``b`` as it is."""
+    extent = min(a.shape[dim], b.shape[dim], extent)
+    if extent == 0:
+        return b
+    shape = [1] * a.ndim
+    shape[dim] = extent
+    ramp = (torch.arange(extent, device=a.device) / extent).reshape(shape)
+    mixed = a.narrow(dim, a.shape[dim] - extent, extent) * (1 - ramp) + \
+        b.narrow(dim, 0, extent) * ramp
+    return torch.cat([mixed, b.narrow(dim, extent, b.shape[dim] - extent)], dim=dim)
+
+
+@torch.no_grad()
+def vae_decode_tiled(vae: AutoencoderKLCogVideoX, latents: torch.Tensor,
+                     tile_latent_height: int = 30, tile_latent_width: int = 45,
+                     overlap_factor_h: float = 1.0 / 6.0,
+                     overlap_factor_w: float = 1.0 / 5.0) -> torch.Tensor:
+    """latents (B, T_lat, h, w, C) -> fp32 video (B, T, 8h, 8w, 3), decoded
+    tile by tile (each tile through ``vae_decode``, its causal chunks
+    included) and blended over the overlaps with linear ramps.
+
+    The arithmetic is the JAX package's (``vae_decode_tiled``, after the
+    reference's ``tiled_decode``): tiles start every int(tile * (1 -
+    overlap)) latent rows / columns, blend over int(8 * tile * overlap)
+    pixels with the tile above and the tile to the left, keep their first
+    8 tile - blend pixels, and the mosaic is cropped to 8h x 8w.  The tiles
+    are taken in fp32 before blending, as JAX promotes a bf16 tile mixed with
+    its fp32 ramp.
+    """
+    b, t, h, w, c = latents.shape
+    stride_h = int(tile_latent_height * (1 - overlap_factor_h))
+    stride_w = int(tile_latent_width * (1 - overlap_factor_w))
+    blend_h_px = int(8 * tile_latent_height * overlap_factor_h)
+    blend_w_px = int(8 * tile_latent_width * overlap_factor_w)
+    row_limit_h = tile_latent_height * 8 - blend_h_px
+    row_limit_w = tile_latent_width * 8 - blend_w_px
+
+    rows = [[vae_decode(vae, latents[:, :, i:i + tile_latent_height,
+                                     j:j + tile_latent_width]).float()
+             for j in range(0, w, stride_w)] for i in range(0, h, stride_h)]
+    out_rows = []
+    for i, row in enumerate(rows):
+        out_row = []
+        for j, tile in enumerate(row):
+            if i > 0:
+                tile = _blend(rows[i - 1][j], tile, blend_h_px, 2)
+            if j > 0:
+                tile = _blend(row[j - 1], tile, blend_w_px, 3)
+            out_row.append(tile[:, :, :row_limit_h, :row_limit_w])
+        out_rows.append(torch.cat(out_row, dim=3))
+    return torch.cat(out_rows, dim=2)[:, :, :h * 8, :w * 8]
+
+
+# Peak-memory model of the one-shot decoder (the JAX package's): the last
+# up-block holds ~3 copies of the (T_px, H, W, 128) bf16 activation plus
+# caches and the output, ~3.5 times that tensor; the one-shot decode runs
+# while the estimate stays under 0.60 of the device's memory.
+_DECODE_PEAK_FACTOR = 128 * 2 * 3.5
+_DECODE_MEMORY_FRACTION = 0.60
+
+
+def decode_memory_bytes(device) -> int:
+    """The memory ``vae_decode_auto`` plans against on ``device``: the card's
+    total memory, or on the CPU the host's physical memory."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def decode_is_tiled(latent_shape: Sequence[int], memory_bytes: int) -> bool:
+    """Whether ``vae_decode_auto`` decodes latents of ``latent_shape`` (B,
+    T_lat, h, w, C) in strips: the one-shot decoder's estimated peak, B x
+    T_px x 8h x 8w x ``_DECODE_PEAK_FACTOR`` bytes, is above 0.60 of
+    ``memory_bytes``."""
+    b, t_lat, h, w = latent_shape[:4]
+    est_peak = b * ((t_lat - 1) * 4 + 1) * (8 * h) * (8 * w) * _DECODE_PEAK_FACTOR
+    return est_peak > _DECODE_MEMORY_FRACTION * memory_bytes
+
+
+@torch.no_grad()
+def vae_decode_auto(vae: AutoencoderKLCogVideoX, latents: torch.Tensor, memory_bytes: int,
+                    strip_height: int = 24) -> torch.Tensor:
+    """Decode in one shot, or, when ``decode_is_tiled`` says the one-shot peak
+    would not fit ``memory_bytes``, in full-width strips of ``strip_height``
+    latent rows blended over 1/7 of a strip (the JAX ``vae_decode_auto``'s
+    rule, chosen before anything runs; the caller passes the memory, e.g.
+    ``decode_memory_bytes(device)``)."""
+    if not decode_is_tiled(latents.shape, memory_bytes):
+        return vae_decode(vae, latents)
+    return vae_decode_tiled(vae, latents, tile_latent_height=strip_height,
+                            tile_latent_width=latents.shape[3],
+                            overlap_factor_h=1.0 / 7.0, overlap_factor_w=0.0)
 
 
 def sample_posterior(moments: torch.Tensor, latent_channels: int,

@@ -58,6 +58,7 @@ from trajectorycrafter_tpu_torch.models.svd_vae import AutoencoderKLTemporalDeco
 from trajectorycrafter_tpu_torch.models.t5 import T5EncoderModel
 from trajectorycrafter_tpu_torch.models.vae import AutoencoderKLCogVideoX
 from trajectorycrafter_tpu_torch.ops.int8 import quantize_depth_unet_, quantize_dit_
+from trajectorycrafter_tpu_torch.ops.resize import resize_nearest
 from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
 from trajectorycrafter_tpu_torch.pipelines.depth import DepthCrafterDemo, DepthCrafterPipeline
 from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
@@ -355,6 +356,16 @@ def build_models(cfg: TrajCrafterConfig, device="cuda") -> ModelBundle:
 # ----------------------------------------------------------------------------
 
 
+def resize_video(video, size) -> np.ndarray:
+    """(F, H, W, 3) frames -> fp32 at ``size`` (height, width) by cv2
+    ``INTER_LINEAR``; frames already at ``size`` are returned as they are."""
+    video = np.asarray(video, np.float32)
+    if video.shape[1:3] == tuple(size):
+        return video
+    return np.stack([cv2.resize(fr, (size[1], size[0]), interpolation=cv2.INTER_LINEAR)
+                     for fr in video])
+
+
 class TrajCrafter:
     def __init__(self, cfg: TrajCrafterConfig, models: Optional[ModelBundle] = None):
         self.cfg = cfg
@@ -433,11 +444,14 @@ class TrajCrafter:
 
     def _diffuse_and_save(self, frames, cond_video, cond_masks, prompt,
                           ref_slice=slice(0, None), save_skip: int = 0):
-        """Resize the frames to sample_size, save input/render/mask, run the
-        diffusion pipeline, save gen and viz.
+        """Resize to sample_size, save input/render/mask, run the diffusion
+        pipeline, save gen and viz.
 
-        frames: (F, H, W, 3) in [0, 1] at the warp size; cond_video
-        (F, hs, ws, 3) and cond_masks (F, hs, ws) already at sample_size.
+        frames and cond_video: (F, H, W, 3) in [0, 1]; cond_masks (F, H, W).
+        Each that is not at sample_size is resized on the host as the JAX
+        package resizes it: the videos with cv2 ``INTER_LINEAR`` on fp32, the
+        masks with ``resize_nearest``; one already at sample_size (the modes'
+        conditions, resized on the card by ``_fetch_cond``) is used as given.
 
         ``save_skip`` is the direct mode's saving scheme: render, mask and
         gen drop the first ``save_skip`` frames (the camera's fly-in), input
@@ -449,8 +463,11 @@ class TrajCrafter:
         hs, ws = cfg.diffusion.sample_size
         device = self.device
         f = frames.shape[0]
-        frames_s = np.stack([cv2.resize(np.asarray(fr, np.float32), (ws, hs),
-                                        interpolation=cv2.INTER_LINEAR) for fr in frames])
+        frames_s = resize_video(frames, (hs, ws))
+        cond_video = resize_video(cond_video, (hs, ws))
+        cond_masks = np.asarray(cond_masks, np.float32)
+        if cond_masks.shape[1:3] != (hs, ws):
+            cond_masks = resize_nearest(torch.from_numpy(cond_masks), (hs, ws)).numpy()
         os.makedirs(cfg.save_dir, exist_ok=True)
         # the condition mp4s encode on background threads during diffusion
         saves = VideoSaveQueue()
@@ -511,6 +528,10 @@ class TrajCrafter:
 
     def _device_depths(self, depths: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(depths[:, 0]).to(self.device)
+
+    def _to_device(self, x) -> torch.Tensor:
+        """A host array to the device as fp32."""
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
 
     def infer_gradual(self):
         cfg = self.cfg

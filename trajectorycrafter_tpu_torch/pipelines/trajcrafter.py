@@ -13,6 +13,9 @@ divides by sqrt(sigma^2 + 1)); PNDM runs ``num_loop_steps`` entries and
 carries its loop state; DPM++ carries the previous x0; Euler A draws its
 per-step noise from the pipeline's ``torch.Generator``, or takes it from
 ``ancestral_noise_override`` (S, *latents), indexed by absolute step.
+The decode is ``vae_decode_auto`` planned against the device's memory: one
+shot for every deployed size on an 80 GB card, full-width strips when the
+one-shot peak would not fit.
 
 Inputs are channel-last tensors on the pipeline's device: video
 (B, F, H, W, 3) in [0, 1], mask_video (B, F, H, W, 1) in [0, 255] where 255
@@ -31,9 +34,10 @@ import torch.nn.functional as F
 from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
 from trajectorycrafter_tpu_torch.models.vae import (
     AutoencoderKLCogVideoX,
+    decode_memory_bytes,
     posterior_mode,
     sample_posterior,
-    vae_decode,
+    vae_decode_auto,
     vae_encode,
 )
 from trajectorycrafter_tpu_torch.ops.rope import rope_for_sample
@@ -281,5 +285,6 @@ class TrajCrafterPipeline:
             return latents
         with self.timer("vae_decode"):
             z = latents / self.vae.scaling_factor
-            frames = vae_decode(self.vae, z.to(self._vae_dtype)).float()
+            frames = vae_decode_auto(self.vae, z.to(self._vae_dtype),
+                                     decode_memory_bytes(z.device)).float()
             return (frames / 2.0 + 0.5).clamp(0.0, 1.0)
