@@ -51,12 +51,13 @@ prints no result line):
      one step of each of the six samplers on the card against the same step
      on the CPU (``SAMPLER_STEP_TOL``);
   5c. the long-trajectory and known-camera paths, on run A's models: run H
-     ``TrajCrafterAutoregressive.infer_autoregressive`` (v1: 90 poses in two
-     windows of 49 sharing 8, 2 depth stages, 2 diffusions, 90 frames), run
-     I ``TrajCrafterGlobalPointCloud.infer_autoregressive`` (v2: the clip
-     lifted into a 28.9 M-point cloud on the card, 98 z-buffer renders, the
-     merged 57.8 M-point cloud downsampled to 4 M, the PLY / COLMAP / HTML
-     scene), run J ``CameraPoseTrajCrafter.infer_camera_poses_smooth``
+     ``TrajCrafterAutoregressive.infer_autoregressive`` (v1: segments of 25
+     frames, 42 poses in two windows sharing 8, 2 depth stages, 2
+     diffusions, 42 frames), run I
+     ``TrajCrafterGlobalPointCloud.infer_autoregressive`` (v2 at its
+     deployed size: segments of 49 frames, the clip lifted into a 28.9
+     M-point cloud on the card, 98 z-buffer renders, the merged 57.8
+     M-point cloud downsampled to 4 M, the PLY / COLMAP / HTML scene), run J ``CameraPoseTrajCrafter.infer_camera_poses_smooth``
      between two Panoptic-style cameras with a held-out target video
      (``metrics.json``); each with its launches held to one depth stage's
      and one diffusion's derived counts times its stages, finite output in
@@ -64,6 +65,20 @@ prints no result line):
      tiled VAE decode at 49 frames of 576x1024: one tile bit-equal to
      ``vae_decode``, the JAX default tile and the auto route's strips finite
      and of the right shape, each timed beside the one-shot decode;
+  5d. the consistent-depth path and the Gradio callback, on run A's
+     models: run M ``TrajCrafterConsistentDepth.infer_autoregressive`` with
+     a seeded Video-Depth-Anything vitl (fp32; 2 segments of 49 frames at
+     576x1024; the first segment's depth from 2 VDA windows of 32 frames
+     at 588x1036; the second stage's alignment renders sparse depth from
+     the per-frame clouds and trains a visual prompt through the VDA at
+     280x504 over all 49 frames, 2 epochs of the deployed 50, VP mode), run
+     N the same without a VDA (DepthCrafter and ``align_window``), run O the
+     Gradio callback ``run_pipeline`` with the "Orbit Left" preset at 2
+     steps; launches held to the derived counts (the VDA and the trainer
+     launch none), the joined 98 x 384 x 672 video, the aligned depth finite
+     and positive on the sparse mask, M's prompt non-zero, the VDA's
+     seconds per window and the trainer stage's seconds per epoch and peak
+     memory logged;
   6. whole models: the bf16 and int8 DiT (unfused and fused), the DiT on
      ``flash_pv8``, and the bf16 and int8 depth UNet at full width on small
      inputs, kernels against the plain versions;
@@ -89,11 +104,14 @@ prints no result line):
      stage are logged; then BLIP-2 at full depth (39 / 12 / 32 layers,
      seeded on the card) captions one frame; then each entry point of
      ``trajectorycrafter_tpu_torch/scripts/`` once through ``main(argv)`` on
-     the tree at 25 frames (``inference_autoregressive`` and
+     the tree at 9 frames (``inference_autoregressive`` and
      ``autoregressive_global`` with 2 windows, ``run_w_cam_poses --smooth
      --target_video``,
      ``inference_orbits --test_run``), each with its launches held to run
-     L's per depth stage and diffusion and its outputs counted;
+     L's per depth stage and diffusion and its outputs counted; then
+     ``inference_alignment`` with a vitl ``.pth`` written beside the tree
+     (``load_vda``'s key check; the same file under ``--vda_encoder vits``
+     refused first), 2 segments of 9 frames;
   9. a JSON line of kernel results, and a final JSON line with the device.
 
 Imports nothing of JAX and nothing of the JAX package: the port holds its
@@ -1413,16 +1431,21 @@ def phase_modes(tc, dit8, runs: dict) -> None:
 
 
 # Runs H-J of phase 5c (the long-trajectory and known-camera paths), on run
-# A's models: the trajectory of H and I, 2 x (49 - 8) + 8 = 90 poses in the
-# windows [0, 48] and [41, 89]: 2 depth stages and 2 diffusions each.
+# A's models: 2 segments sharing 8 frames, so 2 depth stages and 2
+# diffusions each.  I reads segments of 49 frames, v2 at its deployed size
+# (90 poses; the cloud, the merge and the renders grow with the frames).  H
+# reads segments of 25 (42 poses; 49 until the consistent-depth runs came,
+# whose runs M and N drive 49-frame segments through the same DiT shapes;
+# the launches per depth stage and per DiT forward do not depend on the
+# frame count).  J reads 49 frames.
 LONG_RUN = dict(n_splits=2, overlap_frames=8, theta=30.0)
-LONG_FRAMES = 2 * (49 - 8) + 8
+LONG_SEGMENTS = {"H": 25, "I": 49}
 MAX_POINTS = 4_000_000  # v2's default cloud limit
-# Phase 8's scripts read 25 frames of the clip (one depth window and 2 x 25
-# x 576 x 1024 = 29.5 M merged points still; the launches per depth stage
-# and per DiT forward do not depend on the frame count): runs H-J drive the
-# same classes at 49 frames, and the cut keeps the smoke near 600 s.
-SCRIPT_FRAMES = 25
+# Phase 8's scripts read 9 frames of the clip (one depth window still; the
+# launches per depth stage and per DiT forward do not depend on the frame
+# count): runs I, J and M drive the same classes at 49 frames, and the cut
+# (25 frames until the consistent-depth runs came) keeps the smoke near 600 s.
+SCRIPT_FRAMES = 9
 # run J's two Panoptic-style cameras (t in cm), at the warp size's intrinsics
 PANOPTIC_CAMERAS = [
     {"name": "00_00", "K": [[500.0, 0.0, 512.0], [0.0, 500.0, 288.0], [0.0, 0.0, 1.0]],
@@ -1580,21 +1603,24 @@ def phase_long_paths(tc, dit8, runs: dict) -> None:
                              "flash_attention")
     try:
         for run, cls in (("H", TrajCrafterAutoregressive), ("I", TrajCrafterGlobalPointCloud)):
-            run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, f"long_{run}"))
+            segment = LONG_SEGMENTS[run]
+            frames = 2 * (segment - LONG_RUN["overlap_frames"]) + LONG_RUN["overlap_frames"]
+            run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, f"long_{run}"),
+                                          video_length=segment)
             variant = cls(run_cfg, models=tc.models)
             variant.timer.seconds.clear()
             log(f"run {run}: {cls.__name__}.infer_autoregressive({LONG_RUN}), "
-                f"{LONG_FRAMES} poses in 2 windows")
+                f"{frames} poses in 2 windows of {segment}")
             r = drive(run, lambda: variant.infer_autoregressive(**LONG_RUN), tc.models)
             for stage, sec in variant.timer.seconds.items():
                 log(f"  stage {stage}: {sec:.3f} s")
             _check_depths(run, r["depth_outputs"], 2, run_cfg)
-            _check_video(run, r.pop("out"), LONG_FRAMES, cfg.diffusion.sample_size)
+            _check_video(run, r.pop("out"), frames, cfg.diffusion.sample_size)
             counts = mp4_frame_counts(run_cfg.save_dir)
-            if counts != save_scheme_counts(cfg.video_length):
+            if counts != save_scheme_counts(segment):
                 raise AssertionError(f"run {run}: mp4 frame counts {counts}")
             if run == "I":
-                _check_scene(run, Path(run_cfg.save_dir) / "scene", MAX_POINTS, LONG_FRAMES)
+                _check_scene(run, Path(run_cfg.save_dir) / "scene", MAX_POINTS, frames)
             runs[run] = {**r, "stages": dict(variant.timer.seconds)}
             if r["per_path"] != _times(one, 2):
                 raise AssertionError(f"run {run}: kernel launches per stage {r['per_path']}, "
@@ -1685,6 +1711,244 @@ def phase_tiled_decode(vae) -> None:
         del got
     del want, latents
     torch.cuda.empty_cache()
+
+
+# Runs M-O of phase 5d (the consistent-depth path and the Gradio callback),
+# on run A's models: M and N, two segments of 49 frames each (98 poses) with
+# 2 alignment epochs (of the deployed 50), M with the seeded vitl VDA in VP
+# mode, N with DepthCrafter and ``align_window``; O, the Gradio callback
+# with the "Orbit Left" preset at 2 steps.
+CONSISTENT_RUN = dict(n_splits=2, theta=30.0)
+ALIGN_EPOCHS = 2
+VDA_SEED = 7
+# The seeded VDA's last convolution (``head.scratch.output_conv2.2``): with
+# torch's default initialisation its output varies by ~0.015 about ~0.01, and
+# the head ends in a ReLU, so its inverse depth would be ~0 everywhere and
+# DEPTH_SCALE / inverse depth degenerate.  Its weight x 40,000 and a bias of
+# 3,000 put the inverse depth near 2,000-5,000, which DEPTH_SCALE 10,000
+# turns into metric depths of 2-5 units as a real clip's, varying enough for
+# the closed-form scale and shift to be well posed.  The module is unchanged.
+VDA_HEAD_GAIN, VDA_HEAD_BIAS = 4.0e4, 3000.0
+# the alignment's working size at resize_factor 2: 576 x 1024 -> 280 x 504
+ALIGN_HW = (280, 504)
+
+
+def seeded_vda():
+    """The vitl VDA on the card, fp32: torch's default initialisation from
+    ``VDA_SEED``, the last convolution set as ``VDA_HEAD_GAIN`` / ``_BIAS``
+    say."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.models.vda import VideoDepthAnything, vda_vitl_config
+
+    torch.manual_seed(VDA_SEED)
+    with torch.device("cuda"):
+        vda = VideoDepthAnything(vda_vitl_config()).eval()
+    with torch.no_grad():
+        last = vda.head.scratch.output_conv2[2]
+        last.weight.mul_(VDA_HEAD_GAIN)
+        last.bias.fill_(VDA_HEAD_BIAS)
+    return vda
+
+
+@contextlib.contextmanager
+def recorded(module, name: str, calls: list):
+    """Within the block, each call of ``module.<name>`` appends (args,
+    kwargs, result) to ``calls``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def _check_aligned(run: str, calls: list, mask_arg: int) -> None:
+    """Each recorded alignment's depth finite everywhere and positive where
+    its sparse mask (positional argument ``mask_arg``) is set."""
+    import numpy as np
+
+    if len(calls) != 1:
+        raise AssertionError(f"run {run}: {len(calls)} alignment stages, expected 1")
+    for args, _, aligned in calls:
+        mask = np.asarray(args[mask_arg]) > 0.5
+        if not np.isfinite(aligned).all() or not mask.any() or (aligned[mask] <= 0).any():
+            raise AssertionError(f"run {run}: the aligned depth is not finite, or not positive "
+                                 f"on the sparse mask ({mask.mean():.4f} of the pixels)")
+        log(f"  aligned depth {aligned.shape} in [{aligned.min():.4f}, {aligned.max():.4f}], "
+            f"on the sparse mask ({mask.mean():.4f} of the pixels) "
+            f"[{aligned[mask].min():.4f}, {aligned[mask].max():.4f}]")
+
+
+def phase_consistent(tc, dit8, runs: dict) -> None:
+    """Runs M-O on run A's models (the int8 DiT, the bf16 UNet on
+    ``flash_stock``, DDIM_Origin at 2 steps): M
+    ``TrajCrafterConsistentDepth.infer_autoregressive`` with the seeded vitl
+    VDA (VP mode, ``ALIGN_EPOCHS``), N the same without a VDA (DepthCrafter
+    and ``align_window``), O the Gradio callback ``run_pipeline`` with the
+    "Orbit Left" preset.  The VDA and the trainer launch no kernel: M's
+    launches are two diffusions', N's also two depth stages', O's one
+    ``infer_gradual``'s.  M also records the VDA's seconds per window, the
+    trainer stage's seconds per epoch and peak memory, and checks the
+    aligned depth and the prompt.  The runs join ``runs``."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from trajectorycrafter_tpu_torch import consistent_autoregressive as cons
+    from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter
+    from trajectorycrafter_tpu_torch.scripts.gradio_app import TRAJ_PRESETS, run_pipeline
+
+    cfg = tc.cfg
+    pipeline = tc.models.pipeline
+    unet = tc.models.depth_infer.__self__.pipe.unet
+    saved = pipeline.transformer
+    pipeline.transformer = dit8
+    os.environ["TRAJCRAFTER_DEPTH_ATTN"] = "flash_stock"
+    one = _expected_launches(cfg, pipeline.scheduler, dit8, unet, "flash_attention",
+                             "flash_attention")
+    no_depth = {name: 0 for name in KERNELS}
+    frames = CONSISTENT_RUN["n_splits"] * cfg.video_length
+    t0 = time.perf_counter()
+    vda = seeded_vda()
+    torch.cuda.synchronize()
+    log(f"seeded the vitl VDA on the card in {time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in vda.parameters()) / 1e6:.1f} M parameters, fp32)")
+    try:
+        for run, model in (("M", vda), ("N", None)):
+            run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, f"cons_{run}"))
+            variant = cons.TrajCrafterConsistentDepth(run_cfg, models=tc.models, vda=model,
+                                                      align_epochs=ALIGN_EPOCHS)
+            variant.timer.seconds.clear()
+            windows, trainer, hooks = [], {}, []
+            if model is not None:
+                # the VDA's forwards without gradients, timed to the device
+                def before(mod, args):
+                    if not torch.is_grad_enabled():
+                        torch.cuda.synchronize()
+                        windows.append([tuple(args[0].shape), time.perf_counter()])
+
+                def after(mod, args, out):
+                    if not torch.is_grad_enabled():
+                        torch.cuda.synchronize()
+                        windows[-1][1] = time.perf_counter() - windows[-1][1]
+
+                hooks = [model.register_forward_pre_hook(before),
+                         model.register_forward_hook(after)]
+                train = variant.trainer.train
+
+                def measured_train(*args, **kwargs):
+                    torch.cuda.synchronize()
+                    trainer["before_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                    torch.cuda.reset_peak_memory_stats()
+                    start = time.perf_counter()
+                    out = train(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    trainer.update(seconds=time.perf_counter() - start,
+                                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                   frames=tuple(args[0].shape))
+                    return out
+                variant.trainer.train = measured_train
+            log(f"run {run}: TrajCrafterConsistentDepth.infer_autoregressive({CONSISTENT_RUN}), "
+                f"align_epochs {ALIGN_EPOCHS}, " + ("the seeded vitl VDA, VP mode" if model
+                                                    else "DepthCrafter and align_window"))
+            aligner = ("estimate_depth_with_prompt_alignment" if model is not None
+                       else "estimate_depth_with_alignment")
+            try:
+                with recorded(cons, aligner, []) as calls:
+                    r = drive(run, lambda: variant.infer_autoregressive(**CONSISTENT_RUN),
+                              tc.models)
+            finally:
+                for hook in hooks:
+                    hook.remove()
+            for stage, sec in variant.timer.seconds.items():
+                log(f"  stage {stage}: {sec:.3f} s")
+            video = r.pop("out")
+            _check_video(run, video, frames, cfg.diffusion.sample_size)
+            _check_aligned(run, calls, 2)
+            for stage in range(CONSISTENT_RUN["n_splits"]):
+                stage_dir = Path(run_cfg.save_dir) / f"stage_{stage:02d}"
+                counts = mp4_frame_counts(stage_dir)
+                cams = [np.load(stage_dir / f"c2ws_{k}.npy").shape
+                        for k in ("target", "source")]
+                if counts != save_scheme_counts(cfg.video_length) or \
+                        cams != [(cfg.video_length, 4, 4)] * 2:
+                    raise AssertionError(f"run {run}: {stage_dir} holds mp4s of {counts} frames "
+                                         f"and cameras {cams}")
+            if model is None:
+                want = _times(one, 2)
+                _check_depths(run, r["depth_outputs"], 2, run_cfg)
+            else:
+                want = {"depth": no_depth, "denoise": _times(one, 2)["denoise"]}
+                if r["depth_outputs"]:
+                    raise AssertionError(f"run {run}: DepthCrafter ran with a VDA")
+                # the first segment's windows: 49 frames in 2 of 32, at 588 x 1036
+                per_window = [sec for shape, sec in windows if shape[-2:] == (588, 1036)]
+                if [shape for shape, _ in windows if shape[-2:] == (588, 1036)] != \
+                        [(1, 32, 3, 588, 1036)] * 2:
+                    raise AssertionError(f"run {run}: VDA forwards {windows}")
+                prompt = variant.trainer.last_prompt
+                epochs = variant.trainer.epoch_seconds
+                if len(epochs) != ALIGN_EPOCHS or trainer.get("frames") != \
+                        (cfg.video_length, 3, *ALIGN_HW):
+                    raise AssertionError(f"run {run}: trainer ran {len(epochs)} epochs on "
+                                         f"{trainer.get('frames')}")
+                if not torch.isfinite(prompt).all() or not prompt.abs().max() > 0:
+                    raise AssertionError(f"run {run}: the visual prompt is zero or not finite")
+                if not np.isfinite(variant.trainer.last_losses).all():
+                    raise AssertionError(f"run {run}: losses {variant.trainer.last_losses}")
+                log(f"  VDA windows (no grad): {len(per_window)}, seconds "
+                    f"{[round(w, 3) for w in per_window]}")
+                log(f"  trainer stage on {trainer['frames']}: {trainer['seconds']:.3f} s, "
+                    f"epochs {[round(e, 3) for e in epochs]} s, peak device memory "
+                    f"{trainer['peak_gib']:.2f} GiB; losses "
+                    f"{[float(x) for x in variant.trainer.last_losses]}; prompt max |p| "
+                    f"{prompt.abs().max().item():.3e}")
+                # drive() read the peak since the trainer's reset: the run's is the larger
+                r["peak_gib"] = max(r["peak_gib"], trainer["before_gib"])
+                log(f"  run {run}: peak device memory {r['peak_gib']:.2f} GiB")
+                r.update(vda_window_s=per_window, epoch_s=epochs, trainer=trainer)
+            runs[run] = {**r, "stages": dict(variant.timer.seconds)}
+            if r["per_path"] != want:
+                raise AssertionError(f"run {run}: kernel launches per stage {r['per_path']}, "
+                                     f"expected {want}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        del vda
+
+        # O: the Gradio callback on the same models
+        o_cfg = copy.deepcopy(cfg)
+        o_cfg.save_dir = os.path.join(cfg.out_dir, "gradio_O")
+        o_tc = TrajCrafter(o_cfg, models=tc.models)
+        o_tc.timer.seconds.clear()
+        log(f"run O: gradio run_pipeline, preset Orbit Left ({TRAJ_PRESETS['Orbit Left']}), "
+            f"2 steps, seed 43")
+        r = drive("O", lambda: run_pipeline(MAIN_ARGV[1], 1, 1.0, TRAJ_PRESETS["Orbit Left"], 2,
+                                            43, o_cfg, o_tc), tc.models)
+        for stage, sec in o_tc.timer.seconds.items():
+            log(f"  stage {stage}: {sec:.3f} s")
+        viz = Path(r.pop("out"))
+        if viz.parent.parent != Path(o_cfg.save_dir) or o_cfg.render.target_pose != \
+                (0.0, -30.0, 0.0, 0.0, 0.0) or mp4_frame_counts(viz.parent) != \
+                save_scheme_counts(cfg.video_length):
+            raise AssertionError(f"run O: {viz}, pose {o_cfg.render.target_pose}")
+        _check_depths("O", r["depth_outputs"], 1, o_cfg)
+        runs["O"] = {**r, "stages": dict(o_tc.timer.seconds)}
+        if r["per_path"] != one:
+            raise AssertionError(f"run O: kernel launches per stage {r['per_path']}, "
+                                 f"expected {one}")
+        log(f"  viz.mp4 of {_mp4_frames(viz)} frames in {viz.parent}")
+    finally:
+        pipeline.transformer = saved
+        del os.environ["TRAJCRAFTER_DEPTH_ATTN"]
 
 
 def phase_whole_models(tc, dit8, unet8):
@@ -2259,6 +2523,70 @@ def phase_scripts(tree: dict, runs: dict) -> None:
         gc.collect()
 
 
+def phase_alignment_script(tree: dict, runs: dict) -> None:
+    """``scripts/inference_alignment.main(argv)`` on the written tree with a
+    vitl ``.pth`` written beside it (the seeded VDA of run M under the
+    official keys): ``load_vda``'s key check on the card, 2 segments of
+    ``SCRIPT_FRAMES``, ``ALIGN_EPOCHS``; its launches held to two of run L's
+    diffusions and no depth stage, its outputs counted.  First the same file
+    under ``--vda_encoder vits`` must be refused before any model is built or
+    any kernel launched."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.scripts import inference_alignment
+    from trajectorycrafter_tpu_torch.utils.checkpoints import vda_official_state_dict
+
+    root = tree["root"]
+    ckpt = root / "video_depth_anything_vitl.pth"
+    t0 = time.perf_counter()
+    vda = seeded_vda()
+    torch.save({k: v.detach().cpu() for k, v in vda_official_state_dict(vda.state_dict()).items()}, ckpt)
+    del vda
+    torch.cuda.empty_cache()
+    log(f"wrote {ckpt.name} ({ckpt.stat().st_size / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    frames = SCRIPT_FRAMES
+    argv = _tree_argv(tree) + ["--exp_name", "script_inference_alignment", "--video_length",
+                               str(frames), "--n_splits", "2", "--total_theta", "30",
+                               "--align_epochs", str(ALIGN_EPOCHS), "--vda_ckpt", str(ckpt)]
+    counters = _kernel_counters()
+    for kern in counters:
+        kern.launches = 0
+    try:
+        inference_alignment.main(argv + ["--vda_encoder", "vits"])
+    except ValueError as e:
+        if "vda_official" not in str(e) or any(kern.launches for kern in counters):
+            raise
+        log(f"script inference_alignment: the vitl file under --vda_encoder vits is refused: "
+            f"{str(e)[:160]}...")
+    else:
+        raise AssertionError("inference_alignment ran a vitl checkpoint as vits")
+
+    log("script inference_alignment: python -m trajectorycrafter_tpu_torch.scripts."
+        "inference_alignment --vda_ckpt video_depth_anything_vitl.pth on the tree")
+    r = drive("script inference_alignment", lambda: inference_alignment.main(argv))
+    save_dir = Path(MAIN_ARGV[MAIN_ARGV.index("--out_dir") + 1]) / "script_inference_alignment"
+    _check_video("inference_alignment", r.pop("out"), 2 * frames, (384, 672))
+    if _mp4_frames(save_dir / "autoregressive_aligned.mp4") != 2 * frames:
+        raise AssertionError("inference_alignment: autoregressive_aligned.mp4 frames")
+    for stage in range(2):
+        counts = mp4_frame_counts(save_dir / f"stage_{stage:02d}")
+        if counts != save_scheme_counts(frames):
+            raise AssertionError(f"inference_alignment: stage {stage} mp4 frame counts {counts}")
+    if r["depth_outputs"]:
+        raise AssertionError("inference_alignment: DepthCrafter ran with a VDA")
+    want = {"depth": {name: 0 for name in KERNELS},
+            "denoise": _times(runs["L"]["per_path"], 2)["denoise"]}
+    if r["per_path"] != want:
+        raise AssertionError(f"inference_alignment: kernel launches per stage {r['per_path']}, "
+                             f"expected {want}")
+    log("  inference_alignment: launches as derived from run L's, the joined video and each "
+        f"stage's mp4s in {save_dir}")
+    runs["script inference_alignment"] = {key: r[key] for key in ("seconds", "per_path")}
+    ckpt.unlink()
+    gc.collect()
+
+
 def _script_cfg(argv):
     from trajectorycrafter_tpu_torch.cli import config_from_args, get_parser
 
@@ -2288,6 +2616,7 @@ def main() -> None:
     tc, runs, (dit8, unet8) = phase_main_path()
     phase_modes(tc, dit8, runs)
     phase_long_paths(tc, dit8, runs)
+    phase_consistent(tc, dit8, runs)
     phase_whole_models(tc, dit8, unet8)
     bench = phase_bench()
 
@@ -2304,6 +2633,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         phase_checkpoints(tree, runs)
         phase_scripts(tree, runs)
+        phase_alignment_script(tree, runs)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -37,7 +37,9 @@ def test_port_modules_import_without_jax():
                  "schedulers.pndm", "geometry.warper", "geometry.pointcloud",
                  "geometry.interpolate", "utils.export", "autoregressive", "known_poses",
                  "scripts.inference_autoregressive", "scripts.autoregressive_global",
-                 "scripts.run_w_cam_poses", "scripts.inference_orbits"):
+                 "scripts.run_w_cam_poses", "scripts.inference_orbits", "models.vda",
+                 "depth_alignment", "consistent_autoregressive",
+                 "scripts.inference_alignment", "scripts.gradio_app"):
         assert f"trajectorycrafter_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

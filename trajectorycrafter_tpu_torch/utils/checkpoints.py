@@ -141,6 +141,52 @@ def expected_vae_keys(block_out_channels=(128, 256, 256, 512), layers_per_block:
     return set(keys)
 
 
+def expected_vda_official_keys(num_layers: int = 24,
+                               reassemble_factors=(4.0, 2.0, 1.0, 0.5),
+                               num_temporal_blocks: int = 4,
+                               num_attention_blocks: int = 2) -> set:
+    """The official ``video_depth_anything_*.pth``'s keys: the torchhub
+    DINOv2 backbone (``pretrained``: fused ``attn.qkv``, ``ls1.gamma``,
+    ``mask_token``), the MiDaS-scratch DPT head (``projects``,
+    ``resize_layers`` where the factor is not 1, ``scratch.layerN_rn``,
+    ``scratch.refinenetN``, ``output_conv1``, ``output_conv2.0`` / ``.2``)
+    and the AnimateDiff motion modules (one transformer block of two
+    temporal attentions with a ``pos_encoder.pe`` buffer each, a GEGLU
+    feed-forward)."""
+    keys: list = ["pretrained.cls_token", "pretrained.pos_embed", "pretrained.mask_token"]
+    keys += _wb("pretrained.patch_embed.proj") + _wb("pretrained.norm")
+    for i in range(num_layers):
+        p = f"pretrained.blocks.{i}"
+        keys += _wb(p + ".norm1") + _wb(p + ".norm2")
+        keys += _wb(p + ".attn.qkv") + _wb(p + ".attn.proj")
+        keys += _wb(p + ".mlp.fc1") + _wb(p + ".mlp.fc2")
+        keys += [p + ".ls1.gamma", p + ".ls2.gamma"]
+    n = len(reassemble_factors)
+    for i, factor in enumerate(reassemble_factors):
+        keys += _wb(f"head.projects.{i}")
+        if factor != 1:
+            keys += _wb(f"head.resize_layers.{i}")
+        keys.append(f"head.scratch.layer{i + 1}_rn.weight")
+    for i in range(1, n + 1):
+        p = f"head.scratch.refinenet{i}"
+        keys += _wb(p + ".out_conv")
+        for r in ("resConfUnit1", "resConfUnit2"):
+            keys += _wb(f"{p}.{r}.conv1") + _wb(f"{p}.{r}.conv2")
+    keys += _wb("head.scratch.output_conv1")
+    keys += _wb("head.scratch.output_conv2.0") + _wb("head.scratch.output_conv2.2")
+    for i in range(num_temporal_blocks):
+        tt = f"head.motion_modules.{i}.temporal_transformer"
+        keys += _wb(tt + ".norm") + _wb(tt + ".proj_in") + _wb(tt + ".proj_out")
+        blk = f"{tt}.transformer_blocks.0"
+        for k in range(num_attention_blocks):
+            a = f"{blk}.attention_blocks.{k}"
+            keys += [a + ".to_q.weight", a + ".to_k.weight", a + ".to_v.weight",
+                     a + ".pos_encoder.pe"]
+            keys += _wb(a + ".to_out.0") + _wb(f"{blk}.norms.{k}")
+        keys += _wb(blk + ".ff.net.0.proj") + _wb(blk + ".ff.net.2") + _wb(blk + ".ff_norm")
+    return set(keys)
+
+
 def verify_state_dict(sd, expected: set, label: str,
                       ignore_suffixes: tuple = (".position_ids",)) -> None:
     """Fail when a checkpoint's key set (``sd``: any iterable of keys) does
@@ -398,3 +444,83 @@ def load_depthcrafter(cfg, device="cuda", dtype=torch.bfloat16,
     return DepthCrafterDemo(DepthCrafterPipeline(
         unet=unet, vae=vae, image_encoder=clip, dtype=dtype)).infer
 
+
+
+# the tolerance of a checkpoint's ``pos_encoder.pe`` against the table the
+# model computes: float32 sin / cos of arguments below ~50, by any library
+PE_ATOL = 1e-4
+# the length of each ``pos_encoder.pe`` buffer in the official checkpoints
+VDA_PE_LENGTH = 32
+
+
+def vda_module_state_dict(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
+    """An official VDA state dict held to ``expected_vda_official_keys`` for
+    ``cfg`` (a key missing or a key too many fails), ``pretrained.mask_token``
+    dropped (DINOv2's masking is not used) and each ``pos_encoder.pe`` held to
+    ``sinusoidal_frame_encoding`` over its length, then dropped (the model
+    computes the table for any frame count): the state dict of
+    ``VideoDepthAnything(cfg)``."""
+    from trajectorycrafter_tpu_torch.models.vda import sinusoidal_frame_encoding
+
+    verify_state_dict(sd, expected_vda_official_keys(
+        cfg.num_hidden_layers, cfg.reassemble_factors, cfg.num_temporal_blocks), "vda_official")
+    out = {}
+    for key, t in sd.items():
+        if key == "pretrained.mask_token":
+            continue
+        if key.endswith(".pos_encoder.pe"):
+            pe = t.detach().float().cpu().reshape(t.shape[-2], t.shape[-1])
+            want = sinusoidal_frame_encoding(*pe.shape)
+            if not torch.allclose(pe, want, rtol=0.0, atol=PE_ATOL):
+                raise ValueError(f"vda_official: {key} is not the sinusoidal frame table "
+                                 f"(max |difference| {(pe - want).abs().max().item():.3g})")
+            continue
+        out[key] = t
+    return out
+
+
+def vda_official_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A ``VideoDepthAnything`` state dict ``sd`` under the official
+    checkpoint's full key set (the inverse of ``vda_module_state_dict``):
+    ``pretrained.mask_token`` zeros and each motion module's
+    ``pos_encoder.pe`` the table over ``VDA_PE_LENGTH`` frames, as a ``.pth``
+    of the official code holds them."""
+    from trajectorycrafter_tpu_torch.models.vda import sinusoidal_frame_encoding
+
+    sd = dict(sd)
+    cls = sd["pretrained.cls_token"]
+    sd["pretrained.mask_token"] = torch.zeros(1, cls.shape[-1], device=cls.device)
+    for key, t in list(sd.items()):
+        if key.endswith(".to_q.weight") and ".attention_blocks." in key:
+            pe = sinusoidal_frame_encoding(VDA_PE_LENGTH, t.shape[0], t.device)
+            sd[key[:-len("to_q.weight")] + "pos_encoder.pe"] = pe[None]
+    return sd
+
+
+def load_vda(path: str, encoder: str = "vitl", device="cuda", cfg=None) -> nn.Module:
+    """Video-Depth-Anything from the official checkpoint at ``path`` (the
+    ``.pth``, read with ``torch.load(weights_only=True)``, or a
+    ``.safetensors`` file of the same keys), fp32 on ``device``: the preset
+    ``encoder`` (or ``cfg``), the keys checked by ``vda_module_state_dict``,
+    ``load_state_dict(strict=True)``."""
+    from trajectorycrafter_tpu_torch.models.vda import VideoDepthAnything, vda_config
+
+    t0 = time.perf_counter()
+    label = encoder if cfg is None else "given config"
+    cfg = cfg if cfg is not None else vda_config(encoder)
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        sd = load_file(path)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {k: (v.float() if v.is_floating_point() else v)
+          for k, v in vda_module_state_dict(sd, cfg).items()}
+    with torch.device("meta"):
+        model = VideoDepthAnything(cfg)
+    model.load_state_dict(sd, strict=True, assign=True)
+    model = model.to(device).eval()
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    print(f"{LOG} loaded vda ({label}) from {path}: {len(sd)} tensors, "
+          f"{nbytes / 1e9:.2f} GB on {device} in {time.perf_counter() - t0:.2f} s")
+    return model

@@ -2,7 +2,8 @@
 
 The inverses of trajectorycrafter_tpu/utils/convert.py ``convert_dit``,
 ``convert_vae``, ``convert_svd_unet``, ``convert_svd_vae``,
-``convert_clip_vision`` and ``convert_t5_encoder``: given the flax tree
+``convert_clip_vision``, ``convert_t5_encoder`` and
+``convert_vda_official``: given the flax tree
 (numpy arrays), return a state_dict under the reference checkpoint's names,
 which the port's modules keep, so ``module.load_state_dict(sd, strict=True)``
 loads it and ``convert_dit(dit_from_jax(p)) == p`` (and likewise for each).  This module needs neither jax nor
@@ -282,3 +283,73 @@ def t5_from_jax(params: Tree) -> StateDict:
         sd[f"{p}.1.layer_norm.weight"] = _tensor(blk["ff_layer_norm"]["weight"])
         _put_each(sd, f"{p}.1.DenseReluDense", blk, ("wi_0", "wi_1", "wo"))
     return sd
+
+
+def vda_from_jax(params: Tree, reassemble_factors=(4.0, 2.0, 1.0, 0.5)) -> StateDict:
+    """VideoDepthAnything flax tree -> the official checkpoint's state_dict
+    (``video_depth_anything_*.pth``): q/k/v re-fused into ``attn.qkv``, the
+    ConvTranspose kernels flipped back, the deepest refinenet's unused
+    ``resConfUnit1`` zeros, and the keys the converter consumes and drops
+    filled in by ``checkpoints.vda_official_state_dict``.
+    ``reassemble_factors`` tells the up-sampling ConvTranspose from the
+    stride-2 conv, which the tree does not."""
+    from trajectorycrafter_tpu_torch.utils.checkpoints import vda_official_state_dict
+
+    bb, head = params["backbone"], params["head"]
+    sd: StateDict = {
+        "pretrained.cls_token": _tensor(bb["cls_token"]),
+        "pretrained.pos_embed": _tensor(bb["position_embeddings"]),
+    }
+    _put(sd, "pretrained.patch_embed.proj", bb["patch_embeddings"])
+    _put(sd, "pretrained.norm", bb["layernorm"])
+    for i, layer in _indexed(bb, "layer"):
+        p = f"pretrained.blocks.{i}"
+        attn = layer["attention"]
+        qkv = [attn[n] for n in ("query", "key", "value")]
+        sd[p + ".attn.qkv.weight"] = _tensor(np.concatenate(
+            [np.asarray(x["kernel"]).T for x in qkv]))
+        sd[p + ".attn.qkv.bias"] = _tensor(np.concatenate([np.asarray(x["bias"]) for x in qkv]))
+        _put(sd, p + ".attn.proj", attn["out"])
+        _put_each(sd, p, layer, ("norm1", "norm2"))
+        _put_each(sd, p + ".mlp", layer["mlp"], ("fc1", "fc2"))
+        sd[p + ".ls1.gamma"] = _tensor(layer["layer_scale1"])
+        sd[p + ".ls2.gamma"] = _tensor(layer["layer_scale2"])
+
+    n = len(reassemble_factors)
+    for i, factor in enumerate(reassemble_factors):
+        _put(sd, f"head.projects.{i}", head[f"reassemble_{i}_projection"])
+        if factor > 1:
+            tr = head[f"reassemble_{i}_resize"]
+            sd[f"head.resize_layers.{i}.weight"] = _tensor(np.transpose(
+                np.asarray(tr["kernel"])[::-1, ::-1], (2, 3, 0, 1)))
+            sd[f"head.resize_layers.{i}.bias"] = _tensor(tr["bias"])
+        elif factor < 1:
+            _put(sd, f"head.resize_layers.{i}", head[f"reassemble_{i}_resize"])
+        _put(sd, f"head.scratch.layer{i + 1}_rn", head[f"neck_conv_{i}"])
+    for i in range(n):
+        fusion, p = head[f"fusion_{i}"], f"head.scratch.refinenet{n - i}"
+        _put(sd, p + ".out_conv", fusion["projection"])
+        for unit, name in (("resConfUnit1", "residual_layer1"),
+                           ("resConfUnit2", "residual_layer2")):
+            res = fusion.get(name, fusion["residual_layer2"])
+            for conv in ("conv1", "conv2"):
+                _put(sd, f"{p}.{unit}.{conv}", res[conv.replace("conv", "convolution")])
+                if name not in fusion:  # the deepest stage's unused unit
+                    for key in ("weight", "bias"):
+                        sd[f"{p}.{unit}.{conv}.{key}"].zero_()
+    _put(sd, "head.scratch.output_conv1", head["head_conv1"])
+    _put(sd, "head.scratch.output_conv2.0", head["head_conv2"])
+    _put(sd, "head.scratch.output_conv2.2", head["head_conv3"])
+    for i, tm in _indexed(head, "temporal"):
+        tt = f"head.motion_modules.{i}.temporal_transformer"
+        _put_each(sd, tt, tm, ("norm", "proj_in", "proj_out"))
+        blk, block = f"{tt}.transformer_blocks.0", tm["blocks_0"]
+        for k, attn in _indexed(block, "attention_blocks"):
+            a = f"{blk}.attention_blocks.{k}"
+            _put_each(sd, a, attn, ("to_q", "to_k", "to_v"))
+            _put(sd, a + ".to_out.0", attn["to_out"])
+            _put(sd, f"{blk}.norms.{k}", block[f"norms_{k}"])
+        _put(sd, blk + ".ff.net.0.proj", block["ff_proj"])
+        _put(sd, blk + ".ff.net.2", block["ff_out"])
+        _put(sd, blk + ".ff_norm", block["ff_norm"])
+    return vda_official_state_dict(sd)
