@@ -23,10 +23,21 @@ prints no result line):
      ``flash_pv8``, K7 ``int8_flash_attention``) the same way, at the
      attention bench's DiT shape and the main path's shapes (K7 also at
      head dim 128, ``K7_D128_SHAPE``);
+  4b. the attention backward (``flash_attention_bwd_dkv``, K4-dkv, and
+     ``flash_attention_bwd_dq``, K4-dq, csrc/flash_attention_bwd.cu) against
+     ``attention_backward_reference`` at the training shapes (the DiT's (1,
+     48, 13,330^2, 64), the Perceiver's (1, 16, 13,104 x 3,024, 128)), a
+     ragged shape, the ragged edges and strided views, within
+     ``attention_backward_error`` (per element 2^-6 of the gradient's sum of
+     magnitudes, per head a relative L2 error of 2^-6), which must reject di
+     left out, the last quarter of the query tiles skipped in dK/dV and of
+     the key tiles in dQ; then each timed at full shape in turns with the
+     plain version and flash SDPA's backward, beside its bound;
   5. main path: ``TrajCrafter.infer_gradual`` at the deployed widths (random
      weights from a seed; T5-XXL prompt encode; the DepthCrafter depth
      stage, 5 Euler steps over one 49-frame window at 576x1024; 2 denoise
-     steps, diffusion at 384x672), four times on one set of weights:
+     steps, diffusion at 384x672), four times on one set of weights, A on
+     the deployed 49 frames, B-D on 25 (``CUT_FRAMES``):
      A, the default: int8 DiT (``--quant int8``, unfused feed-forward),
        bf16 depth UNet, depth attention ``flash_stock``;
      B: int8 DiT with the fused int8 feed-forward, ``--quant_depth int8``,
@@ -36,11 +47,12 @@ prints no result line):
        ``TRAJCRAFTER_DEPTH_ATTN=flash_pv8``: every large attention on K6;
      the int8 models are quantizations of the bf16 models' own weights.
      Each kernel's launches are counted per stage and held to counts derived
-     from the modules; the PSNR and SSIM of A's video against C's are
-     printed as information;
-  5b. modes and samplers, on run A's models: run E ``infer_direct`` with
-     DPM++ at 3 steps (step 1 second order; the mp4s drop the 20-frame
-     fly-in: 29, 29, 29, 29 and 57 frames), run F ``infer_bullet`` with
+     from the modules; the PSNR and SSIM of D's video against C's, and the
+     depth of B and D against C's, are printed as information;
+  5b. modes and samplers, on run A's models at 25 frames (``CUT_FRAMES``,
+     as every later run but L, M and P): run E ``infer_direct`` with
+     DPM++ at 3 steps (step 1 second order; the mp4s drop the fly-in,
+     clamped to 12 frames: 13, 13, 13, 13 and 25 frames), run F ``infer_bullet`` with
      Euler A at 2 steps, run G ``infer_zoom`` with PNDM at 4 steps (13 DiT
      forwards: 12 pseudo-RK calls and one PLMS call), each through
      ``TrajCrafter``'s entry point with the sampler set in the config and
@@ -55,14 +67,15 @@ prints no result line):
      frames, 42 poses in two windows sharing 8, 2 depth stages, 2
      diffusions, 42 frames), run I
      ``TrajCrafterGlobalPointCloud.infer_autoregressive`` (v2 at its
-     deployed size: segments of 49 frames, the clip lifted into a 28.9
-     M-point cloud on the card, 98 z-buffer renders, the merged 57.8
-     M-point cloud downsampled to 4 M, the PLY / COLMAP / HTML scene), run J ``CameraPoseTrajCrafter.infer_camera_poses_smooth``
+     segments of 25 frames, the clip lifted into a 14.7 M-point cloud on
+     the card, 50 z-buffer renders, the merged 29.5 M-point cloud
+     downsampled to 4 M, the PLY / COLMAP / HTML scene), run J
+     ``CameraPoseTrajCrafter.infer_camera_poses_smooth``
      between two Panoptic-style cameras with a held-out target video
      (``metrics.json``); each with its launches held to one depth stage's
      and one diffusion's derived counts times its stages, finite output in
      [0, 1] counted in frames, stage times and peak memory logged; then the
-     tiled VAE decode at 49 frames of 576x1024: one tile bit-equal to
+     tiled VAE decode at 17 frames of 576x1024: one tile bit-equal to
      ``vae_decode``, the JAX default tile and the auto route's strips finite
      and of the right shape, each timed beside the one-shot decode;
   5d. the consistent-depth path and the Gradio callback, on run A's
@@ -72,13 +85,26 @@ prints no result line):
      at 588x1036; the second stage's alignment renders sparse depth from
      the per-frame clouds and trains a visual prompt through the VDA at
      280x504 over all 49 frames, 2 epochs of the deployed 50, VP mode), run
-     N the same without a VDA (DepthCrafter and ``align_window``), run O the
-     Gradio callback ``run_pipeline`` with the "Orbit Left" preset at 2
-     steps; launches held to the derived counts (the VDA and the trainer
-     launch none), the joined 98 x 384 x 672 video, the aligned depth finite
+     N the same without a VDA (DepthCrafter and ``align_window``) on
+     25-frame segments, run O the Gradio callback ``run_pipeline`` with the
+     "Orbit Left" preset at 2 steps; launches held to the derived counts
+     (the VDA and the trainer launch none), the joined video (M's 98 x 384
+     x 672), the aligned depth finite
      and positive on the sparse mask, M's prompt non-zero, the VDA's
      seconds per window and the trainer stage's seconds per epoch and peak
      memory logged;
+  5e. run P, LoRA training (after phases 6 and 7, on the bundle's bf16
+     DiT): a SceneFlow-layout tree of 3 scenes x 49 frames at 960x540
+     (PNG, .pfm disparities, camera_data.txt) turned into 3 .npz samples
+     at 384x672 by ``datagen.generate_dataset`` (the bundle's VAE, the
+     T5-XXL prompt embedding); 3 training steps of the full-width DiT (42
+     blocks, B = 1, 13,330 joint tokens) with rank-8 adapters on its 316
+     target layers, ``remat``, ``flash_stock``, v-prediction, dropout 0.1:
+     finite losses, grad_norm > 0, every B moved at step 1 and every A at
+     step 2, K5 and the backward kernels launched as derived from the
+     modules, seconds per step and peak memory logged; then one step's
+     adapter gradients on the kernels against the plain versions on the DiT
+     cut to 4 blocks (``GRAD_MEDIAN_TOL``, ``GRAD_MAX_TOL``);
   6. whole models: the bf16 and int8 DiT (unfused and fused), the DiT on
      ``flash_pv8``, and the bf16 and int8 depth UNet at full width on small
      inputs, kernels against the plain versions;
@@ -111,7 +137,10 @@ prints no result line):
      L's per depth stage and diffusion and its outputs counted; then
      ``inference_alignment`` with a vitl ``.pth`` written beside the tree
      (``load_vda``'s key check; the same file under ``--vda_encoder vits``
-     refused first), 2 segments of 9 frames;
+     refused first), 2 segments of 9 frames; then
+     ``scripts/train_lora.main(argv)`` on the tree's 6-layer DiT and run P's
+     samples (2 steps, validation and a checkpoint after each), then
+     ``--resume_from_checkpoint latest`` for a third step;
   9. a JSON line of kernel results, and a final JSON line with the device.
 
 Imports nothing of JAX and nothing of the JAX package: the port holds its
@@ -185,10 +214,11 @@ DEPTH_KERNEL_LAUNCHES_PER_FORWARD = 10
 MP4S = ("input.mp4", "render.mp4", "mask.mp4", "gen.mp4", "viz.mp4")
 KERNEL_SOURCES = ("flash_attention.cu", "flash_maxpass.cu", "int8_quantize_rows.cu",
                   "int8_gemm.cu", "int8_gemm_gelu_quant.cu", "int8_gemm_gscale.cu",
-                  "flash_pv8.cu", "int8_flash_attention.cu")
+                  "flash_pv8.cu", "int8_flash_attention.cu", "flash_attention_bwd.cu")
 INT8_KERNELS = ("int8_quantize_rows", "int8_gemm", "int8_gemm_gelu_quant", "int8_gemm_gscale")
 VARIANTS = ("flash_exp2", "flash_lse", "flash_pv8", "int8_flash_attention")
-KERNELS = ("flash_attention", "flash_maxpass", *INT8_KERNELS, *VARIANTS)
+BACKWARD = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+KERNELS = ("flash_attention", "flash_maxpass", *INT8_KERNELS, *VARIANTS, *BACKWARD)
 # depth attention shapes (B = frames, H, S, D) at 576x1024 and 49 frames
 DEPTH_SHAPES = {"depth_9216": (49, 5, 9216, 64), "depth_2304": (49, 10, 2304, 64)}
 # int8 GEMMs of the main path, (M, K, N, bias): the DiT's blocks at M = 2 x
@@ -219,9 +249,16 @@ TPU_KERNELS = {
     "flash_lse": "trajectorycrafter_tpu/ops/pallas/flash_lse.py:68",
     "flash_pv8": "trajectorycrafter_tpu/ops/pallas/flash_pv8.py:98",
     "int8_flash_attention": "trajectorycrafter_tpu/ops/pallas/int8_flash_attention.py:116",
+    # JAX's library flash attention, whose custom_vjp jax.grad reaches through
+    # trajectorycrafter_tpu/ops/attention.py:39 _flash_attention
+    "flash_attention_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+    "flash_attention_bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
 }
-# the entry points of csrc/flash_attention.cu besides its own
-SOURCE_OF = {"flash_exp2": "flash_attention", "flash_lse": "flash_attention"}
+# the entry points of csrc/flash_attention.cu besides its own, and of
+# csrc/flash_attention_bwd.cu
+SOURCE_OF = {"flash_exp2": "flash_attention", "flash_lse": "flash_attention",
+             "flash_attention_bwd_dkv": "flash_attention_bwd",
+             "flash_attention_bwd_dq": "flash_attention_bwd"}
 # the attention bench's DiT shape: 226 text + 13 x 36 x 64 video tokens,
 # zero-padded to 30,720 (bench_attention.py)
 BENCH_DIT = (2, 48, 30178, 30720, 64)  # (B, H, real tokens, padded, D)
@@ -235,6 +272,14 @@ K7_D128_SHAPE = (1, 16, 4096, 4096, 128)
 # ragged lengths around the bf16 attention kernels' 64-row boxes and 128-key
 # tiles, checked on the query and on the key side
 EDGE_LENGTHS = (1, 63, 65, 127, 129, 777, 1000)
+# the training shapes of the attention backward (B = 1, one sample a step):
+# the DiT's joint self-attention and the Perceiver's cross-attention
+TRAIN_DIT_SHAPE = (1, 48, 13330, 13330, 64)  # (B, H, Sq, Skv, D)
+TRAIN_PERCEIVER_SHAPE = (1, 16, 13104, 3024, 128)
+# rows of the backward kernels' tiles: each block owns 64 keys (dK/dV) or
+# 64 queries (dQ) and steps over 64-row tiles of the other side (32 query
+# rows for dK/dV at head dim 128, a divisor)
+BACKWARD_TILE = 64
 
 # Data-sheet rates of an H100 SXM (dense): bf16 989 TFLOP/s, int8 1,979
 # TOP/s, 3.35 TB/s of device memory; the SFU's 16 exp2 per clock per SM x
@@ -244,10 +289,21 @@ SFU_EXP_PER_CLOCK = 16 * 132
 
 
 DEVICE = {}  # the card's max SM clock, read in phase_device
+T_START = time.perf_counter()  # every log line carries the seconds since here
+PHASE_SECONDS = {}  # wall seconds of each phase of main(), logged at the end
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
+
+
+def run_phase(name: str, fn, *args):
+    """Run one phase of main() and keep its wall seconds under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    log(f"phase {name}: {PHASE_SECONDS[name]:.1f} s")
+    return out
 
 
 def bound(ops_bf16: float = 0.0, ops_int8: float = 0.0, nbytes: float = 0.0,
@@ -811,6 +867,183 @@ def phase_variants():
     return max_err, timing
 
 
+def _backward_inputs(randn, b, h, sq, skv, d, gain):
+    """q, k, v, K5's (out, lse), a random dout and its di."""
+    from trajectorycrafter_tpu_torch.ops.attention import attention_di
+    from trajectorycrafter_tpu_torch.ops.kernels import flash_lse
+
+    q = (randn(b, sq, h, d) * gain).bfloat16()
+    k, v = randn(b, skv, h, d).bfloat16(), randn(b, skv, h, d).bfloat16()
+    out, lse = flash_lse(q, k, v, d ** -0.5)
+    dout = randn(b, sq, h, d).bfloat16()
+    return q, k, v, out, lse, dout, attention_di(out, dout)
+
+
+def _backward_grads(q, k, v, dout, lse, di, scale) -> dict:
+    from trajectorycrafter_tpu_torch.ops.kernels import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, di, scale)
+    return {"dq": flash_attention_bwd_dq(q, k, v, dout, lse, di, scale), "dk": dk, "dv": dv}
+
+
+def _backward_bound(b, h, sq, skv, d) -> dict:
+    """``bound`` of each backward kernel: dK/dV recomputes s and dp and forms
+    dV and dK (8 B H Sq Skv D operations), dQ recomputes s and dp and forms
+    dQ (6 B H Sq Skv D); both read q, k, v, dout (bf16) and lse, di (fp32)
+    and take one exp per score; dK/dV writes dk, dv and dQ writes dq."""
+    prod = 2.0 * b * h * sq * skv * d
+    inputs = 2 * b * h * d * (2 * sq + 2 * skv) + 8 * b * h * sq
+    exps = float(b * h * sq * skv)
+    return {"flash_attention_bwd_dkv": bound(ops_bf16=4 * prod, exps=exps,
+                                             nbytes=inputs + 4 * b * h * skv * d),
+            "flash_attention_bwd_dq": bound(ops_bf16=3 * prod, exps=exps,
+                                            nbytes=inputs + 2 * b * h * sq * d)}
+
+
+def phase_backward_kernels():
+    """The attention backward's two kernels (K4-dkv, K4-dq) against the plain
+    version at the training shapes, ragged lengths and strided views, with
+    planted faults; then timed at full shape in turns with the plain version
+    and flash SDPA's backward (one PyTorch call giving dq, dk and dv: the
+    yardstick of the two kernels' sum)."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.bench_attention import sdpa_flash
+    from trajectorycrafter_tpu_torch.ops.attention import (
+        BWD_HEAD_TOL,
+        attention_backward_error,
+        attention_backward_reference,
+        attention_di,
+    )
+    from trajectorycrafter_tpu_torch.ops.kernels import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_lse,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    max_err = dict.fromkeys(BACKWARD, 0.0)
+    # (label, shape, q gain, planted faults): the DiT's flat rows at init
+    # (QK-normed scores ~ N(0, 1)), peaked ones (a trained model's; there
+    # di carries weight), the Perceiver's unbounded scores, a ragged shape
+    cases = [("dit", TRAIN_DIT_SHAPE, 1.0, ("query_tiles", "key_tiles")),
+             ("dit_heads8_peaked", (1, 8, *TRAIN_DIT_SHAPE[2:]), 4.0,
+              ("di", "query_tiles", "key_tiles")),
+             ("perceiver", TRAIN_PERCEIVER_SHAPE, 4.0, ("di", "query_tiles", "key_tiles")),
+             ("ragged", (1, 2, 1000, 777, 64), 2.0, ("di", "query_tiles", "key_tiles"))]
+    keep_of = lambda n: _skip_last_quarter(n, BACKWARD_TILE)
+    for label, (b, h, sq, skv, d), gain, planted in cases:
+        scale = d ** -0.5
+        q, k, v, out, lse, dout, di = _backward_inputs(randn, b, h, sq, skv, d, gain)
+        held = lambda grads: attention_backward_error(grads, q, k, v, out, lse, dout, scale)
+        grads = _backward_grads(q, k, v, dout, lse, di, scale)
+        torch.cuda.synchronize()
+        faults = {}
+        if "di" in planted:
+            faults["di_left_out"] = held(_backward_grads(q, k, v, dout, lse,
+                                                         torch.zeros_like(di), scale))
+        if "query_tiles" in planted:
+            n = keep_of(sq)
+            dk, dv = flash_attention_bwd_dkv(q[:, :n], k, v, dout[:, :n],
+                                             lse[..., :n].contiguous(),
+                                             di[..., :n].contiguous(), scale)
+            faults["dkv_last_quarter_of_query_tiles_skipped"] = held({"dk": dk, "dv": dv})
+        if "key_tiles" in planted:
+            n = keep_of(skv)
+            faults["dq_last_quarter_of_key_tiles_skipped"] = held(
+                {"dq": flash_attention_bwd_dq(q, k[:, :n], v[:, :n], dout, lse, di, scale)})
+        readings = held(grads)
+        check_readings(f"attention backward {label} {(b, h, sq, skv, d)} q x {gain:g}",
+                       readings, faults)
+        for name, key in zip(BACKWARD, ("dk", "dq")):
+            err = max(readings[f"{key}_max_abs_err"],
+                      readings["dv_max_abs_err"] if key == "dk" else 0.0)
+            max_err[name] = max(max_err[name], err)
+        del q, k, v, out, lse, dout, di, grads, faults
+        torch.cuda.empty_cache()
+    # the ragged edges and strided views, sound answers only
+    rows = []
+    for name, q, k, v in edge_inputs(randn):
+        d = q.shape[-1]
+        out, lse = flash_lse(q, k, v, d ** -0.5)
+        dout = randn(*q.shape).bfloat16()
+        if name.startswith("strided"):  # dout a strided view too
+            dout = randn(q.shape[0], q.shape[2], q.shape[1], d).bfloat16().transpose(1, 2)
+        di = attention_di(out, dout)
+        readings = attention_backward_error(_backward_grads(q, k, v, dout, lse, di, d ** -0.5),
+                                            q, k, v, out, lse, dout, d ** -0.5)
+        if not readings["ok"]:
+            raise AssertionError(f"attention backward {name} disagrees with its plain "
+                                 f"version: {readings}")
+        rows.append(max(readings[f"{g}_max_head_rel_err"] for g in ("dq", "dk", "dv")))
+    log(f"attention backward at {len(rows)} ragged and strided shapes: max head rel err "
+        f"{max(rows):.3e} (limit {BWD_HEAD_TOL:.3e})")
+
+    # timing at full shape, in turns: plain, dK/dV, dQ, SDPA's backward and back
+    timing = {}
+    for label, (b, h, sq, skv, d) in (("dit", TRAIN_DIT_SHAPE),
+                                      ("perceiver", TRAIN_PERCEIVER_SHAPE)):
+        scale = d ** -0.5
+        gain = 1.0 if label == "dit" else 4.0
+        q, k, v, out, lse, dout, di = _backward_inputs(randn, b, h, sq, skv, d, gain)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        with torch.enable_grad():
+            sdpa_out = sdpa_flash(*leaves, scale)
+        sdpa_dout = dout.transpose(1, 2)
+        t = in_turns({
+            "plain_ms": lambda: attention_backward_reference(q, k, v, out, lse, dout, scale),
+            "flash_attention_bwd_dkv": lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, di,
+                                                                       scale),
+            "flash_attention_bwd_dq": lambda: flash_attention_bwd_dq(q, k, v, dout, lse, di,
+                                                                     scale),
+            "library_ms": lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_dout,
+                                                      retain_graph=True)},
+            {"plain_ms": 2, "flash_attention_bwd_dkv": 10, "flash_attention_bwd_dq": 10,
+             "library_ms": 10})
+        bounds = _backward_bound(b, h, sq, skv, d)
+        timing[label] = {"shape": str((b, h, sq, skv, d)), **t, "bounds": bounds}
+        flop = 2.0 * b * h * sq * skv * d
+        dkv, dq = t["flash_attention_bwd_dkv"], t["flash_attention_bwd_dq"]
+        log(f"attention backward {label} {(b, h, sq, skv, d)}: dK/dV {dkv:.3f} ms "
+            f"({4 * flop / dkv / 1e9:.1f} TFLOP/s; bound "
+            f"{bounds['flash_attention_bwd_dkv']['bound_ms']:.3f} ms, SFU "
+            f"{bounds['flash_attention_bwd_dkv']['sfu_ms']:.3f}), dQ {dq:.3f} ms "
+            f"({3 * flop / dq / 1e9:.1f} TFLOP/s; bound "
+            f"{bounds['flash_attention_bwd_dq']['bound_ms']:.3f} ms), both {dkv + dq:.3f} ms; "
+            f"flash SDPA backward {t['library_ms']:.3f} ms; plain {t['plain_ms']:.2f} ms")
+        del q, k, v, out, lse, dout, di, leaves, sdpa_out
+        torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def _backward_entries(err: dict, timing: dict, launches: dict) -> list:
+    """The two backward kernels' entries of the kernels JSON line: times at
+    the DiT's training shape, the Perceiver's beside them; ``launches`` those
+    of one training step of run P."""
+    entries = []
+    for name in BACKWARD:
+        if not launches[name]:
+            raise AssertionError(f"run P's training step launched no {name}")
+        dit, per = timing["dit"], timing["perceiver"]
+        t = {"ms": dit[name], "plain_ms": dit["plain_ms"], "library_ms": dit["library_ms"],
+             **dit["bounds"][name], "shape": dit["shape"],
+             "library": "flash SDPA backward: dq, dk and dv in one call (the yardstick of "
+                        "the two kernels' sum); plain_ms: the plain version's dq, dk and dv",
+             "perceiver_shape": per["shape"], "perceiver_ms": per[name],
+             "perceiver_plain_ms": per["plain_ms"], "perceiver_library_ms": per["library_ms"],
+             "perceiver_bound_ms": per["bounds"][name]["bound_ms"]}
+        entries.append(_attention_entry(
+            name, t, launches=launches[name],
+            launches_run="P (one training step of the full-width DiT)",
+            also_replaces="trajectorycrafter_tpu/ops/attention.py:39 (its custom_vjp)",
+            max_abs_err=err[name]))
+    return entries
+
+
 def _k_step_skipped(q):
     """Planted fault: the codes with the last 32 of K zeroed, so the sound
     kernel computes what one skipping its last 32-wide K step would."""
@@ -1233,10 +1466,13 @@ def phase_main_path():
     }
     pipe = tc.models.depth_infer.__self__.pipe
     runs = {}
+    frames = cfg.video_length  # tc.cfg is cfg
     for run, (model, fuse, dit_attn, dit_kernel, depth_unet, quant, quant_depth, depth_attn,
               depth_kernel) in plans.items():
         tc.models.pipeline.transformer, pipe.unet = model, depth_unet
         tc.cfg.diffusion.quant, tc.cfg.depth.quant = quant, quant_depth
+        # A drives the deployed clip, B-D the cut one
+        tc.cfg.video_length = frames if run == "A" else CUT_FRAMES
         _set_fuse(model, fuse)
         set_impl(model, dit_attn)
         try:
@@ -1251,15 +1487,16 @@ def phase_main_path():
                                  f"{runs[run]['per_path']}, expected {want}")
     tc.models.pipeline.transformer, pipe.unet = dit, unet
     tc.cfg.diffusion.quant, tc.cfg.depth.quant = cfg.diffusion.quant, cfg.depth.quant
+    tc.cfg.video_length = frames
 
+    # B-D on one clip: C's depth is A's route (the bf16 UNet on flash_stock)
     for run, what in (("B", "int8 UNet, flash_max"), ("D", "flash_pv8")):
-        rel = np.abs(np.log(runs[run]["depth"] / runs["A"]["depth"]))
-        log(f"depth of runs {run} ({what}) and A (information): median |log ratio| "
-            f"{np.median(rel):.3e}, max {rel.max():.3e}")
-    for run, what in (("C", "bf16 DiT"), ("D", "int8 DiT on flash_pv8")):
-        quality = video_quality(runs["A"]["gen"] * 255.0, runs[run]["gen"] * 255.0)
-        log(f"gen of run A (int8 DiT) against run {run} ({what}), information only (random "
-            f"weights, 2 steps): {json.dumps(quality)}")
+        rel = np.abs(np.log(runs[run]["depth"] / runs["C"]["depth"]))
+        log(f"depth of runs {run} ({what}) and C (bf16 UNet, flash_stock; information): "
+            f"median |log ratio| {np.median(rel):.3e}, max {rel.max():.3e}")
+    quality = video_quality(runs["C"]["gen"] * 255.0, runs["D"]["gen"] * 255.0)
+    log(f"gen of run C (bf16 DiT) against run D (int8 DiT on flash_pv8), information only "
+        f"(random weights, 2 steps): {json.dumps(quality)}")
     return tc, runs, (dit8, unet8)
 
 
@@ -1356,11 +1593,13 @@ def phase_modes(tc, dit8, runs: dict) -> None:
     pipeline = tc.models.pipeline
     unet = tc.models.depth_infer.__self__.pipe.unet
     saved = (pipeline.transformer, pipeline.scheduler, cfg.diffusion.sampler_name,
-             cfg.diffusion.num_inference_steps)
+             cfg.diffusion.num_inference_steps, cfg.video_length)
     pipeline.transformer = dit8
+    cfg.video_length = CUT_FRAMES
     recorder = _RecordedPipeline(pipeline)
     try:
         for run, (mode, sampler, steps, cut) in MODE_RUNS.items():
+            cut = max(0, min(cut, cfg.video_length // 2))  # infer_direct's clamp
             cfg.diffusion.sampler_name, cfg.diffusion.num_inference_steps = sampler, steps
             pipeline.scheduler = SCHEDULER_REGISTRY[cfg.diffusion.sampler_name]()
             want = _expected_launches(cfg, pipeline.scheduler, dit8, unet, "flash_attention",
@@ -1419,7 +1658,7 @@ def phase_modes(tc, dit8, runs: dict) -> None:
         recorder.calls.clear()
     finally:
         (pipeline.transformer, pipeline.scheduler, cfg.diffusion.sampler_name,
-         cfg.diffusion.num_inference_steps) = saved
+         cfg.diffusion.num_inference_steps, cfg.video_length) = saved
 
     draws = sampler_step_draws()
     for name in SCHEDULER_REGISTRY:
@@ -1430,21 +1669,23 @@ def phase_modes(tc, dit8, runs: dict) -> None:
             raise AssertionError(f"sampler {name}: the card's step disagrees with the CPU's")
 
 
+# The clip length of runs B-J, N and O: runs A, L, M and P drive the
+# deployed 49 frames (13 latent frames, the DiT's 13,330 joint tokens); the
+# others read 25 (7 latent frames).  The launches per depth stage and per
+# DiT forward do not depend on the frame count (one depth window either
+# way), and phases 3-4b hold every kernel at the full shapes.  The cut keeps
+# the smoke near 500 s on one H100 (653 s with these runs at 49 frames).
+CUT_FRAMES = 25
 # Runs H-J of phase 5c (the long-trajectory and known-camera paths), on run
 # A's models: 2 segments sharing 8 frames, so 2 depth stages and 2
-# diffusions each.  I reads segments of 49 frames, v2 at its deployed size
-# (90 poses; the cloud, the merge and the renders grow with the frames).  H
-# reads segments of 25 (42 poses; 49 until the consistent-depth runs came,
-# whose runs M and N drive 49-frame segments through the same DiT shapes;
-# the launches per depth stage and per DiT forward do not depend on the
-# frame count).  J reads 49 frames.
+# diffusions each, at segments of ``CUT_FRAMES`` (42 poses).  J reads
+# ``CUT_FRAMES``.
 LONG_RUN = dict(n_splits=2, overlap_frames=8, theta=30.0)
-LONG_SEGMENTS = {"H": 25, "I": 49}
+LONG_SEGMENTS = {"H": CUT_FRAMES, "I": CUT_FRAMES}
 MAX_POINTS = 4_000_000  # v2's default cloud limit
 # Phase 8's scripts read 9 frames of the clip (one depth window still; the
 # launches per depth stage and per DiT forward do not depend on the frame
-# count): runs I, J and M drive the same classes at 49 frames, and the cut
-# (25 frames until the consistent-depth runs came) keeps the smoke near 600 s.
+# count): runs I, J, M and N drive the same classes on longer clips.
 SCRIPT_FRAMES = 9
 # run J's two Panoptic-style cameras (t in cm), at the warp size's intrinsics
 PANOPTIC_CAMERAS = [
@@ -1455,10 +1696,13 @@ PANOPTIC_CAMERAS = [
      "R": [[0.98481, 0.0, 0.17365], [0.0, 1.0, 0.0], [-0.17365, 0.0, 0.98481]],
      "t": [[30.0], [0.0], [5.0]], "distCoef": [0.0, 0.0, 0.0, 0.0, 0.0]},
 ]
-# the tiled-decode check: the latents of 49 frames at 576x1024, and the
-# tilings -- one tile as large as the frame (no overlap), the JAX default
-# tile, the auto route's strips
-TILED_LATENTS = (1, 13, 72, 128, 16)
+# the tiled-decode check: the latents of 17 frames at 576x1024 (the tiles are
+# spatial; 5 latent frames keep the VAE's chunking of 13: a first chunk of 3,
+# then chunks of 2), and the tilings -- one tile as large as the frame (no
+# overlap), the JAX default tile, the auto route's strips; the auto route's
+# choice is read at the latents of 49 frames, ``DEPLOYED_LATENTS``
+TILED_LATENTS = (1, 5, 72, 128, 16)
+DEPLOYED_LATENTS = (1, 13, 72, 128, 16)
 TILINGS = {"one_tile": (72, 128, 0.0, 0.0), "jax_default": (30, 45, 1.0 / 6.0, 1.0 / 5.0),
            "strips": (24, 128, 1.0 / 7.0, 0.0)}
 
@@ -1627,7 +1871,8 @@ def phase_long_paths(tc, dit8, runs: dict) -> None:
                                      f"expected {_times(one, 2)}")
 
         # J: the smooth camera fly between two calibrated cameras
-        run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, "known_J"))
+        run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, "known_J"),
+                                      video_length=CUT_FRAMES)
         variant = CameraPoseTrajCrafter(run_cfg, models=tc.models)
         variant.timer.seconds.clear()
         src, tgt = (panoptic_to_camera(c) for c in PANOPTIC_CAMERAS)
@@ -1641,7 +1886,7 @@ def phase_long_paths(tc, dit8, runs: dict) -> None:
             log(f"  stage {stage}: {sec:.3f} s")
         gen, metrics = r.pop("out")
         _check_depths("J", r["depth_outputs"], 1, run_cfg)
-        _check_video("J", gen, cfg.video_length, cfg.diffusion.sample_size)
+        _check_video("J", gen, run_cfg.video_length, cfg.diffusion.sample_size)
         written = json.loads((Path(run_cfg.save_dir) / "metrics.json").read_text())
         if written["metrics"] != metrics["metrics"] or not all(
                 np.isfinite(v) for v in metrics["metrics"].values()):
@@ -1658,11 +1903,11 @@ def phase_long_paths(tc, dit8, runs: dict) -> None:
 
 
 def phase_tiled_decode(vae) -> None:
-    """The tiled VAE decode at 49 frames of 576x1024 on the card: one tile as
+    """The tiled VAE decode at 17 frames of 576x1024 on the card: one tile as
     large as the frame bit-equal to ``vae_decode``, the JAX default tile and
     the auto route's strips finite and of the decode's shape; each decode's
     time and peak memory beside the one-shot decode's, and the auto route's
-    choice on this card."""
+    choice on this card at 49 frames."""
     import torch
 
     from trajectorycrafter_tpu_torch.models.vae import (
@@ -1676,9 +1921,9 @@ def phase_tiled_decode(vae) -> None:
     latents = torch.randn(TILED_LATENTS, generator=gen, device="cuda").to(
         next(vae.parameters()).dtype)
     memory = decode_memory_bytes("cuda")
-    tiled = decode_is_tiled(latents.shape, memory)
-    log(f"tiled decode at {TILED_LATENTS}: vae_decode_auto on this card ({memory / 1e9:.1f} GB) "
-        f"picks {'strips' if tiled else 'the one-shot decode'}")
+    tiled = decode_is_tiled(DEPLOYED_LATENTS, memory)
+    log(f"tiled decode at {TILED_LATENTS}; at {DEPLOYED_LATENTS} vae_decode_auto on this card "
+        f"({memory / 1e9:.1f} GB) picks {'strips' if tiled else 'the one-shot decode'}")
     if tiled:
         raise AssertionError("vae_decode_auto tiles 49 frames at 576x1024 on an 80 GB card")
 
@@ -1696,7 +1941,7 @@ def phase_tiled_decode(vae) -> None:
         return out
 
     want = timed("one-shot vae_decode", lambda: vae_decode(vae, latents).float())
-    shape = (1, 49, 576, 1024, 3)
+    shape = (1, 1 + 4 * (TILED_LATENTS[1] - 1), 576, 1024, 3)
     if tuple(want.shape) != shape or not torch.isfinite(want).all():
         raise AssertionError(f"one-shot decode {tuple(want.shape)}")
     for label, tiling in TILINGS.items():
@@ -1714,11 +1959,14 @@ def phase_tiled_decode(vae) -> None:
 
 
 # Runs M-O of phase 5d (the consistent-depth path and the Gradio callback),
-# on run A's models: M and N, two segments of 49 frames each (98 poses) with
-# 2 alignment epochs (of the deployed 50), M with the seeded vitl VDA in VP
-# mode, N with DepthCrafter and ``align_window``; O, the Gradio callback
-# with the "Orbit Left" preset at 2 steps.
+# on run A's models: M and N, two segments each with 2 alignment epochs (of
+# the deployed 50), M with the seeded vitl VDA in VP mode, N with
+# DepthCrafter and ``align_window``; O, the Gradio callback with the "Orbit
+# Left" preset at 2 steps on ``CUT_FRAMES``.
 CONSISTENT_RUN = dict(n_splits=2, theta=30.0)
+# M's segments keep the clip's 49 frames (the VDA's two 32-frame windows);
+# N's read ``CUT_FRAMES``
+CONSISTENT_SEGMENTS = {"M": 49, "N": CUT_FRAMES}
 ALIGN_EPOCHS = 2
 VDA_SEED = 7
 # The seeded VDA's last convolution (``head.scratch.output_conv2.2``): with
@@ -1816,7 +2064,6 @@ def phase_consistent(tc, dit8, runs: dict) -> None:
     one = _expected_launches(cfg, pipeline.scheduler, dit8, unet, "flash_attention",
                              "flash_attention")
     no_depth = {name: 0 for name in KERNELS}
-    frames = CONSISTENT_RUN["n_splits"] * cfg.video_length
     t0 = time.perf_counter()
     vda = seeded_vda()
     torch.cuda.synchronize()
@@ -1824,7 +2071,9 @@ def phase_consistent(tc, dit8, runs: dict) -> None:
         f"({sum(p.numel() for p in vda.parameters()) / 1e6:.1f} M parameters, fp32)")
     try:
         for run, model in (("M", vda), ("N", None)):
-            run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, f"cons_{run}"))
+            run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, f"cons_{run}"),
+                                          video_length=CONSISTENT_SEGMENTS[run])
+            frames = CONSISTENT_RUN["n_splits"] * run_cfg.video_length
             variant = cons.TrajCrafterConsistentDepth(run_cfg, models=tc.models, vda=model,
                                                       align_epochs=ALIGN_EPOCHS)
             variant.timer.seconds.clear()
@@ -1879,8 +2128,8 @@ def phase_consistent(tc, dit8, runs: dict) -> None:
                 counts = mp4_frame_counts(stage_dir)
                 cams = [np.load(stage_dir / f"c2ws_{k}.npy").shape
                         for k in ("target", "source")]
-                if counts != save_scheme_counts(cfg.video_length) or \
-                        cams != [(cfg.video_length, 4, 4)] * 2:
+                if counts != save_scheme_counts(run_cfg.video_length) or \
+                        cams != [(run_cfg.video_length, 4, 4)] * 2:
                     raise AssertionError(f"run {run}: {stage_dir} holds mp4s of {counts} frames "
                                          f"and cameras {cams}")
             if model is None:
@@ -1898,7 +2147,7 @@ def phase_consistent(tc, dit8, runs: dict) -> None:
                 prompt = variant.trainer.last_prompt
                 epochs = variant.trainer.epoch_seconds
                 if len(epochs) != ALIGN_EPOCHS or trainer.get("frames") != \
-                        (cfg.video_length, 3, *ALIGN_HW):
+                        (run_cfg.video_length, 3, *ALIGN_HW):
                     raise AssertionError(f"run {run}: trainer ran {len(epochs)} epochs on "
                                          f"{trainer.get('frames')}")
                 if not torch.isfinite(prompt).all() or not prompt.abs().max() > 0:
@@ -1927,6 +2176,7 @@ def phase_consistent(tc, dit8, runs: dict) -> None:
         # O: the Gradio callback on the same models
         o_cfg = copy.deepcopy(cfg)
         o_cfg.save_dir = os.path.join(cfg.out_dir, "gradio_O")
+        o_cfg.video_length = CUT_FRAMES
         o_tc = TrajCrafter(o_cfg, models=tc.models)
         o_tc.timer.seconds.clear()
         log(f"run O: gradio run_pipeline, preset Orbit Left ({TRAJ_PRESETS['Orbit Left']}), "
@@ -1938,7 +2188,7 @@ def phase_consistent(tc, dit8, runs: dict) -> None:
         viz = Path(r.pop("out"))
         if viz.parent.parent != Path(o_cfg.save_dir) or o_cfg.render.target_pose != \
                 (0.0, -30.0, 0.0, 0.0, 0.0) or mp4_frame_counts(viz.parent) != \
-                save_scheme_counts(cfg.video_length):
+                save_scheme_counts(o_cfg.video_length):
             raise AssertionError(f"run O: {viz}, pose {o_cfg.render.target_pose}")
         _check_depths("O", r["depth_outputs"], 1, o_cfg)
         runs["O"] = {**r, "stages": dict(o_tc.timer.seconds)}
@@ -2025,6 +2275,366 @@ def phase_whole_models(tc, dit8, unet8):
             for impl in ("flash_stock", "flash_max"):
                 held(f"{label} depth UNet on {(1, f, h, w)}, attention {impl} vs plain",
                      outs[impl], outs["reference"], UNET_REL_TOL)
+
+
+# Run P (phase 5e): LoRA training of the full-width bf16 DiT.  The data: a
+# SceneFlow-layout tree the smoke writes (TRAIN_SCENES scenes of
+# TRAIN_FRAMES 960 x 540 PNG frames, .pfm disparities, camera_data.txt; the
+# camera moves 0.25 units a frame, so the clips pass the motion filter)
+# turned into .npz samples at 384 x 672 by ``datagen.generate_dataset`` on
+# the smoke's VAE, with the T5-XXL embedding of the prompt.  The training:
+# TRAIN_STEPS steps at B = 1, rank 8, v-prediction, dropout 0.1, remat and
+# ``flash_stock``.  Then one step's adapter gradients on the kernels against
+# the plain versions on the DiT cut to GRAD_CHECK_LAYERS blocks (the plain
+# backward of the full sequence would not fit: 48 x 13,330^2 fp32 scores a
+# layer), at GRAD_CHECK_LATENTS (F, h, w) latents: the relative L2 error of
+# each adapter's gradient, median at most GRAD_MEDIAN_TOL and largest at most
+# GRAD_MAX_TOL.  Both sides run bf16 models (the plain attention rounds its
+# weights and their gradients to bf16 too), and a few blocks carry the
+# per-call differences into every gradient; the adapters whose gradients
+# cancel most (the QK-normed to_q / to_k) read the largest (an H100 80GB HBM3
+# at 700 W read a median of 3.4e-3 and 3.8e-2 on a to_q).
+TRAIN_SCENES = 3
+TRAIN_FRAMES = 49
+SCENEFLOW_HW = (540, 960)
+SCENEFLOW_STEP = 0.25
+TRAIN_STEPS = 3
+TRAIN_RANK = 8
+TRAIN_LR = 1e-4
+TRAIN_DROPOUT = 0.1
+LATENT_SHAPES = {"gt_latents": (13, 48, 84, 16), "inpaint_latents": (13, 48, 84, 17),
+                 "ref_latents": (3, 48, 84, 16), "prompt_embeds": (226, 4096)}
+GRAD_CHECK_LAYERS = 4
+GRAD_CHECK_LATENTS = (5, 32, 56)
+GRAD_MEDIAN_TOL = 2.0 ** -6
+GRAD_MAX_TOL = 2.0 ** -3
+
+
+def _write_pfm(path: Path, img) -> None:
+    """A little-endian one-channel PFM (rows bottom to top)."""
+    import numpy as np
+
+    h, w = img.shape
+    path.write_bytes(f"Pf\n{w} {h}\n-1.0\n".encode()
+                     + np.ascontiguousarray(np.flipud(img)).astype("<f4").tobytes())
+
+
+def write_sceneflow_tree(root: Path, scenes: int, frames: int, seed: int = 0) -> list:
+    """<root>/frames_cleanpass/<scene>/left/NNNN.png, disparity/<scene>/left/
+    NNNN.pfm and camera_data/<scene>/camera_data.txt at 960 x 540: textured
+    frames that drift with the camera, disparities of 20-60 px (depth 17-52
+    at f = 1050), the left camera's c2w moving SCENEFLOW_STEP along x and
+    turning 0.002 rad a frame.  Returns the scene names."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = SCENEFLOW_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    names = []
+    for sc in range(scenes):
+        name = f"scene_{sc}"
+        names.append(name)
+        for sub in (f"frames_cleanpass/{name}/left", f"disparity/{name}/left",
+                    f"camera_data/{name}"):
+            (root / sub).mkdir(parents=True, exist_ok=True)
+        phase = rng.uniform(0, 6.28, 3)
+        disp = (20.0 + 40.0 * yy / h + 2.0 * np.sin(xx / 37.0 + sc)).astype(np.float32)
+        lines = []
+        for i in range(frames):
+            shift = xx + 4.0 * i
+            rgb = np.stack([127 + 100 * np.sin(shift / (23.0 + 7 * c) + yy / (31.0 + 5 * c)
+                                               + phase[c]) for c in range(3)], -1)
+            rgb += rng.normal(0, 8, rgb.shape)
+            cv2.imwrite(str(root / f"frames_cleanpass/{name}/left/{i:04d}.png"),
+                        np.clip(rgb, 0, 255).astype(np.uint8))
+            _write_pfm(root / f"disparity/{name}/left/{i:04d}.pfm", disp)
+            a = 0.002 * i
+            c2w = np.array([[np.cos(a), 0, np.sin(a), SCENEFLOW_STEP * i], [0, 1, 0, 0],
+                            [-np.sin(a), 0, np.cos(a), 0], [0, 0, 0, 1]])
+            right = c2w.copy()
+            right[0, 3] += 1.0
+            lines += [f"Frame {i}", "L " + " ".join(f"{v:.9g}" for v in c2w.flatten()),
+                      "R " + " ".join(f"{v:.9g}" for v in right.flatten()), ""]
+        (root / f"camera_data/{name}/camera_data.txt").write_text("\n".join(lines))
+    return names
+
+
+def _training_launches(dit, steps: int = 1, val_forwards: int = 0) -> dict:
+    """{kernel: launches} of ``steps`` training steps of ``dit`` with
+    ``flash_stock`` and of ``val_forwards`` forwards without gradients, from
+    its modules: a step's forward launches K5 once per block and Perceiver,
+    the recomputation under ``remat`` once more per block (the Perceivers
+    keep their activations, as JAX's ``nn.remat`` wraps the blocks only), the
+    backward each backward kernel once per block and Perceiver; a forward
+    without gradients launches K1 once per block and Perceiver."""
+    blocks = len(dit.transformer_blocks)
+    layers = blocks + len(dit.perceiver_cross_attention or ())
+    out = {name: 0 for name in KERNELS}
+    out["flash_lse"] = steps * (layers + (blocks if dit.remat else 0))
+    out["flash_attention_bwd_dkv"] = out["flash_attention_bwd_dq"] = steps * layers
+    out["flash_attention"] = val_forwards * layers
+    return out
+
+
+def _launch_counts() -> dict:
+    return {kern.__name__: kern.launches for kern in _kernel_counters()}
+
+
+def phase_training(tc, data_root: Path) -> dict:
+    """Run P: the training data from a SceneFlow tree, TRAIN_STEPS LoRA steps
+    of the full-width bf16 DiT, then the adapter gradients on the kernels
+    against the plain versions.  Returns the launches of one step."""
+    import numpy as np
+    import torch
+
+    from trajectorycrafter_tpu_torch import datagen
+    from trajectorycrafter_tpu_torch.schedulers import CogVideoXDDIMScheduler
+    from trajectorycrafter_tpu_torch.training import (
+        TrainState,
+        init_lora_params,
+        lora_target_paths,
+        make_train_step,
+    )
+    from trajectorycrafter_tpu_torch.training.data import LatentsDataset
+    from trajectorycrafter_tpu_torch.training.lora import remove_lora
+    from trajectorycrafter_tpu_torch.training.step import make_loss_fn, make_optimizer
+
+    cfg = tc.cfg
+    # -- the data --
+    t0 = time.perf_counter()
+    scenes = write_sceneflow_tree(data_root / "sceneflow", TRAIN_SCENES, TRAIN_FRAMES)
+    t_tree = time.perf_counter() - t0
+    pe, _ = tc.models.encode_prompt("a scene", cfg.diffusion.negative_prompt)
+    prompt = pe[0].float().cpu().numpy()
+    vae = tc.models.pipeline.vae
+    t0 = time.perf_counter()
+    clips = datagen.clips_from_dataset(
+        datagen.load_sceneflow_clip(str(data_root / "sceneflow"), name) for name in scenes)
+    out_dir = datagen.generate_dataset(vae, str(data_root / "latents"), clips, prompt,
+                                       sample_size=tuple(cfg.diffusion.sample_size))
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    data = LatentsDataset(out_dir)
+    if len(data) != TRAIN_SCENES:
+        raise AssertionError(f"datagen wrote {len(data)} samples, expected {TRAIN_SCENES}")
+    for i in range(len(data)):
+        sample = data[i]
+        shapes = {k: v.shape for k, v in sample.items()}
+        if shapes != LATENT_SHAPES or not all(np.isfinite(v).all() for v in sample.values()):
+            raise AssertionError(f"sample {i}: shapes {shapes} (expected {LATENT_SHAPES}) "
+                                 "or values not finite")
+    log(f"run P data: SceneFlow tree of {TRAIN_SCENES} x {TRAIN_FRAMES} frames at "
+        f"{SCENEFLOW_HW[1]}x{SCENEFLOW_HW[0]} written in {t_tree:.2f} s; generate_dataset "
+        f"{t_data:.2f} s for {len(data)} samples of {json.dumps(shapes)}; inpaint mask "
+        f"channel mean {float(sample['inpaint_latents'][..., 0].mean()):.4f}")
+
+    # -- the training steps --
+    dit = tc.models.pipeline.transformer
+    scheduler = CogVideoXDDIMScheduler()  # the training scheduler of train_lora
+    sch_state = scheduler.set_timesteps(50)
+    dit.remat = True
+    set_impl(dit, "flash_stock")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    try:
+        lora = init_lora_params(gen, dit, rank=TRAIN_RANK)
+        targets = lora_target_paths(dit)
+        adapted = sum(dit.get_submodule(n).weight.numel() for n in targets)
+        log(f"run P: rank {TRAIN_RANK} adapters on {len(targets)} layers ({adapted / 1e9:.3f} B "
+            f"of the DiT's {sum(p.numel() for p in dit.parameters()) / 1e9:.3f} B parameters; "
+            f"{sum(v.numel() for v in lora.values()) / 1e6:.2f} M trainable)")
+        if len(targets) != 316:
+            raise AssertionError(f"{len(targets)} LoRA targets, expected JAX's 316")
+        opt = make_optimizer(lr=TRAIN_LR)
+        step_fn = make_train_step(dit, scheduler, sch_state, opt,
+                                  cfg_dropout_prob=TRAIN_DROPOUT, lora_rank=TRAIN_RANK)
+        state = TrainState(lora, opt.init(lora), 0)
+        batches = data.iter_batches(1, seed=0)
+        step_launches = _training_launches(dit)
+        seconds, peaks = [], []
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        names = list(lora)
+        initial = {k: v.detach().clone() for k, v in lora.items()}
+        # the largest |gradient| of each adapter at each step, as the step hands
+        # its gradients to the optimizer
+        grad_max, update = [], opt.update
+        opt.update = lambda grads, st: (grad_max.append(
+            dict(zip(names, torch.stack([g.abs().max() for g in grads]).tolist()))),
+            update(grads, st))[1]
+        for i in range(TRAIN_STEPS):
+            batch = next(batches)
+            before = {k: v.detach().clone() for k, v in lora.items()}
+            for kern in _kernel_counters():
+                kern.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch, gen)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            got = _launch_counts()
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            log(f"run P step {i + 1}: loss {loss:.5f}, grad_norm {gnorm:.5f}, "
+                f"{seconds[-1]:.3f} s, peak {peaks[-1]:.2f} GiB ({base_mem / 2**30:.2f} GiB "
+                f"resident before the steps); launches {json.dumps(got)}")
+            if got != step_launches:
+                raise AssertionError(f"run P step {i + 1}: launches {got}, expected "
+                                     f"{step_launches}")
+            if not (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0):
+                raise AssertionError(f"run P step {i + 1}: loss {loss}, grad_norm {gnorm}")
+            moved = {k: (v.detach() - before[k]).abs().max().item() for k, v in lora.items()}
+            grads = grad_max[-1]
+            if i == 0:
+                # B = 0 at init: dA is exactly 0, every dB is not, and every B moves
+                wrong = [k for k in names if (grads[k] == 0.0) != k.endswith("lora_A")
+                         or (k.endswith("lora_B") and moved[k] == 0.0)]
+                if wrong:
+                    raise AssertionError(f"run P step 1: {len(wrong)} adapters with dA != 0, "
+                                         f"dB = 0 or B unchanged: {wrong[:3]}")
+            if i == 1:
+                # now B != 0: every dA is nonzero.  Adam moves a value by lr g / (|g|
+                # + 1e-8), so an A whose gradient the random weights keep far below
+                # 1e-8 moves by less than its rounding beyond the weight decay
+                decayed = {k: before[k] * (1 - TRAIN_LR * opt.weight_decay) for k in names}
+                beyond = [k for k in names if k.endswith("lora_A")
+                          and (lora[k].detach() - decayed[k]).abs().max().item() > 0]
+                zero = [k for k in names if k.endswith("lora_A") and grads[k] == 0.0]
+                if zero:
+                    raise AssertionError(f"run P step 2: {len(zero)} A with a zero gradient: "
+                                         f"{zero[:3]}")
+                log(f"run P step 2: every dA nonzero (largest |dA| per adapter: min "
+                    f"{min(grads[k] for k in names if k.endswith('lora_A')):.3e}, median "
+                    f"{float(np.median([grads[k] for k in names if k.endswith('lora_A')])):.3e}); "
+                    f"{len(beyond)} of {len(names) // 2} A moved beyond their weight decay")
+        unchanged = [k for k in names if torch.equal(lora[k].detach(), initial[k])]
+        if unchanged:
+            raise AssertionError(f"run P: {len(unchanged)} adapters never changed: {unchanged[:3]}")
+        log(f"run P: {TRAIN_STEPS} steps, seconds per step {[round(x, 3) for x in seconds]}, "
+            f"peak {max(peaks):.2f} GiB; dA 0 and every dB nonzero at step 1, every B moved at "
+            f"step 1, every dA nonzero at step 2, every adapter changed; launches per step as "
+            f"derived ({json.dumps({k: v for k, v in step_launches.items() if v})})")
+        del state, lora, opt, step_fn, batches, initial
+    finally:
+        remove_lora(dit)
+        dit.remat = False
+        set_impl(dit, "auto")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the gradients on the kernels against the plain versions --
+    blocks, perceivers = dit.transformer_blocks, dit.perceiver_cross_attention
+    dit.transformer_blocks = blocks[:GRAD_CHECK_LAYERS]
+    dit.perceiver_cross_attention = perceivers[:GRAD_CHECK_LAYERS // PERCEIVER_INTERVAL]
+    dit.remat = True
+    try:
+        g = torch.Generator(device="cuda").manual_seed(5)
+        lora = init_lora_params(g, dit, rank=TRAIN_RANK)
+        with torch.no_grad():
+            for k, v in lora.items():
+                if k.endswith("lora_B"):
+                    v.normal_(0.0, 0.02, generator=g)
+        f, h, w = GRAD_CHECK_LATENTS
+        rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+        batch = {"gt_latents": rnd(1, f, h, w, 16), "prompt_embeds": rnd(1, 226, 4096),
+                 "ref_latents": rnd(1, 1, h, w, 16), "inpaint_latents": rnd(1, f, h, w, 17),
+                 "noise": rnd(1, f, h, w, 16), "timesteps": torch.tensor([400], device="cuda")}
+        grads = {}
+        for impl in ("flash_stock", "reference"):
+            set_impl(dit, impl)
+            loss_fn = make_loss_fn(dit, scheduler, sch_state, cfg_dropout_prob=0.0,
+                                   lora_rank=TRAIN_RANK)
+            for kern in _kernel_counters():
+                kern.launches = 0
+            loss = loss_fn(lora, batch, 0)
+            grads[impl] = dict(zip(lora, torch.autograd.grad(loss, list(lora.values()))))
+            torch.cuda.synchronize()
+            got = _launch_counts()
+            expected = _training_launches(dit) if impl == "flash_stock" else \
+                {name: 0 for name in KERNELS}
+            if got != expected:
+                raise AssertionError(f"run P gradient check, {impl}: launches {got}, "
+                                     f"expected {expected}")
+            log(f"run P gradient check, attention {impl}: loss {loss.item():.6f}")
+        rel = {k: ((grads["flash_stock"][k] - grads["reference"][k]).norm()
+                   / grads["reference"][k].norm().clamp_min(1e-30)).item() for k in lora}
+        worst = max(rel, key=rel.get)
+        median = float(np.median(list(rel.values())))
+        log(f"run P gradient check, {GRAD_CHECK_LAYERS} blocks on latents {GRAD_CHECK_LATENTS}: "
+            f"adapter gradients on the kernels vs plain, relative L2 median {median:.3e} (limit "
+            f"{GRAD_MEDIAN_TOL:.3e}), max {rel[worst]:.3e} ({worst}; limit {GRAD_MAX_TOL:.3e})")
+        if not all(np.isfinite(v) for v in rel.values()) or median > GRAD_MEDIAN_TOL \
+                or rel[worst] > GRAD_MAX_TOL:
+            raise AssertionError(f"run P gradient check: median {median:.3e}, {worst} off by "
+                                 f"{rel[worst]:.3e}")
+        del lora, grads
+    finally:
+        remove_lora(dit)
+        dit.transformer_blocks, dit.perceiver_cross_attention = blocks, perceivers
+        dit.remat = False
+        set_impl(dit, "auto")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return step_launches
+
+
+def phase_train_script(tree: dict, data_dir: str) -> None:
+    """``scripts/train_lora.main(argv)`` on the tree's 6-layer DiT and run P's
+    samples: 2 steps with validation and a checkpoint after each, then
+    ``--resume_from_checkpoint latest`` for one more; launches derived from
+    the loaded model (``_training_launches``)."""
+    import numpy as np
+    import torch
+
+    from trajectorycrafter_tpu_torch.scripts import train_lora
+
+    out = tree["root"] / "lora_out"
+    argv = ["--data_dir", data_dir, "--output_dir", str(out), "--transformer_path",
+            str(tree["dirs"]["dit"]), "--log_every", "1", "--checkpointing_steps", "1",
+            "--seed", "0"]
+    for label, extra, steps, vals in (
+            ("train", ["--train_steps", "2", "--validate_every", "1", "--val_fraction", "0.34"],
+             2, 2),
+            ("resume", ["--train_steps", "3", "--resume_from_checkpoint", "latest"], 1, 0)):
+        for kern in _kernel_counters():
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_lora.main(argv + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = _launch_counts()
+        log(f"script train_lora ({label}): python -m trajectorycrafter_tpu_torch.scripts."
+            f"train_lora {' '.join(extra)} on the tree: {seconds:.2f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {json.dumps(got)}")
+        if label == "train":
+            with torch.device("meta"):
+                from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
+
+                cut = CrossTransformer3DModel(num_layers=TREE_DIT_LAYERS, remat=True)
+            # one held-out sample (a third of 3) at each of the 2 validations
+            want = _training_launches(cut, steps, vals)
+            first = {k: v.detach().clone() for k, v in state.lora.items()}
+        else:
+            want = _training_launches(cut, steps, 0)
+        if got != want:
+            raise AssertionError(f"train_lora ({label}): launches {got}, expected {want}")
+        expected_step = 2 if label == "train" else 3
+        if state.step != expected_step or not (out / f"ckpt_{expected_step:07d}").is_dir():
+            raise AssertionError(f"train_lora ({label}): step {state.step}, checkpoints "
+                                 f"{sorted(os.listdir(out))}")
+    recs = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    vals = [r["val_loss"] for r in recs if "val_loss" in r]
+    if [r["step"] for r in recs if "loss" in r] != [1, 2, 3] or len(vals) != 2 or \
+            not np.isfinite(losses + vals).all():
+        raise AssertionError(f"train_lora metrics {recs}")
+    moved = max((state.lora[k].detach() - first[k]).abs().max().item() for k in first)
+    if not 0 < moved <= 1e-4 * 1.01:
+        raise AssertionError(f"train_lora resume: the adapters moved {moved} from step 2's")
+    log(f"script train_lora: losses {[round(x, 5) for x in losses]}, val_loss "
+        f"{[round(x, 5) for x in vals]}; resumed at step 2 from ckpt_0000002 and moved by "
+        f"{moved:.3e} (one AdamW step of lr 1e-4); {sorted(os.listdir(out))}")
 
 
 def phase_bench() -> dict:
@@ -2607,35 +3217,42 @@ def _attention_entry(name: str, t: dict, **kw) -> dict:
 def main() -> None:
     os.chdir(REPO)
     sys.path.insert(0, str(REPO))
-    t_start = time.perf_counter()
     phase_device()
-    phase_build()
-    max_err, timing = phase_kernels()
-    int8_err, int8_timing = phase_int8_kernels()
-    variant_err, variant_timing = phase_variants()
-    tc, runs, (dit8, unet8) = phase_main_path()
-    phase_modes(tc, dit8, runs)
-    phase_long_paths(tc, dit8, runs)
-    phase_consistent(tc, dit8, runs)
-    phase_whole_models(tc, dit8, unet8)
-    bench = phase_bench()
+    run_phase("build", phase_build)
+    max_err, timing = run_phase("3 kernels", phase_kernels)
+    int8_err, int8_timing = run_phase("3 int8 kernels", phase_int8_kernels)
+    variant_err, variant_timing = run_phase("4 variants", phase_variants)
+    backward_err, backward_timing = run_phase("4b backward", phase_backward_kernels)
+    tc, runs, (dit8, unet8) = run_phase("5 main path", phase_main_path)
+    run_phase("5b modes", phase_modes, tc, dit8, runs)
+    run_phase("5c long paths", phase_long_paths, tc, dit8, runs)
+    run_phase("5d consistent", phase_consistent, tc, dit8, runs)
+    run_phase("6 whole models", phase_whole_models, tc, dit8, unet8)
+    bench = run_phase("7 bench", phase_bench)
 
     import torch
 
-    # phase 8: write the random bundle's weights as a tree, free the bundle,
-    # load the tree through the entry point
     del dit8, unet8
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_tree_"))
     try:
-        tree = write_checkpoint_tree(tc, root)
+        # phase 5e: run P, LoRA training at full width
+        step_launches = run_phase("5e training", phase_training, tc, data_root)
+        # phase 8: write the random bundle's weights as a tree, free the
+        # bundle, load the tree through the entry point
+        tree = run_phase("8 tree write", write_checkpoint_tree, tc, root)
         del tc
         gc.collect()
         torch.cuda.empty_cache()
-        phase_checkpoints(tree, runs)
-        phase_scripts(tree, runs)
-        phase_alignment_script(tree, runs)
+        run_phase("8 checkpoints", phase_checkpoints, tree, runs)
+        run_phase("8 scripts", phase_scripts, tree, runs)
+        run_phase("8 alignment script", phase_alignment_script, tree, runs)
+        run_phase("8 train script", phase_train_script, tree, str(data_root / "latents"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(data_root, ignore_errors=True)
 
     per_path = lambda kern: _launches_per_path(runs, kern)
     run_launches = lambda run, kern: _run_launches(runs, run, kern)
@@ -2671,9 +3288,10 @@ def main() -> None:
                          launches_run="D (attention_impl and TRAJCRAFTER_DEPTH_ATTN flash_pv8)",
                          launches_per_path=per_path("flash_pv8"),
                          bench_launches=bench["flash_pv8"], max_abs_err=variant_err["flash_pv8"]),
+        *_backward_entries(backward_err, backward_timing, step_launches),
     ]
     print(json.dumps({"kernels": kernels_line}), flush=True)
-    log(f"chip smoke: {time.perf_counter() - t_start:.1f} s")
+    log(f"chip smoke: {time.perf_counter() - T_START:.1f} s; by phase {json.dumps(PHASE_SECONDS)}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,6 +20,7 @@ is checked here too: it passes a sound bf16 answer and fails planted faults.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -313,3 +314,119 @@ def test_quantized_wrappers_reject_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert flash_pv8.launches == 0 and int8_flash_attention.launches == 0
+
+
+# ----------------------------------------------------------------------------
+# the gradient: the plain backward against jax.grad, the autograd Function
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 2, 130, 130, 64),  # DiT head dim, ragged around 64-row tiles
+    (2, 2, 77, 203, 128),  # Perceiver head dim, cross lengths
+    (1, 3, 65, 63, 64),
+])
+def test_backward_reference_matches_jax_grad(shape):
+    """``attention_backward_reference`` on the forward's out and lse against
+    ``jax.grad`` of the JAX ``multi_head_attention(impl="xla")`` (the plain
+    reference of K4 and its backward kernels): fp32 on both sides, rtol 1e-5
+    (atol 1e-6 for the entries that cancel to near zero)."""
+    from trajectorycrafter_tpu.ops.attention import multi_head_attention as jax_mha
+    from trajectorycrafter_tpu_torch.ops.attention import attention_backward_reference
+    from trajectorycrafter_tpu_torch.ops.attention_variants import lse_reference
+
+    b, h, sq, skv, d = shape
+    q, k, v = _qkv(5, b, h, sq, skv, d)
+    dout = np.random.default_rng(6).standard_normal((b, sq, h, d)).astype(np.float32)
+    scale = d ** -0.5
+    loss = lambda q, k, v: jnp.sum(jax_mha(q, k, v, scale, impl="xla")
+                                   * jnp.asarray(dout).reshape(b, sq, h * d))
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, dout))
+    out, lse = attention_reference(tq, tk, tv, scale), lse_reference(tq, tk, scale)
+    got = attention_backward_reference(tq, tk, tv, out, lse, tdo, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
+
+
+def test_function_passes_gradcheck_in_float64_on_cpu():
+    """On the CPU the Function takes its plain versions, which keep float64:
+    ``torch.autograd.gradcheck`` against finite differences."""
+    from trajectorycrafter_tpu_torch.ops.attention import FlashAttentionFunction
+    from trajectorycrafter_tpu_torch.ops.attention_variants import lse_reference
+
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_()
+               for s in ((1, 6, 2, 8), (1, 9, 2, 8), (1, 9, 2, 8)))
+    assert attention_reference(q, k, v, 0.3).dtype == torch.float64
+    assert lse_reference(q, k, 0.3).dtype == torch.float64
+    assert torch.autograd.gradcheck(lambda *x: FlashAttentionFunction.apply(*x, 0.3),
+                                    (q, k, v))
+
+
+def test_flash_stock_under_autograd_takes_the_function_and_auto_the_plain_ops():
+    """With a gradient needed, ``flash_stock`` runs the Function (on the CPU
+    its plain versions) and ``auto`` autograd through the plain version; both
+    give jax.grad's gradients' values, and no kernel counter moves."""
+    from trajectorycrafter_tpu_torch.ops.kernels import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    q, k, v = (torch.from_numpy(x) for x in _qkv(8, 1, 2, 40, 50, 64))
+    dout = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 40, 128))
+                            .astype(np.float32))
+    counters = (flash_lse, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    before = [c.launches for c in counters]
+    grads = {}
+    for impl in ("flash_stock", "auto"):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = multi_head_attention(*x, impl=impl)
+        assert ("FlashAttentionFunction" in type(out.grad_fn.next_functions[0][0]).__name__) == (
+            impl == "flash_stock")
+        grads[impl] = torch.autograd.grad(out, x, dout)
+    for a, b in zip(grads["flash_stock"], grads["auto"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert [c.launches for c in counters] == before
+    with torch.no_grad():
+        out = multi_head_attention(q.requires_grad_(), k, v, impl="flash_stock")
+    assert out.grad_fn is None
+
+
+@pytest.mark.parametrize("shape,gain", [
+    ((1, 2, 512, 512, 64), 4.0),  # peaked rows: di matters
+    ((1, 2, 300, 700, 128), 4.0),
+], ids=["d64", "d128"])
+def test_backward_error_passes_sound_and_rejects_planted_faults(shape, gain):
+    """The backward kernels' tolerance (``attention_backward_error``) passes
+    the plain gradients rounded to bf16 (a sound kernel's output) on bf16
+    inputs, and rejects di left out (out zeroed makes di 0), the last
+    quarter of the 64-row query tiles skipped in dK/dV, and the last
+    quarter of the key tiles skipped in dQ."""
+    from trajectorycrafter_tpu_torch.ops.attention import (
+        attention_backward_error,
+        attention_backward_reference,
+    )
+    from trajectorycrafter_tpu_torch.ops.attention_variants import lse_reference
+
+    b, h, sq, skv, d = shape
+    q, k, v = _qkv(10, b, h, sq, skv, d)
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in (q * gain, k, v))
+    dout = torch.from_numpy(np.random.default_rng(11).standard_normal((b, sq, h, d))
+                            .astype(np.float32)).bfloat16()
+    scale = d ** -0.5
+    out, lse = attention_reference(q, k, v, scale), lse_reference(q, k, scale)
+    bf16 = lambda grads: {n: g.bfloat16() for n, g in zip(("dq", "dk", "dv"), grads)}
+    held = lambda grads: attention_backward_error(grads, q, k, v, out, lse, dout, scale)
+    assert held(bf16(attention_backward_reference(q, k, v, out, lse, dout, scale)))["ok"]
+    no_di = bf16(attention_backward_reference(q, k, v, torch.zeros_like(out), lse, dout, scale))
+    assert not held({"dq": no_di["dq"]})["ok"] and not held({"dk": no_di["dk"]})["ok"]
+    keep = (-(-sq // 64) - -(-(-(-sq // 64)) // 4)) * 64
+    part = bf16(attention_backward_reference(q[:, :keep], k, v, out[:, :keep],
+                                             lse[..., :keep], dout[:, :keep], scale))
+    assert not held({"dk": part["dk"]})["ok"] and not held({"dv": part["dv"]})["ok"]
+    keep = (-(-skv // 64) - -(-(-(-skv // 64)) // 4)) * 64
+    part = bf16(attention_backward_reference(q, k[:, :keep], v[:, :keep], out, lse, dout,
+                                             scale))
+    assert not held({"dq": part["dq"]})["ok"]

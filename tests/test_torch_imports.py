@@ -39,7 +39,9 @@ def test_port_modules_import_without_jax():
                  "scripts.inference_autoregressive", "scripts.autoregressive_global",
                  "scripts.run_w_cam_poses", "scripts.inference_orbits", "models.vda",
                  "depth_alignment", "consistent_autoregressive",
-                 "scripts.inference_alignment", "scripts.gradio_app"):
+                 "scripts.inference_alignment", "scripts.gradio_app", "training",
+                 "training.lora", "training.step", "training.data", "training.validation",
+                 "datagen", "scripts.train_lora"):
         assert f"trajectorycrafter_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -48,6 +48,18 @@ reject an lse in base 2, a dropped clamp, a row sum off by 10%, the last
 quarter of the key blocks skipped and zero-padded keys taken as real ones
 where every score is negative.
 
+The attention backward (csrc/flash_attention_bwd.cu): ``flash_attention_bwd_dkv``
+(K4-dkv) and ``flash_attention_bwd_dq`` (K4-dq) within
+``attention_backward_error`` (per element 2^-6 of the gradient's sum of
+magnitudes, per head a relative L2 error of 2^-6) of
+``attention_backward_reference``, at the DiT's and the Perceiver's training
+shapes (heads cut), ragged lengths (one key too) and strided views; the
+bound rejects di left out, the last quarter of the query tiles skipped in
+dK/dV and of the key tiles in dQ.  ``FlashAttentionFunction`` through
+``multi_head_attention(impl="flash_stock")`` launches K5 and both kernels
+once and gives the plain gradients; the routes with no backward raise
+under autograd.
+
 The long-trajectory path's device code, which has no kernel of its own:
 the z-buffer render on the card against the CPU's (the warp's bounds; two
 card renders bit-equal), and the tiled VAE decode at one tile bit-equal to
@@ -61,6 +73,9 @@ import torch
 
 from trajectorycrafter_tpu_torch.ops import attention_variants as av
 from trajectorycrafter_tpu_torch.ops.attention import (
+    FlashAttentionFunction,
+    attention_backward_error,
+    attention_di,
     attention_error,
     kernel_error,
     lse_error,
@@ -74,6 +89,8 @@ from trajectorycrafter_tpu_torch.ops.int8 import quantize_dense
 from trajectorycrafter_tpu_torch.ops.kernels import (
     ATTENTION_KEY_TILE,
     flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
     flash_exp2,
     flash_lse,
     flash_maxpass,
@@ -862,3 +879,128 @@ def test_tiled_decode_at_one_tile_is_the_one_shot_decode_on_the_card(gen):
     assert torch.equal(vae_decode_tiled(vae, latents, 9, 12, 0.0, 0.0), one_shot)
     tiled = vae_decode_tiled(vae, latents, 4, 5, 1.0 / 6.0, 1.0 / 5.0)
     assert tiled.shape == one_shot.shape and torch.isfinite(tiled).all()
+
+
+# ----------------------------------------------------------------------------
+# the attention backward (csrc/flash_attention_bwd.cu) and its autograd Function
+# ----------------------------------------------------------------------------
+
+# query rows per tile of the dK/dV kernel's loop and key rows per tile of the
+# dQ kernel's (64; the dK/dV loop steps 32 at head dim 128, a divisor)
+BWD_TILE = 64
+
+
+def _backward_inputs(gen, b, h, sq, skv, d, gain):
+    """q, k, v, the forward's (out, lse) from K5, a random dout and di."""
+    q = _randn(gen, b, sq, h, d, gain=gain)
+    k, v = _randn(gen, b, skv, h, d), _randn(gen, b, skv, h, d)
+    out, lse = flash_lse(q, k, v, d ** -0.5)
+    dout = _randn(gen, b, sq, h, d)
+    return q, k, v, out, lse, dout, attention_di(out, dout)
+
+
+def _backward(q, k, v, dout, lse, di, scale):
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, di, scale)
+    return {"dq": flash_attention_bwd_dq(q, k, v, dout, lse, di, scale), "dk": dk, "dv": dv}
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,gain", [
+    (1, 8, 13330, 13330, 64, 1.0),  # DiT self-attention in training (B = 1), heads cut
+    (1, 16, 13104, 3024, 128, 4.0),  # Perceiver in training, unbounded scores
+    (1, 2, 1000, 777, 64, 2.0),
+    (2, 3, 17, 129, 128, 2.0),
+    (1, 1, 1, 1, 64, 1.0),
+    *[(1, 2, sq, skv, d, 2.0) for sq, skv, d in EDGE_CASES],
+])
+def test_backward_kernels_match_plain(gen, b, h, sq, skv, d, gain):
+    q, k, v, out, lse, dout, di = _backward_inputs(gen, b, h, sq, skv, d, gain)
+    before = (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches)
+    grads = _backward(q, k, v, dout, lse, di, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dkv.launches, flash_attention_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(g.dtype == torch.bfloat16 for g in grads.values())
+    readings = attention_backward_error(grads, q, k, v, out, lse, dout, d ** -0.5)
+    assert readings["ok"], readings
+
+
+@pytest.mark.parametrize("layout", ["perceiver_kv", "bhsd"])
+def test_backward_kernels_read_strided_views(gen, layout):
+    b, s, h = 2, 300, 4
+    if layout == "perceiver_kv":
+        d = 128
+        k, v = (x.unflatten(-1, (h, d)) for x in _randn(gen, b, s, 2 * h * d).chunk(2, dim=-1))
+        q = _randn(gen, b, 77, 3 * h * d)[..., h * d:2 * h * d].unflatten(-1, (h, d))
+        dout = _randn(gen, b, 77, 2 * h * d)[..., :h * d].unflatten(-1, (h, d))
+    else:
+        d = 64
+        q, k, v, dout = (_randn(gen, b, h, n, d, gain=2.0).transpose(1, 2)
+                         for n in (77, s, s, 77))
+    assert not (q.is_contiguous() or k.is_contiguous() or dout.is_contiguous())
+    out, lse = flash_lse(q, k, v, d ** -0.5)
+    di = attention_di(out, dout)
+    grads = _backward(q, k, v, dout, lse, di, d ** -0.5)
+    readings = attention_backward_error(grads, q, k, v, out, lse, dout, d ** -0.5)
+    assert readings["ok"], readings
+
+
+def _skip_last_quarter(n):
+    tiles = -(-n // BWD_TILE)
+    return (tiles - -(-tiles // 4)) * BWD_TILE
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", [(1, 8, 13330, 13330, 64), (1, 16, 13104, 3024, 128)],
+                         ids=["dit", "perceiver"])
+def test_backward_tolerance_rejects_planted_faults(gen, b, h, sq, skv, d):
+    """Peaked rows (q x 4): di left out of both kernels, the last quarter of
+    the query tiles skipped in dK/dV, and the last quarter of the key tiles
+    skipped in dQ each fail the bound the sound kernels pass."""
+    scale = d ** -0.5
+    q, k, v, out, lse, dout, di = _backward_inputs(gen, b, h, sq, skv, d, 4.0)
+    held = lambda grads: attention_backward_error(grads, q, k, v, out, lse, dout, scale)
+    assert held(_backward(q, k, v, dout, lse, di, scale))["ok"]
+    assert not held(_backward(q, k, v, dout, lse, torch.zeros_like(di), scale))["ok"]
+    keep = _skip_last_quarter(sq)
+    dk, dv = flash_attention_bwd_dkv(q[:, :keep], k, v, dout[:, :keep],
+                                     lse[..., :keep].contiguous(), di[..., :keep].contiguous(),
+                                     scale)
+    assert not held({"dk": dk})["ok"] and not held({"dv": dv})["ok"]
+    keep = _skip_last_quarter(skv)
+    dq = flash_attention_bwd_dq(q, k[:, :keep], v[:, :keep], dout, lse, di, scale)
+    assert not held({"dq": dq})["ok"]
+
+
+def test_function_gradients_are_the_kernels_and_match_plain(gen):
+    b, h, sq, skv, d = 1, 4, 1000, 777, 128
+    q, k, v = (_randn(gen, b, n, h, d, gain=2.0).requires_grad_() for n in (sq, skv, skv))
+    counts = lambda: (flash_lse.launches, flash_attention_bwd_dkv.launches,
+                      flash_attention_bwd_dq.launches)
+    before = counts()
+    out = multi_head_attention(q, k, v, impl="flash_stock")
+    assert out.grad_fn is not None
+    dout = _randn(gen, b, sq, h * d)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    with torch.no_grad():
+        o, lse = flash_lse(q, k, v, d ** -0.5)
+    grads = {"dq": q.grad, "dk": k.grad, "dv": v.grad}
+    readings = attention_backward_error(grads, q.detach(), k.detach(), v.detach(), o, lse,
+                                        dout.unflatten(-1, (h, d)), d ** -0.5)
+    assert readings["ok"], readings
+    assert torch.equal(FlashAttentionFunction.apply(q, k, v, d ** -0.5).detach(), o)
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash_max", "flash_pv8"])
+def test_routes_without_a_backward_raise_under_autograd(gen, impl):
+    q = _randn(gen, 1, 300, 2, 64).requires_grad_()
+    k, v = _randn(gen, 1, 300, 2, 64), _randn(gen, 1, 300, 2, 64)
+    with pytest.raises(RuntimeError, match="flash_stock"):
+        multi_head_attention(q, k, v, impl=impl)
+    with torch.no_grad():
+        assert multi_head_attention(q, k, v, impl=impl).grad_fn is None
+    v.requires_grad_()  # v reaches the quantized kernels quantized
+    with pytest.raises(RuntimeError, match="flash_stock"):
+        av.int8_attention(q.detach(), k, v, 0.125, 128)
+    with pytest.raises(RuntimeError, match="flash_stock"):
+        av.pv8_attention(q.detach(), k, v, 0.125, 512)

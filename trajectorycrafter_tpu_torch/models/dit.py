@@ -15,6 +15,12 @@ Counterpart of trajectorycrafter_tpu/models/dit.py, in bf16:
     Perceivers, as in the JAX model: ``"flash_pv8"`` runs both on the
     PV-int8 kernel.
 
+``remat`` is the JAX model's field: with gradients on, each
+``CogVideoXBlock`` keeps only its inputs and is recomputed in the backward
+pass (``torch.utils.checkpoint``), as JAX's ``nn.remat`` wraps the blocks
+only; the Perceivers keep their activations.  The same operations run, so
+no value changes.
+
 The JAX ``quant="int8"`` branch is this model after ``ops/int8.py
 quantize_dit_``, which swaps the blocks' and the Perceivers' linear layers
 for ``Int8Linear`` ones: on the card their GEMMs run in the hand-written
@@ -32,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint as _recompute
 
 from trajectorycrafter_tpu_torch.ops.attention import multi_head_attention
 from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear
@@ -253,9 +260,11 @@ class CrossTransformer3DModel(nn.Module):
         cross_attn_dim_head: int = 128,
         cross_attn_num_heads: int = 16,
         attention_impl: str = "auto",
+        remat: bool = False,
     ):
         super().__init__()
         dim = num_attention_heads * attention_head_dim
+        self.remat = remat
         self.inner_dim = dim
         self.attention_head_dim = attention_head_dim
         self.out_channels = out_channels
@@ -331,7 +340,11 @@ class CrossTransformer3DModel(nn.Module):
         # 4. transformer blocks with interleaved Perceiver cross-attention
         hidden, encoder = video_tokens, text_tokens
         for i, block in enumerate(self.transformer_blocks):
-            hidden, encoder = block(hidden, encoder, temb, image_rotary_emb)
+            if self.remat and torch.is_grad_enabled():
+                hidden, encoder = _recompute(block, hidden, encoder, temb, image_rotary_emb,
+                                             use_reentrant=False)
+            else:
+                hidden, encoder = block(hidden, encoder, temb, image_rotary_emb)
             if cross_tokens is not None and i % self.cross_attn_interval == 0:
                 perceiver = self.perceiver_cross_attention[i // self.cross_attn_interval]
                 hidden = hidden + perceiver(cross_tokens, hidden)

@@ -18,6 +18,13 @@ version: ``attention_reference`` for the first two, ``maxpass_reference``
 of the plain einsum) and ``"reference"`` take ``attention_reference`` on any
 device, ``"flash_pv8_reference"`` K6's plain version on any device, for
 holding a whole model's kernel run against it.
+
+The gradient (LoRA training): ``FlashAttentionFunction`` is the port of the
+``custom_vjp`` of JAX's library flash attention (``_flash_attention`` under
+``impl="flash_stock"``): K5 forward, then the two backward kernels of
+csrc/flash_attention_bwd.cu (dK/dV and dQ) with ``attention_backward_reference``
+as their plain version.  Under autograd ``"flash_stock"`` takes it; every
+other kernel route raises on the card, since its kernel has no backward.
 """
 
 from __future__ import annotations
@@ -28,26 +35,40 @@ from typing import Optional
 import torch
 
 from trajectorycrafter_tpu_torch.ops import attention_variants as av
-from trajectorycrafter_tpu_torch.ops.kernels import flash_attention, flash_maxpass
+from trajectorycrafter_tpu_torch.ops.kernels import (
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_lse,
+    flash_maxpass,
+)
 
 # Query rows per step of the plain version: bounds its fp32 score block to
 # B * H * 1024 * Skv floats (5.2 GB at the DiT's 2 x 48 x 13,330).
 REFERENCE_CHUNK = 1024
 
 
+def accumulate_dtype(x: torch.Tensor) -> torch.dtype:
+    """The type the plain versions compute scores in: fp32, or float64 for
+    float64 inputs (``torch.autograd.gradcheck`` runs them in float64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float, chunk: int = REFERENCE_CHUNK) -> torch.Tensor:
     """(B, Sq, H, D) x (B, Skv, H, D) -> (B, Sq, H, D) softmax attention.
 
-    Same arithmetic as the JAX ``_xla_attention``: fp32 scores and softmax,
-    weights cast to v's dtype for the PV product.  Chunked over queries so
-    that it fits at the DiT's sequence length.
+    Same arithmetic as the JAX ``_xla_attention``: fp32 scores and softmax
+    (float64 for float64 inputs), weights cast to v's dtype for the PV
+    product.  Chunked over queries so that it fits at the DiT's sequence
+    length.
     """
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D)
-    kf = kt.float().transpose(-1, -2)
+    acc = accumulate_dtype(q)
+    kf = kt.to(acc).transpose(-1, -2)
     out = torch.empty_like(qt)
     for i in range(0, qt.shape[2], chunk):
-        scores = torch.matmul(qt[:, :, i:i + chunk].float(), kf) * scale
+        scores = torch.matmul(qt[:, :, i:i + chunk].to(acc), kf) * scale
         weights = torch.softmax(scores, dim=-1).to(v.dtype)
         out[:, :, i:i + chunk] = torch.matmul(weights, vt)
     return out.transpose(1, 2)
@@ -187,6 +208,152 @@ def kernel_error(kernel, out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     return output_error(out, *plain_refs(lambda x: plain(q, k, x, scale), v))
 
 
+# ----------------------------------------------------------------------------
+# The gradient: K5 forward, the backward kernels of csrc/flash_attention_bwd.cu
+# ----------------------------------------------------------------------------
+
+
+def _backward(q, k, v, out, lse, dout, scale, chunk, magnitudes):
+    """The plain backward pass, chunked over queries: (dq, dk, dv), and with
+    ``magnitudes`` also each one's sum of magnitudes, the same products over
+    |.| with |ds| taken as p (|dout| |v|^T + |di|), which no cancellation
+    shrinks (the bound of ``attention_backward_error``)."""
+    acc = accumulate_dtype(q)
+    qt, kt, vt, dot = (x.transpose(1, 2).to(acc) for x in (q, k, v, dout))  # (B, H, S, D)
+    lse = lse.to(acc)
+    di = (out.to(acc) * dout.to(acc)).sum(-1).transpose(1, 2)  # (B, H, Sq)
+    fresh = lambda: [torch.empty_like(qt), torch.zeros_like(kt), torch.zeros_like(vt)]
+    grads, mags = fresh(), fresh() if magnitudes else None
+    kT, vT = kt.transpose(-1, -2), vt.transpose(-1, -2)
+    for i in range(0, qt.shape[2], chunk):
+        rows = slice(i, i + chunk)
+        qc, doc, dic = qt[:, :, rows], dot[:, :, rows], di[:, :, rows, None]
+        p = torch.exp(torch.matmul(qc, kT) * scale - lse[:, :, rows, None])
+        ds = p * (torch.matmul(doc, vT) - dic)
+        grads[0][:, :, rows] = torch.matmul(ds, kt) * scale
+        grads[1] += torch.matmul(ds.transpose(-1, -2), qc) * scale
+        grads[2] += torch.matmul(p.transpose(-1, -2), doc)
+        if magnitudes:
+            ds_mag = p * (torch.matmul(doc.abs(), vT.abs()) + dic.abs())
+            mags[0][:, :, rows] = torch.matmul(ds_mag, kt.abs()) * scale
+            mags[1] += torch.matmul(ds_mag.transpose(-1, -2), qc.abs()) * scale
+            mags[2] += torch.matmul(p.transpose(-1, -2), doc.abs())
+    grads = tuple(g.transpose(1, 2) for g in grads)
+    return grads, None if mags is None else tuple(m.transpose(1, 2) for m in mags)
+
+
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                                 scale: float, chunk: int = REFERENCE_CHUNK):
+    """The plain version of the attention backward: -> (dq, dk, dv), (B, S, H,
+    D) in fp32 (float64 for float64 inputs).  q (B, Sq, H, D), k and v (B,
+    Skv, H, D), out and dout (B, Sq, H, D), lse (B, H, Sq) the natural-log
+    logsumexp of q k^T * scale.  With p = exp(q k^T * scale - lse), di =
+    sum(out * dout) over the head dim and ds = p (dout v^T - di): dq = scale
+    ds k, dk = scale ds^T q, dv = p^T dout, in fp32 scores like
+    ``attention_reference`` and chunked over queries the same way.  The tests
+    and chip_smoke.py use it; the port's gradient runs
+    ``FlashAttentionFunction``."""
+    return _backward(q, k, v, out, lse, dout, scale, chunk, magnitudes=False)[0]
+
+
+# Tolerance of the backward kernels against ``attention_backward_reference``
+# on the same inputs (the same lse and out):
+#
+# - per element, |g - ref| <= BWD_ELEM_TOL * (|ref| + mag), where mag is the
+#   same sum over magnitudes (``_backward``).  The kernels round p (dV) and ds
+#   (dK, dQ) to bf16 for their products (unit roundoff 2^-8 of each term) and
+#   their outputs to bf16 once, and sum fp32 products in another order than
+#   the plain version, so a sound answer is within 2^-8 (|ref| + mag) with room
+#   for summation order under 2^-6.  mag takes |ds| as p (|dout| |v|^T +
+#   |di|): where dout . v nearly equals di, fp32 summation order alone moves ds
+#   by much of itself.
+# - per (batch, head), the relative L2 error ||g - ref|| / ||ref|| over the
+#   head's gradient <= BWD_HEAD_TOL.  The rounding errors above are
+#   independent in sign, so a sound kernel reads about 2^-8 to 2^-9; a fault
+#   that drops di, or the last quarter of the query tiles from dK/dV, moves
+#   whole heads by a share of themselves (tens of percent where the rows are
+#   peaked, as a trained model's are).  A head whose gradient cancels to
+#   below BWD_NOISE_FLOOR of its sum of magnitudes (one key: p = 1 and out =
+#   v, so ds = dout . v - di is 0 but for fp32 rounding) is measured against
+#   that share of its magnitudes instead: there the reference itself is
+#   rounding noise.
+BWD_ELEM_TOL = 2.0 ** -6
+BWD_HEAD_TOL = 2.0 ** -6
+BWD_NOISE_FLOOR = 2.0 ** -10
+
+
+def attention_backward_error(grads, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                             scale: float) -> dict:
+    """Hold ``grads`` -- a dict with any of "dq", "dk", "dv", (B, S, H, D) --
+    against the plain version on the same inputs within the tolerance
+    above.  Returns per gradient the largest error over its element's bound
+    (``<name>_max_elem_ratio``, at most 1 passes), the largest head's
+    relative L2 error (``<name>_max_head_rel_err``) and its largest absolute
+    error, and ``ok``."""
+    (dq, dk, dv), (mq, mk, mv) = _backward(q, k, v, out, lse, dout, scale, REFERENCE_CHUNK,
+                                           magnitudes=True)
+    refs = {"dq": (dq, mq), "dk": (dk, mk), "dv": (dv, mv)}
+    readings, ok = {}, True
+    tiny = torch.finfo(torch.float32).tiny
+    for name, g in grads.items():
+        ref, mag = (x.float() for x in refs[name])
+        err = (g.float() - ref).abs()
+        ratio = (err / (BWD_ELEM_TOL * (ref.abs() + mag)).clamp_min(tiny)).max().item()
+        # per (batch, head): sums over the sequence and the head dim
+        norm = lambda x: x.square().sum((1, 3)).sqrt()
+        scale = torch.maximum(norm(ref), BWD_NOISE_FLOOR * norm(mag)).clamp_min(tiny)
+        head = (norm(err) / scale).max().item()
+        sane = bool(torch.isfinite(g).all()) and g.shape == ref.shape
+        readings.update({f"{name}_max_abs_err": err.max().item(),
+                         f"{name}_max_elem_ratio": ratio, f"{name}_max_head_rel_err": head})
+        ok = ok and sane and ratio <= 1.0 and head <= BWD_HEAD_TOL
+    readings["ok"] = ok
+    return readings
+
+
+def attention_di(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """di = sum(out * dout) over the head dim, (B, S, H, D) -> (B, H, S)
+    fp32 contiguous: one stock reduction before the backward kernels, as JAX
+    computes it in XLA before its backward Pallas kernels."""
+    return (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable attention, (B, S, H, D) q, k, v -> (B, Sq, H, D), the
+    port of JAX's ``custom_vjp`` flash attention (K4 and its two backward
+    Pallas kernels).  On the card the forward is K5 (``flash_lse``: the
+    output and the natural-log logsumexp, JAX's m + log l), saving q, k, v,
+    out and lse; the backward computes di (``attention_di``), then dK and dV
+    (``flash_attention_bwd_dkv``) and dQ (``flash_attention_bwd_dq``).  On the
+    CPU both take their plain versions (``attention_reference`` with
+    ``lse_reference``; ``attention_backward_reference``), which keep float64
+    inputs in float64."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.is_cuda:
+            out, lse = flash_lse(q, k, v, scale)
+        else:
+            out, lse = attention_reference(q, k, v, scale), av.lse_reference(q, k, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.is_cuda:
+            dout = dout.contiguous()
+            di = attention_di(out, dout)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, di, ctx.scale)
+            dq = flash_attention_bwd_dq(q, k, v, dout, lse, di, ctx.scale)
+        else:
+            dq, dk, dv = attention_backward_reference(q, k, v, out, lse, dout, ctx.scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
 def _pv8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """K6 with the JAX dispatch's key block (ops/attention.py:124-142)."""
     return av.pv8_attention(q, k, v, scale, av.pv8_block_k(q.shape[1]))
@@ -218,6 +385,13 @@ def multi_head_attention(
     ``"flash_pv8"`` launch their kernel for CUDA tensors and take their plain
     version for CPU tensors; ``"reference"`` / ``"xla"`` and
     ``"flash_pv8_reference"`` take a plain version on either.
+
+    Where autograd needs a gradient through q, k or v, ``"flash_stock"`` runs
+    ``FlashAttentionFunction`` (K5 forward, the backward kernels), and the
+    other kernel routes raise ``RuntimeError`` on the card
+    (``kernels.refuse_grad``): their kernels have no backward.  The plain
+    routes are differentiated by autograd.  Under ``torch.no_grad()`` nothing
+    changes.
     """
     b, s, h, d = q.shape
     if scale is None:
@@ -225,8 +399,11 @@ def multi_head_attention(
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r} (expected one of {sorted(_IMPLS)})")
     kernel, plain = _IMPLS[impl]
-    if kernel is not None and q.is_cuda:
-        out = kernel(q, k, v, scale)
+    needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    if needs_grad and impl == "flash_stock":
+        out = FlashAttentionFunction.apply(q, k, v, scale)
+    elif kernel is not None and q.is_cuda:
+        out = kernel(q, k, v, scale)  # under autograd the kernel's wrapper raises
     else:
         out = plain(q, k, v, scale)
     return out.reshape(b, s, h * d)

@@ -122,11 +122,12 @@ def scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
 def lse_reference(q: torch.Tensor, k: torch.Tensor, scale: float,
                   chunk: int = CHUNK) -> torch.Tensor:
     """(B, Sq, H, D), (B, Skv, H, D) -> (B, H, Sq) fp32: logsumexp over the
-    keys of q . k * scale, in fp32."""
-    qt, kt = _bshd(q), _bshd(k).float().transpose(-1, -2)
-    out = torch.empty(qt.shape[:3], dtype=torch.float32, device=q.device)
+    keys of q . k * scale, in fp32 (float64 for float64 inputs)."""
+    acc = torch.promote_types(q.dtype, torch.float32)  # float64 stays float64
+    qt, kt = _bshd(q), _bshd(k).to(acc).transpose(-1, -2)
+    out = torch.empty(qt.shape[:3], dtype=acc, device=q.device)
     for i in range(0, qt.shape[2], chunk):
-        out[:, :, i:i + chunk] = torch.logsumexp(qt[:, :, i:i + chunk].float() @ kt * scale, -1)
+        out[:, :, i:i + chunk] = torch.logsumexp(qt[:, :, i:i + chunk].to(acc) @ kt * scale, -1)
     return out
 
 
@@ -247,6 +248,7 @@ def pv8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     the CPU."""
     if not q.is_cuda:
         return pv8_reference(q, k, v, scale, block_k)
+    kernels.refuse_grad("flash_pv8", q, k, v)  # v reaches the kernel quantized
     v8, vs = quantize_per_head(v)
     return kernels.flash_pv8(q, k, pv8_keys_last(v8), vs.reshape(-1), scale * LOG2E, block_k)
 
@@ -313,6 +315,7 @@ def int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     version on the CPU."""
     if not q.is_cuda:
         return int8_attention_reference(q, k, v, scale, block_k)
+    kernels.refuse_grad("int8_flash_attention", q, k, v)  # they reach it quantized
     q8, k8, v8, logit, v127 = int8_operands(q, k, v, scale)
     return kernels.int8_flash_attention(q8, k8, pv8_keys_last(v8), logit, v127, block_k)
 

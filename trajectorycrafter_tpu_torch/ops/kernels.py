@@ -141,11 +141,26 @@ def _check_bshd(name: str, x: torch.Tensor) -> None:
             "pointer must be multiples of 16 bytes)")
 
 
+def refuse_grad(kernel: str, *xs) -> None:
+    """Raise where autograd would need a gradient through ``kernel``: the
+    forward kernels write into fresh tensors with no ``grad_fn``, so a
+    gradient through them would be lost without a sound.  Only
+    ``FlashAttentionFunction`` (ops/attention.py, ``impl="flash_stock"``)
+    has backward kernels."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{kernel} has no backward kernel and would cut the gradient: run it under "
+            "torch.no_grad(), or take multi_head_attention(impl='flash_stock'), the "
+            "differentiable route (ops/attention.py FlashAttentionFunction)")
+
+
 def _check_attention(kernel: str, q: torch.Tensor, k: torch.Tensor, v,
                      dtype=torch.bfloat16) -> tuple:
     """Check q (B, Sq, H, D) and k (and v unless None) (B, Skv, H, D): CUDA
     tensors of ``dtype`` on one device with aligned rows, D in
-    ``FLASH_HEAD_DIMS``; returns (B, Sq, Skv, H, D)."""
+    ``FLASH_HEAD_DIMS``, none needing a gradient (``refuse_grad``); returns
+    (B, Sq, Skv, H, D)."""
+    refuse_grad(kernel, q, k, v)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x is None:
             continue
@@ -261,6 +276,75 @@ def flash_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 
 flash_exp2.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# the attention backward (csrc/flash_attention_bwd.cu)
+# ----------------------------------------------------------------------------
+
+_BWD_DKV_ARGTYPES = (_INT, *[_PTR] * 8, *[_INT] * 5, *[_LONG] * 18, ctypes.c_float, _PTR)
+_BWD_DQ_ARGTYPES = (_INT, *[_PTR] * 7, *[_INT] * 5, *[_LONG] * 15, ctypes.c_float, _PTR)
+
+
+def _check_backward(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    dout: torch.Tensor, lse: torch.Tensor, di: torch.Tensor) -> tuple:
+    """Check what the backward kernels take: q, k, v as the forward kernels
+    take them, dout (B, Sq, H, D) bf16 like q, lse and di (B, H, Sq) fp32
+    contiguous on q's device; returns (B, Sq, Skv, H, D)."""
+    b, sq, skv, h, d = _check_attention(kernel, q, k, v)
+    _check_tensor(kernel, "dout", dout, torch.bfloat16, (b, sq, h, d), q.device)
+    _check_bshd("dout", dout)
+    for name, x in (("lse", lse), ("di", di)):
+        _check_tensor(kernel, name, x, torch.float32, (b, h, sq), q.device)
+        _check_dense(kernel, name, x)
+    return b, sq, skv, h, d
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            dout: torch.Tensor, lse: torch.Tensor, di: torch.Tensor,
+                            scale: float):
+    """dK and dV of ``flash_attention``'s attention on the card (csrc/
+    flash_attention_bwd.cu, entry point flash_attention_bwd_dkv): with p =
+    exp(q k^T * scale - lse) and ds = p (dout v^T - di), -> (dk = scale ds^T
+    q, dv = p^T dout), each (B, Skv, H, D) bf16.  q, k, v as
+    ``flash_attention`` takes them; dout (B, Sq, H, D) bf16; lse (B, H, Sq)
+    fp32, the natural-log logsumexp ``flash_lse`` returns; di (B, H, Sq) fp32,
+    sum(out * dout) over the head dim.  Counts each launch in
+    ``flash_attention_bwd_dkv.launches``."""
+    kernel = "flash_attention_bwd_dkv"
+    b, _, skv, h, d = _check_backward(kernel, q, k, v, dout, lse, di)
+    dk = torch.empty((b, skv, h, d), dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty_like(dk)
+    _call(kernel, _BWD_DKV_ARGTYPES, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          b, h, q.shape[1], skv, d, *_strides(q, k, v, dout, dk, dv), float(scale),
+          source="flash_attention_bwd")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           dout: torch.Tensor, lse: torch.Tensor, di: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    """dQ = scale ds k of ``flash_attention``'s attention on the card (csrc/
+    flash_attention_bwd.cu, entry point flash_attention_bwd_dq), (B, Sq, H,
+    D) bf16; takes what ``flash_attention_bwd_dkv`` takes.  Counts each
+    launch in ``flash_attention_bwd_dq.launches``."""
+    kernel = "flash_attention_bwd_dq"
+    b, sq, skv, h, d = _check_backward(kernel, q, k, v, dout, lse, di)
+    dq = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device)
+    _call(kernel, _BWD_DQ_ARGTYPES, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+          b, h, sq, skv, d, *_strides(q, k, v, dout, dq), float(scale),
+          source="flash_attention_bwd")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
 
 
 # ----------------------------------------------------------------------------

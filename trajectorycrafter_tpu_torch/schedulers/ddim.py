@@ -120,8 +120,29 @@ class DDIMScheduler:
 
     def add_noise(self, state: DDIMState, original: torch.Tensor, noise: torch.Tensor,
                   timestep) -> torch.Tensor:
+        """q(x_t | x_0): at one timestep (an int, img2img), or at one per
+        sample (a (B,) tensor of timesteps, training; the JAX arithmetic:
+        the table's fp32 value, its square roots in fp32)."""
+        if isinstance(timestep, torch.Tensor) and timestep.ndim > 0:
+            a = _alphas_at(state, timestep, original)
+            return a.sqrt() * original + (1.0 - a).sqrt() * noise
         a = float(state.alphas_cumprod[int(timestep)])
         return math.sqrt(a) * original + math.sqrt(1.0 - a) * noise
+
+    @staticmethod
+    def get_velocity(state: DDIMState, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        """The v-prediction target sqrt(abar) noise - sqrt(1 - abar) sample at
+        one timestep per sample (JAX schedulers/ddim.py ``get_velocity``)."""
+        a = _alphas_at(state, timesteps, sample)
+        return a.sqrt() * noise - (1.0 - a).sqrt() * sample
+
+
+def _alphas_at(state: DDIMState, timesteps: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The fp32 alphas_cumprod at (B,) timesteps, on ``like``'s device, shaped
+    (B, 1, ...) to broadcast over it."""
+    a = torch.from_numpy(state.alphas_cumprod)[timesteps.detach().long().cpu()].to(like.device)
+    return a.reshape(a.shape + (1,) * (like.ndim - a.ndim))
 
 
 class CogVideoXDDIMScheduler(DDIMScheduler):

@@ -1,0 +1,222 @@
+"""Diffusion training step (LoRA fine-tuning of the DiT).
+
+Counterpart of trajectorycrafter_tpu/training/step.py, on torch autograd and
+``torch.optim`` in place of ``jax.grad`` and optax.  The same objective
+(the reference latent-space training semantics,
+notebooks/05_11_25_training/lora_utils_ours/training_loop.py:90-309):
+  * conditioning dropout with probability p, one keep-mask per sample for
+    each of text, reference and inpaint latents; dropped conditions become
+    zeros; p = 0 draws nothing;
+  * uniform timesteps, q(x_t | x_0) noising, an epsilon or v target;
+  * MSE plus the optional 0.1 x temporal-difference "motion" term;
+  * AdamW over the adapters after clipping by global norm; with
+    ``grad_accum_steps`` k, the mean of k micro-gradients, clipped, then one
+    update (optax.MultiSteps).
+
+The batch's latents are cast to the model's dtype and its prediction to
+fp32, as in JAX.  ``timesteps`` and ``noise`` come from the batch when it
+holds them, else from the step's ``torch.Generator``: torch cannot replay a
+JAX key, so the parity tests supply them.  The port updates the adapters in
+place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from trajectorycrafter_tpu_torch.training.lora import LoRA, apply_lora, remove_lora
+
+Batch = Dict[str, Union[np.ndarray, torch.Tensor]]
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, fp32 (optax.global_norm)."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+@dataclass
+class OptState:
+    """The optimizer's state: torch's AdamW over the adapters, and with
+    accumulation the running mean of the micro-gradients and its count."""
+    adamw: torch.optim.AdamW
+    acc: Optional[List[torch.Tensor]] = None
+    mini_step: int = 0
+
+
+@dataclass
+class Optimizer:
+    """optax.chain(clip_by_global_norm(clip_norm), adamw(lr, 0.9, 0.999,
+    eps 1e-8, weight_decay)), wrapped in optax.MultiSteps when
+    ``grad_accum_steps`` > 1."""
+    lr: float = 1e-4
+    weight_decay: float = 1e-2
+    clip_norm: float = 1.0
+    grad_accum_steps: int = 1
+
+    def init(self, lora: LoRA) -> OptState:
+        adamw = torch.optim.AdamW(list(lora.values()), lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=self.weight_decay)
+        return OptState(adamw)
+
+    def update(self, grads: Sequence[torch.Tensor], state: OptState) -> None:
+        """Take one (micro-)step with ``grads``, in the adapters' order: with
+        accumulation the adapters change only every ``grad_accum_steps``-th
+        call."""
+        grads = [g.detach().float() for g in grads]
+        if self.grad_accum_steps > 1:
+            if state.acc is None:
+                state.acc = [torch.zeros_like(g) for g in grads]
+            # optax.MultiSteps: the running mean acc + (g - acc) / (i + 1)
+            for a, g in zip(state.acc, grads):
+                a.add_((g - a) / (state.mini_step + 1))
+            state.mini_step += 1
+            if state.mini_step < self.grad_accum_steps:
+                return
+            grads, state.acc, state.mini_step = state.acc, None, 0
+        # optax.clip_by_global_norm: g / norm * max_norm where norm >= max_norm
+        # (torch's clip_grad_norm_ divides by norm + 1e-6)
+        norm = global_norm(grads)
+        if norm >= self.clip_norm:
+            grads = [g / norm * self.clip_norm for g in grads]
+        for p, g in zip(state.adamw.param_groups[0]["params"], grads):
+            p.grad = g
+        state.adamw.step()
+        state.adamw.zero_grad(set_to_none=True)
+
+
+def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-2, clip_norm: float = 1.0,
+                   grad_accum_steps: int = 1) -> Optimizer:
+    """AdamW with clipping; ``grad_accum_steps`` > 1 averages the gradients
+    of that many micro-steps before one update."""
+    return Optimizer(lr, weight_decay, clip_norm, grad_accum_steps)
+
+
+class TrainState(NamedTuple):
+    lora: LoRA
+    opt_state: OptState
+    step: int
+
+
+def to_device(batch: Batch, device) -> Dict[str, torch.Tensor]:
+    """numpy or torch batch values -> tensors on ``device`` (a tuple, the
+    rotary tables, value by value)."""
+    put = lambda v: torch.as_tensor(v).to(device)
+    return {k: tuple(map(put, v)) if isinstance(v, (tuple, list)) else put(v)
+            for k, v in batch.items()}
+
+
+def make_loss_fn(
+    model: nn.Module,
+    scheduler,
+    sch_state,
+    prediction_type: str = "v_prediction",
+    cfg_dropout_prob: float = 0.1,
+    motion_sub_loss: bool = False,
+    lora_alpha: float = 8.0,
+    lora_rank: int = 8,
+    num_train_timesteps: int = 1000,
+) -> Callable:
+    """The training objective as loss(lora, batch, rng) -> 0-d fp32 tensor.
+
+    The one implementation of noising, conditioning and target: the train
+    step runs it with dropout on, validation (``make_eval_loss``) with
+    dropout off and the timesteps in the batch.  ``lora=None`` evaluates the
+    base model.  ``rng`` is a ``torch.Generator`` on the model's device, or
+    an int seed for one.  The base model is frozen (``requires_grad_(False)``)
+    and keeps the adapters attached after the call, so that the backward
+    pass (and, under ``remat``, its recomputation) runs on the merged
+    weights.
+    """
+    model.requires_grad_(False)
+    base = next(model.parameters())
+    device, dtype = base.device, base.dtype
+
+    def loss_fn(lora: Optional[LoRA], batch: Batch, rng) -> torch.Tensor:
+        if lora is None:
+            remove_lora(model)
+        else:
+            apply_lora(model, lora, lora_alpha, lora_rank)
+        gen = rng if isinstance(rng, torch.Generator) else \
+            torch.Generator(device=device).manual_seed(int(rng))
+        batch = to_device(batch, device)
+        x0 = batch["gt_latents"].float()
+        b = x0.shape[0]
+        timesteps = batch.get("timesteps")
+        if timesteps is None:
+            timesteps = torch.randint(0, num_train_timesteps, (b,), generator=gen, device=device)
+        noise = batch.get("noise")
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=gen, device=device)
+        noise = noise.float()
+        noisy = scheduler.add_noise(sch_state, x0, noise, timesteps)
+
+        def drop(x):
+            if cfg_dropout_prob <= 0.0:
+                return x
+            keep = torch.rand((b,) + (1,) * (x.ndim - 1), generator=gen, device=device)
+            return x * (keep >= cfg_dropout_prob).to(x.dtype)
+
+        text = drop(batch["prompt_embeds"])
+        ref = drop(batch["ref_latents"])
+        inpaint = drop(batch["inpaint_latents"])
+        rope = batch.get("rope")
+        pred = model(noisy.to(dtype), text.to(dtype), timesteps.float(),
+                     inpaint_latents=inpaint.to(dtype), cross_latents=ref.to(dtype),
+                     image_rotary_emb=rope).float()
+
+        if prediction_type == "v_prediction":
+            target = scheduler.get_velocity(sch_state, x0, noise, timesteps)
+        else:
+            target = noise
+        loss = torch.mean((pred - target) ** 2)
+        if motion_sub_loss:
+            # temporal-difference alignment (reference :242-247)
+            dp = pred[:, 1:] - pred[:, :-1]
+            dt = target[:, 1:] - target[:, :-1]
+            loss = loss + 0.1 * torch.mean((dp - dt) ** 2)
+        return loss
+
+    return loss_fn
+
+
+def make_train_step(
+    model: nn.Module,
+    scheduler,
+    sch_state,
+    optimizer: Optimizer,
+    prediction_type: str = "v_prediction",
+    cfg_dropout_prob: float = 0.1,
+    motion_sub_loss: bool = False,
+    lora_alpha: float = 8.0,
+    lora_rank: int = 8,
+    num_train_timesteps: int = 1000,
+) -> Callable:
+    """Returns step(state, batch, rng) -> (state, {"loss", "grad_norm"}), the
+    metrics 0-d tensors; ``grad_norm`` is the global norm of the step's
+    gradient before clipping.
+
+    batch: channel-last latents, already VAE-encoded: gt_latents (B, F, h,
+    w, C), prompt_embeds (B, L, De), ref_latents (B, Fr, h, w, C),
+    inpaint_latents (B, F, h, w, C + 1), and optionally timesteps (B,),
+    noise like gt_latents, rope (the rotary tables).
+    """
+    loss_fn = make_loss_fn(
+        model, scheduler, sch_state, prediction_type=prediction_type,
+        cfg_dropout_prob=cfg_dropout_prob, motion_sub_loss=motion_sub_loss,
+        lora_alpha=lora_alpha, lora_rank=lora_rank, num_train_timesteps=num_train_timesteps)
+
+    def step(state: TrainState, batch: Batch, rng):
+        params = list(state.lora.values())
+        loss = loss_fn(state.lora, batch, rng)
+        grads = torch.autograd.grad(loss, params)
+        gnorm = global_norm(grads)
+        optimizer.update(grads, state.opt_state)
+        return (TrainState(state.lora, state.opt_state, state.step + 1),
+                {"loss": loss.detach(), "grad_norm": gnorm})
+
+    return step

@@ -353,3 +353,78 @@ def vda_from_jax(params: Tree, reassemble_factors=(4.0, 2.0, 1.0, 0.5)) -> State
         _put(sd, blk + ".ff.net.2", block["ff_out"])
         _put(sd, blk + ".ff_norm", block["ff_norm"])
     return vda_official_state_dict(sd)
+
+
+# ----------------------------------------------------------------------------
+# LoRA adapters of the DiT (trajectorycrafter_tpu/training/lora.py)
+# ----------------------------------------------------------------------------
+
+# The DiT's dense layers: JAX module path -> the port's module name, for the
+# top level, within ``blocks_{i}`` and within ``perceiver_cross_attention_{i}``
+# (the names ``dit_from_jax`` maps their kernels between).
+_DIT_TOP_DENSE = {"patch_embed_text_proj": "patch_embed.text_proj",
+                  "time_embedding_linear_1": "time_embedding.linear_1",
+                  "time_embedding_linear_2": "time_embedding.linear_2",
+                  "norm_out_linear": "norm_out.linear", "proj_out": "proj_out"}
+_DIT_BLOCK_DENSE = {"norm1/linear": "norm1.linear", "norm2/linear": "norm2.linear",
+                    "attn1/to_q": "attn1.to_q", "attn1/to_k": "attn1.to_k",
+                    "attn1/to_v": "attn1.to_v", "attn1/to_out": "attn1.to_out.0",
+                    "ff/proj_in": "ff.net.0.proj", "ff/proj_out": "ff.net.2"}
+_DIT_PERCEIVER_DENSE = {name: name for name in ("to_q", "to_kv", "to_out")}
+_DIT_GROUPS = (("blocks_", "transformer_blocks.", _DIT_BLOCK_DENSE),
+               ("perceiver_cross_attention_", "perceiver_cross_attention.",
+                _DIT_PERCEIVER_DENSE))
+
+
+def dit_dense_module(jax_path: str) -> str:
+    """A DiT dense layer's JAX path (``blocks_3/attn1/to_q``, a trailing
+    ``/kernel`` allowed) -> the port's module name
+    (``transformer_blocks.3.attn1.to_q``)."""
+    path = jax_path[:-len("/kernel")] if jax_path.endswith("/kernel") else jax_path
+    if path in _DIT_TOP_DENSE:
+        return _DIT_TOP_DENSE[path]
+    head, _, rest = path.partition("/")
+    for stem, prefix, names in _DIT_GROUPS:
+        index = head[len(stem):]
+        if head.startswith(stem) and index.isdigit() and rest in names:
+            return f"{prefix}{index}.{names[rest]}"
+    raise KeyError(f"{jax_path!r} names no dense layer of the DiT")
+
+
+def dit_dense_path(module: str) -> str:
+    """The inverse of ``dit_dense_module``: the port's module name -> the JAX
+    path (without ``/kernel``)."""
+    for path, name in _DIT_TOP_DENSE.items():
+        if module == name:
+            return path
+    for stem, prefix, names in _DIT_GROUPS:
+        index, _, rest = module[len(prefix):].partition(".")
+        if module.startswith(prefix) and index.isdigit():
+            for path, name in names.items():
+                if rest == name:
+                    return f"{stem}{index}/{path}"
+    raise KeyError(f"{module!r} is no dense layer of the DiT")
+
+
+def lora_from_jax(flat: Tree) -> StateDict:
+    """JAX adapters ``{"blocks_3/attn1/to_q/kernel": {"a": (in, r), "b": (r,
+    out)}}`` (``init_lora_params``) -> the port's ``{"<module>.lora_A": (r,
+    in), "<module>.lora_B": (out, r)}`` (training/lora.py): JAX kernels are
+    (in, out) and torch weights (out, in), so the port's delta B A is the
+    transpose of JAX's a b."""
+    sd: StateDict = {}
+    for path, ab in flat.items():
+        module = dit_dense_module(path)
+        sd[module + ".lora_A"] = _tensor(np.asarray(ab["a"]).T)
+        sd[module + ".lora_B"] = _tensor(np.asarray(ab["b"]).T)
+    return sd
+
+
+def lora_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of ``lora_from_jax``: numpy arrays in JAX's layout."""
+    flat: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in sd.items():
+        module, _, part = key.rpartition(".")
+        leaf = flat.setdefault(dit_dense_path(module) + "/kernel", {})
+        leaf[{"lora_A": "a", "lora_B": "b"}[part]] = value.detach().cpu().numpy().T.copy()
+    return flat
