@@ -30,9 +30,10 @@ prints no result line):
      ragged shape, the ragged edges and strided views, within
      ``attention_backward_error`` (per element 2^-6 of the gradient's sum of
      magnitudes, per head a relative L2 error of 2^-6), which must reject di
-     left out, the last quarter of the query tiles skipped in dK/dV and of
-     the key tiles in dQ; then each timed at full shape in turns with the
-     plain version and flash SDPA's backward, beside its bound;
+     left out, the last quarter of the 64-query tiles skipped in dK/dV and
+     of the 128-key tiles in dQ (the kernels' own tiles); then each timed at
+     full shape in turns with the plain version and flash SDPA's backward,
+     beside its bound;
   5. main path: ``TrajCrafter.infer_gradual`` at the deployed widths (random
      weights from a seed; T5-XXL prompt encode; the DepthCrafter depth
      stage, 5 Euler steps over one 49-frame window at 576x1024; 2 denoise
@@ -276,10 +277,6 @@ EDGE_LENGTHS = (1, 63, 65, 127, 129, 777, 1000)
 # the DiT's joint self-attention and the Perceiver's cross-attention
 TRAIN_DIT_SHAPE = (1, 48, 13330, 13330, 64)  # (B, H, Sq, Skv, D)
 TRAIN_PERCEIVER_SHAPE = (1, 16, 13104, 3024, 128)
-# rows of the backward kernels' tiles: each block owns 64 keys (dK/dV) or
-# 64 queries (dQ) and steps over 64-row tiles of the other side (32 query
-# rows for dK/dV at head dim 128, a divisor)
-BACKWARD_TILE = 64
 
 # Data-sheet rates of an H100 SXM (dense): bf16 989 TFLOP/s, int8 1,979
 # TOP/s, 3.35 TB/s of device memory; the SFU's 16 exp2 per clock per SM x
@@ -919,6 +916,8 @@ def phase_backward_kernels():
         attention_di,
     )
     from trajectorycrafter_tpu_torch.ops.kernels import (
+        BWD_DKV_QUERY_TILE,
+        BWD_DQ_KEY_TILE,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_lse,
@@ -935,7 +934,6 @@ def phase_backward_kernels():
               ("di", "query_tiles", "key_tiles")),
              ("perceiver", TRAIN_PERCEIVER_SHAPE, 4.0, ("di", "query_tiles", "key_tiles")),
              ("ragged", (1, 2, 1000, 777, 64), 2.0, ("di", "query_tiles", "key_tiles"))]
-    keep_of = lambda n: _skip_last_quarter(n, BACKWARD_TILE)
     for label, (b, h, sq, skv, d), gain, planted in cases:
         scale = d ** -0.5
         q, k, v, out, lse, dout, di = _backward_inputs(randn, b, h, sq, skv, d, gain)
@@ -947,13 +945,13 @@ def phase_backward_kernels():
             faults["di_left_out"] = held(_backward_grads(q, k, v, dout, lse,
                                                          torch.zeros_like(di), scale))
         if "query_tiles" in planted:
-            n = keep_of(sq)
+            n = _skip_last_quarter(sq, BWD_DKV_QUERY_TILE)
             dk, dv = flash_attention_bwd_dkv(q[:, :n], k, v, dout[:, :n],
                                              lse[..., :n].contiguous(),
                                              di[..., :n].contiguous(), scale)
             faults["dkv_last_quarter_of_query_tiles_skipped"] = held({"dk": dk, "dv": dv})
         if "key_tiles" in planted:
-            n = keep_of(skv)
+            n = _skip_last_quarter(skv, BWD_DQ_KEY_TILE)
             faults["dq_last_quarter_of_key_tiles_skipped"] = held(
                 {"dq": flash_attention_bwd_dq(q, k[:, :n], v[:, :n], dout, lse, di, scale)})
         readings = held(grads)
@@ -1040,6 +1038,7 @@ def _backward_entries(err: dict, timing: dict, launches: dict) -> list:
             name, t, launches=launches[name],
             launches_run="P (one training step of the full-width DiT)",
             also_replaces="trajectorycrafter_tpu/ops/attention.py:39 (its custom_vjp)",
+            redesigned="from mma.sync to wgmma, TMA and a producer-fed ring",
             max_abs_err=err[name]))
     return entries
 

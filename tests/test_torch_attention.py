@@ -44,6 +44,8 @@ from trajectorycrafter_tpu_torch.ops.attention import (
 from trajectorycrafter_tpu_torch.ops.attention_variants import pv8_block_k, pv8_reference
 from trajectorycrafter_tpu_torch.ops.kernels import (
     ATTENTION_KEY_TILE,
+    BWD_DKV_QUERY_TILE,
+    BWD_DQ_KEY_TILE,
     flash_attention,
     flash_exp2,
     flash_lse,
@@ -394,16 +396,120 @@ def test_flash_stock_under_autograd_takes_the_function_and_auto_the_plain_ops():
     assert out.grad_fn is None
 
 
-@pytest.mark.parametrize("shape,gain", [
-    ((1, 2, 512, 512, 64), 4.0),  # peaked rows: di matters
-    ((1, 2, 300, 700, 128), 4.0),
-], ids=["d64", "d128"])
-def test_backward_error_passes_sound_and_rejects_planted_faults(shape, gain):
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def _tiled_backward(q, k, v, dout, lse, di, scale, fault=None):
+    """The backward kernels' arithmetic as they pair their operands, in
+    float32 (csrc/flash_attention_bwd.cu): dK/dV per 64 keys (a warpgroup's
+    rows) from S^T = k q^T and dP^T = v dO^T over tiles of
+    ``BWD_DKV_QUERY_TILE`` queries, zero past Sq, lse (+inf past Sq) and di
+    (0 past Sq) per column; dQ per 64 queries from S = q k^T and dP = dO v^T
+    over tiles of ``BWD_DQ_KEY_TILE`` keys, zero past Skv and p = 0 there.
+    p and ds are rounded to bf16 before their products, the sums stay fp32.
+    ``fault="q_transposed"``: the dK product reads the q tile transposed
+    (q_tile^T in place of q_tile; a square tile at head dim 64).  (B, S, H,
+    D) in, (dq, dk, dv) out."""
+    qt, kt, vt, dot = (x.transpose(1, 2).float() for x in (q, k, v, dout))  # (B, H, S, D)
+    b, h, sq, d = qt.shape
+    skv = kt.shape[2]
+    log2e = 1.4426950408889634
+    pad_rows = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, n - x.shape[2]))
+    nq = -(-sq // BWD_DKV_QUERY_TILE) * BWD_DKV_QUERY_TILE
+    nk = -(-skv // BWD_DQ_KEY_TILE) * BWD_DQ_KEY_TILE
+    qp, dop = pad_rows(qt, nq), pad_rows(dot, nq)
+    kp, vp = pad_rows(kt, nk), pad_rows(vt, nk)
+    lse2 = torch.full((b, h, nq), float("inf"))
+    lse2[..., :sq] = lse.float() * log2e
+    dip = torch.zeros((b, h, nq))
+    dip[..., :sq] = di.float()
+    dk, dv = torch.zeros_like(kt), torch.zeros_like(vt)
+    for k0 in range(0, skv, 64):
+        kb, vb = kt[:, :, k0:k0 + 64], vt[:, :, k0:k0 + 64]
+        acc_k, acc_v = torch.zeros_like(kb), torch.zeros_like(vb)
+        for j in range(0, nq, BWD_DKV_QUERY_TILE):
+            cols = slice(j, j + BWD_DKV_QUERY_TILE)
+            q_tile, do_tile = qp[:, :, cols], dop[:, :, cols]
+            st = kb @ q_tile.transpose(-1, -2)  # keys x queries
+            dpt = vb @ do_tile.transpose(-1, -2)
+            pt = torch.exp2(st * (scale * log2e) - lse2[:, :, None, cols])
+            dst = pt * (dpt - dip[:, :, None, cols])
+            acc_v += _bf16(pt) @ do_tile
+            acc_k += _bf16(dst) @ (q_tile.transpose(-1, -2) if fault == "q_transposed" else q_tile)
+        dk[:, :, k0:k0 + 64], dv[:, :, k0:k0 + 64] = acc_k * scale, acc_v
+    dq = torch.zeros_like(qt)
+    lse2_rows, di_rows = lse2[..., :sq, None], dip[..., :sq, None]
+    for m0 in range(0, sq, 64):
+        rows = slice(m0, m0 + 64)
+        acc = torch.zeros_like(qt[:, :, rows])
+        for j in range(0, nk, BWD_DQ_KEY_TILE):
+            keys = slice(j, j + BWD_DQ_KEY_TILE)
+            s = qt[:, :, rows] @ kp[:, :, keys].transpose(-1, -2)
+            dp = dot[:, :, rows] @ vp[:, :, keys].transpose(-1, -2)
+            pm = torch.exp2(s * (scale * log2e) - lse2_rows[:, :, rows])
+            pm = pm.masked_fill(torch.arange(j, j + BWD_DQ_KEY_TILE) >= skv, 0.0)
+            acc += _bf16(pm * (dp - di_rows[:, :, rows])) @ kp[:, :, keys]
+        dq[:, :, rows] = acc * scale
+    return tuple(g.transpose(1, 2) for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 2, 146, 203, 64),   # Sq = 13,330 mod 128 (the DiT's last tiles), Skv ragged
+    (2, 1, 146, 61, 128),   # the same at the Perceiver's head dim, Skv below one tile
+    (1, 3, 77, 130, 64),    # ragged both sides
+    (1, 2, 129, 274, 128),
+])
+def test_backward_tiling_matches_jax_grad(shape):
+    """The kernels' tiling (``_tiled_backward``) against ``jax.grad`` of the
+    JAX ``multi_head_attention(impl="xla")`` on the same fp32 inputs.  Each
+    per-head relative L2 error is held to 2^-8: p and ds are rounded to
+    bf16 (unit roundoff 2^-9) and the rounding errors of the products' terms
+    do not add up in one direction.  The kernels' own tolerance
+    (``attention_backward_error``) passes these gradients and rejects the q
+    tile read transposed in dK (at head dim 64, where the tile is square)."""
+    from trajectorycrafter_tpu.ops.attention import multi_head_attention as jax_mha
+    from trajectorycrafter_tpu_torch.ops.attention import attention_backward_error
+    from trajectorycrafter_tpu_torch.ops.attention_variants import lse_reference
+
+    b, h, sq, skv, d = shape
+    q, k, v = _qkv(12, b, h, sq, skv, d)
+    q = q * 2.0  # peaked rows: di carries weight
+    dout = np.random.default_rng(13).standard_normal((b, sq, h, d)).astype(np.float32)
+    scale = d ** -0.5
+    loss = lambda q, k, v: jnp.sum(jax_mha(q, k, v, scale, impl="xla")
+                                   * jnp.asarray(dout).reshape(b, sq, h * d))
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, dout))
+    out, lse = attention_reference(tq, tk, tv, scale), lse_reference(tq, tk, scale)
+    di = (out * tdo).sum(-1).transpose(1, 2)
+    got = _tiled_backward(tq, tk, tv, tdo, lse, di, scale)
+    for g, w in zip(got, want):
+        w = torch.from_numpy(np.array(w))
+        assert g.shape == w.shape
+        err = (g - w).square().sum((1, 3)).sqrt() / w.square().sum((1, 3)).sqrt()
+        assert err.max().item() <= 2.0 ** -8, err
+    grads = dict(zip(("dq", "dk", "dv"), got))
+    held = lambda grads: attention_backward_error(grads, tq, tk, tv, out, lse, tdo, scale)
+    assert held(grads)["ok"]
+    if d == BWD_DKV_QUERY_TILE:
+        _, dk, _ = _tiled_backward(tq, tk, tv, tdo, lse, di, scale, fault="q_transposed")
+        assert not held({"dk": dk})["ok"]
+
+
+@pytest.mark.parametrize("shape,gain,tile", [
+    ((1, 2, 512, 512, 64), 4.0, 64),  # peaked rows: di matters
+    ((1, 2, 300, 700, 128), 4.0, 64),
+    ((1, 2, 512, 512, 64), 4.0, BWD_DQ_KEY_TILE),
+    ((1, 2, 300, 700, 128), 4.0, BWD_DQ_KEY_TILE),
+], ids=["d64", "d128", "d64_tile128", "d128_tile128"])
+def test_backward_error_passes_sound_and_rejects_planted_faults(shape, gain, tile):
     """The backward kernels' tolerance (``attention_backward_error``) passes
     the plain gradients rounded to bf16 (a sound kernel's output) on bf16
     inputs, and rejects di left out (out zeroed makes di 0), the last
-    quarter of the 64-row query tiles skipped in dK/dV, and the last
-    quarter of the key tiles skipped in dQ."""
+    quarter of the ``tile``-row query tiles skipped in dK/dV, and the last
+    quarter of the ``tile``-row key tiles skipped in dQ: at 64-row tiles
+    (dK/dV's query tile) and at dQ's 128-key tile."""
     from trajectorycrafter_tpu_torch.ops.attention import (
         attention_backward_error,
         attention_backward_reference,
@@ -422,11 +528,11 @@ def test_backward_error_passes_sound_and_rejects_planted_faults(shape, gain):
     assert held(bf16(attention_backward_reference(q, k, v, out, lse, dout, scale)))["ok"]
     no_di = bf16(attention_backward_reference(q, k, v, torch.zeros_like(out), lse, dout, scale))
     assert not held({"dq": no_di["dq"]})["ok"] and not held({"dk": no_di["dk"]})["ok"]
-    keep = (-(-sq // 64) - -(-(-(-sq // 64)) // 4)) * 64
+    keep = (-(-sq // tile) - -(-(-(-sq // tile)) // 4)) * tile
     part = bf16(attention_backward_reference(q[:, :keep], k, v, out[:, :keep],
                                              lse[..., :keep], dout[:, :keep], scale))
     assert not held({"dk": part["dk"]})["ok"] and not held({"dv": part["dv"]})["ok"]
-    keep = (-(-skv // 64) - -(-(-(-skv // 64)) // 4)) * 64
+    keep = (-(-skv // tile) - -(-(-(-skv // tile)) // 4)) * tile
     part = bf16(attention_backward_reference(q, k[:, :keep], v[:, :keep], out, lse, dout,
                                              scale))
     assert not held({"dq": part["dq"]})["ok"]

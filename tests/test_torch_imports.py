@@ -6,7 +6,7 @@ loaded already (tests/conftest.py and the other tests), so the check is on
 ``sys.modules`` after importing every module of the port.  The port's
 scripts outside the package (``chip_smoke.py``, ``tools/profile_dit_step.py``,
 ``tools/int8_gemm_ab.py``, ``tools/flash_pv8_ab.py``,
-``tools/int8_attention_ab.py``) are checked statically:
+``tools/int8_attention_ab.py``, ``tools/flash_bwd_ab.py``) are checked statically:
 no import statement of theirs names jax or the JAX package.
 """
 
@@ -68,7 +68,7 @@ def _imported_roots(path: Path) -> set:
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_dit_step.py",
                                     "tools/int8_gemm_ab.py", "tools/flash_pv8_ab.py",
-                                    "tools/int8_attention_ab.py"])
+                                    "tools/int8_attention_ab.py", "tools/flash_bwd_ab.py"])
 def test_port_scripts_import_neither_jax_nor_the_jax_package(script):
     roots = _imported_roots(REPO / script)
     assert "trajectorycrafter_tpu_torch" in roots or "torch" in roots

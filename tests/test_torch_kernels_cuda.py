@@ -53,9 +53,12 @@ The attention backward (csrc/flash_attention_bwd.cu): ``flash_attention_bwd_dkv`
 ``attention_backward_error`` (per element 2^-6 of the gradient's sum of
 magnitudes, per head a relative L2 error of 2^-6) of
 ``attention_backward_reference``, at the DiT's and the Perceiver's training
-shapes (heads cut), ragged lengths (one key too) and strided views; the
-bound rejects di left out, the last quarter of the query tiles skipped in
-dK/dV and of the key tiles in dQ.  ``FlashAttentionFunction`` through
+shapes (heads cut), ragged lengths at and around the kernels' 64-query
+and 128-key tiles (one key, one query, 13,330 of either), odd B * H, and
+strided views; two launches on the same inputs agree bit for bit (no
+atomics); the bound rejects di left out, the last quarter of the 64-query
+tiles skipped in dK/dV and of the 128-key tiles in dQ
+(``BWD_DKV_QUERY_TILE``, ``BWD_DQ_KEY_TILE``).  ``FlashAttentionFunction`` through
 ``multi_head_attention(impl="flash_stock")`` launches K5 and both kernels
 once and gives the plain gradients; the routes with no backward raise
 under autograd.
@@ -88,6 +91,8 @@ from trajectorycrafter_tpu_torch.ops import int8_matmul as im
 from trajectorycrafter_tpu_torch.ops.int8 import quantize_dense
 from trajectorycrafter_tpu_torch.ops.kernels import (
     ATTENTION_KEY_TILE,
+    BWD_DKV_QUERY_TILE,
+    BWD_DQ_KEY_TILE,
     flash_attention,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
@@ -885,11 +890,6 @@ def test_tiled_decode_at_one_tile_is_the_one_shot_decode_on_the_card(gen):
 # the attention backward (csrc/flash_attention_bwd.cu) and its autograd Function
 # ----------------------------------------------------------------------------
 
-# query rows per tile of the dK/dV kernel's loop and key rows per tile of the
-# dQ kernel's (64; the dK/dV loop steps 32 at head dim 128, a divisor)
-BWD_TILE = 64
-
-
 def _backward_inputs(gen, b, h, sq, skv, d, gain):
     """q, k, v, the forward's (out, lse) from K5, a random dout and di."""
     q = _randn(gen, b, sq, h, d, gain=gain)
@@ -910,6 +910,15 @@ def _backward(q, k, v, dout, lse, di, scale):
     (1, 2, 1000, 777, 64, 2.0),
     (2, 3, 17, 129, 128, 2.0),
     (1, 1, 1, 1, 64, 1.0),
+    # lengths at and around the kernels' 64-query and 128-key tiles and
+    # 128-row blocks, B * H odd, both head dims
+    (1, 3, 127, 128, 64, 2.0),
+    (3, 1, 128, 129, 128, 2.0),
+    (1, 3, 129, 127, 128, 2.0),
+    (1, 3, 13330, 1, 64, 2.0),
+    (1, 3, 1, 13330, 128, 2.0),
+    (3, 1, 13330, 129, 128, 2.0),
+    (1, 3, 127, 13330, 64, 2.0),
     *[(1, 2, sq, skv, d, 2.0) for sq, skv, d in EDGE_CASES],
 ])
 def test_backward_kernels_match_plain(gen, b, h, sq, skv, d, gain):
@@ -944,9 +953,21 @@ def test_backward_kernels_read_strided_views(gen, layout):
     assert readings["ok"], readings
 
 
-def _skip_last_quarter(n):
-    tiles = -(-n // BWD_TILE)
-    return (tiles - -(-tiles // 4)) * BWD_TILE
+def test_backward_kernels_repeat_bit_for_bit(gen):
+    """No atomics: each gradient row is written once, by one block, so two
+    launches on the same inputs agree bit for bit."""
+    for b, h, sq, skv, d in ((1, 3, 1000, 777, 64), (1, 3, 300, 1000, 128)):
+        q, k, v, _, lse, dout, di = _backward_inputs(gen, b, h, sq, skv, d, 2.0)
+        first = _backward(q, k, v, dout, lse, di, d ** -0.5)
+        second = _backward(q, k, v, dout, lse, di, d ** -0.5)
+        torch.cuda.synchronize()
+        for name in first:
+            assert torch.equal(first[name], second[name]), name
+
+
+def _skip_last_quarter(n, tile):
+    tiles = -(-n // tile)
+    return (tiles - -(-tiles // 4)) * tile
 
 
 @pytest.mark.parametrize("b,h,sq,skv,d", [(1, 8, 13330, 13330, 64), (1, 16, 13104, 3024, 128)],
@@ -960,12 +981,12 @@ def test_backward_tolerance_rejects_planted_faults(gen, b, h, sq, skv, d):
     held = lambda grads: attention_backward_error(grads, q, k, v, out, lse, dout, scale)
     assert held(_backward(q, k, v, dout, lse, di, scale))["ok"]
     assert not held(_backward(q, k, v, dout, lse, torch.zeros_like(di), scale))["ok"]
-    keep = _skip_last_quarter(sq)
+    keep = _skip_last_quarter(sq, BWD_DKV_QUERY_TILE)
     dk, dv = flash_attention_bwd_dkv(q[:, :keep], k, v, dout[:, :keep],
                                      lse[..., :keep].contiguous(), di[..., :keep].contiguous(),
                                      scale)
     assert not held({"dk": dk})["ok"] and not held({"dv": dv})["ok"]
-    keep = _skip_last_quarter(skv)
+    keep = _skip_last_quarter(skv, BWD_DQ_KEY_TILE)
     dq = flash_attention_bwd_dq(q, k[:, :keep], v[:, :keep], dout, lse, di, scale)
     assert not held({"dq": dq})["ok"]
 

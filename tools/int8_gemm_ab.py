@@ -32,19 +32,21 @@ sys.path.insert(0, str(REPO))
 ITERS = 10
 
 
-def _launcher(csrc: Path, name: str, argtypes: tuple):
-    """``<name>_fwd`` of ``csrc/<name>.cu``, built with the port's flags, as a
-    function of the arguments between the device index and the stream."""
+def _launcher(csrc: Path, name: str, argtypes: tuple, source: str = None):
+    """``<name>_fwd`` of ``csrc/<source or name>.cu``, built with the port's
+    flags, as a function of the arguments between the device index and the
+    stream."""
     import torch
 
     from trajectorycrafter_tpu_torch.ops import kernels
 
-    info = kernels.build_library(f"{name}.cu", csrc)
+    source = source or name
+    info = kernels.build_library(f"{source}.cu", csrc)
     lib = ctypes.CDLL(str(info["path"]))
     fwd = getattr(lib, f"{name}_fwd")
     fwd.argtypes = list(argtypes)
     fwd.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
+    err = getattr(lib, f"{source}_error_string")
     err.restype = ctypes.c_char_p
     err.argtypes = [ctypes.c_int]
 

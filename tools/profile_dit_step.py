@@ -5,6 +5,7 @@
     python3 tools/profile_dit_step.py --quant int8   # the int8 DiT (unfused FF)
     python3 tools/profile_dit_step.py --quant int8 --fuse   # ... with the fused FF
     python3 tools/profile_dit_step.py --depth [--quant_depth int8]   # the depth stage
+    python3 tools/profile_dit_step.py --train        # one LoRA training step
 
 One step is one forward of the full-width CrossTransformer3D DiT (random
 bf16 weights from seed 0, quantized by ``build_full_scale_models`` under
@@ -15,15 +16,21 @@ frames for the Perceiver (3 latent frames, 3,024 tokens), RoPE on.  With
 stage's window: 49 frames of 72 x 128 latents (576x1024 frames), and the
 depth stage's parts are timed first (CLIP embedding, VAE encode, the 5
 Euler steps, the chunked VAE decode, each after a warm-up run of the whole
-stage).  After two warm-up forwards it times one forward unprofiled (host
-clock ending in a synchronize), then one under ``torch.profiler``, and
-prints the device time per kernel group (with the int8 GEMM groups' int8
-operations, counted by hooks on the int8 layers in the first warm-up
-forward, and their TOP/s), the top kernels, and the device's idle share
-(1 - summed kernel time / profiled wall time).
+stage).  With ``--train`` it is one LoRA training step at the configuration
+of chip_smoke.py's run P: the full-width bf16 DiT at B = 1 (13,330 joint
+tokens), rank 8 adapters on its 316 target layers, ``remat``,
+``flash_stock`` (K5 forward, the backward kernels K4-dkv and K4-dq),
+AdamW, on a random batch of run P's latent shapes.  After two warm-up
+forwards (steps) it times one unprofiled (host clock ending in a
+synchronize), then one under ``torch.profiler``, and prints the device
+time per kernel group (with the int8 GEMM groups' int8 operations, counted
+by hooks on the int8 layers in the first warm-up forward, and their TOP/s;
+a training step also the attention kernels' launches), the top kernels,
+and the device's idle share (1 - summed kernel time / profiled wall time).
 """
 
 import argparse
+import contextlib
 import subprocess
 import sys
 import time
@@ -48,6 +55,14 @@ def kernel_group(name: str) -> str:
         return "int8 GEMMs"
     if "pv8_kernel" in name:
         return "PV-int8 attention (K6)"
+    if "flash_bwd::dkv_kernel" in name:
+        return "attention backward dK/dV (K4-dkv)"
+    if "flash_bwd::dq_kernel" in name:
+        return "attention backward dQ (K4-dq)"
+    # mode 1 is K5, the training forward (attention and its logsumexp)
+    if "hopper_attn::attention_kernel<64, 1>" in name or \
+            "hopper_attn::attention_kernel<128, 1>" in name:
+        return "flash attention + lse (K5)"
     # hopper_attn::attention_kernel<head dim, mode>: mode 3 is the two-pass K4b
     if "hopper_attn::attention_kernel<64, 3>" in name:
         return "two-pass flash self-attention"
@@ -137,6 +152,40 @@ def depth_step(models, cfg):
     return label, lambda: pipe.unet(*args)
 
 
+def train_step(models, cfg):
+    """(label, step) of one LoRA training step at run P's configuration
+    (chip_smoke.py phase 5e) on a random batch of its latent shapes."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import LATENT_SHAPES, TRAIN_DROPOUT, TRAIN_LR, TRAIN_RANK, set_impl
+    from trajectorycrafter_tpu_torch.schedulers import CogVideoXDDIMScheduler
+    from trajectorycrafter_tpu_torch.training import TrainState, init_lora_params, make_train_step
+    from trajectorycrafter_tpu_torch.training.step import make_optimizer
+
+    dit = models.pipeline.transformer
+    dit.remat = True
+    set_impl(dit, "flash_stock")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lora = init_lora_params(gen, dit, rank=TRAIN_RANK)
+    scheduler = CogVideoXDDIMScheduler()
+    opt = make_optimizer(lr=TRAIN_LR)
+    step_fn = make_train_step(dit, scheduler, scheduler.set_timesteps(50), opt,
+                              cfg_dropout_prob=TRAIN_DROPOUT, lora_rank=TRAIN_RANK)
+    state = [TrainState(lora, opt.init(lora), 0)]
+    rng = np.random.default_rng(0)
+    batch = {key: rng.standard_normal((1, *shape)).astype(np.float32)
+             for key, shape in LATENT_SHAPES.items()}
+
+    def step():
+        state[0], _ = step_fn(state[0], batch, gen)
+
+    f, h, w, _ = LATENT_SHAPES["gt_latents"]
+    label = (f"LoRA training step of the bf16 DiT on (B, F, H, W) = {(1, f, h, w)}, rank "
+             f"{TRAIN_RANK}, remat, flash_stock")
+    return label, step
+
+
 def int8_ops(model, forward) -> dict:
     """{kernel group: int8 operations} of one ``forward``, counted by forward
     hooks on ``model``'s int8 layers (2 M K N per GEMM): an ``Int8Linear``
@@ -187,7 +236,11 @@ def main() -> None:
     parser.add_argument("--quant_depth", choices=("none", "int8"), default="none")
     parser.add_argument("--fuse", action="store_true",
                         help="the int8 DiT's fused feed-forward (int8_ff_apply)")
+    parser.add_argument("--train", action="store_true",
+                        help="profile one LoRA training step of the bf16 DiT (run P)")
     args = parser.parse_args()
+    if args.train and (args.depth or args.quant != "none"):
+        parser.error("--train profiles the bf16 DiT: no --depth, --quant none")
     if not torch.cuda.is_available():
         raise SystemExit("profile_dit_step: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -196,18 +249,30 @@ def main() -> None:
     models = build_full_scale_models(cfg, "cuda")
     for block in models.pipeline.transformer.transformer_blocks:
         block.ff.fuse = args.fuse or None
-    label, forward = (depth_step if args.depth else dit_step)(models, cfg)
-    label += f", --quant {args.quant}{' (fused FF)' if args.fuse else ''}, --quant_depth " \
-             f"{args.quant_depth}"
-    model = models.depth_infer.__self__.pipe.unet if args.depth else models.pipeline.transformer
-    ops = int8_ops(model, forward)  # also the first warm-up forward
+    if args.train:
+        label, forward = train_step(models, cfg)
+        forward()  # the first warm-up step
+        ops, grad_mode = {}, contextlib.nullcontext
+    else:
+        label, forward = (depth_step if args.depth else dit_step)(models, cfg)
+        label += f", --quant {args.quant}{' (fused FF)' if args.fuse else ''}, --quant_depth " \
+                 f"{args.quant_depth}"
+        model = models.depth_infer.__self__.pipe.unet if args.depth else models.pipeline.transformer
+        ops = int8_ops(model, forward)  # also the first warm-up forward
+        grad_mode = torch.no_grad
 
-    with torch.no_grad():
+    from trajectorycrafter_tpu_torch.ops import kernels as kern
+    counted = (kern.flash_lse, kern.flash_attention_bwd_dkv, kern.flash_attention_bwd_dq)
+    with grad_mode():
         _synced_ms(forward)
         wall = _synced_ms(forward)
+        before = [fn.launches for fn in counted]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled_wall = _synced_ms(forward)
     print(f"{label}: {wall:.1f} ms unprofiled, {profiled_wall:.1f} ms profiled")
+    if args.train:
+        print("launches in the profiled step: " + ", ".join(
+            f"{fn.__name__} {fn.launches - n}" for fn, n in zip(counted, before)))
 
     kernels = defaultdict(lambda: [0.0, 0])  # name -> [device us, launches]
     for event in prof.events():

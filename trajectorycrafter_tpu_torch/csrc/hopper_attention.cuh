@@ -2,7 +2,10 @@
 // csrc/flash_attention.cu (K1, K4, K5, K1b) and csrc/flash_maxpass.cu (K4b),
 // and at the end of this file the PV-int8 loop of csrc/flash_pv8.cu (K6) and
 // csrc/int8_flash_attention.cu (K7), built from the same pieces (TMA maps,
-// the ring, the QK product, the q scaling).
+// the ring, the QK product, the q scaling).  The backward kernels of
+// csrc/flash_attention_bwd.cu (K4-dkv, K4-dq) build their two loops from
+// the pieces too: `make_map`, `load_tile`, `issue_qk` (also at 64 rows, the
+// m64n64k16 form), `issue_pv`, the turn barriers.
 //
 // What bounds it on the H100: at the DiT shape (2 x 48 heads x 13,330 tokens
 // x 64) one call does ~4.4 TFLOP against ~0.3 GB of q/k/v, so it is bound by
@@ -131,8 +134,8 @@ struct Smem {
 #define HA_D64 HA_D32, HA_D8(32), HA_D8(40), HA_D8(48), HA_D8(56)
 
 // d (64 x 128, fp32) (+)= A (64 x 16, shared) B (16 x 128, shared, K-major)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int accumulate) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -142,6 +145,19 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : HA_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16, shared) B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HA_D32
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -187,27 +203,30 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 // The two products of one warpgroup
 // ---------------------------------------------------------------------------
 
-// S (64 x 128) = q (the warpgroup's 64 rows of a kBlockM-row query tile)
-// k^T (one key tile).
-template <int D, int kBlockM = Tiles<D>::kBlockM>
-__device__ __forceinline__ void issue_qk(float (&s)[64], const __nv_bfloat16* q_wg,
+// S (64 x kRows) = q (the warpgroup's 64 rows of a kBlockM-row query tile)
+// k^T (one tile of kRows keys, read K-major).  The backward kernels
+// (csrc/flash_attention_bwd.cu) take it for every score-shaped product:
+// their A is any resident kBlockM-row tile, their B any streamed tile.
+template <int D, int kBlockM = Tiles<D>::kBlockM, int kRows = kBlockN>
+__device__ __forceinline__ void issue_qk(float (&s)[kRows / 2], const __nv_bfloat16* q_wg,
                                          const __nv_bfloat16* k_tile) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int half = kk / 4, col = (kk % 4) * 16;  // 16 columns = 32 bytes into the row
     const uint64_t da = make_desc(q_wg + half * kBlockM * kBoxCols + col, 16, 1024);
-    const uint64_t db = make_desc(k_tile + half * kBlockN * kBoxCols + col, 16, 1024);
-    wgmma_ss_n128(s, da, db, kk > 0);
+    const uint64_t db = make_desc(k_tile + half * kRows * kBoxCols + col, 16, 1024);
+    wgmma_ss(s, da, db, kk > 0);
   }
 }
 
-// O (64 x D) += P (64 x 128, bf16 registers) V (one key tile).
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[kBlockN / 16][4],
+// O (64 x D) += P (64 x kRows, bf16 registers) V (one tile of kRows keys,
+// read MN-major: LBO the distance between its 64-column halves).
+template <int D, int kRows = kBlockN>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[kRows / 16][4],
                                          const __nv_bfloat16* v_tile) {
 #pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {  // 16 keys = two 8-key groups = 2048 bytes
-    const uint64_t db = make_desc(v_tile + kk * 16 * kBoxCols, kBlockN * 128, 1024);
+  for (int kk = 0; kk < kRows / 16; ++kk) {  // 16 keys = two 8-key groups = 2048 bytes
+    const uint64_t db = make_desc(v_tile + kk * 16 * kBoxCols, kRows * 128, 1024);
     wgmma_rs(o, p[kk], db);
   }
 }

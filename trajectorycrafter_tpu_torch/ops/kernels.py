@@ -43,6 +43,11 @@ ATTENTION_KEY_TILE = 128
 # kBlockN), which runs flash_pv8 and int8_flash_attention: their key blocks
 # and their V^T rows are multiples of it
 PV8_KEY_TILE = 128
+# the attention backward's tiles (csrc/flash_attention_bwd.cu): a dK/dV block
+# owns 128 keys and streams 64-query tiles (kQueryTile); a dQ block owns 128
+# queries and streams 128-key tiles (the forward's kBlockN)
+BWD_DKV_QUERY_TILE = 64
+BWD_DQ_KEY_TILE = 128
 
 
 def _nvcc() -> str:
