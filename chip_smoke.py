@@ -49,7 +49,11 @@ prints no result line):
      the int8 models are quantizations of the bf16 models' own weights.
      Each kernel's launches are counted per stage and held to counts derived
      from the modules; the PSNR and SSIM of D's video against C's, and the
-     depth of B and D against C's, are printed as information;
+     depth of B and D against C's, are printed as information; each run's
+     gen.mp4 is kept for the quality CLI, which then runs three times as a
+     subprocess (``python -m trajectorycrafter_tpu_torch.utils.quality``): C
+     against itself (rc 0, 99.0 dB), C against D (rc as its ``pass``), A
+     (49 frames) against C (25: rc 1, frame count mismatch);
   5b. modes and samplers, on run A's models at 25 frames (``CUT_FRAMES``,
      as every later run but L, M and P): run E ``infer_direct`` with
      DPM++ at 3 steps (step 1 second order; the mp4s drop the fly-in,
@@ -106,6 +110,16 @@ prints no result line):
      modules, seconds per step and peak memory logged; then one step's
      adapter gradients on the kernels against the plain versions on the DiT
      cut to 4 blocks (``GRAD_MEDIAN_TOL``, ``GRAD_MAX_TOL``);
+  5f. run Q, DiT feature probing (after 5e, on the same bf16 DiT with the
+     JAX default route ``auto``, no recomputation): ``probing.
+     collect_activation_dataset`` over run P's 3 samples at timesteps 311
+     and 811 and blocks 1 and 3 with the camera-motion filter on (the
+     samples carry no poses: all kept), 6 forwards at B = 1 with K1 launched
+     as derived from the modules (63 a forward), 12 finite (13,104, 3,072)
+     feature files; a ConvProbe per (timestep, block) for 50 steps on the
+     card, its loss falling; block 1's features of one sample on the kernels
+     against the plain versions (``PROBE_REL_L2``, ``PROBE_MAX_REL``); the
+     forward's seconds and the peak above the resident memory logged;
   6. whole models: the bf16 and int8 DiT (unfused and fused), the DiT on
      ``flash_pv8``, and the bf16 and int8 depth UNet at full width on small
      inputs, kernels against the plain versions;
@@ -141,7 +155,11 @@ prints no result line):
      refused first), 2 segments of 9 frames; then
      ``scripts/train_lora.main(argv)`` on the tree's 6-layer DiT and run P's
      samples (2 steps, validation and a checkpoint after each), then
-     ``--resume_from_checkpoint latest`` for a third step;
+     ``--resume_from_checkpoint latest`` for a third step; then
+     ``scripts/probe_depth.main(argv)`` on the same DiT and samples, directly
+     (``--blocks 1 3 --steps 20``) and with ``--collect_dir ... --timesteps
+     311 811 --motion_filter``: K1's launches as derived, a probe file per
+     block or (timestep, block), every probe's loss falling;
   9. a JSON line of kernel results, and a final JSON line with the device.
 
 Imports nothing of JAX and nothing of the JAX package: the port holds its
@@ -1484,6 +1502,8 @@ def phase_main_path():
         if runs[run]["per_path"] != want:
             raise AssertionError(f"run {run}: kernel launches per stage "
                                  f"{runs[run]['per_path']}, expected {want}")
+        QUALITY_DIR.mkdir(parents=True, exist_ok=True)
+        shutil.copy(Path(tc.cfg.save_dir) / "gen.mp4", QUALITY_DIR / f"gen_{run}.mp4")
     tc.models.pipeline.transformer, pipe.unet = dit, unet
     tc.cfg.diffusion.quant, tc.cfg.depth.quant = cfg.diffusion.quant, cfg.depth.quant
     tc.cfg.video_length = frames
@@ -2636,6 +2656,253 @@ def phase_train_script(tree: dict, data_dir: str) -> None:
         f"{moved:.3e} (one AdamW step of lr 1e-4); {sorted(os.listdir(out))}")
 
 
+# Run Q (phase 5f): DiT feature probing on the full-width bf16 DiT with the
+# JAX default route (``attention_impl="auto"``: K1 for every joint self-
+# attention and Perceiver, B = 1) and no recomputation.  The sweep of
+# ``probing.collect_activation_dataset`` over run P's samples (no poses: the
+# camera-motion filter keeps all) at PROBE_TIMESTEPS x PROBE_BLOCKS writes
+# (13,104, 3,072) fp32 features; a ConvProbe trains PROBE_STEPS steps on each
+# (timestep, block) slice (fp32; cuDNN runs its convolutions in TF32, torch's
+# default, which the smoke leaves as it is).  Then the first sample's block-1
+# features at t = 311 on the kernels against the plain versions on the DiT
+# cut to 2 blocks (block 1's output does not depend on the later ones): two
+# blocks and a Perceiver of bf16 arithmetic carry K1's per-call bf16
+# differences (``attention_error``: 2^-6) into the residual stream, which
+# they reach scaled down by the output projection; held to a relative L2
+# error of PROBE_REL_L2 and a largest element error of PROBE_MAX_REL of the
+# largest magnitude.
+PROBE_TIMESTEPS = (311, 811)
+PROBE_BLOCKS = (1, 3)
+PROBE_STEPS = 50
+PROBE_SCRIPT_STEPS = 20
+PROBE_REL_L2 = 2.0 ** -7
+PROBE_MAX_REL = 2.0 ** -5
+QUALITY_DIR = REPO / "build" / "chip_smoke" / "quality"
+
+
+def phase_probing(tc, data_root: Path) -> int:
+    """Run Q: the activation sweep on the full-width bf16 DiT, a ConvProbe per
+    (timestep, block), then block-1 features kernels vs plain.  Returns K1's
+    launches in the sweep."""
+    import numpy as np
+    import torch
+
+    from trajectorycrafter_tpu_torch import probing
+    from trajectorycrafter_tpu_torch.schedulers import CogVideoXDDIMScheduler
+    from trajectorycrafter_tpu_torch.scripts.probe_depth import depth_target
+    from trajectorycrafter_tpu_torch.training.data import LatentsDataset
+
+    t_phase = time.perf_counter()
+    dit = tc.models.pipeline.transformer
+    set_impl(dit, "auto")
+    if dit.remat:
+        raise AssertionError("run Q: the DiT still recomputes its blocks")
+    data = LatentsDataset(str(data_root / "latents"))
+    samples = [dict(data[i], name=f"sample_{i:04d}") for i in range(len(data))]
+    scheduler = CogVideoXDDIMScheduler()  # the probe script's noising scheduler
+    sch_state = scheduler.set_timesteps(50)
+    out = data_root / "probe_features"
+    seconds, recorded = [], {}
+    collect = probing.collect_features
+
+    def timed(model, blocks, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = collect(model, blocks, *args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if not recorded:  # the first sample at the first timestep
+            recorded.update(args=args, kwargs=kwargs, feats=feats["transformer_block_1"])
+        return feats
+
+    for kern in _kernel_counters():
+        kern.launches = 0
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    probing.collect_features = timed
+    t0 = time.perf_counter()
+    try:
+        manifest = probing.collect_activation_dataset(
+            dit, scheduler, sch_state, samples, PROBE_TIMESTEPS, PROBE_BLOCKS, str(out),
+            motion_filter=probing.CameraMotionFilter())
+    finally:
+        probing.collect_features = collect
+    t_sweep = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    got = _launch_counts()
+    forwards = len(samples) * len(PROBE_TIMESTEPS)
+    want = _denoise_launches(dit, "flash_attention", forwards)
+    log(f"run Q: collect_activation_dataset over {len(samples)} samples x timesteps "
+        f"{list(PROBE_TIMESTEPS)} x blocks {list(PROBE_BLOCKS)} (attention auto, B = 1): "
+        f"{t_sweep:.3f} s; {forwards} forwards of {[round(x, 3) for x in seconds]} s; peak "
+        f"{peak:.2f} GiB above the {base_mem / 2**30:.2f} GiB resident; launches "
+        f"{json.dumps({k: v for k, v in got.items() if v})}")
+    if got != want:
+        raise AssertionError(f"run Q: launches {got}, expected {want}")
+    files = len(samples) * len(PROBE_TIMESTEPS) * len(PROBE_BLOCKS)
+    if manifest["kept"] != [s["name"] for s in samples] or manifest["skipped"] or \
+            manifest["files"] != files:
+        raise AssertionError(f"run Q: manifest {manifest}, expected {len(samples)} kept and "
+                             f"{files} files")
+
+    # a ConvProbe per (timestep, block), on the card
+    f, h, w, _ = samples[0]["gt_latents"].shape
+    hp, wp = h // dit.patch_size, w // dit.patch_size
+    targets = torch.stack([depth_target(s, (f, hp, wp)) for s in samples]).cuda()
+    tokens_shape = (f * hp * wp, dit.inner_dim)
+    t0 = time.perf_counter()
+    for t in PROBE_TIMESTEPS:
+        for block in PROBE_BLOCKS:
+            tokens, _ = probing.ActivationDataset(str(out), t, block).stacked()
+            if tokens.shape != (len(samples), *tokens_shape) or not np.isfinite(tokens).all():
+                raise AssertionError(f"run Q t {t} block {block}: features {tokens.shape} "
+                                     f"(expected {(len(samples), *tokens_shape)}) or not finite")
+            tokens = torch.from_numpy(tokens).cuda()
+            probe = probing.ConvProbe(frames=f, height=hp, width=wp)
+            init_fn, step_fn = probing.make_probe_trainer(probe)
+            state = init_fn(torch.Generator(device="cuda").manual_seed(0), tokens)
+            losses = []
+            for _ in range(PROBE_STEPS):
+                state, loss = step_fn(state, tokens, targets)
+                losses.append(loss)
+            losses = torch.stack(losses).tolist()
+            with torch.no_grad():
+                pred = state.params(tokens)
+            err = probing.relative_depth_error(pred.cpu().numpy(), targets.cpu().numpy())
+            log(f"run Q probe t {t} block {block}: features {tuple(tokens.shape)} in "
+                f"[{tokens.min().item():.3f}, {tokens.max().item():.3f}]; ConvProbe loss "
+                f"{losses[0]:.5f} -> {losses[-1]:.5f} in {PROBE_STEPS} steps, relative depth "
+                f"error {err:.4f}")
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0] and np.isfinite(err)):
+                raise AssertionError(f"run Q t {t} block {block}: losses {losses[0]} -> "
+                                     f"{losses[-1]}, relative depth error {err}")
+            del tokens, state, probe, pred
+    t_probes = time.perf_counter() - t0
+    shutil.rmtree(out)
+
+    # block-1 features of the first sample at t = 311: kernels against plain
+    blocks, perceivers = dit.transformer_blocks, dit.perceiver_cross_attention
+    dit.transformer_blocks = blocks[:2]
+    dit.perceiver_cross_attention = perceivers[:1]
+    try:
+        set_impl(dit, "reference")
+        for kern in _kernel_counters():
+            kern.launches = 0
+        plain = probing.collect_features(dit, [1], *recorded["args"],
+                                         **recorded["kwargs"])["transformer_block_1"]
+        if any(_launch_counts().values()):
+            raise AssertionError(f"run Q: the plain route launched {_launch_counts()}")
+    finally:
+        dit.transformer_blocks, dit.perceiver_cross_attention = blocks, perceivers
+        set_impl(dit, "auto")
+    kern, plain = recorded["feats"].float(), plain.float()
+    rel_l2 = ((kern - plain).norm() / plain.norm()).item()
+    max_rel = ((kern - plain).abs().max() / plain.abs().max()).item()
+    log(f"run Q: block-1 features (1, {tokens_shape[0]}, {tokens_shape[1]}) of sample 0 at "
+        f"t {PROBE_TIMESTEPS[0]} on K1 vs the plain versions: relative L2 {rel_l2:.3e} (limit "
+        f"{PROBE_REL_L2:.3e}), largest error {max_rel:.3e} of the largest magnitude (limit "
+        f"{PROBE_MAX_REL:.3e})")
+    if not (rel_l2 <= PROBE_REL_L2 and max_rel <= PROBE_MAX_REL):
+        raise AssertionError(f"run Q: block-1 features kernels vs plain: relative L2 "
+                             f"{rel_l2:.3e}, largest {max_rel:.3e}")
+    del recorded, kern, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"run Q: {time.perf_counter() - t_phase:.3f} s (sweep {t_sweep:.3f}, probes "
+        f"{t_probes:.3f}); ConvProbe in fp32 with cuDNN's TF32 convolutions")
+    return got["flash_attention"]
+
+
+def phase_probe_script(tree: dict, data_dir: str) -> None:
+    """``scripts/probe_depth.main(argv)`` on the tree's 6-layer DiT and run P's
+    samples, directly and with ``--collect_dir``; K1's launches derived from
+    the loaded model (``_denoise_launches``), every probe file written and
+    every probe's loss falling."""
+    import numpy as np
+    import torch
+
+    from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
+    from trajectorycrafter_tpu_torch.scripts import probe_depth
+
+    with torch.device("meta"):
+        cut = CrossTransformer3DModel(num_layers=TREE_DIT_LAYERS)
+    samples = len([f for f in os.listdir(data_dir) if f.endswith(".npz")])
+    root = tree["root"]
+    base = ["--data_dir", data_dir, "--transformer_path", str(tree["dirs"]["dit"]),
+            "--steps", str(PROBE_SCRIPT_STEPS)]
+    blocks = [str(b) for b in PROBE_BLOCKS]
+    timesteps = [str(t) for t in PROBE_TIMESTEPS]
+    runs = {
+        "direct": (["--blocks", *blocks], [f"block{b}" for b in blocks],
+                   len(blocks) * samples),
+        "collect": (["--collect_dir", str(root / "probe_features"), "--timesteps", *timesteps,
+                     "--motion_filter"], [f"t{t}_block{b}" for t in timesteps for b in blocks],
+                    len(timesteps) * samples),
+    }
+    for label, (extra, tags, forwards) in runs.items():
+        out = root / f"probe_out_{label}"
+        for kern in _kernel_counters():
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results = probe_depth.main(base + extra + ["--output_dir", str(out)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = _launch_counts()
+        losses = {t: [round(r["first_loss"], 5), round(r["last_loss"], 5)]
+                  for t, r in results.items()}
+        log(f"script probe_depth ({label}): python -m trajectorycrafter_tpu_torch.scripts."
+            f"probe_depth {' '.join(extra)} on the tree: {seconds:.2f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"{json.dumps({k: v for k, v in got.items() if v})}; losses {json.dumps(losses)}")
+        want = _denoise_launches(cut, "flash_attention", forwards)
+        if got != want:
+            raise AssertionError(f"probe_depth ({label}): launches {got}, expected {want}")
+        written = sorted(os.listdir(out))
+        if written != sorted(f"probe_{t}.safetensors" for t in tags) or sorted(results) != \
+                sorted(tags):
+            raise AssertionError(f"probe_depth ({label}): wrote {written}, trained {results}")
+        bad = {t: r for t, r in results.items() if not (
+            np.isfinite([r["first_loss"], r["last_loss"], r["relative_depth_error"]]).all()
+            and r["last_loss"] < r["first_loss"])}
+        if bad:
+            raise AssertionError(f"probe_depth ({label}): probes {bad}")
+    shutil.rmtree(root / "probe_features")
+
+
+def phase_quality_cli() -> None:
+    """``python -m trajectorycrafter_tpu_torch.utils.quality`` three times, in
+    parallel: run C's video against itself, run C against run D (the same
+    input and seed), run A (49 frames) against run C (25)."""
+    gen = {run: str(QUALITY_DIR / f"gen_{run}.mp4") for run in "ACD"}
+    calls = {"C vs C": (gen["C"], gen["C"]), "C vs D": (gen["C"], gen["D"]),
+             "A vs C": (gen["A"], gen["C"])}
+
+    def run(pair):
+        return subprocess.run([sys.executable, "-m", "trajectorycrafter_tpu_torch.utils.quality",
+                               *pair], cwd=REPO, capture_output=True, text=True, timeout=120)
+
+    with ThreadPoolExecutor(len(calls)) as pool:
+        procs = dict(zip(calls, pool.map(run, calls.values())))
+    out = {}
+    for label, proc in procs.items():
+        lines = proc.stdout.strip().splitlines()
+        if not lines:
+            raise AssertionError(f"quality CLI {label}: rc {proc.returncode}, no output; "
+                                 f"{proc.stderr[-2000:]}")
+        out[label] = json.loads(lines[-1])
+        log(f"quality CLI {label}: rc {proc.returncode}, {json.dumps(out[label])}")
+        if proc.returncode != (0 if out[label]["pass"] else 1):
+            raise AssertionError(f"quality CLI {label}: rc {proc.returncode} against pass "
+                                 f"{out[label]['pass']}")
+    if procs["C vs C"].returncode != 0 or out["C vs C"]["psnr_db"] != 99.0:
+        raise AssertionError(f"quality CLI C vs C: {out['C vs C']}")
+    if procs["A vs C"].returncode != 1 or out["A vs C"] != {
+            "pass": False, "error": "frame count mismatch", "frames_a": 49,
+            "frames_b": CUT_FRAMES}:
+        raise AssertionError(f"quality CLI A vs C: {out['A vs C']}")
+
+
 def phase_bench() -> dict:
     """The attention bench, once, through its entry point; returns each
     kernel's launches in that run (the counts set to 0 just before it)."""
@@ -3223,6 +3490,7 @@ def main() -> None:
     variant_err, variant_timing = run_phase("4 variants", phase_variants)
     backward_err, backward_timing = run_phase("4b backward", phase_backward_kernels)
     tc, runs, (dit8, unet8) = run_phase("5 main path", phase_main_path)
+    run_phase("5 quality CLI", phase_quality_cli)
     run_phase("5b modes", phase_modes, tc, dit8, runs)
     run_phase("5c long paths", phase_long_paths, tc, dit8, runs)
     run_phase("5d consistent", phase_consistent, tc, dit8, runs)
@@ -3239,6 +3507,8 @@ def main() -> None:
     try:
         # phase 5e: run P, LoRA training at full width
         step_launches = run_phase("5e training", phase_training, tc, data_root)
+        # phase 5f: run Q, feature probing at full width
+        probe_launches = run_phase("5f probing", phase_probing, tc, data_root)
         # phase 8: write the random bundle's weights as a tree, free the
         # bundle, load the tree through the entry point
         tree = run_phase("8 tree write", write_checkpoint_tree, tc, root)
@@ -3249,6 +3519,7 @@ def main() -> None:
         run_phase("8 scripts", phase_scripts, tree, runs)
         run_phase("8 alignment script", phase_alignment_script, tree, runs)
         run_phase("8 train script", phase_train_script, tree, str(data_root / "latents"))
+        run_phase("8 probe script", phase_probe_script, tree, str(data_root / "latents"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(data_root, ignore_errors=True)
@@ -3266,7 +3537,8 @@ def main() -> None:
                                 "library": sdpa},
             also_replaces="trajectorycrafter_tpu/ops/attention.py:39",
             launches=run_launches("A", "flash_attention"), launches_run="A",
-            launches_per_path=per_path("flash_attention"),
+            launches_per_path=per_path("flash_attention"), probing_launches=probe_launches,
+            probing_shape="(1, 48, 13330, 13330, 64); Perceiver (1, 16, 13104 x 3024, 128)",
             bench_launches=bench["flash_attention"], max_abs_err=max_err["flash_attention"],
             depth_shape="(49, 5, 9216, 9216, 64)", depth_ms=depth["flash_attention"],
             depth_plain_ms=depth["plain_ms"], depth_library_ms=depth["library_ms"],

@@ -8,7 +8,8 @@ tests/test_torch_checkpoints.py, the models built on the CPU, the warp size
 64 x 128 as the SVD UNet wants); the outputs are counted: the joined videos'
 frames (``n_splits * (F - overlap) + overlap``), each segment's or variant's
 five mp4s, v2's scene, the known-pose run's metrics.  Without a CUDA device
-every script refuses to start, as the CLI does.
+every script refuses to start, as the CLI does (``probe_depth`` too, whose
+runs on a tree are in tests/test_torch_probing.py).
 """
 
 import functools
@@ -27,13 +28,17 @@ from trajectorycrafter_tpu_torch.scripts import (
     autoregressive_global,
     inference_autoregressive,
     inference_orbits,
+    probe_depth,
     run_w_cam_poses,
 )
 from trajectorycrafter_tpu_torch.utils.video import save_video
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
-SCRIPTS = [inference_autoregressive, autoregressive_global, run_w_cam_poses, inference_orbits]
+# the scripts that build the CLI's config (their warp size is patched on the tree)
+CLI_SCRIPTS = [inference_autoregressive, autoregressive_global, run_w_cam_poses,
+               inference_orbits]
+SCRIPTS = CLI_SCRIPTS + [probe_depth]
 MP4S = ("input", "render", "mask", "gen", "viz")
 
 
@@ -58,7 +63,7 @@ def on_tree(tree, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(orchestrator, "build_models",
                         functools.partial(orchestrator.build_models, device="cpu"))
-    for script in SCRIPTS:
+    for script in CLI_SCRIPTS:
         parse = script.config_from_args
 
         def at_warp_size(args, parse=parse):
@@ -139,5 +144,7 @@ def test_scripts_refuse_to_start_without_a_card(tmp_path, monkeypatch, script):
     argv = ["--video_path", str(REPO / "test/videos/synth.mp4"), "--out_dir", str(tmp_path)]
     if script is run_w_cam_poses:
         argv += ["--calib_json", "c.json", "--source_cam", "a", "--target_cam", "b"]
+    if script is probe_depth:
+        argv = ["--data_dir", str(tmp_path), "--output_dir", str(tmp_path / "probes")]
     with pytest.raises(SystemExit, match="no CUDA device"):
         script.main(argv)

@@ -70,25 +70,28 @@ def get_parser():
     return p
 
 
-def build_base_model(args, sample, device):
+def build_base_model(args, sample, device, attention_impl: str = "flash_stock",
+                     remat: bool = True):
     """The frozen base DiT: ``--transformer_path`` at bf16, or the dev-scale
-    model shaped by ``sample``; both with ``flash_stock`` and ``remat``."""
+    model shaped by ``sample``; both with ``attention_impl`` and ``remat``
+    (training: ``flash_stock`` and ``remat``; the probe script: ``auto``, the
+    JAX default, without)."""
     from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
     from trajectorycrafter_tpu_torch.orchestrator import random_init_
 
-    training = dict(attention_impl="flash_stock", remat=True)
+    route = dict(attention_impl=attention_impl, remat=remat)
     if args.transformer_path and os.path.isdir(args.transformer_path):
         from trajectorycrafter_tpu_torch.utils.checkpoints import load_dit
 
         return load_dit(args.transformer_path, device=device, dtype=torch.bfloat16,
-                        quant="none", **training)
+                        quant="none", **route)
     c = sample["gt_latents"].shape[-1]
     length, text_dim = sample["prompt_embeds"].shape
     model = CrossTransformer3DModel(
         num_attention_heads=1, attention_head_dim=64, in_channels=2 * c + 1, out_channels=c,
         time_embed_dim=32, text_embed_dim=text_dim, num_layers=4,
         max_text_seq_length=length, cross_attn_dim_head=64, cross_attn_num_heads=1,
-        use_rotary_positional_embeddings=True, **training)
+        use_rotary_positional_embeddings=True, **route)
     dtype = torch.float32 if torch.device(device).type == "cpu" else torch.bfloat16
     return random_init_(model.to(device=device, dtype=dtype), 0)
 

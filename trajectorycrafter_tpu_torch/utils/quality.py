@@ -5,6 +5,9 @@ over the 8-bit range, per-frame grayscale SSIM (Wang et al. 2004 constants,
 8x8 non-overlapping uniform windows) on the BT.601 luma, and multi-scale
 SSIM (Wang et al. 2003 exponents, 2x average pooling between levels).
 chip_smoke.py uses it to compare the int8 path's video with the bf16 one.
+Its CLI compares two written videos, as the JAX one does:
+
+    python -m trajectorycrafter_tpu_torch.utils.quality a_gen.mp4 b_gen.mp4
 """
 
 from __future__ import annotations
@@ -108,3 +111,47 @@ def gate_metrics(m: Dict[str, float], psnr_pass_db: float) -> Dict[str, float]:
         elif np.isinf(m[k]):
             m[k] = 99.0
     return m
+
+
+def main(argv=None) -> None:
+    """``python -m trajectorycrafter_tpu_torch.utils.quality a.mp4 b.mp4``:
+    print the gated metrics as one JSON line; exit 1 when the gate fails or
+    the frame counts differ (unless ``--allow-frame-mismatch``, which
+    compares the common prefix).  Needs no card."""
+    import argparse
+    import json
+
+    from trajectorycrafter_tpu_torch.utils.video import f01_to_u8, read_video_frames
+
+    p = argparse.ArgumentParser(
+        description="PSNR/SSIM between two same-seed generated videos (e.g. bf16 vs "
+                    "--quant int8)")
+    p.add_argument("video_a")
+    p.add_argument("video_b")
+    p.add_argument("--psnr_pass_db", type=float, default=35.0,
+                   help="exit non-zero if overall OR weakest-frame PSNR falls below this")
+    p.add_argument("--allow-frame-mismatch", action="store_true",
+                   help="compare the common frame prefix instead of failing when the two "
+                        "videos have different frame counts")
+    args = p.parse_args(argv)
+
+    # every frame at its native size: judge what was written
+    a = read_video_frames(args.video_a, -1, width=None, height=None)
+    b = read_video_frames(args.video_b, -1, width=None, height=None)
+    if len(a) != len(b) and not args.allow_frame_mismatch:
+        # a run that stopped partway and wrote fewer frames must not pass
+        print(json.dumps({"pass": False, "error": "frame count mismatch",
+                          "frames_a": int(len(a)), "frames_b": int(len(b))}))
+        raise SystemExit(1)
+    n = min(len(a), len(b))
+    m = video_quality(f01_to_u8(a[:n]), f01_to_u8(b[:n]))
+    if len(a) != len(b):
+        m["frames_a"], m["frames_b"] = int(len(a)), int(len(b))
+    gate_metrics(m, args.psnr_pass_db)
+    print(json.dumps(m))
+    if not m["pass"]:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

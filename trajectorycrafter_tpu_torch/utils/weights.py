@@ -3,7 +3,8 @@
 The inverses of trajectorycrafter_tpu/utils/convert.py ``convert_dit``,
 ``convert_vae``, ``convert_svd_unet``, ``convert_svd_vae``,
 ``convert_clip_vision``, ``convert_t5_encoder`` and
-``convert_vda_official``: given the flax tree
+``convert_vda_official``, and the probes' flax trees (``probe_from_jax``):
+given the flax tree
 (numpy arrays), return a state_dict under the reference checkpoint's names,
 which the port's modules keep, so ``module.load_state_dict(sd, strict=True)``
 loads it and ``convert_dit(dit_from_jax(p)) == p`` (and likewise for each).  This module needs neither jax nor
@@ -428,3 +429,14 @@ def lora_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarra
         leaf = flat.setdefault(dit_dense_path(module) + "/kernel", {})
         leaf[{"lora_A": "a", "lora_B": "b"}[part]] = value.detach().cpu().numpy().T.copy()
     return flat
+
+
+def probe_from_jax(params: Tree) -> StateDict:
+    """A flax ``ConvProbe`` or ``MLPProbe`` tree (``conv1``, ``conv2``,
+    ``conv_out``; ``fc1``, ``fc2``) -> the port's probe state_dict
+    (probing.py): Conv kernels (kh, kw, in, out) -> (out, in, kh, kw), Dense
+    (in, out) -> (out, in)."""
+    sd: StateDict = {}
+    for name, leaf in params.items():
+        _put(sd, name, leaf)
+    return sd
