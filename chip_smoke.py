@@ -16,7 +16,9 @@ prints no result line):
      "library" call: flash SDPA for attention, ``torch._int_mm`` for the
      int8 GEMM's product; the port never calls it) and, for the int8 GEMMs,
      the bf16 ``F.linear`` they replace, timed at full shape, in turns (K1
-     at the DiT's, the Perceiver's and the depth UNet's two shapes); each
+     at the DiT's, the Perceiver's and the depth UNet's two shapes, and whole
+     at run R's 576x1024 shapes: (2, 48, 30,178^2, 64) and (2, 16, 29,952 x
+     6,912, 128); K2a and K2b also at run R's 60,356 rows); each
      kernel's bound (the least time the card could take for the same work)
      computed from the data sheet, and its TFLOP/s;
   4. the attention variants (K5 ``flash_lse``, K1b ``flash_exp2``, K6
@@ -38,7 +40,8 @@ prints no result line):
      weights from a seed; T5-XXL prompt encode; the DepthCrafter depth
      stage, 5 Euler steps over one 49-frame window at 576x1024; 2 denoise
      steps, diffusion at 384x672), four times on one set of weights, A on
-     the deployed 49 frames, B-D on 25 (``CUT_FRAMES``):
+     the deployed 49 frames, B-D on 9 (``CUT_FRAMES``) with 1 Euler step a
+     depth window (``CUT_DEPTH_STEPS``):
      A, the default: int8 DiT (``--quant int8``, unfused feed-forward),
        bf16 depth UNet, depth attention ``flash_stock``;
      B: int8 DiT with the fused int8 feed-forward, ``--quant_depth int8``,
@@ -53,11 +56,18 @@ prints no result line):
      gen.mp4 is kept for the quality CLI, which then runs three times as a
      subprocess (``python -m trajectorycrafter_tpu_torch.utils.quality``): C
      against itself (rc 0, 99.0 dB), C against D (rc as its ``pass``), A
-     (49 frames) against C (25: rc 1, frame count mismatch);
-  5b. modes and samplers, on run A's models at 25 frames (``CUT_FRAMES``,
-     as every later run but L, M and P): run E ``infer_direct`` with
+     (49 frames) against C (9: rc 1, frame count mismatch);
+  5r. run R: run A with ``--sample_size 576 1024`` (the JAX bench's
+     diffusion size, where the warp's render and mask already have the
+     sample size): 49 frames, the DiT over 30,178 joint tokens, its
+     Perceivers over 29,952 x 6,912, its int8 GEMMs on 60,356 rows; the
+     launches per stage held to the derived counts, the five mp4s to 49
+     frames of 576x1024, stage times and peak memory logged;
+  5b. modes and samplers, on run A's models at 9 frames and 1 Euler step
+     a depth window (``cut_runs``, as every later run but L, M, P and Q):
+     run E ``infer_direct`` with
      DPM++ at 3 steps (step 1 second order; the mp4s drop the fly-in,
-     clamped to 12 frames: 13, 13, 13, 13 and 25 frames), run F ``infer_bullet`` with
+     clamped to 4 frames: 5, 5, 5, 5 and 9 frames), run F ``infer_bullet`` with
      Euler A at 2 steps, run G ``infer_zoom`` with PNDM at 4 steps (13 DiT
      forwards: 12 pseudo-RK calls and one PLMS call), each through
      ``TrajCrafter``'s entry point with the sampler set in the config and
@@ -68,13 +78,13 @@ prints no result line):
      one step of each of the six samplers on the card against the same step
      on the CPU (``SAMPLER_STEP_TOL``);
   5c. the long-trajectory and known-camera paths, on run A's models: run H
-     ``TrajCrafterAutoregressive.infer_autoregressive`` (v1: segments of 25
-     frames, 42 poses in two windows sharing 8, 2 depth stages, 2
-     diffusions, 42 frames), run I
-     ``TrajCrafterGlobalPointCloud.infer_autoregressive`` (v2 at its
-     segments of 25 frames, the clip lifted into a 14.7 M-point cloud on
-     the card, 50 z-buffer renders, the merged 29.5 M-point cloud
-     downsampled to 4 M, the PLY / COLMAP / HTML scene), run J
+     ``TrajCrafterAutoregressive.infer_autoregressive`` (v1: segments of 17
+     frames, 26 poses in two windows sharing 8, 2 depth stages, 2
+     diffusions, 26 frames), run I
+     ``TrajCrafterGlobalPointCloud.infer_autoregressive`` (v2 at segments
+     of 17 frames, the clip lifted into a point cloud of ~10 M points on
+     the card, a z-buffer render per pose, the merged cloud downsampled to
+     4 M, the PLY / COLMAP / HTML scene), run J
      ``CameraPoseTrajCrafter.infer_camera_poses_smooth``
      between two Panoptic-style cameras with a held-out target video
      (``metrics.json``); each with its launches held to one depth stage's
@@ -91,7 +101,7 @@ prints no result line):
      the per-frame clouds and trains a visual prompt through the VDA at
      280x504 over all 49 frames, 2 epochs of the deployed 50, VP mode), run
      N the same without a VDA (DepthCrafter and ``align_window``) on
-     25-frame segments, run O the Gradio callback ``run_pipeline`` with the
+     9-frame segments, run O the Gradio callback ``run_pipeline`` with the
      "Orbit Left" preset at 2 steps; launches held to the derived counts
      (the VDA and the trainer launch none), the joined video (M's 98 x 384
      x 672), the aligned depth finite
@@ -243,9 +253,11 @@ DEPTH_SHAPES = {"depth_9216": (49, 5, 9216, 64), "depth_2304": (49, 10, 2304, 64
 # int8 GEMMs of the main path, (M, K, N, bias): the DiT's blocks at M = 2 x
 # 13,330 tokens (the CFG pair, text + video) -- q/k/v/out and the feed-
 # forward; its Perceivers (queries from 2 x 13,104 video tokens, keys and
-# values from 2 x 3,024 reference tokens, no biases); the depth UNet's
-# level 0 under --quant_depth int8 (49 frames x 9,216 tokens, 320 channels:
-# attention/proj and the GEGLU's first projection); a small ragged M
+# values from 2 x 3,024 reference tokens, no biases); the same at
+# ``--sample_size 576 1024`` (run R: M = 2 x 30,178, the Perceivers' 2 x
+# 29,952 and 2 x 6,912); the depth UNet's level 0 under --quant_depth int8
+# (49 frames x 9,216 tokens, 320 channels: attention/proj and the GEGLU's
+# first projection); a small ragged M
 INT8_SHAPES = {
     "dit_qkvo": (26660, 3072, 3072, True),
     "dit_ff1": (26660, 3072, 12288, True),
@@ -253,6 +265,12 @@ INT8_SHAPES = {
     "perceiver_to_q": (26208, 3072, 2048, False),
     "perceiver_to_kv": (6048, 3072, 4096, False),
     "perceiver_to_out": (26208, 2048, 3072, False),
+    "dit576_qkvo": (60356, 3072, 3072, True),
+    "dit576_ff1": (60356, 3072, 12288, True),
+    "dit576_ff2": (60356, 12288, 3072, True),
+    "perceiver576_to_q": (59904, 3072, 2048, False),
+    "perceiver576_to_kv": (13824, 3072, 4096, False),
+    "perceiver576_to_out": (59904, 2048, 3072, False),
     "depth_320": (451584, 320, 320, True),
     "depth_geglu": (451584, 320, 2560, True),
     "ragged_small": (70, 256, 512, True),
@@ -285,6 +303,13 @@ DIT_SHAPE = (2, 48, 13330, 64)  # the main path's joint attention (B, H, S, D)
 # the Perceiver's cross-attention (B, H, Sq, Skv, D): 2 x 13,104 video
 # tokens against 2 x 3,024 reference tokens, 16 heads of 128
 PERCEIVER_SHAPE = (2, 16, 13104, 3024, 128)
+# run R, diffusion at 576x1024 (the JAX bench's size): the joint attention
+# over 226 text + 13 x 36 x 64 video tokens (30,178 = 235 x 128 + 98, a
+# ragged last key tile), the Perceiver over 2 x 29,952 video tokens against
+# the 3 x 2,304 of the 10 reference frames' 3 latent frames
+DIT576_SHAPE = (2, 48, 30178, 64)
+PERCEIVER576_SHAPE = (2, 16, 29952, 6912, 128)
+SAMPLE_576 = (576, 1024)
 # K7 (bench only) is also checked and timed at head dim 128, at a
 # self-attention shape (B, H, Sq, Skv, D)
 K7_D128_SHAPE = (1, 16, 4096, 4096, 128)
@@ -413,22 +438,29 @@ def check_kernel_case(kernel, name, b, h, sq, skv, d, gain, randn) -> float:
     from trajectorycrafter_tpu_torch.ops.attention import (
         ATTN_ROW_TOL,
         attention_error,
-        kernel_error,
+        attention_reference,
+        maxpass_reference,
+        output_error,
+        plain_refs,
     )
-    from trajectorycrafter_tpu_torch.ops.kernels import ATTENTION_KEY_TILE
+    from trajectorycrafter_tpu_torch.ops.kernels import ATTENTION_KEY_TILE, flash_maxpass
 
     q = (randn(b, sq, h, d) * gain).bfloat16()
     k, v = randn(b, skv, h, d).bfloat16(), randn(b, skv, h, d).bfloat16()
     scale = d ** -0.5
     out = kernel(q, k, v, scale)
     torch.cuda.synchronize()
-    sound = kernel_error(kernel, out, q, k, v, scale)
+    # the plain version of the kernel's own function (``kernel_error``), run
+    # once for the sound answer and both faults
+    plain = maxpass_reference if kernel is flash_maxpass else attention_reference
+    refs = plain_refs(lambda x: plain(q, k, x, scale), v)
+    sound = output_error(out, *refs)
     # the key tiles of the kernel under test (both run ATTENTION_KEY_TILE)
     keep = _skip_last_quarter(skv, ATTENTION_KEY_TILE)
     faults = {
-        "row_sum_x1.1": kernel_error(kernel, (out.float() / 1.1).bfloat16(), q, k, v, scale),
-        "last_quarter_of_key_tiles_skipped": kernel_error(
-            kernel, kernel(q, k[:, :keep], v[:, :keep], scale), q, k, v, scale),
+        "row_sum_x1.1": output_error((out.float() / 1.1).bfloat16(), *refs),
+        "last_quarter_of_key_tiles_skipped": output_error(
+            kernel(q, k[:, :keep], v[:, :keep], scale), *refs),
     }
     label = f"{kernel.__name__} {name} {(b, h, sq, skv, d)} q x {gain:g}"
     log(f"{label}: max abs err {sound['max_abs_err']:.3e}, "
@@ -466,11 +498,16 @@ def phase_kernels():
     randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
     # (kernel, name, B, H, Sq, Skv, D, q gain): the DiT self-attention with
     # heads cut so the plain version fits beside it; the Perceiver's shape,
-    # with scores unbounded as it has no QK-norm; a small ragged shape; the
-    # depth UNet's two kernel shapes cut in frames, peaked (no QK-norm either)
+    # with scores unbounded as it has no QK-norm; both whole at 576x1024 (run
+    # R; 30,178 tokens leave a ragged last key tile); a small ragged shape;
+    # the depth UNet's two kernel shapes cut in frames, peaked (no QK-norm
+    # either)
+    b, h, s, d = DIT576_SHAPE
     cases = [
         (flash_attention, "dit_self_heads8", 1, 8, 13330, 13330, 64, 1.0),
         (flash_attention, "perceiver_cross", 2, 16, 13104, 3024, 128, 4.0),
+        (flash_attention, "dit576_self", b, h, s, s, d, 1.0),
+        (flash_attention, "perceiver576_cross", *PERCEIVER576_SHAPE, 4.0),
         (flash_attention, "ragged_small", 1, 2, 1000, 1000, 64, 1.0),
     ]
     for kernel in (flash_attention, flash_maxpass):
@@ -541,16 +578,21 @@ def phase_kernels():
     del q, k, v
     torch.cuda.empty_cache()
 
-    # K1 at the Perceiver's shape and K4 at the depth UNet's 2,304-token level
+    # K1 at the Perceiver's shape, at run R's two shapes (576x1024) and K4 at
+    # the depth UNet's 2,304-token level: (shape, q gain, plain iterations)
     b, h, s, d = DEPTH_SHAPES["depth_2304"]
-    for name, (b, h, sq, skv, d) in (("perceiver", PERCEIVER_SHAPE),
-                                     ("depth_2304", (b, h, s, s, d))):
-        q = (randn(b, sq, h, d) * 4.0).bfloat16()  # no QK-norm at either: peaked rows
+    b5, h5, s5, d5 = DIT576_SHAPE
+    other = {"perceiver": (PERCEIVER_SHAPE, 4.0, 2), "dit576": ((b5, h5, s5, s5, d5), 1.0, 1),
+             "perceiver576": (PERCEIVER576_SHAPE, 4.0, 2),
+             "depth_2304": ((b, h, s, s, d), 4.0, 2)}
+    for name, ((b, h, sq, skv, d), gain, plain_iters) in other.items():
+        q = (randn(b, sq, h, d) * gain).bfloat16()  # no QK-norm but the DiT's: peaked rows
         k, v = randn(b, skv, h, d).bfloat16(), randn(b, skv, h, d).bfloat16()
         t = in_turns({"plain_ms": lambda: attention_reference(q, k, v, d ** -0.5),
                       "ms": lambda: flash_attention(q, k, v, d ** -0.5),
                       "library_ms": lambda: sdpa_flash(q, k, v, d ** -0.5)},
-                     {"plain_ms": 2, "ms": 10, "library_ms": 10})
+                     {"plain_ms": plain_iters, "ms": 10, "library_ms": 10},
+                     cold=("plain_ms",) if plain_iters == 1 else ())
         timing[name] = {**t, **attention_bound(b, h, sq, skv, d),
                         "shape": str((b, h, sq, skv, d))}
         flop = 4 * b * h * sq * skv * d
@@ -1109,7 +1151,7 @@ def phase_int8_kernels():
 
         ref = im.int8_matmul_reference(xq, wq, xs, ws, b)
         faults = {}
-        if name in ("dit_ff1", "dit_ff2"):
+        if name in ("dit_ff1", "dit_ff2", "dit576_ff1", "dit576_ff2"):
             faults = {
                 "last_k_step_of_32_skipped": im.gemm_error(
                     int8_gemm(_k_step_skipped(xq), wq, xs, ws, b), ref),
@@ -1228,7 +1270,7 @@ def _int8_entries(runs: dict, max_err: dict, per_shape: dict) -> list:
         "name": kern, "route": "cuda", "source": f"{src}{kern}.cu",
         "replaces": TPU_KERNELS[kern], "launches": _run_launches(runs, run, kern),
         "launches_run": run, "launches_per_path": _launches_per_path(runs, kern),
-        "max_abs_err": max_err[kern], **kw}
+        "launches_576": _run_launches(runs, "R", kern), "max_abs_err": max_err[kern], **kw}
     ff1, ff2, qkvo = per_shape["dit_ff1"], per_shape["dit_ff2"], per_shape["dit_qkvo"]
     return [
         entry("int8_quantize_rows", "A", ms=qkvo["quantize_ms"],
@@ -1483,19 +1525,18 @@ def phase_main_path():
     }
     pipe = tc.models.depth_infer.__self__.pipe
     runs = {}
-    frames = cfg.video_length  # tc.cfg is cfg
     for run, (model, fuse, dit_attn, dit_kernel, depth_unet, quant, quant_depth, depth_attn,
               depth_kernel) in plans.items():
         tc.models.pipeline.transformer, pipe.unet = model, depth_unet
         tc.cfg.diffusion.quant, tc.cfg.depth.quant = quant, quant_depth
-        # A drives the deployed clip, B-D the cut one
-        tc.cfg.video_length = frames if run == "A" else CUT_FRAMES
         _set_fuse(model, fuse)
         set_impl(model, dit_attn)
+        # A drives the deployed clip and depth stage, B-D the cut ones
         try:
-            want = _expected_launches(tc.cfg, tc.models.pipeline.scheduler, model, depth_unet,
-                                      depth_kernel, dit_kernel)
-            runs[run] = run_mode(tc, run, depth_attn, dit_attn)
+            with cut_runs(tc.cfg) if run != "A" else contextlib.nullcontext():
+                want = _expected_launches(tc.cfg, tc.models.pipeline.scheduler, model,
+                                          depth_unet, depth_kernel, dit_kernel)
+                runs[run] = run_mode(tc, run, depth_attn, dit_attn)
         finally:
             _set_fuse(model, None)
             set_impl(model, "auto")
@@ -1506,7 +1547,6 @@ def phase_main_path():
         shutil.copy(Path(tc.cfg.save_dir) / "gen.mp4", QUALITY_DIR / f"gen_{run}.mp4")
     tc.models.pipeline.transformer, pipe.unet = dit, unet
     tc.cfg.diffusion.quant, tc.cfg.depth.quant = cfg.diffusion.quant, cfg.depth.quant
-    tc.cfg.video_length = frames
 
     # B-D on one clip: C's depth is A's route (the bf16 UNet on flash_stock)
     for run, what in (("B", "int8 UNet, flash_max"), ("D", "flash_pv8")):
@@ -1517,6 +1557,67 @@ def phase_main_path():
     log(f"gen of run C (bf16 DiT) against run D (int8 DiT on flash_pv8), information only "
         f"(random weights, 2 steps): {json.dumps(quality)}")
     return tc, runs, (dit8, unet8)
+
+
+def mp4_frame_sizes(save_dir) -> tuple:
+    """(height, width) of the frames of each of the five mp4s."""
+    import cv2
+
+    sizes = []
+    for name in MP4S:
+        cap = cv2.VideoCapture(str(Path(save_dir) / name))
+        sizes.append((int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+                      int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))))
+        cap.release()
+    return tuple(sizes)
+
+
+def phase_sample_576(tc, dit8, runs: dict) -> None:
+    """Run R: ``infer_gradual`` with ``--sample_size 576 1024``, the JAX
+    bench's diffusion size, and the CLI's other defaults (``--quant int8``,
+    DDIM_Origin at 2 steps, CFG 6.0) on run A's models and clip (49 frames):
+    the warp already has the sample size, so the render and the mask go to
+    the pipeline as they are; the DiT attends over 30,178 joint tokens, its
+    Perceivers over 29,952 x 6,912, its int8 GEMMs take 60,356 rows.  The
+    launches per stage are held to the counts derived from the modules, the
+    five mp4s to 49 frames of 576x1024 (viz: the pair side by side); stage
+    times and peak memory are logged.  The run joins ``runs``."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.cli import parse_config
+    from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter
+
+    cfg = parse_config(MAIN_ARGV + ["--sample_size", *map(str, SAMPLE_576),
+                                    "--exp_name", "smoke_576"])
+    if (tuple(cfg.diffusion.sample_size), tuple(cfg.warp_size), cfg.diffusion.quant,
+            cfg.video_length) != (SAMPLE_576, SAMPLE_576, "int8", 49):
+        raise AssertionError(f"--sample_size 576 1024 gave sample size "
+                             f"{cfg.diffusion.sample_size}, warp size {cfg.warp_size}, "
+                             f"--quant {cfg.diffusion.quant}, {cfg.video_length} frames")
+    r_tc = TrajCrafter(cfg, models=tc.models)
+    pipeline = tc.models.pipeline
+    unet = tc.models.depth_infer.__self__.pipe.unet
+    saved = pipeline.transformer
+    pipeline.transformer = dit8
+    resident = torch.cuda.memory_allocated() / 2**30
+    try:
+        want = _expected_launches(cfg, pipeline.scheduler, dit8, unet, "flash_attention",
+                                  "flash_attention")
+        runs["R"] = run_mode(r_tc, "R", "flash_stock", "auto")
+    finally:
+        pipeline.transformer = saved
+    runs["R"].pop("gen")
+    if runs["R"]["per_path"] != want:
+        raise AssertionError(f"run R: kernel launches per stage {runs['R']['per_path']}, "
+                             f"expected {want}")
+    sizes = mp4_frame_sizes(cfg.save_dir)
+    hs, ws = SAMPLE_576
+    if sizes != ((hs, ws),) * 4 + ((hs, 2 * ws + 30),):
+        raise AssertionError(f"run R: mp4 frame sizes {dict(zip(MP4S, sizes))}")
+    stages = runs["R"]["stages"]
+    log(f"  run R: launches as derived; mp4 frames {dict(zip(MP4S, sizes))}; "
+        f"{stages['denoise'] / cfg.diffusion.num_inference_steps:.3f} s a denoise step; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {resident:.2f} GiB resident")
 
 
 # Runs E-G of the modes phase: run -> (mode, sampler, denoise steps, save_skip).
@@ -1612,9 +1713,8 @@ def phase_modes(tc, dit8, runs: dict) -> None:
     pipeline = tc.models.pipeline
     unet = tc.models.depth_infer.__self__.pipe.unet
     saved = (pipeline.transformer, pipeline.scheduler, cfg.diffusion.sampler_name,
-             cfg.diffusion.num_inference_steps, cfg.video_length)
+             cfg.diffusion.num_inference_steps)
     pipeline.transformer = dit8
-    cfg.video_length = CUT_FRAMES
     recorder = _RecordedPipeline(pipeline)
     try:
         for run, (mode, sampler, steps, cut) in MODE_RUNS.items():
@@ -1677,7 +1777,7 @@ def phase_modes(tc, dit8, runs: dict) -> None:
         recorder.calls.clear()
     finally:
         (pipeline.transformer, pipeline.scheduler, cfg.diffusion.sampler_name,
-         cfg.diffusion.num_inference_steps, cfg.video_length) = saved
+         cfg.diffusion.num_inference_steps) = saved
 
     draws = sampler_step_draws()
     for name in SCHEDULER_REGISTRY:
@@ -1688,19 +1788,22 @@ def phase_modes(tc, dit8, runs: dict) -> None:
             raise AssertionError(f"sampler {name}: the card's step disagrees with the CPU's")
 
 
-# The clip length of runs B-J, N and O: runs A, L, M and P drive the
-# deployed 49 frames (13 latent frames, the DiT's 13,330 joint tokens); the
-# others read 25 (7 latent frames).  The launches per depth stage and per
-# DiT forward do not depend on the frame count (one depth window either
-# way), and phases 3-4b hold every kernel at the full shapes.  The cut keeps
-# the smoke near 500 s on one H100 (653 s with these runs at 49 frames).
-CUT_FRAMES = 25
+# The clip length and the depth stage of runs B-J, N and O: runs A, L, M,
+# P and R drive the deployed 49 frames (13 latent frames, the DiT's 13,330
+# or 30,178 joint tokens) and 5 Euler steps a depth window; the others read
+# 9 (3 latent frames; H and I 17-frame segments) and take 1 Euler step.
+# The launches per DiT forward and per UNet forward do not depend on either
+# (one depth window either way; K4's launches follow the step count), and
+# phases 3-4b hold every kernel at the full shapes.  The cuts keep the smoke
+# near 500 s on one H100 (653 s with these runs at 49 frames and 5 steps).
+CUT_FRAMES = 9
+CUT_DEPTH_STEPS = 1
 # Runs H-J of phase 5c (the long-trajectory and known-camera paths), on run
 # A's models: 2 segments sharing 8 frames, so 2 depth stages and 2
-# diffusions each, at segments of ``CUT_FRAMES`` (42 poses).  J reads
+# diffusions each, at segments of 17 frames (26 poses).  J reads
 # ``CUT_FRAMES``.
 LONG_RUN = dict(n_splits=2, overlap_frames=8, theta=30.0)
-LONG_SEGMENTS = {"H": CUT_FRAMES, "I": CUT_FRAMES}
+LONG_SEGMENTS = {"H": 17, "I": 17}
 MAX_POINTS = 4_000_000  # v2's default cloud limit
 # Phase 8's scripts read 9 frames of the clip (one depth window still; the
 # launches per depth stage and per DiT forward do not depend on the frame
@@ -1724,6 +1827,18 @@ TILED_LATENTS = (1, 5, 72, 128, 16)
 DEPLOYED_LATENTS = (1, 13, 72, 128, 16)
 TILINGS = {"one_tile": (72, 128, 0.0, 0.0), "jax_default": (30, 45, 1.0 / 6.0, 1.0 / 5.0),
            "strips": (24, 128, 1.0 / 7.0, 0.0)}
+
+
+@contextlib.contextmanager
+def cut_runs(cfg):
+    """Within the block ``cfg`` reads ``CUT_FRAMES`` frames and its depth
+    stage takes ``CUT_DEPTH_STEPS`` Euler steps a window (runs B-J, N, O)."""
+    saved = cfg.video_length, cfg.depth.num_inference_steps
+    cfg.video_length, cfg.depth.num_inference_steps = CUT_FRAMES, CUT_DEPTH_STEPS
+    try:
+        yield cfg
+    finally:
+        cfg.video_length, cfg.depth.num_inference_steps = saved
 
 
 @contextlib.contextmanager
@@ -2873,7 +2988,7 @@ def phase_probe_script(tree: dict, data_dir: str) -> None:
 def phase_quality_cli() -> None:
     """``python -m trajectorycrafter_tpu_torch.utils.quality`` three times, in
     parallel: run C's video against itself, run C against run D (the same
-    input and seed), run A (49 frames) against run C (25)."""
+    input and seed), run A (49 frames) against run C (``CUT_FRAMES``)."""
     gen = {run: str(QUALITY_DIR / f"gen_{run}.mp4") for run in "ACD"}
     calls = {"C vs C": (gen["C"], gen["C"]), "C vs D": (gen["C"], gen["D"]),
              "A vs C": (gen["A"], gen["C"])}
@@ -3490,10 +3605,12 @@ def main() -> None:
     variant_err, variant_timing = run_phase("4 variants", phase_variants)
     backward_err, backward_timing = run_phase("4b backward", phase_backward_kernels)
     tc, runs, (dit8, unet8) = run_phase("5 main path", phase_main_path)
+    run_phase("5r 576x1024", phase_sample_576, tc, dit8, runs)
     run_phase("5 quality CLI", phase_quality_cli)
-    run_phase("5b modes", phase_modes, tc, dit8, runs)
-    run_phase("5c long paths", phase_long_paths, tc, dit8, runs)
-    run_phase("5d consistent", phase_consistent, tc, dit8, runs)
+    with cut_runs(tc.cfg):
+        run_phase("5b modes", phase_modes, tc, dit8, runs)
+        run_phase("5c long paths", phase_long_paths, tc, dit8, runs)
+        run_phase("5d consistent", phase_consistent, tc, dit8, runs)
     run_phase("6 whole models", phase_whole_models, tc, dit8, unet8)
     bench = run_phase("7 bench", phase_bench)
 
@@ -3528,8 +3645,10 @@ def main() -> None:
     run_launches = lambda run, kern: _run_launches(runs, run, kern)
     depth = timing["depth"]
     sdpa = "flash SDPA"
-    # K1 at the Perceiver's shape and at the depth UNet's 2,304-token level
-    other_shapes = {f"{name}_{key}": timing[name][key] for name in ("perceiver", "depth_2304")
+    # K1 at the Perceiver's shape, at run R's two shapes and at the depth
+    # UNet's 2,304-token level
+    other_shapes = {f"{name}_{key}": timing[name][key]
+                    for name in ("perceiver", "dit576", "perceiver576", "depth_2304")
                     for key in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "sfu_ms")}
     kernels_line = [
         _attention_entry(
@@ -3537,7 +3656,8 @@ def main() -> None:
                                 "library": sdpa},
             also_replaces="trajectorycrafter_tpu/ops/attention.py:39",
             launches=run_launches("A", "flash_attention"), launches_run="A",
-            launches_per_path=per_path("flash_attention"), probing_launches=probe_launches,
+            launches_per_path=per_path("flash_attention"),
+            launches_576=run_launches("R", "flash_attention"), probing_launches=probe_launches,
             probing_shape="(1, 48, 13330, 13330, 64); Perceiver (1, 16, 13104 x 3024, 128)",
             bench_launches=bench["flash_attention"], max_abs_err=max_err["flash_attention"],
             depth_shape="(49, 5, 9216, 9216, 64)", depth_ms=depth["flash_attention"],

@@ -14,6 +14,9 @@ The plain version is also held against the two-pass kernel
 kernel), at unbounded scores, all-negative score rows and padded keys.  The
 depth UNet's routing rule (which attention shapes launch a kernel) is
 checked from its shapes at 576x1024; ``flash_pv8`` is routed there too.
+The JAX package's route names ``"flash"`` (K1, against its dispatch with
+the Pallas kernel in interpret mode) and the depth UNet's ``"xla"`` are
+accepted; unknown names are refused on both routes.
 
 The tolerance the CUDA kernels are held to on the card (``attention_error``)
 is checked here too: it passes a sound bf16 answer and fails planted faults.
@@ -120,6 +123,71 @@ def test_multi_head_attention_takes_plain_version_on_cpu():
     torch.testing.assert_close(got, maxpass_reference(q, k, v, 0.2).reshape(2, 33, 4 * 64),
                                atol=0, rtol=0)
     assert (flash_attention.launches, flash_maxpass.launches) == before
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 2, 200, 200, 64),  # DiT head dim: 200 tokens padded to the 512 block
+    (2, 2, 77, 130, 128),  # Perceiver head dim, cross lengths
+], ids=["self_d64", "cross_d128"])
+def test_flash_route_matches_the_jax_flash_route(shape):
+    """``impl="flash"``, the JAX package's name of its K1 route (its benches
+    build the DiT with it), is accepted: on CPU tensors it takes K1's plain
+    version, bit for bit what ``"auto"`` gives, launches nothing, and
+    matches JAX's ``multi_head_attention(impl="flash")`` with the Pallas
+    kernel in interpret mode (the dispatch's zero-padded tail and
+    ``kv_pad``) within ``ATOL`` (fp32 on both sides, the kernel's fixed
+    exp2 bias in place of a running max)."""
+    from unittest import mock
+
+    from trajectorycrafter_tpu.ops import attention as jax_attention
+    from trajectorycrafter_tpu.ops.pallas import flash_exp2 as jax_flash_exp2
+
+    b, h, sq, skv, d = shape
+    q, k, v = _qkv(7, b, h, sq, skv, d)
+    orig, calls = jax_flash_exp2.flash_attention_exp2_t, []
+
+    def interp(*a, **kw):
+        calls.append(a[0].shape)
+        return orig(*a, **{**kw, "interpret": True})
+
+    with mock.patch.object(jax_flash_exp2, "flash_attention_exp2_t", interp):
+        want = np.asarray(jax_attention.multi_head_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="flash"))
+    assert len(calls) == 1
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    before = flash_attention.launches
+    got = multi_head_attention(tq, tk, tv, impl="flash")
+    assert flash_attention.launches == before
+    torch.testing.assert_close(got, multi_head_attention(tq, tk, tv, impl="auto"),
+                               atol=0, rtol=0)
+    assert got.shape == (b, sq, h * d)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_route_names_of_the_jax_package_are_accepted_and_unknown_ones_refused(monkeypatch):
+    """Both routes take the names the JAX package takes: ``multi_head_attention``
+    ``"flash"`` (K1) and ``"xla"``, the depth UNet's ``TRAJCRAFTER_DEPTH_ATTN``
+    (or a module's ``attention_impl``) ``"xla"``, which takes the plain
+    version even where a kernel would launch, as the JAX UNet hands it on to
+    its einsum.  A name neither package knows is refused on both routes,
+    where the JAX dispatch would send it to XLA without a word."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(3, 1, 2, 8, 8, 64))
+    for impl in ("flash", "xla"):
+        assert multi_head_attention(q, k, v, impl=impl).shape == (1, 8, 2 * 64)
+    for impl in ("flsh", "flash_bogus", "XLA"):
+        with pytest.raises(ValueError, match="unknown attention impl"):
+            multi_head_attention(q, k, v, impl=impl)
+    monkeypatch.setenv(DEPTH_ATTN_ENV, "xla")
+    assert depth_attention_impl(9216, 9216, True) == "xla"
+    assert depth_attention_impl(2304, 2304, True) == "xla"
+    assert depth_attention_impl(9216, 9216, False) == "xla"
+    assert depth_attention_impl(9216, 9216, True, "flash_stock") == "flash_stock"
+    monkeypatch.delenv(DEPTH_ATTN_ENV)
+    assert depth_attention_impl(9216, 9216, True, "xla") == "xla"
+    for impl in ("flsh", "XLA"):
+        monkeypatch.setenv(DEPTH_ATTN_ENV, impl)
+        with pytest.raises(ValueError, match="'xla'"):  # the message lists the names
+            depth_attention_impl(9216, 9216, True)
 
 
 def test_flash_max_on_cpu_is_the_two_pass_kernels_function():

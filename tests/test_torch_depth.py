@@ -16,7 +16,8 @@ Tolerances, each against outputs of order 1:
     coordinates; fp32 weights rounded at other points read ~2e-6, while a
     wrong pixel-centre convention reads ~1e-2);
   * CLIP, VAE, UNet: 1e-4 absolute and relative (fp32 summation order
-    through a few dozen layers; the readings are ~1e-5);
+    through a few dozen layers; the readings are ~1e-5), the UNet also
+    under ``TRAJCRAFTER_DEPTH_ATTN=xla`` on both sides;
   * the pipeline's disparity: 2e-4 absolute (two Euler steps from sigma
     700 multiply the UNet's rounding by ~10; the reading is ~6e-5).
 """
@@ -200,6 +201,28 @@ def test_unet_matches_jax(unets):
     sample = rng.standard_normal((b, f, h, w, 8)).astype(np.float32)
     ctx = rng.standard_normal((b, f, 1, 12)).astype(np.float32)
     added = np.array([[6.0, 127.0, 0.02], [3.0, 80.0, 0.1]], np.float32)
+    t = np.full((b,), 0.25 * np.log(2.5), np.float32)
+    want = np.asarray(jax.jit(junet.apply)({"params": params}, *map(jnp.asarray,
+                                                                    (sample, t, ctx, added))))
+    with torch.no_grad():
+        got = unet(*map(torch.from_numpy, (sample, t, ctx, added))).numpy()
+    assert got.shape == (b, f, h, w, 4)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_unet_matches_jax_under_depth_attn_xla(unets, monkeypatch):
+    """``TRAJCRAFTER_DEPTH_ATTN=xla``, which the JAX UNet hands on to its
+    einsum, runs in the port (the plain version) and matches the JAX UNet
+    under the same variable, to ``TOL``."""
+    from trajectorycrafter_tpu_torch.models.depthcrafter import DEPTH_ATTN_ENV
+
+    monkeypatch.setenv(DEPTH_ATTN_ENV, "xla")
+    (junet, params), unet = unets
+    rng = np.random.default_rng(6)
+    b, f, h, w = 1, 2, 16, 16
+    sample = rng.standard_normal((b, f, h, w, 8)).astype(np.float32)
+    ctx = rng.standard_normal((b, f, 1, 12)).astype(np.float32)
+    added = np.array([[6.0, 127.0, 0.02]], np.float32)
     t = np.full((b,), 0.25 * np.log(2.5), np.float32)
     want = np.asarray(jax.jit(junet.apply)({"params": params}, *map(jnp.asarray,
                                                                     (sample, t, ctx, added))))

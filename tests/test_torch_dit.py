@@ -8,7 +8,9 @@ strict ``load_state_dict``.  Weights and inputs come from
 
 Tolerance: 2e-5 absolute and relative.  Both sides are fp32; they differ in
 summation order (matmul blocking, softmax, layer-norm variance) over 4
-blocks, which at O(1) activations stays near 1e-6.
+blocks, which at O(1) activations stays near 1e-6.  The same holds with
+``attention_impl="flash"`` on both sides (JAX's Pallas K1 in interpret
+mode); the RoPE tables match exactly at 576x1024, 384x672 and 144x256.
 """
 
 import numpy as np
@@ -100,6 +102,28 @@ def test_dit_without_reference_branch_matches_jax():
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("height,width,frames", [
+    (576, 1024, 13),  # the JAX bench's diffusion size: a 36 x 64 grid, 29,952 video tokens
+    (384, 672, 13),  # the default sample size: 24 x 42
+    (144, 256, 3),  # a small 9:16 size: 9 x 16
+], ids=["576x1024", "384x672", "144x256"])
+def test_rope_for_sample_matches_jax(height, width, frames):
+    """The tables and the crop region of the grid against the 30 x 45 base
+    grid (480x720), exactly: both build them in float64 numpy."""
+    from trajectorycrafter_tpu.ops.rope import (
+        get_resize_crop_region_for_grid as jax_crop_region,
+    )
+    from trajectorycrafter_tpu_torch.ops.rope import get_resize_crop_region_for_grid
+
+    grid = (height // 16, width // 16)
+    assert get_resize_crop_region_for_grid(grid, 45, 30) == jax_crop_region(grid, 45, 30)
+    cos, sin = rope_for_sample(64, height, width, frames)
+    jcos, jsin = jax_rope_for_sample(64, height, width, frames)
+    assert cos.shape == (frames * grid[0] * grid[1], 64)
+    np.testing.assert_array_equal(cos, jcos)
+    np.testing.assert_array_equal(sin, jsin)
+
+
 def test_rope_tables_and_rotation_match_jax():
     cos, sin = rope_for_sample(64, 384, 672, 13)
     jcos, jsin = jax_rope_for_sample(64, 384, 672, 13)
@@ -159,3 +183,40 @@ def test_dit_flash_pv8_matches_jax():
     assert got.shape == (1, 3, 8, 12, 4)
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
     assert np.abs(exact - want).max() > 1e-2
+
+
+def test_dit_flash_matches_jax():
+    """``attention_impl="flash"``, the route both JAX benches build the DiT
+    with: the JAX model runs the joint self-attention and the Perceivers on
+    the Pallas K1 kernel in interpret mode (patched in as
+    tests/test_torch_attention.py does), the port on K1's plain version on
+    the CPU.  Tolerance as ``test_dit_matches_jax``'s, 2e-5: fp32 on both
+    sides, and the kernel's fixed exp2 bias in place of a running max moves
+    nothing at these scores."""
+    import unittest.mock as mock
+
+    from trajectorycrafter_tpu.ops.pallas import flash_exp2 as jax_flash_exp2
+
+    rope = jax_rope_for_sample(16, 8 * 8, 12 * 8, 3)
+    jmodel = JaxDiT(**TINY, attention_impl="flash")
+    make = lambda: CrossTransformer3DModel(**TINY, attention_impl="flash")
+    params = jax_tree(make(), 0, convert_dit, num_layers=TINY["num_layers"])
+    tmodel = make()
+    tmodel.load_state_dict(dit_from_jax(params), strict=True)
+    args = _inputs(1)
+    orig, calls = jax_flash_exp2.flash_attention_exp2_t, []
+
+    def interp(*a, **kw):
+        calls.append(a[0].shape)
+        return orig(*a, **{**kw, "interpret": True})
+
+    with mock.patch.object(jax_flash_exp2, "flash_attention_exp2_t", interp):
+        want = np.asarray(jax.jit(jmodel.apply)(
+            {"params": params}, *(jnp.asarray(a) for a in args),
+            image_rotary_emb=tuple(jnp.asarray(t) for t in rope)))
+    with torch.no_grad():
+        got = tmodel.eval()(*(torch.from_numpy(a) for a in args),
+                            image_rotary_emb=tuple(torch.from_numpy(t) for t in rope)).numpy()
+    assert len(calls) == TINY["num_layers"] + TINY["num_layers"] // 2  # blocks, Perceivers
+    assert got.shape == (1, 3, 8, 12, 4)
+    np.testing.assert_allclose(got, want, **TOL)

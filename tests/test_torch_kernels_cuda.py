@@ -11,7 +11,8 @@ need not have).
 Kernels: ``flash_attention`` (csrc/flash_attention.cu; the DiT's K1 and
 the depth UNet's K4) and ``flash_maxpass`` (csrc/flash_maxpass.cu, the
 depth UNet's two-pass K4b).  Shapes: those chip_smoke.py checks (the DiT
-self-attention with heads cut, the Perceiver cross-attention, the depth
+self-attention with heads cut, the Perceiver cross-attention, both also at
+the 576x1024 sample size: 30,178 tokens, 29,952 x 6,912; the depth
 UNet's two kernel shapes cut in frames, a small ragged one) plus odd
 lengths that leave ragged query and key tiles (``EDGE_LENGTHS``, in every
 mode of the bf16 kernels at d 64 and d 128) and q, k, v read as strided
@@ -27,7 +28,8 @@ to its plain version; ``int8_gemm`` (K2b) and ``int8_gemm_gscale`` (K3b)
 within one bf16 ulp of theirs (``gemm_error``); ``int8_gemm_gelu_quant``
 (K3a) within ``gelu_quant_error`` (scales 1e-6 relative, codes off by at
 most 1 on at most 0.1% of the elements), at the shapes chip_smoke.py checks
-cut in M and in full (K3a at every cluster size its groups give: 1, 2, 3,
+cut in M and in full (K2a and K2b also at the 60,356 rows of the DiT at
+576x1024; K3a at every cluster size its groups give: 1, 2, 3,
 4 and 7 blocks), with odd M, and at the edges of K2b's and K3b's `wgmma` main loop
 (csrc/int8_gemm_hopper.cuh: K past its 128-byte K tile, N past the block,
 ragged M, A a strided view, one and twelve K groups), there bit-equal (0
@@ -138,6 +140,8 @@ EDGE_CASES = [(sq, skv, d) for sq, skv in zip(EDGE_LENGTHS, reversed(EDGE_LENGTH
 @pytest.mark.parametrize("b,h,sq,skv,d,gain", [
     (1, 8, 13330, 13330, 64, 1.0),  # DiT self-attention, heads cut
     (2, 16, 13104, 3024, 128, 4.0),  # Perceiver, unbounded scores
+    (1, 4, 30178, 30178, 64, 1.0),  # at 576x1024, heads cut: 235 key tiles + 98 keys
+    (2, 16, 29952, 6912, 128, 4.0),  # the Perceiver at 576x1024
     (1, 2, 1000, 1000, 64, 1.0),
     (1, 1, 1, 1, 64, 1.0),
     (2, 3, 17, 129, 128, 2.0),
@@ -307,6 +311,7 @@ def _counted(kernel, *args):
 @pytest.mark.parametrize("m,k", [
     (2084, 3072),  # the DiT's q/k/v/out and FF1 input, M cut (ragged)
     (2084, 12288),  # the FF2 input
+    (60356, 3072),  # at 576x1024: 2 x 30,178 rows
     (4133, 320),  # depth level 0
     (70, 2048), (1, 8), (3, 5120),
 ])
@@ -336,6 +341,9 @@ def test_quantize_rows_kernel_rounds_half_to_even_and_reads_strided_rows(gen):
     (2084, 3072, 2048, False),  # Perceiver to_q
     (1003, 3072, 4096, False),  # Perceiver to_kv
     (2084, 2048, 3072, False),  # Perceiver to_out
+    (60356, 3072, 12288, True),  # FF1 at 576x1024: 472 M tiles, the last of 68 rows
+    (60356, 12288, 3072, True),  # FF2 at 576x1024
+    (59904, 2048, 3072, False),  # Perceiver to_out at 576x1024
     (4133, 320, 320, True),  # depth level 0
     (4133, 320, 2560, True),  # depth GEGLU proj_in
     (70, 48, 48, True), (1, 16, 16, False), (37, 80, 144, True),

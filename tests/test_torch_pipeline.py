@@ -20,7 +20,10 @@ its latents also keep a cosine > 0.99 with the fp32 chain's.
 
 Then a tiny ``infer_gradual`` of the port on the CPU writes all five mp4s,
 with the default ``--quant int8`` and with ``--quant none``, and the entry
-points refuse only an unknown quantization or sampler.
+points refuse only an unknown quantization or sampler.  Last, both
+packages' ``infer_gradual`` at a sample size equal to the warp size (the
+deployed 576x1024's branch, at 144x256) on the same tiny pipelines: the
+conditions and mp4s bit-equal, the final latents to the tolerance above.
 """
 
 import dataclasses
@@ -28,6 +31,7 @@ import math
 from unittest import mock
 from pathlib import Path
 
+import cv2
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -286,3 +290,133 @@ def test_entry_points_refuse_only_an_unknown_quant_or_sampler(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA"):
             cli.main(argv)  # the default --quant int8
+
+
+# a small 9:16 sample size, the deployed 576x1024's shape: the smallest whose
+# latent grid (18 x 32) the DiT's 2 x 2 patches tile
+SMALL_9_16 = (144, 256)
+
+
+class _FixedDraws:
+    """A pipeline whose initial latents and noise draws are fixed arrays (the
+    two packages cannot replay each other's generators); each call also
+    records its arguments and its final latents (``output_type="latent"``)."""
+
+    def __init__(self, pipe, latents, noise, to):
+        self.pipe, self.calls = pipe, []
+        self.fixed = dict(latents=to(latents), noise_override=tuple(to(n) for n in noise))
+
+    def __getattr__(self, name):  # device, timer, vae, transformer ...
+        return getattr(self.pipe, name)
+
+    def __call__(self, *args, **kwargs):
+        kwargs = {**kwargs, **self.fixed}
+        final = self.pipe(*args, **{**kwargs, "output_type": "latent"})
+        self.calls.append(([np.asarray(a) for a in args], np.asarray(final)))
+        return self.pipe(*args, **kwargs)
+
+
+def _mp4_frames(path):
+    cap, frames = cv2.VideoCapture(str(path)), []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            return np.stack(frames)
+        frames.append(frame)
+
+
+def test_infer_gradual_at_warp_size_matches_jax(tmp_path, pipelines, monkeypatch):
+    """``infer_gradual`` where the warp already has ``sample_size`` (the
+    deployed 576x1024 diffusion, here a small 9:16 size): on both sides
+    ``_fetch_cond`` resizes the render and the mask to their own size and
+    ``_diffuse_and_save`` takes the frames, the render and the mask as they
+    are.  The two packages run it on the test clip with the plane depth, a
+    fixed caption and prompt embeddings, and the tiny fp32 pipelines of
+    ``pipelines`` with the same initial latents and noise draws.
+
+    The two warps agree within the bounds of tests/test_torch_warp.py (hole
+    masks on all but 0.5% of the pixels; colours to 1e-3 where both are
+    known, but on at most 3% knife-edge pixels), and a knife-edge pixel
+    moves a uint8 level of the render; so the JAX run takes the port's warp
+    output, and from there on the two runs see the same numbers.  Then the
+    reference frames handed to the pipeline are the frames read at the warp
+    size, bit for bit, on both sides; the render and mask conditions are
+    bit-equal; the input, render and mask mp4s decode to the same frames;
+    the final latents agree to ``TOL``, the pipeline test's."""
+    from trajectorycrafter_tpu import cli as jax_cli
+    from trajectorycrafter_tpu import orchestrator as jax_orchestrator
+    from trajectorycrafter_tpu_torch import orchestrator
+
+    jpipe, tpipe = pipelines
+    hs, ws = SMALL_9_16
+    rng = np.random.default_rng(11)
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    pe, ne = f32(1, 7, 32), f32(1, 7, 32)
+    latents = f32(1, 3, hs // 8, ws // 8, LC)
+    noise = (f32(1, 3, hs // 8, ws // 8, LC), f32(1, 9, hs, ws, 3))  # ref frames 9 -> 3
+    argv = ["--video_path", str(REPO / "test/videos/synth.mp4"), "--camera", "traj",
+            "--traj_txt", str(REPO / "test/trajs/loop1.txt"), "--mode", "gradual",
+            "--prompt", "a scene", "--diffusion_inference_steps", "2",
+            "--video_length", "9", "--sample_size", str(hs), str(ws)]
+
+    def configure(cfg, name):
+        cfg.warp_size = SMALL_9_16
+        # the deployed intrinsics (576x1024) scaled to the warp size
+        cfg.render.focal, cfg.render.cx, cfg.render.cy = 125.0, 128.0, 72.0
+        cfg.out_dir, cfg.exp_name = str(tmp_path), name
+        cfg.save_dir = str(tmp_path / name)
+        return cfg
+
+    warps = {}
+    port_warp, jax_warp = orchestrator.forward_warp_batch, jax_orchestrator.forward_warp_batch
+
+    def recorded_port_warp(*args, **kwargs):
+        warps["port"] = port_warp(*args, **kwargs)
+        return warps["port"]
+
+    def jax_warp_taking_the_ports(*args, **kwargs):
+        warps["jax"] = jax_warp(*args, **kwargs)
+        return tuple(jnp.asarray(x.numpy()) for x in warps["port"])
+
+    monkeypatch.setattr(orchestrator, "forward_warp_batch", recorded_port_warp)
+    monkeypatch.setattr(jax_orchestrator, "forward_warp_batch", jax_warp_taking_the_ports)
+    tcfg = configure(cli.parse_config(argv), "port")
+    tfixed = _FixedDraws(tpipe, latents, noise, torch.from_numpy)
+    ttc = TrajCrafter(tcfg, models=orchestrator.ModelBundle(
+        pipeline=tfixed, depth_infer=orchestrator._plane_depth_infer,
+        encode_prompt=lambda p, n: (torch.from_numpy(pe), torch.from_numpy(ne)),
+        get_caption=lambda frame: "a scene"))
+    tgen = ttc.infer_gradual()
+
+    jcfg = configure(jax_cli.config_from_args(jax_cli.get_parser().parse_args(argv)), "jax")
+    jfixed = _FixedDraws(jpipe, latents, noise, jnp.asarray)
+    jtc = jax_orchestrator.TrajCrafter(jcfg, models=jax_orchestrator.ModelBundle(
+        pipeline=jfixed, depth_infer=jax_orchestrator._plane_depth_infer,
+        encode_prompt=lambda p, n: (jnp.asarray(pe), jnp.asarray(ne)),
+        get_caption=lambda frame: "a scene"))
+    jgen = jtc.infer_gradual()
+
+    (twarped, tmask), (jwarped, jmask) = ((np.asarray(x) for x in warps[side][:2])
+                                          for side in ("port", "jax"))
+    assert twarped.shape == (9, hs, ws, 3) and tmask.shape == (9, hs, ws)
+    assert np.mean(tmask != jmask) <= 0.005
+    both = (tmask > 0) & (jmask > 0)
+    assert 0.1 < both.mean() < 1.0  # the views overlap, with holes
+    assert (np.abs(twarped - jwarped).max(-1) > 1e-3)[both].mean() <= 0.03
+
+    (jargs, jlat), = jfixed.calls
+    (targs, tlat), = tfixed.calls
+    frames = ttc._load_frames()
+    assert frames.shape == (9, hs, ws, 3)
+    np.testing.assert_array_equal(targs[4][0], frames)  # the reference frames, not resized
+    np.testing.assert_array_equal(targs[4], jargs[4])
+    assert targs[2].shape == (1, 9, hs, ws, 3) and targs[3].shape == (1, 9, hs, ws, 1)
+    np.testing.assert_array_equal(targs[2], jargs[2])  # render
+    np.testing.assert_array_equal(targs[3], jargs[3])  # mask, 255 = hole
+    for name in ("input", "render", "mask"):
+        got, want = (_mp4_frames(tmp_path / side / f"{name}.mp4") for side in ("port", "jax"))
+        assert got.shape == (9, hs, ws, 3)
+        np.testing.assert_array_equal(got, want)
+    assert tlat.shape == (1, 3, hs // 8, ws // 8, LC)
+    np.testing.assert_allclose(tlat, jlat, **TOL)
+    assert tgen.shape == jgen.shape == (9, hs, ws, 3)

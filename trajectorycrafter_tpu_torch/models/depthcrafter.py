@@ -48,7 +48,7 @@ from trajectorycrafter_tpu_torch.ops.posemb import timestep_embedding
 # routing threshold); at 576x1024 that is the 9,216- and 2,304-token levels
 DEPTH_KERNEL_MIN_SCORES = 1024 * 1024
 DEPTH_ATTN_ENV = "TRAJCRAFTER_DEPTH_ATTN"
-DEPTH_ATTN_IMPLS = ("flash_stock", "flash_max", "flash_pv8", "reference")
+DEPTH_ATTN_IMPLS = ("flash_stock", "flash_max", "flash_pv8", "reference", "xla")
 
 
 def depth_attention_impl(s: int, s_kv: int, on_card: bool, impl: str = "auto") -> str:
@@ -57,9 +57,11 @@ def depth_attention_impl(s: int, s_kv: int, on_card: bool, impl: str = "auto") -
     ``impl`` is the module's ``attention_impl``: ``"auto"`` reads
     ``TRAJCRAFTER_DEPTH_ATTN`` (default ``flash_stock``, the K4 kernel;
     ``flash_max`` is the two-pass K4b kernel, ``flash_pv8`` the PV-int8 K6
-    kernel, as the JAX UNet passes any value on); ``"reference"`` takes the
-    plain version.  That choice applies on the card at ``s * s_kv >= 2^20``;
-    everything else is ``"xla"``, the plain matmul / softmax.
+    kernel, as the JAX UNet passes any value on); ``"reference"`` and
+    ``"xla"`` (the JAX einsum's name) take the plain version.  That choice
+    applies on the card at ``s * s_kv >= 2^20``; everything else is
+    ``"xla"``, the plain matmul / softmax.  Any other name raises
+    ``ValueError``.
     """
     if impl == "auto":
         impl = os.environ.get(DEPTH_ATTN_ENV, "flash_stock")

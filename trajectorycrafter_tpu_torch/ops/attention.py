@@ -6,18 +6,20 @@ text+video self-attention runs over 13,330 tokens at 384x672 and the
 Perceiver cross-attention over 13,104 x 3,024; the DepthCrafter UNet's
 large spatial self-attention over 9,216 and 2,304 tokens per frame at
 576x1024.  All go through ``multi_head_attention``, whose ``impl`` names
-the JAX package's: ``"auto"`` (the DiT) and ``"flash_stock"`` launch the
-running-max kernel (csrc/flash_attention.cu), ``"flash_max"`` the two-pass
+the JAX package's: ``"auto"`` (the DiT), ``"flash"`` (the JAX name of the
+same K1 route, which its benches build the DiT with) and ``"flash_stock"``
+launch the running-max kernel (csrc/flash_attention.cu), ``"flash_max"`` the two-pass
 kernel (csrc/flash_maxpass.cu), ``"flash_pv8"`` the PV-int8 kernel
 (csrc/flash_pv8.cu, a quantized function of its own), for CUDA tensors and
 whatever the size: there is no size threshold (the depth UNet routes by
 size itself) and no fallback.  For a CPU tensor they take their plain
-version: ``attention_reference`` for the first two, ``maxpass_reference``
+version: ``attention_reference`` for the first three, ``maxpass_reference``
 (the attention of the rounded scaled q) for ``"flash_max"``,
 ``pv8_reference`` (ops/attention_variants.py) for ``"flash_pv8"``.  ``"xla"`` (the JAX name
 of the plain einsum) and ``"reference"`` take ``attention_reference`` on any
 device, ``"flash_pv8_reference"`` K6's plain version on any device, for
-holding a whole model's kernel run against it.
+holding a whole model's kernel run against it.  Any other name raises
+``ValueError``, where the JAX dispatch would send it to XLA without a word.
 
 The gradient (LoRA training): ``FlashAttentionFunction`` is the port of the
 ``custom_vjp`` of JAX's library flash attention (``_flash_attention`` under
@@ -365,6 +367,7 @@ def _pv8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) 
 
 # impl -> (what it launches for CUDA tensors, or None; its plain version)
 _IMPLS = {"auto": (flash_attention, attention_reference),
+          "flash": (flash_attention, attention_reference),
           "flash_stock": (flash_attention, attention_reference),
           "flash_max": (flash_maxpass, maxpass_reference),
           "flash_pv8": (_pv8, _pv8_plain),
@@ -381,10 +384,12 @@ def multi_head_attention(
 ) -> torch.Tensor:
     """Full (non-causal) MHA.  Returns (B, S, H*D).
 
-    ``impl`` ``"auto"`` / ``"flash_stock"``, ``"flash_max"`` and
-    ``"flash_pv8"`` launch their kernel for CUDA tensors and take their plain
-    version for CPU tensors; ``"reference"`` / ``"xla"`` and
-    ``"flash_pv8_reference"`` take a plain version on either.
+    ``impl`` ``"auto"`` / ``"flash"`` / ``"flash_stock"`` (K1, the running-max
+    kernel; ``"flash"`` is the name the JAX package gives its K1 route),
+    ``"flash_max"`` and ``"flash_pv8"`` launch their kernel for CUDA tensors
+    and take their plain version for CPU tensors; ``"reference"`` / ``"xla"``
+    and ``"flash_pv8_reference"`` take a plain version on either.  Any other
+    name raises ``ValueError`` (the JAX dispatch sends it to XLA).
 
     Where autograd needs a gradient through q, k or v, ``"flash_stock"`` runs
     ``FlashAttentionFunction`` (K5 forward, the backward kernels), and the
