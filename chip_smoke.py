@@ -18,13 +18,16 @@ prints no result line):
      the bf16 ``F.linear`` they replace, timed at full shape, in turns (K1
      at the DiT's, the Perceiver's and the depth UNet's two shapes, and whole
      at run R's 576x1024 shapes: (2, 48, 30,178^2, 64) and (2, 16, 29,952 x
-     6,912, 128); K2a and K2b also at run R's 60,356 rows); each
+     6,912, 128); K2a and K2b also at run R's 60,356 rows and at run S's
+     tensor-parallel shard shapes, and K2a's scale-taking entry at run S's
+     row-parallel inputs, bit-equal to the codes of the whole row); each
      kernel's bound (the least time the card could take for the same work)
      computed from the data sheet, and its TFLOP/s;
   4. the attention variants (K5 ``flash_lse``, K1b ``flash_exp2``, K6
      ``flash_pv8``, K7 ``int8_flash_attention``) the same way, at the
      attention bench's DiT shape and the main path's shapes (K7 also at
-     head dim 128, ``K7_D128_SHAPE``);
+     head dim 128, ``K7_D128_SHAPE``; K5 also at run S's per-rank shape,
+     ``RUN_S_K5_SHAPE``);
   4b. the attention backward (``flash_attention_bwd_dkv``, K4-dkv, and
      ``flash_attention_bwd_dq``, K4-dq, csrc/flash_attention_bwd.cu) against
      ``attention_backward_reference`` at the training shapes (the DiT's (1,
@@ -39,8 +42,8 @@ prints no result line):
   5. main path: ``TrajCrafter.infer_gradual`` at the deployed widths (random
      weights from a seed; T5-XXL prompt encode; the DepthCrafter depth
      stage, 5 Euler steps over one 49-frame window at 576x1024; 2 denoise
-     steps, diffusion at 384x672), four times on one set of weights, A on
-     the deployed 49 frames, B-D on 9 (``CUT_FRAMES``) with 1 Euler step a
+     steps, diffusion at 384x672), five times on one set of weights, A on
+     the deployed 49 frames, B-D and A9 on 9 (``CUT_FRAMES``) with 1 Euler step a
      depth window (``CUT_DEPTH_STEPS``):
      A, the default: int8 DiT (``--quant int8``, unfused feed-forward),
        bf16 depth UNet, depth attention ``flash_stock``;
@@ -49,6 +52,7 @@ prints no result line):
      C: ``--quant none``, the bf16 DiT and UNet, ``flash_stock``;
      D: run A with the DiT's ``attention_impl="flash_pv8"`` and
        ``TRAJCRAFTER_DEPTH_ATTN=flash_pv8``: every large attention on K6;
+     A9: run A on 9 frames with 1 Euler step, run S's unsharded twin;
      the int8 models are quantizations of the bf16 models' own weights.
      Each kernel's launches are counted per stage and held to counts derived
      from the modules; the PSNR and SSIM of D's video against C's, and the
@@ -170,6 +174,24 @@ prints no result line):
      (``--blocks 1 3 --steps 20``) and with ``--collect_dir ... --timesteps
      311 811 --motion_filter``: K1's launches as derived, a probe file per
      block or (timestep, block), every probe's loss falling;
+  5s. run S, once this process holds no model: run A9 sharded over
+     ``--mesh_dp 1 --mesh_sp 2 --mesh_tp 2``, four ranks started by
+     torchrun (``chip_smoke.py --run-s-rank DIR --cut``) on the one card
+     over gloo (``--dist_backend gloo``: the ranks share the card), through
+     ``TrajCrafter.infer_gradual``: K5 on the ring, K1 on the Perceivers,
+     K2a / its scale-taking entry / K2b at the tp shards; launches per rank
+     as derived from the sharded modules, every rank's latents bit-equal
+     after each step, the first sharded DiT forward against the unsharded
+     int8 DiT on the same inputs (``RUN_S_REL_L2``, ``DIT_REL_TOL``); then,
+     on the check weights (``check_weights_``), that forward sound and with
+     each of ``RUN_S_FAULTS`` planted in every rank, the joint attention
+     output of ``RUN_S_CHECK_BLOCKS`` against the unsharded: the sound one
+     within the same limits, each wrong one outside them (the DiT's output
+     reported beside); the
+     video against run A9's at the quality CLI's 35 dB gate; seconds and
+     peaks per rank logged (not a speed figure: four ranks share one card
+     and stage their hops through host memory); ``tools/run_s_uncut.py``
+     runs it at 49 frames against run A;
   9. a JSON line of kernel results, and a final JSON line with the device.
 
 Imports nothing of JAX and nothing of the JAX package: the port holds its
@@ -244,7 +266,8 @@ MP4S = ("input.mp4", "render.mp4", "mask.mp4", "gen.mp4", "viz.mp4")
 KERNEL_SOURCES = ("flash_attention.cu", "flash_maxpass.cu", "int8_quantize_rows.cu",
                   "int8_gemm.cu", "int8_gemm_gelu_quant.cu", "int8_gemm_gscale.cu",
                   "flash_pv8.cu", "int8_flash_attention.cu", "flash_attention_bwd.cu")
-INT8_KERNELS = ("int8_quantize_rows", "int8_gemm", "int8_gemm_gelu_quant", "int8_gemm_gscale")
+INT8_KERNELS = ("int8_quantize_rows", "int8_quantize_rows_scaled", "int8_gemm",
+                "int8_gemm_gelu_quant", "int8_gemm_gscale")
 VARIANTS = ("flash_exp2", "flash_lse", "flash_pv8", "int8_flash_attention")
 BACKWARD = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 KERNELS = ("flash_attention", "flash_maxpass", *INT8_KERNELS, *VARIANTS, *BACKWARD)
@@ -257,7 +280,10 @@ DEPTH_SHAPES = {"depth_9216": (49, 5, 9216, 64), "depth_2304": (49, 10, 2304, 64
 # ``--sample_size 576 1024`` (run R: M = 2 x 30,178, the Perceivers' 2 x
 # 29,952 and 2 x 6,912); the depth UNet's level 0 under --quant_depth int8
 # (49 frames x 9,216 tokens, 320 channels: attention/proj and the GEGLU's
-# first projection); a small ragged M
+# first projection); run S's tensor-parallel shards at tp 2 ("tp2_*": a
+# rank's 2 x 6,665 joint tokens, half of each layer's heads or hidden width;
+# its Perceivers' queries from at most 2 x 6,665 video tokens); a small
+# ragged M
 INT8_SHAPES = {
     "dit_qkvo": (26660, 3072, 3072, True),
     "dit_ff1": (26660, 3072, 12288, True),
@@ -271,6 +297,13 @@ INT8_SHAPES = {
     "perceiver576_to_q": (59904, 3072, 2048, False),
     "perceiver576_to_kv": (13824, 3072, 4096, False),
     "perceiver576_to_out": (59904, 2048, 3072, False),
+    "tp2_qkv": (13330, 3072, 1536, True),
+    "tp2_to_out": (13330, 1536, 3072, True),
+    "tp2_ff1": (13330, 3072, 6144, True),
+    "tp2_ff2": (13330, 6144, 3072, True),
+    "tp2_perceiver_to_q": (13330, 3072, 1024, False),
+    "tp2_perceiver_to_kv": (6048, 3072, 2048, False),
+    "tp2_perceiver_to_out": (13330, 1024, 3072, False),
     "depth_320": (451584, 320, 320, True),
     "depth_geglu": (451584, 320, 2560, True),
     "ragged_small": (70, 256, 512, True),
@@ -279,6 +312,9 @@ TPU_KERNELS = {
     "flash_attention": "trajectorycrafter_tpu/ops/pallas/flash_exp2.py:212",
     "flash_maxpass": "trajectorycrafter_tpu/ops/pallas/flash_max.py:110",
     "int8_quantize_rows": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:363",
+    # K2a's second entry: the quantization with the row scale given, for the
+    # row-parallel layers under tp (XLA's under the JAX mesh)
+    "int8_quantize_rows_scaled": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:363",
     "int8_gemm": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:62",
     "int8_gemm_gelu_quant": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:154",
     "int8_gemm_gscale": "trajectorycrafter_tpu/ops/pallas/int8_matmul.py:238",
@@ -294,6 +330,7 @@ TPU_KERNELS = {
 # the entry points of csrc/flash_attention.cu besides its own, and of
 # csrc/flash_attention_bwd.cu
 SOURCE_OF = {"flash_exp2": "flash_attention", "flash_lse": "flash_attention",
+             "int8_quantize_rows_scaled": "int8_quantize_rows",
              "flash_attention_bwd_dkv": "flash_attention_bwd",
              "flash_attention_bwd_dq": "flash_attention_bwd"}
 # the attention bench's DiT shape: 226 text + 13 x 36 x 64 video tokens,
@@ -320,6 +357,71 @@ EDGE_LENGTHS = (1, 63, 65, 127, 129, 777, 1000)
 # the DiT's joint self-attention and the Perceiver's cross-attention
 TRAIN_DIT_SHAPE = (1, 48, 13330, 13330, 64)  # (B, H, Sq, Skv, D)
 TRAIN_PERCEIVER_SHAPE = (1, 16, 13104, 3024, 128)
+
+# Run S (phase 5s): run A sharded over a dp x sp x tp mesh of RUN_S_MESH,
+# four rank processes started by torchrun that share the one card over gloo
+# (NCCL refuses two ranks on one device): ``TrajCrafter.infer_gradual`` with
+# run A's command line, seed and weights, the int8 DiT at full width (48
+# heads x 64, 42 layers) at 384x672, 2 steps.  Each rank holds its
+# tensor-parallel shard of the DiT (24 heads, 6,144 of the feed-forward)
+# and half of the joint tokens (at 49 frames 6,665 of 13,330: the leader's
+# 226 text and 6,439 video tokens, the other's 6,665 video tokens); the
+# leader alone holds the other models and runs the stages before and after
+# the denoise.  The checks: the first sharded DiT forward of the denoise
+# against the unsharded int8 DiT (run A's weights, rebuilt in the main
+# process) on the same inputs, by relative L2 error (RUN_S_REL_L2) and by
+# the largest row error (one position's 16 channels) over the largest
+# reference row (DIT_REL_TOL, the whole-DiT limit of phase 6: the ring's
+# merges of bf16 partials and the tp sums of bf16 partials move activations
+# by bf16 roundings, which flip int8 codes as a kernel-vs-plain run does);
+# the video against its unsharded twin's through the quality CLI at its 35
+# dB gate (the JAX bench_e2e --ab gate); the launches per rank as derived
+# from the sharded modules; every rank's latents bit-equal after each step.
+# Run S's seconds are not a speed figure: four ranks time-share one card
+# and stage their hops through host memory.
+RUN_S_MESH = (1, 2, 2)
+RUN_S_ARGV = ["--mesh_dp", "1", "--mesh_sp", "2", "--mesh_tp", "2", "--dist_backend", "gloo",
+              "--exp_name", "smoke_S", "--allow_dev_stubs"]
+# The cut (the smoke's clock): run S reads CUT_FRAMES frames with
+# CUT_DEPTH_STEPS Euler steps a depth window, as runs B-J do, against run
+# A9, run A at the same cut; tools/run_s_uncut.py runs it at 49 frames
+# against run A.  The four ranks move ~12 GB a rank a forward at 49 frames
+# through host memory (the tp sums and the ring's hops), ~30 s a forward
+# on an H100 80GB HBM3 at 700 W (~120 s a run S); at 9 frames a quarter.
+RUN_S_REL_L2 = 2.0 ** -5
+# The check of the check: after the run, every rank sets its shard to the
+# check weights (``check_weights_``) and runs the first forward's inputs
+# again, sound and with each fault planted in every rank: (name, whether it
+# is wrong).  The run's random weights hide a wrong shard: their LayerNorm
+# weights of ~0.02 make every softmax uniform and their biases outweigh the
+# rest, and the blocks' gates (~0.01-0.05) keep any branch small in the
+# output.  So each forward is held against the unsharded DiT on the same
+# check weights at the joint attention output of RUN_S_CHECK_BLOCKS,
+# gathered over the mesh.  Its output is reported, not held: on these
+# weights a sound run's bf16 and int8 rounding compounds over the 42 blocks
+# to ~3.5e-2 relative L2 at the output (NVIDIA H100 80GB HBM3), about what
+# the own-row-max run below reads, so the output does not part sound from
+# wrong there.  A ring that drops its
+# visiting shard (sp 2: its one hop) and a tp sum that drops the last
+# rank's partial are wrong and must fail the limits at an attention output.
+# A row-parallel layer that quantizes with its own rows' max |x| is not
+# wrong in value (each rank's codes are finer and its epilogue takes its
+# own scale), only not the JAX package's codes: phase 3 holds K2a's
+# scale-taking entry bit-equal to the whole row's codes, and this reading
+# shows what the forward check makes of it.
+RUN_S_FAULTS = (("ring drops its visiting shard", True),
+                ("tp sum drops the last rank's partial", True),
+                ("row-parallel layers quantize with their own row max", False))
+RUN_S_CHECK_BLOCKS = (0, DIT_LAYERS - 1)
+RUN_S_TIMEOUT = 900
+# the per-rank shapes of run S's kernels: K5 over a rank's 6,665 joint tokens
+# and 24 heads against each visiting shard of 6,665; the int8 GEMMs below
+RUN_S_K5_SHAPE = (2, 24, 6665, 6665, 64)  # (B, H, Sq, Skv, D)
+# the row-parallel layers' inputs (M, K of the rank, K of the whole row): the
+# blocks' to_out and FF2, the Perceivers' to_out, which quantize their
+# columns with the row's scale (K2a's scale-taking entry)
+RUN_S_ROW_PARALLEL = {"tp2_to_out": (13330, 1536, 3072), "tp2_ff2": (13330, 6144, 12288),
+                      "tp2_perceiver_to_out": (13330, 1024, 2048)}
 
 # Data-sheet rates of an H100 SXM (dense): bf16 989 TFLOP/s, int8 1,979
 # TOP/s, 3.35 TB/s of device memory; the SFU's 16 exp2 per clock per SM x
@@ -834,6 +936,39 @@ def phase_variants():
     del q, k, v
     torch.cuda.empty_cache()
 
+    # K5 at run S's per-rank shape: the ring's inner step, a rank's queries
+    # against one visiting shard of keys; "run_s_*" keys of its entry
+    b, h, sq, skv, d = RUN_S_K5_SHAPE
+    scale = d ** -0.5
+    q, k, v = (randn(b, n, h, d).bfloat16() for n in (sq, skv, skv))
+    out, lse = flash_lse(q, k, v, scale)
+    refs = plain_refs(lambda x: attention_reference(q, k, x, scale), v)
+    judge("flash_lse", f"run S {RUN_S_K5_SHAPE}", output_error(out, *refs), {
+        "row_sum_x1.1": output_error((out.float() / 1.1).bfloat16(), *refs),
+        "last_quarter_of_key_tiles_skipped": output_error(flash_lse(
+            q, k[:, :_skip_last_quarter(skv, ATTENTION_KEY_TILE)],
+            v[:, :_skip_last_quarter(skv, ATTENTION_KEY_TILE)], scale)[0], *refs)})
+    check_readings(f"flash_lse run S {RUN_S_K5_SHAPE} logsumexp", lse_error(lse, q, k, scale),
+                   {"lse_in_base_2": lse_error(lse / math.log(2.0), q, k, scale)})
+    del out, lse, refs
+    t = in_turns(
+        {"plain_ms": lambda: (attention_reference(q, k, v, scale, chunk=512),
+                              av.lse_reference(q, k, scale, chunk=512)),
+         "ms": lambda: flash_lse(q, k, v, scale),
+         "library_ms": lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+             bshd(q), bshd(k), bshd(v), scale=scale)},
+        {"plain_ms": 1, "ms": 5, "library_ms": 5}, cold=("plain_ms",))
+    bnd = attention_bound(b, h, sq, skv, d, extra_bytes=4 * b * h * sq)
+    timing["flash_lse"].update({
+        "run_s_shape": str(RUN_S_K5_SHAPE), "run_s_ms": t["ms"], "run_s_plain_ms": t["plain_ms"],
+        "run_s_library_ms": t["library_ms"], "run_s_bound_ms": bnd["bound_ms"],
+        "run_s_sfu_ms": bnd["sfu_ms"]})
+    log(f"flash_lse timed at run S's per-rank shape {RUN_S_K5_SHAPE}: {t['ms']:.3f} ms, plain "
+        f"{t['plain_ms']:.2f} ms, library {t['library_ms']:.3f} ms; bound {bnd['bound_ms']:.3f} "
+        f"ms ({bnd['bound_by']}), SFU {bnd['sfu_ms']:.3f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
+
     b, h, s, d = DIT_SHAPE
     scale = d ** -0.5
     q, k, v = (randn(b, s, h, d).bfloat16() for _ in range(3))
@@ -1125,6 +1260,7 @@ def phase_int8_kernels():
         int8_gemm_gelu_quant,
         int8_gemm_gscale,
         int8_quantize_rows,
+        int8_quantize_rows_scaled,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1231,6 +1367,36 @@ def phase_int8_kernels():
         log(line)
         del x, w, wq, ws, b, xq, xs, fns
         torch.cuda.empty_cache()
+
+    # K2a's scale-taking entry at run S's row-parallel inputs: a rank's
+    # columns quantized with the scale of the whole row must be the whole
+    # row's codes; the rank's own row max (planted) must not pass
+    for name, (m, k, k_row) in RUN_S_ROW_PARALLEL.items():
+        label = f"{name} (M {m}, K {k} of {k_row})"
+        x_row = (randn(m, k_row) * randn(m, 1).abs().add(0.1)).bfloat16()
+        xq_row, xs = int8_quantize_rows(x_row)
+        x = x_row[:, :k].contiguous()
+        xq = int8_quantize_rows_scaled(x, xs)
+        plain = im.quantize_rows_scaled_reference(x, xs)
+        own = int8_quantize_rows_scaled(x, im.row_scales(x.float().abs().amax(dim=1)))
+        if not (torch.equal(xq, plain) and torch.equal(xq, xq_row[:, :k])):
+            raise AssertionError(f"int8_quantize_rows_scaled {label}: "
+                                 f"{(xq != plain).sum().item()} codes differ from its plain "
+                                 f"version, {(xq != xq_row[:, :k]).sum().item()} from the row's")
+        if torch.equal(own, plain):
+            raise AssertionError(f"int8_quantize_rows_scaled {label}: the rank's own row max "
+                                 "(planted) gives the row's codes")
+        t = in_turns({"scaled_ms": lambda: int8_quantize_rows_scaled(x, xs),
+                      "scaled_plain_ms": lambda: im.quantize_rows_scaled_reference(x, xs)},
+                     {"scaled_ms": 10, "scaled_plain_ms": 3})
+        t.update(bound(nbytes=2 * m * k + 4 * m + m * k))
+        per_shape[name].update({f"scaled_{key}" if not key.startswith("scaled") else key: v
+                                for key, v in t.items()})
+        log(f"int8_quantize_rows_scaled {label}: bit-equal to its plain version and to the "
+            f"row's codes (the rank's own max rejected); {t['scaled_ms']:.3f} ms, plain "
+            f"{t['scaled_plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
+        del x_row, xq_row, xs, x, xq, plain, own
+        torch.cuda.empty_cache()
     return max_err, per_shape
 
 
@@ -1267,10 +1433,13 @@ def _int8_entries(runs: dict, max_err: dict, per_shape: dict) -> list:
     src = "trajectorycrafter_tpu_torch/csrc/"
     shape = lambda name: "(M {}, K {}, N {})".format(*INT8_SHAPES[name][:3])
     entry = lambda kern, run, **kw: {
-        "name": kern, "route": "cuda", "source": f"{src}{kern}.cu",
+        "name": kern, "route": "cuda", "source": f"{src}{SOURCE_OF.get(kern, kern)}.cu",
         "replaces": TPU_KERNELS[kern], "launches": _run_launches(runs, run, kern),
         "launches_run": run, "launches_per_path": _launches_per_path(runs, kern),
-        "launches_576": _run_launches(runs, "R", kern), "max_abs_err": max_err[kern], **kw}
+        "launches_576": _run_launches(runs, "R", kern),
+        "launches_run_s": _run_launches(runs, "S", kern),
+        "launches_run_s_per_rank": runs["S"]["per_rank"][kern],
+        "max_abs_err": max_err[kern], **kw}
     ff1, ff2, qkvo = per_shape["dit_ff1"], per_shape["dit_ff2"], per_shape["dit_qkvo"]
     return [
         entry("int8_quantize_rows", "A", ms=qkvo["quantize_ms"],
@@ -1288,6 +1457,15 @@ def _int8_entries(runs: dict, max_err: dict, per_shape: dict) -> list:
                                     "bf16_linear_ms")},
                                 **_int8_bounds(name, FF_GROUP)["int8_gemm"]}
                          for name, t in per_shape.items()}),
+        entry("int8_quantize_rows_scaled", "S", ms=per_shape["tp2_ff2"]["scaled_ms"],
+              plain_ms=per_shape["tp2_ff2"]["scaled_plain_ms"], library_ms=None,
+              bound_ms=per_shape["tp2_ff2"]["scaled_bound_ms"],
+              bound_by=per_shape["tp2_ff2"]["scaled_bound_by"],
+              shape="x (M 13330, K 6144) of a row of 12288 (run S's FF2 at tp 2)",
+              per_shape={name: {key: per_shape[name][key] for key in
+                                ("scaled_ms", "scaled_plain_ms", "scaled_bound_ms")}
+                         for name in RUN_S_ROW_PARALLEL},
+              note="K2a's entry taking the row scale: the row-parallel layers under tp"),
         entry("int8_gemm_gelu_quant", "B", ms=ff1["fused_ms"], plain_ms=ff1["fused_plain_ms"],
               library_ms=None, **_int8_bounds("dit_ff1", FF_GROUP)["int8_gemm_gelu_quant"],
               bf16_linear_ms=ff1["bf16_linear_ms"], shape=shape("dit_ff1")),
@@ -1522,6 +1700,9 @@ def phase_main_path():
               "flash_attention"),
         "D": (dit8, None, "flash_pv8", "flash_pv8", unet, "int8", "none", "flash_pv8",
               "flash_pv8"),
+        # run A at the cut: run S's unsharded twin (phase 5s)
+        "A9": (dit8, None, "auto", "flash_attention", unet, "int8", "none", "flash_stock",
+               "flash_attention"),
     }
     pipe = tc.models.depth_infer.__self__.pipe
     runs = {}
@@ -3037,6 +3218,370 @@ def phase_bench() -> dict:
     return launches
 
 
+def _sharded_launches_per_forward(dit) -> dict:
+    """Kernel launches of one forward of a sharded DiT on one rank, from its
+    modules: K5 once per block and visiting shard (sp of them, each rank's
+    shard holding tokens), K1 once per Perceiver, K2a once per column-parallel
+    int8 layer, its scale-taking entry once per row-parallel one, K2b once
+    per int8 layer."""
+    from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear, Int8RowParallelLinear
+
+    sp = dit.mesh.sp.size
+    rows = sum(isinstance(m, Int8RowParallelLinear) for m in dit.modules())
+    cols = sum(isinstance(m, Int8Linear) for m in dit.modules()) - rows
+    out = {name: 0 for name in KERNELS}
+    out.update({"flash_lse": len(dit.transformer_blocks) * sp,
+                "flash_attention": len(dit.perceiver_cross_attention),
+                "int8_quantize_rows": cols, "int8_quantize_rows_scaled": rows,
+                "int8_gemm": cols + rows})
+    return out
+
+
+def check_weights_(dit):
+    """The check weights of run S's check of the check, in place: every
+    LayerNorm weight 1 and every bias 0, as a trained DiT starts, the
+    other weights the run's.  The same on a shard and on the whole DiT."""
+    import torch
+    from torch import nn
+
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+        for m in dit.modules():
+            if isinstance(m, nn.LayerNorm) and m.weight is not None:
+                m.weight.fill_(1.0)
+    return dit
+
+
+def _joint_attention_hook(into: list, mesh=None):
+    """A forward hook on a block's ``attn1`` that appends its joint [text;
+    video] output, gathered over sp and dp where ``mesh`` shards it."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+
+    def hook(module, args, output):
+        video, text = output
+        seq = args[3] if len(args) > 3 else None
+        if seq is not None:
+            video = seq.gather_video(video)
+            text = D.all_gather(text, seq.axis, dim=1,
+                                sizes=[n - v for n, v in zip(seq.sizes, seq.video_sizes)])
+        joint = torch.cat([text, video], dim=1)
+        into.append(joint if mesh is None else D.all_gather(joint, mesh.dp, dim=0))
+
+    return hook
+
+
+@contextlib.contextmanager
+def _planted(name):
+    """One of ``RUN_S_FAULTS`` (None: none) planted in this rank's modules
+    while the block runs (every rank plants the same one, so the
+    collectives still pair up)."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.ops import ring_attention as ring
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+
+    if name is None:
+        yield
+        return
+    sum_partials, all_reduce = D.sum_partials, D.all_reduce
+    if name == RUN_S_FAULTS[0][0]:
+        where, attr, fake = ring, "_combine", lambda o1, lse1, o2, lse2: (o1, lse1)
+    elif name == RUN_S_FAULTS[1][0]:
+        where, attr = D, "sum_partials"
+        fake = lambda p, axis, bias=None: sum_partials(
+            torch.zeros_like(p) if axis.index == axis.size - 1 else p, axis, bias)
+    else:
+        where, attr = D, "all_reduce"
+        fake = lambda x, axis, op="sum": x if op == "max" else all_reduce(x, axis, op)
+    real = getattr(where, attr)
+    setattr(where, attr, fake)
+    try:
+        yield
+    finally:
+        setattr(where, attr, real)
+
+
+def run_s_rank(out_dir: str, cut: bool) -> None:
+    """One rank of run S, started by torchrun (``chip_smoke.py --run-s-rank
+    DIR [--cut]``): the process group from torchrun's environment through the CLI's
+    ``start_world``; ``TrajCrafter`` on run A's command line with the mesh
+    flags (this rank's DiT shard; the leader also the other models);
+    ``infer_gradual`` with its launches counted in and outside the denoise,
+    the latents' checksum after each step and its first DiT forward kept;
+    then that forward again on the check weights, sound and with each
+    planted fault.  Writes its readings
+    to DIR/rank<r>.json."""
+    import traceback
+
+    import numpy as np
+    import torch
+
+    os.chdir(REPO)
+    sys.path.insert(0, str(REPO))
+    from trajectorycrafter_tpu_torch.cli import get_parser, parse_config, start_world
+    from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+
+    cuts = ["--video_length", str(CUT_FRAMES), "--depth_inference_steps", str(CUT_DEPTH_STEPS)]
+    argv = MAIN_ARGV + RUN_S_ARGV + (cuts if cut else [])
+    args, cfg = get_parser().parse_args(argv), parse_config(argv)
+    rank = int(os.environ["RANK"])
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    try:
+        start_world(cfg, args.dist_backend)
+        tc = TrajCrafter(cfg)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        out["resident_gib"] = torch.cuda.memory_allocated() / 2**30
+        mesh, pipe = tc.mesh, tc.models.pipeline
+        dit = pipe.transformer
+        out["coords"] = [mesh.dp.index, mesh.sp.index, mesh.tp.index]
+        out["heads"] = [dit.transformer_blocks[0].attn1.heads,
+                        dit.perceiver_cross_attention[0].heads]
+        out["expected_per_forward"] = _sharded_launches_per_forward(dit)
+        counters = _kernel_counters()
+
+        steps, seen = [], {}
+        step, denoise = pipe.scheduler.step, pipe._denoise
+
+        def recorded_step(*a, **kw):
+            res = step(*a, **kw)
+            steps.append(list(bits_checksum(res[0] if isinstance(res, tuple) else res)))
+            return res
+
+        def counted_denoise(*a, **kw):
+            before = {kern.__name__: kern.launches for kern in counters}
+            res = denoise(*a, **kw)
+            seen["launches"] = {kern.__name__: kern.launches - before[kern.__name__]
+                                for kern in counters}
+            return res
+
+        def first_forward(module, args, kwargs, output):
+            # every rank keeps the denoise's first DiT call for the planted
+            # faults; the leader saves its inputs and output for the main
+            # process to run the unsharded DiT on
+            if "first" in seen:
+                return
+            seen["first"] = (args, kwargs)
+            if mesh.leader:
+                move = lambda x: x.cpu() if torch.is_tensor(x) else x
+                torch.save({"args": [move(a) for a in args],
+                            "kwargs": {k: tuple(map(move, v)) if isinstance(v, tuple)
+                                       else move(v) for k, v in kwargs.items()},
+                            "output": output.cpu()}, Path(out_dir, "forward.pt"))
+
+        pipe.scheduler.step, pipe._denoise = recorded_step, counted_denoise
+        hook = dit.register_forward_hook(first_forward, with_kwargs=True)
+        for kern in counters:
+            kern.launches = 0
+        tc.timer.seconds.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t2 = time.perf_counter()
+        gen = tc.infer_gradual()
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t2
+        total = {kern.__name__: kern.launches for kern in counters}
+        denoised = seen["launches"]
+        out["per_path"] = {"depth": {n: total[n] - denoised[n] for n in total},
+                           "denoise": denoised}
+        out.update(steps=steps, stages=dict(tc.timer.seconds), transport=dict(D.TRANSPORT),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        hook.remove()
+        t3 = time.perf_counter()
+        args_, kwargs_ = seen.pop("first")
+        check_weights_(dit)
+        caught = []
+        for i in RUN_S_CHECK_BLOCKS:
+            dit.transformer_blocks[i].attn1.register_forward_hook(
+                _joint_attention_hook(caught, mesh))
+        for i, name in enumerate([None] + [n for n, _ in RUN_S_FAULTS]):
+            caught.clear()
+            with _planted(name), torch.no_grad():
+                y = dit(*args_, **kwargs_)
+            if mesh.leader:
+                torch.save({"name": name, "output": y.cpu(),
+                            "attention": [a.cpu() for a in caught]},
+                           Path(out_dir, f"check{i}.pt"))
+            del y
+        torch.cuda.synchronize()
+        out["faults_s"] = time.perf_counter() - t3
+        if gen is not None:
+            out["gen"] = {"shape": list(gen.shape), "finite": bool(np.isfinite(gen).all()),
+                          "min": float(gen.min()), "max": float(gen.max()),
+                          "std": float(gen.std())}
+    except BaseException:
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+        D.shutdown()
+
+
+def phase_sharded(runs: dict, cut: bool = True) -> dict:
+    """Run S: the four ranks started by torchrun, then their readings held to
+    the checks stated at RUN_S_MESH, against run A9 (``cut``, the smoke's)
+    or run A; ``runs["S"]`` gets its launches."""
+    import signal
+
+    n = RUN_S_MESH[0] * RUN_S_MESH[1] * RUN_S_MESH[2]
+    twin, frames = ("A9", CUT_FRAMES) if cut else ("A", 49)
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_run_s_"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(n), str(REPO / "chip_smoke.py"), "--run-s-rank", str(out_dir),
+           *(["--cut"] if cut else [])]
+    log(f"run S: {n} ranks on one card, torchrun {' '.join(cmd[3:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=RUN_S_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"run S did not end within {RUN_S_TIMEOUT} s")
+    seconds = time.perf_counter() - t0
+    results = [json.loads(p.read_text()) if p.is_file() else {"error": "no readings"}
+               for p in (out_dir / f"rank{r}.json" for r in range(n))]
+    failed = {r["rank"] if "rank" in r else i: r["error"] for i, r in enumerate(results)
+              if "error" in r}
+    if proc.returncode or failed:
+        for line in text.splitlines()[-60:]:
+            log("  run S | " + line)
+        raise AssertionError(f"run S: torchrun rc {proc.returncode}; failed ranks "
+                             f"{json.dumps(failed)[-4000:]}")
+    lead = results[0]
+    log(f"run S: {seconds:.1f} s wall for torchrun (not a speed figure: {n} ranks time-share "
+        f"one card and stage their hops through host memory)")
+    forwards = int(MAIN_ARGV[MAIN_ARGV.index("--diffusion_inference_steps") + 1])  # DDIM
+    for r in results:
+        want = r["expected_per_forward"]
+        if (want["flash_lse"], want["flash_attention"]) != (DIT_LAYERS * RUN_S_MESH[1],
+                                                            DIT_LAYERS // PERCEIVER_INTERVAL):
+            raise AssertionError(f"rank {r['rank']}: derived launches {want}")
+        if r["per_path"]["denoise"] != {k: forwards * v for k, v in want.items()}:
+            raise AssertionError(f"rank {r['rank']}: denoise launches "
+                                 f"{r['per_path']['denoise']}, expected {forwards} x {want}")
+        depth = runs[twin]["per_path"]["depth"] if r["rank"] == 0 else dict.fromkeys(want, 0)
+        if r["per_path"]["depth"] != depth:
+            raise AssertionError(f"rank {r['rank']}: launches outside the denoise "
+                                 f"{r['per_path']['depth']}, expected {depth}")
+        if r["steps"] != lead["steps"] or len(r["steps"]) != forwards:
+            raise AssertionError(f"rank {r['rank']}: latents differ from rank 0's "
+                                 f"(steps {r['steps']} vs {lead['steps']})")
+        log(f"  rank {r['rank']} (dp, sp, tp) {tuple(r['coords'])}, heads {r['heads']}: built in "
+            f"{r['build_s']:.1f} s, {r['resident_gib']:.2f} GiB resident, peak "
+            f"{r['peak_gib']:.2f} GiB; infer_gradual {r['run_s']:.2f} s, check of the check {r['faults_s']:.2f} s, stages "
+            f"{json.dumps({k: round(v, 3) for k, v in r['stages'].items()})}; launches a "
+            f"forward {json.dumps({k: v for k, v in want.items() if v})}; transport "
+            f"{json.dumps(r['transport'])}")
+    forward = _run_s_forward_check(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"run S: every rank's latents bit-equal after each of {forwards} steps; peaks summed "
+        f"{sum(r['peak_gib'] for r in results):.2f} GiB")
+    gen = lead["gen"]
+    if not (gen["finite"] and gen["shape"] == [frames, 384, 672, 3] and 0.0 <= gen["min"]
+            and gen["max"] <= 1.0 and gen["std"] > 0.0):
+        raise AssertionError(f"run S's video: {gen}")
+    save_dir = REPO / MAIN_ARGV[MAIN_ARGV.index("--out_dir") + 1] / "smoke_S"
+    if mp4_frame_counts(save_dir) != save_scheme_counts(frames):
+        raise AssertionError(f"run S's mp4s: {mp4_frame_counts(save_dir)}")
+    proc = subprocess.run([sys.executable, "-m", "trajectorycrafter_tpu_torch.utils.quality",
+                           str(QUALITY_DIR / f"gen_{twin}.mp4"), str(save_dir / "gen.mp4")],
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    lines = proc.stdout.strip().splitlines()
+    quality = json.loads(lines[-1]) if lines else {"pass": False, "error": proc.stderr[-2000:]}
+    log(f"run S's video ({frames} frames) against run {twin}'s (quality CLI, 35 dB gate): rc "
+        f"{proc.returncode}, {json.dumps(quality)}")
+    if proc.returncode != 0 or not quality.get("pass"):
+        raise AssertionError(f"run S's video against run {twin}'s: {quality}")
+    runs["S"] = {"per_path": {p: {k: sum(r["per_path"][p][k] for r in results) for k in KERNELS}
+                              for p in ("depth", "denoise")},
+                 "per_rank": {k: [sum(r["per_path"][p][k] for p in ("depth", "denoise"))
+                                  for r in results] for k in KERNELS}}
+    return {"seconds": seconds, "quality": quality, "forward": forward, "ranks": results}
+
+
+def _run_s_forward_check(out_dir: Path) -> dict:
+    """Run S's first DiT forward (the leader's inputs and sharded output,
+    saved by its hook) against the unsharded int8 DiT of the same weights
+    (run A's, rebuilt here: this process holds no model by now) on the
+    same inputs: relative L2 error and the largest row error (one
+    position's channels) over the largest reference row.  Then the check of
+    the check (``RUN_S_FAULTS``): on the check weights, the sound forward
+    and each with a planted fault, at the joint attention output of
+    ``RUN_S_CHECK_BLOCKS`` (and, reported, at the output), against the
+    unsharded DiT on them."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.orchestrator import build_dit, full_scale_dit
+
+    saved = torch.load(out_dir / "forward.pt")
+    to = lambda x: x.cuda() if torch.is_tensor(x) else x
+    args = [to(a) for a in saved["args"]]
+    kwargs = {k: tuple(map(to, v)) if isinstance(v, tuple) else to(v)
+              for k, v in saved["kwargs"].items()}
+    dit = build_dit(full_scale_dit, "cuda", torch.bfloat16, 1, "int8")
+    rows = lambda x: x.reshape(-1, x.shape[-1]).norm(dim=1)
+
+    def against(got, ref):
+        y, ref = got.cuda().float(), ref.float()
+        err = y - ref
+        out = {"rel_l2": (err.norm() / ref.norm()).item(),
+               "row_err": (rows(err).max() / rows(ref).max()).item(),
+               "finite": bool(torch.isfinite(y).all()), "shape": list(y.shape)}
+        out["within"] = (out["finite"] and out["rel_l2"] <= RUN_S_REL_L2
+                         and out["row_err"] <= DIT_REL_TOL)
+        return out
+
+    with torch.no_grad():
+        out = against(saved["output"], dit(*args, **kwargs))
+        check_weights_(dit)
+        attention = []
+        for i in RUN_S_CHECK_BLOCKS:
+            dit.transformer_blocks[i].attn1.register_forward_hook(_joint_attention_hook(attention))
+        ref = dit(*args, **kwargs)
+    del dit, args, kwargs, saved
+    checks = {}
+    for i, (name, wrong) in enumerate([("sound", False), *RUN_S_FAULTS]):
+        got = torch.load(out_dir / f"check{i}.pt")
+        if (got["name"] or "sound") != name:
+            raise AssertionError(f"run S: check {i} is {got['name']!r}, expected {name!r}")
+        checks[name] = {"wrong": wrong, "output": against(got["output"], ref)}
+        for block, a, want in zip(RUN_S_CHECK_BLOCKS, got["attention"], attention):
+            checks[name][f"attention {block}"] = against(a, want)
+        del got
+    del ref, attention
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not out["within"]:
+        raise AssertionError(f"run S's sharded forward against the unsharded: {out} (limits "
+                             f"rel L2 {RUN_S_REL_L2:.3e}, row {DIT_REL_TOL:.3e})")
+    gated = lambda check: [check[f"attention {block}"] for block in RUN_S_CHECK_BLOCKS]
+    log(f"run S: its first sharded DiT forward {tuple(out['shape'])} against the unsharded "
+        f"int8 DiT on the same inputs: rel L2 {out['rel_l2']:.3e} (limit {RUN_S_REL_L2:.3e}), "
+        f"largest row error {out['row_err']:.3e} of the largest row (limit {DIT_REL_TOL:.3e})")
+    for name, check in checks.items():
+        log(f"run S, check weights, {name} ({'wrong' if check['wrong'] else 'not wrong'}): " +
+            "; ".join(f"{where} rel L2 {c['rel_l2']:.3e}, row {c['row_err']:.3e}, "
+                      f"{'within' if c['within'] else 'outside'}"
+                      f"{' (reported, not held)' if where == 'output' else ''}"
+                      for where, c in check.items() if where != "wrong"))
+    sound = all(c["within"] for c in gated(checks["sound"]))
+    missed = [name for name, check in checks.items()
+              if check["wrong"] and all(c["within"] for c in gated(check))]
+    if not sound or missed:
+        raise AssertionError(f"run S's check of the check: the sound forward "
+                             f"{'within' if sound else 'outside'} the limits, wrong ones that "
+                             f"passed at every attention output {missed}: {json.dumps(checks)}")
+    out["check_weights"] = checks
+    return out
+
+
 # The checkpoint tree of phase 8: the directories the config defaults name,
 # under one temporary root on the local disk.  The DiT is cut to 6 layers by
 # its config.json (3 Perceivers), BLIP-2 by its config.json; the rest whole.
@@ -3592,7 +4137,7 @@ def _attention_entry(name: str, t: dict, **kw) -> dict:
             "replaces": TPU_KERNELS[name], **kw, **{key: t[key] for key in keys},
             **{key: t[key] for key in t
                if key in ("shape", "library", "with_quantization_ms")
-               or key.startswith(("depth_", "perceiver_", "d128_"))}}
+               or key.startswith(("depth_", "perceiver_", "d128_", "run_s_"))}}
 
 
 def main() -> None:
@@ -3640,6 +4185,11 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(data_root, ignore_errors=True)
+    # phase 5s: run S, the sharded denoise, once this process holds no model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before run S this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    run_phase("5s sharded", phase_sharded, runs)
 
     per_path = lambda kern: _launches_per_path(runs, kern)
     run_launches = lambda run, kern: _run_launches(runs, run, kern)
@@ -3658,6 +4208,8 @@ def main() -> None:
             launches=run_launches("A", "flash_attention"), launches_run="A",
             launches_per_path=per_path("flash_attention"),
             launches_576=run_launches("R", "flash_attention"), probing_launches=probe_launches,
+            launches_run_s=run_launches("S", "flash_attention"),
+            launches_run_s_per_rank=runs["S"]["per_rank"]["flash_attention"],
             probing_shape="(1, 48, 13330, 13330, 64); Perceiver (1, 16, 13104 x 3024, 128)",
             bench_launches=bench["flash_attention"], max_abs_err=max_err["flash_attention"],
             depth_shape="(49, 5, 9216, 9216, 64)", depth_ms=depth["flash_attention"],
@@ -3671,9 +4223,15 @@ def main() -> None:
             launches_per_path=per_path("flash_maxpass"), bench_launches=bench["flash_maxpass"],
             max_abs_err=max_err["flash_maxpass"]),
         *_int8_entries(runs, int8_err, int8_timing),
+        _attention_entry("flash_lse", variant_timing["flash_lse"],
+                         launches=_run_launches(runs, "S", "flash_lse"),
+                         launches_run="S (the ring's inner, all ranks)",
+                         launches_run_s_per_rank=runs["S"]["per_rank"]["flash_lse"],
+                         launches_per_path=per_path("flash_lse"),
+                         bench_launches=bench["flash_lse"], max_abs_err=variant_err["flash_lse"]),
         *(_attention_entry(name, variant_timing[name], launches=bench[name],
                            launches_run="the attention bench", max_abs_err=variant_err[name])
-          for name in ("flash_exp2", "flash_lse", "int8_flash_attention")),
+          for name in ("flash_exp2", "int8_flash_attention")),
         _attention_entry("flash_pv8", variant_timing["flash_pv8"],
                          launches=run_launches("D", "flash_pv8"),
                          launches_run="D (attention_impl and TRAJCRAFTER_DEPTH_ATTN flash_pv8)",
@@ -3689,4 +4247,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--run-s-rank"]:
+        run_s_rank(sys.argv[2], "--cut" in sys.argv[3:])
+    else:
+        main()

@@ -360,8 +360,12 @@ def test_attention_error_passes_sound_and_rejects_planted_faults(shape, gain):
 
 def test_dispatch_and_wrapper_reject_what_they_do_not_take():
     q, k, v = (torch.from_numpy(x) for x in _qkv(3, 1, 2, 8, 8, 64))
+    # the ring route needs its sp axis (ops/ring_attention.py;
+    # tests/test_torch_ring_attention.py runs it in gloo worlds)
+    with pytest.raises(ValueError, match="ring route needs the sp axis"):
+        multi_head_attention(q, k, v, impl="ring")
     with pytest.raises(ValueError, match="unknown attention impl"):
-        multi_head_attention(q, k, v, impl="ring")  # multi-chip, not ported
+        multi_head_attention(q, k, v, impl="rings")
     # the kernel wrappers take CUDA tensors only: they never fall back
     for wrapper in (flash_attention, flash_maxpass, flash_lse, flash_exp2):
         before = wrapper.launches

@@ -34,8 +34,18 @@ def _options(parser):
             for a in parser._actions}
 
 
+# the port's own options: the transport of a sharded run (the JAX package
+# takes its devices and collectives from jax)
+PORT_ONLY = {("--dist_backend",)}
+
+
 def test_parser_has_the_jax_options_and_defaults():
-    assert _options(cli.get_parser()) == _options(jax_cli.get_parser())
+    """Every JAX option with its default, and besides them only the
+    transport option of the port's sharded runs."""
+    got = _options(cli.get_parser())
+    assert {k: v for k, v in got.items() if k not in PORT_ONLY} == \
+        _options(jax_cli.get_parser())
+    assert PORT_ONLY <= set(got)
 
 
 @pytest.mark.parametrize("argv", [

@@ -41,7 +41,9 @@ def test_port_modules_import_without_jax():
                  "depth_alignment", "consistent_autoregressive",
                  "scripts.inference_alignment", "scripts.gradio_app", "training",
                  "training.lora", "training.step", "training.data", "training.validation",
-                 "datagen", "scripts.train_lora", "probing", "scripts.probe_depth"):
+                 "datagen", "scripts.train_lora", "probing", "scripts.probe_depth",
+                 "parallel", "parallel.distributed", "parallel.mesh", "parallel.sharding",
+                 "ops.ring_attention"):
         assert f"trajectorycrafter_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -23,7 +23,8 @@ error of 2^-6 (the reasons are stated there).  At the DiT and depth shapes
 the same bound must reject a row sum off by 10% and a run that skips the
 last quarter of the kernel's own key tiles (``ATTENTION_KEY_TILE``).
 
-The int8 family (ops/int8_matmul.py): ``int8_quantize_rows`` (K2a) bit-equal
+The int8 family (ops/int8_matmul.py): ``int8_quantize_rows`` (K2a) and its
+scale-taking entry ``int8_quantize_rows_scaled`` each bit-equal
 to its plain version; ``int8_gemm`` (K2b) and ``int8_gemm_gscale`` (K3b)
 within one bf16 ulp of theirs (``gemm_error``); ``int8_gemm_gelu_quant``
 (K3a) within ``gelu_quant_error`` (scales 1e-6 relative, codes off by at
@@ -107,6 +108,7 @@ from trajectorycrafter_tpu_torch.ops.kernels import (
     int8_gemm_gelu_quant,
     int8_gemm_gscale,
     int8_quantize_rows,
+    int8_quantize_rows_scaled,
 )
 
 pytestmark = pytest.mark.cuda
@@ -332,6 +334,25 @@ def test_quantize_rows_kernel_rounds_half_to_even_and_reads_strided_rows(gen):
     xq_ref, xs_ref = im.quantize_rows_reference(x)
     assert torch.equal(xq, xq_ref) and torch.equal(xs, xs_ref)
     assert xq[0, :6].tolist() == [127, 62, -62, 0, 2, 2]
+
+
+@pytest.mark.parametrize("m,k,k_row", [
+    (2084, 1536, 3072),  # a tp-2 to_out input, M cut (ragged)
+    (2084, 6144, 12288),  # a tp-2 FF2 input
+    (2084, 1024, 2048),  # a tp-2 Perceiver to_out input
+    (70, 768, 3072), (1, 8, 16),  # tp 4, the smallest row
+])
+def test_quantize_rows_scaled_kernel_gives_the_row_codes(gen, m, k, k_row):
+    """K2a's scale-taking entry on a row-parallel rank's columns with the
+    whole row's scale: bit-equal to its plain version and to the whole
+    row's codes (the row-parallel layer's contract, ops/int8.py)."""
+    x_row = _randn(gen, m, k_row, gain=3.0)
+    x_row[m // 2] = 0
+    xq_row, xs = im.quantize_rows_reference(x_row)
+    x = x_row[:, :k].contiguous()
+    xq = _counted(int8_quantize_rows_scaled, x, xs)
+    assert torch.equal(xq, im.quantize_rows_scaled_reference(x, xs))
+    assert torch.equal(xq, xq_row[:, :k])
 
 
 @pytest.mark.parametrize("m,k,n,bias", [

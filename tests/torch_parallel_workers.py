@@ -1,0 +1,173 @@
+"""The ranks' side of the port's parallel tests (tests/test_torch_parallel.py,
+tests/test_torch_ring_attention.py): functions that ``torch_worlds.run_world``
+runs in each rank of a gloo world on the CPU.  No jax here: the ranks
+import the port only."""
+
+import warnings
+from unittest import mock
+
+import numpy as np
+import torch
+
+from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel, FeedForward
+from trajectorycrafter_tpu_torch.ops import int8_matmul as im
+from trajectorycrafter_tpu_torch.ops import ring_attention as ra
+from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear, quantize_dit_
+from trajectorycrafter_tpu_torch.orchestrator import (
+    TrajCrafter,
+    build_dev_models,
+    build_dit,
+)
+from trajectorycrafter_tpu_torch.parallel import distributed as D
+from trajectorycrafter_tpu_torch.parallel.mesh import make_mesh
+from trajectorycrafter_tpu_torch.parallel.sharding import (
+    shard_dit_,
+    shard_linear,
+    shard_sizes,
+    shard_state_dict,
+)
+from trajectorycrafter_tpu_torch.utils.weights import dit_from_jax
+
+T = torch.from_numpy
+
+
+def _mesh(shape):
+    with warnings.catch_warnings():  # a mesh smaller than the world idles the rest
+        warnings.simplefilter("ignore")
+        return make_mesh(*shape, device="cpu")
+
+
+def sharded_dit(params, dims: dict, mesh, quant: bool) -> CrossTransformer3DModel:
+    """The tiny DiT of ``dims`` sharded over ``mesh``, holding this rank's
+    tensor-parallel shard of the JAX tree ``params`` (unquantized or int8),
+    loaded through the weight bridge."""
+    with torch.device("meta"):
+        model = CrossTransformer3DModel(**dims)
+    if quant:
+        quantize_dit_(model)
+    shard_dit_(model, mesh)
+    model.to_empty(device="cpu")
+    model.load_state_dict(dit_from_jax(params, mesh.tp.size, mesh.tp.index), strict=True)
+    return model.eval()
+
+
+def dit_forwards(rank, shapes, models, dims, args, rope):
+    """For each mesh shape, each model of ``models`` ({name: (JAX params,
+    int8)}) sharded over it on the whole inputs ``args``: this rank's output
+    (None where the mesh leaves it idle), the text rows it holds at the
+    final norm, its coordinates and head counts; and ``build_dit``'s shard
+    of seeded weights against the shard of the whole model's."""
+    out = {}
+    for shape in shapes:
+        mesh = _mesh(shape)
+        if not mesh.member:
+            continue
+        for name, (params, quant) in models.items():
+            model = sharded_dit(params, dims, mesh, quant)
+            text_rows = []  # the text stream this rank holds after the last block
+            model.transformer_blocks[-1].register_forward_hook(
+                lambda mod, inp, outp: text_rows.append(outp[1]))
+            with torch.no_grad():
+                y = model(*(None if a is None else T(a) for a in args),
+                          image_rotary_emb=tuple(T(t) for t in rope))
+            out[shape, name] = {
+                "out": y.numpy(), "text_rows": text_rows[0].numpy(),
+                "coords": (mesh.dp.index, mesh.sp.index, mesh.tp.index),
+                "heads": (model.transformer_blocks[0].attn1.heads,
+                          model.perceiver_cross_attention[0].heads)}
+        make = lambda: CrossTransformer3DModel(**dims)
+        whole = build_dit(make, "cpu", torch.float32, 5, "int8")
+        shard = build_dit(make, "cpu", torch.float32, 5, "int8", mesh)
+        want = shard_state_dict(whole.state_dict(), mesh.tp.size, mesh.tp.index)
+        got = shard.state_dict()
+        out[shape, "build_dit"] = set(got) == set(want) and all(
+            torch.equal(got[k], want[k]) for k in want)
+    return out
+
+
+def ring_cases(rank, cases, fault=False):
+    """Each case (sp, q, k, v, scale): this rank's rows of the ring
+    attention over (B, H, S, D), its sp coordinate; None where idle.
+    ``fault``: merge the partials with equal weights (the lse ignored)."""
+    out = []
+    patch = (mock.patch.object(ra, "_combine", lambda o1, l1, o2, l2: ((o1 + o2) / 2, l1))
+             if fault else mock.patch.object(ra, "_combine", ra._combine))
+    with patch:
+        for sp, q, k, v, scale in cases:
+            mesh = _mesh((1, sp, 1))
+            if not mesh.member:
+                out.append(None)
+                continue
+            sizes = shard_sizes(q.shape[2], sp)
+            lo = sum(sizes[:mesh.sp.index])
+            part = lambda x: T(x[:, :, lo:lo + sizes[mesh.sp.index]].copy())
+            o = ra.ring_attention(part(q), part(k), part(v), mesh.sp, q.shape[2], scale)
+            out.append((mesh.sp.index, o.numpy()))
+    return out
+
+
+def row_parallel(rank, x, ff_weights, ff_x):
+    """Under tp 2 and 4: the row-parallel int8 layer's codes and scales of
+    this rank's columns of x, with the row max reduced over tp and, as a
+    planted fault, without; and under tp 2 the fused int8 feed-forward
+    (``ff_weights``: a FeedForward's state dict) on ``ff_x``."""
+    out = {}
+    for shape in ((1, 1, 4), (2, 1, 2)):
+        mesh = _mesh(shape)
+        tp = mesh.tp.size
+        x_l = T(x).chunk(tp, dim=1)[mesh.tp.index].contiguous()
+        local = x_l.abs().amax(dim=1).float()
+        xs = im.row_scales(D.all_reduce(local.clone(), mesh.tp, op="max"))
+        xs_fault = im.row_scales(local)
+        out[tp] = (mesh.tp.index, im.quantize_rows_scaled(x_l, xs).numpy(), xs.numpy(),
+                   im.quantize_rows_scaled(x_l, xs_fault).numpy())
+    mesh = _mesh((2, 1, 2))
+    ff = FeedForward(ff_x.shape[-1])
+    ff.load_state_dict({k: T(v) for k, v in ff_weights.items()})
+    ff.net[0].proj = shard_linear(Int8Linear.from_linear(ff.net[0].proj), "col", mesh.tp)
+    ff.net[2] = shard_linear(Int8Linear.from_linear(ff.net[2]), "row", mesh.tp)
+    ff.fuse = True
+    with torch.no_grad():
+        out["ff"] = ff(T(ff_x)).numpy()
+    return out
+
+
+def denoise(rank, shape, cases, pipe_args, seed):
+    """For each case (a sampler and the leader's sampling arguments), a
+    denoise of the tiny dev pipeline sharded over ``shape``: the final
+    latents and the latents after each step, on every rank.  Only the
+    leader passes arguments; the other ranks pass nothing."""
+    mesh = _mesh(shape)
+    return {name: _denoise(mesh, shape, sampler, kwargs, pipe_args, seed)
+            for name, (sampler, kwargs) in cases.items()}
+
+
+def _denoise(mesh, shape, sampler, kwargs, pipe_args, seed):
+    from trajectorycrafter_tpu_torch.config import TrajCrafterConfig
+
+    cfg = TrajCrafterConfig()
+    cfg.diffusion.sampler_name = sampler
+    cfg.diffusion.quant = "none"
+    cfg.parallel.dp, cfg.parallel.sp, cfg.parallel.tp = shape
+    tc = TrajCrafter(cfg, models=build_dev_models(cfg, "cpu", seed=seed), mesh=mesh)
+    pipe = tc.models.pipeline
+    steps, finals = [], []
+    step = pipe.scheduler.step
+
+    def recorded(*a, **kw):
+        res = step(*a, **kw)
+        lat = res[0] if isinstance(res, tuple) else res
+        steps.append(lat.clone())
+        return res
+
+    pipe.scheduler.step = recorded
+    denoise_loop = pipe._denoise
+    pipe._denoise = lambda *a, **kw: finals.append(denoise_loop(*a, **kw)) or finals[-1]
+    pe, ne, video, mask, reference = (T(a) for a in pipe_args)
+    with torch.no_grad():
+        if mesh.leader:
+            pipe(pe, ne, video, mask, reference, generator=torch.Generator().manual_seed(7),
+                 output_type="latent", **kwargs)
+        else:
+            pipe(None, None, None, None, None)
+    return {"final": finals[0].numpy(), "steps": [s.numpy() for s in steps]}

@@ -5,6 +5,17 @@ port's dataclass config: ``get_parser``, ``config_from_args`` and
 ``validate`` are the port's copies of trajectorycrafter_tpu/cli.py's (the
 same option strings, defaults and messages; tests/test_torch_cli.py holds
 them together).  ``main`` runs the port's ``TrajCrafter`` on the CUDA card.
+
+``--mesh_dp/--mesh_sp/--mesh_tp`` shard the denoise over that many ranks,
+started by torchrun, one process a rank:
+
+    torchrun --nproc_per_node 4 -m trajectorycrafter_tpu_torch.cli \
+        --mesh_sp 2 --mesh_tp 2 --video_path ... --traj_txt ...
+
+A mesh whose product is not the world size raises.  One option of the port
+alone chooses the transport: ``--dist_backend`` (``nccl``, the default, one
+card a rank; or ``gloo``, which also runs several ranks on one card: with
+fewer cards than ranks, the ranks share them evenly).
 """
 
 from __future__ import annotations
@@ -17,6 +28,7 @@ import torch
 
 from trajectorycrafter_tpu_torch.config import TrajCrafterConfig
 from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter, check_supported
+from trajectorycrafter_tpu_torch.parallel import distributed
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -95,10 +107,14 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--overlap", type=int, default=d.depth.overlap)
     p.add_argument("--max_res", type=int, default=d.depth.max_res)
 
-    # the JAX package's device mesh (accepted, not read by the port)
+    # parallelism: the dp x sp x tp mesh of the denoise, over torchrun's ranks
     p.add_argument("--mesh_dp", type=int, default=1)
     p.add_argument("--mesh_sp", type=int, default=1)
     p.add_argument("--mesh_tp", type=int, default=1)
+    # the port's transport (the JAX package takes its devices from jax)
+    p.add_argument("--dist_backend", choices=distributed.BACKENDS, default="nccl",
+                   help="process-group backend of a sharded run: nccl (one card a "
+                        "rank) or gloo (also ranks that share a card)")
 
     p.add_argument("--offload", choices=["auto", "stage", "none"],
                    default=TrajCrafterConfig().offload,
@@ -213,15 +229,42 @@ def require_card() -> None:
         raise SystemExit("error: no CUDA device is available; the port runs on a CUDA card")
 
 
+def start_world(cfg: TrajCrafterConfig, backend: str = "nccl") -> bool:
+    """Start the process group of a sharded run from torchrun's environment;
+    False at a 1x1x1 mesh, which runs unsharded with no process group.
+    Raises, before anything is built, where the mesh's product is not the
+    world size."""
+    par = cfg.parallel
+    n = par.dp * par.sp * par.tp
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if n != world:
+        raise ValueError(f"the mesh --mesh_dp {par.dp} x --mesh_sp {par.sp} x --mesh_tp "
+                         f"{par.tp} = {n} ranks does not match the world of {world} "
+                         "(torchrun --nproc_per_node)")
+    if n == 1:
+        return False
+    distributed.init_from_env(backend)
+    return True
+
+
 def main(argv=None) -> None:
+    args = get_parser().parse_args(argv)
     cfg = parse_config(argv)
     require_card()
-    os.makedirs(cfg.save_dir, exist_ok=True)
-    tc = TrajCrafter(cfg)
-    modes = {"gradual": tc.infer_gradual, "direct": tc.infer_direct,
-             "bullet": tc.infer_bullet, "zoom": tc.infer_zoom}
-    modes[cfg.render.mode]()
-    print(f"outputs written to {cfg.save_dir}")
+    sharded = start_world(cfg, args.dist_backend)
+    try:
+        leader = not sharded or distributed.world_axis().index == 0
+        if leader:
+            os.makedirs(cfg.save_dir, exist_ok=True)
+        tc = TrajCrafter(cfg)
+        modes = {"gradual": tc.infer_gradual, "direct": tc.infer_direct,
+                 "bullet": tc.infer_bullet, "zoom": tc.infer_zoom}
+        modes[cfg.render.mode]()
+        if leader:
+            print(f"outputs written to {cfg.save_dir}")
+    finally:
+        if sharded:
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

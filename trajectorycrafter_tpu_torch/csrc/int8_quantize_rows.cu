@@ -2,6 +2,11 @@
 // xs[row] = max(max_k |x[row, k]|, 1e-8) / 127,
 // xq[row, k] = clip(round-half-even(x[row, k] / xs[row]), -127, 127).
 //
+// A second entry, `int8_quantize_rows_scaled`, takes xs and writes xq only:
+// the row-parallel layers of a tensor-parallel DiT (ops/int8.py
+// `Int8RowParallelLinear`) hold a slice of each row's columns and quantize it
+// with the scale of the whole row, which they reduce across ranks first.
+//
 // Replaces the TPU kernel trajectorycrafter_tpu/ops/pallas/int8_matmul.py
 // `quantize_rows_pallas` (body `_quant_kernel`), the dynamic activation
 // quantization in front of every int8 GEMM.  The TPU kernel reads a block of
@@ -79,6 +84,29 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, long long ldx, int8_t*
   }
 }
 
+// The same quantization pass with the row scales given: one warp per row.
+__global__ void __launch_bounds__(32 * kRowsPerBlock)
+quantize_rows_scaled_kernel(const __nv_bfloat16* __restrict__ x, long long ldx,
+                            const float* __restrict__ xs, int8_t* __restrict__ xq, int m, int k) {
+  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= m) return;
+  const __nv_bfloat16* xr = x + (long long)row * ldx;
+  const float s = __ldg(xs + row);
+  int8_t* qr = xq + (long long)row * k;
+  for (int c = lane * kVec; c < k; c += 32 * kVec) {
+    float f[kVec];
+    unpack(*reinterpret_cast<const uint4*>(xr + c), f);
+    uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const int q = static_cast<int>(fminf(fmaxf(rintf(f[i] / s), -127.f), 127.f));
+      packed[i / 4] |= (static_cast<uint32_t>(q) & 0xffu) << (8 * (i % 4));
+    }
+    *reinterpret_cast<uint2*>(qr + c) = make_uint2(packed[0], packed[1]);
+  }
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes.  Launches on `stream` of `device` and returns
@@ -92,6 +120,19 @@ extern "C" int int8_quantize_rows_fwd(int device, const void* x, void* xq, void*
   quantize_rows_kernel<<<grid, 32 * kRowsPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), ldx, static_cast<int8_t*>(xq),
       static_cast<float*>(xs), m, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scale-taking entry: xs (M,) fp32 is read, not written.
+extern "C" int int8_quantize_rows_scaled_fwd(int device, const void* x, const void* xs, void* xq,
+                                             int m, int k, long long ldx, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((m + kRowsPerBlock - 1) / kRowsPerBlock);
+  quantize_rows_scaled_kernel<<<grid, 32 * kRowsPerBlock, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), ldx, static_cast<const float*>(xs),
+      static_cast<int8_t*>(xq), m, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,6 +29,16 @@ int8 kernels (ops/int8_matmul.py).
 Module and parameter names are the reference checkpoint's
 (``utils/convert.py expected_dit_keys``), so ``load_state_dict(strict=True)``
 checks a converted tree.
+
+Under a mesh (``mesh``, set by parallel/sharding.py ``shard_dit_`` through
+the pipeline's ``with_mesh``; the JAX model's ``shard_activations``) each
+rank holds its tensor-parallel shard of the blocks and Perceivers (48 / tp
+heads in the joint attention, 16 / tp in the Perceivers, 12,288 / tp of
+the feed-forward), takes its dp share of the batch and its sp shard of the
+joint [text; video] tokens (``JointShard``; RoPE tables sliced to its video
+tokens), runs the joint self-attention on the ring, and gathers the output
+over sp and dp before the unpatchify, so every rank returns the whole
+output.  Layer norms and the modulation run at full width on every rank.
 """
 
 from __future__ import annotations
@@ -41,8 +51,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint as _recompute
 
 from trajectorycrafter_tpu_torch.ops.attention import multi_head_attention
-from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear
-from trajectorycrafter_tpu_torch.ops.int8_matmul import int8_ff_apply
+from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear, Int8RowParallelLinear
+from trajectorycrafter_tpu_torch.ops.int8_matmul import FF_GROUP, fit_block, int8_ff_apply
+from trajectorycrafter_tpu_torch.parallel import distributed as D
+from trajectorycrafter_tpu_torch.parallel.sharding import JointShard, batch_shard
 from trajectorycrafter_tpu_torch.ops.posemb import resized_pos_embedding, timestep_embedding
 from trajectorycrafter_tpu_torch.ops.rope import apply_rotary_emb
 
@@ -86,9 +98,22 @@ class FeedForward(nn.Module):
     def forward(self, x):
         proj_in, proj_out = self.net[0].proj, self.net[2]
         if self.fuse and isinstance(proj_in, Int8Linear):
-            return int8_ff_apply(x, proj_in.weight_q, proj_in.weight_scale, proj_in.bias,
-                                 proj_out.weight_q, proj_out.weight_scale, proj_out.bias,
-                                 impl=proj_in.int8_impl)
+            if not isinstance(proj_out, Int8RowParallelLinear):
+                return int8_ff_apply(x, proj_in.weight_q, proj_in.weight_scale, proj_in.bias,
+                                     proj_out.weight_q, proj_out.weight_scale, proj_out.bias,
+                                     impl=proj_in.int8_impl)
+            # tensor-parallel: this rank's columns of the first GEMM and its
+            # K of the second, whose groups must stay the unsharded ones
+            width = proj_in.out_features * proj_out.tp_axis.size
+            group = fit_block(FF_GROUP, width)
+            if proj_in.out_features % group:
+                raise ValueError(f"the fused int8 FF runs under tp only where {width} / tp is a "
+                                 f"multiple of its {group}-column group; tp="
+                                 f"{proj_out.tp_axis.size} leaves {proj_in.out_features}")
+            return D.sum_partials(int8_ff_apply(
+                x, proj_in.weight_q, proj_in.weight_scale, proj_in.bias, proj_out.weight_q,
+                proj_out.weight_scale, None, group=group, impl=proj_in.int8_impl),
+                proj_out.tp_axis, proj_out.bias)
         for layer in self.net:
             x = layer(x)
         return x
@@ -128,7 +153,11 @@ class JointAttention(nn.Module):
         self.norm_k = nn.LayerNorm(head_dim, eps=1e-6)
         self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
 
-    def forward(self, hidden, encoder, rope: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+    def forward(self, hidden, encoder, rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                seq: Optional[JointShard] = None):
+        if (seq is not None) != (self.attention_impl == "ring"):
+            raise ValueError("token shards need the ring route and the ring needs token "
+                             "shards: shard the model with the pipeline's with_mesh")
         text_len = encoder.shape[1]
         x = torch.cat([encoder, hidden], dim=1)
         heads = (self.heads, self.head_dim)
@@ -140,7 +169,7 @@ class JointAttention(nn.Module):
             cos, sin = rope[0][:, None], rope[1][:, None]
             q = torch.cat([q[:, :text_len], apply_rotary_emb(q[:, text_len:], cos, sin)], dim=1)
             k = torch.cat([k[:, :text_len], apply_rotary_emb(k[:, text_len:], cos, sin)], dim=1)
-        out = self.to_out[0](multi_head_attention(q, k, v, impl=self.attention_impl))
+        out = self.to_out[0](multi_head_attention(q, k, v, impl=self.attention_impl, ring=seq))
         return out[:, text_len:], out[:, :text_len]
 
 
@@ -153,9 +182,9 @@ class CogVideoXBlock(nn.Module):
         self.norm2 = LayerNormZero(time_embed_dim, dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, hidden, encoder, temb, rope):
+    def forward(self, hidden, encoder, temb, rope, seq: Optional[JointShard] = None):
         h, e, gate, enc_gate = self.norm1(hidden, encoder, temb)
-        attn_h, attn_e = self.attn1(h, e, rope)
+        attn_h, attn_e = self.attn1(h, e, rope, seq)
         hidden = hidden + gate * attn_h
         encoder = encoder + enc_gate * attn_e
 
@@ -265,6 +294,7 @@ class CrossTransformer3DModel(nn.Module):
         super().__init__()
         dim = num_attention_heads * attention_head_dim
         self.remat = remat
+        self.mesh = None  # parallel/mesh.py Mesh, set by parallel/sharding.py shard_dit_
         self.inner_dim = dim
         self.attention_head_dim = attention_head_dim
         self.out_channels = out_channels
@@ -310,6 +340,11 @@ class CrossTransformer3DModel(nn.Module):
         p = self.patch_size
         dim = self.inner_dim
         dtype = self.proj_out.weight.dtype
+        mesh = self.mesh
+        if mesh is not None:  # this dp rank's share of the batch (the CFG pair)
+            hidden_states, encoder_hidden_states, timestep, inpaint_latents, cross_latents = (
+                batch_shard(x, mesh.dp) for x in (hidden_states, encoder_hidden_states,
+                                                  timestep, inpaint_latents, cross_latents))
 
         # 1. time embedding (fp32 sinusoid -> MLP in the model dtype)
         temb = self.time_embedding(timestep_embedding(timestep, dim).to(dtype))
@@ -337,14 +372,22 @@ class CrossTransformer3DModel(nn.Module):
             video_tokens = video_tokens + torch.as_tensor(
                 table, dtype=dtype, device=video_tokens.device)[None]
 
-        # 4. transformer blocks with interleaved Perceiver cross-attention
+        # 4. transformer blocks with interleaved Perceiver cross-attention;
+        #    under sp each rank keeps its shard of the joint token sequence
+        seq = None
+        if mesh is not None and mesh.sp.size > 1:
+            seq = JointShard(mesh.sp, text_len, video_tokens.shape[1])
+            text_tokens, video_tokens = text_tokens[:, seq.text], video_tokens[:, seq.video]
+            if image_rotary_emb is not None:
+                image_rotary_emb = tuple(t[seq.video] for t in image_rotary_emb)
+            text_len = text_tokens.shape[1]
         hidden, encoder = video_tokens, text_tokens
         for i, block in enumerate(self.transformer_blocks):
             if self.remat and torch.is_grad_enabled():
-                hidden, encoder = _recompute(block, hidden, encoder, temb, image_rotary_emb,
+                hidden, encoder = _recompute(block, hidden, encoder, temb, image_rotary_emb, seq,
                                              use_reentrant=False)
             else:
-                hidden, encoder = block(hidden, encoder, temb, image_rotary_emb)
+                hidden, encoder = block(hidden, encoder, temb, image_rotary_emb, seq)
             if cross_tokens is not None and i % self.cross_attn_interval == 0:
                 perceiver = self.perceiver_cross_attention[i // self.cross_attn_interval]
                 hidden = hidden + perceiver(cross_tokens, hidden)
@@ -357,6 +400,10 @@ class CrossTransformer3DModel(nn.Module):
         hidden = layer_norm_f32(self.norm_out.norm, hidden)
         hidden = hidden * (1 + scale[:, None]) + shift[:, None]
         out = self.proj_out(hidden)
+        if seq is not None:
+            out = seq.gather_video(out)
+        if mesh is not None:
+            out = D.all_gather(out, mesh.dp, dim=0)
 
         # 6. unpatchify -> (B, F, H, W, C) in the reference's [c][i][j] order
         out = out.reshape(b, f, h // p, w // p, self.out_channels, p, p)

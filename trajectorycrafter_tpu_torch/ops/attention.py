@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 
 from trajectorycrafter_tpu_torch.ops import attention_variants as av
+from trajectorycrafter_tpu_torch.ops import kernels
 from trajectorycrafter_tpu_torch.ops.kernels import (
     flash_attention,
     flash_attention_bwd_dkv,
@@ -381,6 +382,7 @@ def multi_head_attention(
     v: torch.Tensor,
     scale: Optional[float] = None,
     impl: str = "auto",
+    ring=None,
 ) -> torch.Tensor:
     """Full (non-causal) MHA.  Returns (B, S, H*D).
 
@@ -397,12 +399,29 @@ def multi_head_attention(
     (``kernels.refuse_grad``): their kernels have no backward.  The plain
     routes are differentiated by autograd.  Under ``torch.no_grad()`` nothing
     changes.
+
+    ``"ring"`` is sequence-parallel attention (ops/ring_attention.py): q, k
+    and v are this rank's shards of a sequence sharded over the mesh's sp
+    axis, which ``ring`` names (parallel/sharding.py ``JointShard``: the
+    axis and every rank's token count; the JAX package finds its sp axis in
+    the ambient mesh).  Without ``ring`` the route raises.
     """
     b, s, h, d = q.shape
     if scale is None:
         scale = d ** -0.5
+    if impl == "ring":
+        if ring is None:
+            raise ValueError("the ring route needs the sp axis of its mesh: shard the model "
+                             "with pipelines/trajcrafter.py with_mesh")
+        from trajectorycrafter_tpu_torch.ops.ring_attention import ring_attention
+
+        kernels.refuse_grad("ring attention", q, k, v)
+        out = ring_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                             ring.axis, sum(ring.sizes), scale)
+        return out.transpose(1, 2).reshape(b, s, h * d)
     if impl not in _IMPLS:
-        raise ValueError(f"unknown attention impl {impl!r} (expected one of {sorted(_IMPLS)})")
+        raise ValueError(f"unknown attention impl {impl!r} (expected one of "
+                         f"{sorted((*_IMPLS, 'ring'))})")
     kernel, plain = _IMPLS[impl]
     needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     if needs_grad and impl == "flash_stock":

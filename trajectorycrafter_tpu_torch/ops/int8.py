@@ -23,7 +23,14 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from trajectorycrafter_tpu_torch.ops.int8_matmul import ieee_div, int8_dense_apply
+from trajectorycrafter_tpu_torch.ops.int8_matmul import (
+    ieee_div,
+    int8_dense_apply,
+    int8_matmul,
+    quantize_rows_scaled,
+    row_scales,
+)
+from trajectorycrafter_tpu_torch.parallel import distributed as D
 
 
 @torch.no_grad()
@@ -90,6 +97,33 @@ class Int8Linear(nn.Module):
                 f"bias={self.bias is not None}")
 
 
+class Int8RowParallelLinear(Int8Linear):
+    """A row-parallel ``Int8Linear`` (parallel/sharding.py): this rank holds
+    the input columns of ``weight_q`` and the whole ``weight_scale`` and
+    bias.  The activation scale stays the JAX package's, max |x| over all
+    input features of the row (ops/int8.py:56 there, which XLA keeps under
+    the mesh): the local row maxima are reduced by max over tp, and the
+    local columns are quantized with that scale (K2a's scale-taking entry),
+    so every code is the unsharded layer's.  Then the int8 GEMM of the
+    local columns (K2b, no bias), its partials summed over tp in fp32, and
+    the bias added once."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool, axis: D.Axis,
+                 device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.tp_axis = axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead, k = x.shape[:-1], x.shape[-1]
+        x2 = x.reshape(-1, k).contiguous()
+        amax = D.all_reduce(x2.abs().amax(dim=1).float(), self.tp_axis, op="max")
+        xs = row_scales(amax)
+        xq = quantize_rows_scaled(x2, xs, self.int8_impl)
+        partial = int8_matmul(xq, self.weight_q, xs, self.weight_scale, None, x.dtype,
+                              self.int8_impl)
+        return D.sum_partials(partial, self.tp_axis, self.bias).reshape(*lead, self.out_features)
+
+
 def _quantize_paths_(root: nn.Module, paths) -> None:
     """Swap each ``nn.Linear`` at a dotted path under ``root`` for its
     ``Int8Linear``."""
@@ -124,15 +158,23 @@ DEPTH_TRANSFORMER_INT8 = (
 )
 
 
+def quantize_dit_unit_(unit: nn.Module, fuse: Optional[bool] = None) -> nn.Module:
+    """Quantize one DiT block (its FeedForward gets ``fuse``) or Perceiver
+    in place."""
+    if hasattr(unit, "ff"):
+        _quantize_paths_(unit, DIT_BLOCK_INT8)
+        unit.ff.fuse = fuse
+    else:
+        _quantize_paths_(unit, DIT_PERCEIVER_INT8)
+    return unit
+
+
 def quantize_dit_(model: nn.Module, fuse: Optional[bool] = None) -> nn.Module:
     """Quantize a CrossTransformer3DModel in place (``quant="int8"``); each
     block's FeedForward gets ``fuse`` (None or False: two int8 linears with a
     tanh-gelu between; True: the fused int8 chain)."""
-    for block in model.transformer_blocks:
-        _quantize_paths_(block, DIT_BLOCK_INT8)
-        block.ff.fuse = fuse
-    for perceiver in model.perceiver_cross_attention or ():
-        _quantize_paths_(perceiver, DIT_PERCEIVER_INT8)
+    for unit in (*model.transformer_blocks, *(model.perceiver_cross_attention or ())):
+        quantize_dit_unit_(unit, fuse)
     return model
 
 

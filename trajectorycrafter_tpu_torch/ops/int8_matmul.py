@@ -80,6 +80,17 @@ def quantize_rows_reference(x: torch.Tensor):
     return xq, xs[:, 0]
 
 
+def row_scales(amax: torch.Tensor) -> torch.Tensor:
+    """A row's activation scale from its max |x|: max(amax, 1e-8) / 127."""
+    return ieee_div(amax.float().clamp_min(1e-8), 127.0)
+
+
+def quantize_rows_scaled_reference(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """(M, K) float, (M,) fp32 scales -> (M, K) int8: clip(round-half-even(x
+    / xs[row]), -127, 127), an IEEE division (a tensor by a tensor)."""
+    return torch.clamp(torch.round(x.float() / xs[:, None]), -127, 127).to(torch.int8)
+
+
 def _epilogue(acc: torch.Tensor, xs: Optional[torch.Tensor], ws: torch.Tensor,
               bias: Optional[torch.Tensor]) -> torch.Tensor:
     """((acc * xs[:, None]) * ws[None, :]) + bias in fp32 (no xs: acc * ws + bias)."""
@@ -189,6 +200,15 @@ def quantize_rows(x: torch.Tensor, impl: str = "auto"):
     if _kernel_for(x, impl):
         return kernels.int8_quantize_rows(x)
     return quantize_rows_reference(x)
+
+
+def quantize_rows_scaled(x: torch.Tensor, xs: torch.Tensor, impl: str = "auto"):
+    """(M, K) with given row scales (M,) -> (M, K) int8, on the scale-taking
+    entry of csrc/int8_quantize_rows.cu for a CUDA tensor: the row-parallel
+    layer's quantization of its columns with the scale of the whole row."""
+    if _kernel_for(x, impl):
+        return kernels.int8_quantize_rows_scaled(x, xs)
+    return quantize_rows_scaled_reference(x, xs)
 
 
 def int8_matmul(xq, wq, xs, ws, bias=None, out_dtype=torch.bfloat16, impl: str = "auto"):

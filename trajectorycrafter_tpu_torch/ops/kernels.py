@@ -538,6 +538,31 @@ def int8_quantize_rows(x: torch.Tensor):
 int8_quantize_rows.launches = 0
 
 
+def int8_quantize_rows_scaled(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Per-row int8 quantization with given scales on the card (the second
+    entry of csrc/int8_quantize_rows.cu): (M, K) bf16 and (M,) fp32 -> (M, K)
+    int8.  K a multiple of 8, rows 16-byte aligned.  Counts each launch in
+    ``int8_quantize_rows_scaled.launches``."""
+    kernel = "int8_quantize_rows_scaled"
+    if x.dim() != 2:
+        raise ValueError(f"{kernel} takes (M, K), got shape {tuple(x.shape)}")
+    m, k = x.shape
+    _check_tensor(kernel, "x", x, torch.bfloat16, (m, k), x.device)
+    _check_tensor(kernel, "xs", xs, torch.float32, (m,), x.device)
+    _check_rows(kernel, "x", x)
+    _check_dense(kernel, "xs", xs)
+    if m == 0 or k == 0 or k % 8:
+        raise ValueError(f"{kernel}: unsupported sizes M={m}, K={k} (K a positive multiple of 8)")
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    _call(kernel, _QUANT_ARGTYPES, x.device, x.data_ptr(), xs.data_ptr(), xq.data_ptr(), m, k,
+          x.stride(0), source="int8_quantize_rows")
+    int8_quantize_rows_scaled.launches += 1
+    return xq
+
+
+int8_quantize_rows_scaled.launches = 0
+
+
 def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(xq @ wq^T) * xs[:, None] * ws[None, :] + bias on the card (csrc/

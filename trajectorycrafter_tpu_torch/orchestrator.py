@@ -16,6 +16,12 @@ gen, viz).  The modes differ in what they warp:
     reference frames are the last ones;
   * ``infer_zoom``: a dolly zoom, the target focal ramped per frame.
 
+Under ``--mesh_dp/--mesh_sp/--mesh_tp`` (ranks started by torchrun, cli.py)
+the denoise is sharded (pipelines/trajcrafter.py ``with_mesh``): every rank
+holds its shard of the DiT; the leader (rank 0) alone holds the other
+models, runs the stages before and after the denoise unsharded and writes
+the mp4s, and the other ranks only denoise.
+
 ``build_models`` loads the checkpoints of an HF-layout tree
 (``load_full_bundle``, utils/checkpoints.py) onto the card, or onto the CPU
 when the caller passes ``device="cpu"``.  Without a tree, and only with
@@ -29,6 +35,8 @@ prompt embeddings.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import hashlib
 import os
 from dataclasses import dataclass, field
@@ -57,9 +65,10 @@ from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
 from trajectorycrafter_tpu_torch.models.svd_vae import AutoencoderKLTemporalDecoder
 from trajectorycrafter_tpu_torch.models.t5 import T5EncoderModel
 from trajectorycrafter_tpu_torch.models.vae import AutoencoderKLCogVideoX
-from trajectorycrafter_tpu_torch.ops.int8 import quantize_depth_unet_, quantize_dit_
+from trajectorycrafter_tpu_torch.ops.int8 import quantize_depth_unet_, quantize_dit_unit_
 from trajectorycrafter_tpu_torch.ops.resize import resize_nearest
 from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
+from trajectorycrafter_tpu_torch.parallel.sharding import shard_dit_, shard_unit_
 from trajectorycrafter_tpu_torch.pipelines.depth import DepthCrafterDemo, DepthCrafterPipeline
 from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
 from trajectorycrafter_tpu_torch.schedulers import SCHEDULER_REGISTRY
@@ -192,10 +201,58 @@ def _on_device(make: Callable[[], torch.nn.Module], device, dtype) -> torch.nn.M
     return module.to(dtype=dtype).to_empty(device=device).eval()
 
 
-def quantize_dit(cfg: TrajCrafterConfig, dit: CrossTransformer3DModel) -> CrossTransformer3DModel:
-    """``dit`` quantized in place under ``--quant int8`` (after its random
-    init and cast, as the JAX orchestrator quantizes its initialised tree)."""
-    return quantize_dit_(dit) if cfg.diffusion.quant == "int8" else dit
+def dit_units(dit: CrossTransformer3DModel) -> list:
+    """The DiT's top-level modules in parameter order, its blocks and
+    Perceivers one by one: their parameters, in turn, are ``dit.parameters()``."""
+    units = []
+    for child in dit.children():
+        units.extend(child if isinstance(child, torch.nn.ModuleList) else [child])
+    return units
+
+
+@torch.no_grad()
+def build_dit(make: Callable[[], CrossTransformer3DModel], device, dtype, seed: int,
+              quant: str = "none", mesh=None, std: float = 0.02) -> CrossTransformer3DModel:
+    """The DiT ``make`` builds, randomly initialised as ``random_init_``
+    initialises it (N(0, std^2) in parameter order from one generator seeded
+    with ``seed``), allocated one top-level module at a time; under ``quant``
+    "int8" each block and Perceiver is quantized as soon as it is drawn, and
+    under ``mesh`` cut to this rank's tensor-parallel shard (parallel/
+    sharding.py), so a rank never holds more of the whole DiT than one block
+    beside its shard."""
+    with torch.device("meta"):
+        dit = make()
+    dit.to(dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for unit in dit_units(dit):
+        unit.to_empty(device=device)
+        for p in unit.parameters():
+            p.normal_(0.0, std, generator=gen)
+        if unit in (*dit.transformer_blocks, *(dit.perceiver_cross_attention or ())):
+            if quant == "int8":
+                quantize_dit_unit_(unit)
+            if mesh is not None:
+                shard_unit_(unit, mesh.tp)
+    if mesh is not None:
+        shard_dit_(dit, mesh, units_done=True)
+    return dit.eval()
+
+
+def stage_mesh(cfg: TrajCrafterConfig):
+    """The run's dp x sp x tp mesh (parallel/mesh.py), or None at 1x1x1: the
+    JAX package's ``stage_mesh``.  Its ranks' process group must be started
+    (cli.py ``start_world``)."""
+    par = cfg.parallel
+    if par.dp * par.sp * par.tp <= 1:
+        return None
+    import torch.distributed as dist
+
+    from trajectorycrafter_tpu_torch.parallel.mesh import make_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("--mesh_dp/--mesh_sp/--mesh_tp need a process group of that many "
+                           "ranks: start them with torchrun (cli.py)")
+    return make_mesh(dp=par.dp, sp=par.sp, tp=par.tp)
 
 
 def _bundle(cfg, pipeline, depth_infer, encode_prompt) -> ModelBundle:
@@ -213,13 +270,13 @@ def build_dev_models(cfg: TrajCrafterConfig, device="cpu", seed: int = 0) -> Mod
     vae = _on_device(lambda: AutoencoderKLCogVideoX(
         latent_channels=lc, block_out_channels=(8, 16, 16, 32), layers_per_block=1,
         norm_num_groups=4), device, torch.float32)
-    dit = _on_device(lambda: CrossTransformer3DModel(
+    dit = build_dit(lambda: CrossTransformer3DModel(
         num_attention_heads=4, attention_head_dim=16, in_channels=2 * lc + 1,
         out_channels=lc, time_embed_dim=32, text_embed_dim=text_dim, num_layers=4,
         max_text_seq_length=text_len, cross_attn_dim_head=16, cross_attn_num_heads=4),
-        device, torch.float32)
+        device, torch.float32, seed + 1, cfg.diffusion.quant)
     pipeline = TrajCrafterPipeline(
-        vae=random_init_(vae, seed), transformer=quantize_dit(cfg, random_init_(dit, seed + 1)),
+        vae=random_init_(vae, seed), transformer=dit,
         scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](), dtype=torch.float32)
 
     def encode_prompt(prompt, negative):
@@ -229,8 +286,28 @@ def build_dev_models(cfg: TrajCrafterConfig, device="cpu", seed: int = 0) -> Mod
     return _bundle(cfg, pipeline, _plane_depth_infer, encode_prompt)
 
 
+def _denoise_only_bundle(cfg: TrajCrafterConfig, dit, dtype) -> ModelBundle:
+    """The bundle of a mesh rank other than the leader: the DiT (its shard
+    once the pipeline takes the mesh) and the sampler, nothing else."""
+    pipeline = TrajCrafterPipeline(vae=None, transformer=dit, dtype=dtype,
+                                   scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name]())
+    return ModelBundle(pipeline=pipeline, depth_infer=None, encode_prompt=None,
+                       get_caption=None)
+
+
+def full_scale_dit(attention_impl: str = "auto") -> CrossTransformer3DModel:
+    """The deployed DiT (48 heads x 64, 42 layers, text 226 x 4096,
+    Perceiver 16 x 128 every 2 blocks), unallocated when built under
+    ``torch.device("meta")``."""
+    return CrossTransformer3DModel(
+        num_attention_heads=48, attention_head_dim=64, num_layers=42,
+        max_text_seq_length=T5_TEXT_LEN, text_embed_dim=T5_TEXT_DIM,
+        cross_attn_interval=2, cross_attn_dim_head=128, cross_attn_num_heads=16,
+        use_rotary_positional_embeddings=True, attention_impl=attention_impl)
+
+
 def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0,
-                            attention_impl: str = "auto") -> ModelBundle:
+                            attention_impl: str = "auto", mesh=None) -> ModelBundle:
     """Every model at its deployed width, bf16, randomly initialised straight
     on ``device`` (the JAX package's full-scale synthetic bundle): the
     CrossTransformer3D DiT (48 heads x 64, 42 layers, text 226 x 4096,
@@ -243,18 +320,20 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
     after their init, so an int8 model is the quantization of the same
     seeded bf16 weights.  ``attention_impl`` is the DiT's (``"flash_pv8"``
     routes its joint self-attention and its Perceivers through the PV-int8
-    kernel), as the JAX builders take it."""
+    kernel), as the JAX package's model constructors take it.
+
+    Under ``mesh`` each rank builds its shard of the same DiT
+    (``build_dit``), and only the leader the other models."""
     check_supported(cfg)
     dtype = torch.bfloat16
+    dit = build_dit(lambda: full_scale_dit(attention_impl), device, dtype, seed + 1,
+                    cfg.diffusion.quant, mesh)
+    if mesh is not None and not mesh.leader:
+        return _denoise_only_bundle(cfg, dit, dtype)
     vae = _on_device(lambda: AutoencoderKLCogVideoX(), device, dtype)
-    dit = _on_device(lambda: CrossTransformer3DModel(
-        num_attention_heads=48, attention_head_dim=64, num_layers=42,
-        max_text_seq_length=T5_TEXT_LEN, text_embed_dim=T5_TEXT_DIM,
-        cross_attn_interval=2, cross_attn_dim_head=128, cross_attn_num_heads=16,
-        use_rotary_positional_embeddings=True, attention_impl=attention_impl), device, dtype)
-    pipeline = TrajCrafterPipeline(
-        vae=random_init_(vae, seed), transformer=quantize_dit(cfg, random_init_(dit, seed + 1)),
-        scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](), dtype=dtype)
+    pipeline = TrajCrafterPipeline(vae=random_init_(vae, seed), transformer=dit,
+                                   scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](),
+                                   dtype=dtype)
     t5 = random_init_(_on_device(T5EncoderModel, device, dtype), seed + 2)
     unet = random_init_(_on_device(UNetSpatioTemporalConditionModel, device, dtype), seed + 3)
     if cfg.depth.quant == "int8":
@@ -265,7 +344,7 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
                    T5PromptEncoder(t5, T5_TEXT_LEN))
 
 
-def load_full_bundle(cfg: TrajCrafterConfig, device="cuda") -> ModelBundle:
+def load_full_bundle(cfg: TrajCrafterConfig, device="cuda", mesh=None) -> ModelBundle:
     """The inference bundle from a checkpoint tree laid out as the
     reference's: ``model_name/{vae,text_encoder,tokenizer}``,
     ``transformer_path``, ``unet_path``, ``pre_train_path/{vae,
@@ -274,12 +353,18 @@ def load_full_bundle(cfg: TrajCrafterConfig, device="cuda") -> ModelBundle:
     transformers under ``--quant_depth int8``).  A missing or unloadable T5 /
     tokenizer or DepthCrafter raises, unless ``--allow_dev_stubs``: then the
     pseudo prompt embeddings or the plane depth stand in, with a printed
-    line.  BLIP-2 captions unless ``--prompt`` is given."""
+    line.  BLIP-2 captions unless ``--prompt`` is given.  Under ``mesh``
+    every rank loads the DiT and keeps its shard; only the leader loads the
+    other models."""
     stats: dict = {}
     dtype = torch.bfloat16
-    vae = load_vae(os.path.join(cfg.diffusion.model_name, "vae"), device, dtype, stats)
+    leader = mesh is None or mesh.leader
+    vae = (load_vae(os.path.join(cfg.diffusion.model_name, "vae"), device, dtype, stats)
+           if leader else None)
     dit = load_dit(cfg.diffusion.transformer_path, device, dtype, quant=cfg.diffusion.quant,
                    stats=stats)
+    if not leader:
+        return dataclasses.replace(_denoise_only_bundle(cfg, dit, dtype), load_stats=stats)
     pipeline = TrajCrafterPipeline(vae=vae, transformer=dit,
                                    scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](),
                                    dtype=dtype)
@@ -329,11 +414,13 @@ def load_full_bundle(cfg: TrajCrafterConfig, device="cuda") -> ModelBundle:
                        get_caption=get_caption, load_stats=stats)
 
 
-def build_models(cfg: TrajCrafterConfig, device="cuda") -> ModelBundle:
+def build_models(cfg: TrajCrafterConfig, device="cuda", mesh=None) -> ModelBundle:
     """The bundle of a run, on ``device`` (the card unless the caller asks
-    for the CPU): loaded from the checkpoint tree at ``--model_name`` when it
-    exists; without one, only ``--allow_dev_stubs`` builds random models at
-    the deployed widths."""
+    for the CPU; the mesh's device under ``mesh``): loaded from the
+    checkpoint tree at ``--model_name`` when it exists; without one, only
+    ``--allow_dev_stubs`` builds random models at the deployed widths."""
+    if mesh is not None:
+        device = mesh.device
     check_supported(cfg)
     model_dir = cfg.diffusion.model_name
     exists = os.path.isdir(model_dir)
@@ -345,10 +432,10 @@ def build_models(cfg: TrajCrafterConfig, device="cuda") -> ModelBundle:
         raise RuntimeError("no CUDA device is available: the models run on the card "
                            "(pass device='cpu' to build them on the CPU)")
     if exists:
-        return load_full_bundle(cfg, device)
+        return load_full_bundle(cfg, device, mesh)
     print(f"{LOG} checkpoints not found at {model_dir}; building randomly initialised "
           f"models on {device} (--allow_dev_stubs)")
-    return build_full_scale_models(cfg, device)
+    return build_full_scale_models(cfg, device, mesh=mesh)
 
 
 # ----------------------------------------------------------------------------
@@ -366,12 +453,35 @@ def resize_video(video, size) -> np.ndarray:
                      for fr in video])
 
 
+def _leader_prepares(mode: Callable) -> Callable:
+    """A mode that the mesh's leader runs whole; the other ranks only join
+    its denoise (``TrajCrafter._join_denoise``) and return None."""
+
+    @functools.wraps(mode)
+    def run(self, *args, **kwargs):
+        if self.mesh is not None and not self.mesh.leader:
+            return self._join_denoise()
+        return mode(self, *args, **kwargs)
+
+    return run
+
+
 class TrajCrafter:
-    def __init__(self, cfg: TrajCrafterConfig, models: Optional[ModelBundle] = None):
+    def __init__(self, cfg: TrajCrafterConfig, models: Optional[ModelBundle] = None,
+                 mesh=None):
         self.cfg = cfg
-        self.models = models if models is not None else build_models(cfg)
+        self.mesh = mesh if mesh is not None else stage_mesh(cfg)
+        self.models = models if models is not None else build_models(cfg, mesh=self.mesh)
+        if self.mesh is not None:
+            self.models.pipeline.with_mesh(self.mesh)
         self.device = self.models.pipeline.device
         self.timer: StageTimer = self.models.pipeline.timer
+
+    def _join_denoise(self) -> None:
+        """A rank other than the leader: the sampling loop on the leader's
+        arguments, inputs and generator (pipelines/trajcrafter.py), nothing
+        before or after it."""
+        self.models.pipeline(None, None, None, None, None)
 
     # -- pose synthesis --------------------------------------------------
     def get_poses(self, depths: np.ndarray, num_frames: int, f_new: Optional[float] = None):
@@ -533,6 +643,7 @@ class TrajCrafter:
         """A host array to the device as fp32."""
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
 
+    @_leader_prepares
     def infer_gradual(self):
         cfg = self.cfg
         frames, prompt, depths = self._frames_prompt_depths()
@@ -544,6 +655,7 @@ class TrajCrafter:
         return self._diffuse_and_save(frames, cond_s, masks_s, prompt,
                                       ref_slice=slice(0, cfg.diffusion.ref_frames))
 
+    @_leader_prepares
     def infer_direct(self, cut: int = 20):
         """The camera flies in over ``cut`` frames (clamped to [1, F // 2])
         on the frozen first frame, then follows the source delayed by
@@ -567,6 +679,7 @@ class TrajCrafter:
                                       ref_slice=slice(0, cfg.diffusion.ref_frames),
                                       save_skip=cut)
 
+    @_leader_prepares
     def infer_bullet(self):
         """The last frame, frozen, seen from every camera of the orbit."""
         cfg = self.cfg
@@ -582,6 +695,7 @@ class TrajCrafter:
         return self._diffuse_and_save(frames, cond_s, masks_s, prompt,
                                       ref_slice=slice(-cfg.diffusion.ref_frames, None))
 
+    @_leader_prepares
     def infer_zoom(self, f_new: float = 250.0):
         """A dolly zoom: the source intrinsics stay at frame 0's, the target
         focal ramps from ``--focal`` to ``f_new``."""

@@ -20,6 +20,14 @@ one-shot peak would not fit.
 Inputs are channel-last tensors on the pipeline's device: video
 (B, F, H, W, 3) in [0, 1], mask_video (B, F, H, W, 1) in [0, 255] where 255
 marks holes, reference (B, F_ref, H, W, 3) in [0, 1].
+
+``with_mesh`` (JAX ``with_mesh``) shards the denoise over a dp x sp x tp
+mesh (parallel/mesh.py): the DiT tensor-parallel, its tokens on sp with the
+joint self-attention on the ring, the CFG pair on dp.  The mesh's leader
+(rank 0) alone runs the condition prep, the initial draw and the decode;
+it hands its sampling arguments, the denoise inputs and its generator's
+state to every rank, so that every rank runs the same sampling loop on
+bit-equal latents; the other ranks pass nothing and return None.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from trajectorycrafter_tpu_torch.models.vae import (
     vae_encode,
 )
 from trajectorycrafter_tpu_torch.ops.rope import rope_for_sample
+from trajectorycrafter_tpu_torch.parallel import distributed as D
+from trajectorycrafter_tpu_torch.parallel.sharding import shard_dit_
 from trajectorycrafter_tpu_torch.schedulers import (
     DPMSolverMultistepScheduler,
     EulerAncestralDiscreteScheduler,
@@ -72,6 +82,7 @@ class TrajCrafterPipeline:
     vae_scale_factor_temporal: int = 4
     dtype: torch.dtype = torch.bfloat16
     timer: Optional[StageTimer] = None  # shared with the orchestrator's stages
+    mesh: object = None  # parallel/mesh.py Mesh, set by with_mesh
 
     def __post_init__(self):
         if self.timer is None:
@@ -84,6 +95,21 @@ class TrajCrafterPipeline:
     @property
     def _vae_dtype(self) -> torch.dtype:
         return self.vae.encoder.conv_in.conv.weight.dtype
+
+    @property
+    def leader(self) -> bool:
+        """True unless a mesh makes this rank one that only denoises."""
+        return self.mesh is None or self.mesh.leader
+
+    def with_mesh(self, mesh) -> "TrajCrafterPipeline":
+        """Shard the pipeline over ``mesh`` (dp x sp x tp), in place: the DiT
+        tensor-parallel (parallel/sharding.py rules), its activations over
+        dp and sp, its joint self-attention on the ring when sp > 1.  The
+        JAX package returns a sharded copy; here the DiT is replaced by its
+        shard, so nothing holds the whole DiT beside it."""
+        shard_dit_(self.transformer, mesh)
+        self.mesh = mesh
+        return self
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -187,6 +213,43 @@ class TrajCrafterPipeline:
                 latents = sched.step(state, noise_pred, i, latents)
         return latents
 
+    def _prepare(self, state, t_start, video, mask_video, reference, generator, latents,
+                 noise_aug_strength, noise_override):
+        """The leader's part before the denoise: the conditions and the
+        initial latents -> [latents (fp32), inpaint_latents, ref_latents]."""
+        b, f, h, w, _ = video.shape
+        f_lat = (f - 1) // self.vae_scale_factor_temporal + 1
+        h_lat = h // self.vae_scale_factor_spatial
+        w_lat = w // self.vae_scale_factor_spatial
+        device = self.device
+
+        with self.timer("vae_encode"):
+            inpaint_latents, ref_latents = self.prepare_conditions(
+                video, mask_video, reference, generator, noise_aug_strength,
+                noise_override=noise_override)
+
+        if latents is None:
+            latents = torch.randn((b, f_lat, h_lat, w_lat, self.vae.latent_channels),
+                                  generator=generator, device=device)
+        latents = latents.to(device, torch.float32)
+        if t_start == 0:
+            return [latents * state.init_noise_sigma, inpaint_latents, ref_latents]
+        if isinstance(self.scheduler, PNDMScheduler):
+            raise NotImplementedError(
+                "strength < 1 is not supported with the PNDM sampler "
+                "(its PRK warmup is incompatible with timestep skipping)")
+        with self.timer("vae_encode"):
+            if noise_override is not None and len(noise_override) == 3:
+                vid_noise = noise_override[1].to(device, torch.float32)
+            else:
+                vid_noise = torch.randn(latents.shape, generator=generator, device=device)
+            moments = vae_encode(self.vae, (video.float() * 2.0 - 1.0).to(self._vae_dtype))
+            video_latents = sample_posterior(moments.float(), self.vae.latent_channels,
+                                             noise=vid_noise) * self.vae.scaling_factor
+        latents = self.scheduler.add_noise(state, video_latents.float(), latents,
+                                           state.timesteps[t_start])
+        return [latents, inpaint_latents, ref_latents]
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def __call__(
@@ -216,53 +279,50 @@ class TrajCrafterPipeline:
         the initial noise draw.  PNDM does not take ``strength`` < 1 (its
         warm-up cannot skip steps).
         """
-        b, f, h, w, _ = video.shape
-        f_lat = (f - 1) // self.vae_scale_factor_temporal + 1
-        h_lat = h // self.vae_scale_factor_spatial
-        w_lat = w // self.vae_scale_factor_spatial
-        device = self.device
-
-        with self.timer("vae_encode"):
-            inpaint_latents, ref_latents = self.prepare_conditions(
-                video, mask_video, reference, generator, noise_aug_strength,
-                noise_override=noise_override)
-
-        if latents is None:
-            latents = torch.randn((b, f_lat, h_lat, w_lat, self.vae.latent_channels),
-                                  generator=generator, device=device)
-        latents = latents.to(device, torch.float32)
-
-        state = self.scheduler.set_timesteps(num_inference_steps)
-        init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
-        if init_timestep == 0:
-            raise ValueError(
-                f"strength={strength} truncates every denoise step "
-                f"(int({num_inference_steps} * {strength}) == 0); raise "
-                "strength or num_inference_steps")
-        t_start = num_inference_steps - init_timestep
-        if t_start == 0:
-            latents = latents * state.init_noise_sigma
-        else:
-            if isinstance(self.scheduler, PNDMScheduler):
-                raise NotImplementedError(
-                    "strength < 1 is not supported with the PNDM sampler "
-                    "(its PRK warmup is incompatible with timestep skipping)")
-            with self.timer("vae_encode"):
-                if noise_override is not None and len(noise_override) == 3:
-                    vid_noise = noise_override[1].to(device, torch.float32)
-                else:
-                    vid_noise = torch.randn(latents.shape, generator=generator, device=device)
-                moments = vae_encode(self.vae, (video.float() * 2.0 - 1.0).to(self._vae_dtype))
-                video_latents = sample_posterior(moments.float(), self.vae.latent_channels,
-                                                 noise=vid_noise) * self.vae.scaling_factor
-            latents = self.scheduler.add_noise(state, video_latents.float(), latents,
-                                               state.timesteps[t_start])
+        state = inputs = t_start = None
+        if self.leader:
+            state = self.scheduler.set_timesteps(num_inference_steps)
+            init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
+            if init_timestep == 0:
+                raise ValueError(
+                    f"strength={strength} truncates every denoise step "
+                    f"(int({num_inference_steps} * {strength}) == 0); raise "
+                    "strength or num_inference_steps")
+            t_start = num_inference_steps - init_timestep
+            inputs = self._prepare(state, t_start, video, mask_video, reference, generator,
+                                   latents, noise_aug_strength, noise_override)
+            inputs += [prompt_embeds, negative_prompt_embeds, ancestral_noise_override]
         # the conditioning videos are consumed: free them before the denoise
         video = mask_video = reference = None
+        if self.mesh is not None:
+            # every rank runs the leader's loop: its arguments, inputs and draws
+            sampling = D.broadcast_object(
+                dict(steps=num_inference_steps, t_start=t_start, guidance_scale=guidance_scale,
+                     use_dynamic_cfg=use_dynamic_cfg,
+                     generator=None if generator is None else
+                     (generator.device.type, generator.get_state()))
+                if self.leader else None, self.mesh.world)
+            if not self.leader:
+                num_inference_steps, t_start = sampling["steps"], sampling["t_start"]
+                guidance_scale = sampling["guidance_scale"]
+                use_dynamic_cfg = sampling["use_dynamic_cfg"]
+                state = self.scheduler.set_timesteps(num_inference_steps)
+                generator = None
+                if sampling["generator"] is not None:
+                    kind, gen_state = sampling["generator"]
+                    generator = torch.Generator(device=self.device if kind == "cuda" else "cpu")
+                    generator.set_state(gen_state)
+            inputs = D.broadcast_tensors(inputs, self.mesh.world, self.device)
+        (latents, inpaint_latents, ref_latents, prompt_embeds, negative_prompt_embeds,
+         ancestral_noise_override) = inputs
+        device = self.device
+        f_lat, h_lat, w_lat = latents.shape[1:4]
 
         rope = None
         if self.transformer.use_rotary_positional_embeddings:
-            cos, sin = rope_for_sample(self.transformer.attention_head_dim, h, w, f_lat,
+            cos, sin = rope_for_sample(self.transformer.attention_head_dim,
+                                       h_lat * self.vae_scale_factor_spatial,
+                                       w_lat * self.vae_scale_factor_spatial, f_lat,
                                        self.vae_scale_factor_spatial,
                                        self.transformer.patch_size)
             rope = (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
@@ -281,6 +341,8 @@ class TrajCrafterPipeline:
                                     num_inference_steps, t_start, guidance_scale, do_cfg,
                                     use_dynamic_cfg, generator, ancestral_noise_override)
 
+        if not self.leader:
+            return None
         if output_type == "latent":
             return latents
         with self.timer("vae_decode"):

@@ -62,8 +62,15 @@ def _indexed(tree: Tree, stem: str):
     return sorted(items, key=lambda kv: kv[0])
 
 
-def dit_from_jax(params: Tree) -> StateDict:
-    """CrossTransformer3D flax tree -> torch state_dict (reference names)."""
+def dit_from_jax(params: Tree, tp: int = 1, rank: int = 0) -> StateDict:
+    """CrossTransformer3D flax tree -> torch state_dict (reference names);
+    with ``tp`` > 1, tensor-parallel rank ``rank``'s shard of it
+    (parallel/sharding.py ``shard_state_dict``), which a model sharded by
+    ``shard_dit_`` loads."""
+    if tp > 1:
+        from trajectorycrafter_tpu_torch.parallel.sharding import shard_state_dict
+
+        return shard_state_dict(dit_from_jax(params), tp, rank)
     sd: StateDict = {}
     top = {
         "patch_embed_proj": "patch_embed.proj",
