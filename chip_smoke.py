@@ -82,11 +82,11 @@ prints no result line):
      one step of each of the six samplers on the card against the same step
      on the CPU (``SAMPLER_STEP_TOL``);
   5c. the long-trajectory and known-camera paths, on run A's models: run H
-     ``TrajCrafterAutoregressive.infer_autoregressive`` (v1: segments of 17
-     frames, 26 poses in two windows sharing 8, 2 depth stages, 2
-     diffusions, 26 frames), run I
+     ``TrajCrafterAutoregressive.infer_autoregressive`` (v1: segments of 9
+     frames, 10 poses in two windows sharing 8, 2 depth stages, 2
+     diffusions, 10 frames), run I
      ``TrajCrafterGlobalPointCloud.infer_autoregressive`` (v2 at segments
-     of 17 frames, the clip lifted into a point cloud of ~10 M points on
+     of 9 frames, the clip lifted into a point cloud of ~10 M points on
      the card, a z-buffer render per pose, the merged cloud downsampled to
      4 M, the PLY / COLMAP / HTML scene), run J
      ``CameraPoseTrajCrafter.infer_camera_poses_smooth``
@@ -99,11 +99,11 @@ prints no result line):
      and of the right shape, each timed beside the one-shot decode;
   5d. the consistent-depth path and the Gradio callback, on run A's
      models: run M ``TrajCrafterConsistentDepth.infer_autoregressive`` with
-     a seeded Video-Depth-Anything vitl (fp32; 2 segments of 49 frames at
+     a seeded Video-Depth-Anything vitl (fp32; 2 segments of 33 frames at
      576x1024; the first segment's depth from 2 VDA windows of 32 frames
      at 588x1036; the second stage's alignment renders sparse depth from
      the per-frame clouds and trains a visual prompt through the VDA at
-     280x504 over all 49 frames, 2 epochs of the deployed 50, VP mode), run
+     280x504 over all 33 frames, 2 epochs of the deployed 50, VP mode), run
      N the same without a VDA (DepthCrafter and ``align_window``) on
      9-frame segments, run O the Gradio callback ``run_pipeline`` with the
      "Orbit Left" preset at 2 steps; launches held to the derived counts
@@ -187,7 +187,16 @@ prints no result line):
      each of ``RUN_S_FAULTS`` planted in every rank, the joint attention
      output of ``RUN_S_CHECK_BLOCKS`` against the unsharded: the sound one
      within the same limits, each wrong one outside them (the DiT's output
-     reported beside); the
+     reported beside); every rank's share of the warp (``shard_sizes`` of
+     the frames over the 4 ranks) and its slab of the CogVideoX VAE's
+     condition prep and decode (H on dp, W on sp), its halo and norm bytes;
+     the sharded warp against the unsharded on the run's inputs
+     (``RUN_S_WARP_MASK_MAX``, ``RUN_S_WARP_OFF_MAX``), the sharded
+     condition latents and decoded frames against the unsharded VAE, over
+     the whole tensor and on the seam band (``RUN_S_VAE_REL_TOL``), under
+     the run's mesh and under ``RUN_S_VAE_MESH``, and on the VAE's check
+     weights each of ``RUN_S_VAE_FAULTS`` at least
+     ``RUN_S_VAE_FAULT_RATIO`` times the sound reading on the band; the
      video against run A9's at the quality CLI's 35 dB gate; seconds and
      peaks per rank logged (not a speed figure: four ranks share one card
      and stage their hops through host memory); ``tools/run_s_uncut.py``
@@ -365,9 +374,10 @@ TRAIN_PERCEIVER_SHAPE = (1, 16, 13104, 3024, 128)
 # heads x 64, 42 layers) at 384x672, 2 steps.  Each rank holds its
 # tensor-parallel shard of the DiT (24 heads, 6,144 of the feed-forward)
 # and half of the joint tokens (at 49 frames 6,665 of 13,330: the leader's
-# 226 text and 6,439 video tokens, the other's 6,665 video tokens); the
-# leader alone holds the other models and runs the stages before and after
-# the denoise.  The checks: the first sharded DiT forward of the denoise
+# 226 text and 6,439 video tokens, the other's 6,665 video tokens) and the
+# VAE; every rank warps its share of the frames and runs its slab of the
+# VAE (below); the leader alone holds the other models and runs depth,
+# poses and the prompt encode.  The checks: the first sharded DiT forward of the denoise
 # against the unsharded int8 DiT (run A's weights, rebuilt in the main
 # process) on the same inputs, by relative L2 error (RUN_S_REL_L2) and by
 # the largest row error (one position's 16 channels) over the largest
@@ -422,6 +432,43 @@ RUN_S_K5_SHAPE = (2, 24, 6665, 6665, 64)  # (B, H, Sq, Skv, D)
 # columns with the row's scale (K2a's scale-taking entry)
 RUN_S_ROW_PARALLEL = {"tp2_to_out": (13330, 1536, 3072), "tp2_ff2": (13330, 6144, 12288),
                       "tp2_perceiver_to_out": (13330, 1024, 2048)}
+# Run S's sharded warp and VAE: every rank warps its share of the frames
+# (shard_sizes over the 4 ranks: 3 / 3 / 3 / 0 at 9 frames) and holds its
+# (H/dp, W/sp) slab of the CogVideoX VAE's condition prep and decode
+# (parallel/spatial.py).  After the run, on the run's inputs: the sharded
+# warp against the unsharded warp (the leader reruns it whole), held to the
+# float-atomic bounds of the warp parity (RUN_S_WARP_MASK_MAX of the pixels'
+# masks may disagree, RUN_S_WARP_OFF_MAX of the known pixels may part by
+# more than 1e-3); the run's sharded condition latents and decoded frames
+# against the unsharded VAE's on the same inputs (the condition prep
+# replays the run's generator from its state before the prep drew), by
+# relative L2 over the whole tensor and on the seam band (the rows and
+# columns within one latent, 8 pixels, of a seam), within
+# RUN_S_VAE_REL_TOL; then the same prep and decode under RUN_S_VAE_MESH (H
+# on dp too) from the same torchrun.  The check of the check, under
+# RUN_S_VAE_MESH, where both axes exchange halos: on the VAE's check
+# weights (``check_weights_``: GroupNorm weights 1, every bias 0; the
+# run's weights keep every activation near its channel's bias, where a
+# wrong halo hardly shows) each fault of RUN_S_VAE_FAULTS planted in every
+# rank must read RUN_S_VAE_FAULT_RATIO times the sound reading on the seam
+# band, at the encode of the run's rendered video's first
+# RUN_S_VAE_CHECK_FRAMES frames, cropped to RUN_S_VAE_CHECK_CROP, and at the
+# decode of the unsharded encode's latents (a picture's latents, whose slabs differ as the picture does: the
+# final latents of random weights are noise alike in every slab, which a
+# slab-local norm would barely move).  It runs in fp32 without TF32: on
+# the check weights the bf16 roundings compound to ~2e-2 relative L2 in a
+# sound run, off the seams as much as on them (NVIDIA H100 80GB HBM3, 700
+# W), which left a slab-local norm's ~0.2 only 7.4x above.
+RUN_S_VAE_MESH = (2, 2, 1)
+# the check of the check's input: the encode's first chunk of the rendered
+# video's top-left quarter (a seam on each axis still)
+RUN_S_VAE_CHECK_FRAMES = 5
+RUN_S_VAE_CHECK_CROP = (192, 336)
+RUN_S_VAE_REL_TOL = 1e-2
+RUN_S_VAE_FAULTS = ("zero halo", "local norm")
+RUN_S_VAE_FAULT_RATIO = 10.0
+RUN_S_WARP_MASK_MAX = 0.005
+RUN_S_WARP_OFF_MAX = 0.03
 
 # Data-sheet rates of an H100 SXM (dense): bf16 989 TFLOP/s, int8 1,979
 # TOP/s, 3.35 TB/s of device memory; the SFU's 16 exp2 per clock per SM x
@@ -1768,7 +1815,11 @@ def phase_sample_576(tc, dit8, runs: dict) -> None:
     from trajectorycrafter_tpu_torch.cli import parse_config
     from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter
 
+    # its depth stage takes CUT_DEPTH_STEPS Euler steps (run A keeps the 5 of
+    # the default at the same frames and size; 5 here before run S's sharded
+    # VAE took their seconds)
     cfg = parse_config(MAIN_ARGV + ["--sample_size", *map(str, SAMPLE_576),
+                                    "--depth_inference_steps", str(CUT_DEPTH_STEPS),
                                     "--exp_name", "smoke_576"])
     if (tuple(cfg.diffusion.sample_size), tuple(cfg.warp_size), cfg.diffusion.quant,
             cfg.video_length) != (SAMPLE_576, SAMPLE_576, "int8", 49):
@@ -1969,10 +2020,11 @@ def phase_modes(tc, dit8, runs: dict) -> None:
             raise AssertionError(f"sampler {name}: the card's step disagrees with the CPU's")
 
 
-# The clip length and the depth stage of runs B-J, N and O: runs A, L, M,
-# P and R drive the deployed 49 frames (13 latent frames, the DiT's 13,330
-# or 30,178 joint tokens) and 5 Euler steps a depth window; the others read
-# 9 (3 latent frames; H and I 17-frame segments) and take 1 Euler step.
+# The clip length and the depth stage of the runs: A, L, P and R drive the
+# deployed 49 frames (13 latent frames, the DiT's 13,330 or 30,178 joint
+# tokens), M 33; the others read 9 (3 latent frames; H and I 9-frame
+# segments).  Run A takes the default 5 Euler steps a depth window, every
+# other run 1 (L, R and phase 8's scripts since run S's sharded VAE).
 # The launches per DiT forward and per UNet forward do not depend on either
 # (one depth window either way; K4's launches follow the step count), and
 # phases 3-4b hold every kernel at the full shapes.  The cuts keep the smoke
@@ -1981,10 +2033,11 @@ CUT_FRAMES = 9
 CUT_DEPTH_STEPS = 1
 # Runs H-J of phase 5c (the long-trajectory and known-camera paths), on run
 # A's models: 2 segments sharing 8 frames, so 2 depth stages and 2
-# diffusions each, at segments of 17 frames (26 poses).  J reads
-# ``CUT_FRAMES``.
+# diffusions each, at segments of ``CUT_FRAMES`` (10 poses; phase 8's
+# scripts drive the same classes so; 17-frame segments before run S's
+# sharded VAE took their seconds).  J reads ``CUT_FRAMES``.
 LONG_RUN = dict(n_splits=2, overlap_frames=8, theta=30.0)
-LONG_SEGMENTS = {"H": 17, "I": 17}
+LONG_SEGMENTS = {"H": CUT_FRAMES, "I": CUT_FRAMES}
 MAX_POINTS = 4_000_000  # v2's default cloud limit
 # Phase 8's scripts read 9 frames of the clip (one depth window still; the
 # launches per depth stage and per DiT forward do not depend on the frame
@@ -2279,9 +2332,10 @@ def phase_tiled_decode(vae) -> None:
 # DepthCrafter and ``align_window``; O, the Gradio callback with the "Orbit
 # Left" preset at 2 steps on ``CUT_FRAMES``.
 CONSISTENT_RUN = dict(n_splits=2, theta=30.0)
-# M's segments keep the clip's 49 frames (the VDA's two 32-frame windows);
-# N's read ``CUT_FRAMES``
-CONSISTENT_SEGMENTS = {"M": 49, "N": CUT_FRAMES}
+# M's segments read 33 frames, the fewest that still take the VDA's two
+# 32-frame windows (its stride is 22; 49 before run S's sharded VAE took
+# their seconds); N's read ``CUT_FRAMES``
+CONSISTENT_SEGMENTS = {"M": 33, "N": CUT_FRAMES}
 ALIGN_EPOCHS = 2
 VDA_SEED = 7
 # The seeded VDA's last convolution (``head.scratch.output_conv2.2``): with
@@ -2454,7 +2508,7 @@ def phase_consistent(tc, dit8, runs: dict) -> None:
                 want = {"depth": no_depth, "denoise": _times(one, 2)["denoise"]}
                 if r["depth_outputs"]:
                     raise AssertionError(f"run {run}: DepthCrafter ran with a VDA")
-                # the first segment's windows: 49 frames in 2 of 32, at 588 x 1036
+                # the first segment's windows: 33 frames in 2 of 32, at 588 x 1036
                 per_window = [sec for shape, sec in windows if shape[-2:] == (588, 1036)]
                 if [shape for shape, _ in windows if shape[-2:] == (588, 1036)] != \
                         [(1, 32, 3, 588, 1036)] * 2:
@@ -3237,21 +3291,23 @@ def _sharded_launches_per_forward(dit) -> dict:
     return out
 
 
-def check_weights_(dit):
-    """The check weights of run S's check of the check, in place: every
-    LayerNorm weight 1 and every bias 0, as a trained DiT starts, the
-    other weights the run's.  The same on a shard and on the whole DiT."""
+def check_weights_(model):
+    """The check weights of run S's checks of the check, in place: every
+    LayerNorm and GroupNorm weight 1 and every bias 0, as a trained model
+    starts, the other weights the run's.  The same on a shard and on the
+    whole DiT, on the VAE and on its sharded twin (which shares its
+    weights)."""
     import torch
     from torch import nn
 
     with torch.no_grad():
-        for name, p in dit.named_parameters():
+        for name, p in model.named_parameters():
             if name.endswith("bias"):
                 p.zero_()
-        for m in dit.modules():
-            if isinstance(m, nn.LayerNorm) and m.weight is not None:
+        for m in model.modules():
+            if isinstance(m, (nn.LayerNorm, nn.GroupNorm)) and m.weight is not None:
                 m.weight.fill_(1.0)
-    return dit
+    return model
 
 
 def _joint_attention_hook(into: list, mesh=None):
@@ -3305,16 +3361,166 @@ def _planted(name):
         setattr(where, attr, real)
 
 
+@contextlib.contextmanager
+def _planted_vae(name):
+    """One of ``RUN_S_VAE_FAULTS`` (None: none) planted in this rank's
+    spatial toolbox: every halo zero (each slab padded as if its edges were
+    the picture's), or every GroupNorm on its slab's own statistics."""
+    import torch.nn.functional as F
+
+    from trajectorycrafter_tpu_torch.parallel import spatial
+
+    if name is None:
+        yield
+        return
+    if name == RUN_S_VAE_FAULTS[0]:
+        attr, fake = "halo", lambda x, plane, t, b, l, r: F.pad(x, (l, r, t, b))
+    else:
+        attr = "group_norm"
+        fake = lambda norm, x, plane: F.group_norm(x.float(), norm.num_groups,
+                                                   norm.weight.float(), norm.bias.float(),
+                                                   norm.eps).to(x.dtype)
+    real = getattr(spatial, attr)
+    setattr(spatial, attr, fake)
+    try:
+        yield
+    finally:
+        setattr(spatial, attr, real)
+
+
+def _seam_errors(got, want, shape, scale) -> dict:
+    """Relative L2 error of channel-last (B, T, H, W, C) ``got`` against
+    ``want``, over the whole tensor and on the seam band of a dp x sp split
+    ``shape`` in latents of ``scale`` pixels."""
+    from trajectorycrafter_tpu_torch.parallel.sharding import shard_sizes
+    from trajectorycrafter_tpu_torch.parallel.spatial import seam_band
+
+    h, w = want.shape[2:4]
+    rows = seam_band(h, shard_sizes(h // scale, shape[0]), scale, scale)
+    cols = seam_band(w, shard_sizes(w // scale, shape[1]), scale, scale)
+    band = (rows[:, None] | cols[None, :]).to(want.device)
+    err = got.float() - want.float()
+    return {"rel_l2": (err.norm() / want.float().norm()).item(),
+            "band_rel_l2": (err[:, :, band].norm() / want.float()[:, :, band].norm()).item()}
+
+
+def _sharded_stage_checks(tc, seen: dict) -> dict:
+    """Run S's sharded warp and VAE against the unsharded ones on the run's
+    inputs (``seen``: the warp's arguments and outputs; the condition
+    prep's arguments, its generator's state before it drew and its outputs;
+    the decode's latents and frames).  Every rank takes part; the leader
+    computes the unsharded twins and returns the readings (the others only
+    their slabs)."""
+    import dataclasses
+
+    import torch
+
+    from trajectorycrafter_tpu_torch.models.vae import (
+        decode_memory_bytes,
+        posterior_mode,
+        vae_decode_auto,
+        vae_encode,
+    )
+    from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+    from trajectorycrafter_tpu_torch.parallel import spatial
+    from trajectorycrafter_tpu_torch.parallel.mesh import make_mesh
+
+    pipe, mesh = tc.models.pipeline, tc.mesh
+    lead, out = mesh.leader, {}
+    args, kwargs, got = seen.pop("warp")
+    if lead:
+        want = forward_warp_batch(*args, **dict(kwargs, mesh=None))
+        known, known_want = got[1] > 0, want[1] > 0
+        both = known & known_want
+        off = ((got[0] - want[0]).abs().amax(-1) > 1e-3) | ((got[2] - want[2]).abs() > 1e-3)
+        out["warp"] = {"mask_disagree": (known != known_want).float().mean().item(),
+                       "off": off[both].float().mean().item(),
+                       "known": both.float().mean().item()}
+        del want
+    del args, kwargs, got
+    (video, mask, ref, gen, aug), gen_state, run_conditions = seen.pop("conditions")
+    z, run_frames = seen.pop("decode")
+    h, w = video.shape[2:4]
+    memory = decode_memory_bytes(pipe.device)
+
+    def replayed():  # the run's generator as it stood before the condition prep drew
+        g = torch.Generator(device=gen.device)
+        g.set_state(gen_state)
+        return g
+
+    def outputs(p, vae):
+        inpaint, ref_latents = p.prepare_conditions(video, mask, ref, replayed(), aug)
+        return {"inpaint latents": inpaint, "reference latents": ref_latents,
+                "frames": vae_decode_auto(vae, z, memory)}
+
+    second = make_mesh(*RUN_S_VAE_MESH, device=pipe.device)
+    twin = dataclasses.replace(pipe, mesh=second, spatial_vae=spatial.shard_spatially(
+        pipe.vae, spatial.Plane.of(second)))
+    plain = dataclasses.replace(pipe, mesh=None, spatial_vae=None)
+    slabs = {}
+    for shape, p in ((RUN_S_MESH, pipe), (RUN_S_VAE_MESH, twin)):
+        plane = p.spatial_vae.plane
+        rows, cols = plane.extents(h // 8, w // 8)
+        slabs[str(shape)] = [rows[plane.rows.index], cols[plane.cols.index]]
+    readings = {}
+
+    def read(key, got, want, shape):
+        if lead:
+            readings[key] = {name: _seam_errors(got[name], want[name], shape,
+                                                8 if name == "frames" else 1) for name in got}
+
+    # the run's weights, bf16: the run's own sharded outputs (the run's
+    # mesh), then the same prep and decode under RUN_S_VAE_MESH
+    want = outputs(plain, pipe.vae) if lead else None
+    read(f"run {RUN_S_MESH} sound", {"inpaint latents": run_conditions[0],
+                                     "reference latents": run_conditions[1],
+                                     "frames": run_frames}, want, RUN_S_MESH)
+    read(f"run {RUN_S_VAE_MESH} sound", outputs(twin, twin.spatial_vae), want, RUN_S_VAE_MESH)
+    del want, run_conditions, run_frames
+    # the check of the check: check weights, fp32 without TF32, the encode
+    # of the run's rendered video's first chunk and the decode of the
+    # unsharded encode's latents
+    check_weights_(pipe.vae).float()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        crop_h, crop_w = RUN_S_VAE_CHECK_CROP
+        x = video[:, :RUN_S_VAE_CHECK_FRAMES, :crop_h, :crop_w].float() * 2.0 - 1.0
+        lc = pipe.vae.latent_channels
+        want = None
+        if lead:
+            want = {"latents": vae_encode(pipe.vae, x)}
+            zc = posterior_mode(want["latents"], lc)
+        zc = D.broadcast(zc if lead else torch.empty(
+            (1, (x.shape[1] - 1) // 4 + 1, x.shape[2] // 8, x.shape[3] // 8, lc),
+            device=pipe.device),
+            mesh.world)
+        if lead:
+            want["frames"] = vae_decode_auto(pipe.vae, zc, memory)
+        for fault in (None,) + RUN_S_VAE_FAULTS:
+            with _planted_vae(fault):
+                got = {"latents": vae_encode(twin.spatial_vae, x),
+                       "frames": vae_decode_auto(twin.spatial_vae, zc, memory)}
+            read(f"check {RUN_S_VAE_MESH} {fault or 'sound'}", got, want, RUN_S_VAE_MESH)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    return {"latent_slab": slabs, **({"vae": readings, **out} if lead else {})}
+
+
 def run_s_rank(out_dir: str, cut: bool) -> None:
     """One rank of run S, started by torchrun (``chip_smoke.py --run-s-rank
     DIR [--cut]``): the process group from torchrun's environment through the CLI's
     ``start_world``; ``TrajCrafter`` on run A's command line with the mesh
     flags (this rank's DiT shard; the leader also the other models);
     ``infer_gradual`` with its launches counted in and outside the denoise,
-    the latents' checksum after each step and its first DiT forward kept;
-    then that forward again on the check weights, sound and with each
-    planted fault.  Writes its readings
-    to DIR/rank<r>.json."""
+    the latents' checksum after each step and its first DiT forward kept,
+    the frames its warp splatted, its halo and norm bytes; then that forward
+    again on the check weights, sound and with each planted fault; then
+    the sharded warp and VAE against the unsharded ones on the run's
+    inputs (``_sharded_stage_checks``).  Writes its readings to
+    DIR/rank<r>.json."""
     import traceback
 
     import numpy as np
@@ -3322,9 +3528,12 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
 
     os.chdir(REPO)
     sys.path.insert(0, str(REPO))
+    from trajectorycrafter_tpu_torch import orchestrator
     from trajectorycrafter_tpu_torch.cli import get_parser, parse_config, start_world
+    from trajectorycrafter_tpu_torch.ops import splat
     from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter
     from trajectorycrafter_tpu_torch.parallel import distributed as D
+    from trajectorycrafter_tpu_torch.pipelines import trajcrafter as tj
 
     cuts = ["--video_length", str(CUT_FRAMES), "--depth_inference_steps", str(CUT_DEPTH_STEPS)]
     argv = MAIN_ARGV + RUN_S_ARGV + (cuts if cut else [])
@@ -3375,6 +3584,34 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
                                        else move(v) for k, v in kwargs.items()},
                             "output": output.cpu()}, Path(out_dir, "forward.pt"))
 
+        # the sharded stages' inputs and outputs, for the checks after the run
+        warp, bilinear, prepare, decode_auto = (orchestrator.forward_warp_batch,
+                                                splat.bilinear_splat, pipe.prepare_conditions,
+                                                tj.vae_decode_auto)
+        splatted = []
+
+        def recorded_warp(*a, **kw):
+            res = warp(*a, **kw)
+            seen["warp"] = (a, kw, res)
+            return res
+
+        def counted_splat(values, *a, **kw):
+            splatted.append(values.shape[0])
+            return bilinear(values, *a, **kw)
+
+        def recorded_prepare(video, mask_video, reference, generator, aug, **kw):
+            state = generator.get_state()
+            res = prepare(video, mask_video, reference, generator, aug, **kw)
+            seen["conditions"] = ((video, mask_video, reference, generator, aug), state, res)
+            return res
+
+        def recorded_decode(vae, z, memory):
+            frames = decode_auto(vae, z, memory)
+            seen["decode"] = (z, frames)
+            return frames
+
+        orchestrator.forward_warp_batch, splat.bilinear_splat = recorded_warp, counted_splat
+        pipe.prepare_conditions, tj.vae_decode_auto = recorded_prepare, recorded_decode
         pipe.scheduler.step, pipe._denoise = recorded_step, counted_denoise
         hook = dit.register_forward_hook(first_forward, with_kwargs=True)
         for kern in counters:
@@ -3385,12 +3622,21 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
         gen = tc.infer_gradual()
         torch.cuda.synchronize()
         out["run_s"] = time.perf_counter() - t2
+        # the planes decode apart: let every rank end its decode and give
+        # back its cached blocks before the checks (the ranks share the card)
+        D.all_reduce(torch.zeros(1, device=pipe.device), mesh.world)
+        torch.cuda.empty_cache()
+        orchestrator.forward_warp_batch, splat.bilinear_splat = warp, bilinear
+        tj.vae_decode_auto = decode_auto
+        del pipe.prepare_conditions
+        out["warp_frames"] = splatted
         total = {kern.__name__: kern.launches for kern in counters}
         denoised = seen["launches"]
         out["per_path"] = {"depth": {n: total[n] - denoised[n] for n in total},
                            "denoise": denoised}
         out.update(steps=steps, stages=dict(tc.timer.seconds), transport=dict(D.TRANSPORT),
-                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
         hook.remove()
         t3 = time.perf_counter()
         args_, kwargs_ = seen.pop("first")
@@ -3410,12 +3656,19 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
             del y
         torch.cuda.synchronize()
         out["faults_s"] = time.perf_counter() - t3
+        D.all_reduce(torch.zeros(1, device=pipe.device), mesh.world)
+        torch.cuda.empty_cache()
+        t4 = time.perf_counter()
+        out["stage_checks"] = _sharded_stage_checks(tc, seen)
+        out["stage_checks_s"] = time.perf_counter() - t4
         if gen is not None:
             out["gen"] = {"shape": list(gen.shape), "finite": bool(np.isfinite(gen).all()),
                           "min": float(gen.min()), "max": float(gen.max()),
                           "std": float(gen.std())}
     except BaseException:
-        out["error"] = traceback.format_exc()
+        out["error"] = traceback.format_exc() + (
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved")
         raise
     finally:
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
@@ -3436,8 +3689,11 @@ def phase_sharded(runs: dict, cut: bool = True) -> dict:
            *(["--cut"] if cut else [])]
     log(f"run S: {n} ranks on one card, torchrun {' '.join(cmd[3:])}")
     t0 = time.perf_counter()
+    # the four ranks share the card: expandable segments keep each rank's
+    # cached blocks close to what it holds
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, start_new_session=True)
+                            text=True, start_new_session=True, env=env)
     try:
         text, _ = proc.communicate(timeout=RUN_S_TIMEOUT)
     except subprocess.TimeoutExpired:
@@ -3452,6 +3708,8 @@ def phase_sharded(runs: dict, cut: bool = True) -> dict:
     if proc.returncode or failed:
         for line in text.splitlines()[-60:]:
             log("  run S | " + line)
+        for rank, error in failed.items():  # a rank's own error, before its peers' hang-ups
+            log(f"  run S rank {rank} | " + " ".join(error.strip().splitlines()[-2:])[:2000])
         raise AssertionError(f"run S: torchrun rc {proc.returncode}; failed ranks "
                              f"{json.dumps(failed)[-4000:]}")
     lead = results[0]
@@ -3475,10 +3733,11 @@ def phase_sharded(runs: dict, cut: bool = True) -> dict:
                                  f"(steps {r['steps']} vs {lead['steps']})")
         log(f"  rank {r['rank']} (dp, sp, tp) {tuple(r['coords'])}, heads {r['heads']}: built in "
             f"{r['build_s']:.1f} s, {r['resident_gib']:.2f} GiB resident, peak "
-            f"{r['peak_gib']:.2f} GiB; infer_gradual {r['run_s']:.2f} s, check of the check {r['faults_s']:.2f} s, stages "
+            f"{r['peak_gib']:.2f} GiB ({r['reserved_gib']:.2f} reserved); infer_gradual {r['run_s']:.2f} s, check of the check {r['faults_s']:.2f} s, stages "
             f"{json.dumps({k: round(v, 3) for k, v in r['stages'].items()})}; launches a "
             f"forward {json.dumps({k: v for k, v in want.items() if v})}; transport "
             f"{json.dumps(r['transport'])}")
+    stages = _run_s_stage_check(results, frames)
     forward = _run_s_forward_check(out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
     log(f"run S: every rank's latents bit-equal after each of {forwards} steps; peaks summed "
@@ -3503,7 +3762,63 @@ def phase_sharded(runs: dict, cut: bool = True) -> dict:
                               for p in ("depth", "denoise")},
                  "per_rank": {k: [sum(r["per_path"][p][k] for p in ("depth", "denoise"))
                                   for r in results] for k in KERNELS}}
-    return {"seconds": seconds, "quality": quality, "forward": forward, "ranks": results}
+    return {"seconds": seconds, "quality": quality, "forward": forward, "stages": stages,
+            "ranks": results}
+
+
+def _run_s_stage_check(results: list, frames: int) -> dict:
+    """Run S's sharded warp and VAE: each rank's share of the frames, its
+    slabs and its halo and norm bytes logged and held to the mesh's layout;
+    the leader's readings of the sharded warp and VAE against the unsharded
+    ones held to their limits (RUN_S_WARP_*, RUN_S_VAE_*)."""
+    from trajectorycrafter_tpu_torch.parallel.sharding import shard_sizes
+
+    n = len(results)
+    shares = shard_sizes(frames, n)
+    for r, share in zip(results, shares):
+        t = r["transport"]
+        log(f"  rank {r['rank']}: warped {sum(r['warp_frames'])} of {frames} frames "
+            f"{r['warp_frames']}, latent slab (rows, columns) by mesh "
+            f"{r['stage_checks']['latent_slab']}; halo {t.get('halo direct', 0)} all_gathers "
+            f"{t.get('halo direct bytes', 0) / 1e6:.1f} MB, norm {t.get('norm direct', 0)} "
+            f"all_reduces {t.get('norm direct bytes', 0) / 1e3:.1f} kB, slabs "
+            f"{t.get('slabs direct bytes', 0) / 1e6:.1f} MB, warp "
+            f"{t.get('warp direct bytes', 0) / 1e6:.1f} MB; checks {r['stage_checks_s']:.1f} s")
+        if r["warp_frames"] != ([share] if share else []):
+            raise AssertionError(f"rank {r['rank']} warped {r['warp_frames']} frames, its share "
+                                 f"is {share} of {shares}")
+        if not (t.get("halo direct bytes", 0) > 0 and t.get("norm direct bytes", 0) > 0):
+            raise AssertionError(f"rank {r['rank']}: no halo or norm traffic in run S: {t}")
+    checks = results[0]["stage_checks"]
+    warp = checks["warp"]
+    log(f"run S: the sharded warp against the unsharded on the same inputs: masks disagree on "
+        f"{warp['mask_disagree']:.2e} of the pixels (limit {RUN_S_WARP_MASK_MAX}), "
+        f"{warp['off']:.2e} of the {warp['known']:.3f} known ones part by > 1e-3 (limit "
+        f"{RUN_S_WARP_OFF_MAX})")
+    failed = []
+    if warp["mask_disagree"] > RUN_S_WARP_MASK_MAX or warp["off"] > RUN_S_WARP_OFF_MAX:
+        failed.append("warp")
+    vae = checks["vae"]
+    for key, reading in vae.items():
+        log(f"run S's VAE, {key}: " + "; ".join(
+            f"{name} rel L2 {e['rel_l2']:.3e}, seam band {e['band_rel_l2']:.3e}"
+            for name, e in reading.items()))
+    for shape in (RUN_S_MESH, RUN_S_VAE_MESH):
+        if any(max(e.values()) > RUN_S_VAE_REL_TOL for e in vae[f"run {shape} sound"].values()):
+            failed.append(f"run {shape} sound")
+    sound = vae[f"check {RUN_S_VAE_MESH} sound"]
+    for fault in RUN_S_VAE_FAULTS:
+        wrong = vae[f"check {RUN_S_VAE_MESH} {fault}"]
+        ratio = min(wrong[name]["band_rel_l2"] / max(e["band_rel_l2"], 1e-12)
+                    for name, e in sound.items())
+        log(f"run S's VAE, check weights, {RUN_S_VAE_MESH} {fault}: {ratio:.1f}x the sound "
+            f"reading on the seam band at the least (limit {RUN_S_VAE_FAULT_RATIO:g}x)")
+        if ratio < RUN_S_VAE_FAULT_RATIO:
+            failed.append(f"{RUN_S_VAE_MESH} {fault}")
+    if failed:
+        raise AssertionError(f"run S's sharded stages: {failed} outside their limits "
+                             f"(VAE rel L2 {RUN_S_VAE_REL_TOL:g}): {json.dumps(checks)}")
+    return checks
 
 
 def _run_s_forward_check(out_dir: Path) -> dict:
@@ -3828,10 +4143,15 @@ def write_checkpoint_tree(tc, root: Path) -> dict:
 
 
 def _tree_argv(tree: dict, transformer_path=None) -> list:
+    """The command line of run L and of phase 8's scripts on the tree: the
+    smoke's without its prompt, with ``--mask`` and ``CUT_DEPTH_STEPS``
+    Euler steps a depth window (5 before run S's sharded VAE took their
+    seconds: the launches per UNet forward do not depend on it)."""
     d = tree["dirs"]
     argv = [a for a in MAIN_ARGV if a not in ("--prompt", "a scene")]
     return argv + [
-        "--mask", "--exp_name", "smoke_checkpoints",
+        "--mask", "--depth_inference_steps", str(CUT_DEPTH_STEPS),
+        "--exp_name", "smoke_checkpoints",
         "--model_name", str(d["vae"].parent), "--transformer_path",
         str(transformer_path or d["dit"]), "--unet_path", str(d["svd_unet"]),
         "--pre_train_path", str(d["svd_vae"].parent), "--blip_path", str(d["blip2"])]

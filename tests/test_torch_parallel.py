@@ -348,8 +348,9 @@ def denoise_runs(tmp_path_factory):
 @pytest.mark.parametrize("case", DENOISE_CASES)
 def test_sharded_denoise_matches_unsharded_port(denoise_runs, case):
     """A 2-step denoise of the tiny dev pipeline under dp2 x sp2 (4 ranks:
-    the leader prepares the conditions, every rank denoises) against the
-    unsharded port with the same seeds.  Only the leader passes sampling
+    each prepares its slab of the conditions and denoises) against the
+    unsharded port with the same seeds.  Every rank passes the conditioning
+    videos; only the leader passes the prompt embeddings and sampling
     arguments (steps, strength, guidance, dynamic CFG, generator); the other
     ranks run on what it hands on, Euler A's noise included.  Every rank's
     latents are bit-equal after every step."""

@@ -8,6 +8,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel, FeedForward
 from trajectorycrafter_tpu_torch.ops import int8_matmul as im
@@ -135,8 +136,9 @@ def row_parallel(rank, x, ff_weights, ff_x):
 def denoise(rank, shape, cases, pipe_args, seed):
     """For each case (a sampler and the leader's sampling arguments), a
     denoise of the tiny dev pipeline sharded over ``shape``: the final
-    latents and the latents after each step, on every rank.  Only the
-    leader passes arguments; the other ranks pass nothing."""
+    latents and the latents after each step, on every rank.  Every rank
+    passes the conditioning videos; only the leader passes the prompt
+    embeddings and the sampling arguments."""
     mesh = _mesh(shape)
     return {name: _denoise(mesh, shape, sampler, kwargs, pipe_args, seed)
             for name, (sampler, kwargs) in cases.items()}
@@ -169,5 +171,110 @@ def _denoise(mesh, shape, sampler, kwargs, pipe_args, seed):
             pipe(pe, ne, video, mask, reference, generator=torch.Generator().manual_seed(7),
                  output_type="latent", **kwargs)
         else:
-            pipe(None, None, None, None, None)
+            pipe(None, None, video, mask, reference)
     return {"final": finals[0].numpy(), "steps": [s.numpy() for s in steps]}
+
+
+# ----------------------------------------------------------------------------
+# the sharded warp and VAE (tests/test_torch_spatial.py)
+# ----------------------------------------------------------------------------
+
+
+def _splat_counter():
+    """A patch of ``splat.bilinear_splat`` that records the frames each
+    call splats."""
+    from trajectorycrafter_tpu_torch.ops import splat
+
+    seen, real = [], splat.bilinear_splat
+
+    def counted(values, *a, **kw):
+        seen.append(values.shape[0])
+        return real(values, *a, **kw)
+
+    return seen, mock.patch.object(splat, "bilinear_splat", counted)
+
+
+def _transport_since(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in D.TRANSPORT.items() if v != before.get(k, 0)}
+
+
+def _vae_pipeline(vae_weights, mesh):
+    """The tiny dev pipeline, fp32, its VAE holding ``vae_weights``,
+    sharded over ``mesh`` (None: unsharded)."""
+    from trajectorycrafter_tpu_torch.config import TrajCrafterConfig
+
+    cfg = TrajCrafterConfig()
+    cfg.diffusion.quant = "none"
+    pipe = build_dev_models(cfg, "cpu").pipeline
+    pipe.vae.load_state_dict({k: T(v) for k, v in vae_weights.items()}, strict=True)
+    return pipe if mesh is None else pipe.with_mesh(mesh)
+
+
+# the planted faults of the sharded VAE: every halo zero (each slab padded
+# as if its edges were the image's), every GroupNorm on its slab's statistics
+SPATIAL_FAULTS = {
+    "zero halo": ("halo", lambda x, plane, t, b, l, r: F.pad(x, (l, r, t, b))),
+    "local norm": ("group_norm", lambda norm, x, plane: F.group_norm(
+        x.float(), norm.num_groups, norm.weight.float(), norm.bias.float(),
+        norm.eps).to(x.dtype)),
+}
+
+
+def spatial(rank, warp_cases, vae_weights, vae_cases, fault_case, gradual):
+    """The sharded warp on each of ``warp_cases`` (whole inputs; 4 ranks,
+    every mesh axis), every rank's outputs and the frames it splatted; the sharded
+    condition prep and decode of each of ``vae_cases`` ({name: (mesh shape,
+    video, mask, reference, ref noise, aug noise, latents)}), with the
+    transport and this rank's coordinates and slabs; the same under each of
+    ``SPATIAL_FAULTS`` on ``fault_case``; ``gradual`` (argv, warp size,
+    mesh shape): a sharded ``infer_gradual`` of the dev stack."""
+    from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
+    from trajectorycrafter_tpu_torch.parallel import spatial as S
+
+    out = {}
+    mesh = _mesh((2, 2, 1))
+    seen, counting = _splat_counter()
+    with counting, torch.no_grad():
+        out["warp"] = {(name, clean): [x.numpy() for x in forward_warp_batch(
+            *map(T, case), use_mask_clean=clean, mesh=mesh)]
+            for name, case in warp_cases.items() for clean in (False, True)}
+    out["warp_frames"] = list(seen)
+
+    def conditions_and_decode(pipe, case):
+        video, mask, ref, ref_noise, aug_noise, z = map(T, case)
+        inpaint, ref_lat = pipe.prepare_conditions(video, mask, ref,
+                                                   noise_override=(ref_noise, aug_noise))
+        return [inpaint.numpy(), ref_lat.numpy(), pipe.decode(z).numpy()]
+
+    for name, (shape, *case) in vae_cases.items():
+        mesh = _mesh(shape)
+        pipe = _vae_pipeline(vae_weights, mesh)
+        before = dict(D.TRANSPORT)
+        got = conditions_and_decode(pipe, case)
+        plane = pipe.spatial_vae.plane
+        out[name] = {"outputs": got, "transport": _transport_since(before),
+                     "coords": (mesh.dp.index, mesh.sp.index, mesh.tp.index),
+                     "plane": plane.both.ranks,
+                     "latent_slab": tuple(plane.slab(T(case[-1]).permute(0, 4, 1, 2, 3),
+                                                     1).shape[3:])}
+    shape, *case = vae_cases[fault_case]
+    pipe = _vae_pipeline(vae_weights, _mesh(shape))
+    for fault, (attr, fake) in SPATIAL_FAULTS.items():
+        with mock.patch.object(S, attr, fake):
+            out[fault] = conditions_and_decode(pipe, case)
+
+    argv, warp_size, shape = gradual
+    from trajectorycrafter_tpu_torch.cli import parse_config
+
+    cfg = parse_config(argv)
+    cfg.warp_size = warp_size
+    cfg.parallel.dp, cfg.parallel.sp, cfg.parallel.tp = shape
+    mesh = _mesh(shape)
+    tc = TrajCrafter(cfg, models=build_dev_models(cfg, "cpu"), mesh=mesh)
+    seen, counting = _splat_counter()
+    before = dict(D.TRANSPORT)
+    with counting:
+        gen = tc.infer_gradual()
+    out["gradual"] = {"gen": gen, "transport": _transport_since(before),
+                      "warp_frames": list(seen), "stages": sorted(tc.timer.seconds)}
+    return out

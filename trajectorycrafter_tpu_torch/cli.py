@@ -6,8 +6,9 @@ port's dataclass config: ``get_parser``, ``config_from_args`` and
 same option strings, defaults and messages; tests/test_torch_cli.py holds
 them together).  ``main`` runs the port's ``TrajCrafter`` on the CUDA card.
 
-``--mesh_dp/--mesh_sp/--mesh_tp`` shard the denoise over that many ranks,
-started by torchrun, one process a rank:
+``--mesh_dp/--mesh_sp/--mesh_tp`` shard the run over that many ranks (the
+warp's frames, the VAE's slabs, the denoise; orchestrator.py), started by
+torchrun, one process a rank:
 
     torchrun --nproc_per_node 4 -m trajectorycrafter_tpu_torch.cli \
         --mesh_sp 2 --mesh_tp 2 --video_path ... --traj_txt ...
@@ -107,7 +108,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--overlap", type=int, default=d.depth.overlap)
     p.add_argument("--max_res", type=int, default=d.depth.max_res)
 
-    # parallelism: the dp x sp x tp mesh of the denoise, over torchrun's ranks
+    # parallelism: the dp x sp x tp mesh of the run, over torchrun's ranks
     p.add_argument("--mesh_dp", type=int, default=1)
     p.add_argument("--mesh_sp", type=int, default=1)
     p.add_argument("--mesh_tp", type=int, default=1)

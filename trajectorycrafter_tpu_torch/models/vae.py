@@ -15,6 +15,18 @@ which bit-comparable outputs need because the causal caches see them.
 
 Module and parameter names are the reference checkpoint's
 (``utils/convert.py expected_vae_keys``).
+
+Spatial sharding (the JAX package's H-on-dp, W-on-sp VAE under a mesh):
+``parallel/spatial.py shard_spatially(vae, plane)`` gives a twin of the
+VAE, sharing its weights, whose modules carry the dp x sp ``plane``: its
+convolutions take their spatial padding from the neighbours' halos (zeros
+at the global edges), its GroupNorms reduce their statistics over the
+plane, and ``vae_encode`` / ``vae_decode`` / ``vae_decode_auto`` on it take
+the whole tensor, run this rank's slab and return the whole result,
+gathered over the plane.  Time is not sharded: the chunking over time and
+the causal caches are as on one device (each rank caches its slab's
+frames).  The nearest resizes (SpatialNorm3D's zq, the 2x upsample) and the
+time pooling are local on slabs split in whole latent rows and columns.
 """
 
 from __future__ import annotations
@@ -26,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from trajectorycrafter_tpu_torch.parallel import spatial
+
 Cache = Optional[Dict[str, Any]]
 
 VAE_SCALING_FACTOR = 1.15258426
@@ -35,8 +49,12 @@ def _sub(cache: Cache, name: str) -> Cache:
     return None if cache is None else cache.get(name)
 
 
-def group_norm_f32(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """Apply ``norm`` in fp32 whatever its parameter dtype; result in x's dtype."""
+def group_norm_f32(norm: nn.GroupNorm, x: torch.Tensor, plane=None) -> torch.Tensor:
+    """Apply ``norm`` in fp32 whatever its parameter dtype; result in x's
+    dtype.  Under ``plane`` x is a slab and the statistics are the whole
+    tensor's (``spatial.group_norm``)."""
+    if plane is not None:
+        return spatial.group_norm(norm, x, plane)
     return F.group_norm(x.float(), norm.num_groups, norm.weight.float(),
                         norm.bias.float(), norm.eps).to(x.dtype)
 
@@ -49,8 +67,12 @@ class CausalConv3d(nn.Module):
     """Temporally causal conv3d with an explicit streaming cache.
 
     The cache holds the last (kt-1) input frames; with no cache the clip's
-    first frame is replicated.  Spatial padding is zero, ``kh//2, kw//2``.
+    first frame is replicated.  Spatial padding is zero, ``kh//2, kw//2``;
+    under a ``plane`` it is the neighbours' halo, exchanged after the time
+    padding, so that the cached frames carry theirs too.
     """
+
+    plane = None
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Tuple[int, int, int] = (3, 3, 3), stride: int = 1,
@@ -73,12 +95,20 @@ class CausalConv3d(nn.Module):
             x = torch.cat([pad, x], dim=2)
             # clone: a view would pin the whole chunk's activation
             new_cache = {"conv": x[:, :, x.shape[2] - ncache:].clone()}
-        return self.conv(x), new_cache
+        ph, pw = self.conv.padding[1:]
+        if self.plane is None or ph == pw == 0:
+            return self.conv(x), new_cache
+        x = spatial.halo(x, self.plane, ph, ph, pw, pw)
+        return F.conv3d(x, self.conv.weight, self.conv.bias, self.conv.stride, 0,
+                        self.conv.dilation), new_cache
 
 
 class SpatialNorm3D(nn.Module):
     """Spatially conditioned GroupNorm (MoVQ): zq is nearest-resized onto f's
-    grid, the first frame alone when T is odd."""
+    grid, the first frame alone when T is odd.  Under a ``plane`` the
+    resize is local: f's slab is zq's slab scaled by a power of 2."""
+
+    plane = None
 
     def __init__(self, f_channels: int, zq_channels: int, groups: int = 32):
         super().__init__()
@@ -88,6 +118,9 @@ class SpatialNorm3D(nn.Module):
 
     def forward(self, f: torch.Tensor, zq: torch.Tensor) -> torch.Tensor:
         ft, fh, fw = f.shape[2:]
+        if self.plane is not None and (fh % zq.shape[3] or fw % zq.shape[4]):
+            raise ValueError(f"a {fh} x {fw} slab is no multiple of its {tuple(zq.shape[3:])} "
+                             "zq slab")
         if ft > 1 and ft % 2 == 1:
             zq = torch.cat([_nearest(zq[:, :, :1], (1, fh, fw)),
                             _nearest(zq[:, :, 1:], (ft - 1, fh, fw))], dim=2)
@@ -95,11 +128,13 @@ class SpatialNorm3D(nn.Module):
             zq = _nearest(zq, (ft, fh, fw))
         y, _ = self.conv_y(zq, None)
         b, _ = self.conv_b(zq, None)
-        return group_norm_f32(self.norm_layer, f) * y + b
+        return group_norm_f32(self.norm_layer, f, self.plane) * y + b
 
 
 class ResnetBlock3D(nn.Module):
     """Causal 3D resnet block; SpatialNorm3D conditioned on zq in the decoder."""
+
+    plane = None
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32,
                  zq_channels: Optional[int] = None):
@@ -117,7 +152,7 @@ class ResnetBlock3D(nn.Module):
                               if in_channels != out_channels else None)
 
     def _norm(self, norm, x, zq):
-        return norm(x, zq) if self.spatial_norm else group_norm_f32(norm, x)
+        return norm(x, zq) if self.spatial_norm else group_norm_f32(norm, x, self.plane)
 
     def forward(self, x, zq, cache: Cache) -> Tuple[torch.Tensor, Cache]:
         h = F.silu(self._norm(self.norm1, x, zq))
@@ -131,7 +166,13 @@ class ResnetBlock3D(nn.Module):
 
 class Downsample3D(nn.Module):
     """Optional 2x time average (odd-T first frame kept), then a spatially
-    strided 3x3 conv per frame with asymmetric (0, 1, 0, 1) zero pad."""
+    strided 3x3 conv per frame with asymmetric (0, 1, 0, 1) zero pad; under
+    a ``plane`` the pad is one row of the dp neighbour below and one column
+    of the sp neighbour to the right (zeros at the global bottom and right
+    edges), so a slab must start on an even row and column and hold an even
+    number of each."""
+
+    plane = None
 
     def __init__(self, channels: int, compress_time: bool = False):
         super().__init__()
@@ -147,14 +188,24 @@ class Downsample3D(nn.Module):
             else:
                 x = x.unflatten(2, (t // 2, 2)).mean(dim=3)
         t2 = x.shape[2]
-        frames = F.pad(x.transpose(1, 2).reshape(n * t2, c, h, w), (0, 1, 0, 1))
+        frames = x.transpose(1, 2).reshape(n * t2, c, h, w)
+        if self.plane is None:
+            frames = F.pad(frames, (0, 1, 0, 1))
+        elif h % 2 or w % 2:
+            raise ValueError(f"a {h} x {w} slab at a stride-2 level: slabs split in whole "
+                             "latent rows and columns stay even")
+        else:
+            frames = spatial.halo(frames, self.plane, 0, 1, 0, 1)
         y = self.conv(frames)
         return y.reshape(n, t2, c, *y.shape[2:]).transpose(1, 2)
 
 
 class Upsample3D(nn.Module):
     """Nearest 2x (time doubled too when compressing, the odd-T first frame
-    spatially only), then a 3x3 conv per frame."""
+    spatially only), then a 3x3 conv per frame (under a ``plane``, padded
+    by the neighbours' halo)."""
+
+    plane = None
 
     def __init__(self, channels: int, compress_time: bool = False):
         super().__init__()
@@ -172,7 +223,12 @@ class Upsample3D(nn.Module):
         else:
             x = up2d(x)
         n, c, t2, h2, w2 = x.shape
-        y = self.conv(x.transpose(1, 2).reshape(n * t2, c, h2, w2))
+        frames = x.transpose(1, 2).reshape(n * t2, c, h2, w2)
+        if self.plane is None:
+            y = self.conv(frames)
+        else:
+            y = F.conv2d(spatial.halo(frames, self.plane, 1, 1, 1, 1), self.conv.weight,
+                         self.conv.bias)
         return y.reshape(n, t2, c, h2, w2).transpose(1, 2)
 
 
@@ -239,6 +295,8 @@ class UpBlock3D(nn.Module):
 class Encoder3D(nn.Module):
     """(N, 3, T, H, W) -> (N, 2*latent, T', H/8, W/8) moments."""
 
+    plane = None
+
     def __init__(self, latent_channels: int = 16,
                  block_out_channels: Sequence[int] = (128, 256, 256, 512),
                  layers_per_block: int = 3, temporal_compress_level: int = 2,
@@ -264,7 +322,7 @@ class Encoder3D(nn.Module):
             name = f"down_blocks_{i}"
             x, new_cache[name] = block(x, _sub(cache, name))
         x, new_cache["mid_block"] = self.mid_block(x, None, _sub(cache, "mid_block"))
-        x = F.silu(group_norm_f32(self.norm_out, x))
+        x = F.silu(group_norm_f32(self.norm_out, x, self.plane))
         x, new_cache["conv_out"] = self.conv_out(x, _sub(cache, "conv_out"))
         return x, new_cache
 
@@ -303,6 +361,8 @@ class Decoder3D(nn.Module):
 
 
 class AutoencoderKLCogVideoX(nn.Module):
+    plane = None  # set on a spatially sharded twin (parallel/spatial.py)
+
     def __init__(self, latent_channels: int = 16,
                  block_out_channels: Sequence[int] = (128, 256, 256, 512),
                  layers_per_block: int = 3, norm_num_groups: int = 32,
@@ -332,12 +392,21 @@ def _chunked(fn, x: torch.Tensor, first: int, step: int) -> torch.Tensor:
 def vae_encode(vae: AutoencoderKLCogVideoX, video: torch.Tensor) -> torch.Tensor:
     """video (B, T, H, W, 3) -> latent moments (B, T_lat, H/8, W/8, 2C).
 
-    The first chunk takes 4 + (T mod 4) frames, every later chunk 4.
+    The first chunk takes 4 + (T mod 4) frames, every later chunk 4.  On a
+    spatially sharded twin each rank encodes its slab of ``video`` and the
+    moments are gathered over the plane.
     """
     x = video.permute(0, 4, 1, 2, 3)
+    h, w = x.shape[3:]
+    if vae.plane is not None:
+        x = vae.plane.slab(x, spatial.LATENT_SCALE)
     t = x.shape[2]
     first = t if t <= 4 else 4 + t % 4
-    return _chunked(vae.encoder, x, first, 4).permute(0, 2, 3, 4, 1)
+    y = _chunked(vae.encoder, x, first, 4)
+    if vae.plane is not None:
+        scale = spatial.LATENT_SCALE
+        y = vae.plane.gather(y, h // scale, w // scale, 1)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 @torch.no_grad()
@@ -345,11 +414,19 @@ def vae_decode(vae: AutoencoderKLCogVideoX, latents: torch.Tensor) -> torch.Tens
     """latents (B, T_lat, h, w, C) -> video (B, T, 8h, 8w, 3).
 
     The first chunk takes 2 + (T_lat mod 2) latent frames, every later one 2.
+    On a spatially sharded twin each rank decodes its slab of ``latents``
+    and the frames are gathered over the plane.
     """
     z = latents.permute(0, 4, 1, 2, 3)
+    h, w = z.shape[3:]
+    if vae.plane is not None:
+        z = vae.plane.slab(z, 1)
     t = z.shape[2]
     first = t if t <= 2 else 2 + t % 2
-    return _chunked(vae.decoder, z, first, 2).permute(0, 2, 3, 4, 1)
+    y = _chunked(vae.decoder, z, first, 2)
+    if vae.plane is not None:
+        y = vae.plane.gather(y, h, w, spatial.LATENT_SCALE)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 def _blend(a: torch.Tensor, b: torch.Tensor, extent: int, dim: int) -> torch.Tensor:
@@ -384,6 +461,8 @@ def vae_decode_tiled(vae: AutoencoderKLCogVideoX, latents: torch.Tensor,
     are taken in fp32 before blending, as JAX promotes a bf16 tile mixed with
     its fp32 ramp.
     """
+    if vae.plane is not None:
+        raise ValueError("the tiled decode does not run on a spatially sharded VAE")
     b, t, h, w, c = latents.shape
     stride_h = int(tile_latent_height * (1 - overlap_factor_h))
     stride_w = int(tile_latent_width * (1 - overlap_factor_w))
@@ -425,14 +504,25 @@ def decode_memory_bytes(device) -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
-def decode_is_tiled(latent_shape: Sequence[int], memory_bytes: int) -> bool:
+def decode_is_tiled(latent_shape: Sequence[int], memory_bytes: int,
+                    peak_divisor: int = 1) -> bool:
     """Whether ``vae_decode_auto`` decodes latents of ``latent_shape`` (B,
     T_lat, h, w, C) in strips: the one-shot decoder's estimated peak, B x
-    T_px x 8h x 8w x ``_DECODE_PEAK_FACTOR`` bytes, is above 0.60 of
+    T_px x 8h x 8w x ``_DECODE_PEAK_FACTOR`` bytes over ``peak_divisor``
+    (the ranks whose slabs share the activations), is above 0.60 of
     ``memory_bytes``."""
     b, t_lat, h, w = latent_shape[:4]
     est_peak = b * ((t_lat - 1) * 4 + 1) * (8 * h) * (8 * w) * _DECODE_PEAK_FACTOR
-    return est_peak > _DECODE_MEMORY_FRACTION * memory_bytes
+    return est_peak / peak_divisor > _DECODE_MEMORY_FRACTION * memory_bytes
+
+
+def decode_peak_divisor(vae: AutoencoderKLCogVideoX) -> int:
+    """How many ranks share the decode's activations: dp x sp on a
+    spatially sharded twin, 1 otherwise.  The JAX package divides by the
+    whole mesh (``pipelines/trajcrafter.py:556``, ``mesh.size``), which
+    counts the tp ranks too, though they hold the same slab: with tp > 1 it
+    underestimates a rank's peak (``ADVICE.md`` rates it high)."""
+    return 1 if vae.plane is None else vae.plane.size
 
 
 @torch.no_grad()
@@ -442,9 +532,17 @@ def vae_decode_auto(vae: AutoencoderKLCogVideoX, latents: torch.Tensor, memory_b
     would not fit ``memory_bytes``, in full-width strips of ``strip_height``
     latent rows blended over 1/7 of a strip (the JAX ``vae_decode_auto``'s
     rule, chosen before anything runs; the caller passes the memory, e.g.
-    ``decode_memory_bytes(device)``)."""
-    if not decode_is_tiled(latents.shape, memory_bytes):
+    ``decode_memory_bytes(device)``).  On a spatially sharded twin the
+    estimate is a rank's (``decode_peak_divisor``) and the one-shot decode
+    runs on the slabs; strips are not sharded, so a size that would need
+    them raises."""
+    divisor = decode_peak_divisor(vae)
+    if not decode_is_tiled(latents.shape, memory_bytes, divisor):
         return vae_decode(vae, latents)
+    if vae.plane is not None:
+        raise ValueError(f"latents of {tuple(latents.shape)} need the strip decode even on a "
+                         f"1/{divisor} slab of {memory_bytes / 2**30:.1f} GiB: the sharded "
+                         "decode has no strips")
     return vae_decode_tiled(vae, latents, tile_latent_height=strip_height,
                             tile_latent_width=latents.shape[3],
                             overlap_factor_h=1.0 / 7.0, overlap_factor_w=0.0)

@@ -17,6 +17,12 @@ Algorithm (the reference's maths):
 On the card ``index_add_`` adds with float atomics, so sums land in an order
 that changes from run to run: values agree with the JAX package to a
 tolerance, not bit for bit.
+
+Under a mesh (``forward_warp_batch(..., mesh=...)``, the JAX package's
+frames over every mesh axis) the frames are independent: rank r of the
+mesh warps ``shard_sizes(n, ranks)[r]`` contiguous frames, mask cleaning
+included, and the four outputs travel in one ``all_gather`` (``warp`` in
+``distributed.TRANSPORT``), joined in frame order on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from typing import Optional
 import torch
 
 from trajectorycrafter_tpu_torch.ops.morphology import clean_mask
+from trajectorycrafter_tpu_torch.parallel import distributed as D
+from trajectorycrafter_tpu_torch.parallel.sharding import shard_sizes
 
 _BEHIND_EPS = 0.01
 _BEHIND_FILL = 1000.0
@@ -140,13 +148,19 @@ def forward_warp_batch(
     intrinsics1: torch.Tensor,  # (n, 3, 3)
     intrinsics2: Optional[torch.Tensor] = None,  # (n, 3, 3)
     use_mask_clean: bool = False,
+    mesh=None,
 ):
     """Warp every frame of a clip -> (warped (n,h,w,3), mask (n,h,w),
     warped depth (n,h,w), flow (n,h,w,2)).  All inputs on one device, fp32.
     ``use_mask_clean`` (``--mask``): the holes of each frame are dilated and
-    blanked after the splat (ops/morphology.py ``clean_mask``)."""
+    blanked after the splat (ops/morphology.py ``clean_mask``).  ``mesh``
+    (parallel/mesh.py): every rank passes the whole clip, warps its share of
+    the frames and gets every frame's outputs back."""
     if intrinsics2 is None:
         intrinsics2 = intrinsics1
+    if mesh is not None:
+        return _sharded_warp(mesh.world, frames, depths, pose_s, pose_t, intrinsics1,
+                             intrinsics2, use_mask_clean)
     n, h, w = depths.shape
     pts = transform_points(depths, pose_s, pose_t, intrinsics1, intrinsics2)
     coords = pts[..., :2] / pts[..., 2:3]
@@ -161,3 +175,21 @@ def forward_warp_batch(
     if use_mask_clean:
         warped, mask = clean_mask(warped, mask)
     return warped, mask, both[..., 3], flow
+
+
+def _sharded_warp(axis: D.Axis, frames, depths, pose_s, pose_t, intrinsics1, intrinsics2,
+                  use_mask_clean):
+    """This rank's contiguous share of the frames along ``axis``, warped,
+    then every rank's outputs joined in frame order."""
+    n, h, w = depths.shape
+    sizes = shard_sizes(n, axis.size)
+    lo = sum(sizes[:axis.index])
+    mine = slice(lo, lo + sizes[axis.index])
+    if sizes[axis.index]:
+        outs = forward_warp_batch(frames[mine], depths[mine], pose_s[mine], pose_t[mine],
+                                  intrinsics1[mine], intrinsics2[mine], use_mask_clean)
+        packed = torch.cat([outs[0], outs[1][..., None], outs[2][..., None], outs[3]], dim=-1)
+    else:  # more ranks than frames
+        packed = frames.new_zeros((0, h, w, 7))
+    every = D.all_gather(packed, axis, dim=0, sizes=sizes, name="warp")
+    return every[..., :3], every[..., 3], every[..., 4], every[..., 5:]

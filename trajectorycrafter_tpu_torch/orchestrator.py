@@ -17,10 +17,18 @@ gen, viz).  The modes differ in what they warp:
   * ``infer_zoom``: a dolly zoom, the target focal ramped per frame.
 
 Under ``--mesh_dp/--mesh_sp/--mesh_tp`` (ranks started by torchrun, cli.py)
-the denoise is sharded (pipelines/trajcrafter.py ``with_mesh``): every rank
-holds its shard of the DiT; the leader (rank 0) alone holds the other
-models, runs the stages before and after the denoise unsharded and writes
-the mp4s, and the other ranks only denoise.
+the four modes run sharded as the JAX package's: the leader (rank 0) reads
+the frames, captions, estimates depth, makes the poses and encodes the
+prompt, and hands frames, depths and poses to every rank; every rank warps
+its share of the frames (ops/splat.py, frames over every mesh axis) and
+runs the pipeline (pipelines/trajcrafter.py ``with_mesh``): its slab of
+the VAE's condition prep and decode (H on dp, W on sp) and its shard of
+the denoise (the DiT tensor-parallel over tp, its tokens on sp, the CFG
+pair on dp).  Every rank holds the VAE and its DiT shard; the leader also
+the other models.  The leader alone writes the mp4s and returns the
+video; the other ranks return None.  The other entry points
+(autoregressive.py, known_poses.py, consistent_autoregressive.py) are not
+driven under a mesh.
 
 ``build_models`` loads the checkpoints of an HF-layout tree
 (``load_full_bundle``, utils/checkpoints.py) onto the card, or onto the CPU
@@ -36,7 +44,6 @@ prompt embeddings.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import hashlib
 import os
 from dataclasses import dataclass, field
@@ -68,6 +75,7 @@ from trajectorycrafter_tpu_torch.models.vae import AutoencoderKLCogVideoX
 from trajectorycrafter_tpu_torch.ops.int8 import quantize_depth_unet_, quantize_dit_unit_
 from trajectorycrafter_tpu_torch.ops.resize import resize_nearest
 from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
+from trajectorycrafter_tpu_torch.parallel import distributed as D
 from trajectorycrafter_tpu_torch.parallel.sharding import shard_dit_, shard_unit_
 from trajectorycrafter_tpu_torch.pipelines.depth import DepthCrafterDemo, DepthCrafterPipeline
 from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
@@ -286,10 +294,11 @@ def build_dev_models(cfg: TrajCrafterConfig, device="cpu", seed: int = 0) -> Mod
     return _bundle(cfg, pipeline, _plane_depth_infer, encode_prompt)
 
 
-def _denoise_only_bundle(cfg: TrajCrafterConfig, dit, dtype) -> ModelBundle:
-    """The bundle of a mesh rank other than the leader: the DiT (its shard
-    once the pipeline takes the mesh) and the sampler, nothing else."""
-    pipeline = TrajCrafterPipeline(vae=None, transformer=dit, dtype=dtype,
+def _follower_bundle(cfg: TrajCrafterConfig, vae, dit, dtype) -> ModelBundle:
+    """The bundle of a mesh rank other than the leader: the VAE, the DiT
+    (its shard once the pipeline takes the mesh) and the sampler, nothing
+    else."""
+    pipeline = TrajCrafterPipeline(vae=vae, transformer=dit, dtype=dtype,
                                    scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name]())
     return ModelBundle(pipeline=pipeline, depth_infer=None, encode_prompt=None,
                        get_caption=None)
@@ -323,15 +332,16 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
     kernel), as the JAX package's model constructors take it.
 
     Under ``mesh`` each rank builds its shard of the same DiT
-    (``build_dit``), and only the leader the other models."""
+    (``build_dit``) and the same VAE, and only the leader the other
+    models."""
     check_supported(cfg)
     dtype = torch.bfloat16
     dit = build_dit(lambda: full_scale_dit(attention_impl), device, dtype, seed + 1,
                     cfg.diffusion.quant, mesh)
+    vae = random_init_(_on_device(lambda: AutoencoderKLCogVideoX(), device, dtype), seed)
     if mesh is not None and not mesh.leader:
-        return _denoise_only_bundle(cfg, dit, dtype)
-    vae = _on_device(lambda: AutoencoderKLCogVideoX(), device, dtype)
-    pipeline = TrajCrafterPipeline(vae=random_init_(vae, seed), transformer=dit,
+        return _follower_bundle(cfg, vae, dit, dtype)
+    pipeline = TrajCrafterPipeline(vae=vae, transformer=dit,
                                    scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](),
                                    dtype=dtype)
     t5 = random_init_(_on_device(T5EncoderModel, device, dtype), seed + 2)
@@ -354,17 +364,15 @@ def load_full_bundle(cfg: TrajCrafterConfig, device="cuda", mesh=None) -> ModelB
     tokenizer or DepthCrafter raises, unless ``--allow_dev_stubs``: then the
     pseudo prompt embeddings or the plane depth stand in, with a printed
     line.  BLIP-2 captions unless ``--prompt`` is given.  Under ``mesh``
-    every rank loads the DiT and keeps its shard; only the leader loads the
-    other models."""
+    every rank loads the VAE and the DiT, of which it keeps its shard; only
+    the leader loads the other models."""
     stats: dict = {}
     dtype = torch.bfloat16
-    leader = mesh is None or mesh.leader
-    vae = (load_vae(os.path.join(cfg.diffusion.model_name, "vae"), device, dtype, stats)
-           if leader else None)
+    vae = load_vae(os.path.join(cfg.diffusion.model_name, "vae"), device, dtype, stats)
     dit = load_dit(cfg.diffusion.transformer_path, device, dtype, quant=cfg.diffusion.quant,
                    stats=stats)
-    if not leader:
-        return dataclasses.replace(_denoise_only_bundle(cfg, dit, dtype), load_stats=stats)
+    if mesh is not None and not mesh.leader:
+        return dataclasses.replace(_follower_bundle(cfg, vae, dit, dtype), load_stats=stats)
     pipeline = TrajCrafterPipeline(vae=vae, transformer=dit,
                                    scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](),
                                    dtype=dtype)
@@ -453,19 +461,6 @@ def resize_video(video, size) -> np.ndarray:
                      for fr in video])
 
 
-def _leader_prepares(mode: Callable) -> Callable:
-    """A mode that the mesh's leader runs whole; the other ranks only join
-    its denoise (``TrajCrafter._join_denoise``) and return None."""
-
-    @functools.wraps(mode)
-    def run(self, *args, **kwargs):
-        if self.mesh is not None and not self.mesh.leader:
-            return self._join_denoise()
-        return mode(self, *args, **kwargs)
-
-    return run
-
-
 class TrajCrafter:
     def __init__(self, cfg: TrajCrafterConfig, models: Optional[ModelBundle] = None,
                  mesh=None):
@@ -477,11 +472,25 @@ class TrajCrafter:
         self.device = self.models.pipeline.device
         self.timer: StageTimer = self.models.pipeline.timer
 
-    def _join_denoise(self) -> None:
-        """A rank other than the leader: the sampling loop on the leader's
-        arguments, inputs and generator (pipelines/trajcrafter.py), nothing
-        before or after it."""
-        self.models.pipeline(None, None, None, None, None)
+    @property
+    def leader(self) -> bool:
+        """True unless a mesh makes this rank one that does not write."""
+        return self.mesh is None or self.mesh.leader
+
+    def _from_leader(self, *xs):
+        """Under a mesh, the leader's host arrays (numpy, or torch on the
+        host) on every rank, each of the leader's kind; the other ranks pass
+        as many placeholders.  Without a mesh, ``xs``."""
+        if self.mesh is None:
+            return xs
+        world = self.mesh.world
+        kinds = D.broadcast_object([isinstance(x, np.ndarray) for x in xs]
+                                   if self.leader else None, world)
+        got = D.broadcast_tensors([torch.as_tensor(x) for x in xs] if self.leader else None,
+                                  world, self.device)
+        if self.leader:
+            return xs
+        return tuple(g.cpu().numpy() if numpy else g.cpu() for g, numpy in zip(got, kinds))
 
     # -- pose synthesis --------------------------------------------------
     def get_poses(self, depths: np.ndarray, num_frames: int, f_new: Optional[float] = None):
@@ -568,6 +577,10 @@ class TrajCrafter:
         keeps the first ``F - save_skip`` source frames, and viz pairs
         input[k] with gen[save_skip + k], which was generated from source
         frame k.
+
+        Under a mesh every rank runs the pipeline on its own copy of the
+        conditions; the leader alone encodes the prompt and writes the
+        mp4s, and the other ranks return None.
         """
         cfg = self.cfg
         hs, ws = cfg.diffusion.sample_size
@@ -578,17 +591,19 @@ class TrajCrafter:
         cond_masks = np.asarray(cond_masks, np.float32)
         if cond_masks.shape[1:3] != (hs, ws):
             cond_masks = resize_nearest(torch.from_numpy(cond_masks), (hs, ws)).numpy()
-        os.makedirs(cfg.save_dir, exist_ok=True)
-        # the condition mp4s encode on background threads during diffusion
-        saves = VideoSaveQueue()
-        saves.save(frames_s[:f - save_skip], os.path.join(cfg.save_dir, "input.mp4"),
-                   fps=cfg.fps)
-        saves.save(cond_video[save_skip:], os.path.join(cfg.save_dir, "render.mp4"), fps=cfg.fps)
-        saves.save(np.repeat(cond_masks[save_skip:, ..., None], 3, -1),
-                   os.path.join(cfg.save_dir, "mask.mp4"), fps=cfg.fps)
-
-        with self.timer("prompt_encode"):
-            pe, ne = self.models.encode_prompt(prompt, cfg.diffusion.negative_prompt)
+        pe = ne = None
+        if self.leader:
+            os.makedirs(cfg.save_dir, exist_ok=True)
+            # the condition mp4s encode on background threads during diffusion
+            saves = VideoSaveQueue()
+            saves.save(frames_s[:f - save_skip], os.path.join(cfg.save_dir, "input.mp4"),
+                       fps=cfg.fps)
+            saves.save(cond_video[save_skip:], os.path.join(cfg.save_dir, "render.mp4"),
+                       fps=cfg.fps)
+            saves.save(np.repeat(cond_masks[save_skip:, ..., None], 3, -1),
+                       os.path.join(cfg.save_dir, "mask.mp4"), fps=cfg.fps)
+            with self.timer("prompt_encode"):
+                pe, ne = self.models.encode_prompt(prompt, cfg.diffusion.negative_prompt)
         ref = torch.from_numpy(frames_s[ref_slice][None]).to(device)
         mask_video = torch.from_numpy((1.0 - cond_masks)[None, ..., None] * 255.0).to(device)
         sample = self.models.pipeline(
@@ -600,6 +615,8 @@ class TrajCrafter:
             latents=self._initial_latents(f),
             noise_aug_strength=cfg.diffusion.noise_aug_strength,
         )
+        if not self.leader:
+            return None
         with self.timer("write_mp4"):
             # fetch as uint8: the mp4 stores 8 bits anyway
             gen = torch.round(sample[0].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
@@ -616,24 +633,37 @@ class TrajCrafter:
 
     # -- the modes -----------------------------------------------------------
     def _frames_prompt_depths(self):
-        """The stages every mode opens with: frames, caption, depth."""
+        """The stages every mode opens with: frames, caption, depth, on the
+        leader; under a mesh the frames and depths are handed to every rank
+        (the prompt stays the leader's: None elsewhere)."""
         cfg = self.cfg
-        with self.timer("read_frames"):
-            frames = self._load_frames()
-        with self.timer("caption"):
-            prompt = self.models.get_caption(frames[cfg.video_length // 2]) + \
-                cfg.diffusion.refine_prompt
-        with self.timer("depth"):
-            depths = self._estimate_depth(frames)
+        frames = prompt = depths = None
+        if self.leader:
+            with self.timer("read_frames"):
+                frames = self._load_frames()
+            with self.timer("caption"):
+                prompt = self.models.get_caption(frames[cfg.video_length // 2]) + \
+                    cfg.diffusion.refine_prompt
+            with self.timer("depth"):
+                depths = self._estimate_depth(frames)
+        if self.mesh is not None:
+            with self.timer("handoff"):
+                frames, depths = self._from_leader(frames, depths)
         return frames, prompt, depths
 
+    def _poses(self, depths: np.ndarray, num_frames: int, f_new: Optional[float] = None):
+        """``get_poses`` on the leader, handed to every rank of a mesh."""
+        poses = self.get_poses(depths, num_frames, f_new) if self.leader else (None,) * 3
+        return self._from_leader(*poses)
+
     def _warp(self, frames_pm1, depths, pose_s, pose_t, K1, K2=None):
-        """Splat on the device, fetch the conditions at sample_size (host
-        arrays) -> (cond_video, cond_masks)."""
+        """Splat on the device (under a mesh each rank its share of the
+        frames, every frame's outputs back on every rank), fetch the
+        conditions at sample_size (host arrays) -> (cond_video, cond_masks)."""
         to_dev = lambda x: None if x is None else x.to(self.device)
         warped, masks, _, _ = forward_warp_batch(
             frames_pm1, depths, to_dev(pose_s), to_dev(pose_t), to_dev(K1), to_dev(K2),
-            use_mask_clean=self.cfg.render.mask)
+            use_mask_clean=self.cfg.render.mask, mesh=self.mesh)
         return self._fetch_cond(warped, masks)
 
     def _device_depths(self, depths: np.ndarray) -> torch.Tensor:
@@ -643,19 +673,17 @@ class TrajCrafter:
         """A host array to the device as fp32."""
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
 
-    @_leader_prepares
     def infer_gradual(self):
         cfg = self.cfg
         frames, prompt, depths = self._frames_prompt_depths()
         with self.timer("poses"):
-            pose_s, pose_t, K = self.get_poses(depths, cfg.video_length)
+            pose_s, pose_t, K = self._poses(depths, cfg.video_length)
         with self.timer("warp"):
             cond_s, masks_s = self._warp(self._device_frames_pm1(frames),
                                          self._device_depths(depths), pose_s, pose_t, K)
         return self._diffuse_and_save(frames, cond_s, masks_s, prompt,
                                       ref_slice=slice(0, cfg.diffusion.ref_frames))
 
-    @_leader_prepares
     def infer_direct(self, cut: int = 20):
         """The camera flies in over ``cut`` frames (clamped to [1, F // 2])
         on the frozen first frame, then follows the source delayed by
@@ -665,7 +693,7 @@ class TrajCrafter:
         cut = max(1, min(cut, n // 2))
         frames, prompt, depths = self._frames_prompt_depths()
         with self.timer("poses"):
-            pose_s, pose_t, K = self.get_poses(depths, cut)
+            pose_s, pose_t, K = self._poses(depths, cut)
             # freeze-then-follow schedule of source and target frames
             src_idx = torch.tensor([0 if i < cut else i - cut for i in range(n)])
             tgt_idx = torch.tensor([i if i < cut else cut - 1 for i in range(n)])
@@ -679,14 +707,13 @@ class TrajCrafter:
                                       ref_slice=slice(0, cfg.diffusion.ref_frames),
                                       save_skip=cut)
 
-    @_leader_prepares
     def infer_bullet(self):
         """The last frame, frozen, seen from every camera of the orbit."""
         cfg = self.cfg
         n = cfg.video_length
         frames, prompt, depths = self._frames_prompt_depths()
         with self.timer("poses"):
-            pose_s, pose_t, K = self.get_poses(depths, n)
+            pose_s, pose_t, K = self._poses(depths, n)
         with self.timer("warp"):
             cond_s, masks_s = self._warp(
                 self._device_frames_pm1(frames[-1:]).repeat(n, 1, 1, 1),
@@ -695,7 +722,6 @@ class TrajCrafter:
         return self._diffuse_and_save(frames, cond_s, masks_s, prompt,
                                       ref_slice=slice(-cfg.diffusion.ref_frames, None))
 
-    @_leader_prepares
     def infer_zoom(self, f_new: float = 250.0):
         """A dolly zoom: the source intrinsics stay at frame 0's, the target
         focal ramps from ``--focal`` to ``f_new``."""
@@ -703,7 +729,7 @@ class TrajCrafter:
         n = cfg.video_length
         frames, prompt, depths = self._frames_prompt_depths()
         with self.timer("poses"):
-            pose_s, pose_t, K = self.get_poses(depths, n, f_new=f_new)
+            pose_s, pose_t, K = self._poses(depths, n, f_new=f_new)
         with self.timer("warp"):
             cond_s, masks_s = self._warp(self._device_frames_pm1(frames),
                                          self._device_depths(depths), pose_s, pose_t,

@@ -25,7 +25,9 @@ table lists ``all_reduce`` and ``broadcast``; tools/gloo_cuda_probe.py on
 an H100 (torch 2.11) found ``all_gather`` running too, and send / recv
 ending the process, so the ring's hops are staged.  ``TRANSPORT`` counts
 the calls and bytes of each operation by the transport that ran it
-(``direct`` or ``staged``).
+(``direct`` or ``staged``); a caller may file a collective under a name of
+its own (parallel/spatial.py: ``halo``, ``norm``, ``slabs``; ops/splat.py:
+``warp``).
 """
 
 from __future__ import annotations
@@ -148,24 +150,27 @@ def _host(x: torch.Tensor) -> torch.Tensor:
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:
+def all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum",
+               name: str = "all_reduce") -> torch.Tensor:
     """``op`` ("sum" or "max") of ``x`` over ``axis``; reduces a dense
-    ``x`` in place and returns the result."""
+    ``x`` in place and returns the result.  ``name``: the operation's
+    name in ``TRANSPORT``."""
     if axis.size == 1:
         return x
     staged = _staged(x, "all_reduce")
     buf = _host(x) if staged else x.contiguous()
     dist.all_reduce(buf, _OPS[op], group=axis.group)
-    _record("all_reduce", staged, buf.numel() * buf.element_size())
+    _record(name, staged, buf.numel() * buf.element_size())
     return buf.to(x.device) if staged else buf
 
 
 def all_gather(x: torch.Tensor, axis: Axis, dim: int = 0,
-               sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+               sizes: Optional[Sequence[int]] = None, name: str = "all_gather") -> torch.Tensor:
     """The pieces of every rank along ``axis`` joined along ``dim``, in
     coordinate order.  ``sizes`` gives each rank's extent along ``dim``
     where they differ: each piece is zero-padded to the largest for the
-    transfer and cut back after."""
+    transfer and cut back after.  ``name``: the operation's name in
+    ``TRANSPORT``."""
     if axis.size == 1:
         return x
     sizes = list(sizes) if sizes is not None else [x.shape[dim]] * axis.size
@@ -177,7 +182,7 @@ def all_gather(x: torch.Tensor, axis: Axis, dim: int = 0,
     buf = _host(x) if staged else x.contiguous()
     pieces = [torch.empty_like(buf) for _ in range(axis.size)]
     dist.all_gather(pieces, buf, group=axis.group)
-    _record("all_gather", staged, buf.numel() * buf.element_size())
+    _record(name, staged, buf.numel() * buf.element_size())
     out = torch.cat([p.narrow(dim, 0, n) for p, n in zip(pieces, sizes)], dim=dim)
     return out.to(x.device) if staged else out
 

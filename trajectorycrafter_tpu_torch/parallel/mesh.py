@@ -11,7 +11,10 @@ Counterpart of trajectorycrafter_tpu/parallel/mesh.py ``make_mesh``.  Axes:
 
 Ranks take coordinates in JAX's row-major ``reshape(dp, sp, tp, pp)`` order
 of its devices: rank r of the process group sits where device r sits in the
-JAX mesh.  Each axis has one process group per line of ranks along it.
+JAX mesh.  Each axis has one process group per line of ranks along it, and
+so has the dp x sp ``plane`` (the ranks of one tp coordinate, dp-major),
+over which the CogVideoX VAE's GroupNorm statistics are reduced
+(parallel/spatial.py).
 ``make_mesh`` raises and warns where JAX's does: a mesh larger than the
 world raises, a smaller one warns and leaves the other ranks idle.
 """
@@ -80,6 +83,12 @@ class Mesh:
         return self.axes["tp"]
 
     @property
+    def plane(self) -> Axis:
+        """The dp x sp ranks at this rank's tp coordinate, as one axis
+        (index dp * sp_size + sp)."""
+        return self.axes["plane"]
+
+    @property
     def world(self) -> Axis:
         """Every rank of the mesh, as one axis (the default process group)."""
         return self.axes["world"]
@@ -107,6 +116,12 @@ def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, pp: int = 1, device=None) -
                 mine = Axis(name, len(line), int(np.flatnonzero(line == rank)[0]),
                             tuple(int(r) for r in line), group)
         axes[name] = mine
+    axes["plane"] = None
+    for line in np.moveaxis(ranks, (0, 1), (-2, -1)).reshape(-1, ranks.shape[0] * ranks.shape[1]):
+        group = dist.new_group([int(r) for r in line]) if len(line) > 1 else None
+        if rank in line:
+            axes["plane"] = Axis("plane", len(line), int(np.flatnonzero(line == rank)[0]),
+                                 tuple(int(r) for r in line), group)
     members = tuple(range(ranks.size))
     group = dist.group.WORLD if ranks.size == world else dist.new_group(list(members))
     axes["world"] = Axis("world", ranks.size, rank, members, group) if len(here) else None

@@ -21,13 +21,19 @@ Inputs are channel-last tensors on the pipeline's device: video
 (B, F, H, W, 3) in [0, 1], mask_video (B, F, H, W, 1) in [0, 255] where 255
 marks holes, reference (B, F_ref, H, W, 3) in [0, 1].
 
-``with_mesh`` (JAX ``with_mesh``) shards the denoise over a dp x sp x tp
+``with_mesh`` (JAX ``with_mesh``) shards the pipeline over a dp x sp x tp
 mesh (parallel/mesh.py): the DiT tensor-parallel, its tokens on sp with the
-joint self-attention on the ring, the CFG pair on dp.  The mesh's leader
-(rank 0) alone runs the condition prep, the initial draw and the decode;
-it hands its sampling arguments, the denoise inputs and its generator's
-state to every rank, so that every rank runs the same sampling loop on
-bit-equal latents; the other ranks pass nothing and return None.
+joint self-attention on the ring, the CFG pair on dp; the CogVideoX VAE
+spatially, H on dp and W on sp (a twin of the VAE sharing its weights,
+parallel/spatial.py), the same slab on every tp rank.  Every rank passes
+the conditioning video, mask and reference; the leader (rank 0) alone
+passes the prompt embeddings and the sampling arguments, and hands them and
+its generator's state to every rank before anything is drawn, so that
+every rank draws the same noise: the condition prep and the decode run on
+every rank, each on its slab, the latents gathered over the plane; every
+rank runs the same sampling loop on bit-equal latents.  The img2img encode
+(strength < 1) runs unsharded on the leader, as the JAX package's.  The
+leader returns the result, the other ranks None.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from trajectorycrafter_tpu_torch.models.vae import (
 from trajectorycrafter_tpu_torch.ops.rope import rope_for_sample
 from trajectorycrafter_tpu_torch.parallel import distributed as D
 from trajectorycrafter_tpu_torch.parallel.sharding import shard_dit_
+from trajectorycrafter_tpu_torch.parallel.spatial import Plane, shard_spatially
 from trajectorycrafter_tpu_torch.schedulers import (
     DPMSolverMultistepScheduler,
     EulerAncestralDiscreteScheduler,
@@ -58,6 +65,12 @@ from trajectorycrafter_tpu_torch.schedulers import (
     Scheduler,
 )
 from trajectorycrafter_tpu_torch.utils.timing import StageTimer
+
+# the ``__call__`` arguments every rank of a mesh takes from the leader
+_LEADER_VALUES = ("num_inference_steps", "guidance_scale", "use_dynamic_cfg", "strength",
+                  "noise_aug_strength", "output_type")
+_LEADER_TENSORS = ("prompt_embeds", "negative_prompt_embeds", "latents",
+                   "ancestral_noise_override")
 
 
 def resize_mask_latent(mask: torch.Tensor, latent_shape: Tuple[int, int, int]) -> torch.Tensor:
@@ -83,6 +96,7 @@ class TrajCrafterPipeline:
     dtype: torch.dtype = torch.bfloat16
     timer: Optional[StageTimer] = None  # shared with the orchestrator's stages
     mesh: object = None  # parallel/mesh.py Mesh, set by with_mesh
+    spatial_vae: Optional[AutoencoderKLCogVideoX] = None  # the VAE's sharded twin, ditto
 
     def __post_init__(self):
         if self.timer is None:
@@ -98,16 +112,28 @@ class TrajCrafterPipeline:
 
     @property
     def leader(self) -> bool:
-        """True unless a mesh makes this rank one that only denoises."""
+        """True unless a mesh makes this rank one that does not return the
+        result."""
         return self.mesh is None or self.mesh.leader
+
+    @property
+    def _cond_vae(self) -> AutoencoderKLCogVideoX:
+        """The VAE of the condition prep and the decode: the sharded twin
+        under a mesh."""
+        return self.vae if self.mesh is None else self.spatial_vae
 
     def with_mesh(self, mesh) -> "TrajCrafterPipeline":
         """Shard the pipeline over ``mesh`` (dp x sp x tp), in place: the DiT
         tensor-parallel (parallel/sharding.py rules), its activations over
-        dp and sp, its joint self-attention on the ring when sp > 1.  The
+        dp and sp, its joint self-attention on the ring when sp > 1; the
+        VAE's condition prep and decode H on dp, W on sp (``spatial_vae``,
+        a twin sharing the VAE's weights, which every rank holds).  The
         JAX package returns a sharded copy; here the DiT is replaced by its
         shard, so nothing holds the whole DiT beside it."""
+        if self.vae is None:
+            raise ValueError("a sharded pipeline needs the VAE on every rank")
         shard_dit_(self.transformer, mesh)
+        self.spatial_vae = shard_spatially(self.vae, Plane.of(mesh))
         self.mesh = mesh
         return self
 
@@ -126,6 +152,9 @@ class TrajCrafterPipeline:
 
         ``noise_override=(ref_noise, aug_noise)`` (channel-last) replaces the
         two gaussian draws; a 3-tuple (ref, video, aug) is also accepted.
+        Under a mesh every rank draws the whole noise from the same
+        generator state and encodes its slab (the moments gathered over
+        the plane); the latent mask is computed whole.
         """
         lc = self.vae.latent_channels
         sf = self.vae.scaling_factor
@@ -142,7 +171,7 @@ class TrajCrafterPipeline:
 
         # reference branch: VAE-encode the first frames, posterior sample
         ref = reference.float() * 2.0 - 1.0
-        ref_moments = vae_encode(self.vae, ref.to(self._vae_dtype))
+        ref_moments = vae_encode(self._cond_vae, ref.to(self._vae_dtype))
         ref_latents = sample_posterior(ref_moments.float(), lc, noise=ref_noise) * sf
 
         # inpaint branch; the mask binarises at 0.5 on its raw [0, 255] scale
@@ -153,7 +182,7 @@ class TrajCrafterPipeline:
             noise = aug_noise * noise_aug_strength
             noise = torch.where(masked_video == -1.0, torch.zeros_like(noise), noise)
             masked_video = masked_video + noise
-        mv_moments = vae_encode(self.vae, masked_video.to(self._vae_dtype))
+        mv_moments = vae_encode(self._cond_vae, masked_video.to(self._vae_dtype))
         masked_video_latents = posterior_mode(mv_moments.float(), lc) * sf
 
         # latent-size mask: 1 - mask01 (known = 1)
@@ -161,7 +190,13 @@ class TrajCrafterPipeline:
                                           (f_lat, h_lat, w_lat))
         mask_latents = mask_latents.permute(0, 2, 3, 4, 1) * sf
         inpaint_latents = torch.cat([mask_latents, masked_video_latents], dim=-1)
-        return inpaint_latents.to(self.dtype), ref_latents.to(self.dtype)
+        inpaint_latents, ref_latents = inpaint_latents.to(self.dtype), ref_latents.to(self.dtype)
+        if self.mesh is not None:
+            # the tp ranks encoded the same slabs: tp coordinate 0's bits on
+            # all of them, so that every rank denoises bit-equal inputs
+            inpaint_latents = D.broadcast(inpaint_latents, self.mesh.tp)
+            ref_latents = D.broadcast(ref_latents, self.mesh.tp)
+        return inpaint_latents, ref_latents
 
     # ------------------------------------------------------------------
     def _model_call(self, state, latents, i, text, inpaint_in, ref_in, rope,
@@ -215,8 +250,8 @@ class TrajCrafterPipeline:
 
     def _prepare(self, state, t_start, video, mask_video, reference, generator, latents,
                  noise_aug_strength, noise_override):
-        """The leader's part before the denoise: the conditions and the
-        initial latents -> [latents (fp32), inpaint_latents, ref_latents]."""
+        """The conditions and the initial latents -> [latents (fp32),
+        inpaint_latents, ref_latents], the same on every rank of a mesh."""
         b, f, h, w, _ = video.shape
         f_lat = (f - 1) // self.vae_scale_factor_temporal + 1
         h_lat = h // self.vae_scale_factor_spatial
@@ -243,12 +278,42 @@ class TrajCrafterPipeline:
                 vid_noise = noise_override[1].to(device, torch.float32)
             else:
                 vid_noise = torch.randn(latents.shape, generator=generator, device=device)
-            moments = vae_encode(self.vae, (video.float() * 2.0 - 1.0).to(self._vae_dtype))
-            video_latents = sample_posterior(moments.float(), self.vae.latent_channels,
-                                             noise=vid_noise) * self.vae.scaling_factor
-        latents = self.scheduler.add_noise(state, video_latents.float(), latents,
-                                           state.timesteps[t_start])
+            if self.leader:  # unsharded, as the JAX package's img2img encode
+                moments = vae_encode(self.vae, (video.float() * 2.0 - 1.0).to(self._vae_dtype))
+                video_latents = sample_posterior(moments.float(), self.vae.latent_channels,
+                                                 noise=vid_noise) * self.vae.scaling_factor
+                latents = self.scheduler.add_noise(state, video_latents.float(), latents,
+                                                   state.timesteps[t_start])
+            if self.mesh is not None:
+                latents = D.broadcast(latents, self.mesh.world)
         return [latents, inpaint_latents, ref_latents]
+
+    def _leader_arguments(self, args: dict) -> dict:
+        """Under a mesh: ``args`` (``__call__``'s, in their order) with the
+        leader's sampling values, tensors, noise overrides and generator on
+        every rank; the
+        generator's state is taken before anything is drawn, so every rank
+        draws what the leader draws.  The conditioning videos stay each
+        rank's own."""
+        world, gen = self.mesh.world, args["generator"]
+        overrides = list(args["noise_override"] or ())
+        values = D.broadcast_object(
+            {**{k: args[k] for k in _LEADER_VALUES}, "overrides": len(overrides),
+             "generator": None if gen is None else (gen.device.type, gen.get_state())}
+            if self.leader else None, world)
+        tensors = D.broadcast_tensors(
+            [args[k] for k in _LEADER_TENSORS] + overrides if self.leader else None, world,
+            self.device)
+        out = dict(args, **{k: values[k] for k in _LEADER_VALUES})
+        out.update(zip(_LEADER_TENSORS, tensors))
+        out["noise_override"] = tuple(tensors[len(_LEADER_TENSORS):]) or None
+        if not self.leader:
+            out["generator"] = None
+            if values["generator"] is not None:
+                kind, gen_state = values["generator"]
+                out["generator"] = torch.Generator(device=self.device if kind == "cuda" else "cpu")
+                out["generator"].set_state(gen_state)
+        return out
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -279,42 +344,33 @@ class TrajCrafterPipeline:
         the initial noise draw.  PNDM does not take ``strength`` < 1 (its
         warm-up cannot skip steps).
         """
-        state = inputs = t_start = None
-        if self.leader:
-            state = self.scheduler.set_timesteps(num_inference_steps)
-            init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
-            if init_timestep == 0:
-                raise ValueError(
-                    f"strength={strength} truncates every denoise step "
-                    f"(int({num_inference_steps} * {strength}) == 0); raise "
-                    "strength or num_inference_steps")
-            t_start = num_inference_steps - init_timestep
-            inputs = self._prepare(state, t_start, video, mask_video, reference, generator,
-                                   latents, noise_aug_strength, noise_override)
-            inputs += [prompt_embeds, negative_prompt_embeds, ancestral_noise_override]
+        if self.mesh is not None:
+            args = self._leader_arguments(dict(
+                prompt_embeds=prompt_embeds, negative_prompt_embeds=negative_prompt_embeds,
+                num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                use_dynamic_cfg=use_dynamic_cfg, generator=generator, latents=latents,
+                strength=strength, noise_aug_strength=noise_aug_strength,
+                output_type=output_type, noise_override=noise_override,
+                ancestral_noise_override=ancestral_noise_override))
+            (prompt_embeds, negative_prompt_embeds, num_inference_steps, guidance_scale,
+             use_dynamic_cfg, generator, latents, strength, noise_aug_strength, output_type,
+             noise_override, ancestral_noise_override) = args.values()
+            if video is None or mask_video is None or reference is None:
+                raise ValueError("under a mesh every rank passes the conditioning video, mask "
+                                 "and reference: each encodes its slab of them")
+        state = self.scheduler.set_timesteps(num_inference_steps)
+        init_timestep = min(int(num_inference_steps * strength), num_inference_steps)
+        if init_timestep == 0:
+            raise ValueError(
+                f"strength={strength} truncates every denoise step "
+                f"(int({num_inference_steps} * {strength}) == 0); raise "
+                "strength or num_inference_steps")
+        t_start = num_inference_steps - init_timestep
+        latents, inpaint_latents, ref_latents = self._prepare(
+            state, t_start, video, mask_video, reference, generator, latents,
+            noise_aug_strength, noise_override)
         # the conditioning videos are consumed: free them before the denoise
         video = mask_video = reference = None
-        if self.mesh is not None:
-            # every rank runs the leader's loop: its arguments, inputs and draws
-            sampling = D.broadcast_object(
-                dict(steps=num_inference_steps, t_start=t_start, guidance_scale=guidance_scale,
-                     use_dynamic_cfg=use_dynamic_cfg,
-                     generator=None if generator is None else
-                     (generator.device.type, generator.get_state()))
-                if self.leader else None, self.mesh.world)
-            if not self.leader:
-                num_inference_steps, t_start = sampling["steps"], sampling["t_start"]
-                guidance_scale = sampling["guidance_scale"]
-                use_dynamic_cfg = sampling["use_dynamic_cfg"]
-                state = self.scheduler.set_timesteps(num_inference_steps)
-                generator = None
-                if sampling["generator"] is not None:
-                    kind, gen_state = sampling["generator"]
-                    generator = torch.Generator(device=self.device if kind == "cuda" else "cpu")
-                    generator.set_state(gen_state)
-            inputs = D.broadcast_tensors(inputs, self.mesh.world, self.device)
-        (latents, inpaint_latents, ref_latents, prompt_embeds, negative_prompt_embeds,
-         ancestral_noise_override) = inputs
         device = self.device
         f_lat, h_lat, w_lat = latents.shape[1:4]
 
@@ -341,12 +397,18 @@ class TrajCrafterPipeline:
                                     num_inference_steps, t_start, guidance_scale, do_cfg,
                                     use_dynamic_cfg, generator, ancestral_noise_override)
 
-        if not self.leader:
-            return None
         if output_type == "latent":
-            return latents
+            return latents if self.leader else None
         with self.timer("vae_decode"):
-            z = latents / self.vae.scaling_factor
-            frames = vae_decode_auto(self.vae, z.to(self._vae_dtype),
-                                     decode_memory_bytes(z.device)).float()
-            return (frames / 2.0 + 0.5).clamp(0.0, 1.0)
+            video = self.decode(latents)
+        return video if self.leader else None
+
+    @torch.no_grad()
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """Final latents (B, F', h, w, C) -> video (B, F, H, W, 3) in [0, 1]
+        (the JAX ``_decode_jit``).  Under a mesh every rank decodes its slab
+        and every rank of its plane gets the whole video."""
+        z = latents / self.vae.scaling_factor
+        frames = vae_decode_auto(self._cond_vae, z.to(self._vae_dtype),
+                                 decode_memory_bytes(z.device))
+        return (frames.float() / 2.0 + 0.5).clamp(0.0, 1.0)
