@@ -18,7 +18,10 @@ prints no result line):
      the bf16 ``F.linear`` they replace, timed at full shape, in turns (K1
      at the DiT's, the Perceiver's and the depth UNet's two shapes, and whole
      at run R's 576x1024 shapes: (2, 48, 30,178^2, 64) and (2, 16, 29,952 x
-     6,912, 128); K2a and K2b also at run R's 60,356 rows and at run S's
+     6,912, 128), and K4 at run S's per-rank shapes, a rank's query rows
+     against the whole frame's keys (``run_s_depth_shapes``: (9, 5, 5,120 /
+     4,096 x 9,216, 64) and (9, 10, 1,280 / 1,024 x 2,304, 64)); K2a and
+     K2b also at run R's 60,356 rows and at run S's
      tensor-parallel shard shapes, and K2a's scale-taking entry at run S's
      row-parallel inputs, bit-equal to the codes of the whole row); each
      kernel's bound (the least time the card could take for the same work)
@@ -113,8 +116,8 @@ prints no result line):
      seconds per window and the trainer stage's seconds per epoch and peak
      memory logged;
   5e. run P, LoRA training (after phases 6 and 7, on the bundle's bf16
-     DiT): a SceneFlow-layout tree of 3 scenes x 49 frames at 960x540
-     (PNG, .pfm disparities, camera_data.txt) turned into 3 .npz samples
+     DiT): a SceneFlow-layout tree of 2 scenes x 49 frames at 960x540
+     (PNG, .pfm disparities, camera_data.txt) turned into 2 .npz samples
      at 384x672 by ``datagen.generate_dataset`` (the bundle's VAE, the
      T5-XXL prompt embedding); 3 training steps of the full-width DiT (42
      blocks, B = 1, 13,330 joint tokens) with rank-8 adapters on its 316
@@ -126,10 +129,10 @@ prints no result line):
      cut to 4 blocks (``GRAD_MEDIAN_TOL``, ``GRAD_MAX_TOL``);
   5f. run Q, DiT feature probing (after 5e, on the same bf16 DiT with the
      JAX default route ``auto``, no recomputation): ``probing.
-     collect_activation_dataset`` over run P's 3 samples at timesteps 311
+     collect_activation_dataset`` over run P's 2 samples at timesteps 311
      and 811 and blocks 1 and 3 with the camera-motion filter on (the
-     samples carry no poses: all kept), 6 forwards at B = 1 with K1 launched
-     as derived from the modules (63 a forward), 12 finite (13,104, 3,072)
+     samples carry no poses: all kept), 4 forwards at B = 1 with K1 launched
+     as derived from the modules (63 a forward), 8 finite (13,104, 3,072)
      feature files; a ConvProbe per (timestep, block) for 50 steps on the
      card, its loss falling; block 1's features of one sample on the kernels
      against the plain versions (``PROBE_REL_L2``, ``PROBE_MAX_REL``); the
@@ -196,6 +199,14 @@ prints no result line):
      the whole tensor and on the seam band (``RUN_S_VAE_REL_TOL``), under
      the run's mesh and under ``RUN_S_VAE_MESH``, and on the VAE's check
      weights each of ``RUN_S_VAE_FAULTS`` at least
+     ``RUN_S_VAE_FAULT_RATIO`` times the sound reading on the band; every
+     rank's share of the depth stage (CLIP and the SVD encode on its whole
+     frames, the UNet on its frames and latent rows, K4 at its query rows,
+     the decode's whole chunks; launches per rank derived from the sharded
+     modules, the models' bits equal on every rank), its raw disparity and
+     first UNet forward against the unsharded stage's under the run's mesh
+     and under ``RUN_S_VAE_MESH`` (``RUN_S_DEPTH_REL_TOL``), and in fp32 on
+     check weights each of ``RUN_S_DEPTH_FAULTS`` at least
      ``RUN_S_VAE_FAULT_RATIO`` times the sound reading on the band; the
      video against run A9's at the quality CLI's 35 dB gate; seconds and
      peaks per rank logged (not a speed figure: four ranks share one card
@@ -375,9 +386,10 @@ TRAIN_PERCEIVER_SHAPE = (1, 16, 13104, 3024, 128)
 # tensor-parallel shard of the DiT (24 heads, 6,144 of the feed-forward)
 # and half of the joint tokens (at 49 frames 6,665 of 13,330: the leader's
 # 226 text and 6,439 video tokens, the other's 6,665 video tokens) and the
-# VAE; every rank warps its share of the frames and runs its slab of the
-# VAE (below); the leader alone holds the other models and runs depth,
-# poses and the prompt encode.  The checks: the first sharded DiT forward of the denoise
+# VAE and the depth stage's models; every rank runs its share of the depth
+# stage, warps its share of the frames and runs its slab of the VAE (below);
+# the leader alone holds T5 and runs the poses and the prompt encode.  The
+# checks: the first sharded DiT forward of the denoise
 # against the unsharded int8 DiT (run A's weights, rebuilt in the main
 # process) on the same inputs, by relative L2 error (RUN_S_REL_L2) and by
 # the largest row error (one position's 16 channels) over the largest
@@ -409,19 +421,15 @@ RUN_S_REL_L2 = 2.0 ** -5
 # check weights at the joint attention output of RUN_S_CHECK_BLOCKS,
 # gathered over the mesh.  Its output is reported, not held: on these
 # weights a sound run's bf16 and int8 rounding compounds over the 42 blocks
-# to ~3.5e-2 relative L2 at the output (NVIDIA H100 80GB HBM3), about what
-# the own-row-max run below reads, so the output does not part sound from
-# wrong there.  A ring that drops its
+# to ~3.5e-2 relative L2 at the output (NVIDIA H100 80GB HBM3), so the
+# output does not part sound from wrong there.  A ring that drops its
 # visiting shard (sp 2: its one hop) and a tp sum that drops the last
 # rank's partial are wrong and must fail the limits at an attention output.
-# A row-parallel layer that quantizes with its own rows' max |x| is not
-# wrong in value (each rank's codes are finer and its epilogue takes its
-# own scale), only not the JAX package's codes: phase 3 holds K2a's
-# scale-taking entry bit-equal to the whole row's codes, and this reading
-# shows what the forward check makes of it.
+# (Row-parallel layers that quantize with their own rows' max |x| are not
+# wrong in value and are not rerun here: phase 3 holds K2a's scale-taking
+# entry bit-equal to the whole row's codes.)
 RUN_S_FAULTS = (("ring drops its visiting shard", True),
-                ("tp sum drops the last rank's partial", True),
-                ("row-parallel layers quantize with their own row max", False))
+                ("tp sum drops the last rank's partial", True))
 RUN_S_CHECK_BLOCKS = (0, DIT_LAYERS - 1)
 RUN_S_TIMEOUT = 900
 # the per-rank shapes of run S's kernels: K5 over a rank's 6,665 joint tokens
@@ -469,12 +477,65 @@ RUN_S_VAE_FAULTS = ("zero halo", "local norm")
 RUN_S_VAE_FAULT_RATIO = 10.0
 RUN_S_WARP_MASK_MAX = 0.005
 RUN_S_WARP_OFF_MAX = 0.03
+# Run S's sharded depth stage: every rank runs its share (parallel/frames.py):
+# CLIP and the SVD encode on its whole frames of the clip (``frames.deal``
+# over the 4 ranks, the leader fewest), the UNet's window on its slab --
+# frames on dp, latent rows on sp in whole blocks of 8, at 72 x 128 latents
+# 40 / 32 rows, the same slab on both tp ranks -- and the decode's whole
+# chunks; every rank gets the whole depth.  K4 runs at
+# ``run_s_depth_shapes()``: a rank's query rows against the whole frame's
+# keys.  Its launches per rank are derived from the sharded twin's modules
+# (``_depth_kernel_attentions``); the depth models' bits are the same on
+# every rank (a checksum over the ranks).  After the run, on the run's
+# frames and seed: the depth stage again under RUN_S_VAE_MESH (frames 5 / 4
+# over dp) and, on the leader, unsharded; each mesh's raw disparity and
+# first UNet forward against the unsharded ones by relative L2 over the
+# whole tensor and on the seam band (latent rows within
+# RUN_S_DEPTH_BAND_ROWS of a row seam, 8x as many pixel rows for the
+# disparity; frames within RUN_S_DEPTH_BAND_FRAMES of a frame seam), within
+# RUN_S_DEPTH_REL_TOL.  The check of the check, under RUN_S_VAE_MESH, in
+# fp32 without TF32 (bf16 roundings on random weights compound off the
+# seams as on them and can hide a fault, as the VAE's check above says): a
+# UNet cut to one layer a block at the deployed widths
+# (RUN_S_DEPTH_CHECK_UNET, the plain attention), seeded and set to the
+# check weights, on the run's first UNet input cropped to
+# RUN_S_DEPTH_CHECK_CROP latent rows x columns (three row blocks: 16 / 8
+# over sp), sound and with each of RUN_S_DEPTH_FAULTS planted in every rank:
+# each fault at least RUN_S_VAE_FAULT_RATIO times the sound reading on the
+# band.
+RUN_S_DEPTH_REL_TOL = 1e-2
+RUN_S_DEPTH_BAND_ROWS, RUN_S_DEPTH_BAND_FRAMES = 2, 1
+RUN_S_DEPTH_CHECK_UNET = dict(layers_per_block=1, attention_impl="reference")
+RUN_S_DEPTH_CHECK_CROP = (24, 64)
+RUN_S_DEPTH_FAULTS = ("zero row halo", "zero frame halo", "local norm", "local frame ids",
+                      "K/V ungathered")
+DEPTH_LATENTS = (72, 128)  # the depth stage's latents at 576x1024
 
 # Data-sheet rates of an H100 SXM (dense): bf16 989 TFLOP/s, int8 1,979
 # TOP/s, 3.35 TB/s of device memory; the SFU's 16 exp2 per clock per SM x
 # 132 SMs at the card's maximum SM clock (nvidia-smi clocks.max.sm).
 BF16_OPS, INT8_OPS, MEM_BYTES = 989e12, 1979e12, 3.35e12
 SFU_EXP_PER_CLOCK = 16 * 132
+
+
+def run_s_depth_shapes() -> dict:
+    """K4's per-rank shapes in run S (B = frames, H, Sq, Skv, D): at the two
+    levels that launch it (72 x 128 and 36 x 64 latents), each sp rank's
+    query rows (whole blocks of 8 latent rows at level 0) against the whole
+    frame's tokens, all ``CUT_FRAMES`` frames (dp 1)."""
+    from trajectorycrafter_tpu_torch.parallel.frames import ROW_BLOCK
+    from trajectorycrafter_tpu_torch.parallel.sharding import shard_sizes
+
+    h, w = DEPTH_LATENTS
+    frames = shard_sizes(CUT_FRAMES, RUN_S_MESH[0])[0]
+    rows = [b * ROW_BLOCK for b in shard_sizes(h // ROW_BLOCK, RUN_S_MESH[1])]
+    out = {}
+    for level, heads in ((0, 5), (1, 10)):
+        tokens = (h >> level) * (w >> level)
+        for r in rows:
+            out[f"run_s_depth_{tokens}_rows{r >> level}"] = (
+                frames, heads, (r >> level) * (w >> level), tokens, 64)
+    return out
 
 
 DEVICE = {}  # the card's max SM clock, read in phase_device
@@ -665,6 +726,8 @@ def phase_kernels():
             (kernel, "depth_2304_frames8", 8, 10, 2304, 2304, 64, 4.0),
         ]
     cases.append((flash_maxpass, "ragged_small", 1, 2, 1000, 777, 64, 4.0))
+    # K4 at run S's per-rank shapes: a rank's query rows x the whole frame's keys
+    cases += [(flash_attention, name, *shape, 4.0) for name, shape in run_s_depth_shapes().items()]
     max_err = {"flash_attention": 0.0, "flash_maxpass": 0.0}
     for kernel, *case in cases:
         err = check_kernel_case(kernel, *case, randn)
@@ -727,13 +790,15 @@ def phase_kernels():
     del q, k, v
     torch.cuda.empty_cache()
 
-    # K1 at the Perceiver's shape, at run R's two shapes (576x1024) and K4 at
-    # the depth UNet's 2,304-token level: (shape, q gain, plain iterations)
+    # K1 at the Perceiver's shape, at run R's two shapes (576x1024), K4 at
+    # the depth UNet's 2,304-token level and at run S's per-rank shapes:
+    # (shape, q gain, plain iterations)
     b, h, s, d = DEPTH_SHAPES["depth_2304"]
     b5, h5, s5, d5 = DIT576_SHAPE
     other = {"perceiver": (PERCEIVER_SHAPE, 4.0, 2), "dit576": ((b5, h5, s5, s5, d5), 1.0, 1),
              "perceiver576": (PERCEIVER576_SHAPE, 4.0, 2),
-             "depth_2304": ((b, h, s, s, d), 4.0, 2)}
+             "depth_2304": ((b, h, s, s, d), 4.0, 2),
+             **{name: (shape, 4.0, 2) for name, shape in run_s_depth_shapes().items()}}
     for name, ((b, h, sq, skv, d), gain, plain_iters) in other.items():
         q = (randn(b, sq, h, d) * gain).bfloat16()  # no QK-norm but the DiT's: peaked rows
         k, v = randn(b, skv, h, d).bfloat16(), randn(b, skv, h, d).bfloat16()
@@ -2663,7 +2728,7 @@ def phase_whole_models(tc, dit8, unet8):
 # per-call differences into every gradient; the adapters whose gradients
 # cancel most (the QK-normed to_q / to_k) read the largest (an H100 80GB HBM3
 # at 700 W read a median of 3.4e-3 and 3.8e-2 on a to_q).
-TRAIN_SCENES = 3
+TRAIN_SCENES = 2
 TRAIN_FRAMES = 49
 SCENEFLOW_HW = (540, 960)
 SCENEFLOW_STEP = 0.25
@@ -3343,16 +3408,13 @@ def _planted(name):
     if name is None:
         yield
         return
-    sum_partials, all_reduce = D.sum_partials, D.all_reduce
+    sum_partials = D.sum_partials
     if name == RUN_S_FAULTS[0][0]:
         where, attr, fake = ring, "_combine", lambda o1, lse1, o2, lse2: (o1, lse1)
-    elif name == RUN_S_FAULTS[1][0]:
+    else:
         where, attr = D, "sum_partials"
         fake = lambda p, axis, bias=None: sum_partials(
             torch.zeros_like(p) if axis.index == axis.size - 1 else p, axis, bias)
-    else:
-        where, attr = D, "all_reduce"
-        fake = lambda x, axis, op="sum": x if op == "max" else all_reduce(x, axis, op)
     real = getattr(where, attr)
     setattr(where, attr, fake)
     try:
@@ -3509,6 +3571,195 @@ def _sharded_stage_checks(tc, seen: dict) -> dict:
     return {"latent_slab": slabs, **({"vae": readings, **out} if lead else {})}
 
 
+@contextlib.contextmanager
+def _planted_depth(name):
+    """One of ``RUN_S_DEPTH_FAULTS`` (None: none) planted in this rank's
+    depth partition (parallel/frames.py): every row or frame halo zero (each
+    slab padded as if its edges were the picture's or the clip's), every
+    GroupNorm on its slab's statistics, the temporal transformers' frame ids
+    counted from the slab's first frame, the self-attention's keys and
+    values left the rank's own."""
+    import torch
+    import torch.nn.functional as F
+
+    from trajectorycrafter_tpu_torch.models.depthcrafter import group_norm_cl
+    from trajectorycrafter_tpu_torch.parallel import frames
+
+    if name is None:
+        yield
+        return
+    where, attr, fake = {
+        "zero row halo": (frames, "row_halo",
+                          lambda x, slab, above, below: F.pad(x, (0, 0, 0, 0, above, below))),
+        "zero frame halo": (frames, "frame_halo", lambda x, slab, before, after: F.pad(
+            x, (0, 0, 0, 0, 0, 0, before, after))),
+        "local norm": (frames, "group_norm", lambda norm, x, axis: group_norm_cl(norm, x)),
+        "local frame ids": (frames.Slab, "frame_ids", lambda slab, device: torch.arange(
+            slab.num_frames, dtype=torch.float32, device=device)),
+        "K/V ungathered": (frames, "gather_kv", lambda kv, axis, sizes: kv),
+    }[name]
+    real = getattr(where, attr)
+    setattr(where, attr, fake)
+    try:
+        yield
+    finally:
+        setattr(where, attr, real)
+
+
+def _depth_kernel_attentions(unet, h: int, w: int) -> int:
+    """The UNet's attentions that launch a kernel per forward at ``h`` x
+    ``w`` latents, from its modules: the spatial self-attention of each
+    transformer at a level whose whole frame has s * s >= 2^20 scores (a
+    sharded twin routes on the whole frame, so a rank launches as many).
+    Level i of the down path, the bottom level of the mid block, level n - 1
+    - i of the up path."""
+    from trajectorycrafter_tpu_torch.models.depthcrafter import DEPTH_KERNEL_MIN_SCORES
+
+    n = len(unet.down_blocks)
+    levels = ([(lvl, i) for i, lvl in enumerate(unet.down_blocks)] + [(unet.mid_block, n - 1)]
+              + [(lvl, n - 1 - i) for i, lvl in enumerate(unet.up_blocks)])
+    return sum(len(level.attentions) for level, k in levels
+               if ((h >> k) * (w >> k)) ** 2 >= DEPTH_KERNEL_MIN_SCORES)
+
+
+def _depth_checksum(pipe) -> list:
+    """A checksum of the depth stage's models' bits (UNet, SVD VAE, CLIP):
+    one per model, from ``bits_checksum`` of each parameter and buffer."""
+    return [[list(bits_checksum(t)[2:]) for t in (*m.parameters(), *m.buffers())]
+            for m in (pipe.unet, pipe.vae, pipe.image_encoder)]
+
+
+def _depth_errors(got, want, shape, frame_dim: int, row_dim: int, scale: int) -> dict:
+    """Relative L2 error of ``got`` against ``want`` over the whole tensor
+    and on the seam band of the depth partition of a dp x sp ``shape``
+    (frames at ``frame_dim``, rows of ``scale`` per latent row at
+    ``row_dim``): the rows within RUN_S_DEPTH_BAND_ROWS latent rows of a row
+    seam, the frames within RUN_S_DEPTH_BAND_FRAMES of a frame seam."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.parallel.frames import ROW_BLOCK
+    from trajectorycrafter_tpu_torch.parallel.sharding import shard_sizes
+    from trajectorycrafter_tpu_torch.parallel.spatial import seam_band
+
+    got = torch.as_tensor(got).float()
+    want = torch.as_tensor(want).float().to(got.device)
+    f, h = want.shape[frame_dim], want.shape[row_dim]
+    rows = [b * ROW_BLOCK for b in shard_sizes(h // scale // ROW_BLOCK, shape[1])]
+    band = (seam_band(f, shard_sizes(f, shape[0]), 1, RUN_S_DEPTH_BAND_FRAMES)[:, None]
+            | seam_band(h, rows, scale, RUN_S_DEPTH_BAND_ROWS * scale)[None, :])
+    view = [f if d == frame_dim else h if d == row_dim else 1 for d in range(want.dim())]
+    band = band.reshape(view).expand(want.shape).to(want.device)
+    err = got - want
+    return {"rel_l2": (err.norm() / want.norm()).item(),
+            "band_rel_l2": (err[band].norm() / want[band].norm()).item(),
+            "band_share": band.float().mean().item()}
+
+
+def _first_forward(unet, call):
+    """Run ``call()`` with a hook on the sharded ``unet``'s forward: ->
+    (call's result, the first forward's arguments and output, this rank's
+    slabs)."""
+    seen = []
+    hook = unet.register_forward_hook(lambda m, args, out: seen.append((args, out)) if not seen
+                                      else None)
+    try:
+        result = call()
+    finally:
+        hook.remove()
+    return result, seen[0]
+
+
+def _joined(unet, forward):
+    """A ``_first_forward`` record of the sharded ``unet`` joined whole over
+    the plane (every rank takes part): ((sample, timestep, embeddings,
+    added ids), output)."""
+    (sample, t, ehs, added, height), out = forward
+    slab = unet.plane.layout(ehs.shape[1], height)
+    return ((slab.join(sample.contiguous(), 1, 2), t, ehs, added),
+            slab.join(out.contiguous(), 1, 2))
+
+
+def _sharded_depth_checks(tc, seen: dict) -> dict:
+    """Run S's sharded depth stage against the unsharded one on the run's
+    frames and seed (``seen``: the stage's call, its raw disparity and its
+    first UNet forward's slabs): the run's (RUN_S_MESH) and a rerun under
+    RUN_S_VAE_MESH, then the check of the check (see RUN_S_DEPTH_*).  Every
+    rank takes part; the leader computes the unsharded twins and returns the
+    readings (the others only their slabs)."""
+    import dataclasses
+
+    import torch
+
+    from trajectorycrafter_tpu_torch.models.depthcrafter import UNetSpatioTemporalConditionModel
+    from trajectorycrafter_tpu_torch.orchestrator import _on_device, depth_pipeline, random_init_
+    from trajectorycrafter_tpu_torch.parallel.frames import FrameRows
+    from trajectorycrafter_tpu_torch.parallel.mesh import make_mesh
+    from trajectorycrafter_tpu_torch.parallel.spatial import shard_spatially
+
+    lead = tc.mesh.leader
+    pipe = depth_pipeline(tc.models.depth_infer)
+    frames, (near, far, steps, guidance), kwargs = seen["call"]
+
+    def stage(p):  # DepthCrafterDemo.infer's call of the pipeline: raw disparity
+        gen = torch.Generator(device=p.device).manual_seed(42)
+        return torch.from_numpy(p(frames, num_inference_steps=steps, guidance_scale=guidance,
+                                  generator=gen, **kwargs)).to(p.device)
+
+    second = make_mesh(*RUN_S_VAE_MESH, device=pipe.device)
+    twin = dataclasses.replace(pipe, mesh=second, sharded_unet=shard_spatially(
+        pipe.unet, FrameRows.of(second)))
+    layouts = {shape: p.sharded_unet.plane.layout(frames.shape[0], frames.shape[1] // 8)
+               for shape, p in ((RUN_S_MESH, pipe), (RUN_S_VAE_MESH, twin))}
+    slabs = {str(shape): [l.num_frames, l.num_rows] for shape, l in layouts.items()}
+    run_forward = _joined(pipe.sharded_unet, seen["forward"])
+    raw2, forward2 = _first_forward(twin.sharded_unet, lambda: stage(twin))
+    forward2 = _joined(twin.sharded_unet, forward2)
+    readings = {}
+    if lead:  # the unsharded stage and forwards on the same inputs
+        plain = dataclasses.replace(pipe, mesh=None, sharded_unet=None)
+        want_raw = stage(plain)
+        for shape, raw, ((x, t, ehs, added), out) in (
+                (RUN_S_MESH, seen["raw"], run_forward), (RUN_S_VAE_MESH, raw2, forward2)):
+            with torch.no_grad():
+                want = pipe.unet(x, t, ehs, added)
+            readings[f"{shape} sound"] = {
+                "raw disparity": _depth_errors(raw, want_raw, shape, 0, 1, 8),
+                "first UNet forward": _depth_errors(out, want, shape, 1, 2, 1)}
+        del plain, want_raw, want
+    del raw2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the check of the check: fp32 without TF32, check weights, a UNet cut to
+    # one layer a block, the run's first input cropped
+    (x, t, ehs, added), _ = run_forward
+    del forward2
+    rows, cols = RUN_S_DEPTH_CHECK_CROP
+    x, ehs = x[:, :, :rows, :cols].float(), ehs.float()
+    check = check_weights_(random_init_(_on_device(
+        lambda: UNetSpatioTemporalConditionModel(**RUN_S_DEPTH_CHECK_UNET), pipe.device,
+        torch.float32), 3))
+    check_twin = shard_spatially(check, FrameRows.of(second))
+    slab = check_twin.plane.layout(x.shape[1], rows)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = check(x, t, ehs, added) if lead else None
+            for fault in (None,) + RUN_S_DEPTH_FAULTS:
+                with _planted_depth(fault):
+                    got = check_twin(slab.take(x, 1, 2).contiguous(), t, ehs, added, rows)
+                got = slab.join(got.contiguous(), 1, 2)
+                if lead:
+                    readings[f"check {RUN_S_VAE_MESH} {fault or 'sound'}"] = {
+                        "first UNet forward": _depth_errors(got, want, RUN_S_VAE_MESH, 1, 2, 1)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del check, check_twin, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"slab": slabs, **({"readings": readings} if lead else {})}
+
+
 def run_s_rank(out_dir: str, cut: bool) -> None:
     """One rank of run S, started by torchrun (``chip_smoke.py --run-s-rank
     DIR [--cut]``): the process group from torchrun's environment through the CLI's
@@ -3516,10 +3767,12 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
     flags (this rank's DiT shard; the leader also the other models);
     ``infer_gradual`` with its launches counted in and outside the denoise,
     the latents' checksum after each step and its first DiT forward kept,
-    the frames its warp splatted, its halo and norm bytes; then that forward
+    the frames its warp splatted, its halo and norm bytes, its depth stage's
+    call, raw disparity and first UNet forward kept; then that DiT forward
     again on the check weights, sound and with each planted fault; then
     the sharded warp and VAE against the unsharded ones on the run's
-    inputs (``_sharded_stage_checks``).  Writes its readings to
+    inputs (``_sharded_stage_checks``), then the sharded depth stage
+    (``_sharded_depth_checks``).  Writes its readings to
     DIR/rank<r>.json."""
     import traceback
 
@@ -3534,6 +3787,7 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
     from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter
     from trajectorycrafter_tpu_torch.parallel import distributed as D
     from trajectorycrafter_tpu_torch.pipelines import trajcrafter as tj
+    from trajectorycrafter_tpu_torch.pipelines.depth import window_starts
 
     cuts = ["--video_length", str(CUT_FRAMES), "--depth_inference_steps", str(CUT_DEPTH_STEPS)]
     argv = MAIN_ARGV + RUN_S_ARGV + (cuts if cut else [])
@@ -3553,6 +3807,14 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
         out["heads"] = [dit.transformer_blocks[0].attn1.heads,
                         dit.perceiver_cross_attention[0].heads]
         out["expected_per_forward"] = _sharded_launches_per_forward(dit)
+        # the depth stage: every rank's models bit-equal, K4 once per kernel
+        # attention of the sharded twin, UNet forward and window
+        depth_pipe = orchestrator.depth_pipeline(tc.models.depth_infer)
+        out["depth_checksum"] = _depth_checksum(depth_pipe)
+        windows = len(window_starts(cfg.video_length, cfg.depth.window_size, cfg.depth.overlap))
+        out["expected_depth"] = {**dict.fromkeys(KERNELS, 0), "flash_attention": (
+            _depth_kernel_attentions(depth_pipe.sharded_unet, *(n // 8 for n in cfg.warp_size))
+            * windows * cfg.depth.num_inference_steps)}
         counters = _kernel_counters()
 
         steps, seen = [], {}
@@ -3610,18 +3872,33 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
             seen["decode"] = (z, frames)
             return frames
 
+        depth_seen = {}
+        depth_call, decode_raw = tc.models.depth_infer, depth_pipe._decode_raw
+
+        def recorded_depth(frames, *a, **kw):
+            depth_seen["call"] = (frames, a, kw)
+            return depth_call(frames, *a, **kw)
+
+        def recorded_raw(latents):
+            depth_seen["raw"] = decode_raw(latents)
+            return depth_seen["raw"]
+
         orchestrator.forward_warp_batch, splat.bilinear_splat = recorded_warp, counted_splat
         pipe.prepare_conditions, tj.vae_decode_auto = recorded_prepare, recorded_decode
         pipe.scheduler.step, pipe._denoise = recorded_step, counted_denoise
+        tc.models.depth_infer, depth_pipe._decode_raw = recorded_depth, recorded_raw
         hook = dit.register_forward_hook(first_forward, with_kwargs=True)
         for kern in counters:
             kern.launches = 0
         tc.timer.seconds.clear()
         torch.cuda.reset_peak_memory_stats()
         t2 = time.perf_counter()
-        gen = tc.infer_gradual()
+        # the depth stage's first UNet forward, for the checks after the run
+        gen, depth_seen["forward"] = _first_forward(depth_pipe.sharded_unet, tc.infer_gradual)
         torch.cuda.synchronize()
         out["run_s"] = time.perf_counter() - t2
+        tc.models.depth_infer = depth_call
+        del depth_pipe._decode_raw
         # the planes decode apart: let every rank end its decode and give
         # back its cached blocks before the checks (the ranks share the card)
         D.all_reduce(torch.zeros(1, device=pipe.device), mesh.world)
@@ -3661,6 +3938,11 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
         t4 = time.perf_counter()
         out["stage_checks"] = _sharded_stage_checks(tc, seen)
         out["stage_checks_s"] = time.perf_counter() - t4
+        D.all_reduce(torch.zeros(1, device=pipe.device), mesh.world)
+        torch.cuda.empty_cache()
+        t5 = time.perf_counter()
+        out["depth_checks"] = _sharded_depth_checks(tc, depth_seen)
+        out["depth_checks_s"] = time.perf_counter() - t5
         if gen is not None:
             out["gen"] = {"shape": list(gen.shape), "finite": bool(np.isfinite(gen).all()),
                           "min": float(gen.min()), "max": float(gen.max()),
@@ -3724,10 +4006,15 @@ def phase_sharded(runs: dict, cut: bool = True) -> dict:
         if r["per_path"]["denoise"] != {k: forwards * v for k, v in want.items()}:
             raise AssertionError(f"rank {r['rank']}: denoise launches "
                                  f"{r['per_path']['denoise']}, expected {forwards} x {want}")
-        depth = runs[twin]["per_path"]["depth"] if r["rank"] == 0 else dict.fromkeys(want, 0)
-        if r["per_path"]["depth"] != depth:
+        # every rank runs its share of the depth stage: as many launches as
+        # the unsharded stage of run A9 / A (its query rows, every layer)
+        depth = r["expected_depth"]
+        if r["per_path"]["depth"] != depth or depth != runs[twin]["per_path"]["depth"]:
             raise AssertionError(f"rank {r['rank']}: launches outside the denoise "
-                                 f"{r['per_path']['depth']}, expected {depth}")
+                                 f"{r['per_path']['depth']}, expected {depth} (run {twin}: "
+                                 f"{runs[twin]['per_path']['depth']})")
+        if r["depth_checksum"] != lead["depth_checksum"]:
+            raise AssertionError(f"rank {r['rank']}: the depth models' bits differ from rank 0's")
         if r["steps"] != lead["steps"] or len(r["steps"]) != forwards:
             raise AssertionError(f"rank {r['rank']}: latents differ from rank 0's "
                                  f"(steps {r['steps']} vs {lead['steps']})")
@@ -3738,6 +4025,7 @@ def phase_sharded(runs: dict, cut: bool = True) -> dict:
             f"forward {json.dumps({k: v for k, v in want.items() if v})}; transport "
             f"{json.dumps(r['transport'])}")
     stages = _run_s_stage_check(results, frames)
+    depth = _run_s_depth_check(results)
     forward = _run_s_forward_check(out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
     log(f"run S: every rank's latents bit-equal after each of {forwards} steps; peaks summed "
@@ -3761,9 +4049,53 @@ def phase_sharded(runs: dict, cut: bool = True) -> dict:
     runs["S"] = {"per_path": {p: {k: sum(r["per_path"][p][k] for r in results) for k in KERNELS}
                               for p in ("depth", "denoise")},
                  "per_rank": {k: [sum(r["per_path"][p][k] for p in ("depth", "denoise"))
-                                  for r in results] for k in KERNELS}}
+                                  for r in results] for k in KERNELS},
+                 "depth_per_rank": {k: [r["per_path"]["depth"][k] for r in results]
+                                    for k in KERNELS}}
     return {"seconds": seconds, "quality": quality, "forward": forward, "stages": stages,
-            "ranks": results}
+            "depth": depth, "ranks": results}
+
+
+def _run_s_depth_check(results: list) -> dict:
+    """Run S's sharded depth stage: each rank's seconds, slabs and
+    collectives logged; the leader's readings of the run's and the rerun's
+    raw disparity and first UNet forward against the unsharded ones held to
+    RUN_S_DEPTH_REL_TOL, and each planted fault of the check of the check
+    to RUN_S_VAE_FAULT_RATIO times the sound reading on the seam band."""
+    names = ("depth_halo", "depth_norm", "depth_kv", "depth_frames", "depth_latents")
+    tensors = sum(map(len, results[0]["depth_checksum"]))
+    log(f"run S: the depth models' bits equal on every rank ({tensors} tensors of the UNet, "
+        f"the SVD VAE and CLIP)")
+    for r in results:
+        t = r["transport"]
+        moved = ", ".join(f"{n} {t.get(f'{n} direct', 0)} x "
+                          f"{t.get(f'{n} direct bytes', 0) / 1e6:.2f} MB" for n in names)
+        log(f"  rank {r['rank']}: depth {r['stages']['depth']:.3f} s, slab (frames, latent "
+            f"rows) by mesh {r['depth_checks']['slab']}, K4 launches "
+            f"{r['per_path']['depth']['flash_attention']}; {moved}; checks "
+            f"{r['depth_checks_s']:.1f} s")
+        if not all(t.get(f"{n} direct bytes", 0) > 0 for n in names):
+            raise AssertionError(f"rank {r['rank']}: a depth collective is missing in run S: {t}")
+    readings = results[0]["depth_checks"]["readings"]
+    for key, reading in readings.items():
+        log(f"run S's depth stage, {key}: " + "; ".join(
+            f"{name} rel L2 {e['rel_l2']:.3e}, seam band {e['band_rel_l2']:.3e} "
+            f"({e['band_share']:.2f} of the elements)" for name, e in reading.items()))
+    failed = [f"{shape} sound" for shape in (RUN_S_MESH, RUN_S_VAE_MESH)
+              if any(max(e["rel_l2"], e["band_rel_l2"]) > RUN_S_DEPTH_REL_TOL
+                     for e in readings[f"{shape} sound"].values())]
+    sound = readings[f"check {RUN_S_VAE_MESH} sound"]["first UNet forward"]["band_rel_l2"]
+    for fault in RUN_S_DEPTH_FAULTS:
+        wrong = readings[f"check {RUN_S_VAE_MESH} {fault}"]["first UNet forward"]["band_rel_l2"]
+        ratio = wrong / max(sound, 1e-12)
+        log(f"run S's depth stage, check weights, {RUN_S_VAE_MESH} {fault}: {ratio:.1f}x the "
+            f"sound reading on the seam band (limit {RUN_S_VAE_FAULT_RATIO:g}x)")
+        if ratio < RUN_S_VAE_FAULT_RATIO:
+            failed.append(f"{RUN_S_VAE_MESH} {fault}")
+    if failed:
+        raise AssertionError(f"run S's sharded depth stage: {failed} outside their limits "
+                             f"(rel L2 {RUN_S_DEPTH_REL_TOL:g}): {json.dumps(readings)}")
+    return readings
 
 
 def _run_s_stage_check(results: list, frames: int) -> dict:
@@ -4518,7 +4850,8 @@ def main() -> None:
     # K1 at the Perceiver's shape, at run R's two shapes and at the depth
     # UNet's 2,304-token level
     other_shapes = {f"{name}_{key}": timing[name][key]
-                    for name in ("perceiver", "dit576", "perceiver576", "depth_2304")
+                    for name in ("perceiver", "dit576", "perceiver576", "depth_2304",
+                                 *run_s_depth_shapes())
                     for key in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "sfu_ms")}
     kernels_line = [
         _attention_entry(
@@ -4530,6 +4863,7 @@ def main() -> None:
             launches_576=run_launches("R", "flash_attention"), probing_launches=probe_launches,
             launches_run_s=run_launches("S", "flash_attention"),
             launches_run_s_per_rank=runs["S"]["per_rank"]["flash_attention"],
+            depth_launches_run_s_per_rank=runs["S"]["depth_per_rank"]["flash_attention"],
             probing_shape="(1, 48, 13330, 13330, 64); Perceiver (1, 16, 13104 x 3024, 128)",
             bench_launches=bench["flash_attention"], max_abs_err=max_err["flash_attention"],
             depth_shape="(49, 5, 9216, 9216, 64)", depth_ms=depth["flash_attention"],

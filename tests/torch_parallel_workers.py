@@ -278,3 +278,137 @@ def spatial(rank, warp_cases, vae_weights, vae_cases, fault_case, gradual):
     out["gradual"] = {"gen": gen, "transport": _transport_since(before),
                       "warp_frames": list(seen), "stages": sorted(tc.timer.seconds)}
     return out
+
+
+# ----------------------------------------------------------------------------
+# the sharded depth stage (tests/test_torch_depth_sharded.py)
+# ----------------------------------------------------------------------------
+
+
+def _depth_stage_models(weights, quant: bool = False):
+    """The tiny DepthCrafter UNet, SVD VAE and (where ``weights`` has one)
+    CLIP of ``weights`` ({"unet" | "vae" | "clip": state dict, "dims": the
+    constructors' arguments}), fp32; the UNet's transformers int8 under
+    ``quant``."""
+    from trajectorycrafter_tpu_torch.models.clip import CLIPVisionModelWithProjection
+    from trajectorycrafter_tpu_torch.models.depthcrafter import UNetSpatioTemporalConditionModel
+    from trajectorycrafter_tpu_torch.models.svd_vae import AutoencoderKLTemporalDecoder
+    from trajectorycrafter_tpu_torch.ops.int8 import quantize_depth_unet_
+
+    def load(module, name):
+        module.load_state_dict({k: T(v) for k, v in weights[name].items()}, strict=True)
+        return module.eval()
+
+    dims = weights["dims"]
+    unet = load(UNetSpatioTemporalConditionModel(**dims["unet"]), "unet")
+    if quant:
+        quantize_depth_unet_(unet)
+    vae = load(AutoencoderKLTemporalDecoder(**dims["vae"]), "vae")
+    clip = load(CLIPVisionModelWithProjection(**dims["clip"]), "clip") if "clip" in weights \
+        else None
+    return unet, vae, clip
+
+
+def _zero_pad(x, *pads):
+    return F.pad(x, [p for pair in pads for p in pair])
+
+
+# the planted faults of the sharded depth stage, each (where, name, fake): a
+# zero row halo (each slab padded as if its rows were the picture's top and
+# bottom), a zero frame halo, every GroupNorm on its slab's statistics, the
+# temporal transformers' frame ids counted from the slab's first frame, the
+# self-attention's keys and values left the rank's own
+DEPTH_FAULTS = {
+    "zero row halo": ("frames", "row_halo", lambda x, slab, above, below: _zero_pad(
+        x, (0, 0), (0, 0), (above, below))),
+    "zero frame halo": ("frames", "frame_halo", lambda x, slab, before, after: _zero_pad(
+        x, (0, 0), (0, 0), (0, 0), (before, after))),
+    "local norm": ("frames", "group_norm", lambda norm, x, axis: _depth_group_norm(norm, x)),
+    "local frame ids": ("Slab", "frame_ids", lambda slab, device: torch.arange(
+        slab.num_frames, dtype=torch.float32, device=device)),
+    "K/V ungathered": ("frames", "gather_kv", lambda kv, axis, sizes: kv),
+}
+
+
+def _depth_group_norm(norm, x):
+    from trajectorycrafter_tpu_torch.models.depthcrafter import group_norm_cl
+
+    return group_norm_cl(norm, x)
+
+
+def planted_depth_fault(name):
+    """A context that plants ``DEPTH_FAULTS[name]`` in this rank's modules."""
+    from trajectorycrafter_tpu_torch.parallel import frames as FR
+
+    where, attr, fake = DEPTH_FAULTS[name]
+    return mock.patch.object(FR if where == "frames" else FR.Slab, attr, fake)
+
+
+def sharded_unet_forward(unet, mesh, args) -> dict:
+    """The UNet's sharded twin over ``mesh`` on this rank's slab of the whole
+    ``args`` (sample, timestep, CLIP embeddings, added time ids), its output
+    joined whole; with the collectives it made and its slab."""
+    from trajectorycrafter_tpu_torch.parallel.frames import FrameRows
+    from trajectorycrafter_tpu_torch.parallel.spatial import shard_spatially
+
+    twin = shard_spatially(unet, FrameRows.of(mesh))
+    sample, t, ehs, added = (T(a) for a in args)
+    height = sample.shape[2]
+    slab = twin.plane.layout(ehs.shape[1], height)
+    before = dict(D.TRANSPORT)
+    with torch.no_grad():
+        y = twin(slab.take(sample, 1, 2), t, ehs, added, height=height)
+    transport = _transport_since(before)
+    return {"out": slab.join(y.contiguous(), 1, 2).numpy(), "transport": transport,
+            "slab": (slab.num_frames, slab.num_rows),
+            "coords": (mesh.dp.index, mesh.sp.index, mesh.tp.index)}
+
+
+def depth_sharded(rank, weights, unet_cases, pipe_cases, fault_case, gradual):
+    """The sharded depth stage of tests/test_torch_depth_sharded.py on the
+    tiny models of ``weights``: the UNet's sharded forward on each of
+    ``unet_cases`` ({name: (mesh shape, int8, args)}) and under each of
+    ``DEPTH_FAULTS`` on ``fault_case``; the sharded pipeline on each of
+    ``pipe_cases`` ({name: (mesh shape, int8, with CLIP, frames, keyword
+    arguments)}) with the collectives it made; ``gradual`` (argv, warp size,
+    mesh shape): a sharded ``infer_gradual`` with the tiny depth stage."""
+    from trajectorycrafter_tpu_torch.orchestrator import depth_stage
+    from trajectorycrafter_tpu_torch.pipelines.depth import DepthCrafterPipeline
+
+    out = {"unet": {}, "faults": {}, "pipe": {}}
+    for name, (shape, quant, args) in unet_cases.items():
+        mesh = _mesh(shape)
+        out["unet"][name] = sharded_unet_forward(_depth_stage_models(weights, quant)[0], mesh,
+                                                 args)
+    shape, quant, args = unet_cases[fault_case]
+    mesh, unet = _mesh(shape), _depth_stage_models(weights, quant)[0]
+    for fault in DEPTH_FAULTS:
+        with planted_depth_fault(fault):
+            out["faults"][fault] = sharded_unet_forward(unet, mesh, args)["out"]
+    for name, (shape, quant, with_clip, frames, kwargs) in pipe_cases.items():
+        unet, vae, clip = _depth_stage_models(weights, quant)
+        pipe = DepthCrafterPipeline(unet=unet, vae=vae, image_encoder=clip if with_clip else None,
+                                    dtype=torch.float32).with_mesh(_mesh(shape))
+        before = dict(D.TRANSPORT)
+        raw = pipe(frames, **kwargs)
+        out["pipe"][name] = {"raw": raw, "transport": _transport_since(before)}
+
+    argv, warp_size, shape = gradual
+    from trajectorycrafter_tpu_torch.cli import parse_config
+
+    cfg = parse_config(argv)
+    cfg.warp_size = warp_size
+    cfg.parallel.dp, cfg.parallel.sp, cfg.parallel.tp = shape
+    models = build_dev_models(cfg, "cpu")
+    unet, vae, clip = _depth_stage_models(weights)
+    models.depth_infer = depth_stage(unet, vae, clip, torch.float32)
+    depths = []
+    infer = models.depth_infer
+    tc = TrajCrafter(cfg, models=models, mesh=_mesh(shape))
+    before = dict(D.TRANSPORT)
+    tc.models.depth_infer = lambda *a, **kw: depths.append(infer(*a, **kw)) or depths[-1]
+    gen = tc.infer_gradual()
+    out["gradual"] = {"gen": gen, "depth": depths[0], "transport": _transport_since(before),
+                      "stages": sorted(tc.timer.seconds),
+                      "sharded": infer.__self__.pipe.mesh is not None}
+    return out

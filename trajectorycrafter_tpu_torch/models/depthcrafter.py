@@ -27,6 +27,21 @@ other attention (the 576- and 144-token levels, all temporal attention over
 the frames, all cross-attention to the single CLIP token) is the plain
 matmul / fp32 softmax.
 
+Under a dp x sp x tp mesh (pipelines/depth.py ``with_mesh``) the UNet's
+twin (parallel/spatial.py ``shard_spatially``, sharing its weights) carries
+the partition (parallel/frames.py ``FrameRows``) as ``plane`` and takes this
+rank's slab of the window: its frames (dp) and latent rows (sp), the whole
+latent height and every frame's CLIP embedding.  The 3x3 convolutions read
+one halo row of their sp neighbours, the stride-2 downsamplers one row
+above, the temporal resnets' convolutions one halo frame of their dp
+neighbours; the GroupNorms take the whole tensor's statistics (per frame
+over sp, the temporal resnets' over the plane); the spatial self-attention
+runs a rank's query rows against the whole frame's keys and values
+(gathered over sp), the temporal one its frames against every frame's
+(over dp), each routed on the whole frame's ``s * s_kv`` as unsharded; the
+temporal transformers embed the global frame indices and take global frame
+0's CLIP embedding as their context.  The unsharded UNet is unchanged.
+
 Parameter names are diffusers' ``UNetSpatioTemporalConditionModel``
 (``utils/convert.py convert_svd_unet``).
 """
@@ -43,6 +58,7 @@ from torch import nn
 from trajectorycrafter_tpu_torch.models.dit import layer_norm_f32
 from trajectorycrafter_tpu_torch.ops.attention import multi_head_attention
 from trajectorycrafter_tpu_torch.ops.posemb import timestep_embedding
+from trajectorycrafter_tpu_torch.parallel import frames as FR
 
 # a self-attention launches a kernel at s * s_kv >= 2^20 scores (the JAX
 # routing threshold); at 576x1024 that is the 9,216- and 2,304-token levels
@@ -85,12 +101,47 @@ def conv_cl(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
 def group_norm_cl(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     """GroupNorm of channel-last ``x`` (N, ..., C) in fp32, statistics over
     every non-batch axis of each channel group (flax ``GroupNorm``); result
-    in x's dtype."""
+    in x's dtype.  The normalisation runs in place on one fp32 copy of x
+    (the SVD decoder's full-resolution norms hold 2.25 GiB a copy)."""
     n, c = x.shape[0], x.shape[-1]
-    xf = x.float().reshape(n, -1, norm.num_groups, c // norm.num_groups)
-    var, mean = torch.var_mean(xf, dim=(1, 3), unbiased=False, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + norm.eps)).reshape(x.shape)
-    return (y * norm.weight.float() + norm.bias.float()).to(x.dtype)
+    y = x.to(torch.float32, copy=True).reshape(n, -1, norm.num_groups, c // norm.num_groups)
+    var, mean = torch.var_mean(y, dim=(1, 3), unbiased=False, keepdim=True)
+    y.sub_(mean).mul_(torch.rsqrt(var + norm.eps))
+    y = y.reshape(x.shape).mul_(norm.weight.float()).add_(norm.bias.float())
+    return y.to(x.dtype)
+
+
+def norm_cl(norm: nn.GroupNorm, x: torch.Tensor, slab=None, temporal: bool = False):
+    """``group_norm_cl``, over the whole tensor where ``x`` is a ``slab``
+    (parallel/frames.py): a per-frame norm's statistics span the sp ranks'
+    rows, a temporal one's (``temporal``) the plane's frames and rows."""
+    if slab is None:
+        return group_norm_cl(norm, x)
+    axis = slab.part.both if temporal else slab.part.rows
+    return group_norm_cl(norm, x) if axis.size == 1 else FR.group_norm(norm, x, axis)
+
+
+def conv_rows_cl(conv: nn.Conv2d, x: torch.Tensor, slab=None) -> torch.Tensor:
+    """``conv_cl`` of a 3x3 Conv2d (padding 1) on channel-last (N, H, W, C),
+    on this rank's rows where ``x`` is a ``slab``: one halo row of each sp
+    neighbour, zeros past the picture's edges; a stride-2 conv reads one row
+    above and none below (its outputs on an even seam read no row past the
+    slab)."""
+    if slab is None or slab.part.rows.size == 1:
+        return conv_cl(conv, x)
+    x = FR.row_halo(x, slab, 1, 0 if conv.stride[0] == 2 else 1)
+    y = F.conv2d(x.movedim(-1, 1), conv.weight, conv.bias, conv.stride, (0, conv.padding[1]))
+    return y.movedim(1, -1)
+
+
+def conv_frames_cl(conv: nn.Conv3d, x: torch.Tensor, slab=None) -> torch.Tensor:
+    """``conv_cl`` of a (3, 1, 1) Conv3d (time padding 1) on channel-last
+    (B, F, H, W, C), on this rank's frames where ``x`` is a ``slab``: one
+    halo frame of each dp neighbour, zeros past the first and last frame."""
+    if slab is None or slab.part.frames.size == 1:
+        return conv_cl(conv, x)
+    x = FR.frame_halo(x, slab, 1, 1)
+    return F.conv3d(x.movedim(-1, 1), conv.weight, conv.bias).movedim(1, -1)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -133,12 +184,12 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
-    def forward(self, x, temb):
-        # x: (N, H, W, C); temb: (N, T) or None
-        h = conv_cl(self.conv1, F.silu(group_norm_cl(self.norm1, x)))
+    def forward(self, x, temb, slab=None):
+        # x: (N, H, W, C); temb: (N, T) or None; slab: x's layout under a mesh
+        h = conv_rows_cl(self.conv1, F.silu(norm_cl(self.norm1, x, slab)), slab)
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        h = conv_cl(self.conv2, F.silu(group_norm_cl(self.norm2, h)))
+        h = conv_rows_cl(self.conv2, F.silu(norm_cl(self.norm2, h, slab)), slab)
         if self.conv_shortcut is not None:
             x = conv_cl(self.conv_shortcut, x)
         return x + h
@@ -160,12 +211,12 @@ class TemporalResnetBlock(nn.Module):
         self.conv_shortcut = (nn.Conv3d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
-    def forward(self, x, temb):
-        # x: (B, F, H, W, C); temb: (B, F, T) or None
-        h = conv_cl(self.conv1, F.silu(group_norm_cl(self.norm1, x)))
+    def forward(self, x, temb, slab=None):
+        # x: (B, F, H, W, C); temb: (B, F, T) or None; slab: x's layout under a mesh
+        h = conv_frames_cl(self.conv1, F.silu(norm_cl(self.norm1, x, slab, True)), slab)
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None, :]
-        h = conv_cl(self.conv2, F.silu(group_norm_cl(self.norm2, h)))
+        h = conv_frames_cl(self.conv2, F.silu(norm_cl(self.norm2, h, slab, True)), slab)
         if self.conv_shortcut is not None:
             x = conv_cl(self.conv_shortcut, x)
         return x + h
@@ -190,13 +241,14 @@ class SpatioTemporalResBlock(nn.Module):
             groups, temb_channels)
         self.time_mixer = AlphaBlender(switch, mix_init)
 
-    def forward(self, x, temb, num_frames: int):
-        # x: (B*F, H, W, C); temb: (B*F, T) or None
-        h = self.spatial_res_block(x, temb)
+    def forward(self, x, temb, num_frames: int, slab=None):
+        # x: (B*F, H, W, C); temb: (B*F, T) or None; under a mesh F and H are
+        # the rank's, ``slab`` their layout
+        h = self.spatial_res_block(x, temb, slab)
         bf, hh, ww, c = h.shape
         h5 = h.reshape(bf // num_frames, num_frames, hh, ww, c)
         t5 = self.temporal_res_block(
-            h5, None if temb is None else temb.reshape(bf // num_frames, num_frames, -1))
+            h5, None if temb is None else temb.reshape(bf // num_frames, num_frames, -1), slab)
         return self.time_mixer(h5, t5).reshape(bf, hh, ww, c)
 
 
@@ -220,14 +272,24 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, gather=None):
+        """``gather``: under a mesh, joins this rank's self-attention keys
+        and values (B, S_local, 2 * inner) into the whole sequence's
+        (parallel/frames.py ``gather_kv``); the queries stay the rank's.
+        The route is chosen on the whole sequence's ``s * s_kv``."""
         ctx = x if context is None else context
         heads = (self.heads, self.head_dim)
         # (B, S, H, D) views of the projections: the kernel reads them in place
         q = self.to_q(x).unflatten(-1, heads)
-        k = self.to_k(ctx).unflatten(-1, heads)
-        v = self.to_v(ctx).unflatten(-1, heads)
-        impl = depth_attention_impl(q.shape[1], k.shape[1], q.is_cuda, self.attention_impl)
+        if gather is None:
+            k = self.to_k(ctx).unflatten(-1, heads)
+            v = self.to_v(ctx).unflatten(-1, heads)
+            s = q.shape[1]
+        else:
+            kv = gather(torch.cat([self.to_k(ctx), self.to_v(ctx)], dim=-1))
+            k, v = (t.unflatten(-1, heads) for t in kv.chunk(2, dim=-1))
+            s = k.shape[1]
+        impl = depth_attention_impl(s, k.shape[1], q.is_cuda, self.attention_impl)
         return self.to_out[0](multi_head_attention(q, k, v, self.head_dim ** -0.5, impl))
 
 
@@ -268,8 +330,8 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x, context):
-        x = x + self.attn1(layer_norm_f32(self.norm1, x))
+    def forward(self, x, context, gather=None):
+        x = x + self.attn1(layer_norm_f32(self.norm1, x), gather=gather)
         x = x + self.attn2(layer_norm_f32(self.norm2, x), context)
         return x + self.ff(layer_norm_f32(self.norm3, x))
 
@@ -289,9 +351,9 @@ class TemporalBasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x, context):
+    def forward(self, x, context, gather=None):
         x = x + self.ff_in(layer_norm_f32(self.norm_in, x))
-        x = x + self.attn1(layer_norm_f32(self.norm1, x))
+        x = x + self.attn1(layer_norm_f32(self.norm1, x), gather=gather)
         x = x + self.attn2(layer_norm_f32(self.norm2, x), context)
         return x + self.ff(layer_norm_f32(self.norm3, x))
 
@@ -320,22 +382,37 @@ class TransformerSpatioTemporal(nn.Module):
         self.time_mixer = AlphaBlender()
         self.proj_out = nn.Linear(channels, channels)
 
-    def forward(self, x, context, num_frames: int):
-        # x: (B*F, H, W, C); context: (B*F, 1, Dc), one CLIP embedding per frame
+    def forward(self, x, context, num_frames: int, slab=None):
+        # x: (B*F, H, W, C); context: (B*F, 1, Dc), one CLIP embedding per
+        # frame.  Under a mesh x is the rank's frames and rows (``slab``) and
+        # context every frame's, of which the rank takes its own
         bf, hh, ww, c = x.shape
         b, hw = bf // num_frames, hh * ww
-        h = self.proj_in(group_norm_cl(self.norm, x).reshape(bf, hw, c))
-        # temporal context: each batch's first-frame embedding, at every location
-        ctx_first = context.reshape(b, num_frames, *context.shape[1:])[:, 0]
-        time_context = ctx_first.repeat_interleave(hw, dim=0)  # (B*HW, 1, Dc)
+        h = self.proj_in(norm_cl(self.norm, x, slab).reshape(bf, hw, c))
+        frames = context.reshape(b, -1, *context.shape[1:])
+        spatial_kv = temporal_kv = None
+        if slab is None:
+            frame_ids = torch.arange(num_frames, dtype=torch.float32, device=x.device)
+        else:
+            frame_ids = slab.frame_ids(x.device)
+            context = frames[:, slab.frame_start:slab.frame_start + num_frames].flatten(0, 1)
+            rows, frames_axis = slab.part.rows, slab.part.frames
+            if rows.size > 1:
+                sizes = [r * ww for r in slab.rows_at(hh)]
+                spatial_kv = lambda kv: FR.gather_kv(kv, rows, sizes)
+            if frames_axis.size > 1:
+                temporal_kv = lambda kv: FR.gather_kv(kv, frames_axis, list(slab.frames))
+        # temporal context: each batch's (global) first-frame embedding, at
+        # every location
+        time_context = frames[:, 0].repeat_interleave(hw, dim=0)  # (B*HW, 1, Dc)
         # per-frame positional embedding (the sinusoid of the frame index)
-        frame_ids = torch.arange(num_frames, dtype=torch.float32, device=x.device).repeat(b)
-        femb = self.time_pos_embed(timestep_embedding(frame_ids, c).to(h.dtype))[:, None]
+        femb = self.time_pos_embed(
+            timestep_embedding(frame_ids.repeat(b), c).to(h.dtype))[:, None]
         for block, temporal in zip(self.transformer_blocks, self.temporal_transformer_blocks):
-            h = block(h, context)
+            h = block(h, context, spatial_kv)
             # (B*F, HW, C) -> (B*HW, F, C) and back
             ht = (h + femb).reshape(b, num_frames, hw, c).transpose(1, 2)
-            ht = temporal(ht.reshape(b * hw, num_frames, c), time_context)
+            ht = temporal(ht.reshape(b * hw, num_frames, c), time_context, temporal_kv)
             ht = ht.reshape(b, hw, num_frames, c).transpose(1, 2).reshape(bf, hw, c)
             h = self.time_mixer(h, ht)
         return x + self.proj_out(h).reshape(bf, hh, ww, c)
@@ -378,6 +455,8 @@ class _Embedding(nn.Module):
 
 class UNetSpatioTemporalConditionModel(nn.Module):
     """SVD UNet: (B, F, h, w, 8) + t + per-frame CLIP context -> (B, F, h, w, 4)."""
+
+    plane = None  # parallel/frames.py FrameRows, set on a sharded twin
 
     def __init__(
         self,
@@ -450,39 +529,52 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         timestep: torch.Tensor,  # (B,), continuous 0.25 log sigma
         encoder_hidden_states: torch.Tensor,  # (B, F, 1, 1024) per-frame CLIP
         added_time_ids: torch.Tensor,  # (B, 3)
+        height: Optional[int] = None,
     ) -> torch.Tensor:
+        """On a sharded twin (``plane`` set) ``sample`` is this rank's slab
+        of the whole (B, F, ``height``, w, 8), ``encoder_hidden_states``
+        every frame's, and the output is the rank's slab."""
         b, f, hh, ww, _ = sample.shape
+        slab = None
+        if self.plane is not None:
+            if height is None:
+                raise ValueError("a sharded UNet takes the whole latent height beside its slab")
+            slab = self.plane.layout(encoder_hidden_states.shape[1], height)
+            if (f, hh) != (slab.num_frames, slab.num_rows):
+                raise ValueError(f"a slab of {f} frames x {hh} rows is not this rank's "
+                                 f"{slab.num_frames} x {slab.num_rows} of {slab.frames} frames "
+                                 f"x {slab.rows} rows")
         dtype = self.conv_in.weight.dtype
         temb = self.time_embedding(
             timestep_embedding(timestep, self.conv_in.out_channels).to(dtype))
         add_freq = timestep_embedding(added_time_ids.reshape(-1), self.addition_time_embed_dim)
         temb = temb + self.add_embedding(add_freq.reshape(b, -1).to(dtype))
         temb = temb.repeat_interleave(f, dim=0)  # (B*F, tdim)
-        ctx = encoder_hidden_states.reshape(b * f, *encoder_hidden_states.shape[2:]).to(dtype)
+        ctx = encoder_hidden_states.flatten(0, 1).to(dtype)
 
-        x = conv_cl(self.conv_in, sample.reshape(b * f, hh, ww, -1).to(dtype))
+        x = conv_rows_cl(self.conv_in, sample.reshape(b * f, hh, ww, -1).to(dtype), slab)
         skips = [x]
         for level in self.down_blocks:
             for j, res in enumerate(level.resnets):
-                x = res(x, temb, f)
+                x = res(x, temb, f, slab)
                 if len(level.attentions):
-                    x = level.attentions[j](x, ctx, f)
+                    x = level.attentions[j](x, ctx, f, slab)
                 skips.append(x)
             if hasattr(level, "downsamplers"):
-                x = conv_cl(level.downsamplers[0].conv, x)
+                x = conv_rows_cl(level.downsamplers[0].conv, x, slab)
                 skips.append(x)
 
-        x = self.mid_block.resnets[0](x, temb, f)
-        x = self.mid_block.attentions[0](x, ctx, f)
-        x = self.mid_block.resnets[1](x, temb, f)
+        x = self.mid_block.resnets[0](x, temb, f, slab)
+        x = self.mid_block.attentions[0](x, ctx, f, slab)
+        x = self.mid_block.resnets[1](x, temb, f, slab)
 
         for level in self.up_blocks:
             for j, res in enumerate(level.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=-1), temb, f)
+                x = res(torch.cat([x, skips.pop()], dim=-1), temb, f, slab)
                 if len(level.attentions):
-                    x = level.attentions[j](x, ctx, f)
+                    x = level.attentions[j](x, ctx, f, slab)
             if hasattr(level, "upsamplers"):
-                x = conv_cl(level.upsamplers[0].conv, upsample_nearest_2x(x))
+                x = conv_rows_cl(level.upsamplers[0].conv, upsample_nearest_2x(x), slab)
 
-        x = conv_cl(self.conv_out, F.silu(group_norm_cl(self.conv_norm_out, x)))
+        x = conv_rows_cl(self.conv_out, F.silu(norm_cl(self.conv_norm_out, x, slab)), slab)
         return x.reshape(b, f, hh, ww, -1)

@@ -175,17 +175,23 @@ def svd_encode_chunked(vae: AutoencoderKLTemporalDecoder, frames: torch.Tensor,
                       for i in range(0, frames.shape[1], chunk)], dim=1)
 
 
+def decode_chunk(h: int, w: int) -> int:
+    """The frames of a decode chunk at ``h`` x ``w`` latents (the JAX
+    package's rule): ``min(8, max(1, 4*72*128 // (h*w)))``, 4 at 576x1024."""
+    return int(min(8, max(1, (4 * 72 * 128) // (h * w))))
+
+
 @torch.no_grad()
 def svd_decode_chunked(vae: AutoencoderKLTemporalDecoder, z: torch.Tensor,
                        chunk: Optional[int] = None) -> torch.Tensor:
-    """(B, F, h, w, latent) -> (B, F, 8h, 8w, 3), ``chunk`` frames at a time.
+    """(B, F, h, w, latent) -> (B, F, 8h, 8w, 3), ``chunk`` frames at a time
+    (``decode_chunk`` by default).
 
     The chunking is semantics, not memory: the temporal decoder mixes time
     only within a chunk (the published ``decode_chunk_size`` behaviour), so
-    the JAX package's rule is kept -- ``min(8, max(1, 4*72*128 // (h*w)))``
-    frames, 4 at 576x1024 -- and the last partial chunk is decoded at its
-    true length."""
+    the JAX package's rule is kept and the last partial chunk is decoded at
+    its true length."""
     f = z.shape[1]
     if chunk is None:
-        chunk = int(min(8, max(1, (4 * 72 * 128) // (z.shape[2] * z.shape[3]))))
+        chunk = decode_chunk(z.shape[2], z.shape[3])
     return torch.cat([vae.decode(z[:, i:i + chunk]) for i in range(0, f, chunk)], dim=1)

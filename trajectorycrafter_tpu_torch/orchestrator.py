@@ -18,15 +18,19 @@ gen, viz).  The modes differ in what they warp:
 
 Under ``--mesh_dp/--mesh_sp/--mesh_tp`` (ranks started by torchrun, cli.py)
 the four modes run sharded as the JAX package's: the leader (rank 0) reads
-the frames, captions, estimates depth, makes the poses and encodes the
-prompt, and hands frames, depths and poses to every rank; every rank warps
-its share of the frames (ops/splat.py, frames over every mesh axis) and
-runs the pipeline (pipelines/trajcrafter.py ``with_mesh``): its slab of
-the VAE's condition prep and decode (H on dp, W on sp) and its shard of
-the denoise (the DiT tensor-parallel over tp, its tokens on sp, the CFG
-pair on dp).  Every rank holds the VAE and its DiT shard; the leader also
-the other models.  The leader alone writes the mp4s and returns the
-video; the other ranks return None.  The other entry points
+the frames and captions, and hands the frames to every rank; every rank
+runs its share of the depth stage (pipelines/depth.py ``with_mesh``: CLIP
+and the SVD VAE on whole frames over every rank, the UNet's windows with
+frames on dp and latent rows on sp) and ends with the whole depth; the
+leader makes the poses and encodes the prompt, and hands the poses to
+every rank; every rank warps its share of the frames (ops/splat.py, frames
+over every mesh axis) and runs the pipeline (pipelines/trajcrafter.py
+``with_mesh``): its slab of the VAE's condition prep and decode (H on dp,
+W on sp) and its shard of the denoise (the DiT tensor-parallel over tp,
+its tokens on sp, the CFG pair on dp).  Every rank holds the VAE, its DiT
+shard and the depth stage's models (the UNet, the SVD VAE, CLIP); the
+leader also T5 and the captioner.  The leader alone writes the mp4s and
+returns the video; the other ranks return None.  The other entry points
 (autoregressive.py, known_poses.py, consistent_autoregressive.py) are not
 driven under a mesh.
 
@@ -167,6 +171,14 @@ def depth_stage(unet: UNetSpatioTemporalConditionModel, vae: AutoencoderKLTempor
         unet=unet, vae=vae, image_encoder=image_encoder, dtype=dtype)).infer
 
 
+def depth_pipeline(depth_infer: Callable) -> Optional[DepthCrafterPipeline]:
+    """The DepthCrafter pipeline behind a bundle's ``depth_infer`` (a
+    ``DepthCrafterDemo.infer``), or None for another callable (the
+    plane-depth stand-in, which needs no mesh)."""
+    demo = getattr(depth_infer, "__self__", None)
+    return demo.pipe if isinstance(demo, DepthCrafterDemo) else None
+
+
 def _plane_depth_infer(frames, near, far, *a, **kw):
     """Constant-plane depth stub used when no DepthCrafter weights exist."""
     f, h, w = frames.shape[:3]
@@ -294,13 +306,14 @@ def build_dev_models(cfg: TrajCrafterConfig, device="cpu", seed: int = 0) -> Mod
     return _bundle(cfg, pipeline, _plane_depth_infer, encode_prompt)
 
 
-def _follower_bundle(cfg: TrajCrafterConfig, vae, dit, dtype) -> ModelBundle:
+def _follower_bundle(cfg: TrajCrafterConfig, vae, dit, dtype,
+                     depth_infer: Callable) -> ModelBundle:
     """The bundle of a mesh rank other than the leader: the VAE, the DiT
-    (its shard once the pipeline takes the mesh) and the sampler, nothing
-    else."""
+    (its shard once the pipeline takes the mesh), the sampler and the depth
+    stage, no prompt encoder or captioner."""
     pipeline = TrajCrafterPipeline(vae=vae, transformer=dit, dtype=dtype,
                                    scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name]())
-    return ModelBundle(pipeline=pipeline, depth_infer=None, encode_prompt=None,
+    return ModelBundle(pipeline=pipeline, depth_infer=depth_infer, encode_prompt=None,
                        get_caption=None)
 
 
@@ -332,26 +345,26 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
     kernel), as the JAX package's model constructors take it.
 
     Under ``mesh`` each rank builds its shard of the same DiT
-    (``build_dit``) and the same VAE, and only the leader the other
-    models."""
+    (``build_dit``), the same VAE and the same depth stage's models (each
+    drawn from its own seed), and only the leader T5."""
     check_supported(cfg)
     dtype = torch.bfloat16
     dit = build_dit(lambda: full_scale_dit(attention_impl), device, dtype, seed + 1,
                     cfg.diffusion.quant, mesh)
     vae = random_init_(_on_device(lambda: AutoencoderKLCogVideoX(), device, dtype), seed)
-    if mesh is not None and not mesh.leader:
-        return _follower_bundle(cfg, vae, dit, dtype)
-    pipeline = TrajCrafterPipeline(vae=vae, transformer=dit,
-                                   scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](),
-                                   dtype=dtype)
-    t5 = random_init_(_on_device(T5EncoderModel, device, dtype), seed + 2)
     unet = random_init_(_on_device(UNetSpatioTemporalConditionModel, device, dtype), seed + 3)
     if cfg.depth.quant == "int8":
         quantize_depth_unet_(unet)
     svd_vae = random_init_(_on_device(AutoencoderKLTemporalDecoder, device, dtype), seed + 4)
     clip = random_init_(_on_device(CLIPVisionModelWithProjection, device, dtype), seed + 5)
-    return _bundle(cfg, pipeline, depth_stage(unet, svd_vae, clip, dtype),
-                   T5PromptEncoder(t5, T5_TEXT_LEN))
+    depth_infer = depth_stage(unet, svd_vae, clip, dtype)
+    if mesh is not None and not mesh.leader:
+        return _follower_bundle(cfg, vae, dit, dtype, depth_infer)
+    pipeline = TrajCrafterPipeline(vae=vae, transformer=dit,
+                                   scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](),
+                                   dtype=dtype)
+    t5 = random_init_(_on_device(T5EncoderModel, device, dtype), seed + 2)
+    return _bundle(cfg, pipeline, depth_infer, T5PromptEncoder(t5, T5_TEXT_LEN))
 
 
 def load_full_bundle(cfg: TrajCrafterConfig, device="cuda", mesh=None) -> ModelBundle:
@@ -364,15 +377,17 @@ def load_full_bundle(cfg: TrajCrafterConfig, device="cuda", mesh=None) -> ModelB
     tokenizer or DepthCrafter raises, unless ``--allow_dev_stubs``: then the
     pseudo prompt embeddings or the plane depth stand in, with a printed
     line.  BLIP-2 captions unless ``--prompt`` is given.  Under ``mesh``
-    every rank loads the VAE and the DiT, of which it keeps its shard; only
-    the leader loads the other models."""
+    every rank loads the VAE, the DiT, of which it keeps its shard, and the
+    depth stage; only the leader loads T5 and the captioner."""
     stats: dict = {}
     dtype = torch.bfloat16
     vae = load_vae(os.path.join(cfg.diffusion.model_name, "vae"), device, dtype, stats)
     dit = load_dit(cfg.diffusion.transformer_path, device, dtype, quant=cfg.diffusion.quant,
                    stats=stats)
     if mesh is not None and not mesh.leader:
-        return dataclasses.replace(_follower_bundle(cfg, vae, dit, dtype), load_stats=stats)
+        depth_infer = _load_depth(cfg, device, dtype, stats, mesh)
+        return dataclasses.replace(_follower_bundle(cfg, vae, dit, dtype, depth_infer),
+                                   load_stats=stats)
     pipeline = TrajCrafterPipeline(vae=vae, transformer=dit,
                                    scheduler=SCHEDULER_REGISTRY[cfg.diffusion.sampler_name](),
                                    dtype=dtype)
@@ -399,6 +414,22 @@ def load_full_bundle(cfg: TrajCrafterConfig, device="cuda", mesh=None) -> ModelB
             return (_pseudo_text_embeds(prompt or "", T5_TEXT_LEN, T5_TEXT_DIM, device),
                     _pseudo_text_embeds(negative or "", T5_TEXT_LEN, T5_TEXT_DIM, device))
 
+    depth_infer = _load_depth(cfg, device, dtype, stats, mesh)
+    if cfg.diffusion.prompt:
+        get_caption = lambda frame: cfg.diffusion.prompt
+    else:
+        get_caption = build_captioner(cfg.diffusion.blip_path, device, stats)
+    total = sum(s["bytes"] for s in stats.values())
+    print(f"{LOG} bundle loaded on {device}: {total / 1e9:.2f} GB")
+    return ModelBundle(pipeline=pipeline, depth_infer=depth_infer, encode_prompt=encode_prompt,
+                       get_caption=get_caption, load_stats=stats)
+
+
+def _load_depth(cfg: TrajCrafterConfig, device, dtype, stats: dict, mesh=None) -> Callable:
+    """The depth stage from ``--unet_path`` and ``--pre_train_path``, or,
+    only with ``--allow_dev_stubs``, the plane-depth stand-in where they do
+    not load.  Under ``mesh`` every rank loads it, and ranks that disagree on
+    which they got raise: the stage never runs on some ranks alone."""
     try:
         if not os.path.isdir(cfg.depth.unet_path):
             raise FileNotFoundError(f"DepthCrafter UNet directory missing: {cfg.depth.unet_path}")
@@ -411,15 +442,13 @@ def load_full_bundle(cfg: TrajCrafterConfig, device="cuda", mesh=None) -> ModelB
         print(f"{LOG} DepthCrafter unavailable ({e}); using plane-depth stub "
               "(--allow_dev_stubs)")
         depth_infer = _plane_depth_infer
-
-    if cfg.diffusion.prompt:
-        get_caption = lambda frame: cfg.diffusion.prompt
-    else:
-        get_caption = build_captioner(cfg.diffusion.blip_path, device, stats)
-    total = sum(s["bytes"] for s in stats.values())
-    print(f"{LOG} bundle loaded on {device}: {total / 1e9:.2f} GB")
-    return ModelBundle(pipeline=pipeline, depth_infer=depth_infer, encode_prompt=encode_prompt,
-                       get_caption=get_caption, load_stats=stats)
+    if mesh is not None:
+        stub = torch.tensor([float(depth_infer is _plane_depth_infer)], device=device)
+        agreed = D.all_reduce(stub.clone(), mesh.world, op="max")
+        if agreed.item() != stub.item():
+            raise RuntimeError("the ranks of the mesh disagree on the depth stage: some loaded "
+                               "DepthCrafter, some fell back to the plane-depth stub")
+    return depth_infer
 
 
 def build_models(cfg: TrajCrafterConfig, device="cuda", mesh=None) -> ModelBundle:
@@ -469,6 +498,9 @@ class TrajCrafter:
         self.models = models if models is not None else build_models(cfg, mesh=self.mesh)
         if self.mesh is not None:
             self.models.pipeline.with_mesh(self.mesh)
+            depth = depth_pipeline(self.models.depth_infer)
+            if depth is not None:
+                depth.with_mesh(self.mesh)
         self.device = self.models.pipeline.device
         self.timer: StageTimer = self.models.pipeline.timer
 
@@ -633,22 +665,23 @@ class TrajCrafter:
 
     # -- the modes -----------------------------------------------------------
     def _frames_prompt_depths(self):
-        """The stages every mode opens with: frames, caption, depth, on the
-        leader; under a mesh the frames and depths are handed to every rank
-        (the prompt stays the leader's: None elsewhere)."""
+        """The stages every mode opens with: frames and caption on the
+        leader, then depth; under a mesh the frames are handed to every
+        rank, each runs its share of the depth stage and ends with the
+        whole depth (the prompt stays the leader's: None elsewhere)."""
         cfg = self.cfg
-        frames = prompt = depths = None
+        frames = prompt = None
         if self.leader:
             with self.timer("read_frames"):
                 frames = self._load_frames()
             with self.timer("caption"):
                 prompt = self.models.get_caption(frames[cfg.video_length // 2]) + \
                     cfg.diffusion.refine_prompt
-            with self.timer("depth"):
-                depths = self._estimate_depth(frames)
         if self.mesh is not None:
             with self.timer("handoff"):
-                frames, depths = self._from_leader(frames, depths)
+                (frames,) = self._from_leader(frames)
+        with self.timer("depth"):
+            depths = self._estimate_depth(frames)
         return frames, prompt, depths
 
     def _poses(self, depths: np.ndarray, num_frames: int, f_new: Optional[float] = None):

@@ -96,10 +96,12 @@ class Plane:
         return D.all_gather(x, self.rows, dim=-2, sizes=[r * scale for r in rows], name="slabs")
 
 
-def _exchange(x: torch.Tensor, axis: D.Axis, dim: int, before: int, after: int) -> torch.Tensor:
+def exchange(x: torch.Tensor, axis: D.Axis, dim: int, before: int, after: int,
+             name: str = "halo") -> torch.Tensor:
     """``x`` with the previous rank's last ``before`` and the next rank's
     first ``after`` rows along ``dim`` (negative) around it, zeros past the
-    first and the last rank of ``axis``."""
+    first and the last rank of ``axis``; ``name``: the exchange's name in
+    ``distributed.TRANSPORT``."""
     if before == 0 and after == 0:
         return x
     n = x.shape[dim]
@@ -111,7 +113,7 @@ def _exchange(x: torch.Tensor, axis: D.Axis, dim: int, before: int, after: int) 
                          f"({before}, {after})")
     # one transfer for both edges: [first `after` rows | last `before` rows]
     edges = torch.cat([x.narrow(dim, 0, after), x.narrow(dim, n - before, before)], dim=dim)
-    every = D.all_gather(edges.unsqueeze(0), axis, dim=0, name="halo")
+    every = D.all_gather(edges.unsqueeze(0), axis, dim=0, name=name)
     i = axis.index
     top = every[i - 1].narrow(dim, after, before) if i > 0 else zeros(before)
     bottom = every[i + 1].narrow(dim, 0, after) if i < axis.size - 1 else zeros(after)
@@ -124,8 +126,8 @@ def halo(x: torch.Tensor, plane: Plane, top: int, bottom: int, left: int,
     dp neighbours, then by ``left`` / ``right`` columns of its sp
     neighbours' row-grown slabs (the corners included); zeros at the
     global edges."""
-    x = _exchange(x, plane.rows, -2, top, bottom)
-    return _exchange(x, plane.cols, -1, left, right)
+    x = exchange(x, plane.rows, -2, top, bottom)
+    return exchange(x, plane.cols, -1, left, right)
 
 
 def group_norm(norm: nn.GroupNorm, x: torch.Tensor, plane: Plane) -> torch.Tensor:

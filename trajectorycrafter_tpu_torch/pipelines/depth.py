@@ -20,6 +20,17 @@ The denoise loop is a plain Python loop.  Each window's initial noise is
 drawn from a ``torch.Generator`` on the pipeline's device; the
 ``window_noises`` and ``image_embeddings`` overrides let a test share them
 with the JAX pipeline.  The running latents are updated in place.
+
+``with_mesh`` (JAX ``with_mesh``) shards the stage over a dp x sp x tp mesh
+(parallel/frames.py), every rank holding the models: the CLIP embed and the
+SVD encode each take the rank's whole frames of the clip (dealt over every
+rank, the leader fewest) and one ``all_gather`` joins them; every rank draws
+each window's whole noise from the same generator, denoises its slab of the
+window (its frames on dp, its latent rows on sp, on the UNet's sharded twin)
+and joins the window's latents over the plane, so the chaining runs on whole
+latents, the same on every rank; the decode deals whole chunks (the
+unsharded chunk boundaries) to the ranks in the same way, and the raw
+disparity is joined whole.  Every rank returns the whole disparity.
 """
 
 from __future__ import annotations
@@ -38,10 +49,13 @@ from trajectorycrafter_tpu_torch.models.clip import (
 from trajectorycrafter_tpu_torch.models.depthcrafter import UNetSpatioTemporalConditionModel
 from trajectorycrafter_tpu_torch.models.svd_vae import (
     AutoencoderKLTemporalDecoder,
+    decode_chunk,
     svd_decode_chunked,
     svd_encode_chunked,
 )
 from trajectorycrafter_tpu_torch.ops.resize import resize_linear
+from trajectorycrafter_tpu_torch.parallel import frames as FR
+from trajectorycrafter_tpu_torch.parallel.spatial import shard_spatially
 from trajectorycrafter_tpu_torch.schedulers.euler import EulerDiscreteScheduler, EulerState
 
 ADDED_TIME_IDS = (6.0, 127.0, 0.02)  # fps, motion bucket, noise aug
@@ -91,6 +105,8 @@ class DepthCrafterPipeline:
     image_encoder: Optional[CLIPVisionModelWithProjection] = None
     scheduler: Optional[EulerDiscreteScheduler] = None
     dtype: torch.dtype = torch.bfloat16
+    mesh: object = None  # parallel/mesh.py Mesh, set by with_mesh
+    sharded_unet: Optional[UNetSpatioTemporalConditionModel] = None  # the UNet's twin, ditto
 
     def __post_init__(self):
         if self.scheduler is None:
@@ -100,9 +116,34 @@ class DepthCrafterPipeline:
     def device(self) -> torch.device:
         return self.unet.conv_in.weight.device
 
+    def with_mesh(self, mesh) -> "DepthCrafterPipeline":
+        """Shard the stage over ``mesh`` (dp x sp x tp), in place: the
+        UNet's windows on a twin sharing its weights, frames on dp and
+        latent rows on sp (parallel/frames.py ``FrameRows``), the same slab
+        on every tp rank; CLIP and the SVD VAE on whole frames over every
+        rank.  The JAX package returns a copy with the parameters
+        replicated; here every rank holds the models already."""
+        self.sharded_unet = shard_spatially(self.unet, FR.FrameRows.of(mesh))
+        self.mesh = mesh
+        return self
+
+    def _per_frame(self, fn, frames: torch.Tensor, empty: torch.Tensor) -> torch.Tensor:
+        """``fn`` of the clip's frames, a per-frame function: under a mesh
+        each rank runs it on its share (``empty`` where it has none) and one
+        ``all_gather`` joins the results."""
+        if self.mesh is None:
+            return fn(frames)
+        start, n, sizes = FR.frame_share(frames.shape[0], self.mesh.world)
+        local = fn(frames[start:start + n]) if n else empty
+        return FR.gather_frames(local.contiguous(), self.mesh.world, sizes)
+
     @torch.no_grad()
     def encode_image_embeddings(self, frames: torch.Tensor) -> torch.Tensor:
         """(F, H, W, 3) in [0, 1] -> per-frame CLIP embeddings (F, 1, D)."""
+        proj = self.image_encoder.visual_projection.weight
+        return self._per_frame(self._embed, frames, proj.new_empty((0, 1, proj.shape[0])))
+
+    def _embed(self, frames: torch.Tensor) -> torch.Tensor:
         size = self.image_encoder.image_size
         x = resize_linear(frames.permute(0, 3, 1, 2), (size, size)).permute(0, 2, 3, 1)
         mean = torch.tensor(CLIP_IMAGE_MEAN, device=x.device)
@@ -110,9 +151,49 @@ class DepthCrafterPipeline:
         dtype = self.image_encoder.visual_projection.weight.dtype
         return self.image_encoder(((x - mean) / std).to(dtype))[:, None, :]
 
+    @torch.no_grad()
+    def _cond_latents(self, frames: torch.Tensor) -> torch.Tensor:
+        """(F, H, W, 3) in [0, 1] -> per-frame conditioning latents (F, h,
+        w, 4) fp32: the posterior mean, un-scaled (SVD)."""
+        lc = self.vae.latent_channels
+        encode = lambda x: svd_encode_chunked(self.vae, (x * 2.0 - 1.0)[None].to(self.dtype))[0]
+        h, w = frames.shape[1:3]
+        empty = frames.new_empty((0, h // 8, w // 8, lc), dtype=self.dtype)
+        return self._per_frame(lambda x: encode(x)[..., :lc], frames, empty).float()
+
+    def _decode_raw(self, latents: torch.Tensor) -> torch.Tensor:
+        """Whole latents (F, h, w, 4) -> raw disparity (F, 8h, 8w), fp32 on
+        the device: the chunked temporal decode, clamped, channel mean.
+        Under a mesh each rank decodes its whole chunks (the unsharded
+        chunk boundaries, so the time mixing never crosses a rank) and the
+        disparity is joined over every rank."""
+        f, h, w = latents.shape[:3]
+        chunk = decode_chunk(h, w)
+        z = (latents[None] / self.vae.scaling_factor).to(self.dtype)
+        raw = lambda z: torch.clamp(svd_decode_chunked(self.vae, z, chunk)[0].float() / 2.0
+                                    + 0.5, 0.0, 1.0).mean(dim=-1)
+        if self.mesh is None:
+            return raw(z)
+        world = self.mesh.world
+        lengths = [min(chunk, f - s) for s in range(0, f, chunk)]
+        counts = FR.deal(len(lengths), world)
+        sizes = [sum(lengths[sum(counts[:r]):sum(counts[:r + 1])]) for r in range(world.size)]
+        start, n = sum(sizes[:world.index]), sizes[world.index]
+        local = (raw(z[:, start:start + n]) if n else
+                 torch.empty((0, 8 * h, 8 * w), device=latents.device))
+        return FR.gather_frames(local, world, sizes)
+
     def _denoise_window(self, state: EulerState, latents, cond_latents, ctx, steps: int,
                         guidance_scale: float) -> torch.Tensor:
-        """The Euler denoise of one window's latents (F, h, w, 4), fp32."""
+        """The Euler denoise of one window's latents (F, h, w, 4), fp32.
+        Under a mesh this rank denoises its slab (frames on dp, latent rows
+        on sp) on the UNet's sharded twin, with every frame's ``ctx``, and
+        the window's latents are joined whole over the plane."""
+        unet, height, slab = self.unet, None, None
+        if self.mesh is not None:
+            unet, height = self.sharded_unet, latents.shape[1]
+            slab = unet.plane.layout(latents.shape[0], height)
+            latents, cond_latents = slab.take(latents, 0, 1), slab.take(cond_latents, 0, 1)
         added = torch.tensor([ADDED_TIME_IDS], device=latents.device)
         for i in range(steps):
             scaled = self.scheduler.scale_model_input(state, latents, i)
@@ -120,16 +201,16 @@ class DepthCrafterPipeline:
             if guidance_scale > 1.0:
                 x_in = torch.stack([torch.cat([scaled, torch.zeros_like(cond_latents)], dim=-1),
                                     torch.cat([scaled, cond_latents], dim=-1)])
-                pred = self.unet(x_in.to(self.dtype), torch.full((2,), t, device=x_in.device),
-                                 torch.stack([torch.zeros_like(ctx), ctx]),
-                                 added.repeat(2, 1)).float()
+                pred = unet(x_in.to(self.dtype), torch.full((2,), t, device=x_in.device),
+                            torch.stack([torch.zeros_like(ctx), ctx]), added.repeat(2, 1),
+                            height).float()
                 pred = pred[0] + guidance_scale * (pred[1] - pred[0])
             else:
                 x_in = torch.cat([scaled, cond_latents], dim=-1)[None]
-                pred = self.unet(x_in.to(self.dtype), torch.full((1,), t, device=x_in.device),
-                                 ctx[None], added)[0].float()
+                pred = unet(x_in.to(self.dtype), torch.full((1,), t, device=x_in.device),
+                            ctx[None], added, height)[0].float()
             latents = self.scheduler.step(state, pred, i, latents)
-        return latents
+        return latents if slab is None else slab.join(latents.contiguous(), 0, 1)
 
     @torch.no_grad()
     def __call__(
@@ -147,7 +228,9 @@ class DepthCrafterPipeline:
 
         ``image_embeddings`` (F, 1, D) bypasses the CLIP encoder (the
         pipeline then needs none);
-        ``window_noises`` supplies each window's initial noise (F_w, h, w, 4)."""
+        ``window_noises`` supplies each window's initial noise (F_w, h, w, 4)
+        (under a mesh every rank passes the whole of each and takes its
+        share).  Every rank of a mesh returns the whole disparity."""
         device = self.device
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(42)
@@ -159,9 +242,7 @@ class DepthCrafterPipeline:
             ctx = torch.as_tensor(image_embeddings, device=device).to(self.dtype)
         else:
             ctx = self.encode_image_embeddings(frames_t).to(self.dtype)
-        # per-frame conditioning latents: the posterior mean, un-scaled (SVD)
-        moments = svd_encode_chunked(self.vae, (frames_t * 2.0 - 1.0)[None].to(self.dtype))[0]
-        cond_latents = moments[..., :self.vae.latent_channels].float()
+        cond_latents = self._cond_latents(frames_t)
 
         state = self.scheduler.set_timesteps(num_inference_steps)
         sigma0 = state.init_noise_sigma
@@ -185,9 +266,7 @@ class DepthCrafterPipeline:
             chain_blend(latents_all, win_lat, s, ov)
             prev_start = s
 
-        z = (latents_all[None] / self.vae.scaling_factor).to(self.dtype)
-        dec = svd_decode_chunked(self.vae, z)[0].float()
-        return torch.clamp(dec / 2.0 + 0.5, 0.0, 1.0).mean(dim=-1).cpu().numpy()
+        return self._decode_raw(latents_all).cpu().numpy()
 
 
 class DepthCrafterDemo:
