@@ -30,18 +30,18 @@ prints no result line):
      ``flash_pv8``, K7 ``int8_flash_attention``) the same way, at the
      attention bench's DiT shape and the main path's shapes (K7 also at
      head dim 128, ``K7_D128_SHAPE``; K5 also at run S's per-rank shape,
-     ``RUN_S_K5_SHAPE``);
+     ``RUN_S_K5_SHAPE``, and at run T1's, ``RUN_T_K5_SHAPES``);
   4b. the attention backward (``flash_attention_bwd_dkv``, K4-dkv, and
      ``flash_attention_bwd_dq``, K4-dq, csrc/flash_attention_bwd.cu) against
      ``attention_backward_reference`` at the training shapes (the DiT's (1,
-     48, 13,330^2, 64), the Perceiver's (1, 16, 13,104 x 3,024, 128)), a
-     ragged shape, the ragged edges and strided views, within
+     48, 13,330^2, 64), the Perceiver's (1, 16, 13,104 x 3,024, 128)), at
+     run T1's per-rank shapes (``RUN_T_K5_SHAPES``), a ragged shape, the ragged edges and strided views, within
      ``attention_backward_error`` (per element 2^-6 of the gradient's sum of
      magnitudes, per head a relative L2 error of 2^-6), which must reject di
      left out, the last quarter of the 64-query tiles skipped in dK/dV and
      of the 128-key tiles in dQ (the kernels' own tiles); then each timed at
      full shape in turns with the plain version and flash SDPA's backward,
-     beside its bound;
+     beside its bound (also at run T1's shapes);
   5. main path: ``TrajCrafter.infer_gradual`` at the deployed widths (random
      weights from a seed; T5-XXL prompt encode; the DepthCrafter depth
      stage, 5 Euler steps over one 49-frame window at 576x1024; 2 denoise
@@ -84,22 +84,11 @@ prints no result line):
      the scheduler's loop length, stage times and peak memory logged; then
      one step of each of the six samplers on the card against the same step
      on the CPU (``SAMPLER_STEP_TOL``);
-  5c. the long-trajectory and known-camera paths, on run A's models: run H
-     ``TrajCrafterAutoregressive.infer_autoregressive`` (v1: segments of 9
-     frames, 10 poses in two windows sharing 8, 2 depth stages, 2
-     diffusions, 10 frames), run I
-     ``TrajCrafterGlobalPointCloud.infer_autoregressive`` (v2 at segments
-     of 9 frames, the clip lifted into a point cloud of ~10 M points on
-     the card, a z-buffer render per pose, the merged cloud downsampled to
-     4 M, the PLY / COLMAP / HTML scene), run J
-     ``CameraPoseTrajCrafter.infer_camera_poses_smooth``
-     between two Panoptic-style cameras with a held-out target video
-     (``metrics.json``); each with its launches held to one depth stage's
-     and one diffusion's derived counts times its stages, finite output in
-     [0, 1] counted in frames, stage times and peak memory logged; then the
-     tiled VAE decode at 17 frames of 576x1024: one tile bit-equal to
+  5c. the tiled VAE decode at 17 frames of 576x1024: one tile bit-equal to
      ``vae_decode``, the JAX default tile and the auto route's strips finite
-     and of the right shape, each timed beside the one-shot decode;
+     and of the right shape, each timed beside the one-shot decode (runs
+     H-J, the long-trajectory and known-camera classes in process, were cut
+     in PR 20: phase 8's scripts drive them on the tree);
   5d. the consistent-depth path and the Gradio callback, on run A's
      models: run M ``TrajCrafterConsistentDepth.infer_autoregressive`` with
      a seeded Video-Depth-Anything vitl (fp32; 2 segments of 33 frames at
@@ -119,14 +108,17 @@ prints no result line):
      DiT): a SceneFlow-layout tree of 2 scenes x 49 frames at 960x540
      (PNG, .pfm disparities, camera_data.txt) turned into 2 .npz samples
      at 384x672 by ``datagen.generate_dataset`` (the bundle's VAE, the
-     T5-XXL prompt embedding); 3 training steps of the full-width DiT (42
+     T5-XXL prompt embedding); 2 training steps of the full-width DiT (42
      blocks, B = 1, 13,330 joint tokens) with rank-8 adapters on its 316
      target layers, ``remat``, ``flash_stock``, v-prediction, dropout 0.1:
      finite losses, grad_norm > 0, every B moved at step 1 and every A at
      step 2, K5 and the backward kernels launched as derived from the
      modules, seconds per step and peak memory logged; then one step's
      adapter gradients on the kernels against the plain versions on the DiT
-     cut to 4 blocks (``GRAD_MEDIAN_TOL``, ``GRAD_MAX_TOL``);
+     cut to 4 blocks (``GRAD_MEDIAN_TOL``, ``GRAD_MAX_TOL``); then run T1's
+     data and twin: 2 samples of 9 frames (every 6th of the scenes' 49) by
+     ``datagen``, and ``scripts/train_lora.main`` unsharded on them
+     (``--batch_size 2``, 2 steps) on the same DiT, its launches derived;
   5f. run Q, DiT feature probing (after 5e, on the same bf16 DiT with the
      JAX default route ``auto``, no recomputation): ``probing.
      collect_activation_dataset`` over run P's 2 samples at timesteps 311
@@ -186,9 +178,10 @@ prints no result line):
      as derived from the sharded modules, every rank's latents bit-equal
      after each step, the first sharded DiT forward against the unsharded
      int8 DiT on the same inputs (``RUN_S_REL_L2``, ``DIT_REL_TOL``); then,
-     on the check weights (``check_weights_``), that forward sound and with
-     each of ``RUN_S_FAULTS`` planted in every rank, the joint attention
-     output of ``RUN_S_CHECK_BLOCKS`` against the unsharded: the sound one
+     on the check weights (``check_weights_``) and the DiT cut to
+     ``RUN_S_CHECK_LAYERS`` blocks, that forward sound and with each of
+     ``RUN_S_FAULTS`` planted in every rank, the joint attention output of
+     ``RUN_S_CHECK_BLOCKS`` against the unsharded: the sound one
      within the same limits, each wrong one outside them (the DiT's output
      reported beside); every rank's share of the warp (``shard_sizes`` of
      the frames over the 4 ranks) and its slab of the CogVideoX VAE's
@@ -197,7 +190,7 @@ prints no result line):
      (``RUN_S_WARP_MASK_MAX``, ``RUN_S_WARP_OFF_MAX``), the sharded
      condition latents and decoded frames against the unsharded VAE, over
      the whole tensor and on the seam band (``RUN_S_VAE_REL_TOL``), under
-     the run's mesh and under ``RUN_S_VAE_MESH``, and on the VAE's check
+     the run's mesh, and under ``RUN_S_VAE_MESH`` on the VAE's check
      weights each of ``RUN_S_VAE_FAULTS`` at least
      ``RUN_S_VAE_FAULT_RATIO`` times the sound reading on the band; every
      rank's share of the depth stage (CLIP and the SVD encode on its whole
@@ -205,13 +198,21 @@ prints no result line):
      the decode's whole chunks; launches per rank derived from the sharded
      modules, the models' bits equal on every rank), its raw disparity and
      first UNet forward against the unsharded stage's under the run's mesh
-     and under ``RUN_S_VAE_MESH`` (``RUN_S_DEPTH_REL_TOL``), and in fp32 on
+     (``RUN_S_DEPTH_REL_TOL``), and under ``RUN_S_VAE_MESH`` in fp32 on
      check weights each of ``RUN_S_DEPTH_FAULTS`` at least
      ``RUN_S_VAE_FAULT_RATIO`` times the sound reading on the band; the
      video against run A9's at the quality CLI's 35 dB gate; seconds and
      peaks per rank logged (not a speed figure: four ranks share one card
      and stage their hops through host memory); ``tools/run_s_uncut.py``
      runs it at 49 frames against run A;
+  5t. run T, in run S's torchrun world once run S is done and its models
+     freed (see RUN_T_MESH): T1 ``scripts/train_lora.main`` under
+     ``--mesh_dp 2 --mesh_tp 2 --batch_size 2`` on the full-width bf16 DiT
+     over phase 5e's 9-frame samples, 2 steps, against the twin; T2 the
+     check of the check of the gradient reductions, three planted faults;
+     T3 GPipe over pp 3 at full depth on the int8 DiT against the
+     sequential block loop; T4 GPipe with pp 2 x tp 2 on 4 layers, and a
+     planted skipped hop; ``tools/run_t.py`` runs it alone;
   9. a JSON line of kernel results, and a final JSON line with the device.
 
 Imports nothing of JAX and nothing of the JAX package: the port holds its
@@ -413,14 +414,16 @@ RUN_S_ARGV = ["--mesh_dp", "1", "--mesh_sp", "2", "--mesh_tp", "2", "--dist_back
 RUN_S_REL_L2 = 2.0 ** -5
 # The check of the check: after the run, every rank sets its shard to the
 # check weights (``check_weights_``) and runs the first forward's inputs
-# again, sound and with each fault planted in every rank: (name, whether it
-# is wrong).  The run's random weights hide a wrong shard: their LayerNorm
+# again on the DiT cut to its first RUN_S_CHECK_LAYERS blocks (since PR 20,
+# for the smoke's clock: 42 before), sound and with each fault planted in
+# every rank: (name, whether it is wrong).  The run's random weights hide a
+# wrong shard: their LayerNorm
 # weights of ~0.02 make every softmax uniform and their biases outweigh the
 # rest, and the blocks' gates (~0.01-0.05) keep any branch small in the
 # output.  So each forward is held against the unsharded DiT on the same
 # check weights at the joint attention output of RUN_S_CHECK_BLOCKS,
 # gathered over the mesh.  Its output is reported, not held: on these
-# weights a sound run's bf16 and int8 rounding compounds over the 42 blocks
+# weights a sound run's bf16 and int8 rounding compounded over the 42 blocks
 # to ~3.5e-2 relative L2 at the output (NVIDIA H100 80GB HBM3), so the
 # output does not part sound from wrong there.  A ring that drops its
 # visiting shard (sp 2: its one hop) and a tp sum that drops the last
@@ -430,7 +433,8 @@ RUN_S_REL_L2 = 2.0 ** -5
 # entry bit-equal to the whole row's codes.)
 RUN_S_FAULTS = (("ring drops its visiting shard", True),
                 ("tp sum drops the last rank's partial", True))
-RUN_S_CHECK_BLOCKS = (0, DIT_LAYERS - 1)
+RUN_S_CHECK_LAYERS = 4
+RUN_S_CHECK_BLOCKS = (0, RUN_S_CHECK_LAYERS - 1)
 RUN_S_TIMEOUT = 900
 # the per-rank shapes of run S's kernels: K5 over a rank's 6,665 joint tokens
 # and 24 heads against each visiting shard of 6,665; the int8 GEMMs below
@@ -452,9 +456,9 @@ RUN_S_ROW_PARALLEL = {"tp2_to_out": (13330, 1536, 3072), "tp2_ff2": (13330, 6144
 # replays the run's generator from its state before the prep drew), by
 # relative L2 over the whole tensor and on the seam band (the rows and
 # columns within one latent, 8 pixels, of a seam), within
-# RUN_S_VAE_REL_TOL; then the same prep and decode under RUN_S_VAE_MESH (H
-# on dp too) from the same torchrun.  The check of the check, under
-# RUN_S_VAE_MESH, where both axes exchange halos: on the VAE's check
+# RUN_S_VAE_REL_TOL (since PR 20 not rerun under RUN_S_VAE_MESH: the
+# smoke's clock).  The check of the check, under RUN_S_VAE_MESH (H on dp
+# too, from the same torchrun), where both axes exchange halos: on the VAE's check
 # weights (``check_weights_``: GroupNorm weights 1, every bias 0; the
 # run's weights keep every activation near its channel's bias, where a
 # wrong halo hardly shows) each fault of RUN_S_VAE_FAULTS planted in every
@@ -487,9 +491,9 @@ RUN_S_WARP_OFF_MAX = 0.03
 # keys.  Its launches per rank are derived from the sharded twin's modules
 # (``_depth_kernel_attentions``); the depth models' bits are the same on
 # every rank (a checksum over the ranks).  After the run, on the run's
-# frames and seed: the depth stage again under RUN_S_VAE_MESH (frames 5 / 4
-# over dp) and, on the leader, unsharded; each mesh's raw disparity and
-# first UNet forward against the unsharded ones by relative L2 over the
+# frames and seed: the depth stage on the leader, unsharded (since PR 20 no
+# rerun under RUN_S_VAE_MESH: the smoke's clock); the run's raw disparity
+# and first UNet forward against the unsharded ones by relative L2 over the
 # whole tensor and on the seam band (latent rows within
 # RUN_S_DEPTH_BAND_ROWS of a row seam, 8x as many pixel rows for the
 # disparity; frames within RUN_S_DEPTH_BAND_FRAMES of a frame seam), within
@@ -1048,38 +1052,43 @@ def phase_variants():
     del q, k, v
     torch.cuda.empty_cache()
 
-    # K5 at run S's per-rank shape: the ring's inner step, a rank's queries
-    # against one visiting shard of keys; "run_s_*" keys of its entry
-    b, h, sq, skv, d = RUN_S_K5_SHAPE
-    scale = d ** -0.5
-    q, k, v = (randn(b, n, h, d).bfloat16() for n in (sq, skv, skv))
-    out, lse = flash_lse(q, k, v, scale)
-    refs = plain_refs(lambda x: attention_reference(q, k, x, scale), v)
-    judge("flash_lse", f"run S {RUN_S_K5_SHAPE}", output_error(out, *refs), {
-        "row_sum_x1.1": output_error((out.float() / 1.1).bfloat16(), *refs),
-        "last_quarter_of_key_tiles_skipped": output_error(flash_lse(
-            q, k[:, :_skip_last_quarter(skv, ATTENTION_KEY_TILE)],
-            v[:, :_skip_last_quarter(skv, ATTENTION_KEY_TILE)], scale)[0], *refs)})
-    check_readings(f"flash_lse run S {RUN_S_K5_SHAPE} logsumexp", lse_error(lse, q, k, scale),
-                   {"lse_in_base_2": lse_error(lse / math.log(2.0), q, k, scale)})
-    del out, lse, refs
-    t = in_turns(
-        {"plain_ms": lambda: (attention_reference(q, k, v, scale, chunk=512),
-                              av.lse_reference(q, k, scale, chunk=512)),
-         "ms": lambda: flash_lse(q, k, v, scale),
-         "library_ms": lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-             bshd(q), bshd(k), bshd(v), scale=scale)},
-        {"plain_ms": 1, "ms": 5, "library_ms": 5}, cold=("plain_ms",))
-    bnd = attention_bound(b, h, sq, skv, d, extra_bytes=4 * b * h * sq)
-    timing["flash_lse"].update({
-        "run_s_shape": str(RUN_S_K5_SHAPE), "run_s_ms": t["ms"], "run_s_plain_ms": t["plain_ms"],
-        "run_s_library_ms": t["library_ms"], "run_s_bound_ms": bnd["bound_ms"],
-        "run_s_sfu_ms": bnd["sfu_ms"]})
-    log(f"flash_lse timed at run S's per-rank shape {RUN_S_K5_SHAPE}: {t['ms']:.3f} ms, plain "
-        f"{t['plain_ms']:.2f} ms, library {t['library_ms']:.3f} ms; bound {bnd['bound_ms']:.3f} "
-        f"ms ({bnd['bound_by']}), SFU {bnd['sfu_ms']:.3f} ms")
-    del q, k, v
-    torch.cuda.empty_cache()
+    # K5 at run S's per-rank shape (the ring's inner step, a rank's queries
+    # against one visiting shard of keys) and at run T1's (a rank's heads of
+    # the joint self-attention and of the Perceiver); "run_s_*" / "run_t_*"
+    # keys of its entry
+    for prefix, shape in (("run_s", RUN_S_K5_SHAPE), *RUN_T_K5_SHAPES.items()):
+        b, h, sq, skv, d = shape
+        scale = d ** -0.5
+        q, k, v = (randn(b, n, h, d).bfloat16() for n in (sq, skv, skv))
+        if prefix == "run_t_perceiver":
+            q = q * 4.0  # the Perceiver's scores are not QK-normed
+        out, lse = flash_lse(q, k, v, scale)
+        refs = plain_refs(lambda x: attention_reference(q, k, x, scale), v)
+        judge("flash_lse", f"{prefix} {shape}", output_error(out, *refs), {
+            "row_sum_x1.1": output_error((out.float() / 1.1).bfloat16(), *refs),
+            "last_quarter_of_key_tiles_skipped": output_error(flash_lse(
+                q, k[:, :_skip_last_quarter(skv, ATTENTION_KEY_TILE)],
+                v[:, :_skip_last_quarter(skv, ATTENTION_KEY_TILE)], scale)[0], *refs)})
+        check_readings(f"flash_lse {prefix} {shape} logsumexp", lse_error(lse, q, k, scale),
+                       {"lse_in_base_2": lse_error(lse / math.log(2.0), q, k, scale)})
+        del out, lse, refs
+        t = in_turns(
+            {"plain_ms": lambda: (attention_reference(q, k, v, scale, chunk=512),
+                                  av.lse_reference(q, k, scale, chunk=512)),
+             "ms": lambda: flash_lse(q, k, v, scale),
+             "library_ms": lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                 bshd(q), bshd(k), bshd(v), scale=scale)},
+            {"plain_ms": 1, "ms": 5, "library_ms": 5}, cold=("plain_ms",))
+        bnd = attention_bound(b, h, sq, skv, d, extra_bytes=4 * b * h * sq)
+        timing["flash_lse"].update({
+            f"{prefix}_shape": str(shape), f"{prefix}_ms": t["ms"],
+            f"{prefix}_plain_ms": t["plain_ms"], f"{prefix}_library_ms": t["library_ms"],
+            f"{prefix}_bound_ms": bnd["bound_ms"], f"{prefix}_sfu_ms": bnd["sfu_ms"]})
+        log(f"flash_lse timed at {prefix}'s per-rank shape {shape}: {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.2f} ms, library {t['library_ms']:.3f} ms; bound "
+            f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), SFU {bnd['sfu_ms']:.3f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
 
     b, h, s, d = DIT_SHAPE
     scale = d ** -0.5
@@ -1240,6 +1249,9 @@ def phase_backward_kernels():
              ("dit_heads8_peaked", (1, 8, *TRAIN_DIT_SHAPE[2:]), 4.0,
               ("di", "query_tiles", "key_tiles")),
              ("perceiver", TRAIN_PERCEIVER_SHAPE, 4.0, ("di", "query_tiles", "key_tiles")),
+             ("run_t_dit", RUN_T_K5_SHAPES["run_t_dit"], 1.0, ("query_tiles", "key_tiles")),
+             ("run_t_perceiver", RUN_T_K5_SHAPES["run_t_perceiver"], 4.0,
+              ("di", "query_tiles", "key_tiles")),
              ("ragged", (1, 2, 1000, 777, 64), 2.0, ("di", "query_tiles", "key_tiles"))]
     for label, (b, h, sq, skv, d), gain, planted in cases:
         scale = d ** -0.5
@@ -1288,12 +1300,14 @@ def phase_backward_kernels():
     log(f"attention backward at {len(rows)} ragged and strided shapes: max head rel err "
         f"{max(rows):.3e} (limit {BWD_HEAD_TOL:.3e})")
 
-    # timing at full shape, in turns: plain, dK/dV, dQ, SDPA's backward and back
+    # timing at full shape, in turns: plain, dK/dV, dQ, SDPA's backward and
+    # back; at run P's shapes and at run T1's per-rank shapes
     timing = {}
     for label, (b, h, sq, skv, d) in (("dit", TRAIN_DIT_SHAPE),
-                                      ("perceiver", TRAIN_PERCEIVER_SHAPE)):
+                                      ("perceiver", TRAIN_PERCEIVER_SHAPE),
+                                      *RUN_T_K5_SHAPES.items()):
         scale = d ** -0.5
-        gain = 1.0 if label == "dit" else 4.0
+        gain = 1.0 if label.endswith("dit") else 4.0
         q, k, v, out, lse, dout, di = _backward_inputs(randn, b, h, sq, skv, d, gain)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         with torch.enable_grad():
@@ -1325,24 +1339,28 @@ def phase_backward_kernels():
     return max_err, timing
 
 
-def _backward_entries(err: dict, timing: dict, launches: dict) -> list:
+def _backward_entries(err: dict, timing: dict, launches: dict, run_t: dict) -> list:
     """The two backward kernels' entries of the kernels JSON line: times at
-    the DiT's training shape, the Perceiver's beside them; ``launches`` those
-    of one training step of run P."""
+    the DiT's training shape, the Perceiver's and run T1's per-rank shapes
+    beside them; ``launches`` those of one training step of run P, ``run_t``
+    run T's launches a rank."""
     entries = []
     for name in BACKWARD:
         if not launches[name]:
             raise AssertionError(f"run P's training step launched no {name}")
-        dit, per = timing["dit"], timing["perceiver"]
+        dit = timing["dit"]
         t = {"ms": dit[name], "plain_ms": dit["plain_ms"], "library_ms": dit["library_ms"],
              **dit["bounds"][name], "shape": dit["shape"],
              "library": "flash SDPA backward: dq, dk and dv in one call (the yardstick of "
-                        "the two kernels' sum); plain_ms: the plain version's dq, dk and dv",
-             "perceiver_shape": per["shape"], "perceiver_ms": per[name],
-             "perceiver_plain_ms": per["plain_ms"], "perceiver_library_ms": per["library_ms"],
-             "perceiver_bound_ms": per["bounds"][name]["bound_ms"]}
+                        "the two kernels' sum); plain_ms: the plain version's dq, dk and dv"}
+        for label in ("perceiver", *RUN_T_K5_SHAPES):
+            other = timing[label]
+            t.update({f"{label}_shape": other["shape"], f"{label}_ms": other[name],
+                      f"{label}_plain_ms": other["plain_ms"],
+                      f"{label}_library_ms": other["library_ms"],
+                      f"{label}_bound_ms": other["bounds"][name]["bound_ms"]})
         entries.append(_attention_entry(
-            name, t, launches=launches[name],
+            name, t, launches=launches[name], launches_run_t_per_rank=run_t[name],
             launches_run="P (one training step of the full-width DiT)",
             also_replaces="trajectorycrafter_tpu/ops/attention.py:39 (its custom_vjp)",
             redesigned="from mma.sync to wgmma, TMA and a producer-fed ring",
@@ -1529,9 +1547,10 @@ def _int8_bounds(name: str, group: int) -> dict:
 
 
 def _launches_per_path(runs: dict, kern: str) -> dict:
-    """A kernel's launches in each stage of each main-path run."""
+    """A kernel's launches in each stage of each main-path run (run T,
+    which has no such stages, apart)."""
     return {f"run {r} {p}": runs[r]["per_path"][p][kern]
-            for r in runs for p in ("depth", "denoise")}
+            for r in runs if "per_path" in runs[r] for p in ("depth", "denoise")}
 
 
 def _run_launches(runs: dict, run: str, kern: str) -> int:
@@ -1551,6 +1570,7 @@ def _int8_entries(runs: dict, max_err: dict, per_shape: dict) -> list:
         "launches_576": _run_launches(runs, "R", kern),
         "launches_run_s": _run_launches(runs, "S", kern),
         "launches_run_s_per_rank": runs["S"]["per_rank"][kern],
+        "launches_run_t_per_rank": runs["T"]["per_rank"][kern],
         "max_abs_err": max_err[kern], **kw}
     ff1, ff2, qkvo = per_shape["dit_ff1"], per_shape["dit_ff2"], per_shape["dit_qkvo"]
     return [
@@ -2096,19 +2116,17 @@ def phase_modes(tc, dit8, runs: dict) -> None:
 # near 500 s on one H100 (653 s with these runs at 49 frames and 5 steps).
 CUT_FRAMES = 9
 CUT_DEPTH_STEPS = 1
-# Runs H-J of phase 5c (the long-trajectory and known-camera paths), on run
-# A's models: 2 segments sharing 8 frames, so 2 depth stages and 2
-# diffusions each, at segments of ``CUT_FRAMES`` (10 poses; phase 8's
-# scripts drive the same classes so; 17-frame segments before run S's
-# sharded VAE took their seconds).  J reads ``CUT_FRAMES``.
-LONG_RUN = dict(n_splits=2, overlap_frames=8, theta=30.0)
-LONG_SEGMENTS = {"H": CUT_FRAMES, "I": CUT_FRAMES}
+# The long-trajectory and known-camera paths (v1, v2, the smooth fly
+# between two cameras) run as phase 8's scripts on the tree; runs H-J drove
+# the same classes in process on run A's models before PR 20 cut them for
+# the smoke's clock.
 MAX_POINTS = 4_000_000  # v2's default cloud limit
 # Phase 8's scripts read 9 frames of the clip (one depth window still; the
 # launches per depth stage and per DiT forward do not depend on the frame
-# count): runs I, J, M and N drive the same classes on longer clips.
+# count): runs M and N drive the consistent-depth class on longer clips.
 SCRIPT_FRAMES = 9
-# run J's two Panoptic-style cameras (t in cm), at the warp size's intrinsics
+# the run_w_cam_poses script's two Panoptic-style cameras (t in cm), at the warp
+# size's intrinsics
 PANOPTIC_CAMERAS = [
     {"name": "00_00", "K": [[500.0, 0.0, 512.0], [0.0, 500.0, 288.0], [0.0, 0.0, 1.0]],
      "R": [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], "t": [[0.0], [0.0], [0.0]],
@@ -2248,91 +2266,6 @@ def _check_scene(run: str, scene: Path, vertices: int, cameras: int) -> None:
     log(f"  scene: {got} points (the merged cloud downsampled), {cams} cameras, "
         f"points.ply {(scene / 'points.ply').stat().st_size / 1e6:.1f} MB, viewer.html "
         f"{(scene / 'viewer.html').stat().st_size / 1e6:.1f} MB")
-
-
-def phase_long_paths(tc, dit8, runs: dict) -> None:
-    """Runs H-J on run A's models (the int8 DiT, the bf16 UNet on
-    ``flash_stock``): H ``TrajCrafterAutoregressive.infer_autoregressive``, I
-    ``TrajCrafterGlobalPointCloud.infer_autoregressive`` (the default
-    ``max_points``), J ``CameraPoseTrajCrafter.infer_camera_poses_smooth``
-    between two Panoptic-style cameras with a held-out target video; each
-    with its launches held to the counts of one depth stage and one
-    diffusion (``_expected_launches``) times its depth stages and diffusions.
-    Then the tiled VAE decode at 576x1024.  The runs join ``runs``."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-
-    from trajectorycrafter_tpu_torch.autoregressive import (
-        TrajCrafterAutoregressive,
-        TrajCrafterGlobalPointCloud,
-    )
-    from trajectorycrafter_tpu_torch.known_poses import CameraPoseTrajCrafter, panoptic_to_camera
-
-    cfg = tc.cfg
-    pipeline = tc.models.pipeline
-    unet = tc.models.depth_infer.__self__.pipe.unet
-    saved = pipeline.transformer
-    pipeline.transformer = dit8
-    os.environ["TRAJCRAFTER_DEPTH_ATTN"] = "flash_stock"
-    one = _expected_launches(cfg, pipeline.scheduler, dit8, unet, "flash_attention",
-                             "flash_attention")
-    try:
-        for run, cls in (("H", TrajCrafterAutoregressive), ("I", TrajCrafterGlobalPointCloud)):
-            segment = LONG_SEGMENTS[run]
-            frames = 2 * (segment - LONG_RUN["overlap_frames"]) + LONG_RUN["overlap_frames"]
-            run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, f"long_{run}"),
-                                          video_length=segment)
-            variant = cls(run_cfg, models=tc.models)
-            variant.timer.seconds.clear()
-            log(f"run {run}: {cls.__name__}.infer_autoregressive({LONG_RUN}), "
-                f"{frames} poses in 2 windows of {segment}")
-            r = drive(run, lambda: variant.infer_autoregressive(**LONG_RUN), tc.models)
-            for stage, sec in variant.timer.seconds.items():
-                log(f"  stage {stage}: {sec:.3f} s")
-            _check_depths(run, r["depth_outputs"], 2, run_cfg)
-            _check_video(run, r.pop("out"), frames, cfg.diffusion.sample_size)
-            counts = mp4_frame_counts(run_cfg.save_dir)
-            if counts != save_scheme_counts(segment):
-                raise AssertionError(f"run {run}: mp4 frame counts {counts}")
-            if run == "I":
-                _check_scene(run, Path(run_cfg.save_dir) / "scene", MAX_POINTS, frames)
-            runs[run] = {**r, "stages": dict(variant.timer.seconds)}
-            if r["per_path"] != _times(one, 2):
-                raise AssertionError(f"run {run}: kernel launches per stage {r['per_path']}, "
-                                     f"expected {_times(one, 2)}")
-
-        # J: the smooth camera fly between two calibrated cameras
-        run_cfg = dataclasses.replace(cfg, save_dir=os.path.join(cfg.out_dir, "known_J"),
-                                      video_length=CUT_FRAMES)
-        variant = CameraPoseTrajCrafter(run_cfg, models=tc.models)
-        variant.timer.seconds.clear()
-        src, tgt = (panoptic_to_camera(c) for c in PANOPTIC_CAMERAS)
-        frames = variant._load_frames()
-        held_out = np.ascontiguousarray(frames[:, :, ::-1])  # a stand-in target view
-        log("run J: CameraPoseTrajCrafter.infer_camera_poses_smooth between two Panoptic "
-            "cameras, depth estimated, a held-out target video")
-        r = drive("J", lambda: variant.infer_camera_poses_smooth(
-            frames, None, src, tgt, target_frames=held_out), tc.models)
-        for stage, sec in variant.timer.seconds.items():
-            log(f"  stage {stage}: {sec:.3f} s")
-        gen, metrics = r.pop("out")
-        _check_depths("J", r["depth_outputs"], 1, run_cfg)
-        _check_video("J", gen, run_cfg.video_length, cfg.diffusion.sample_size)
-        written = json.loads((Path(run_cfg.save_dir) / "metrics.json").read_text())
-        if written["metrics"] != metrics["metrics"] or not all(
-                np.isfinite(v) for v in metrics["metrics"].values()):
-            raise AssertionError(f"run J: metrics {metrics['metrics']}, written {written}")
-        log(f"  metrics.json (information, random weights): {json.dumps(metrics['metrics'])}")
-        runs["J"] = {**r, "stages": dict(variant.timer.seconds)}
-        if r["per_path"] != one:
-            raise AssertionError(f"run J: kernel launches per stage {r['per_path']}, "
-                                 f"expected {one}")
-    finally:
-        pipeline.transformer = saved
-        del os.environ["TRAJCRAFTER_DEPTH_ATTN"]
-    phase_tiled_decode(pipeline.vae)
 
 
 def phase_tiled_decode(vae) -> None:
@@ -2732,7 +2665,7 @@ TRAIN_SCENES = 2
 TRAIN_FRAMES = 49
 SCENEFLOW_HW = (540, 960)
 SCENEFLOW_STEP = 0.25
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 TRAIN_RANK = 8
 TRAIN_LR = 1e-4
 TRAIN_DROPOUT = 0.1
@@ -2742,6 +2675,72 @@ GRAD_CHECK_LAYERS = 4
 GRAD_CHECK_LATENTS = (5, 32, 56)
 GRAD_MEDIAN_TOL = 2.0 ** -6
 GRAD_MAX_TOL = 2.0 ** -3
+
+# Run T (phase 5s's torchrun world, after run S's checks once its models are
+# freed): sharded LoRA training and the GPipe block stack, four ranks sharing
+# the card over gloo.
+#   T1: ``scripts/train_lora.main`` under RUN_T_MESH (``--mesh_dp 2
+#     --mesh_tp 2 --batch_size 2``) on the full-width, full-depth bf16 DiT
+#     with run P's seeded weights (``flash_stock``, ``remat``), each rank
+#     drawing its shard unit by unit (``build_dit(..., tp=)``), over the
+#     RUN_T_FRAMES-frame samples that phase 5e writes with ``datagen`` from
+#     run P's SceneFlow tree (the clock: as run S reads 9 frames; 3 latent
+#     frames, 3,024 video + 226 text = 3,250 joint tokens); RUN_T_STEPS steps
+#     with a checkpoint after each.  Held: each step's loss and grad norm and
+#     the adapters after the steps against the same steps unsharded on one
+#     card (the twin: ``train_lora.main`` on the bundle's DiT in phase 5e, the
+#     same batches and draws), by relative error within RUN_T_REL_L2 (run S's
+#     limit); the adapters bit-equal on every rank after every step; K5,
+#     K4-dkv and K4-dq launched a rank a step as derived from the shard's
+#     modules (``_training_launches``: 2 x 42 + 21, 63, 63); rank 0 alone
+#     writes the checkpoints.  Logged: resident and peak memory and bytes by
+#     transport a rank.
+#   T2: the check of the check, on the full-width DiT cut to RUN_T_CHECK_LAYERS
+#     blocks (one Perceiver): one batch's adapter gradients reduced over
+#     RUN_T_MESH against the unsharded model's, sound and with each of
+#     RUN_T_FAULTS planted in every rank; each fault must read
+#     RUN_S_VAE_FAULT_RATIO times the sound reading on the adapters it
+#     touches.  As run S's VAE check does, it runs in fp32 without TF32 on
+#     the check weights (``check_weights_``) with the plain attention: on
+#     random bf16 weights the blocks' small gates keep the branches' share of
+#     a gradient near its bf16 rounding, which a missing reduction would hide
+#     behind.
+#   T3: GPipe over pp RUN_T_PP on ranks 0-2 (rank 3 idle, under JAX's
+#     warning) at full depth: 21 superblocks, 7 a stage; the int8 DiT (run
+#     A's weights) on run S's first DiT call's inputs (run A9's 9-frame CFG
+#     pair, B = 2) in RUN_T_MICROBATCHES microbatches, against the sequential
+#     block loop of the whole model (the main process) within RUN_T_REL_L2,
+#     bit equality reported; K1, K2a and K2b launched a stage as derived from
+#     its modules (M x 7 x 3, M x 7 x 15, M x 7 x 15); each stage's resident
+#     memory against the whole model's.
+#   T4: GPipe with pp 2 x tp 2 (RUN_T_PP_TP) on all four ranks, the
+#     full-width DiT cut to RUN_T_PP_TP_LAYERS layers (2 superblocks: no pp
+#     that divides 21 fits four ranks beside tp 2 at full depth, and JAX's
+#     own dry run composes pp x tp on 4 layers), on the same inputs, against
+#     its sequential loop within RUN_T_REL_L2; a planted stage that skips its
+#     hop (reads zeros) must read RUN_S_VAE_FAULT_RATIO times the sound
+#     reading.
+RUN_T_MESH = (2, 1, 2)  # (dp, sp, tp) of T1 and T2
+RUN_T_FRAMES = CUT_FRAMES
+RUN_T_STEPS = 2
+RUN_T_REL_L2 = 2.0 ** -5
+RUN_T_LATENT_SHAPES = {"gt_latents": (3, 48, 84, 16), "inpaint_latents": (3, 48, 84, 17),
+                       "ref_latents": (3, 48, 84, 16), "prompt_embeds": (226, 4096)}
+# the kernels' per-rank shapes in T1 (B = 1 a dp rank; tp 2 halves the
+# heads): the joint self-attention over 3,250 tokens, 24 heads of 64; the
+# Perceiver's 3,024 video queries against the 3 reference latent frames'
+# 3,024 tokens, 8 heads of 128
+RUN_T_K5_SHAPES = {"run_t_dit": (1, 24, 3250, 3250, 64),
+                   "run_t_perceiver": (1, 8, 3024, 3024, 128)}
+RUN_T_CHECK_LAYERS = 2
+RUN_T_CHECK_LATENTS = (3, 32, 56)
+RUN_T_CHECK_SEED = 7
+RUN_T_FAULTS = ("column input's backward without its tp sum",
+                "replicated proj_out adapter summed over tp", "dp gradients summed")
+RUN_T_PP = 3
+RUN_T_MICROBATCHES = 2
+RUN_T_PP_TP = (1, 1, 2, 2)  # (dp, sp, tp, pp)
+RUN_T_PP_TP_LAYERS = 4
 
 
 def _write_pfm(path: Path, img) -> None:
@@ -2815,10 +2814,11 @@ def _launch_counts() -> dict:
     return {kern.__name__: kern.launches for kern in _kernel_counters()}
 
 
-def phase_training(tc, data_root: Path) -> dict:
+def phase_training(tc, data_root: Path, t_dir=None) -> dict:
     """Run P: the training data from a SceneFlow tree, TRAIN_STEPS LoRA steps
     of the full-width bf16 DiT, then the adapter gradients on the kernels
-    against the plain versions.  Returns the launches of one step."""
+    against the plain versions; with ``t_dir``, run T1's samples and twin
+    (``_run_t_twin``).  Returns the launches of one step."""
     import numpy as np
     import torch
 
@@ -3009,6 +3009,10 @@ def phase_training(tc, data_root: Path) -> dict:
         set_impl(dit, "auto")
     gc.collect()
     torch.cuda.empty_cache()
+    if t_dir is not None:
+        _run_t_twin(tc, data_root, t_dir, scenes)
+        gc.collect()
+        torch.cuda.empty_cache()
     return step_launches
 
 
@@ -3356,6 +3360,14 @@ def _sharded_launches_per_forward(dit) -> dict:
     return out
 
 
+def cut_to_check_layers(dit) -> None:
+    """Cut a DiT (whole or a shard) to its first RUN_S_CHECK_LAYERS blocks
+    and their Perceivers, for run S's check of the check."""
+    dit.transformer_blocks = dit.transformer_blocks[:RUN_S_CHECK_LAYERS]
+    dit.perceiver_cross_attention = dit.perceiver_cross_attention[
+        :RUN_S_CHECK_LAYERS // PERCEIVER_INTERVAL]
+
+
 def check_weights_(model):
     """The check weights of run S's checks of the check, in place: every
     LayerNorm and GroupNorm weight 1 and every bias 0, as a trained model
@@ -3532,13 +3544,11 @@ def _sharded_stage_checks(tc, seen: dict) -> dict:
             readings[key] = {name: _seam_errors(got[name], want[name], shape,
                                                 8 if name == "frames" else 1) for name in got}
 
-    # the run's weights, bf16: the run's own sharded outputs (the run's
-    # mesh), then the same prep and decode under RUN_S_VAE_MESH
+    # the run's weights, bf16: the run's own sharded outputs (the run's mesh)
     want = outputs(plain, pipe.vae) if lead else None
     read(f"run {RUN_S_MESH} sound", {"inpaint latents": run_conditions[0],
                                      "reference latents": run_conditions[1],
                                      "frames": run_frames}, want, RUN_S_MESH)
-    read(f"run {RUN_S_VAE_MESH} sound", outputs(twin, twin.spatial_vae), want, RUN_S_VAE_MESH)
     del want, run_conditions, run_frames
     # the check of the check: check weights, fp32 without TF32, the encode
     # of the run's rendered video's first chunk and the decode of the
@@ -3682,8 +3692,8 @@ def _joined(unet, forward):
 def _sharded_depth_checks(tc, seen: dict) -> dict:
     """Run S's sharded depth stage against the unsharded one on the run's
     frames and seed (``seen``: the stage's call, its raw disparity and its
-    first UNet forward's slabs): the run's (RUN_S_MESH) and a rerun under
-    RUN_S_VAE_MESH, then the check of the check (see RUN_S_DEPTH_*).  Every
+    first UNet forward's slabs) under RUN_S_MESH, then the check of the
+    check under RUN_S_VAE_MESH (see RUN_S_DEPTH_*).  Every
     rank takes part; the leader computes the unsharded twins and returns the
     readings (the others only their slabs)."""
     import dataclasses
@@ -3712,27 +3722,22 @@ def _sharded_depth_checks(tc, seen: dict) -> dict:
                for shape, p in ((RUN_S_MESH, pipe), (RUN_S_VAE_MESH, twin))}
     slabs = {str(shape): [l.num_frames, l.num_rows] for shape, l in layouts.items()}
     run_forward = _joined(pipe.sharded_unet, seen["forward"])
-    raw2, forward2 = _first_forward(twin.sharded_unet, lambda: stage(twin))
-    forward2 = _joined(twin.sharded_unet, forward2)
     readings = {}
-    if lead:  # the unsharded stage and forwards on the same inputs
+    if lead:  # the unsharded stage and forward on the same inputs
         plain = dataclasses.replace(pipe, mesh=None, sharded_unet=None)
         want_raw = stage(plain)
-        for shape, raw, ((x, t, ehs, added), out) in (
-                (RUN_S_MESH, seen["raw"], run_forward), (RUN_S_VAE_MESH, raw2, forward2)):
-            with torch.no_grad():
-                want = pipe.unet(x, t, ehs, added)
-            readings[f"{shape} sound"] = {
-                "raw disparity": _depth_errors(raw, want_raw, shape, 0, 1, 8),
-                "first UNet forward": _depth_errors(out, want, shape, 1, 2, 1)}
-        del plain, want_raw, want
-    del raw2
+        (x, t, ehs, added), out = run_forward
+        with torch.no_grad():
+            want = pipe.unet(x, t, ehs, added)
+        readings[f"{RUN_S_MESH} sound"] = {
+            "raw disparity": _depth_errors(seen["raw"], want_raw, RUN_S_MESH, 0, 1, 8),
+            "first UNet forward": _depth_errors(out, want, RUN_S_MESH, 1, 2, 1)}
+        del plain, want_raw, want, out
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     # the check of the check: fp32 without TF32, check weights, a UNet cut to
     # one layer a block, the run's first input cropped
     (x, t, ehs, added), _ = run_forward
-    del forward2
     rows, cols = RUN_S_DEPTH_CHECK_CROP
     x, ehs = x[:, :, :rows, :cols].float(), ehs.float()
     check = check_weights_(random_init_(_on_device(
@@ -3760,9 +3765,28 @@ def _sharded_depth_checks(tc, seen: dict) -> dict:
     return {"slab": slabs, **({"readings": readings} if lead else {})}
 
 
-def run_s_rank(out_dir: str, cut: bool) -> None:
-    """One rank of run S, started by torchrun (``chip_smoke.py --run-s-rank
-    DIR [--cut]``): the process group from torchrun's environment through the CLI's
+def run_s_rank(out_dir: str, cut: bool, t_dir=None) -> None:
+    """One rank of phase 5s's torchrun world (``chip_smoke.py --run-s-rank
+    DIR [--cut] [--run-t T_DIR]``): run S (``_run_s``), then, with
+    ``t_dir`` (phase 5e's samples and twin), run T (``run_t_rank``) once
+    run S's models are freed."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+
+    try:
+        _run_s(out_dir, cut)
+        if t_dir is not None:
+            gc.collect()
+            torch.cuda.empty_cache()
+            D.barrier(D.world_axis())
+            run_t_rank(out_dir, t_dir)
+    finally:
+        D.shutdown()
+
+
+def _run_s(out_dir: str, cut: bool) -> None:
+    """One rank of run S: the process group from torchrun's environment through the CLI's
     ``start_world``; ``TrajCrafter`` on run A's command line with the mesh
     flags (this rank's DiT shard; the leader also the other models);
     ``infer_gradual`` with its launches counted in and outside the denoise,
@@ -3917,6 +3941,7 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
         hook.remove()
         t3 = time.perf_counter()
         args_, kwargs_ = seen.pop("first")
+        cut_to_check_layers(dit)
         check_weights_(dit)
         caught = []
         for i in RUN_S_CHECK_BLOCKS:
@@ -3954,25 +3979,19 @@ def run_s_rank(out_dir: str, cut: bool) -> None:
         raise
     finally:
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
-        D.shutdown()
 
 
-def phase_sharded(runs: dict, cut: bool = True) -> dict:
-    """Run S: the four ranks started by torchrun, then their readings held to
-    the checks stated at RUN_S_MESH, against run A9 (``cut``, the smoke's)
-    or run A; ``runs["S"]`` gets its launches."""
+def _torchrun(rank_args: list, n: int = 4) -> tuple:
+    """``chip_smoke.py <rank_args>`` as ``n`` ranks on the one card, started
+    by torchrun: (their output, torchrun's return code, its wall seconds).
+    Killed at RUN_S_TIMEOUT."""
     import signal
 
-    n = RUN_S_MESH[0] * RUN_S_MESH[1] * RUN_S_MESH[2]
-    twin, frames = ("A9", CUT_FRAMES) if cut else ("A", 49)
-    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_run_s_"))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(n), str(REPO / "chip_smoke.py"), "--run-s-rank", str(out_dir),
-           *(["--cut"] if cut else [])]
-    log(f"run S: {n} ranks on one card, torchrun {' '.join(cmd[3:])}")
+           str(n), str(REPO / "chip_smoke.py"), *rank_args]
     t0 = time.perf_counter()
-    # the four ranks share the card: expandable segments keep each rank's
-    # cached blocks close to what it holds
+    # the ranks share the card: expandable segments keep each rank's cached
+    # blocks close to what it holds
     env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True, start_new_session=True, env=env)
@@ -3981,18 +4000,38 @@ def phase_sharded(runs: dict, cut: bool = True) -> dict:
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
-        raise AssertionError(f"run S did not end within {RUN_S_TIMEOUT} s")
-    seconds = time.perf_counter() - t0
-    results = [json.loads(p.read_text()) if p.is_file() else {"error": "no readings"}
-               for p in (out_dir / f"rank{r}.json" for r in range(n))]
-    failed = {r["rank"] if "rank" in r else i: r["error"] for i, r in enumerate(results)
-              if "error" in r}
-    if proc.returncode or failed:
+        raise AssertionError(f"torchrun {' '.join(rank_args)} did not end within "
+                             f"{RUN_S_TIMEOUT} s")
+    return text, proc.returncode, time.perf_counter() - t0
+
+
+def phase_sharded(runs: dict, cut: bool = True, t_dir=None) -> dict:
+    """Run S: the four ranks started by torchrun, then their readings held to
+    the checks stated at RUN_S_MESH, against run A9 (``cut``, the smoke's)
+    or run A; ``runs["S"]`` gets its launches.  With ``t_dir`` (phase 5e's
+    samples and twin) the same ranks then run run T, whose readings are held
+    to the checks stated at RUN_T_MESH; ``runs["T"]`` gets its launches."""
+    n = RUN_S_MESH[0] * RUN_S_MESH[1] * RUN_S_MESH[2]
+    twin, frames = ("A9", CUT_FRAMES) if cut else ("A", 49)
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_run_s_"))
+    cmd = ["--run-s-rank", str(out_dir), *(["--cut"] if cut else []),
+           *(["--run-t", str(t_dir)] if t_dir else [])]
+    log(f"run S{' and run T' if t_dir else ''}: {n} ranks on one card, torchrun "
+        f"chip_smoke.py {' '.join(cmd)}")
+    text, returncode, seconds = _torchrun(cmd)
+    read = lambda name: [json.loads(p.read_text()) if p.is_file() else {"error": "no readings"}
+                         for p in (out_dir / f"{name}{r}.json" for r in range(n))]
+    results = read("rank")
+    results_t = read("run_t_rank") if t_dir else []
+    failed = {f"{run} {r.get('rank', i)}": r["error"]
+              for run, rs in (("S", results), ("T", results_t))
+              for i, r in enumerate(rs) if "error" in r}
+    if returncode or failed:
         for line in text.splitlines()[-60:]:
             log("  run S | " + line)
         for rank, error in failed.items():  # a rank's own error, before its peers' hang-ups
-            log(f"  run S rank {rank} | " + " ".join(error.strip().splitlines()[-2:])[:2000])
-        raise AssertionError(f"run S: torchrun rc {proc.returncode}; failed ranks "
+            log(f"  run {rank} | " + " ".join(error.strip().splitlines()[-2:])[:2000])
+        raise AssertionError(f"run S / T: torchrun rc {returncode}; failed ranks "
                              f"{json.dumps(failed)[-4000:]}")
     lead = results[0]
     log(f"run S: {seconds:.1f} s wall for torchrun (not a speed figure: {n} ranks time-share "
@@ -4026,7 +4065,11 @@ def phase_sharded(runs: dict, cut: bool = True) -> dict:
             f"{json.dumps(r['transport'])}")
     stages = _run_s_stage_check(results, frames)
     depth = _run_s_depth_check(results)
-    forward = _run_s_forward_check(out_dir)
+    t3_reference = {}
+    forward = _run_s_forward_check(out_dir, t3_reference if t_dir else None)
+    if t_dir:
+        runs["T"] = _run_t_check(out_dir, Path(t_dir), results_t, t3_reference)
+    del t3_reference
     shutil.rmtree(out_dir, ignore_errors=True)
     log(f"run S: every rank's latents bit-equal after each of {forwards} steps; peaks summed "
         f"{sum(r['peak_gib'] for r in results):.2f} GiB")
@@ -4058,8 +4101,8 @@ def phase_sharded(runs: dict, cut: bool = True) -> dict:
 
 def _run_s_depth_check(results: list) -> dict:
     """Run S's sharded depth stage: each rank's seconds, slabs and
-    collectives logged; the leader's readings of the run's and the rerun's
-    raw disparity and first UNet forward against the unsharded ones held to
+    collectives logged; the leader's readings of the run's raw disparity
+    and first UNet forward against the unsharded ones held to
     RUN_S_DEPTH_REL_TOL, and each planted fault of the check of the check
     to RUN_S_VAE_FAULT_RATIO times the sound reading on the seam band."""
     names = ("depth_halo", "depth_norm", "depth_kv", "depth_frames", "depth_latents")
@@ -4081,9 +4124,9 @@ def _run_s_depth_check(results: list) -> dict:
         log(f"run S's depth stage, {key}: " + "; ".join(
             f"{name} rel L2 {e['rel_l2']:.3e}, seam band {e['band_rel_l2']:.3e} "
             f"({e['band_share']:.2f} of the elements)" for name, e in reading.items()))
-    failed = [f"{shape} sound" for shape in (RUN_S_MESH, RUN_S_VAE_MESH)
-              if any(max(e["rel_l2"], e["band_rel_l2"]) > RUN_S_DEPTH_REL_TOL
-                     for e in readings[f"{shape} sound"].values())]
+    failed = [f"{RUN_S_MESH} sound"] if any(
+        max(e["rel_l2"], e["band_rel_l2"]) > RUN_S_DEPTH_REL_TOL
+        for e in readings[f"{RUN_S_MESH} sound"].values()) else []
     sound = readings[f"check {RUN_S_VAE_MESH} sound"]["first UNet forward"]["band_rel_l2"]
     for fault in RUN_S_DEPTH_FAULTS:
         wrong = readings[f"check {RUN_S_VAE_MESH} {fault}"]["first UNet forward"]["band_rel_l2"]
@@ -4135,9 +4178,8 @@ def _run_s_stage_check(results: list, frames: int) -> dict:
         log(f"run S's VAE, {key}: " + "; ".join(
             f"{name} rel L2 {e['rel_l2']:.3e}, seam band {e['band_rel_l2']:.3e}"
             for name, e in reading.items()))
-    for shape in (RUN_S_MESH, RUN_S_VAE_MESH):
-        if any(max(e.values()) > RUN_S_VAE_REL_TOL for e in vae[f"run {shape} sound"].values()):
-            failed.append(f"run {shape} sound")
+    if any(max(e.values()) > RUN_S_VAE_REL_TOL for e in vae[f"run {RUN_S_MESH} sound"].values()):
+        failed.append(f"run {RUN_S_MESH} sound")
     sound = vae[f"check {RUN_S_VAE_MESH} sound"]
     for fault in RUN_S_VAE_FAULTS:
         wrong = vae[f"check {RUN_S_VAE_MESH} {fault}"]
@@ -4153,7 +4195,7 @@ def _run_s_stage_check(results: list, frames: int) -> dict:
     return checks
 
 
-def _run_s_forward_check(out_dir: Path) -> dict:
+def _run_s_forward_check(out_dir: Path, t3_reference=None) -> dict:
     """Run S's first DiT forward (the leader's inputs and sharded output,
     saved by its hook) against the unsharded int8 DiT of the same weights
     (run A's, rebuilt here: this process holds no model by now) on the
@@ -4162,16 +4204,14 @@ def _run_s_forward_check(out_dir: Path) -> dict:
     the check (``RUN_S_FAULTS``): on the check weights, the sound forward
     and each with a planted fault, at the joint attention output of
     ``RUN_S_CHECK_BLOCKS`` (and, reported, at the output), against the
-    unsharded DiT on them."""
+    unsharded DiT on them.  ``t3_reference`` (a dict) gets run T3's
+    reference: the sequential block loop of the same DiT on the same
+    inputs, before the check weights."""
     import torch
 
     from trajectorycrafter_tpu_torch.orchestrator import build_dit, full_scale_dit
 
-    saved = torch.load(out_dir / "forward.pt")
-    to = lambda x: x.cuda() if torch.is_tensor(x) else x
-    args = [to(a) for a in saved["args"]]
-    kwargs = {k: tuple(map(to, v)) if isinstance(v, tuple) else to(v)
-              for k, v in saved["kwargs"].items()}
+    args, kwargs, output = _saved_forward(out_dir)
     dit = build_dit(full_scale_dit, "cuda", torch.bfloat16, 1, "int8")
     rows = lambda x: x.reshape(-1, x.shape[-1]).norm(dim=1)
 
@@ -4186,13 +4226,17 @@ def _run_s_forward_check(out_dir: Path) -> dict:
         return out
 
     with torch.no_grad():
-        out = against(saved["output"], dit(*args, **kwargs))
+        out = against(output, dit(*args, **kwargs))
+        if t3_reference is not None:
+            t3_reference["hidden"], t3_reference["encoder"] = dit.run_blocks(
+                *_blocks_inputs(dit, args, kwargs))
+        cut_to_check_layers(dit)
         check_weights_(dit)
         attention = []
         for i in RUN_S_CHECK_BLOCKS:
             dit.transformer_blocks[i].attn1.register_forward_hook(_joint_attention_hook(attention))
         ref = dit(*args, **kwargs)
-    del dit, args, kwargs, saved
+    del dit, args, kwargs, output
     checks = {}
     for i, (name, wrong) in enumerate([("sound", False), *RUN_S_FAULTS]):
         got = torch.load(out_dir / f"check{i}.pt")
@@ -4227,6 +4271,504 @@ def _run_s_forward_check(out_dir: Path) -> dict:
                              f"passed at every attention output {missed}: {json.dumps(checks)}")
     out["check_weights"] = checks
     return out
+
+
+def _run_t_argv(t_dir: Path, run: str) -> list:
+    """``scripts/train_lora`` flags of T1 and its twin (run: "sharded" or
+    "twin")."""
+    argv = ["--data_dir", str(t_dir / "latents"), "--output_dir", str(t_dir / run),
+            "--train_steps", str(RUN_T_STEPS), "--batch_size", "2", "--checkpointing_steps", "1",
+            "--log_every", "1", "--seed", "0"]
+    if run == "sharded":
+        argv += ["--mesh_dp", str(RUN_T_MESH[0]), "--mesh_tp", str(RUN_T_MESH[2]),
+                 "--dist_backend", "gloo"]
+    return argv
+
+
+def _run_t_twin(tc, data_root: Path, t_dir: Path, scenes: list) -> None:
+    """Run T1's data and twin, in phase 5e while the bundle is resident:
+    RUN_T_FRAMES-frame samples of run P's SceneFlow scenes by ``datagen``
+    (every 6th frame),
+    then ``train_lora.main`` unsharded on the bundle's bf16 DiT (run P's,
+    ``flash_stock`` and ``remat``) over them, as T1 runs sharded."""
+    import numpy as np
+    import torch
+
+    from trajectorycrafter_tpu_torch import datagen
+    from trajectorycrafter_tpu_torch.scripts import train_lora
+    from trajectorycrafter_tpu_torch.training.data import LatentsDataset
+    from trajectorycrafter_tpu_torch.training.lora import remove_lora
+
+    pe, _ = tc.models.encode_prompt("a scene", tc.cfg.diffusion.negative_prompt)
+    # every 6th of the 49 frames: the camera moves as far as over the whole
+    # clip, so the clips pass datagen's motion filter as run P's do
+    step = (TRAIN_FRAMES - 1) // (RUN_T_FRAMES - 1)
+    clips = datagen.clips_from_dataset(
+        datagen.load_sceneflow_clip(str(data_root / "sceneflow"), name,
+                                    frame_ids=range(0, TRAIN_FRAMES, step)) for name in scenes)
+    datagen.generate_dataset(tc.models.pipeline.vae, str(t_dir / "latents"), clips,
+                             pe[0].float().cpu().numpy(),
+                             sample_size=tuple(tc.cfg.diffusion.sample_size))
+    data = LatentsDataset(str(t_dir / "latents"))
+    shapes = [{k: v.shape for k, v in data[i].items()} for i in range(len(data))]
+    if shapes != [RUN_T_LATENT_SHAPES] * len(scenes) or not all(
+            np.isfinite(v).all() for i in range(len(data)) for v in data[i].values()):
+        raise AssertionError(f"run T's samples: {shapes}, expected {len(scenes)} of "
+                             f"{RUN_T_LATENT_SHAPES}, finite")
+    dit = tc.models.pipeline.transformer
+    dit.remat = True
+    set_impl(dit, "flash_stock")
+    real = train_lora.build_base_model
+    train_lora.build_base_model = lambda args, sample, device, **kw: dit
+    try:
+        for kern in _kernel_counters():
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_lora.main(_run_t_argv(t_dir, "twin"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got, want = _launch_counts(), _training_launches(dit, RUN_T_STEPS)
+    finally:
+        train_lora.build_base_model = real
+        remove_lora(dit)
+        dit.remat = False
+        set_impl(dit, "auto")
+    recs = [json.loads(line) for line in open(t_dir / "twin" / "metrics.jsonl")]
+    log(f"run T's twin: {len(scenes)} samples of {RUN_T_FRAMES} frames "
+        f"({json.dumps(shapes[0])}); train_lora.main unsharded, batch 2, {RUN_T_STEPS} steps on "
+        f"the bundle's bf16 DiT in {seconds:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses {[r['loss'] for r in recs]}, grad norms {[r['grad_norm'] for r in recs]}")
+    if got != want:
+        raise AssertionError(f"run T's twin: launches {got}, expected {want}")
+
+
+def _blocks_inputs(dit, args, kwargs) -> tuple:
+    """The block stack's inputs (video tokens, text tokens, temb, rope,
+    reference tokens) of a DiT call with ``args`` and ``kwargs``."""
+    import torch
+
+    with torch.no_grad():
+        video, text, temb, cross = dit.embed(*args, inpaint_latents=kwargs["inpaint_latents"],
+                                             cross_latents=kwargs["cross_latents"])
+    return video, text, temb, kwargs["image_rotary_emb"], cross
+
+
+def _saved_forward(out_dir: Path) -> tuple:
+    """Run S's first DiT call, saved by the leader's hook: its args and
+    kwargs on the card, and its sharded output."""
+    import torch
+
+    saved = torch.load(out_dir / "forward.pt")
+    to = lambda x: x.cuda() if torch.is_tensor(x) else x
+    return ([to(a) for a in saved["args"]],
+            {k: tuple(map(to, v)) if isinstance(v, tuple) else to(v)
+             for k, v in saved["kwargs"].items()}, saved["output"])
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+def _run_t1(out_dir: Path, t_dir: Path) -> dict:
+    """T1 on this rank: ``train_lora.main`` under RUN_T_MESH, the base DiT
+    built shard by shard; each step's launches, loss, grad norm and the
+    adapters' checksum, the resident memory after the build."""
+    import torch
+
+    from trajectorycrafter_tpu_torch import training
+    from trajectorycrafter_tpu_torch.orchestrator import build_dit, full_scale_dit
+    from trajectorycrafter_tpu_torch.scripts import train_lora
+
+    out = {"steps": []}
+
+    def build(args, sample, device, attention_impl="flash_stock", remat=True, tp=None):
+        dit = build_dit(lambda: full_scale_dit(attention_impl), device, torch.bfloat16, 1,
+                        "none", tp=tp)
+        dit.remat = remat
+        torch.cuda.synchronize()
+        out.update(resident_gib=torch.cuda.memory_allocated() / 2**30,
+                   heads=[dit.transformer_blocks[0].attn1.heads,
+                          dit.perceiver_cross_attention[0].heads],
+                   expected_per_step=_training_launches(dit))
+        return dit
+
+    make_step = training.make_train_step
+
+    def counted_make(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def counted(state, batch, rng):
+            for kern in _kernel_counters():
+                kern.launches = 0
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, rng)
+            torch.cuda.synchronize()
+            flat = torch.cat([v.detach().reshape(-1) for v in state.lora.values()])
+            out["steps"].append({"seconds": time.perf_counter() - t0,
+                                 "launches": _launch_counts(),
+                                 "adapters": list(bits_checksum(flat)[2:]),
+                                 "loss": float(metrics["loss"]),
+                                 "grad_norm": float(metrics["grad_norm"])})
+            return state, metrics
+
+        return counted
+
+    real = train_lora.build_base_model, training.make_train_step
+    train_lora.build_base_model, training.make_train_step = build, counted_make
+    try:
+        out["step"] = train_lora.main(_run_t_argv(t_dir, "sharded")).step
+    finally:
+        train_lora.build_base_model, training.make_train_step = real
+    return out
+
+
+def _run_t2(out_dir: Path, t_dir: Path) -> dict:
+    """T2 on this rank: one batch's adapter gradients reduced over
+    RUN_T_MESH, sound and with each of RUN_T_FAULTS; the leader holds them
+    against the unsharded model's and returns the readings."""
+    from unittest import mock
+
+    import torch
+
+    from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
+    from trajectorycrafter_tpu_torch.orchestrator import build_dit
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+    from trajectorycrafter_tpu_torch.parallel.mesh import make_mesh
+    from trajectorycrafter_tpu_torch.schedulers import CogVideoXDDIMScheduler
+    from trajectorycrafter_tpu_torch.training import init_lora_params
+    from trajectorycrafter_tpu_torch.training import step as tstep
+
+    mesh = make_mesh(*RUN_T_MESH)
+    make = lambda: CrossTransformer3DModel(num_layers=RUN_T_CHECK_LAYERS,
+                                           attention_impl="reference", remat=True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        sharded = check_weights_(build_dit(make, "cuda", torch.float32, RUN_T_CHECK_SEED,
+                                           tp=mesh.tp))
+        g = torch.Generator(device="cuda").manual_seed(5)
+        lora = init_lora_params(g, sharded, rank=TRAIN_RANK)
+        with torch.no_grad():  # B != 0, so that every dA is not
+            for key, v in lora.items():
+                if key.endswith("lora_B"):
+                    v.normal_(0.0, 0.02, generator=g)
+        f, h, w = RUN_T_CHECK_LATENTS
+        rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+        batch = {"gt_latents": rnd(2, f, h, w, 16), "prompt_embeds": rnd(2, 226, 4096),
+                 "ref_latents": rnd(2, f, h, w, 16), "inpaint_latents": rnd(2, f, h, w, 17),
+                 "noise": rnd(2, f, h, w, 16), "timesteps": torch.tensor([300, 700],
+                                                                         device="cuda")}
+        sched = CogVideoXDDIMScheduler()
+        sch_state = sched.set_timesteps(50)
+        names, params = list(lora), list(lora.values())
+
+        def grads(model, dp):
+            fn = tstep.make_loss_fn(model, sched, sch_state, cfg_dropout_prob=0.0,
+                                    lora_rank=TRAIN_RANK, dp=dp)
+            return torch.autograd.grad(fn(lora, batch, 0), params)
+
+        reduce = lambda gs: tstep.reduce_lora_grads(gs, names, sharded, mesh)
+        local = grads(sharded, mesh.dp)
+        got = {"sound": reduce(local)}
+        with mock.patch.object(tstep, "tp_sharded_adapters", lambda model, keys: set(keys)):
+            got[RUN_T_FAULTS[1]] = reduce(local)
+        with mock.patch.object(tstep, "dp_mean", lambda flat, dp: D.sum_partials(flat, dp)):
+            got[RUN_T_FAULTS[2]] = reduce(local)
+        with mock.patch.object(D, "tp_input_grad", lambda grad, axis: grad):
+            got[RUN_T_FAULTS[0]] = reduce(grads(sharded, mesh.dp))
+        readings = {}
+        if mesh.leader:
+            want = grads(check_weights_(build_dit(make, "cuda", torch.float32,
+                                                  RUN_T_CHECK_SEED)), None)
+            last_ff = f"transformer_blocks.{RUN_T_CHECK_LAYERS - 1}.ff."
+            touched = {"every adapter": names,
+                       RUN_T_FAULTS[0]: [n for n in names
+                                         if not n.startswith((last_ff, "proj_out."))],
+                       RUN_T_FAULTS[1]: [n for n in names if n.startswith("proj_out.")],
+                       RUN_T_FAULTS[2]: names}
+            flat = lambda gs, keys: torch.cat([gs[names.index(k)].reshape(-1) for k in keys])
+            readings = {run: {where: _rel_l2(flat(gs, keys), flat(want, keys))
+                              for where, keys in touched.items()}
+                        for run, gs in got.items()}
+        D.barrier(mesh.world)
+        return {"readings": readings, "adapters": len(names)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _stage_launches(dit, blocks: range, microbatches: int) -> dict:
+    """{kernel: launches} of one pipeline stage's forward over ``blocks``
+    without gradients, from its modules: K1 once a block and Perceiver, K2a
+    and K2b once an int8 layer (no tp), each microbatch."""
+    from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear
+
+    units = [dit.transformer_blocks[i] for i in blocks]
+    units += [dit.perceiver_cross_attention[i // 2] for i in blocks if i % 2 == 0]
+    int8 = sum(isinstance(m, Int8Linear) for u in units for m in u.modules())
+    out = {name: 0 for name in KERNELS}
+    out.update({"flash_attention": microbatches * len(units),
+                "int8_quantize_rows": microbatches * int8, "int8_gemm": microbatches * int8})
+    return out
+
+
+def _run_t3(out_dir: Path, t_dir: Path) -> dict:
+    """T3 on this rank: its stage of the int8 DiT under pp RUN_T_PP, the
+    stack pipelined over run S's first DiT call; the leader saves the
+    output for the main process."""
+    import warnings
+
+    import torch
+
+    from trajectorycrafter_tpu_torch.orchestrator import build_dit, full_scale_dit
+    from trajectorycrafter_tpu_torch.parallel.mesh import make_mesh
+    from trajectorycrafter_tpu_torch.parallel.pipeline import (
+        pipeline_dit_blocks,
+        stack_superblock_params,
+    )
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mesh = make_mesh(pp=RUN_T_PP)
+    out = {"warning": [str(w.message) for w in caught]}
+    if not mesh.member:
+        return {**out, "idle": True}
+    dit = build_dit(full_scale_dit, "cuda", torch.bfloat16, 1, "int8")
+    torch.cuda.synchronize()
+    whole = torch.cuda.memory_allocated()
+    stages = stack_superblock_params(dit, mesh.pp.size, mesh.pp.index)
+    gc.collect()
+    torch.cuda.synchronize()
+    inputs = _blocks_inputs(dit, *_saved_forward(out_dir)[:2])
+    stage = stages[mesh.pp.index]
+    blocks = range(2 * stage.start, 2 * stage.stop)
+    out.update(whole_gib=whole / 2**30, resident_gib=torch.cuda.memory_allocated() / 2**30,
+               superblocks=[stage.start, stage.stop],
+               expected=_stage_launches(dit, blocks, RUN_T_MICROBATCHES))
+    for kern in _kernel_counters():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h, e = pipeline_dit_blocks(dit, stages, *inputs, mesh, RUN_T_MICROBATCHES)
+    torch.cuda.synchronize()
+    out.update(pipeline_s=time.perf_counter() - t0, launches=_launch_counts(),
+               output=[list(bits_checksum(h)[2:]), list(bits_checksum(e)[2:])])
+    if mesh.leader:
+        torch.save({"hidden": h.cpu(), "encoder": e.cpu()}, out_dir / "t3.pt")
+    return out
+
+
+def _run_t4(out_dir: Path, t_dir: Path) -> dict:
+    """T4 on this rank: GPipe under pp 2 x tp 2 on the full-width DiT cut
+    to RUN_T_PP_TP_LAYERS layers, on run S's first DiT call, sound and with
+    a stage that skips its hop, against the model's sequential loop."""
+    from unittest import mock
+
+    import torch
+
+    from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
+    from trajectorycrafter_tpu_torch.orchestrator import build_dit
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+    from trajectorycrafter_tpu_torch.parallel.mesh import make_mesh
+    from trajectorycrafter_tpu_torch.parallel.pipeline import (
+        pipeline_dit_blocks,
+        stack_superblock_params,
+        stacked_param_sharding,
+    )
+
+    class SkippedHop(D.Shift):
+        """The planted fault: the hop runs, the stage reads zeros."""
+
+        def wait(self):
+            return [torch.zeros_like(t) for t in super().wait()]
+
+    mesh = make_mesh(*RUN_T_PP_TP)
+    dit = build_dit(lambda: CrossTransformer3DModel(num_layers=RUN_T_PP_TP_LAYERS), "cuda",
+                    torch.bfloat16, RUN_T_CHECK_SEED, "int8")
+    inputs = _blocks_inputs(dit, *_saved_forward(out_dir)[:2])
+    with torch.no_grad():
+        want = torch.cat(dit.run_blocks(*inputs), dim=1)
+    stages = stack_superblock_params(dit, mesh.pp.size, mesh.pp.index)
+    stacked_param_sharding(dit, stages, mesh)
+    readings = {}
+    for name in ("sound", "stage skips its hop"):
+        hop = SkippedHop if name != "sound" else D.Shift
+        with mock.patch.object(D, "Shift", hop), torch.no_grad():
+            got = torch.cat(pipeline_dit_blocks(dit, stages, *inputs, mesh,
+                                                RUN_T_MICROBATCHES), dim=1)
+        readings[name] = {"rel_l2": _rel_l2(got, want), "bit_equal": bool(torch.equal(got, want))}
+    return {"coords": [mesh.tp.index, mesh.pp.index], "readings": readings,
+            "heads": [dit.transformer_blocks[2 * stages[mesh.pp.index].start].attn1.heads]}
+
+
+def run_t_alone_rank(out_dir: str, t_dir: str) -> None:
+    """One rank of run T in a torchrun world of its own (``chip_smoke.py
+    --run-t-rank DIR T_DIR``, tools/run_t.py): the gloo process group from
+    torchrun's environment, then ``run_t_rank``."""
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+
+    os.chdir(REPO)
+    sys.path.insert(0, str(REPO))
+    D.init_from_env("gloo")
+    try:
+        run_t_rank(out_dir, t_dir)
+    finally:
+        D.shutdown()
+
+
+def run_t_rank(out_dir: str, t_dir: str) -> None:
+    """This rank's part of run T (T1-T4), in run S's torchrun world once run
+    S is done; writes its readings to DIR/run_t_rank<r>.json."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+
+    rank = dist.get_rank()
+    out = {"rank": rank, "held_before_gib": torch.cuda.memory_allocated() / 2**30}
+    try:
+        for name, fn in (("T1", _run_t1), ("T2", _run_t2), ("T3", _run_t3), ("T4", _run_t4)):
+            before = dict(D.TRANSPORT)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out[name] = fn(Path(out_dir), Path(t_dir))
+            torch.cuda.synchronize()
+            out[name].update(seconds=time.perf_counter() - t0,
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                             transport={k: v - before.get(k, 0) for k, v in D.TRANSPORT.items()
+                                        if v != before.get(k, 0)})
+            gc.collect()
+            torch.cuda.empty_cache()
+            D.barrier(D.world_axis())
+    except BaseException:
+        out["error"] = traceback.format_exc() + (
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+        raise
+    finally:
+        Path(out_dir, f"run_t_rank{rank}.json").write_text(json.dumps(out))
+
+
+def _run_t_check(out_dir: Path, t_dir: Path, results: list, t3_reference: dict) -> dict:
+    """Run T's readings held to the checks stated at RUN_T_MESH; returns
+    the launches a rank for the kernels line."""
+    import torch
+    from safetensors.torch import load_file
+
+    failed = []
+    # -- T1 --
+    twin = [json.loads(line) for line in open(t_dir / "twin" / "metrics.jsonl")]
+    lead = results[0]["T1"]
+    for r in results:
+        t1 = r["T1"]
+        want = t1["expected_per_step"]
+        if (want["flash_lse"], want["flash_attention_bwd_dkv"], want["flash_attention_bwd_dq"]) \
+                != (2 * DIT_LAYERS + DIT_LAYERS // 2, 63, 63):
+            failed.append(f"T1 rank {r['rank']}: derived launches {want}")
+        for i, s in enumerate(t1["steps"]):
+            if s["launches"] != want:
+                failed.append(f"T1 rank {r['rank']} step {i + 1}: launches {s['launches']}")
+            if s["adapters"] != lead["steps"][i]["adapters"]:
+                failed.append(f"T1 rank {r['rank']} step {i + 1}: adapters differ from rank 0's")
+        if t1["step"] != RUN_T_STEPS or len(t1["steps"]) != RUN_T_STEPS:
+            failed.append(f"T1 rank {r['rank']}: {t1['step']} steps")
+        log(f"  T1 rank {r['rank']}: heads {t1['heads']}, {t1['resident_gib']:.2f} GiB resident "
+            f"after the build, peak {t1['peak_gib']:.2f} GiB, {t1['seconds']:.1f} s (steps "
+            f"{[round(s['seconds'], 2) for s in t1['steps']]} s); launches a step "
+            f"{json.dumps({k: v for k, v in want.items() if v})}; transport "
+            f"{json.dumps(t1['transport'])}")
+    sharded = [json.loads(line) for line in open(t_dir / "sharded" / "metrics.jsonl")]
+    if sorted(os.listdir(t_dir / "sharded")) != sorted(
+            [f"ckpt_{i + 1:07d}" for i in range(RUN_T_STEPS)] + ["lora_final", "metrics.jsonl"]
+            + (["tb"] if (t_dir / "sharded" / "tb").exists() else [])):
+        failed.append(f"T1 wrote {sorted(os.listdir(t_dir / 'sharded'))}")
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    t1 = {"loss": [rel(s["loss"], w["loss"]) for s, w in zip(sharded, twin)],
+          "grad_norm": [rel(s["grad_norm"], w["grad_norm"]) for s, w in zip(sharded, twin)]}
+    got = load_file(str(t_dir / "sharded" / "lora_final" / "lora.safetensors"))
+    ref = load_file(str(t_dir / "twin" / "lora_final" / "lora.safetensors"))
+    cat = lambda sd, part: torch.cat([sd[k].reshape(-1) for k in sorted(ref) if part in k])
+    t1["adapters"] = _rel_l2(cat(got, "lora_"), cat(ref, "lora_"))
+    t1["B"] = _rel_l2(cat(got, "lora_B"), cat(ref, "lora_B"))
+    log(f"run T1: sharded (dp {RUN_T_MESH[0]} x tp {RUN_T_MESH[2]}) against the twin: losses "
+        f"{[s['loss'] for s in sharded]} vs {[w['loss'] for w in twin]} (rel "
+        f"{[f'{x:.2e}' for x in t1['loss']]}), grad norms rel "
+        f"{[f'{x:.2e}' for x in t1['grad_norm']]}; adapters after {RUN_T_STEPS} steps rel L2 "
+        f"{t1['adapters']:.3e} (limit {RUN_T_REL_L2:.3e}; the B alone, which start at 0, "
+        f"{t1['B']:.3e}, reported); adapters bit-equal on all ranks after every step")
+    if len(sharded) != RUN_T_STEPS or max(t1["loss"] + t1["grad_norm"] + [t1["adapters"]]) \
+            > RUN_T_REL_L2:
+        failed.append(f"T1 against the twin: {t1}")
+    # -- T2 --
+    readings = results[0]["T2"]["readings"]
+    for run, reading in readings.items():
+        log(f"run T2, {run}: " + "; ".join(f"{where} rel L2 {x:.3e}"
+                                           for where, x in reading.items()))
+    sound = readings["sound"]
+    if max(sound.values()) > RUN_T_REL_L2:
+        failed.append(f"T2 sound: {sound}")
+    for fault in RUN_T_FAULTS:
+        ratio = readings[fault][fault] / max(sound[fault], 1e-30)
+        log(f"run T2, {fault}: {ratio:.1f}x the sound reading on the adapters it touches "
+            f"(limit {RUN_S_VAE_FAULT_RATIO:g}x)")
+        if ratio < RUN_S_VAE_FAULT_RATIO:
+            failed.append(f"T2 {fault}: {ratio:.1f}x")
+    # -- T3 --
+    stages = [r["T3"] for r in results if not r["T3"].get("idle")]
+    idle = [r["rank"] for r in results if r["T3"].get("idle")]
+    if len(stages) != RUN_T_PP or idle != [RUN_T_PP] or not any(
+            f"uses {RUN_T_PP} of {len(results)} ranks" in w for w in results[0]["T3"]["warning"]):
+        failed.append(f"T3: stages {len(stages)}, idle {idle}, warning "
+                      f"{results[0]['T3']['warning']}")
+    per = DIT_LAYERS // 2 // RUN_T_PP
+    formula = {"flash_attention": RUN_T_MICROBATCHES * per * 3,
+               "int8_quantize_rows": RUN_T_MICROBATCHES * per * 15,
+               "int8_gemm": RUN_T_MICROBATCHES * per * 15}
+    for r in results:
+        t3 = r["T3"]
+        if t3.get("idle"):
+            continue
+        if t3["launches"] != t3["expected"] or any(t3["expected"][k] != v
+                                                   for k, v in formula.items()):
+            failed.append(f"T3 rank {r['rank']}: launches {t3['launches']}, derived "
+                          f"{t3['expected']}")
+        if t3["output"] != stages[0]["output"]:
+            failed.append(f"T3 rank {r['rank']}: output differs from rank 0's")
+        log(f"  T3 rank {r['rank']}: superblocks {t3['superblocks']}, {t3['resident_gib']:.2f} "
+            f"GiB resident of the whole int8 DiT's {t3['whole_gib']:.2f}, peak "
+            f"{t3['peak_gib']:.2f} GiB; pipeline {t3['pipeline_s']:.2f} s; launches "
+            f"{json.dumps({k: v for k, v in t3['launches'].items() if v})}; transport "
+            f"{json.dumps(t3['transport'])}")
+    got3 = torch.load(out_dir / "t3.pt")
+    t3 = {name: {"rel_l2": _rel_l2(got3[name].cuda(), t3_reference[name]),
+                 "bit_equal": bool(torch.equal(got3[name].cuda(), t3_reference[name]))}
+          for name in ("hidden", "encoder")}
+    log(f"run T3: GPipe pp {RUN_T_PP} x {RUN_T_MICROBATCHES} microbatches against the "
+        f"sequential block loop of the whole int8 DiT: {json.dumps(t3)} (limit "
+        f"{RUN_T_REL_L2:.3e}); rank {idle} idle: {results[0]['T3']['warning']}")
+    if max(x["rel_l2"] for x in t3.values()) > RUN_T_REL_L2:
+        failed.append(f"T3 against the sequential loop: {t3}")
+    # -- T4 --
+    for r in results:
+        t4 = r["T4"]["readings"]
+        sound, wrong = t4["sound"]["rel_l2"], t4["stage skips its hop"]["rel_l2"]
+        log(f"  T4 rank {r['rank']} (tp, pp) {tuple(r['T4']['coords'])}, heads "
+            f"{r['T4']['heads']}: sound rel L2 {sound:.3e} (bit-equal "
+            f"{t4['sound']['bit_equal']}), stage skips its hop {wrong:.3e} "
+            f"({wrong / max(sound, 1e-30):.1f}x); transport {json.dumps(r['T4']['transport'])}")
+        if sound > RUN_T_REL_L2 or wrong < RUN_S_VAE_FAULT_RATIO * sound:
+            failed.append(f"T4 rank {r['rank']}: {t4}")
+    if failed:
+        raise AssertionError(f"run T: {failed}")
+    log(f"run T: seconds a rank T1 {[round(r['T1']['seconds'], 1) for r in results]}, T2 "
+        f"{[round(r['T2']['seconds'], 1) for r in results]}, T3 "
+        f"{[round(r['T3']['seconds'], 1) for r in results]}, T4 "
+        f"{[round(r['T4']['seconds'], 1) for r in results]}")
+    return {"per_rank": {k: {"T1 a step": [r["T1"]["steps"][0]["launches"][k] for r in results],
+                             "T3 a stage": [r["T3"].get("launches", {}).get(k, 0)
+                                            for r in results]}
+                         for k in KERNELS}}
 
 
 # The checkpoint tree of phase 8: the directories the config defaults name,
@@ -4530,7 +5072,9 @@ def phase_checkpoints(tree: dict, runs: dict) -> None:
                                  "was refused")
     torch.cuda.empty_cache()
 
-    cfg = parse_config(_tree_argv(tree))
+    # run L reads CUT_FRAMES frames (since PR 20, for the smoke's clock: 49
+    # before), as run A9 does, which it is held against
+    cfg = parse_config(_tree_argv(tree) + ["--video_length", str(CUT_FRAMES)])
     if cfg.diffusion.prompt is not None or not cfg.render.mask or cfg.allow_dev_stubs \
             or cfg.diffusion.quant != "int8":
         raise AssertionError("the checkpoint run must caption, mask and run int8 without stubs")
@@ -4606,12 +5150,12 @@ def phase_checkpoints(tree: dict, runs: dict) -> None:
         raise AssertionError("T5 did not read the tokenizer's ids of the captioned prompt")
     log(f"  T5 read the tokenizer's ids: {int((tokens[0] != 0).sum())} and "
         f"{int((tokens[1] != 0).sum())} tokens of 226")
-    if not run["known_share"] < runs["A"]["known_share"]:
-        raise AssertionError(f"--mask known share {run['known_share']} is not below run A's "
-                             f"{runs['A']['known_share']}")
-    rel = np.abs(np.log(run["depth"] / runs["A"]["depth"]))
-    log(f"  --mask: known share {run['known_share']:.6f} against run A's "
-        f"{runs['A']['known_share']:.6f}; depth against run A's (the same UNet weights, "
+    if not run["known_share"] < runs["A9"]["known_share"]:
+        raise AssertionError(f"--mask known share {run['known_share']} is not below run A9's "
+                             f"{runs['A9']['known_share']}")
+    rel = np.abs(np.log(run["depth"] / runs["A9"]["depth"]))
+    log(f"  --mask: known share {run['known_share']:.6f} against run A9's "
+        f"{runs['A9']['known_share']:.6f}; depth against run A9's (the same UNet weights, "
         f"information): median |log ratio| {np.median(rel):.3e}, max {rel.max():.3e}")
     frame = seen["frame"]
     del tc, models, pipe, dit, loaded, captioner
@@ -4789,7 +5333,7 @@ def _attention_entry(name: str, t: dict, **kw) -> dict:
             "replaces": TPU_KERNELS[name], **kw, **{key: t[key] for key in keys},
             **{key: t[key] for key in t
                if key in ("shape", "library", "with_quantization_ms")
-               or key.startswith(("depth_", "perceiver_", "d128_", "run_s_"))}}
+               or key.startswith(("depth_", "perceiver_", "d128_", "run_s_", "run_t_"))}}
 
 
 def main() -> None:
@@ -4806,7 +5350,7 @@ def main() -> None:
     run_phase("5 quality CLI", phase_quality_cli)
     with cut_runs(tc.cfg):
         run_phase("5b modes", phase_modes, tc, dit8, runs)
-        run_phase("5c long paths", phase_long_paths, tc, dit8, runs)
+        run_phase("5c tiled decode", phase_tiled_decode, tc.models.pipeline.vae)
         run_phase("5d consistent", phase_consistent, tc, dit8, runs)
     run_phase("6 whole models", phase_whole_models, tc, dit8, unet8)
     bench = run_phase("7 bench", phase_bench)
@@ -4816,32 +5360,37 @@ def main() -> None:
     del dit8, unet8
     gc.collect()
     torch.cuda.empty_cache()
-    data_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tree_"))
+    t_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_run_t_"))  # run T1's samples and twin
     try:
-        # phase 5e: run P, LoRA training at full width
-        step_launches = run_phase("5e training", phase_training, tc, data_root)
-        # phase 5f: run Q, feature probing at full width
-        probe_launches = run_phase("5f probing", phase_probing, tc, data_root)
-        # phase 8: write the random bundle's weights as a tree, free the
-        # bundle, load the tree through the entry point
-        tree = run_phase("8 tree write", write_checkpoint_tree, tc, root)
-        del tc
+        data_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+        root = Path(tempfile.mkdtemp(prefix="chip_smoke_tree_"))
+        try:
+            # phase 5e: run P, LoRA training at full width, and run T1's twin
+            step_launches = run_phase("5e training", phase_training, tc, data_root, t_dir)
+            # phase 5f: run Q, feature probing at full width
+            probe_launches = run_phase("5f probing", phase_probing, tc, data_root)
+            # phase 8: write the random bundle's weights as a tree, free the
+            # bundle, load the tree through the entry point
+            tree = run_phase("8 tree write", write_checkpoint_tree, tc, root)
+            del tc
+            gc.collect()
+            torch.cuda.empty_cache()
+            run_phase("8 checkpoints", phase_checkpoints, tree, runs)
+            run_phase("8 scripts", phase_scripts, tree, runs)
+            run_phase("8 alignment script", phase_alignment_script, tree, runs)
+            run_phase("8 train script", phase_train_script, tree, str(data_root / "latents"))
+            run_phase("8 probe script", phase_probe_script, tree, str(data_root / "latents"))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+            shutil.rmtree(data_root, ignore_errors=True)
+        # phase 5s: run S, the sharded denoise, then run T, sharded training
+        # and GPipe, in one torchrun world, once this process holds no model
         gc.collect()
         torch.cuda.empty_cache()
-        run_phase("8 checkpoints", phase_checkpoints, tree, runs)
-        run_phase("8 scripts", phase_scripts, tree, runs)
-        run_phase("8 alignment script", phase_alignment_script, tree, runs)
-        run_phase("8 train script", phase_train_script, tree, str(data_root / "latents"))
-        run_phase("8 probe script", phase_probe_script, tree, str(data_root / "latents"))
+        log(f"before run S this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        run_phase("5s sharded and 5t", phase_sharded, runs, True, t_dir)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-        shutil.rmtree(data_root, ignore_errors=True)
-    # phase 5s: run S, the sharded denoise, once this process holds no model
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"before run S this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    run_phase("5s sharded", phase_sharded, runs)
+        shutil.rmtree(t_dir, ignore_errors=True)
 
     per_path = lambda kern: _launches_per_path(runs, kern)
     run_launches = lambda run, kern: _run_launches(runs, run, kern)
@@ -4863,6 +5412,7 @@ def main() -> None:
             launches_576=run_launches("R", "flash_attention"), probing_launches=probe_launches,
             launches_run_s=run_launches("S", "flash_attention"),
             launches_run_s_per_rank=runs["S"]["per_rank"]["flash_attention"],
+            launches_run_t_per_rank=runs["T"]["per_rank"]["flash_attention"],
             depth_launches_run_s_per_rank=runs["S"]["depth_per_rank"]["flash_attention"],
             probing_shape="(1, 48, 13330, 13330, 64); Perceiver (1, 16, 13104 x 3024, 128)",
             bench_launches=bench["flash_attention"], max_abs_err=max_err["flash_attention"],
@@ -4881,6 +5431,7 @@ def main() -> None:
                          launches=_run_launches(runs, "S", "flash_lse"),
                          launches_run="S (the ring's inner, all ranks)",
                          launches_run_s_per_rank=runs["S"]["per_rank"]["flash_lse"],
+                         launches_run_t_per_rank=runs["T"]["per_rank"]["flash_lse"],
                          launches_per_path=per_path("flash_lse"),
                          bench_launches=bench["flash_lse"], max_abs_err=variant_err["flash_lse"]),
         *(_attention_entry(name, variant_timing[name], launches=bench[name],
@@ -4891,7 +5442,7 @@ def main() -> None:
                          launches_run="D (attention_impl and TRAJCRAFTER_DEPTH_ATTN flash_pv8)",
                          launches_per_path=per_path("flash_pv8"),
                          bench_launches=bench["flash_pv8"], max_abs_err=variant_err["flash_pv8"]),
-        *_backward_entries(backward_err, backward_timing, step_launches),
+        *_backward_entries(backward_err, backward_timing, step_launches, runs["T"]["per_rank"]),
     ]
     print(json.dumps({"kernels": kernels_line}), flush=True)
     log(f"chip smoke: {time.perf_counter() - T_START:.1f} s; by phase {json.dumps(PHASE_SECONDS)}")
@@ -4902,6 +5453,9 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--run-s-rank"]:
-        run_s_rank(sys.argv[2], "--cut" in sys.argv[3:])
+        run_s_rank(sys.argv[2], "--cut" in sys.argv[3:],
+                   sys.argv[sys.argv.index("--run-t") + 1] if "--run-t" in sys.argv else None)
+    elif sys.argv[1:2] == ["--run-t-rank"]:
+        run_t_alone_rank(sys.argv[2], sys.argv[3])
     else:
         main()

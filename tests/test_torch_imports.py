@@ -43,7 +43,7 @@ def test_port_modules_import_without_jax():
                  "training.lora", "training.step", "training.data", "training.validation",
                  "datagen", "scripts.train_lora", "probing", "scripts.probe_depth",
                  "parallel", "parallel.distributed", "parallel.mesh", "parallel.sharding",
-                 "ops.ring_attention"):
+                 "parallel.pipeline", "ops.ring_attention"):
         assert f"trajectorycrafter_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -70,7 +70,8 @@ def _imported_roots(path: Path) -> set:
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_dit_step.py",
                                     "tools/int8_gemm_ab.py", "tools/flash_pv8_ab.py",
-                                    "tools/int8_attention_ab.py", "tools/flash_bwd_ab.py"])
+                                    "tools/int8_attention_ab.py", "tools/flash_bwd_ab.py",
+                                    "tools/run_t.py", "tools/gloo_transport_bench.py"])
 def test_port_scripts_import_neither_jax_nor_the_jax_package(script):
     roots = _imported_roots(REPO / script)
     assert "trajectorycrafter_tpu_torch" in roots or "torch" in roots

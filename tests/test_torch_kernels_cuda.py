@@ -571,6 +571,10 @@ def _all_negative(gen, b, s, h, d):
 
 @pytest.mark.parametrize("b,h,sq,skv,d,gain", [
     (1, 4, 30720, 30720, 64, 1.0),  # the bench's DiT shape, heads cut
+    # run T1's per-rank training shapes (tp 2): the joint self-attention over
+    # 3,250 tokens, the Perceiver's 3,024 x 3,024
+    (1, 24, 3250, 3250, 64, 1.0),
+    (1, 8, 3024, 3024, 128, 4.0),
     (1, 2, 1000, 777, 64, 4.0),
     (2, 3, 17, 129, 128, 2.0),
     (1, 1, 1, 1, 64, 1.0),
@@ -936,6 +940,8 @@ def _backward(q, k, v, dout, lse, di, scale):
 @pytest.mark.parametrize("b,h,sq,skv,d,gain", [
     (1, 8, 13330, 13330, 64, 1.0),  # DiT self-attention in training (B = 1), heads cut
     (1, 16, 13104, 3024, 128, 4.0),  # Perceiver in training, unbounded scores
+    (1, 24, 3250, 3250, 64, 1.0),  # run T1's per-rank shapes at tp 2
+    (1, 8, 3024, 3024, 128, 4.0),
     (1, 2, 1000, 777, 64, 2.0),
     (2, 3, 17, 129, 128, 2.0),
     (1, 1, 1, 1, 64, 1.0),

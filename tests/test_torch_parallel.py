@@ -133,8 +133,9 @@ def test_make_mesh_raises_and_warns_as_jax():
     for make in (lambda: jax_make_mesh(1, 2, 2), lambda: mesh_ranks(1, 2, 2, world_size=8)):
         with pytest.warns(UserWarning, match="uses 4 of 8"):
             make()
-    with pytest.raises(NotImplementedError, match="pp must be 1"):  # GPipe is not ported
-        mesh_ranks(1, 1, 2, 2, world_size=8)
+    for make in (lambda: jax_make_mesh(1, 1, 2, 3), lambda: mesh_ranks(1, 1, 2, 3, world_size=8)):
+        with pytest.warns(UserWarning, match="uses 6 of 8"):
+            make()
 
 
 # ----------------------------------------------------------------------------

@@ -490,8 +490,8 @@ def test_train_lora_main_validates_checkpoints_and_resumes(tmp_path):
     out = tmp_path / "out"
     argv = ["--data_dir", str(data), "--output_dir", str(out), "--train_steps", "2",
             "--validate_every", "1", "--checkpointing_steps", "1", "--log_every", "1",
-            "--val_fraction", "0.25", "--learning_rate", "1e-2", "--mesh_dp", "2"]
-    assert len(train_lora.get_parser()._actions) == 19 + 1  # and -h
+            "--val_fraction", "0.25", "--learning_rate", "1e-2"]
+    assert len(train_lora.get_parser()._actions) == 19 + 1 + 1  # --dist_backend and -h
     state = train_lora.main(argv, device="cpu")
     assert state.step == 2
     recs = [json.loads(line) for line in open(out / "metrics.jsonl")]

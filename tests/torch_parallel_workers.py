@@ -78,7 +78,8 @@ def dit_forwards(rank, shapes, models, dims, args, rope):
                           model.perceiver_cross_attention[0].heads)}
         make = lambda: CrossTransformer3DModel(**dims)
         whole = build_dit(make, "cpu", torch.float32, 5, "int8")
-        shard = build_dit(make, "cpu", torch.float32, 5, "int8", mesh)
+        shard = shard_dit_(build_dit(make, "cpu", torch.float32, 5, "int8", mesh.tp), mesh,
+                           units_done=True)
         want = shard_state_dict(whole.state_dict(), mesh.tp.size, mesh.tp.index)
         got = shard.state_dict()
         out[shape, "build_dit"] = set(got) == set(want) and all(
@@ -411,4 +412,183 @@ def depth_sharded(rank, weights, unet_cases, pipe_cases, fault_case, gradual):
     out["gradual"] = {"gen": gen, "depth": depths[0], "transport": _transport_since(before),
                       "stages": sorted(tc.timer.seconds),
                       "sharded": infer.__self__.pipe.mesh is not None}
+    return out
+
+
+# ----------------------------------------------------------------------------
+# the GPipe block stack (tests/test_torch_pipeline_parallel.py)
+# ----------------------------------------------------------------------------
+
+
+def pipeline_stages(rank, meshes, cases, dims, inputs):
+    """For each case (mesh shape, JAX params, int8, remat, rope, microbatches)
+    the GPipe block stack of the tiny DiT ``dims`` over that mesh of
+    ``meshes`` on ``inputs`` (hidden, encoder, temb, cross, rope): this
+    rank's (hidden, encoder), the blocks it still holds on its device, its
+    (tp, pp) coordinates and the bytes its hops sent; None where idle."""
+    from trajectorycrafter_tpu_torch.parallel.pipeline import (
+        pipeline_dit_blocks,
+        stack_superblock_params,
+        stacked_param_sharding,
+    )
+
+    built = {shape: _mesh(shape) for shape in meshes}
+    hidden, encoder, temb, cross, rope = inputs
+    out = {}
+    for name, (shape, params, quant, remat, use_rope, m) in cases.items():
+        mesh = built[shape]
+        if not mesh.member:
+            continue
+        model = CrossTransformer3DModel(**dims, remat=remat)
+        if quant:
+            quantize_dit_(model)
+        model.load_state_dict(dit_from_jax(params), strict=True)
+        stages = stack_superblock_params(model.eval(), mesh.pp.size, mesh.pp.index)
+        stacked_param_sharding(model, stages, mesh)
+        before = D.TRANSPORT["stage direct bytes"]
+        with torch.no_grad():
+            h, e = pipeline_dit_blocks(model, stages, T(hidden), T(encoder), T(temb),
+                                       tuple(map(T, rope)) if use_rope else None, T(cross),
+                                       mesh, n_microbatches=m)
+        out[name] = {"hidden": h.numpy(), "encoder": e.numpy(),
+                     "held": [i for i, b in enumerate(model.transformer_blocks)
+                              if not b.norm1.linear.weight.is_meta],
+                     "coords": (mesh.tp.index, mesh.pp.index),
+                     "hop_bytes": D.TRANSPORT["stage direct bytes"] - before}
+    return out
+
+
+# ----------------------------------------------------------------------------
+# sharded LoRA training (tests/test_torch_training_sharded.py)
+# ----------------------------------------------------------------------------
+
+
+def _tp_function_grads(mesh, ff_weights, x, dout):
+    """A feed-forward's gradients (input, first and second layer weights)
+    with its layers sharded over ``mesh.tp``: sound, and with the
+    column-input backward left unreduced (a planted fault)."""
+    from trajectorycrafter_tpu_torch.parallel.sharding import shard_linear
+
+    out = {}
+    for name in ("sound", "column input unreduced"):
+        ff = FeedForward(x.shape[-1])
+        ff.load_state_dict({k: T(v) for k, v in ff_weights.items()})
+        ff.net[0].proj = shard_linear(ff.net[0].proj, "col", mesh.tp)
+        ff.net[2] = shard_linear(ff.net[2], "row", mesh.tp)
+        ff.tp_axis = mesh.tp
+        weights = [ff.net[0].proj.weight, ff.net[2].weight]
+        for w in weights:
+            w.requires_grad_()
+        xi = T(x).requires_grad_()
+        patch = (mock.patch.object(D, "tp_input_grad", lambda g, axis: g)
+                 if name != "sound" else mock.patch.object(D, "tp_input_grad", D.tp_input_grad))
+        with patch:
+            y = ff(xi)
+            gx, g1, g2 = torch.autograd.grad(y, [xi, *weights], T(dout))
+        out[name] = {"y": y.detach().numpy(), "x": gx.numpy(), "w1": g1.numpy(),
+                     "w2": g2.numpy()}
+    return out
+
+
+def _tiny_training_model(params, dims, tp_axis):
+    from trajectorycrafter_tpu_torch.parallel.sharding import shard_units_
+
+    model = CrossTransformer3DModel(**dims, attention_impl="flash_stock", remat=True)
+    model.load_state_dict(dit_from_jax(params), strict=True)
+    return shard_units_(model.eval(), tp_axis)
+
+
+def _sharded_steps(mesh, params, dims, lora_np, case, batches):
+    """Two steps of the sharded train step on ``batches``: per step the
+    loss, grad norm and every adapter's checksum; the adapters at the end."""
+    from trajectorycrafter_tpu_torch.schedulers import CogVideoXDDIMScheduler
+    from trajectorycrafter_tpu_torch.training import step as tstep
+    from trajectorycrafter_tpu_torch.utils.weights import lora_from_jax
+
+    model = _tiny_training_model(params, dims, mesh.tp)
+    sched = CogVideoXDDIMScheduler()
+    opt = tstep.make_optimizer(lr=1e-3, grad_accum_steps=case["accum"])
+    fn = tstep.make_train_step(model, sched, sched.set_timesteps(50), opt,
+                               cfg_dropout_prob=case["dropout"],
+                               motion_sub_loss=case["motion"], lora_alpha=case["alpha"],
+                               lora_rank=case["rank"], mesh=mesh)
+    lora = {k: v.requires_grad_() for k, v in lora_from_jax(lora_np).items()}
+    state = tstep.TrainState(lora, opt.init(lora), 0)
+    gen = torch.Generator().manual_seed(case["seed"])
+    metrics, sums = [], []
+    for b in batches:
+        state, m = fn(state, b, gen)
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        sums.append([float(v.detach().double().sum()) for v in lora.values()])
+    return {"metrics": metrics, "sums": sums,
+            "lora": {k: v.detach().numpy() for k, v in lora.items()}}
+
+
+def _reduced_grads(mesh, params, dims, lora_np, case, batch, fault=None):
+    """One batch's adapter gradients on this rank, reduced over the mesh;
+    ``fault``: "proj_out summed over tp" or "dp summed"."""
+    from trajectorycrafter_tpu_torch.schedulers import CogVideoXDDIMScheduler
+    from trajectorycrafter_tpu_torch.training import step as tstep
+    from trajectorycrafter_tpu_torch.utils.weights import lora_from_jax
+
+    model = _tiny_training_model(params, dims, mesh.tp)
+    sched = CogVideoXDDIMScheduler()
+    fn = tstep.make_loss_fn(model, sched, sched.set_timesteps(50), cfg_dropout_prob=0.0,
+                            lora_alpha=case["alpha"], lora_rank=case["rank"], dp=mesh.dp)
+    lora = {k: v.requires_grad_() for k, v in lora_from_jax(lora_np).items()}
+    grads = torch.autograd.grad(fn(lora, batch, 0), list(lora.values()))
+    patches = {"proj_out summed over tp": mock.patch.object(
+                   tstep, "tp_sharded_adapters", lambda model, names: set(names)),
+               "dp summed": mock.patch.object(
+                   tstep, "dp_mean", lambda flat, dp: D.sum_partials(flat, dp))}
+    with patches.get(fault, mock.patch.object(tstep, "dp_mean", tstep.dp_mean)):
+        reduced = tstep.reduce_lora_grads(grads, list(lora), model, mesh)
+    return {k: g.numpy() for k, g in zip(lora, reduced)}
+
+
+def _train_script(argv_train, argv_resume):
+    """``scripts/train_lora.main`` in this world, then resumed from
+    ``latest``: each call's final step, adapters and checkpoint writes.
+    The metrics go to the jsonl alone (importing tensorboard takes rank 0
+    ~20 s on the CPU)."""
+    import sys
+
+    from trajectorycrafter_tpu_torch.scripts import train_lora
+
+    sys.modules["torch.utils.tensorboard"] = None
+    out = {}
+    for label, argv in (("train", argv_train), ("resume", argv_resume)):
+        writes = []
+        save = train_lora.save_lora
+        with mock.patch.object(train_lora, "save_lora",
+                               lambda path, lora, step: writes.append(step) or save(path, lora,
+                                                                                    step)):
+            state = train_lora.main(argv, device="cpu")
+        out[label] = {"step": state.step, "writes": writes,
+                      "lora": {k: v.detach().numpy() for k, v in state.lora.items()}}
+    return out
+
+
+def training_sharded(rank, ff_case, step_cases, grad_case, script_argv, tree):
+    """The sharded training's rank side: the tp autograd Functions under tp
+    2 (ranks 0-1), the train step's cases and the reduced gradients (sound
+    and with planted faults) under dp 2 x tp 2, ``load_dit``'s shard of the
+    tree ``tree`` (path, whole state dict), then the train script."""
+    from trajectorycrafter_tpu_torch.parallel.sharding import shard_state_dict
+    from trajectorycrafter_tpu_torch.utils.checkpoints import load_dit
+
+    out = {}
+    tp2 = _mesh((1, 1, 2))
+    if tp2.member:
+        out["ff"] = _tp_function_grads(tp2, *ff_case)
+    mesh = _mesh((2, 1, 2))
+    out["coords"] = (mesh.dp.index, mesh.tp.index)
+    out["steps"] = {name: _sharded_steps(mesh, *args) for name, args in step_cases.items()}
+    out["grads"] = {fault: _reduced_grads(mesh, *grad_case, fault=fault)
+                    for fault in (None, "proj_out summed over tp", "dp summed")}
+    path, whole = tree
+    got = load_dit(path, device="cpu", dtype=torch.float32, tp=mesh.tp).state_dict()
+    want = shard_state_dict({k: T(v) for k, v in whole.items()}, mesh.tp.size, mesh.tp.index)
+    out["load_dit"] = set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+    out["script"] = _train_script(*script_argv)
     return out

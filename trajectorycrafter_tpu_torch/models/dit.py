@@ -39,6 +39,16 @@ joint [text; video] tokens (``JointShard``; RoPE tables sliced to its video
 tokens), runs the joint self-attention on the ring, and gathers the output
 over sp and dp before the unpatchify, so every rank returns the whole
 output.  Layer norms and the modulation run at full width on every rank.
+Training shards the blocks and Perceivers over tp alone (parallel/
+sharding.py ``shard_units_``; ``mesh`` stays None and the step shards the
+batch), and with grad enabled their tp collectives are autograd Functions
+(``distributed.tp_input`` / ``tp_output``).
+
+The forward is ``embed`` (steps 1-3: time, patch and text embeddings, the
+reference tokens), ``run_blocks`` (step 4, the block stack: block 2i, then
+Perceiver i added to the residual, then block 2i + 1, as the JAX pipeline's
+superblocks; a GPipe stage runs its share, parallel/pipeline.py) and the
+output head.
 """
 
 from __future__ import annotations
@@ -92,6 +102,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.fuse: Optional[bool] = None
+        self.tp_axis = None  # set by parallel/sharding.py shard_unit_
         self.net = nn.ModuleList([_GELUProj(dim, dim * mult), nn.Identity(),
                                   nn.Linear(dim * mult, dim)])
 
@@ -114,6 +125,7 @@ class FeedForward(nn.Module):
                 x, proj_in.weight_q, proj_in.weight_scale, proj_in.bias, proj_out.weight_q,
                 proj_out.weight_scale, None, group=group, impl=proj_in.int8_impl),
                 proj_out.tp_axis, proj_out.bias)
+        x = D.tp_input(x, self.tp_axis)
         for layer in self.net:
             x = layer(x)
         return x
@@ -146,6 +158,7 @@ class JointAttention(nn.Module):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim, self.attention_impl = heads, head_dim, attention_impl
+        self.tp_axis = None  # set by parallel/sharding.py shard_unit_
         self.to_q = nn.Linear(dim, inner)
         self.to_k = nn.Linear(dim, inner)
         self.to_v = nn.Linear(dim, inner)
@@ -159,7 +172,7 @@ class JointAttention(nn.Module):
             raise ValueError("token shards need the ring route and the ring needs token "
                              "shards: shard the model with the pipeline's with_mesh")
         text_len = encoder.shape[1]
-        x = torch.cat([encoder, hidden], dim=1)
+        x = D.tp_input(torch.cat([encoder, hidden], dim=1), self.tp_axis)
         heads = (self.heads, self.head_dim)
         q = layer_norm_f32(self.norm_q, self.to_q(x).unflatten(-1, heads))
         k = layer_norm_f32(self.norm_k, self.to_k(x).unflatten(-1, heads))
@@ -205,6 +218,7 @@ class PerceiverCrossAttention(nn.Module):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim, self.attention_impl = heads, head_dim, attention_impl
+        self.tp_axis = None  # set by parallel/sharding.py shard_unit_
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.to_q = nn.Linear(dim, inner, bias=False)
@@ -213,8 +227,8 @@ class PerceiverCrossAttention(nn.Module):
 
     def forward(self, x, latents):
         # x: (B, S_ref, dim) reference tokens; latents: (B, S_vid, dim)
-        x = layer_norm_f32(self.norm1, x)
-        lat = layer_norm_f32(self.norm2, latents)
+        x = D.tp_input(layer_norm_f32(self.norm1, x), self.tp_axis)
+        lat = D.tp_input(layer_norm_f32(self.norm2, latents), self.tp_axis)
         heads = (self.heads, self.head_dim)
         q = self.to_q(lat).unflatten(-1, heads)
         # k and v stay strided views of the kv projection: the kernel reads
@@ -327,25 +341,15 @@ class CrossTransformer3DModel(nn.Module):
         self.norm_out = _AdaNormOut(time_embed_dim, dim)
         self.proj_out = nn.Linear(dim, patch_size * patch_size * out_channels)
 
-    def forward(
-        self,
-        hidden_states: torch.Tensor,  # (B, F, H, W, 16) noisy latents
-        encoder_hidden_states: torch.Tensor,  # (B, 226, 4096) text
-        timestep: torch.Tensor,  # (B,)
-        inpaint_latents: Optional[torch.Tensor] = None,  # (B, F, H, W, 17)
-        cross_latents: Optional[torch.Tensor] = None,  # (B, F_ref, H, W, 16)
-        image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    ) -> torch.Tensor:
-        b, f, h, w, _ = hidden_states.shape
+    def embed(self, hidden_states, encoder_hidden_states, timestep, inpaint_latents=None,
+              cross_latents=None):
+        """Steps 1-3 of the forward: (video tokens (B, S_vid, D), text tokens
+        (B, S_txt, D), temb (B, time_embed_dim), reference tokens (B, S_ref,
+        D) or None), the block stack's inputs."""
+        f, h, w = hidden_states.shape[1:4]
         p = self.patch_size
         dim = self.inner_dim
         dtype = self.proj_out.weight.dtype
-        mesh = self.mesh
-        if mesh is not None:  # this dp rank's share of the batch (the CFG pair)
-            hidden_states, encoder_hidden_states, timestep, inpaint_latents, cross_latents = (
-                batch_shard(x, mesh.dp) for x in (hidden_states, encoder_hidden_states,
-                                                  timestep, inpaint_latents, cross_latents))
-
         # 1. time embedding (fp32 sinusoid -> MLP in the model dtype)
         temb = self.time_embedding(timestep_embedding(timestep, dim).to(dtype))
 
@@ -360,7 +364,6 @@ class CrossTransformer3DModel(nn.Module):
             cross_tokens = _patchify(self.ref_patch_embed.proj, cross_latents)
 
         # 3. positional embedding (non-RoPE checkpoints only)
-        text_len = text_tokens.shape[1]
         if not self.use_rotary_positional_embeddings:
             table = resized_pos_embedding(
                 dim,
@@ -371,6 +374,47 @@ class CrossTransformer3DModel(nn.Module):
             )
             video_tokens = video_tokens + torch.as_tensor(
                 table, dtype=dtype, device=video_tokens.device)[None]
+        return video_tokens, text_tokens, temb, cross_tokens
+
+    def run_blocks(self, hidden, encoder, temb, rope, cross_tokens,
+                   seq: Optional[JointShard] = None, blocks: Optional[range] = None):
+        """Step 4: the blocks ``blocks`` (all by default) with the Perceiver
+        after every ``cross_attn_interval``-th block added to the residual
+        (none without ``cross_tokens``); each block recomputed in the
+        backward pass under ``remat`` with grad enabled.  Returns (hidden,
+        encoder)."""
+        for i in blocks if blocks is not None else range(len(self.transformer_blocks)):
+            block = self.transformer_blocks[i]
+            if self.remat and torch.is_grad_enabled():
+                hidden, encoder = _recompute(block, hidden, encoder, temb, rope, seq,
+                                             use_reentrant=False)
+            else:
+                hidden, encoder = block(hidden, encoder, temb, rope, seq)
+            if cross_tokens is not None and i % self.cross_attn_interval == 0:
+                perceiver = self.perceiver_cross_attention[i // self.cross_attn_interval]
+                hidden = hidden + perceiver(cross_tokens, hidden)
+        return hidden, encoder
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,  # (B, F, H, W, 16) noisy latents
+        encoder_hidden_states: torch.Tensor,  # (B, 226, 4096) text
+        timestep: torch.Tensor,  # (B,)
+        inpaint_latents: Optional[torch.Tensor] = None,  # (B, F, H, W, 17)
+        cross_latents: Optional[torch.Tensor] = None,  # (B, F_ref, H, W, 16)
+        image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        b, f, h, w, _ = hidden_states.shape
+        p = self.patch_size
+        mesh = self.mesh
+        if mesh is not None:  # this dp rank's share of the batch (the CFG pair)
+            hidden_states, encoder_hidden_states, timestep, inpaint_latents, cross_latents = (
+                batch_shard(x, mesh.dp) for x in (hidden_states, encoder_hidden_states,
+                                                  timestep, inpaint_latents, cross_latents))
+
+        video_tokens, text_tokens, temb, cross_tokens = self.embed(
+            hidden_states, encoder_hidden_states, timestep, inpaint_latents, cross_latents)
+        text_len = text_tokens.shape[1]
 
         # 4. transformer blocks with interleaved Perceiver cross-attention;
         #    under sp each rank keeps its shard of the joint token sequence
@@ -381,16 +425,8 @@ class CrossTransformer3DModel(nn.Module):
             if image_rotary_emb is not None:
                 image_rotary_emb = tuple(t[seq.video] for t in image_rotary_emb)
             text_len = text_tokens.shape[1]
-        hidden, encoder = video_tokens, text_tokens
-        for i, block in enumerate(self.transformer_blocks):
-            if self.remat and torch.is_grad_enabled():
-                hidden, encoder = _recompute(block, hidden, encoder, temb, image_rotary_emb, seq,
-                                             use_reentrant=False)
-            else:
-                hidden, encoder = block(hidden, encoder, temb, image_rotary_emb, seq)
-            if cross_tokens is not None and i % self.cross_attn_interval == 0:
-                perceiver = self.perceiver_cross_attention[i // self.cross_attn_interval]
-                hidden = hidden + perceiver(cross_tokens, hidden)
+        hidden, encoder = self.run_blocks(video_tokens, text_tokens, temb, image_rotary_emb,
+                                          cross_tokens, seq)
 
         # 5. final norm on the joint text+video stream (the deployed RoPE
         #    checkpoint's order), then AdaLN and the projection

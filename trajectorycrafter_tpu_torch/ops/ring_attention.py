@@ -3,7 +3,7 @@ over the ``sp`` axis of the mesh.
 
 Counterpart of trajectorycrafter_tpu/ops/ring_attention.py.  Each rank keeps
 its shard of the queries; the K/V shards travel around the ring of sp ranks
-(parallel/distributed.py ``RingShift``), and each rank folds the attention
+(parallel/distributed.py ``Shift``), and each rank folds the attention
 of its queries over every visiting shard into running online-softmax
 statistics with ``_combine``.  The attention's heads x S^2 work divides by
 sp.  As in JAX, the next hop is posted before the inner attention of the
@@ -29,7 +29,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from trajectorycrafter_tpu_torch.ops.attention_variants import flash_lse_inner
-from trajectorycrafter_tpu_torch.parallel.distributed import Axis, RingShift
+from trajectorycrafter_tpu_torch.parallel.distributed import Axis, Shift
 from trajectorycrafter_tpu_torch.parallel.sharding import shard_sizes
 
 
@@ -78,7 +78,7 @@ def ring_attention(q_l: torch.Tensor, k_l: torch.Tensor, v_l: torch.Tensor, axis
             # after t hops this rank holds shard (me - t) mod n; post the next hop first
             arriving = sizes[(me - t - 1) % n]
             shapes = [(*x.shape[:2], arriving, x.shape[3]) for x in (k_cur, v_cur)]
-            hop = RingShift([k_cur, v_cur], axis, shapes, q_l.device)
+            hop = Shift([k_cur, v_cur], axis, shapes, q_l.device)
         if q_l.shape[2] and k_cur.shape[2]:
             o_i, lse_i = inner(q_l, k_cur, v_cur, scale)
             o, lse = (o_i, lse_i) if o is None else _combine(o, lse, o_i, lse_i)

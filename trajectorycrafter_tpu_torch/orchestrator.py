@@ -232,14 +232,16 @@ def dit_units(dit: CrossTransformer3DModel) -> list:
 
 @torch.no_grad()
 def build_dit(make: Callable[[], CrossTransformer3DModel], device, dtype, seed: int,
-              quant: str = "none", mesh=None, std: float = 0.02) -> CrossTransformer3DModel:
+              quant: str = "none", tp=None, std: float = 0.02) -> CrossTransformer3DModel:
     """The DiT ``make`` builds, randomly initialised as ``random_init_``
     initialises it (N(0, std^2) in parameter order from one generator seeded
     with ``seed``), allocated one top-level module at a time; under ``quant``
     "int8" each block and Perceiver is quantized as soon as it is drawn, and
-    under ``mesh`` cut to this rank's tensor-parallel shard (parallel/
-    sharding.py), so a rank never holds more of the whole DiT than one block
-    beside its shard."""
+    with ``tp`` (a mesh axis) cut to this rank's tensor-parallel shard over
+    it (parallel/sharding.py ``shard_unit_``), so a rank never holds more of
+    the whole DiT than one block beside its shard.  A sharded denoise then
+    takes the mesh (``shard_dit_(dit, mesh, units_done=True)``); training
+    leaves the forward unsharded."""
     with torch.device("meta"):
         dit = make()
     dit.to(dtype=dtype)
@@ -251,10 +253,8 @@ def build_dit(make: Callable[[], CrossTransformer3DModel], device, dtype, seed: 
         if unit in (*dit.transformer_blocks, *(dit.perceiver_cross_attention or ())):
             if quant == "int8":
                 quantize_dit_unit_(unit)
-            if mesh is not None:
-                shard_unit_(unit, mesh.tp)
-    if mesh is not None:
-        shard_dit_(dit, mesh, units_done=True)
+            if tp is not None:
+                shard_unit_(unit, tp)
     return dit.eval()
 
 
@@ -350,7 +350,9 @@ def build_full_scale_models(cfg: TrajCrafterConfig, device="cuda", seed: int = 0
     check_supported(cfg)
     dtype = torch.bfloat16
     dit = build_dit(lambda: full_scale_dit(attention_impl), device, dtype, seed + 1,
-                    cfg.diffusion.quant, mesh)
+                    cfg.diffusion.quant, None if mesh is None else mesh.tp)
+    if mesh is not None:
+        shard_dit_(dit, mesh, units_done=True)
     vae = random_init_(_on_device(lambda: AutoencoderKLCogVideoX(), device, dtype), seed)
     unet = random_init_(_on_device(UNetSpatioTemporalConditionModel, device, dtype), seed + 3)
     if cfg.depth.quant == "int8":

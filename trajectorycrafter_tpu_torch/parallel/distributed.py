@@ -23,11 +23,19 @@ sent there, copied back) for every operation that gloo does not run on CUDA
 tensors itself: ``GLOO_CUDA_OPS`` lists the ones it does.  torch's backend
 table lists ``all_reduce`` and ``broadcast``; tools/gloo_cuda_probe.py on
 an H100 (torch 2.11) found ``all_gather`` running too, and send / recv
-ending the process, so the ring's hops are staged.  ``TRANSPORT`` counts
+ending the process, so the hops (``Shift``) are staged.  ``TRANSPORT`` counts
 the calls and bytes of each operation by the transport that ran it
 (``direct`` or ``staged``); a caller may file a collective under a name of
 its own (parallel/spatial.py: ``halo``, ``norm``, ``slabs``; ops/splat.py:
-``warp``).
+``warp``; parallel/pipeline.py: ``stage``, the GPipe hop between stages).
+
+Training differentiates through the tensor-parallel layers, and a
+collective that writes into fresh buffers cuts the graph.  ``tp_input``
+and ``tp_output`` are the two autograd-aware tp collectives: a
+column-parallel layer's input (the identity forward, the sum over tp of the
+gradient backward) and a row-parallel layer's output (``sum_partials``
+forward, the identity backward).  Both reduce in coordinate order, so every
+tp rank holds the same bits.
 """
 
 from __future__ import annotations
@@ -203,6 +211,69 @@ def sum_partials(partial: torch.Tensor, axis: Axis,
     return out.to(partial.dtype)
 
 
+class _TpInput(torch.autograd.Function):
+    """A column-parallel layer's input: the identity forward; backward, the
+    sum over tp of the ranks' gradients, each of which holds only its
+    columns' part."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return tp_input_grad(grad, ctx.axis), None
+
+
+def tp_input_grad(grad: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The backward of ``tp_input``: the ranks' gradients summed in fp32 in
+    coordinate order."""
+    return sum_partials(grad.contiguous(), axis)
+
+
+class _TpOutput(torch.autograd.Function):
+    """A row-parallel layer's output, ``sum_partials`` of the partials and
+    the bias; backward, every rank's partial gets the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, partial, bias, axis):
+        ctx.bias_shape = None if bias is None else bias.shape
+        return sum_partials(partial, axis, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad_bias = None
+        if ctx.needs_input_grad[1]:
+            grad_bias = grad.reshape(-1, grad.shape[-1]).sum(0).reshape(ctx.bias_shape)
+        return grad, grad_bias, None
+
+
+def tp_input(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """``x`` as the input of column-parallel layers over ``axis``: with grad
+    enabled, the sum over tp of its gradient in the backward pass.  One call
+    serves every layer that reads ``x`` (q, k and v)."""
+    if axis is None or axis.size == 1 or not torch.is_grad_enabled():
+        return x
+    return _TpInput.apply(x, axis)
+
+
+def tp_output(partial: torch.Tensor, axis: Axis,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A row-parallel layer's output, ``sum_partials``; with grad enabled
+    through an autograd Function whose backward hands every partial the
+    whole gradient."""
+    if not torch.is_grad_enabled():
+        return sum_partials(partial, axis, bias)
+    return _TpOutput.apply(partial, bias, axis)
+
+
+def barrier(axis: Axis) -> None:
+    """Every rank of ``axis`` waits here for the others."""
+    if axis.size > 1:
+        dist.barrier(group=axis.group)
+
+
 def broadcast(x: torch.Tensor, axis: Axis, src: int = 0) -> torch.Tensor:
     """``x`` of the rank at coordinate ``src`` on every rank of ``axis``."""
     if axis.size == 1:
@@ -245,24 +316,32 @@ def broadcast_tensors(tensors: Optional[List[Optional[torch.Tensor]]], axis: Axi
     return out
 
 
-class RingShift:
-    """One hop of a ring: this rank's tensors go to the next rank along the
-    axis while the previous rank's arrive.  Posted at construction; ``wait``
-    returns the arrived tensors on ``device``.  Empty tensors do not travel
-    (both ends know the shapes)."""
+class Shift:
+    """One shift along an axis: this rank's tensors go to the next rank
+    along it while the previous rank's arrive in tensors of ``recv_shapes``
+    and ``dtypes`` (by default the sent tensors'): a ring's hop
+    (ops/ring_attention.py), or a pipeline's between neighbouring stages
+    (parallel/pipeline.py), where the first stage receives nothing and the
+    last sends nothing.  Posted at construction; ``wait`` returns the
+    arrived tensors on ``device``.  Empty tensors do not travel (both ends
+    know the shapes).  Filed in ``TRANSPORT`` under ``name``."""
 
-    def __init__(self, tensors: Sequence[torch.Tensor], axis: Axis, recv_shapes, device):
+    def __init__(self, tensors: Sequence[torch.Tensor], axis: Axis, recv_shapes, device,
+                 dtypes=None, name: str = "p2p"):
         self.device = device
-        self.staged = bool(tensors) and _staged(tensors[0], "p2p")
+        # gloo's send / recv end the process on CUDA tensors: staged
+        self.staged = torch.device(device).type == "cuda" and dist.get_backend() == "gloo"
         send = [_host(t) if self.staged else t.contiguous() for t in tensors]
         where = dict(device="cpu", pin_memory=True) if self.staged else dict(device=device)
-        self.recv = [torch.empty(s, dtype=t.dtype, **where) for s, t in zip(recv_shapes, tensors)]
+        dtypes = dtypes or [t.dtype for t in tensors]
+        self.recv = [torch.empty(s, dtype=d, **where) for s, d in zip(recv_shapes, dtypes)]
         ops = [dist.P2POp(dist.isend, t, axis.peer(1), axis.group) for t in send if t.numel()]
         ops += [dist.P2POp(dist.irecv, t, axis.peer(-1), axis.group)
                 for t in self.recv if t.numel()]
-        self._send = send  # alive until the hop is done
+        self._send = send  # alive until the shift is done
         self.works = dist.batch_isend_irecv(ops) if ops else []
-        _record("p2p", self.staged, sum(t.numel() * t.element_size() for t in send))
+        if send:
+            _record(name, self.staged, sum(t.numel() * t.element_size() for t in send))
 
     def wait(self) -> list:
         for w in self.works:

@@ -1,4 +1,4 @@
-"""The dp x sp x tp mesh of a sharded run.
+"""The dp x sp x tp x pp mesh of a sharded run.
 
 Counterpart of trajectorycrafter_tpu/parallel/mesh.py ``make_mesh``.  Axes:
   * ``dp`` -- data: the batch, which in the denoise is the CFG pair;
@@ -6,15 +6,15 @@ Counterpart of trajectorycrafter_tpu/parallel/mesh.py ``make_mesh``.  Axes:
     across ranks by ring attention (ops/ring_attention.py);
   * ``tp`` -- tensor: the attention heads and the feed-forward's hidden
     width (parallel/sharding.py);
-  * ``pp`` -- pipeline stages, accepted only at 1: the GPipe schedule of
-    the JAX package (parallel/pipeline.py) is not ported.
+  * ``pp`` -- pipeline stages: the GPipe schedule of the DiT's block stack
+    (parallel/pipeline.py), each stage's blocks over tp.
 
 Ranks take coordinates in JAX's row-major ``reshape(dp, sp, tp, pp)`` order
-of its devices: rank r of the process group sits where device r sits in the
-JAX mesh.  Each axis has one process group per line of ranks along it, and
-so has the dp x sp ``plane`` (the ranks of one tp coordinate, dp-major),
-over which the CogVideoX VAE's GroupNorm statistics are reduced
-(parallel/spatial.py).
+of its devices, pp the fastest axis: rank r of the process group sits
+where device r sits in the JAX mesh.  Each axis has one process group per
+line of ranks along it, and so has the dp x sp ``plane`` (the ranks of one
+tp and pp coordinate, dp-major), over which the CogVideoX VAE's GroupNorm
+statistics are reduced (parallel/spatial.py).
 ``make_mesh`` raises and warns where JAX's does: a mesh larger than the
 world raises, a smaller one warns and leaves the other ranks idle.
 """
@@ -37,10 +37,8 @@ AXES = ("dp", "sp", "tp", "pp")
 def mesh_ranks(dp: int = 1, sp: int = 1, tp: int = 1, pp: int = 1,
                world_size: int = 1) -> np.ndarray:
     """The (dp, sp, tp, pp) array of global ranks, with JAX's checks."""
-    if pp != 1:
-        raise NotImplementedError(f"pp={pp}: pipeline stages are not ported; pp must be 1")
     n = dp * sp * tp * pp
-    if min(dp, sp, tp) < 1:
+    if min(dp, sp, tp, pp) < 1:
         raise ValueError(f"mesh {dp}x{sp}x{tp}x{pp}: every axis needs at least one rank")
     if n > world_size:
         raise ValueError(f"mesh {dp}x{sp}x{tp}x{pp}={n} exceeds {world_size} ranks")
@@ -81,6 +79,10 @@ class Mesh:
     @property
     def tp(self) -> Axis:
         return self.axes["tp"]
+
+    @property
+    def pp(self) -> Axis:
+        return self.axes["pp"]
 
     @property
     def plane(self) -> Axis:

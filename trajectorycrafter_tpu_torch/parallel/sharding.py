@@ -18,6 +18,14 @@ the port's state dict (torch's (out, in) layout):
   * everything else whole: norms, embeddings, modulation, the output
     projection.
 
+Every sharded layer keeps its rule and axis (``tp_rule``, ``tp_axis``;
+training/lora.py merges its adapters' slice by them), and each attention
+and feed-forward keeps the axis its column-parallel layers' input is
+reduced over in the backward pass (``distributed.tp_input``: once for q, k
+and v, which read one tensor); the row-parallel output is
+``distributed.tp_output``.  Under ``torch.no_grad`` both are the plain
+collectives of the inference path.
+
 JAX keeps every 1-D tensor replicated and its ``to_kv`` split as one
 contiguous range of columns; both are storage layouts that XLA re-lays for
 the computation, where the port slices what each rank computes with.
@@ -69,9 +77,11 @@ def layer_rule(key: str) -> Optional[str]:
 
 
 def _chunk(x: torch.Tensor, tp: int, r: int, dim: int) -> torch.Tensor:
+    """Part ``r`` of ``tp`` along ``dim``, in storage of its own: a view (a
+    leading dimension's chunk is one) would keep the whole tensor alive."""
     if x.shape[dim] % tp:
         raise ValueError(f"a dimension of {x.shape[dim]} does not split over tp={tp}")
-    return x.chunk(tp, dim=dim)[r].contiguous()
+    return x.chunk(tp, dim=dim)[r].clone(memory_format=torch.contiguous_format)
 
 
 def shard_tensor(rule: Optional[str], param: str, x: torch.Tensor, tp: int,
@@ -88,10 +98,14 @@ def shard_tensor(rule: Optional[str], param: str, x: torch.Tensor, tp: int,
     return _chunk(x, tp, r, 0)
 
 
+def shard_entry(key: str, x: torch.Tensor, tp: int, r: int) -> torch.Tensor:
+    """Rank ``r``'s part of the DiT state-dict entry ``key``."""
+    return shard_tensor(layer_rule(key), key.rsplit(".", 1)[1], x, tp, r)
+
+
 def shard_state_dict(sd: Dict[str, torch.Tensor], tp: int, r: int) -> Dict[str, torch.Tensor]:
     """Rank ``r``'s shard of a DiT state dict (bf16 or int8)."""
-    return {key: shard_tensor(layer_rule(key), key.rsplit(".", 1)[1], x, tp, r)
-            for key, x in sd.items()}
+    return {key: shard_entry(key, x, tp, r) for key, x in sd.items()}
 
 
 class RowParallelLinear(nn.Linear):
@@ -105,7 +119,7 @@ class RowParallelLinear(nn.Linear):
         self.tp_axis = axis
 
     def forward(self, x):
-        return D.sum_partials(F.linear(x, self.weight), self.tp_axis, self.bias)
+        return D.tp_output(F.linear(x, self.weight), self.tp_axis, self.bias)
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
@@ -135,12 +149,14 @@ def shard_linear(layer: nn.Module, rule: str, axis: D.Axis) -> nn.Module:
         new.weight = _param(weight)
     if bias:
         new.bias = _param(cut("bias", layer.bias.detach()))
+    new.tp_rule, new.tp_axis = rule, axis
     return new
 
 
 def shard_unit_(unit: nn.Module, axis: D.Axis) -> nn.Module:
     """Shard a DiT block or Perceiver in place over tp ``axis``: its
-    layers by the rules above, its head count divided."""
+    layers by the rules above, its head count divided, the axis of its
+    column-parallel layers' input set."""
     if axis.size == 1:
         return unit
     is_block = hasattr(unit, "attn1")
@@ -155,7 +171,19 @@ def shard_unit_(unit: nn.Module, axis: D.Axis) -> nn.Module:
         setattr(parent, name, shard_linear(getattr(parent, name), layer_rule(key + ".weight"),
                                            axis))
     attn.heads //= axis.size
+    attn.tp_axis = axis
+    if is_block:
+        unit.ff.tp_axis = axis
     return unit
+
+
+def shard_units_(model: nn.Module, axis: D.Axis) -> nn.Module:
+    """Shard every block and Perceiver of a CrossTransformer3DModel in place
+    over tp ``axis`` (training: the model's forward stays unsharded over the
+    batch and the tokens, and the step shards the batch)."""
+    for unit in (*model.transformer_blocks, *(model.perceiver_cross_attention or ())):
+        shard_unit_(unit, axis)
+    return model
 
 
 def shard_dit_(model: nn.Module, mesh, units_done: bool = False) -> nn.Module:
@@ -167,8 +195,7 @@ def shard_dit_(model: nn.Module, mesh, units_done: bool = False) -> nn.Module:
     if getattr(model, "mesh", None) is mesh:
         return model
     if not units_done:
-        for unit in (*model.transformer_blocks, *(model.perceiver_cross_attention or ())):
-            shard_unit_(unit, mesh.tp)
+        shard_units_(model, mesh.tp)
     if mesh.sp.size > 1:
         for block in model.transformer_blocks:
             block.attn1.attention_impl = "ring"

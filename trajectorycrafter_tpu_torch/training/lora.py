@@ -19,6 +19,15 @@ is the merged weight each time it is read.  A functional merge
 block is recomputed in the backward pass, after such a call has put the
 base weights back, and it would be recomputed, and differentiated, with
 the base weights.
+
+On a tensor-parallel model (training under ``--mesh_tp``, parallel/
+sharding.py ``shard_units_``) the adapters stay whole on every rank, as the
+JAX package replicates them: ``init_lora_params`` draws them at the
+unsharded layers' shapes, so the draws are the single-card run's, and the
+checkpoints are unchanged.  A sharded layer's merge adds only this rank's
+slice of (alpha / r) B A, by the layer's rule: its rows of B (column-
+parallel; the Perceiver's packed ``to_kv``: its rows of each of the k and
+v halves) or its columns of A (row-parallel).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 from torch import nn
 from torch.nn.utils import parametrize
 
+from trajectorycrafter_tpu_torch.parallel.sharding import shard_tensor
 from trajectorycrafter_tpu_torch.utils.weights import dit_dense_path
 
 DEFAULT_TARGET_SUFFIXES = (
@@ -68,16 +78,30 @@ def _base(module: nn.Module) -> torch.Tensor:
     return module.weight
 
 
+def _whole_shape(module: nn.Module) -> tuple:
+    """(out, in) of a layer's unsharded weight."""
+    d_out, d_in = _base(module).shape
+    axis = getattr(module, "tp_axis", None)
+    if axis is not None:
+        if module.tp_rule == "row":
+            d_in *= axis.size
+        else:
+            d_out *= axis.size
+    return d_out, d_in
+
+
 def init_lora_params(generator: torch.Generator, model: nn.Module, rank: int = 8,
                      target_suffixes=DEFAULT_TARGET_SUFFIXES, skip_substrings=()) -> LoRA:
     """-> {"<module>.lora_A": (r, in), "<module>.lora_B": (out, r)}, fp32 on
-    the model's device: A ~ N(0, 1) / r (divided by r, as the JAX init does),
-    B = 0, so the adapters start as the identity.  The layers draw their A in
-    sorted order from ``generator`` (on the model's device)."""
+    the model's device, at the unsharded layers' shapes: A ~ N(0, 1) / r
+    (divided by r, as the JAX init does), B = 0, so the adapters start as the
+    identity.  The layers draw their A in sorted order from ``generator``
+    (on the model's device)."""
     lora: LoRA = {}
     for name in lora_target_paths(model, target_suffixes, skip_substrings):
-        weight = _base(model.get_submodule(name))
-        d_out, d_in = weight.shape
+        module = model.get_submodule(name)
+        weight = _base(module)
+        d_out, d_in = _whole_shape(module)
         a = torch.randn((rank, d_in), generator=generator, device=weight.device) / rank
         lora[name + ".lora_A"] = a.requires_grad_()
         lora[name + ".lora_B"] = torch.zeros((d_out, rank), device=weight.device,
@@ -87,14 +111,22 @@ def init_lora_params(generator: torch.Generator, model: nn.Module, rank: int = 8
 
 class _Merge(nn.Module):
     """W -> W + (scaling (B A)) cast to W's dtype, with the factors read from
-    the adapters dict each time (the optimizer updates them in place)."""
+    the adapters dict each time (the optimizer updates them in place); on a
+    layer sharded over tp (``axis``), the slice of B A its ``rule`` keeps."""
 
-    def __init__(self, lora: LoRA, name: str, scaling: float):
+    def __init__(self, lora: LoRA, name: str, scaling: float, rule=None, axis=None):
         super().__init__()
         self.lora, self.name, self.scaling = lora, name, scaling
+        self.rule, self.axis = rule, axis
 
     def forward(self, weight: torch.Tensor) -> torch.Tensor:
         a, b = self.lora[self.name + ".lora_A"], self.lora[self.name + ".lora_B"]
+        if self.axis is not None:
+            tp, r = self.axis.size, self.axis.index
+            if self.rule == "row":
+                a = shard_tensor("row", "weight", a, tp, r)
+            else:
+                b = shard_tensor(self.rule, "weight", b, tp, r)
         return weight + (torch.matmul(b, a) * self.scaling).to(weight.dtype)
 
 
@@ -113,7 +145,9 @@ def apply_lora(model: nn.Module, lora: LoRA, alpha: float = 8.0, rank: int = 8) 
     remove_lora(model)
     scaling = alpha / rank
     for name in sorted({key.rpartition(".")[0] for key in lora or {}}):
-        parametrize.register_parametrization(model.get_submodule(name), "weight",
-                                             _Merge(lora, name, scaling), unsafe=True)
+        module = model.get_submodule(name)
+        merge = _Merge(lora, name, scaling, getattr(module, "tp_rule", None),
+                       getattr(module, "tp_axis", None))
+        parametrize.register_parametrization(module, "weight", merge, unsafe=True)
     return model
 

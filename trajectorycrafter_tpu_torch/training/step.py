@@ -18,6 +18,18 @@ fp32, as in JAX.  ``timesteps`` and ``noise`` come from the batch when it
 holds them, else from the step's ``torch.Generator``: torch cannot replay a
 JAX key, so the parity tests supply them.  The port updates the adapters in
 place.
+
+Under a mesh (``make_train_step(..., mesh)``: dp x tp, the model's blocks
+and Perceivers over tp, parallel/sharding.py ``shard_units_``) every rank
+holds the whole adapters and the global batch, draws the global batch's
+timesteps, noise and dropout masks from the same generator, and runs its dp
+rows (JAX shards the batch on dp).  Before clipping and AdamW the adapter
+gradients are reduced (``reduce_lora_grads``): summed over tp for the
+adapters of tp-sharded layers (each rank holds its slice's part), not for
+the replicated top-level ``proj_out``, whose whole gradient every tp rank
+already holds, then averaged over dp.  Both reductions sum in coordinate
+order, so the adapters stay bit-equal on every rank; with accumulation the
+running mean of the local gradients is reduced once per update.
 """
 
 from __future__ import annotations
@@ -29,6 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from trajectorycrafter_tpu_torch.parallel import distributed as D
+from trajectorycrafter_tpu_torch.parallel.sharding import batch_shard
 from trajectorycrafter_tpu_torch.training.lora import LoRA, apply_lora, remove_lora
 
 Batch = Dict[str, Union[np.ndarray, torch.Tensor]]
@@ -63,10 +77,14 @@ class Optimizer:
                                   weight_decay=self.weight_decay)
         return OptState(adamw)
 
-    def update(self, grads: Sequence[torch.Tensor], state: OptState) -> None:
+    def update(self, grads: Sequence[torch.Tensor], state: OptState,
+               reduce: Optional[Callable] = None) -> Optional[torch.Tensor]:
         """Take one (micro-)step with ``grads``, in the adapters' order: with
         accumulation the adapters change only every ``grad_accum_steps``-th
-        call."""
+        call.  ``reduce`` (a sharded step's ``reduce_lora_grads``) maps the
+        gradients to the mesh's before they are clipped, once per update.
+        Returns the global norm of the gradient it clipped, None at a
+        micro-step that only accumulates."""
         grads = [g.detach().float() for g in grads]
         if self.grad_accum_steps > 1:
             if state.acc is None:
@@ -76,8 +94,10 @@ class Optimizer:
                 a.add_((g - a) / (state.mini_step + 1))
             state.mini_step += 1
             if state.mini_step < self.grad_accum_steps:
-                return
+                return None
             grads, state.acc, state.mini_step = state.acc, None, 0
+        if reduce is not None:
+            grads = reduce(grads)
         # optax.clip_by_global_norm: g / norm * max_norm where norm >= max_norm
         # (torch's clip_grad_norm_ divides by norm + 1e-6)
         norm = global_norm(grads)
@@ -87,6 +107,7 @@ class Optimizer:
             p.grad = g
         state.adamw.step()
         state.adamw.zero_grad(set_to_none=True)
+        return norm
 
 
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-2, clip_norm: float = 1.0,
@@ -110,6 +131,43 @@ def to_device(batch: Batch, device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def tp_sharded_adapters(model: nn.Module, names: Sequence[str]) -> set:
+    """The adapters (by key) of the layers sharded over tp, whose gradients
+    the tp ranks hold in parts."""
+    return {n for n in names
+            if getattr(model.get_submodule(n.rpartition(".")[0]), "tp_axis", None) is not None}
+
+
+def dp_mean(flat: torch.Tensor, dp: D.Axis) -> torch.Tensor:
+    """The mean over dp of every rank's ``flat``, summed in coordinate order."""
+    return D.sum_partials(flat, dp) / dp.size
+
+
+def _reduced(grads: List[torch.Tensor], picked: List[int], fn) -> None:
+    """``fn`` of the gradients ``picked``, flattened into one tensor, written
+    back in place of them."""
+    if not picked:
+        return
+    flat = fn(torch.cat([grads[i].reshape(-1) for i in picked]))
+    for i, part in zip(picked, flat.split([grads[i].numel() for i in picked])):
+        grads[i] = part.view_as(grads[i])
+
+
+def reduce_lora_grads(grads: Sequence[torch.Tensor], names: Sequence[str], model: nn.Module,
+                      mesh) -> List[torch.Tensor]:
+    """The adapter gradients of one rank (fp32, in the order of ``names``)
+    -> the mesh's: summed over tp for the adapters of tp-sharded layers,
+    then averaged over dp (one flat collective each)."""
+    grads = list(grads)
+    if mesh.tp.size > 1:
+        sharded = tp_sharded_adapters(model, names)
+        _reduced(grads, [i for i, n in enumerate(names) if n in sharded],
+                 lambda flat: D.sum_partials(flat, mesh.tp))
+    if mesh.dp.size > 1:
+        _reduced(grads, list(range(len(grads))), lambda flat: dp_mean(flat, mesh.dp))
+    return grads
+
+
 def make_loss_fn(
     model: nn.Module,
     scheduler,
@@ -120,6 +178,7 @@ def make_loss_fn(
     lora_alpha: float = 8.0,
     lora_rank: int = 8,
     num_train_timesteps: int = 1000,
+    dp: Optional[D.Axis] = None,
 ) -> Callable:
     """The training objective as loss(lora, batch, rng) -> 0-d fp32 tensor.
 
@@ -130,7 +189,9 @@ def make_loss_fn(
     an int seed for one.  The base model is frozen (``requires_grad_(False)``)
     and keeps the adapters attached after the call, so that the backward
     pass (and, under ``remat``, its recomputation) runs on the merged
-    weights.
+    weights.  Under ``dp`` every rank passes the global batch and draws its
+    timesteps, noise and masks, then takes its dp rows: the loss is the mean
+    over the rank's rows.
     """
     model.requires_grad_(False)
     base = next(model.parameters())
@@ -153,17 +214,16 @@ def make_loss_fn(
         if noise is None:
             noise = torch.randn(x0.shape, generator=gen, device=device)
         noise = noise.float()
+        conditions = [batch[k] for k in ("prompt_embeds", "ref_latents", "inpaint_latents")]
+        if cfg_dropout_prob > 0.0:
+            keeps = [torch.rand((b,) + (1,) * (x.ndim - 1), generator=gen, device=device)
+                     >= cfg_dropout_prob for x in conditions]
+            conditions = [x * keep.to(x.dtype) for x, keep in zip(conditions, keeps)]
+        if dp is not None:  # this rank's rows of the global batch and its draws
+            x0, noise, timesteps, *conditions = (batch_shard(x, dp) for x in (
+                x0, noise, timesteps, *conditions))
         noisy = scheduler.add_noise(sch_state, x0, noise, timesteps)
-
-        def drop(x):
-            if cfg_dropout_prob <= 0.0:
-                return x
-            keep = torch.rand((b,) + (1,) * (x.ndim - 1), generator=gen, device=device)
-            return x * (keep >= cfg_dropout_prob).to(x.dtype)
-
-        text = drop(batch["prompt_embeds"])
-        ref = drop(batch["ref_latents"])
-        inpaint = drop(batch["inpaint_latents"])
+        text, ref, inpaint = conditions
         rope = batch.get("rope")
         pred = model(noisy.to(dtype), text.to(dtype), timesteps.float(),
                      inpaint_latents=inpaint.to(dtype), cross_latents=ref.to(dtype),
@@ -176,9 +236,9 @@ def make_loss_fn(
         loss = torch.mean((pred - target) ** 2)
         if motion_sub_loss:
             # temporal-difference alignment (reference :242-247)
-            dp = pred[:, 1:] - pred[:, :-1]
-            dt = target[:, 1:] - target[:, :-1]
-            loss = loss + 0.1 * torch.mean((dp - dt) ** 2)
+            d_pred = pred[:, 1:] - pred[:, :-1]
+            d_target = target[:, 1:] - target[:, :-1]
+            loss = loss + 0.1 * torch.mean((d_pred - d_target) ** 2)
         return loss
 
     return loss_fn
@@ -195,10 +255,15 @@ def make_train_step(
     lora_alpha: float = 8.0,
     lora_rank: int = 8,
     num_train_timesteps: int = 1000,
+    mesh=None,
 ) -> Callable:
     """Returns step(state, batch, rng) -> (state, {"loss", "grad_norm"}), the
     metrics 0-d tensors; ``grad_norm`` is the global norm of the step's
-    gradient before clipping.
+    gradient before clipping.  Under ``mesh`` (dp x tp) the loss is the
+    mean over dp of the ranks' losses and ``grad_norm`` the norm of the
+    reduced gradient; with accumulation that gradient is the running mean's
+    at the micro-step that updates, and ``grad_norm`` is NaN at the others
+    (their gradients are not reduced).
 
     batch: channel-last latents, already VAE-encoded: gt_latents (B, F, h,
     w, C), prompt_embeds (B, L, De), ref_latents (B, Fr, h, w, C),
@@ -208,15 +273,23 @@ def make_train_step(
     loss_fn = make_loss_fn(
         model, scheduler, sch_state, prediction_type=prediction_type,
         cfg_dropout_prob=cfg_dropout_prob, motion_sub_loss=motion_sub_loss,
-        lora_alpha=lora_alpha, lora_rank=lora_rank, num_train_timesteps=num_train_timesteps)
+        lora_alpha=lora_alpha, lora_rank=lora_rank, num_train_timesteps=num_train_timesteps,
+        dp=None if mesh is None else mesh.dp)
 
     def step(state: TrainState, batch: Batch, rng):
         params = list(state.lora.values())
         loss = loss_fn(state.lora, batch, rng)
         grads = torch.autograd.grad(loss, params)
-        gnorm = global_norm(grads)
-        optimizer.update(grads, state.opt_state)
+        if mesh is None:
+            optimizer.update(grads, state.opt_state)
+            gnorm, loss = global_norm(grads), loss.detach()
+        else:
+            names = list(state.lora)
+            norm = optimizer.update(grads, state.opt_state,
+                                    lambda g: reduce_lora_grads(g, names, model, mesh))
+            gnorm = norm if norm is not None else torch.tensor(float("nan"))
+            loss = dp_mean(loss.detach().reshape(1), mesh.dp)[0]
         return (TrainState(state.lora, state.opt_state, state.step + 1),
-                {"loss": loss.detach(), "grad_norm": gnorm})
+                {"loss": loss, "grad_norm": gnorm})
 
     return step

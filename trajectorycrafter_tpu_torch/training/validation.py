@@ -13,6 +13,12 @@ training_loop.py:312-321):
   * the first-batch shape / mean / std dump;
   * a jsonl metrics sink, plus tensorboard when torch's SummaryWriter
     imports (the reference logs through accelerate's tensorboard tracker).
+
+Under a training mesh (scripts/train_lora.py ``--mesh_dp/--mesh_tp``) every
+rank runs the held-out samples at B = 1 on its tensor-parallel shard, as
+JAX's ``eval_jit`` runs under ``jax.set_mesh``: the eval loss takes no dp
+rows (a sample of one cannot split), and the tp sums give every rank the
+same loss.
 """
 
 from __future__ import annotations

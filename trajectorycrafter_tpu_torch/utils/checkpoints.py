@@ -301,14 +301,17 @@ def load_module(make: Callable[[], nn.Module], path: str, device, dtype: torch.d
                 quantize_: Optional[Callable[[nn.Module], nn.Module]] = None,
                 adapt: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None,
                 stats: Optional[dict] = None,
-                index: Optional[Dict[str, str]] = None) -> nn.Module:
+                index: Optional[Dict[str, str]] = None,
+                cut: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> nn.Module:
     """``make()`` (quantized by ``quantize_`` when given) built on ``meta``
     and loaded from the safetensors files in ``path`` onto ``device``:
     floating tensors in ``dtype``, an int8 layer's codes and fp32 scales
     quantized from its weight as read.  ``contract``: the exact key set the
     files must hold (``verify_state_dict``); without one, the module's keys
-    must be present and any other key is skipped.  ``adapt`` may rewrite the
-    read tensors in place before they load.  ``stats`` (when given) gets
+    must be present and any other key is skipped.  ``cut(key, tensor)``
+    keeps a part of each tensor as it is read (a tensor-parallel shard), so
+    no more than one whole tensor is held at a time.  ``adapt`` may rewrite
+    the read tensors in place before they load.  ``stats`` (when given) gets
     ``{label: {"bytes", "seconds", "tensors"}}``.  ``index``: the
     ``safetensors_index(path)`` a caller has already read."""
     t0 = time.perf_counter()
@@ -327,10 +330,13 @@ def load_module(make: Callable[[], nn.Module], path: str, device, dtype: torch.d
     for key, t in iter_safetensors(index, device, needed):
         prefix = key[:-len(".weight")]
         if key.endswith(".weight") and prefix in int8:
-            sd[prefix + ".weight_q"], sd[prefix + ".weight_scale"] = quantize_dense(t)
+            read = dict(zip((prefix + ".weight_q", prefix + ".weight_scale"), quantize_dense(t)))
         else:
-            sd[key] = t.to(dtype) if t.is_floating_point() else t
+            read = {key: t.to(dtype) if t.is_floating_point() else t}
         del t
+        for k, v in read.items():
+            sd[k] = v if cut is None else cut(k, v)
+        del read
     if adapt is not None:
         adapt(sd)
     nbytes = sum(t.numel() * t.element_size() for t in sd.values())
@@ -375,13 +381,16 @@ def dit_kwargs_from_config(transformer_path: str, **model_kwargs) -> dict:
 
 
 def load_dit(transformer_path: str, device="cuda", dtype=torch.bfloat16, quant: str = "none",
-             stats: Optional[dict] = None, **model_kwargs) -> nn.Module:
+             stats: Optional[dict] = None, tp=None, **model_kwargs) -> nn.Module:
     """The TrajectoryCrafter CrossTransformer3D from ``transformer_path``
     (``quant="int8"``: its blocks' and Perceivers' linears quantized as they
     load, ``quantize_dit_``).  A checkpoint without
     ``ref_patch_embed.proj.weight`` builds the model without its reference
-    branch."""
+    branch.  ``tp`` (a mesh axis): this rank's tensor-parallel shard of the
+    blocks and Perceivers (parallel/sharding.py ``shard_units_``), each
+    tensor cut as it is read."""
     from trajectorycrafter_tpu_torch.models.dit import CrossTransformer3DModel
+    from trajectorycrafter_tpu_torch.parallel.sharding import shard_entry, shard_units_
 
     kwargs = dit_kwargs_from_config(transformer_path, **model_kwargs)
     index = safetensors_index(transformer_path)
@@ -394,10 +403,15 @@ def load_dit(transformer_path: str, device="cuda", dtype=torch.bfloat16, quant: 
         sd["patch_embed.proj.weight"] = adapt_patch_embed_in_channels(
             sd["patch_embed.proj.weight"], kwargs["in_channels"])
 
+    def prepare_(model):
+        if quant == "int8":
+            quantize_dit_(model)
+        return model if tp is None else shard_units_(model, tp)
+
+    cut = None if tp is None else (lambda key, t: shard_entry(key, t, tp.size, tp.index))
     return load_module(lambda: CrossTransformer3DModel(**kwargs), transformer_path, device,
-                       dtype, "dit", contract=contract,
-                       quantize_=quantize_dit_ if quant == "int8" else None, adapt=adapt,
-                       stats=stats, index=index)
+                       dtype, "dit", contract=contract, quantize_=prepare_, adapt=adapt,
+                       stats=stats, index=index, cut=cut)
 
 
 def load_vae(vae_path: str, device="cuda", dtype=torch.bfloat16,
