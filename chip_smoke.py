@@ -85,17 +85,17 @@ prints no result line):
      one step of each of the six samplers on the card against the same step
      on the CPU (``SAMPLER_STEP_TOL``);
   5c. the tiled VAE decode at 17 frames of 576x1024: one tile bit-equal to
-     ``vae_decode``, the JAX default tile and the auto route's strips finite
-     and of the right shape, each timed beside the one-shot decode (runs
-     H-J, the long-trajectory and known-camera classes in process, were cut
-     in PR 20: phase 8's scripts drive them on the tree);
+     ``vae_decode``, timed beside the one-shot decode (the JAX default tile,
+     the strips, which run U holds, and runs H-J, the long-trajectory and
+     known-camera classes in process, were cut for the smoke's clock: phase
+     8's scripts and run U drive them);
   5d. the consistent-depth path and the Gradio callback, on run A's
      models: run M ``TrajCrafterConsistentDepth.infer_autoregressive`` with
-     a seeded Video-Depth-Anything vitl (fp32; 2 segments of 33 frames at
-     576x1024; the first segment's depth from 2 VDA windows of 32 frames
+     a seeded Video-Depth-Anything vitl (fp32; 2 segments of 32 frames at
+     576x1024; the first segment's depth from one VDA window of 32 frames
      at 588x1036; the second stage's alignment renders sparse depth from
      the per-frame clouds and trains a visual prompt through the VDA at
-     280x504 over all 33 frames, 2 epochs of the deployed 50, VP mode), run
+     280x504 over all 32 frames, 2 epochs of the deployed 50, VP mode), run
      N the same without a VDA (DepthCrafter and ``align_window``) on
      9-frame segments, run O the Gradio callback ``run_pipeline`` with the
      "Orbit Left" preset at 2 steps; launches held to the derived counts
@@ -118,7 +118,8 @@ prints no result line):
      cut to 4 blocks (``GRAD_MEDIAN_TOL``, ``GRAD_MAX_TOL``); then run T1's
      data and twin: 2 samples of 9 frames (every 6th of the scenes' 49) by
      ``datagen``, and ``scripts/train_lora.main`` unsharded on them
-     (``--batch_size 2``, 2 steps) on the same DiT, its launches derived;
+     (``--batch_size 2``, ``RUN_T_STEPS`` steps) on the DiT cut to
+     ``RUN_T_LAYERS`` blocks, its launches derived;
   5f. run Q, DiT feature probing (after 5e, on the same bf16 DiT with the
      JAX default route ``auto``, no recomputation): ``probing.
      collect_activation_dataset`` over run P's 2 samples at timesteps 311
@@ -154,7 +155,9 @@ prints no result line):
      stage are logged; then BLIP-2 at full depth (39 / 12 / 32 layers,
      seeded on the card) captions one frame; then each entry point of
      ``trajectorycrafter_tpu_torch/scripts/`` once through ``main(argv)`` on
-     the tree at 9 frames (``inference_autoregressive`` and
+     run L's bundle of the tree (``SCRIPT_RUNS``; the scripts' own tree
+     reloads were cut for the smoke's clock) at 9 frames
+     (``inference_autoregressive`` and
      ``autoregressive_global`` with 2 windows, ``run_w_cam_poses --smooth
      --target_video``,
      ``inference_orbits --test_run``), each with its launches held to run
@@ -208,11 +211,23 @@ prints no result line):
   5t. run T, in run S's torchrun world once run S is done and its models
      freed (see RUN_T_MESH): T1 ``scripts/train_lora.main`` under
      ``--mesh_dp 2 --mesh_tp 2 --batch_size 2`` on the full-width bf16 DiT
-     over phase 5e's 9-frame samples, 2 steps, against the twin; T2 the
+     cut to ``RUN_T_LAYERS`` blocks over phase 5e's 9-frame samples,
+     ``RUN_T_STEPS`` steps, against the twin; T2 the
      check of the check of the gradient reductions, three planted faults;
      T3 GPipe over pp 3 at full depth on the int8 DiT against the
      sequential block loop; T4 GPipe with pp 2 x tp 2 on 4 layers, and a
      planted skipped hop; ``tools/run_t.py`` runs it alone;
+  5u. run U, in the same torchrun world once run T's models are freed (see
+     RUN_U_ARGV): phase 8's five scripts through ``main(argv)`` on the tree
+     under run S's mesh, one bundle a rank: each leader's output against
+     phase 8's unsharded one at the quality CLI's 35 dB gate, the frame
+     counts, the followers' directories empty, every rank's latents
+     bit-equal after each step, each rank's launches of K1, K2a (both
+     entries), K2b, K4 and K5 as derived from its sharded modules; then the
+     sharded strip decode of run S's latents against the unsharded strip
+     decode (``RUN_S_VAE_REL_TOL``) and a planted fault (a strip seam's blend
+     rows dropped on the leader, ``RUN_S_VAE_FAULT_RATIO``); seconds per
+     stage and memory per rank logged;
   9. a JSON line of kernel results, and a final JSON line with the device.
 
 Imports nothing of JAX and nothing of the JAX package: the port holds its
@@ -1571,6 +1586,7 @@ def _int8_entries(runs: dict, max_err: dict, per_shape: dict) -> list:
         "launches_run_s": _run_launches(runs, "S", kern),
         "launches_run_s_per_rank": runs["S"]["per_rank"][kern],
         "launches_run_t_per_rank": runs["T"]["per_rank"][kern],
+        "launches_run_u_per_rank": runs["U"]["per_rank"][kern],
         "max_abs_err": max_err[kern], **kw}
     ff1, ff2, qkvo = per_shape["dit_ff1"], per_shape["dit_ff2"], per_shape["dit_qkvo"]
     return [
@@ -2107,7 +2123,7 @@ def phase_modes(tc, dit8, runs: dict) -> None:
 
 # The clip length and the depth stage of the runs: A, L, P and R drive the
 # deployed 49 frames (13 latent frames, the DiT's 13,330 or 30,178 joint
-# tokens), M 33; the others read 9 (3 latent frames; H and I 9-frame
+# tokens), M 32; the others read 9 (3 latent frames; H and I 9-frame
 # segments).  Run A takes the default 5 Euler steps a depth window, every
 # other run 1 (L, R and phase 8's scripts since run S's sharded VAE).
 # The launches per DiT forward and per UNet forward do not depend on either
@@ -2120,7 +2136,11 @@ CUT_DEPTH_STEPS = 1
 # between two cameras) run as phase 8's scripts on the tree; runs H-J drove
 # the same classes in process on run A's models before PR 20 cut them for
 # the smoke's clock.
-MAX_POINTS = 4_000_000  # v2's default cloud limit
+# v2's cloud limit in phase 8's and run U's scripts: the merged cloud of two
+# 9-frame windows (10.6 M points) downsampled to 1 M, a quarter of the
+# default 4 M (the export of 4 M points took 7.6-7.9 s a run: cut for the
+# smoke's clock)
+MAX_POINTS = 1_000_000
 # Phase 8's scripts read 9 frames of the clip (one depth window still; the
 # launches per depth stage and per DiT forward do not depend on the frame
 # count): runs M and N drive the consistent-depth class on longer clips.
@@ -2137,13 +2157,15 @@ PANOPTIC_CAMERAS = [
 ]
 # the tiled-decode check: the latents of 17 frames at 576x1024 (the tiles are
 # spatial; 5 latent frames keep the VAE's chunking of 13: a first chunk of 3,
-# then chunks of 2), and the tilings -- one tile as large as the frame (no
-# overlap), the JAX default tile, the auto route's strips; the auto route's
-# choice is read at the latents of 49 frames, ``DEPLOYED_LATENTS``
+# then chunks of 2), and one tile as large as the frame (no overlap), which
+# must be the one-shot decode; the auto route's choice is read at the
+# latents of 49 frames, ``DEPLOYED_LATENTS``.  The JAX default tile of 30 x
+# 45, which no route of the port takes, and the auto route's strips, which
+# run U holds sharded against unsharded on run S's latents, were cut for the
+# smoke's clock.
 TILED_LATENTS = (1, 5, 72, 128, 16)
 DEPLOYED_LATENTS = (1, 13, 72, 128, 16)
-TILINGS = {"one_tile": (72, 128, 0.0, 0.0), "jax_default": (30, 45, 1.0 / 6.0, 1.0 / 5.0),
-           "strips": (24, 128, 1.0 / 7.0, 0.0)}
+TILINGS = {"one_tile": (72, 128, 0.0, 0.0)}
 
 
 @contextlib.contextmanager
@@ -2270,8 +2292,7 @@ def _check_scene(run: str, scene: Path, vertices: int, cameras: int) -> None:
 
 def phase_tiled_decode(vae) -> None:
     """The tiled VAE decode at 17 frames of 576x1024 on the card: one tile as
-    large as the frame bit-equal to ``vae_decode``, the JAX default tile and
-    the auto route's strips finite and of the decode's shape; each decode's
+    large as the frame bit-equal to ``vae_decode``; each decode's
     time and peak memory beside the one-shot decode's, and the auto route's
     choice on this card at 49 frames."""
     import torch
@@ -2330,10 +2351,10 @@ def phase_tiled_decode(vae) -> None:
 # DepthCrafter and ``align_window``; O, the Gradio callback with the "Orbit
 # Left" preset at 2 steps on ``CUT_FRAMES``.
 CONSISTENT_RUN = dict(n_splits=2, theta=30.0)
-# M's segments read 33 frames, the fewest that still take the VDA's two
-# 32-frame windows (its stride is 22; 49 before run S's sharded VAE took
-# their seconds); N's read ``CUT_FRAMES``
-CONSISTENT_SEGMENTS = {"M": 33, "N": CUT_FRAMES}
+# M's segments read 32 frames, the VDA's whole window at its deployed shape
+# (49 before run S's sharded VAE took their seconds, 33 with a second,
+# stitched window before run U took them); N's read ``CUT_FRAMES``
+CONSISTENT_SEGMENTS = {"M": 32, "N": CUT_FRAMES}
 ALIGN_EPOCHS = 2
 VDA_SEED = 7
 # The seeded VDA's last convolution (``head.scratch.output_conv2.2``): with
@@ -2506,10 +2527,10 @@ def phase_consistent(tc, dit8, runs: dict) -> None:
                 want = {"depth": no_depth, "denoise": _times(one, 2)["denoise"]}
                 if r["depth_outputs"]:
                     raise AssertionError(f"run {run}: DepthCrafter ran with a VDA")
-                # the first segment's windows: 33 frames in 2 of 32, at 588 x 1036
+                # the first segment's window: its 32 frames at 588 x 1036
                 per_window = [sec for shape, sec in windows if shape[-2:] == (588, 1036)]
                 if [shape for shape, _ in windows if shape[-2:] == (588, 1036)] != \
-                        [(1, 32, 3, 588, 1036)] * 2:
+                        [(1, 32, 3, 588, 1036)]:
                     raise AssertionError(f"run {run}: VDA forwards {windows}")
                 prompt = variant.trainer.last_prompt
                 epochs = variant.trainer.epoch_seconds
@@ -2665,6 +2686,9 @@ TRAIN_SCENES = 2
 TRAIN_FRAMES = 49
 SCENEFLOW_HW = (540, 960)
 SCENEFLOW_STEP = 0.25
+# threads making and writing the SceneFlow frames (cv2 and numpy release the
+# GIL: 11.0 s in one thread, 2.8 s in four on the H100 machine's host)
+SCENEFLOW_WRITERS = 4
 TRAIN_STEPS = 2
 TRAIN_RANK = 8
 TRAIN_LR = 1e-4
@@ -2680,19 +2704,19 @@ GRAD_MAX_TOL = 2.0 ** -3
 # freed): sharded LoRA training and the GPipe block stack, four ranks sharing
 # the card over gloo.
 #   T1: ``scripts/train_lora.main`` under RUN_T_MESH (``--mesh_dp 2
-#     --mesh_tp 2 --batch_size 2``) on the full-width, full-depth bf16 DiT
-#     with run P's seeded weights (``flash_stock``, ``remat``), each rank
-#     drawing its shard unit by unit (``build_dit(..., tp=)``), over the
+#     --mesh_tp 2 --batch_size 2``) on the full-width bf16 DiT cut to
+#     RUN_T_LAYERS blocks (``run_t1_dit``; ``flash_stock``, ``remat``), each
+#     rank drawing its shard unit by unit (``build_dit(..., tp=)``), over the
 #     RUN_T_FRAMES-frame samples that phase 5e writes with ``datagen`` from
 #     run P's SceneFlow tree (the clock: as run S reads 9 frames; 3 latent
 #     frames, 3,024 video + 226 text = 3,250 joint tokens); RUN_T_STEPS steps
 #     with a checkpoint after each.  Held: each step's loss and grad norm and
 #     the adapters after the steps against the same steps unsharded on one
-#     card (the twin: ``train_lora.main`` on the bundle's DiT in phase 5e, the
-#     same batches and draws), by relative error within RUN_T_REL_L2 (run S's
+#     card (the twin: ``train_lora.main`` on the same DiT unsharded in phase
+#     5e, the same batches and draws), by relative error within RUN_T_REL_L2 (run S's
 #     limit); the adapters bit-equal on every rank after every step; K5,
 #     K4-dkv and K4-dq launched a rank a step as derived from the shard's
-#     modules (``_training_launches``: 2 x 42 + 21, 63, 63); rank 0 alone
+#     modules (``_training_launches``: 2 x 6 + 3, 9, 9); rank 0 alone
 #     writes the checkpoints.  Logged: resident and peak memory and bytes by
 #     transport a rank.
 #   T2: the check of the check, on the full-width DiT cut to RUN_T_CHECK_LAYERS
@@ -2723,6 +2747,10 @@ GRAD_MAX_TOL = 2.0 ** -3
 RUN_T_MESH = (2, 1, 2)  # (dp, sp, tp) of T1 and T2
 RUN_T_FRAMES = CUT_FRAMES
 RUN_T_STEPS = 2
+# T1 and its twin run the full-width DiT cut to RUN_T_LAYERS blocks (and
+# their Perceivers) before its weights are drawn: the full depth took 24-28
+# s a rank for one step, gloo's pace, which the smoke's clock cut
+RUN_T_LAYERS = 6
 RUN_T_REL_L2 = 2.0 ** -5
 RUN_T_LATENT_SHAPES = {"gt_latents": (3, 48, 84, 16), "inpaint_latents": (3, 48, 84, 17),
                        "ref_latents": (3, 48, 84, 16), "prompt_embeds": (226, 4096)}
@@ -2743,6 +2771,19 @@ RUN_T_PP_TP = (1, 1, 2, 2)  # (dp, sp, tp, pp)
 RUN_T_PP_TP_LAYERS = 4
 
 
+def run_t1_dit(attention_impl: str):
+    """T1's and its twin's DiT: the full-width model cut to RUN_T_LAYERS
+    blocks and their Perceivers (built under ``torch.device("meta")`` by
+    ``build_dit``, which then draws the cut model's weights)."""
+    from trajectorycrafter_tpu_torch.orchestrator import full_scale_dit
+
+    dit = full_scale_dit(attention_impl)
+    dit.transformer_blocks = dit.transformer_blocks[:RUN_T_LAYERS]
+    dit.perceiver_cross_attention = dit.perceiver_cross_attention[
+        :RUN_T_LAYERS // PERCEIVER_INTERVAL]
+    return dit
+
+
 def _write_pfm(path: Path, img) -> None:
     """A little-endian one-channel PFM (rows bottom to top)."""
     import numpy as np
@@ -2755,41 +2796,51 @@ def _write_pfm(path: Path, img) -> None:
 def write_sceneflow_tree(root: Path, scenes: int, frames: int, seed: int = 0) -> list:
     """<root>/frames_cleanpass/<scene>/left/NNNN.png, disparity/<scene>/left/
     NNNN.pfm and camera_data/<scene>/camera_data.txt at 960 x 540: textured
-    frames that drift with the camera, disparities of 20-60 px (depth 17-52
-    at f = 1050), the left camera's c2w moving SCENEFLOW_STEP along x and
-    turning 0.002 rad a frame.  Returns the scene names."""
+    frames that drift with the camera (each frame's noise drawn from its own
+    seed), disparities of 20-60 px (depth 17-52 at f = 1050), the left
+    camera's c2w moving SCENEFLOW_STEP along x and turning 0.002 rad a
+    frame.  ``SCENEFLOW_WRITERS`` threads make and write the frames.
+    Returns the scene names."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import cv2
     import numpy as np
 
-    rng = np.random.default_rng(seed)
     h, w = SCENEFLOW_HW
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    names = []
-    for sc in range(scenes):
-        name = f"scene_{sc}"
-        names.append(name)
-        for sub in (f"frames_cleanpass/{name}/left", f"disparity/{name}/left",
-                    f"camera_data/{name}"):
-            (root / sub).mkdir(parents=True, exist_ok=True)
-        phase = rng.uniform(0, 6.28, 3)
-        disp = (20.0 + 40.0 * yy / h + 2.0 * np.sin(xx / 37.0 + sc)).astype(np.float32)
-        lines = []
-        for i in range(frames):
-            shift = xx + 4.0 * i
-            rgb = np.stack([127 + 100 * np.sin(shift / (23.0 + 7 * c) + yy / (31.0 + 5 * c)
-                                               + phase[c]) for c in range(3)], -1)
-            rgb += rng.normal(0, 8, rgb.shape)
-            cv2.imwrite(str(root / f"frames_cleanpass/{name}/left/{i:04d}.png"),
-                        np.clip(rgb, 0, 255).astype(np.uint8))
-            _write_pfm(root / f"disparity/{name}/left/{i:04d}.pfm", disp)
-            a = 0.002 * i
-            c2w = np.array([[np.cos(a), 0, np.sin(a), SCENEFLOW_STEP * i], [0, 1, 0, 0],
-                            [-np.sin(a), 0, np.cos(a), 0], [0, 0, 0, 1]])
-            right = c2w.copy()
-            right[0, 3] += 1.0
-            lines += [f"Frame {i}", "L " + " ".join(f"{v:.9g}" for v in c2w.flatten()),
-                      "R " + " ".join(f"{v:.9g}" for v in right.flatten()), ""]
-        (root / f"camera_data/{name}/camera_data.txt").write_text("\n".join(lines))
+
+    def frame(name, sc, phase, disp, i):
+        shift = xx + 4.0 * i
+        rgb = np.stack([127 + 100 * np.sin(shift / (23.0 + 7 * c) + yy / (31.0 + 5 * c)
+                                           + phase[c]) for c in range(3)], -1)
+        rgb += np.random.default_rng([seed, sc, i]).normal(0, 8, rgb.shape)
+        cv2.imwrite(str(root / f"frames_cleanpass/{name}/left/{i:04d}.png"),
+                    np.clip(rgb, 0, 255).astype(np.uint8))
+        _write_pfm(root / f"disparity/{name}/left/{i:04d}.pfm", disp)
+
+    names, jobs = [], []
+    with ThreadPoolExecutor(SCENEFLOW_WRITERS) as pool:
+        for sc in range(scenes):
+            name = f"scene_{sc}"
+            names.append(name)
+            for sub in (f"frames_cleanpass/{name}/left", f"disparity/{name}/left",
+                        f"camera_data/{name}"):
+                (root / sub).mkdir(parents=True, exist_ok=True)
+            phase = np.random.default_rng([seed, sc]).uniform(0, 6.28, 3)
+            disp = (20.0 + 40.0 * yy / h + 2.0 * np.sin(xx / 37.0 + sc)).astype(np.float32)
+            jobs += [pool.submit(frame, name, sc, phase, disp, i) for i in range(frames)]
+            lines = []
+            for i in range(frames):
+                a = 0.002 * i
+                c2w = np.array([[np.cos(a), 0, np.sin(a), SCENEFLOW_STEP * i], [0, 1, 0, 0],
+                                [-np.sin(a), 0, np.cos(a), 0], [0, 0, 0, 1]])
+                right = c2w.copy()
+                right[0, 3] += 1.0
+                lines += [f"Frame {i}", "L " + " ".join(f"{v:.9g}" for v in c2w.flatten()),
+                          "R " + " ".join(f"{v:.9g}" for v in right.flatten()), ""]
+            (root / f"camera_data/{name}/camera_data.txt").write_text("\n".join(lines))
+        for job in jobs:
+            job.result()
     return names
 
 
@@ -3765,22 +3816,29 @@ def _sharded_depth_checks(tc, seen: dict) -> dict:
     return {"slab": slabs, **({"readings": readings} if lead else {})}
 
 
-def run_s_rank(out_dir: str, cut: bool, t_dir=None) -> None:
+def run_s_rank(out_dir: str, cut: bool, t_dir=None, u_plan=None) -> None:
     """One rank of phase 5s's torchrun world (``chip_smoke.py --run-s-rank
-    DIR [--cut] [--run-t T_DIR]``): run S (``_run_s``), then, with
-    ``t_dir`` (phase 5e's samples and twin), run T (``run_t_rank``) once
-    run S's models are freed."""
+    DIR [--cut] [--run-t T_DIR] [--run-u PLAN]``): run S (``_run_s``), then,
+    with ``t_dir`` (phase 5e's samples and twin), run T (``run_t_rank``)
+    once run S's models are freed, then, with ``u_plan`` (phase 8's scripts
+    on the tree), run U (``run_u_rank``)."""
     import torch
 
     from trajectorycrafter_tpu_torch.parallel import distributed as D
 
+    def freed():
+        gc.collect()
+        torch.cuda.empty_cache()
+        D.barrier(D.world_axis())
+
     try:
         _run_s(out_dir, cut)
         if t_dir is not None:
-            gc.collect()
-            torch.cuda.empty_cache()
-            D.barrier(D.world_axis())
+            freed()
             run_t_rank(out_dir, t_dir)
+        if u_plan is not None:
+            freed()
+            run_u_rank(out_dir, u_plan)
     finally:
         D.shutdown()
 
@@ -3923,6 +3981,8 @@ def _run_s(out_dir: str, cut: bool) -> None:
         out["run_s"] = time.perf_counter() - t2
         tc.models.depth_infer = depth_call
         del depth_pipe._decode_raw
+        if mesh.leader:  # the decode's latents, for run U's sharded strip decode
+            torch.save(seen["decode"][0].cpu(), Path(out_dir, "run_s_decode_latents.pt"))
         # the planes decode apart: let every rank end its decode and give
         # back its cached blocks before the checks (the ranks share the card)
         D.all_reduce(torch.zeros(1, device=pipe.device), mesh.world)
@@ -4005,33 +4065,44 @@ def _torchrun(rank_args: list, n: int = 4) -> tuple:
     return text, proc.returncode, time.perf_counter() - t0
 
 
-def phase_sharded(runs: dict, cut: bool = True, t_dir=None) -> dict:
+def phase_sharded(runs: dict, cut: bool = True, t_dir=None, tree=None) -> dict:
     """Run S: the four ranks started by torchrun, then their readings held to
     the checks stated at RUN_S_MESH, against run A9 (``cut``, the smoke's)
     or run A; ``runs["S"]`` gets its launches.  With ``t_dir`` (phase 5e's
     samples and twin) the same ranks then run run T, whose readings are held
-    to the checks stated at RUN_T_MESH; ``runs["T"]`` gets its launches."""
+    to the checks stated at RUN_T_MESH; ``runs["T"]`` gets its launches.
+    With ``tree`` (phase 8's, its scripts run) the same ranks then run run
+    U, whose readings are held to the checks stated at RUN_U_ARGV;
+    ``runs["U"]`` gets its launches."""
     n = RUN_S_MESH[0] * RUN_S_MESH[1] * RUN_S_MESH[2]
     twin, frames = ("A9", CUT_FRAMES) if cut else ("A", 49)
     out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_run_s_"))
+    u_plan = None
+    if tree is not None:
+        u_plan = out_dir / "run_u_plan.json"
+        u_plan.write_text(json.dumps({
+            "scripts": {name: script_argv(tree, name) + RUN_U_ARGV for name in SCRIPT_RUNS},
+            "out": str(REPO / MAIN_ARGV[MAIN_ARGV.index("--out_dir") + 1] / "run_u")}))
     cmd = ["--run-s-rank", str(out_dir), *(["--cut"] if cut else []),
-           *(["--run-t", str(t_dir)] if t_dir else [])]
-    log(f"run S{' and run T' if t_dir else ''}: {n} ranks on one card, torchrun "
-        f"chip_smoke.py {' '.join(cmd)}")
+           *(["--run-t", str(t_dir)] if t_dir else []),
+           *(["--run-u", str(u_plan)] if u_plan else [])]
+    log(f"run S{' and run T' if t_dir else ''}{' and run U' if u_plan else ''}: {n} ranks on "
+        f"one card, torchrun chip_smoke.py {' '.join(cmd)}")
     text, returncode, seconds = _torchrun(cmd)
     read = lambda name: [json.loads(p.read_text()) if p.is_file() else {"error": "no readings"}
                          for p in (out_dir / f"{name}{r}.json" for r in range(n))]
     results = read("rank")
     results_t = read("run_t_rank") if t_dir else []
+    results_u = read("run_u_rank") if u_plan else []
     failed = {f"{run} {r.get('rank', i)}": r["error"]
-              for run, rs in (("S", results), ("T", results_t))
+              for run, rs in (("S", results), ("T", results_t), ("U", results_u))
               for i, r in enumerate(rs) if "error" in r}
     if returncode or failed:
         for line in text.splitlines()[-60:]:
             log("  run S | " + line)
         for rank, error in failed.items():  # a rank's own error, before its peers' hang-ups
             log(f"  run {rank} | " + " ".join(error.strip().splitlines()[-2:])[:2000])
-        raise AssertionError(f"run S / T: torchrun rc {returncode}; failed ranks "
+        raise AssertionError(f"run S / T / U: torchrun rc {returncode}; failed ranks "
                              f"{json.dumps(failed)[-4000:]}")
     lead = results[0]
     log(f"run S: {seconds:.1f} s wall for torchrun (not a speed figure: {n} ranks time-share "
@@ -4070,6 +4141,7 @@ def phase_sharded(runs: dict, cut: bool = True, t_dir=None) -> dict:
     if t_dir:
         runs["T"] = _run_t_check(out_dir, Path(t_dir), results_t, t3_reference)
     del t3_reference
+    run_u = _run_u_check(results_u, json.loads(u_plan.read_text()), runs) if u_plan else None
     shutil.rmtree(out_dir, ignore_errors=True)
     log(f"run S: every rank's latents bit-equal after each of {forwards} steps; peaks summed "
         f"{sum(r['peak_gib'] for r in results):.2f} GiB")
@@ -4096,7 +4168,7 @@ def phase_sharded(runs: dict, cut: bool = True, t_dir=None) -> dict:
                  "depth_per_rank": {k: [r["per_path"]["depth"][k] for r in results]
                                     for k in KERNELS}}
     return {"seconds": seconds, "quality": quality, "forward": forward, "stages": stages,
-            "depth": depth, "ranks": results}
+            "depth": depth, "ranks": results, "run_u": run_u}
 
 
 def _run_s_depth_check(results: list) -> dict:
@@ -4289,15 +4361,15 @@ def _run_t_twin(tc, data_root: Path, t_dir: Path, scenes: list) -> None:
     """Run T1's data and twin, in phase 5e while the bundle is resident:
     RUN_T_FRAMES-frame samples of run P's SceneFlow scenes by ``datagen``
     (every 6th frame),
-    then ``train_lora.main`` unsharded on the bundle's bf16 DiT (run P's,
-    ``flash_stock`` and ``remat``) over them, as T1 runs sharded."""
+    then ``train_lora.main`` unsharded over them on T1's DiT (``run_t1_dit``,
+    bf16, ``flash_stock`` and ``remat``), as T1 runs sharded."""
     import numpy as np
     import torch
 
     from trajectorycrafter_tpu_torch import datagen
+    from trajectorycrafter_tpu_torch.orchestrator import build_dit
     from trajectorycrafter_tpu_torch.scripts import train_lora
     from trajectorycrafter_tpu_torch.training.data import LatentsDataset
-    from trajectorycrafter_tpu_torch.training.lora import remove_lora
 
     pe, _ = tc.models.encode_prompt("a scene", tc.cfg.diffusion.negative_prompt)
     # every 6th of the 49 frames: the camera moves as far as over the whole
@@ -4315,9 +4387,8 @@ def _run_t_twin(tc, data_root: Path, t_dir: Path, scenes: list) -> None:
             np.isfinite(v).all() for i in range(len(data)) for v in data[i].values()):
         raise AssertionError(f"run T's samples: {shapes}, expected {len(scenes)} of "
                              f"{RUN_T_LATENT_SHAPES}, finite")
-    dit = tc.models.pipeline.transformer
+    dit = build_dit(lambda: run_t1_dit("flash_stock"), "cuda", torch.bfloat16, 1, "none")
     dit.remat = True
-    set_impl(dit, "flash_stock")
     real = train_lora.build_base_model
     train_lora.build_base_model = lambda args, sample, device, **kw: dit
     try:
@@ -4331,13 +4402,12 @@ def _run_t_twin(tc, data_root: Path, t_dir: Path, scenes: list) -> None:
         got, want = _launch_counts(), _training_launches(dit, RUN_T_STEPS)
     finally:
         train_lora.build_base_model = real
-        remove_lora(dit)
-        dit.remat = False
-        set_impl(dit, "auto")
+    del dit
+    torch.cuda.empty_cache()
     recs = [json.loads(line) for line in open(t_dir / "twin" / "metrics.jsonl")]
     log(f"run T's twin: {len(scenes)} samples of {RUN_T_FRAMES} frames "
         f"({json.dumps(shapes[0])}); train_lora.main unsharded, batch 2, {RUN_T_STEPS} steps on "
-        f"the bundle's bf16 DiT in {seconds:.2f} s, peak "
+        f"the bf16 DiT cut to {RUN_T_LAYERS} layers in {seconds:.2f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses {[r['loss'] for r in recs]}, grad norms {[r['grad_norm'] for r in recs]}")
     if got != want:
         raise AssertionError(f"run T's twin: launches {got}, expected {want}")
@@ -4377,14 +4447,14 @@ def _run_t1(out_dir: Path, t_dir: Path) -> dict:
     import torch
 
     from trajectorycrafter_tpu_torch import training
-    from trajectorycrafter_tpu_torch.orchestrator import build_dit, full_scale_dit
+    from trajectorycrafter_tpu_torch.orchestrator import build_dit
     from trajectorycrafter_tpu_torch.scripts import train_lora
 
     out = {"steps": []}
 
     def build(args, sample, device, attention_impl="flash_stock", remat=True, tp=None):
-        dit = build_dit(lambda: full_scale_dit(attention_impl), device, torch.bfloat16, 1,
-                        "none", tp=tp)
+        dit = build_dit(lambda: run_t1_dit(attention_impl), device, torch.bfloat16, 1, "none",
+                        tp=tp)
         dit.remat = remat
         torch.cuda.synchronize()
         out.update(resident_gib=torch.cuda.memory_allocated() / 2**30,
@@ -4663,8 +4733,9 @@ def _run_t_check(out_dir: Path, t_dir: Path, results: list, t3_reference: dict) 
     for r in results:
         t1 = r["T1"]
         want = t1["expected_per_step"]
+        layers = RUN_T_LAYERS + RUN_T_LAYERS // PERCEIVER_INTERVAL
         if (want["flash_lse"], want["flash_attention_bwd_dkv"], want["flash_attention_bwd_dq"]) \
-                != (2 * DIT_LAYERS + DIT_LAYERS // 2, 63, 63):
+                != (RUN_T_LAYERS + layers, layers, layers):
             failed.append(f"T1 rank {r['rank']}: derived launches {want}")
         for i, s in enumerate(t1["steps"]):
             if s["launches"] != want:
@@ -4771,6 +4842,271 @@ def _run_t_check(out_dir: Path, t_dir: Path, results: list, t3_reference: dict) 
                          for k in KERNELS}}
 
 
+# Run U: the five scripts of SCRIPT_RUNS, each through its ``main(argv)``
+# with phase 8's command line plus run S's mesh flags (RUN_U_ARGV), in run
+# S's torchrun world once run T is done, on phase 8's tree (the DiT at full
+# width cut to 6 layers, every other family whole, the vitl ``.pth``); each
+# rank loads the bundle once and hands it to the later scripts (one mesh,
+# one load a rank: the reloads were cut for the smoke's clock) and writes
+# under an ``--out_dir`` of its own.  Held: each leader's output
+# (SCRIPT_RUNS' last field) against phase 8's unsharded run of the script
+# through the quality CLI at its 35 dB gate; the joined video's and every
+# mp4's frame count; the followers' directories empty; every rank's latents
+# bit-equal after each step; each rank's launches of K1, K2a (both entries),
+# K2b, K4 and K5 against the counts derived from its sharded modules
+# (``_sharded_launches_per_forward``, ``_depth_kernel_attentions``) times the
+# script's diffusions and depth stages.  Then the sharded strip decode on
+# run S's latents (9 frames at 384x672, saved by run S's leader) under
+# RUN_U_STRIP_MEMORY, which sends both the twin (its estimate over dp x sp)
+# and the unsharded VAE to strips of RUN_U_STRIP_HEIGHT latent rows: every
+# rank's video bit-equal, the leader's against the unsharded strip decode by
+# relative L2 over the whole video and on the strip seams' blend rows within
+# RUN_S_VAE_REL_TOL, and the planted fault (the first strip seam's blend
+# rows dropped on the leader) at least RUN_S_VAE_FAULT_RATIO times the sound
+# reading on those rows.  Seconds per stage and memory per rank are logged:
+# no speed figure (gloo on one card sets the pace).
+RUN_U_ARGV = RUN_S_ARGV[:RUN_S_ARGV.index("--exp_name")]
+RUN_U_STRIP_MEMORY = 2**30
+RUN_U_STRIP_HEIGHT = 24
+
+
+def strip_seam_rows(height: int, strip_height: int) -> list:
+    """The output rows ``vae_decode_auto``'s strips blend with the strip
+    above (overlap 1/7, as ``vae_decode_tiled``'s arithmetic)."""
+    blend = int(8 * strip_height / 7.0)
+    limit = 8 * strip_height - blend
+    return [r for k in range(1, height // limit + 1)
+            for r in range(k * limit, min(k * limit + blend, height))]
+
+
+def run_u_rank(out_dir: str, plan_path: str) -> None:
+    """This rank's part of run U, in run S's torchrun world once run T is
+    done (see RUN_U_ARGV); writes its readings to DIR/run_u_rank<r>.json."""
+    import importlib
+    import traceback
+    from collections import Counter
+
+    import torch
+    import torch.distributed as dist
+
+    from trajectorycrafter_tpu_torch import orchestrator
+    from trajectorycrafter_tpu_torch.models import vae as vae_mod
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+    from trajectorycrafter_tpu_torch.pipelines.depth import window_starts
+    from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
+
+    plan = json.loads(Path(plan_path).read_text())
+    rank = dist.get_rank()
+    out = {"rank": rank, "held_before_gib": torch.cuda.memory_allocated() / 2**30,
+           "scripts": {}}
+    denoise = TrajCrafterPipeline._denoise
+    counters = _kernel_counters()
+    steps, denoised = [], Counter()
+
+    def counted_denoise(self, *a, **kw):
+        step = self.scheduler.step
+
+        def recorded(*sa, **skw):
+            res = step(*sa, **skw)
+            steps.append(list(bits_checksum(res[0] if isinstance(res, tuple) else res)))
+            return res
+
+        before = {kern.__name__: kern.launches for kern in counters}
+        self.scheduler.step = recorded
+        try:
+            return denoise(self, *a, **kw)
+        finally:
+            del self.scheduler.step
+            for kern in counters:
+                denoised[kern.__name__] += kern.launches - before[kern.__name__]
+
+    TrajCrafterPipeline._denoise = counted_denoise
+    try:
+        with loaded_once() as held:
+            rank_dir = Path(plan["out"], f"rank{rank}")
+            for name, argv in plan["scripts"].items():
+                module = importlib.import_module(f"trajectorycrafter_tpu_torch.scripts.{name}")
+                steps.clear()
+                denoised.clear()
+                if "bundle" in held:
+                    held["bundle"].pipeline.timer.seconds.clear()
+                for kern in counters:
+                    kern.launches = 0
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                returned = module.main(argv + ["--out_dir", str(rank_dir)])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                total = {kern.__name__: kern.launches for kern in counters}
+                save_dir = rank_dir / f"script_{name}"
+                r = {"seconds": seconds, "steps": list(steps),
+                     "per_path": {"depth": {k: total[k] - denoised[k] for k in total},
+                                  "denoise": {k: denoised[k] for k in total}},
+                     "stages": dict(held["bundle"].pipeline.timer.seconds),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "files": sorted(str(f.relative_to(save_dir)) for f in save_dir.rglob("*")
+                                     if f.is_file()) if save_dir.exists() else []}
+                if hasattr(returned, "shape"):
+                    r["video"] = {"shape": list(returned.shape), "min": float(returned.min()),
+                                  "max": float(returned.max()),
+                                  "finite": bool(torch.isfinite(torch.as_tensor(returned)).all())}
+                out["scripts"][name] = r
+                gc.collect()
+                D.barrier(D.world_axis())
+        bundle, mesh = held["bundle"], held["mesh"]
+        out.update(load_s=held["load_s"], resident_gib=held["resident_gib"])
+        cfg = _script_cfg(plan["scripts"]["inference_orbits"])
+        windows = len(window_starts(cfg.video_length, cfg.depth.window_size, cfg.depth.overlap))
+        depth_pipe = orchestrator.depth_pipeline(bundle.depth_infer)
+        out["expected_per_forward"] = _sharded_launches_per_forward(bundle.pipeline.transformer)
+        out["expected_per_depth"] = {**dict.fromkeys(KERNELS, 0), "flash_attention": (
+            _depth_kernel_attentions(depth_pipe.sharded_unet, *(n // 8 for n in cfg.warp_size))
+            * windows * cfg.depth.num_inference_steps)}
+
+        # the sharded strip decode on run S's latents, sound, then with the
+        # first strip seam's blend rows dropped on the leader (every rank
+        # decodes twice: the strips' gathers pair up)
+        pipe = bundle.pipeline
+        z = torch.load(Path(out_dir, "run_s_decode_latents.pt")).to(pipe.device)
+        memory = RUN_U_STRIP_MEMORY
+        tiled = [vae_mod.decode_is_tiled(z.shape, memory, vae_mod.decode_peak_divisor(vae))
+                 for vae in (pipe.spatial_vae, pipe.vae)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sound = vae_mod.vae_decode_auto(pipe.spatial_vae, z, memory, RUN_U_STRIP_HEIGHT)
+        torch.cuda.synchronize()
+        strips = {"tiled": tiled, "seconds": time.perf_counter() - t0,
+                  "checksum": list(bits_checksum(sound)), "shape": list(sound.shape)}
+        blend, calls = vae_mod._blend, []
+
+        def dropped(a, b, extent, dim):
+            calls.append(extent)
+            return b if len(calls) == 1 else blend(a, b, extent, dim)
+
+        if mesh.leader:
+            vae_mod._blend = dropped
+        try:
+            wrong = vae_mod.vae_decode_auto(pipe.spatial_vae, z, memory, RUN_U_STRIP_HEIGHT)
+        finally:
+            vae_mod._blend = blend
+        if mesh.leader:
+            want = vae_mod.vae_decode_auto(pipe.vae, z, memory, RUN_U_STRIP_HEIGHT)
+            rows = torch.tensor(strip_seam_rows(want.shape[2], RUN_U_STRIP_HEIGHT),
+                                dtype=torch.long, device=want.device)
+            rel = lambda got, band: ((got.float() - want.float())[:, :, rows if band else
+                                                                   slice(None)].norm()
+                                     / want.float()[:, :, rows if band else slice(None)].norm()
+                                     ).item()
+            strips.update(seam_rows=len(rows), blends=len(calls),
+                          sound={"rel_l2": rel(sound, False), "band_rel_l2": rel(sound, True)},
+                          fault={"rel_l2": rel(wrong, False), "band_rel_l2": rel(wrong, True)})
+            del want
+        out["strips"] = strips
+        del sound, wrong
+    except BaseException:
+        out["error"] = traceback.format_exc() + (
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+        raise
+    finally:
+        TrajCrafterPipeline._denoise = denoise
+        Path(out_dir, f"run_u_rank{rank}.json").write_text(json.dumps(out))
+
+
+def _quality(video_a: Path, video_b: Path) -> dict:
+    """The quality CLI (``utils/quality.py main``) on two mp4s, in this
+    process: its JSON line and whether it passed."""
+    import io
+
+    from trajectorycrafter_tpu_torch.utils import quality
+
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            quality.main([str(video_a), str(video_b)])
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+    lines = text.getvalue().strip().splitlines()
+    return {"rc": rc, **(json.loads(lines[-1]) if lines else {"pass": False})}
+
+
+def _run_u_check(results: list, plan: dict, runs: dict) -> dict:
+    """Run U's readings held to the checks stated at RUN_U_ARGV; sets
+    ``runs["U"]`` (its launches) and returns the readings to log."""
+    failed = []
+    lead = results[0]
+    forwards = int(MAIN_ARGV[MAIN_ARGV.index("--diffusion_inference_steps") + 1])  # DDIM
+    phase8 = REPO / MAIN_ARGV[MAIN_ARGV.index("--out_dir") + 1]
+    joined = 2 * (SCRIPT_FRAMES - 8) + 8
+    quality = {}
+    for name, (_, stages, diffusions, output) in SCRIPT_RUNS.items():
+        for r in results:
+            got = r["scripts"][name]
+            per_forward, per_depth = r["expected_per_forward"], r["expected_per_depth"]
+            want = {"depth": {k: stages * v for k, v in per_depth.items()},
+                    "denoise": {k: diffusions * forwards * v for k, v in per_forward.items()}}
+            if got["per_path"] != want:
+                failed.append(f"{name} rank {r['rank']}: launches {got['per_path']}, "
+                              f"expected {want}")
+            if got["steps"] != lead["scripts"][name]["steps"] or \
+                    len(got["steps"]) != diffusions * forwards:
+                failed.append(f"{name} rank {r['rank']}: latents differ from rank 0's after "
+                              "a step")
+            if r["rank"] and got["files"]:
+                failed.append(f"{name} rank {r['rank']} wrote {got['files'][:4]}")
+            log(f"  {name} rank {r['rank']}: {got['seconds']:.2f} s, peak "
+                f"{got['peak_gib']:.2f} GiB, stages "
+                f"{json.dumps({k: round(v, 3) for k, v in got['stages'].items()})}")
+        save_dir = Path(plan["out"], "rank0", f"script_{name}")
+        if not lead["scripts"][name]["files"]:
+            failed.append(f"{name}: the leader wrote nothing")
+        video = lead["scripts"][name].get("video")
+        frames = joined if name != "inference_alignment" else 2 * SCRIPT_FRAMES
+        if not output.endswith("gen.mp4"):  # a joined video, which main returns
+            if not video or video["shape"] != [frames, 384, 672, 3] or not video["finite"]:
+                failed.append(f"{name}: the joined video {video}")
+        mp4s = [save_dir / f"stage_{k:02d}" for k in range(2)] \
+            if name == "inference_alignment" else [(save_dir / output).parent]
+        for d in mp4s:
+            if mp4_frame_counts(d) != save_scheme_counts(SCRIPT_FRAMES):
+                failed.append(f"{name}: mp4 frame counts {mp4_frame_counts(d)} in {d}")
+        if _mp4_frames(save_dir / output) != _mp4_frames(phase8 / f"script_{name}" / output):
+            failed.append(f"{name}: {output} frame count against phase 8's")
+        if name == "autoregressive_global":
+            _check_scene(f"U {name}", save_dir / "scene", MAX_POINTS, joined)
+        quality[name] = _quality(phase8 / f"script_{name}" / output, save_dir / output)
+        log(f"run U's {name} {output} against phase 8's unsharded run (quality CLI, 35 dB "
+            f"gate): {json.dumps(quality[name])}")
+        if quality[name]["rc"] != 0 or not quality[name].get("pass"):
+            failed.append(f"{name}: {output} against phase 8's: {quality[name]}")
+    strips = lead["strips"]
+    sums = {tuple(map(str, r["strips"]["checksum"])) for r in results}
+    sound, fault = strips["sound"], strips["fault"]
+    ratio = fault["band_rel_l2"] / max(sound["band_rel_l2"], 1e-30)
+    log(f"run U's sharded strip decode of run S's latents {strips['shape']} under "
+        f"{RUN_U_STRIP_MEMORY / 2**30:g} GiB (strips: sharded {strips['tiled'][0]}, unsharded "
+        f"{strips['tiled'][1]}; {strips['blends']} blends, {strips['seam_rows']} seam rows): "
+        f"{strips['seconds']:.2f} s; against the unsharded strip decode {json.dumps(sound)} "
+        f"(limit {RUN_S_VAE_REL_TOL:g}); the first seam's blend rows dropped "
+        f"{json.dumps(fault)}: {ratio:.1f}x the sound reading on the seam rows (limit "
+        f"{RUN_S_VAE_FAULT_RATIO:g}x); every rank's video bit-equal: {len(sums) == 1}")
+    if strips["tiled"] != [True, True] or len(sums) != 1 or \
+            max(sound.values()) > RUN_S_VAE_REL_TOL or ratio < RUN_S_VAE_FAULT_RATIO:
+        failed.append(f"the sharded strip decode: {json.dumps(strips)}")
+    for r in results:
+        log(f"  rank {r['rank']}: loaded the tree once in {r['load_s']:.2f} s, "
+            f"{r['resident_gib']:.2f} GiB resident ({r['held_before_gib']:.2f} held before)")
+    if failed:
+        raise AssertionError(f"run U: {failed}")
+    per_rank = [{k: sum(s["per_path"][p][k] for s in r["scripts"].values()
+                        for p in ("depth", "denoise")) for k in KERNELS} for r in results]
+    runs["U"] = {"per_path": {p: {k: sum(s["per_path"][p][k] for r in results
+                                         for s in r["scripts"].values()) for k in KERNELS}
+                              for p in ("depth", "denoise")},
+                 "per_rank": {k: [pr[k] for pr in per_rank] for k in KERNELS}}
+    return {"quality": quality, "strips": strips}
+
+
 # The checkpoint tree of phase 8: the directories the config defaults name,
 # under one temporary root on the local disk.  The DiT is cut to 6 layers by
 # its config.json (3 Perceivers), BLIP-2 by its config.json; the rest whole.
@@ -4873,14 +5209,42 @@ def write_bpe_files(path: Path) -> None:
         {"bos_token": "</s>", "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>"}))
 
 
-def _save(sd: dict, path: Path, name: str = "model.safetensors") -> int:
-    """Write ``sd`` (device tensors) as one safetensors file; its bytes."""
-    from safetensors.torch import save_file
+# the pinned host buffer the checkpoint tree's bytes pass through
+TREE_STAGE_BYTES = 1 << 28
+SAFETENSORS_DTYPES = {"torch.bfloat16": "BF16", "torch.float16": "F16", "torch.float32": "F32",
+                      "torch.float64": "F64", "torch.int8": "I8", "torch.uint8": "U8",
+                      "torch.int16": "I16", "torch.int32": "I32", "torch.int64": "I64",
+                      "torch.bool": "BOOL"}
+
+
+def _save(sd: dict, path: Path, name: str, stage) -> int:
+    """Write ``sd`` (device tensors) as one safetensors file, its bytes: the
+    format's header (its length, then the JSON of each key's dtype, shape
+    and byte range, padded to 8 bytes), then each tensor's bytes, copied off
+    the card through ``stage`` (a pinned uint8 buffer) and written straight
+    to the file.  The library's serializer copies every tensor once more
+    under the GIL (0.8 GB/s on the H100 machine's host, threads or not);
+    the port's loader reads the files with the library."""
+    import torch
 
     path.mkdir(parents=True, exist_ok=True)
-    cpu = {k: v.detach().contiguous().cpu() for k, v in sd.items()}
-    save_file(cpu, str(path / name))
-    return sum(v.numel() * v.element_size() for v in cpu.values())
+    flat = {k: v.detach().contiguous().reshape(-1).view(torch.uint8) for k, v in sd.items()}
+    header, offset = {}, 0
+    for k, v in sd.items():
+        n = flat[k].numel()
+        header[k] = {"dtype": SAFETENSORS_DTYPES[str(v.dtype)], "shape": list(v.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path / name, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for v in flat.values():
+            for start in range(0, v.numel(), stage.numel()):
+                n = min(stage.numel(), v.numel() - start)
+                stage[:n].copy_(v[start:start + n])
+                f.write(stage[:n].numpy())
+    return offset
 
 
 def write_checkpoint_tree(tc, root: Path) -> dict:
@@ -4888,6 +5252,7 @@ def write_checkpoint_tree(tc, root: Path) -> dict:
     the card) as an HF-layout tree under ``root``; return {"sums": {family:
     {key: checksum}} of what each loaded module must hold, "dit_keys",
     "damaged": {kind: transformer dir}}."""
+    import functools
     import shutil
 
     import torch
@@ -4902,6 +5267,8 @@ def write_checkpoint_tree(tc, root: Path) -> dict:
                              f"which has {free:.1f} GB")
     log(f"checkpoint tree under {root} ({free:.1f} GB free)")
     t0 = time.perf_counter()
+    save = functools.partial(_save, stage=torch.empty(TREE_STAGE_BYTES, dtype=torch.uint8,
+                                                      pin_memory=True))
     written = 0
     sums = {}
     pipe = tc.models.depth_infer.__self__.pipe
@@ -4917,7 +5284,7 @@ def write_checkpoint_tree(tc, root: Path) -> dict:
             part = {k: full[k] for k in keys[i * per:(i + 1) * per]}
             name = (f"model-{i + 1:05d}-of-{shards:05d}.safetensors" if shards > 1
                     else "model.safetensors")
-            written += _save(part, path, name)
+            written += save(part, path, name)
 
     family("vae", tc.models.pipeline.vae.state_dict(), d["vae"])
     t5 = tc.models.encode_prompt.t5
@@ -4945,8 +5312,8 @@ def write_checkpoint_tree(tc, root: Path) -> dict:
     dit_sd = {k: v for k, v in dit.state_dict().items() if kept(k)}
     head = {k: v for k, v in dit_sd.items() if k.startswith(DIT_HEAD_KEYS)}
     body = {k: v for k, v in dit_sd.items() if k not in head}
-    written += _save(body, d["dit"], "diffusion_pytorch_model-00001-of-00002.safetensors")
-    written += _save(head, d["dit"], "diffusion_pytorch_model-00002-of-00002.safetensors")
+    written += save(body, d["dit"], "diffusion_pytorch_model-00001-of-00002.safetensors")
+    written += save(head, d["dit"], "diffusion_pytorch_model-00002-of-00002.safetensors")
     dit_config = {"num_attention_heads": 48, "attention_head_dim": 64,
                   "num_layers": TREE_DIT_LAYERS, "in_channels": 33, "out_channels": 16,
                   "use_rotary_positional_embeddings": True,
@@ -4976,7 +5343,7 @@ def write_checkpoint_tree(tc, root: Path) -> dict:
         path.mkdir()
         name = "diffusion_pytorch_model-00001-of-00002.safetensors"
         (path / name).symlink_to(d["dit"] / name)
-        _save(shard, path, "diffusion_pytorch_model-00002-of-00002.safetensors")
+        save(shard, path, "diffusion_pytorch_model-00002-of-00002.safetensors")
         (path / "config.json").write_text(json.dumps(dit_config))
         damaged[kind] = path
     del dit_sd, head, body
@@ -5031,8 +5398,9 @@ def _tree_argv(tree: dict, transformer_path=None) -> list:
         "--pre_train_path", str(d["svd_vae"].parent), "--blip_path", str(d["blip2"])]
 
 
-def phase_checkpoints(tree: dict, runs: dict) -> None:
-    """Load the written tree through the normal entry point and run it."""
+def phase_checkpoints(tree: dict, runs: dict):
+    """Load the written tree through the normal entry point and run it;
+    returns the loaded bundle, which phase 8's scripts then run on."""
     import numpy as np
     import torch
 
@@ -5158,7 +5526,7 @@ def phase_checkpoints(tree: dict, runs: dict) -> None:
         f"{runs['A9']['known_share']:.6f}; depth against run A9's (the same UNet weights, "
         f"information): median |log ratio| {np.median(rel):.3e}, max {rel.max():.3e}")
     frame = seen["frame"]
-    del tc, models, pipe, dit, loaded, captioner
+    del tc, pipe, dit, loaded, captioner
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5182,23 +5550,89 @@ def phase_checkpoints(tree: dict, runs: dict) -> None:
         f"{caption_s:.3f} s; ids {ids[0].tolist()}")
     del full
     torch.cuda.empty_cache()
+    return models
 
 
-def phase_scripts(tree: dict, runs: dict) -> None:
-    """Each entry point of ``trajectorycrafter_tpu_torch/scripts/`` once,
-    through ``main(argv)`` (its real argument parsing), on the written tree
-    (the 6-layer DiT, BLIP-2 captions, ``--mask``): the launches held to run
-    L's per depth stage and per diffusion times the script's stages, the
-    outputs counted.  The orbit runner catches a variant's failure as the
-    root script does, so its mp4s and launches are what fails it."""
+# Phase 8's scripts on the tree, each once through ``main(argv)``, and run
+# U's under run S's mesh: name -> (the script's own flags, its depth stages
+# and diffusions at ``SCRIPT_FRAMES``, the output run U holds against phase
+# 8's: the joined video, or the one diffusion's gen.mp4)
+SCRIPT_RUNS = {
+    "inference_autoregressive": (["--n_splits", "2", "--overlap_frames", "8",
+                                  "--total_theta", "30"], 2, 2, "autoregressive.mp4"),
+    "autoregressive_global": (["--n_splits", "2", "--overlap_frames", "8", "--total_theta", "30",
+                               "--max_points", str(MAX_POINTS)], 2, 2,
+                              "autoregressive_global.mp4"),
+    "run_w_cam_poses": (["--source_cam", "00_00", "--target_cam", "00_01", "--smooth",
+                         "--target_video", MAIN_ARGV[1]], 1, 1, "gen.mp4"),
+    "inference_orbits": (["--test_run"], 1, 1, "left30/gen.mp4"),
+    "inference_alignment": (["--n_splits", "2", "--total_theta", "30",
+                             "--align_epochs", str(ALIGN_EPOCHS)], 0, 2,
+                            "autoregressive_aligned.mp4"),
+}
+
+
+def script_argv(tree: dict, name: str) -> list:
+    """The command line of a script of ``SCRIPT_RUNS`` on the tree, at
+    ``SCRIPT_FRAMES``: the Panoptic calibration and the vitl ``.pth`` that
+    phase 8 writes beside the tree."""
+    root = tree["root"]
+    extra = SCRIPT_RUNS[name][0]
+    if name == "run_w_cam_poses":
+        extra = extra + ["--calib_json", str(root / "calib.json")]
+    if name == "inference_alignment":
+        extra = extra + ["--vda_ckpt", str(root / "video_depth_anything_vitl.pth")]
+    return _tree_argv(tree) + ["--exp_name", f"script_{name}", "--video_length",
+                               str(SCRIPT_FRAMES)] + extra
+
+
+@contextlib.contextmanager
+def loaded_once(models=None):
+    """Within the block every entry point that builds its models gets one
+    bundle, and every one that stages a mesh one mesh (the scripts' tree
+    reloads were cut for the smoke's clock): ``models`` where it is given
+    (run L's, loaded from the tree), else the first bundle built in the
+    block.  Yields {"bundle", "mesh", and once a bundle is built here,
+    "load_s" and "resident_gib"}."""
+    import torch
+
+    from trajectorycrafter_tpu_torch import orchestrator
+
+    build, stage_mesh = orchestrator.build_models, orchestrator.stage_mesh
+    held = {} if models is None else {"bundle": models}
+
+    def one_bundle(cfg, *args, **kwargs):
+        if "bundle" not in held:
+            t0 = time.perf_counter()
+            held["bundle"] = build(cfg, *args, **kwargs)
+            torch.cuda.synchronize()
+            held.update(load_s=time.perf_counter() - t0,
+                        resident_gib=torch.cuda.memory_allocated() / 2**30)
+        return held["bundle"]
+
+    def one_mesh(cfg):
+        if "mesh" not in held:
+            held["mesh"] = stage_mesh(cfg)
+        return held["mesh"]
+
+    orchestrator.build_models, orchestrator.stage_mesh = one_bundle, one_mesh
+    try:
+        yield held
+    finally:
+        orchestrator.build_models, orchestrator.stage_mesh = build, stage_mesh
+
+
+def phase_scripts(tree: dict, runs: dict, models) -> None:
+    """Each entry point of ``trajectorycrafter_tpu_torch/scripts/`` but the
+    consistent-depth one once, through ``main(argv)`` (its real argument
+    parsing), on run L's bundle of the written tree (the 6-layer DiT, BLIP-2
+    captions, ``--mask``): the launches held to run L's per depth stage and
+    per diffusion times the script's stages, the outputs counted.  The
+    orbit runner catches a variant's failure as the root script does, so its
+    mp4s and launches are what fails it."""
+    import importlib
+
     import numpy as np
-
-    from trajectorycrafter_tpu_torch.scripts import (
-        autoregressive_global,
-        inference_autoregressive,
-        inference_orbits,
-        run_w_cam_poses,
-    )
 
     per_l = runs["L"]["per_path"]
     frames = SCRIPT_FRAMES
@@ -5209,21 +5643,15 @@ def phase_scripts(tree: dict, runs: dict) -> None:
     calib = [{**c, "K": [[v / 2 for v in row] for row in c["K"][:2]] + [c["K"][2]]}
              for c in PANOPTIC_CAMERAS]
     (root / "calib.json").write_text(json.dumps({"cameras": calib}))
-    long = ["--n_splits", "2", "--overlap_frames", "8", "--total_theta", "30"]
-    cut = ["--video_length", str(frames)]
-    scripts = {
-        "inference_autoregressive": (inference_autoregressive, long, 2),
-        "autoregressive_global": (autoregressive_global, long, 2),
-        "run_w_cam_poses": (run_w_cam_poses, [
-            "--calib_json", str(root / "calib.json"), "--source_cam", "00_00",
-            "--target_cam", "00_01", "--smooth", "--target_video", MAIN_ARGV[1]], 1),
-        "inference_orbits": (inference_orbits, ["--test_run"], 1),
-    }
-    for name, (module, extra, stages) in scripts.items():
-        argv = _tree_argv(tree) + ["--exp_name", f"script_{name}"] + cut + extra
+    for name, (extra, stages, _, _) in SCRIPT_RUNS.items():
+        if name == "inference_alignment":
+            continue
+        module = importlib.import_module(f"trajectorycrafter_tpu_torch.scripts.{name}")
+        argv = script_argv(tree, name)
         log(f"script {name}: python -m trajectorycrafter_tpu_torch.scripts.{name} "
             f"{' '.join(extra)} on the tree")
-        r = drive(f"script {name}", lambda: module.main(argv))
+        with loaded_once(models):
+            r = drive(f"script {name}", lambda: module.main(argv), models)
         save_dir = Path(MAIN_ARGV[MAIN_ARGV.index("--out_dir") + 1]) / f"script_{name}"
         out = r.pop("out")
         if name == "run_w_cam_poses":
@@ -5236,9 +5664,7 @@ def phase_scripts(tree: dict, runs: dict) -> None:
             save_dir = save_dir / "left30"
         else:
             _check_video(name, out, joined, (384, 672))
-            video = save_dir / f"{name}.mp4"
-            if name == "inference_autoregressive":
-                video = save_dir / "autoregressive.mp4"
+            video = save_dir / SCRIPT_RUNS[name][3]
             if _mp4_frames(video) != joined:
                 raise AssertionError(f"{name}: {video} has {_mp4_frames(video)} frames")
             if name == "autoregressive_global":
@@ -5255,14 +5681,14 @@ def phase_scripts(tree: dict, runs: dict) -> None:
         gc.collect()
 
 
-def phase_alignment_script(tree: dict, runs: dict) -> None:
-    """``scripts/inference_alignment.main(argv)`` on the written tree with a
-    vitl ``.pth`` written beside it (the seeded VDA of run M under the
-    official keys): ``load_vda``'s key check on the card, 2 segments of
-    ``SCRIPT_FRAMES``, ``ALIGN_EPOCHS``; its launches held to two of run L's
-    diffusions and no depth stage, its outputs counted.  First the same file
-    under ``--vda_encoder vits`` must be refused before any model is built or
-    any kernel launched."""
+def phase_alignment_script(tree: dict, runs: dict, models) -> None:
+    """``scripts/inference_alignment.main(argv)`` on run L's bundle of the
+    written tree with a vitl ``.pth`` written beside it (the seeded VDA of
+    run M under the official keys): ``load_vda``'s key check on the card, 2
+    segments of ``SCRIPT_FRAMES``, ``ALIGN_EPOCHS``; its launches held to two
+    of run L's diffusions and no depth stage, its outputs counted.  First
+    the same file under ``--vda_encoder vits`` must be refused before any
+    model is built or any kernel launched.  The file stays for run U."""
     import torch
 
     from trajectorycrafter_tpu_torch.scripts import inference_alignment
@@ -5278,9 +5704,7 @@ def phase_alignment_script(tree: dict, runs: dict) -> None:
     log(f"wrote {ckpt.name} ({ckpt.stat().st_size / 1e9:.2f} GB) in "
         f"{time.perf_counter() - t0:.2f} s")
     frames = SCRIPT_FRAMES
-    argv = _tree_argv(tree) + ["--exp_name", "script_inference_alignment", "--video_length",
-                               str(frames), "--n_splits", "2", "--total_theta", "30",
-                               "--align_epochs", str(ALIGN_EPOCHS), "--vda_ckpt", str(ckpt)]
+    argv = script_argv(tree, "inference_alignment")
     counters = _kernel_counters()
     for kern in counters:
         kern.launches = 0
@@ -5296,7 +5720,8 @@ def phase_alignment_script(tree: dict, runs: dict) -> None:
 
     log("script inference_alignment: python -m trajectorycrafter_tpu_torch.scripts."
         "inference_alignment --vda_ckpt video_depth_anything_vitl.pth on the tree")
-    r = drive("script inference_alignment", lambda: inference_alignment.main(argv))
+    with loaded_once(models):
+        r = drive("script inference_alignment", lambda: inference_alignment.main(argv), models)
     save_dir = Path(MAIN_ARGV[MAIN_ARGV.index("--out_dir") + 1]) / "script_inference_alignment"
     _check_video("inference_alignment", r.pop("out"), 2 * frames, (384, 672))
     if _mp4_frames(save_dir / "autoregressive_aligned.mp4") != 2 * frames:
@@ -5315,7 +5740,6 @@ def phase_alignment_script(tree: dict, runs: dict) -> None:
     log("  inference_alignment: launches as derived from run L's, the joined video and each "
         f"stage's mp4s in {save_dir}")
     runs["script inference_alignment"] = {key: r[key] for key in ("seconds", "per_path")}
-    ckpt.unlink()
     gc.collect()
 
 
@@ -5361,36 +5785,38 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_run_t_"))  # run T1's samples and twin
+    data_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tree_"))  # run U reads it too
     try:
-        data_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-        root = Path(tempfile.mkdtemp(prefix="chip_smoke_tree_"))
-        try:
-            # phase 5e: run P, LoRA training at full width, and run T1's twin
-            step_launches = run_phase("5e training", phase_training, tc, data_root, t_dir)
-            # phase 5f: run Q, feature probing at full width
-            probe_launches = run_phase("5f probing", phase_probing, tc, data_root)
-            # phase 8: write the random bundle's weights as a tree, free the
-            # bundle, load the tree through the entry point
-            tree = run_phase("8 tree write", write_checkpoint_tree, tc, root)
-            del tc
-            gc.collect()
-            torch.cuda.empty_cache()
-            run_phase("8 checkpoints", phase_checkpoints, tree, runs)
-            run_phase("8 scripts", phase_scripts, tree, runs)
-            run_phase("8 alignment script", phase_alignment_script, tree, runs)
-            run_phase("8 train script", phase_train_script, tree, str(data_root / "latents"))
-            run_phase("8 probe script", phase_probe_script, tree, str(data_root / "latents"))
-        finally:
-            shutil.rmtree(root, ignore_errors=True)
-            shutil.rmtree(data_root, ignore_errors=True)
+        # phase 5e: run P, LoRA training at full width, and run T1's twin
+        step_launches = run_phase("5e training", phase_training, tc, data_root, t_dir)
+        # phase 5f: run Q, feature probing at full width
+        probe_launches = run_phase("5f probing", phase_probing, tc, data_root)
+        # phase 8: write the random bundle's weights as a tree, free the
+        # bundle, load the tree through the entry point
+        tree = run_phase("8 tree write", write_checkpoint_tree, tc, root)
+        del tc
+        gc.collect()
+        torch.cuda.empty_cache()
+        models = run_phase("8 checkpoints", phase_checkpoints, tree, runs)
+        run_phase("8 scripts", phase_scripts, tree, runs, models)
+        run_phase("8 alignment script", phase_alignment_script, tree, runs, models)
+        del models
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_phase("8 train script", phase_train_script, tree, str(data_root / "latents"))
+        run_phase("8 probe script", phase_probe_script, tree, str(data_root / "latents"))
+        shutil.rmtree(data_root, ignore_errors=True)
         # phase 5s: run S, the sharded denoise, then run T, sharded training
-        # and GPipe, in one torchrun world, once this process holds no model
+        # and GPipe, then run U, phase 8's scripts sharded, in one torchrun
+        # world, once this process holds no model
         gc.collect()
         torch.cuda.empty_cache()
         log(f"before run S this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-        run_phase("5s sharded and 5t", phase_sharded, runs, True, t_dir)
+        run_phase("5s sharded, 5t and 5u", phase_sharded, runs, True, t_dir, tree)
     finally:
-        shutil.rmtree(t_dir, ignore_errors=True)
+        for d in (t_dir, data_root, root):
+            shutil.rmtree(d, ignore_errors=True)
 
     per_path = lambda kern: _launches_per_path(runs, kern)
     run_launches = lambda run, kern: _run_launches(runs, run, kern)
@@ -5413,6 +5839,7 @@ def main() -> None:
             launches_run_s=run_launches("S", "flash_attention"),
             launches_run_s_per_rank=runs["S"]["per_rank"]["flash_attention"],
             launches_run_t_per_rank=runs["T"]["per_rank"]["flash_attention"],
+            launches_run_u_per_rank=runs["U"]["per_rank"]["flash_attention"],
             depth_launches_run_s_per_rank=runs["S"]["depth_per_rank"]["flash_attention"],
             probing_shape="(1, 48, 13330, 13330, 64); Perceiver (1, 16, 13104 x 3024, 128)",
             bench_launches=bench["flash_attention"], max_abs_err=max_err["flash_attention"],
@@ -5432,6 +5859,7 @@ def main() -> None:
                          launches_run="S (the ring's inner, all ranks)",
                          launches_run_s_per_rank=runs["S"]["per_rank"]["flash_lse"],
                          launches_run_t_per_rank=runs["T"]["per_rank"]["flash_lse"],
+                         launches_run_u_per_rank=runs["U"]["per_rank"]["flash_lse"],
                          launches_per_path=per_path("flash_lse"),
                          bench_launches=bench["flash_lse"], max_abs_err=variant_err["flash_lse"]),
         *(_attention_entry(name, variant_timing[name], launches=bench[name],
@@ -5453,8 +5881,8 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--run-s-rank"]:
-        run_s_rank(sys.argv[2], "--cut" in sys.argv[3:],
-                   sys.argv[sys.argv.index("--run-t") + 1] if "--run-t" in sys.argv else None)
+        after = lambda flag: sys.argv[sys.argv.index(flag) + 1] if flag in sys.argv else None
+        run_s_rank(sys.argv[2], "--cut" in sys.argv[3:], after("--run-t"), after("--run-u"))
     elif sys.argv[1:2] == ["--run-t-rank"]:
         run_t_alone_rank(sys.argv[2], sys.argv[3])
     else:

@@ -109,3 +109,16 @@ def test_main_refuses_to_start_without_a_card(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="no CUDA device"):
         gradio_app.main(["--out_dir", str(tmp_path), "--port", "0"])
     assert not any(tmp_path.iterdir())  # nothing written either
+
+
+@pytest.mark.parametrize("flags", [["--mesh_sp", "2"], ["--mesh_dp", "2", "--mesh_tp", "2"]])
+def test_main_refuses_the_mesh_flags_before_building_anything(tmp_path, monkeypatch, flags):
+    """The app serves from one process: mesh flags stop it before the card
+    check, any model or any directory, with the reason and the entry points
+    that do shard."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(orchestrator, "build_models", None)
+    monkeypatch.setattr(gradio_app, "build_app", None)
+    with pytest.raises(SystemExit, match="serves from one process.*under torchrun"):
+        gradio_app.main(["--out_dir", str(tmp_path), "--port", "0", *flags])
+    assert not any(tmp_path.iterdir())

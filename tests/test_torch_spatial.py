@@ -17,7 +17,11 @@ tests/torch_parallel_workers.py ``spatial``) runs every sharded case:
     uneven split: 3 latent rows over dp 2 (video (1, 5, 24, 48, 3));
   * the same under dp 2 x sp 2 with each planted fault of
     ``SPATIAL_FAULTS`` (every halo zero, every GroupNorm on its slab);
-  * ``infer_gradual`` of the dev stack (unquantized) under dp 2 x sp 2.
+  * ``infer_gradual`` of the dev stack (unquantized) under dp 2 x sp 2;
+  * ``vae_decode_auto`` on the sharded twin under dp 2 x sp 2 and dp 1 x sp
+    2 x tp 2 with a memory that forces strips (``STRIPS``: 3 latent frames
+    of 9 x 12 in strips of 4 rows, tests/test_torch_vae.py's), each strip
+    decoded on the plane and blended on every rank.
 
 Tolerances, with their reasons:
   * the sharded warp against the unsharded port: equal.  Frames are
@@ -38,7 +42,11 @@ Tolerances, with their reasons:
     a wrong halo shows; the sound run must pass it there too.
   * ``infer_gradual``: the generated video within one uint8 level of the
     unsharded twin's (the sharded VAE and denoise reassociate fp32 sums by
-    ~1e-6, which can move a pixel across a rounding boundary).
+    ~1e-6, which can move a pixel across a rounding boundary);
+  * the sharded strip decode: against the unsharded strip decode at the
+    sharded-versus-single tolerance above, and against JAX's
+    ``vae_decode_auto`` given the same memory at tests/test_torch_vae.py's
+    1e-4.
 """
 
 from pathlib import Path
@@ -54,6 +62,7 @@ from torch_worlds import run_world
 from trajectorycrafter_tpu.geometry.cameras import default_c2w as jax_default_c2w
 from trajectorycrafter_tpu.geometry.cameras import intrinsics_matrix as jax_intrinsics
 from trajectorycrafter_tpu.models.vae import AutoencoderKLCogVideoX as JaxVAE
+from trajectorycrafter_tpu.models.vae import vae_decode_auto as jax_vae_decode_auto
 from trajectorycrafter_tpu.ops.splat import forward_warp_batch as jax_forward_warp_batch
 from trajectorycrafter_tpu.pipelines.trajcrafter import (
     _decode_jit,
@@ -67,7 +76,9 @@ from trajectorycrafter_tpu_torch.models.vae import (
     AutoencoderKLCogVideoX,
     decode_is_tiled,
     decode_peak_divisor,
+    vae_decode,
     vae_decode_auto,
+    vae_decode_tiled,
 )
 from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
 from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter, build_dev_models
@@ -141,6 +152,13 @@ VAE_CASES = {"dp2_sp2": ((2, 2, 1), *_vae_case(32)),
              "uneven_dp2_sp2": ((2, 2, 1), *_vae_case(24))}
 FAULT_CASE = "dp2_sp2"
 GRADUAL_MESH = (2, 2, 1)
+# the strip decode: latents, a memory under which both the port's sharded
+# twin (its estimate over dp x sp = 4) and JAX's unsharded decode take
+# strips, the strip height, the meshes
+STRIP_LATENTS = (1, 3, 9, 12, 4)
+STRIP_ESTIMATE = 9 * 72 * 96 * 128 * 2 * 3.5  # the one-shot decode's peak estimate
+STRIPS = (np.random.default_rng(5).standard_normal(STRIP_LATENTS).astype(np.float32),
+          int(STRIP_ESTIMATE / 0.6 / 8), 4, {"dp2_sp2": (2, 2, 1), "sp2_tp2": (1, 2, 2)})
 
 
 def _gradual_argv(tmp_path):
@@ -162,7 +180,8 @@ def world(vae_params, tmp_path_factory):
     weights = {k: v.numpy() for k, v in vae_from_jax(vae_params).items()}
     gradual_dir = tmp_path_factory.mktemp("gradual_sharded")
     runs = run_world(spatial, WORLD, tmp_path_factory.mktemp("spatial"), WARP_CASES, weights,
-                     VAE_CASES, FAULT_CASE, (_gradual_argv(gradual_dir), (48, 80), GRADUAL_MESH))
+                     VAE_CASES, FAULT_CASE, (_gradual_argv(gradual_dir), (48, 80), GRADUAL_MESH),
+                     STRIPS)
     return runs, weights
 
 
@@ -304,9 +323,10 @@ def test_the_uneven_split_gives_the_last_dp_rank_fewer_rows(world):
 
 def test_sharded_infer_gradual_matches_its_unsharded_twin(world, tmp_path):
     """``infer_gradual`` of the dev stack under dp 2 x sp 2: the leader's
-    video against the unsharded run's; every rank warped its share of the
-    9 frames, exchanged halos and norms and ran the depth stage (here the
-    plane-depth stand-in); only the leader encodes the prompt and writes."""
+    video against the unsharded run's, every other rank's equal to the
+    leader's; every rank warped its share of the 9 frames, exchanged halos
+    and norms and ran the depth stage (here the plane-depth stand-in); only
+    the leader encodes the prompt and writes."""
     runs, _ = world
     cfg = cli.parse_config(_gradual_argv(tmp_path))
     cfg.warp_size = (48, 80)
@@ -314,7 +334,8 @@ def test_sharded_infer_gradual_matches_its_unsharded_twin(world, tmp_path):
     lead = runs[0]["gradual"]
     assert lead["gen"].shape == want.shape == (9, 32, 48, 3)
     assert np.abs(lead["gen"] - want).max() <= 1.0 / 255.0 + 1e-6
-    assert all(run["gradual"]["gen"] is None for run in runs[1:])
+    for run in runs[1:]:  # every rank gets the video back
+        np.testing.assert_array_equal(run["gradual"]["gen"], lead["gen"])
     assert [run["gradual"]["warp_frames"] for run in runs] == [[n] if n else []
                                                                for n in shard_sizes(9, WORLD)]
     for run in runs:
@@ -324,6 +345,51 @@ def test_sharded_infer_gradual_matches_its_unsharded_twin(world, tmp_path):
         assert {"handoff", "depth"} <= set(run["gradual"]["stages"])
     assert {"prompt_encode", "write_mp4"} <= set(lead["stages"])
     assert not {"prompt_encode", "write_mp4"} & set(runs[1]["gradual"]["stages"])
+
+
+# ----------------------------------------------------------------------------
+# the sharded strip decode
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mesh", STRIPS[3])
+def test_sharded_strip_decode_matches_the_unsharded_strips(world, mesh):
+    """Under a memory that forces strips every rank decodes the same three
+    strips of 4, 4 and 3 latent rows on its plane and blends them as the
+    unsharded decode does: its video within the sharded tolerance of the
+    unsharded strip decode's, and off the one-shot decode's."""
+    runs, weights = world
+    from torch_parallel_workers import _vae_pipeline
+
+    z, memory, strip_height, _ = STRIPS
+    vae = _vae_pipeline(weights, None).vae
+    with torch.no_grad():
+        assert decode_is_tiled(STRIP_LATENTS, memory) and decode_is_tiled(STRIP_LATENTS, memory, 4)
+        want = vae_decode_auto(vae, T(z), memory, strip_height).numpy()
+        one_shot = vae_decode(vae, T(z)).numpy()
+    for run in runs:
+        got = run[f"strips {mesh}"]
+        assert got["tiles"] == [(4, 12), (4, 12), (3, 12)]
+        np.testing.assert_allclose(got["video"], want, **SHARD_TOL)
+        assert not np.allclose(got["video"], one_shot, **SHARD_TOL)
+        np.testing.assert_array_equal(got["video"], runs[0][f"strips {mesh}"]["video"])
+
+
+@pytest.mark.parametrize("mesh", STRIPS[3])
+def test_sharded_strip_decode_matches_jax(world, vae_params, mesh, monkeypatch):
+    """JAX's ``vae_decode_auto`` on the same weights, given the same memory
+    (``device_hbm_bytes`` patched) and strip height: its strips against the
+    sharded twin's."""
+    from trajectorycrafter_tpu.utils import offload
+
+    runs, _ = world
+    z, memory, strip_height, _ = STRIPS
+    monkeypatch.setattr(offload, "device_hbm_bytes", lambda: memory)
+    want = np.asarray(jax_vae_decode_auto(JaxVAE(**DEV), vae_params, jnp.asarray(z),
+                                          strip_height=strip_height))
+    got = runs[0][f"strips {mesh}"]["video"]
+    assert got.shape == want.shape == (1, 9, 72, 96, 3)
+    np.testing.assert_allclose(got, want, **JAX_TOL)
 
 
 # ----------------------------------------------------------------------------
@@ -339,8 +405,11 @@ def _plane(dp: int, sp: int, i: int = 0, j: int = 0) -> Plane:
 def test_decode_auto_divides_by_the_plane_and_refuses_strips():
     """The sharded decode's estimate is a rank's: the one-shot peak over dp
     x sp (not the mesh size the JAX package divides by: tp ranks hold the
-    same slab).  Where even a rank's slab would need strips it raises,
-    naming the size, before anything runs."""
+    same slab).  Where a rank's slab needs strips, the strips run on the
+    twin (here a one-rank plane, which needs no world: the 4-rank planes
+    run in the world above) and match the unsharded strip decode; a strip
+    that would leave a rank without latent rows is refused, naming the
+    split, before anything runs."""
     vae = AutoencoderKLCogVideoX(**DEV)
     twin = shard_spatially(vae, _plane(2, 2))
     assert decode_peak_divisor(vae) == 1 and decode_peak_divisor(twin) == 4
@@ -351,13 +420,20 @@ def test_decode_auto_divides_by_the_plane_and_refuses_strips():
     memory = int(peak / 3 / 0.60)
     assert decode_is_tiled(shape, memory) and not decode_is_tiled(shape, memory, 4)
     assert decode_is_tiled(shape, memory, 2)  # a tp-sized divisor would not be enough
-    latents = torch.zeros(shape)
-    with pytest.raises(ValueError, match=r"\(1, 13, 72, 128, 16\) need the strip decode"):
-        vae_decode_auto(twin, latents, int(peak / 8 / 0.60))
-    with pytest.raises(ValueError, match="tiled decode does not run on a spatially sharded"):
-        from trajectorycrafter_tpu_torch.models.vae import vae_decode_tiled
 
-        vae_decode_tiled(twin, latents)
+    torch.manual_seed(0)
+    for p in vae.parameters():
+        p.data.normal_(0.0, 0.2)
+    z = T(STRIPS[0])
+    one = shard_spatially(vae, _plane(1, 1))
+    with torch.no_grad():
+        got = vae_decode_auto(one, z, STRIPS[1], STRIPS[2])
+        want = vae_decode_tiled(vae, z, STRIPS[2], z.shape[3], 1.0 / 7.0, 0.0)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **SHARD_TOL)
+        assert not np.allclose(got.numpy(), vae_decode(vae, z).numpy(), **SHARD_TOL)
+    # 41 latent rows: strips at rows 0, 20 and 40, the last of one row
+    with pytest.raises(ValueError, match="1 x 128 latents leave a rank of the dp 2"):
+        vae_decode_auto(twin, torch.zeros(1, 13, 41, 128, 16), int(peak / 8 / 0.60))
 
 
 def test_the_plane_splits_in_whole_latent_rows_or_raises():

@@ -221,14 +221,17 @@ SPATIAL_FAULTS = {
 }
 
 
-def spatial(rank, warp_cases, vae_weights, vae_cases, fault_case, gradual):
+def spatial(rank, warp_cases, vae_weights, vae_cases, fault_case, gradual, strips):
     """The sharded warp on each of ``warp_cases`` (whole inputs; 4 ranks,
     every mesh axis), every rank's outputs and the frames it splatted; the sharded
     condition prep and decode of each of ``vae_cases`` ({name: (mesh shape,
     video, mask, reference, ref noise, aug noise, latents)}), with the
     transport and this rank's coordinates and slabs; the same under each of
     ``SPATIAL_FAULTS`` on ``fault_case``; ``gradual`` (argv, warp size,
-    mesh shape): a sharded ``infer_gradual`` of the dev stack."""
+    mesh shape): a sharded ``infer_gradual`` of the dev stack; ``strips``
+    (latents, memory, strip height, {name: mesh shape}): ``vae_decode_auto``
+    on the sharded twin of each mesh with that memory, and the tiles it
+    decoded."""
     from trajectorycrafter_tpu_torch.ops.splat import forward_warp_batch
     from trajectorycrafter_tpu_torch.parallel import spatial as S
 
@@ -263,6 +266,19 @@ def spatial(rank, warp_cases, vae_weights, vae_cases, fault_case, gradual):
     for fault, (attr, fake) in SPATIAL_FAULTS.items():
         with mock.patch.object(S, attr, fake):
             out[fault] = conditions_and_decode(pipe, case)
+
+    from trajectorycrafter_tpu_torch.models import vae as vae_mod
+
+    z, memory, strip_height, meshes = strips
+    decode = vae_mod.vae_decode
+    for name, shape in meshes.items():
+        pipe = _vae_pipeline(vae_weights, _mesh(shape))
+        tiles = []
+        with mock.patch.object(vae_mod, "vae_decode",
+                               lambda vae, x: tiles.append(x.shape[2:4]) or decode(vae, x)), \
+                torch.no_grad():
+            got = vae_mod.vae_decode_auto(pipe.spatial_vae, T(z), memory, strip_height)
+        out[f"strips {name}"] = {"video": got.numpy(), "tiles": tiles}
 
     argv, warp_size, shape = gradual
     from trajectorycrafter_tpu_torch.cli import parse_config
@@ -592,3 +608,248 @@ def training_sharded(rank, ff_case, step_cases, grad_case, script_argv, tree):
     out["load_dit"] = set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
     out["script"] = _train_script(*script_argv)
     return out
+
+
+# ----------------------------------------------------------------------------
+# the entry points under a mesh (tests/test_torch_entry_points_sharded.py)
+# ----------------------------------------------------------------------------
+
+
+def fp32_bundle(bundle):
+    """``bundle`` (loaded in bf16) with every model and its pipeline in fp32,
+    in place: a sharded run's reassociated sums stay within fp32 rounding of
+    its unsharded twin's, where bf16 would round them up to visible changes."""
+    from trajectorycrafter_tpu_torch.orchestrator import depth_pipeline
+
+    pipe = bundle.pipeline
+    pipe.vae.float(), pipe.transformer.float()
+    pipe.dtype = torch.float32
+    depth = depth_pipeline(bundle.depth_infer)
+    if depth is not None:
+        for model in (depth.unet, depth.vae, depth.image_encoder):
+            if model is not None:
+                model.float()
+        depth.dtype = torch.float32
+    if bundle.encode_prompt is not None:
+        bundle.encode_prompt.t5.float()
+    return bundle
+
+
+def tiny_tree_patches(dims: dict, warp_size) -> None:
+    """This rank's copy of tests/test_torch_scripts.py's patches (a spawned
+    rank imports nothing of the test): the fixed-width constructors cut to
+    ``dims`` ({module name: constructor arguments}), the VAE's key contract
+    with them, a card that "is available" with the models built on the CPU
+    and upcast to fp32 (``fp32_bundle``), the meshes made on the CPU and
+    every script's config at ``warp_size``."""
+    import functools
+
+    from trajectorycrafter_tpu_torch import orchestrator
+    from trajectorycrafter_tpu_torch.models import clip, depthcrafter, svd_vae, t5, vae
+    from trajectorycrafter_tpu_torch.parallel import mesh
+    from trajectorycrafter_tpu_torch.scripts import (
+        autoregressive_global,
+        inference_alignment,
+        inference_autoregressive,
+        inference_orbits,
+        run_w_cam_poses,
+    )
+    from trajectorycrafter_tpu_torch.utils import checkpoints
+
+    for module, name in ((vae, "AutoencoderKLCogVideoX"), (t5, "T5EncoderModel"),
+                         (depthcrafter, "UNetSpatioTemporalConditionModel"),
+                         (svd_vae, "AutoencoderKLTemporalDecoder"),
+                         (clip, "CLIPVisionModelWithProjection")):
+        setattr(module, name, functools.partial(getattr(module, name), **dims[name]))
+    contract = dims["AutoencoderKLCogVideoX"]
+    checkpoints.expected_vae_keys = functools.partial(
+        checkpoints.expected_vae_keys, contract["block_out_channels"],
+        contract["layers_per_block"])
+    torch.cuda.is_available = lambda: True
+    build = orchestrator.build_models
+    orchestrator.build_models = lambda cfg, **kw: fp32_bundle(build(cfg, device="cpu", **kw))
+    mesh.make_mesh = functools.partial(mesh.make_mesh, device="cpu")
+    for script in (autoregressive_global, inference_alignment, inference_autoregressive,
+                   inference_orbits, run_w_cam_poses):
+        def at_warp_size(args, parse=script.config_from_args):
+            cfg = parse(args)
+            cfg.warp_size = warp_size
+            return cfg
+
+        script.config_from_args = at_warp_size
+
+
+def _record_conditions(into: list):
+    """A patch of ``TrajCrafter._diffuse_and_save`` (every subclass's) that
+    records the conditions it is handed and the video it returns."""
+    from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter
+
+    real = TrajCrafter._diffuse_and_save
+
+    def recorded(self, frames, cond_video, cond_masks, prompt, ref_slice=slice(0, None),
+                 save_skip=0):
+        gen = real(self, frames, cond_video, cond_masks, prompt, ref_slice, save_skip)
+        into.append({"frames": np.asarray(frames), "cond": np.asarray(cond_video),
+                     "masks": np.asarray(cond_masks), "ref_slice": ref_slice,
+                     "save_skip": save_skip, "prompt": prompt, "gen": gen})
+        return gen
+
+    return mock.patch.object(TrajCrafter, "_diffuse_and_save", recorded)
+
+
+def _record_depths(into: list):
+    """A patch of ``TrajCrafter._estimate_depth`` (every subclass's depth
+    stage) that records the depth each call returns."""
+    from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter
+
+    real = TrajCrafter._estimate_depth
+
+    def recorded(self, frames):
+        depth = real(self, frames)
+        into.append(np.array(depth))
+        return depth
+
+    return mock.patch.object(TrajCrafter, "_estimate_depth", recorded)
+
+
+def _record_steps(into: list):
+    """A patch of the pipeline's denoise that records the latents each
+    sampler step of its loop returns."""
+    from trajectorycrafter_tpu_torch.pipelines.trajcrafter import TrajCrafterPipeline
+
+    real = TrajCrafterPipeline._denoise
+
+    def denoise(self, *a, **kw):
+        step = self.scheduler.step
+
+        def recorded(*sa, **skw):
+            res = step(*sa, **skw)
+            into.append((res[0] if isinstance(res, tuple) else res).numpy().copy())
+            return res
+
+        self.scheduler.step = recorded
+        try:
+            return real(self, *a, **kw)
+        finally:
+            del self.scheduler.step
+
+    return mock.patch.object(TrajCrafterPipeline, "_denoise", denoise)
+
+
+def _files(root) -> list:
+    from pathlib import Path
+
+    root = Path(root)
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file()) \
+        if root.exists() else []
+
+
+def _stub_bundle(caption: str = "a scene"):
+    """The stub bundle of tests/test_torch_modes.py: the plane depth, a fixed
+    caption, no pipeline but its device and timer (and a mesh it ignores)."""
+    import types
+
+    from trajectorycrafter_tpu_torch import orchestrator
+    from trajectorycrafter_tpu_torch.utils.timing import StageTimer
+
+    pipeline = types.SimpleNamespace(device=torch.device("cpu"), timer=StageTimer("cpu"),
+                                     with_mesh=lambda mesh: None)
+    return orchestrator.ModelBundle(pipeline=pipeline,
+                                    depth_infer=orchestrator._plane_depth_infer,
+                                    encode_prompt=None, get_caption=lambda frame: caption)
+
+
+def _stub_runs(rank: int, stubs: dict, mesh_shape) -> dict:
+    """v1 and the known-camera modes on the stub bundle under the mesh, with
+    ``_diffuse_and_save`` recorded and answering each segment with the
+    given video: the conditions each call is handed, and what it returns."""
+    from trajectorycrafter_tpu_torch import autoregressive, known_poses
+    from trajectorycrafter_tpu_torch.cli import parse_config
+    from trajectorycrafter_tpu_torch.config import TrajCrafterConfig
+
+    out = {}
+
+    def recording(tc, gen, calls):
+        def recorded(frames, cond_video, cond_masks, prompt, ref_slice=slice(0, None),
+                     save_skip=0):
+            calls.append({"frames": np.asarray(frames), "cond": np.asarray(cond_video),
+                          "masks": np.asarray(cond_masks), "prompt": prompt,
+                          "ref_slice": ref_slice, "save_skip": save_skip})
+            return gen
+
+        tc._diffuse_and_save = recorded
+
+    argv, warp_size, run, gen = stubs["v1"]
+    cfg = parse_config(argv)
+    cfg.warp_size = warp_size
+    cfg.parallel.dp, cfg.parallel.sp, cfg.parallel.tp = mesh_shape
+    tc = autoregressive.TrajCrafterAutoregressive(cfg, models=_stub_bundle())
+    calls = []
+    recording(tc, gen, calls)
+    out["v1"] = {"calls": calls, "video": tc.infer_autoregressive(**run)}
+
+    (frames, target_frames, depths, src, tgt), (f, h, w), save_dir, gen = stubs["known"]
+    for label, smooth, given in (("fixed", False, True), ("smooth", True, False)):
+        cfg = TrajCrafterConfig()
+        cfg.video_length, cfg.warp_size, cfg.diffusion.sample_size = f, (h, w), (32, 48)
+        cfg.parallel.dp, cfg.parallel.sp, cfg.parallel.tp = mesh_shape
+        cfg.save_dir = f"{save_dir}/{label}/rank{rank}"
+        tc = known_poses.CameraPoseTrajCrafter(cfg, models=_stub_bundle())
+        calls = []
+        recording(tc, gen, calls)
+        cams = [known_poses.CalibratedCamera(**c) for c in (src, tgt)]
+        d = depths if given else None
+        if smooth:
+            _, metrics = tc.infer_camera_poses_smooth(frames, d, *cams,
+                                                      target_frames=target_frames)
+        else:
+            tc.infer_camera_poses(frames, d, *cams)
+            metrics = None
+        out[f"known {label}"] = {"calls": calls, "metrics": metrics,
+                                 "files": _files(cfg.save_dir)}
+    return out
+
+
+def entry_points(rank, dims, warp_size, scripts, stubs, mesh_shape):
+    """Each of ``scripts`` ({name: (module name, argv)}) through its
+    ``main(argv)`` in this world, with the tiny-tree patches, this rank's
+    ``--out_dir`` its own (``<out_dir>/rank<r>``): what main returns, the
+    files this rank wrote, the conditions every ``_diffuse_and_save`` was
+    handed, the latents of every sampler step, every depth the depth stage
+    returned and the collectives; then the stub runs (``_stub_runs``)."""
+    import importlib
+
+    tiny_tree_patches(dims, warp_size)
+    out = {}
+    for name, (module, argv) in scripts.items():
+        argv = list(argv)
+        where = argv.index("--out_dir") + 1
+        argv[where] = f"{argv[where]}/rank{rank}"
+        main = importlib.import_module(f"trajectorycrafter_tpu_torch.scripts.{module}").main
+        conditions, steps, depths = [], [], []
+        before = dict(D.TRANSPORT)
+        with _record_conditions(conditions), _record_steps(steps), _record_depths(depths):
+            returned = main(argv)
+        out[name] = {"returned": returned, "files": _files(argv[where]),
+                     "conditions": conditions, "steps": steps, "depths": depths,
+                     "transport": _transport_since(before)}
+    out["stubs"] = _stub_runs(rank, stubs, mesh_shape)
+    return out
+
+
+def orbit_failure(rank, dims, warp_size, argv, failing_rank):
+    """The orbit sweep under the mesh with the depth stage of its first
+    variant failing on ``failing_rank`` alone: the exception ends that rank,
+    and the collectives it no longer joins end the others."""
+    from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter
+    from trajectorycrafter_tpu_torch.scripts import inference_orbits
+
+    tiny_tree_patches(dims, warp_size)
+    if rank == failing_rank:
+        def fail(self, frames):
+            raise RuntimeError(f"planted depth failure on rank {rank}")
+
+        TrajCrafter._estimate_depth = fail
+    argv = list(argv)
+    argv[argv.index("--out_dir") + 1] += f"/rank{rank}"
+    return inference_orbits.main(argv)

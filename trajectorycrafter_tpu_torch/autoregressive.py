@@ -22,6 +22,15 @@ The warp and the renders run on the device; the conditions go to
 ``_diffuse_and_save`` at warp size and are resized there as the JAX package
 resizes them.  Stages: those of the modes, ``render`` (the z-buffer views),
 ``relift`` (the cloud's lifts, merges and downsampling) and ``export``.
+
+Under a mesh (orchestrator.py's rule) the leader makes the trajectory and
+hands it on; v1 warps on the mesh (every rank its share of the frames,
+every frame back on every rank) and every rank feeds each generated
+segment, which ``_diffuse_and_save`` returns on every rank, into the next
+collective depth stage.  v2's cloud is the leader's: it lifts, renders,
+merges, downsamples and exports, and hands each window's renders and masks
+to every rank; every rank runs the depth stage on each generated segment,
+and the leader aligns its scale to the renders.
 """
 
 from __future__ import annotations
@@ -87,8 +96,18 @@ def split_trajectory(total_poses, n_splits: int, seg_len: int, overlap: int) -> 
 class _Segments(TrajCrafter):
     """What both variants share: the trajectory and its windows."""
 
+    def _windows(self, n_splits: int, overlap_frames: int) -> List[np.ndarray]:
+        """The trajectory's windows of ``--video_length`` poses (they depend
+        on its length alone, so every rank of a mesh makes them)."""
+        seg_len = self.cfg.video_length
+        total = n_splits * (seg_len - overlap_frames) + overlap_frames
+        return split_trajectory(np.empty((total, 0)), n_splits, seg_len, overlap_frames)
+
     def _trajectory(self, depths, n_splits, overlap_frames, theta, phi, d_r):
-        """-> (poses (total, 4, 4) c2w on the host, K (3, 3), windows, radius)."""
+        """-> (poses (total, 4, 4) c2w on the host, K (3, 3), radius): on the
+        leader of a mesh, None elsewhere."""
+        if not self.leader:
+            return None, None, None
         cfg = self.cfg
         seg_len = cfg.video_length
         total = n_splits * (seg_len - overlap_frames) + overlap_frames
@@ -96,7 +115,7 @@ class _Segments(TrajCrafter):
         poses = generate_traj_specified(default_c2w(), theta, phi, d_r * radius, 0.0, 0.0, total)
         poses[:, 2, 3] += radius
         K = intrinsics_matrix(cfg.render.focal, cfg.render.cx, cfg.render.cy)
-        return poses, K, split_trajectory(poses, n_splits, seg_len, overlap_frames), radius
+        return poses, K, radius
 
 
 class TrajCrafterAutoregressive(_Segments):
@@ -109,12 +128,14 @@ class TrajCrafterAutoregressive(_Segments):
         seg_len = cfg.video_length
         frames, prompt, depths = self._frames_prompt_depths()
         with self.timer("poses"):
-            poses_all, K, windows, _ = self._trajectory(depths, n_splits, overlap_frames,
-                                                        theta, phi, d_r)
+            poses_all, K, _ = self._trajectory(depths, n_splits, overlap_frames, theta, phi,
+                                               d_r)
+            poses_all, K = self._from_leader(poses_all, K)
             K = K[None].repeat(seg_len, 1, 1).to(self.device)
 
         out_segments: List[np.ndarray] = []
         cur_frames, cur_depths = frames, depths
+        windows = self._windows(n_splits, overlap_frames)
         for wi, win in enumerate(windows):
             pose_t = poses_all[win].to(self.device)
             with self.timer("warp"):
@@ -122,7 +143,7 @@ class TrajCrafterAutoregressive(_Segments):
                 warped, masks, _, _ = forward_warp_batch(
                     self._to_device(cur_frames * 2.0 - 1.0), self._to_device(cur_depths[:, 0]),
                     pose_t[:1].repeat(seg_len, 1, 1), pose_t, K,
-                    use_mask_clean=cfg.render.mask)
+                    use_mask_clean=cfg.render.mask, mesh=self.mesh)
                 cond = ((warped + 1.0) / 2.0).cpu().numpy()
                 masks = masks.cpu().numpy()
                 del warped
@@ -148,28 +169,35 @@ class TrajCrafterGlobalPointCloud(_Segments):
         hw, ww = cfg.warp_size
         frames, prompt, depths = self._frames_prompt_depths()
         with self.timer("poses"):
-            poses_all, K, windows, radius = self._trajectory(depths, n_splits, overlap_frames,
-                                                             theta, phi, d_r)
+            poses_all, K, radius = self._trajectory(depths, n_splits, overlap_frames, theta, phi,
+                                                    d_r)
+        if self.leader:
             anchor = default_c2w()
             anchor[2, 3] += radius
             K_dev = K.to(self.device)
             Ks = K_dev[None].repeat(seg_len, 1, 1)
-        with self.timer("relift"):
-            # the input frames, all seen from the anchor camera
-            points, colors = lift_video_to_pointcloud(
-                self._to_device(frames), self._to_device(depths[:, 0]), Ks,
-                anchor.to(self.device)[None].repeat(seg_len, 1, 1))
+            with self.timer("relift"):
+                # the input frames, all seen from the anchor camera
+                points, colors = lift_video_to_pointcloud(
+                    self._to_device(frames), self._to_device(depths[:, 0]), Ks,
+                    anchor.to(self.device)[None].repeat(seg_len, 1, 1))
 
         out_segments: List[np.ndarray] = []
+        windows = self._windows(n_splits, overlap_frames)
         for wi, win in enumerate(windows):
-            pose_t = poses_all[win].to(self.device)
-            with self.timer("render"):
-                views = [render_zbuffer(points, colors, K_dev, w2c, hw, ww)
-                         for w2c in torch.linalg.inv(pose_t)]
-                cond = torch.stack([v[0] for v in views]).cpu().numpy()
-                rend_depth = torch.stack([v[1] for v in views]).cpu().numpy()
-                masks = torch.stack([v[2] for v in views]).cpu().numpy()
-                del views
+            cond = rend_depth = masks = None
+            if self.leader:
+                pose_t = poses_all[win].to(self.device)
+                with self.timer("render"):
+                    views = [render_zbuffer(points, colors, K_dev, w2c, hw, ww)
+                             for w2c in torch.linalg.inv(pose_t)]
+                    cond = torch.stack([v[0] for v in views]).cpu().numpy()
+                    rend_depth = torch.stack([v[1] for v in views]).cpu().numpy()
+                    masks = torch.stack([v[2] for v in views]).cpu().numpy()
+                    del views
+            if self.mesh is not None:
+                with self.timer("handoff"):
+                    cond, masks = self._from_leader(cond, masks)
             gen = self._diffuse_and_save(cond, cond, masks, prompt,
                                          ref_slice=slice(0, cfg.diffusion.ref_frames))
             out_segments.append(gen if wi == 0 else gen[overlap_frames:])
@@ -177,6 +205,8 @@ class TrajCrafterGlobalPointCloud(_Segments):
                 gen_w = resize_video(gen, cfg.warp_size)
                 with self.timer("depth"):
                     gen_depth = self._estimate_depth(gen_w)[:, 0]
+                if not self.leader:
+                    continue
                 with self.timer("relift"):
                     scale = align_depth_scale(gen_depth, rend_depth, masks)
                     del rend_depth
@@ -189,14 +219,15 @@ class TrajCrafterGlobalPointCloud(_Segments):
                             points, colors, max_points,
                             torch.Generator(device=self.device).manual_seed(wi))
 
-        with self.timer("export"):
-            # the scene: a PLY, a COLMAP text model and an HTML viewer
-            scene_dir = os.path.join(cfg.save_dir, "scene")
-            pts_np, cols_np = points.cpu().numpy(), colors.cpu().numpy()
-            c2ws_np = list(poses_all.numpy())
-            Ks_np = [K.numpy()] * len(c2ws_np)
-            save_ply(os.path.join(scene_dir, "points.ply"), pts_np, cols_np)
-            save_colmap(scene_dir, Ks_np, c2ws_np, ww, hw, pts_np, cols_np)
-            save_html_viewer(os.path.join(scene_dir, "viewer.html"), pts_np, cols_np, c2ws_np,
-                             Ks_np, height=hw)
+        if self.leader:
+            with self.timer("export"):
+                # the scene: a PLY, a COLMAP text model and an HTML viewer
+                scene_dir = os.path.join(cfg.save_dir, "scene")
+                pts_np, cols_np = points.cpu().numpy(), colors.cpu().numpy()
+                c2ws_np = list(poses_all.numpy())
+                Ks_np = [K.numpy()] * len(c2ws_np)
+                save_ply(os.path.join(scene_dir, "points.ply"), pts_np, cols_np)
+                save_colmap(scene_dir, Ks_np, c2ws_np, ww, hw, pts_np, cols_np)
+                save_html_viewer(os.path.join(scene_dir, "viewer.html"), pts_np, cols_np,
+                                 c2ws_np, Ks_np, height=hw)
         return np.concatenate(out_segments, axis=0)

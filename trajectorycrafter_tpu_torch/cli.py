@@ -13,7 +13,10 @@ torchrun, one process a rank:
     torchrun --nproc_per_node 4 -m trajectorycrafter_tpu_torch.cli \
         --mesh_sp 2 --mesh_tp 2 --video_path ... --traj_txt ...
 
-A mesh whose product is not the world size raises.  One option of the port
+The scripts of ``scripts/`` built on ``TrajCrafter`` (the orbit sweep,
+autoregressive v1 and v2, known cameras, consistent depth) take the same
+flags and start the same world (``entry_world``); the Gradio app refuses
+them.  A mesh whose product is not the world size raises.  One option of the port
 alone chooses the transport: ``--dist_backend`` (``nccl``, the default, one
 card a rank; or ``gloo``, which also runs several ranks on one card: with
 fewer cards than ranks, the ranks share them evenly).
@@ -22,10 +25,12 @@ fewer cards than ranks, the ranks share them evenly).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from datetime import datetime
 
 import torch
+import torch.distributed as dist
 
 from trajectorycrafter_tpu_torch.config import TrajCrafterConfig
 from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter, check_supported
@@ -231,30 +236,46 @@ def require_card() -> None:
 
 
 def start_world(cfg: TrajCrafterConfig, backend: str = "nccl") -> bool:
-    """Start the process group of a sharded run from torchrun's environment;
-    False at a 1x1x1 mesh, which runs unsharded with no process group.
-    Raises, before anything is built, where the mesh's product is not the
-    world size."""
+    """The process group of a sharded run: started from torchrun's
+    environment, or, where this process runs one already (a caller's world:
+    the tests' gloo worlds, the smoke's torchrun world), that one, which
+    must hold as many ranks as the mesh.  Returns whether this call started
+    it (the caller then shuts it down: ``entry_world``); False at a 1x1x1
+    mesh, which runs unsharded with no process group.  Raises, before
+    anything is built, where the mesh's product is not the world size."""
     par = cfg.parallel
     n = par.dp * par.sp * par.tp
-    world = int(os.environ.get("WORLD_SIZE", "1"))
+    running = dist.is_initialized()
+    world = dist.get_world_size() if running else int(os.environ.get("WORLD_SIZE", "1"))
     if n != world:
         raise ValueError(f"the mesh --mesh_dp {par.dp} x --mesh_sp {par.sp} x --mesh_tp "
                          f"{par.tp} = {n} ranks does not match the world of {world} "
                          "(torchrun --nproc_per_node)")
-    if n == 1:
+    if n == 1 or running:
         return False
     distributed.init_from_env(backend)
     return True
+
+
+@contextlib.contextmanager
+def entry_world(cfg: TrajCrafterConfig, backend: str = "nccl"):
+    """The process group of an entry point's run (``start_world``) while the
+    block runs, shut down after it where this call started it; yields
+    whether this rank leads (rank 0 of a mesh, or an unsharded run): the
+    leader alone makes directories, writes and prints."""
+    started = start_world(cfg, backend)
+    try:
+        yield not dist.is_initialized() or dist.get_rank() == 0
+    finally:
+        if started:
+            distributed.shutdown()
 
 
 def main(argv=None) -> None:
     args = get_parser().parse_args(argv)
     cfg = parse_config(argv)
     require_card()
-    sharded = start_world(cfg, args.dist_backend)
-    try:
-        leader = not sharded or distributed.world_axis().index == 0
+    with entry_world(cfg, args.dist_backend) as leader:
         if leader:
             os.makedirs(cfg.save_dir, exist_ok=True)
         tc = TrajCrafter(cfg)
@@ -263,9 +284,6 @@ def main(argv=None) -> None:
         modes[cfg.render.mode]()
         if leader:
             print(f"outputs written to {cfg.save_dir}")
-    finally:
-        if sharded:
-            distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -24,6 +24,14 @@ the bundle's device.  The downsample draws from a ``torch.Generator`` seeded
 with ``--seed``: ``jax.random`` cannot be replayed, so a run cannot
 reproduce the JAX package's points from a seed.  Stages: those of the modes,
 ``relift`` (the first lift), ``align`` and ``render``.
+
+Under a mesh (orchestrator.py's rule) the leader reads and captions the
+clip and hands the frames on, keeps the clouds, lifts, renders, merges and
+downsamples them, writes the stage directories and cameras, and hands each
+stage's renders and masks to every rank, which runs the pipeline.  The VDA
+and its alignment trainer run on the leader alone (the other ranks hold
+none); without a VDA the segment depth is the collective DepthCrafter stage
+on every rank, and the leader aligns it to the clouds' renders.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from trajectorycrafter_tpu_torch.models.vda import infer_video_depth, normalize_
 from trajectorycrafter_tpu_torch.ops.morphology import mask_open
 from trajectorycrafter_tpu_torch.ops.resize import resize_linear, resize_nearest
 from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter, resize_video
+from trajectorycrafter_tpu_torch.parallel import distributed as D
 
 DEPTH_SCALE = 10000.0
 
@@ -160,9 +169,12 @@ class TrajCrafterConsistentDepth(TrajCrafter):
 
     def __init__(self, cfg, models=None, vda=None, align_epochs: int = 50,
                  resize_factor: int = 2, depth_scale: float = DEPTH_SCALE,
-                 tae_weight: float = 0.0):
-        super().__init__(cfg, models)
+                 tae_weight: float = 0.0, mesh=None):
+        super().__init__(cfg, models, mesh)
         self.vda = vda
+        # under a mesh the leader alone holds the VDA: every rank follows its route
+        self.uses_vda = vda is not None if self.mesh is None else \
+            D.broadcast_object(vda is not None if self.leader else None, self.mesh.world)
         self.align_epochs = align_epochs
         self.resize_factor = resize_factor
         self.depth_scale = depth_scale
@@ -171,13 +183,15 @@ class TrajCrafterConsistentDepth(TrajCrafter):
             DepthAlignmentTrainer(vda, depth_scale=depth_scale, tae_weight=tae_weight)
 
     # -- depth ---------------------------------------------------------------
-    def _segment_depth(self, frames01: np.ndarray) -> np.ndarray:
+    def _segment_depth(self, frames01: np.ndarray) -> Optional[np.ndarray]:
         """(F, H, W) metric depth of a segment: the VDA on the frames
         reflect-padded to multiples of 14 (windows of 32 sharing 10),
-        inverted with ``depth_scale`` and cropped; DepthCrafter without a
-        VDA."""
-        if self.vda is None:
+        inverted with ``depth_scale`` and cropped, on the leader (None on the
+        other ranks of a mesh); DepthCrafter without a VDA, on every rank."""
+        if not self.uses_vda:
             return self._estimate_depth(frames01)[:, 0]
+        if not self.leader:
+            return None
         f, h, w, _ = frames01.shape
         ph, pw = (-h) % 14, (-w) % 14
         top, left = ph // 2, pw // 2
@@ -190,7 +204,12 @@ class TrajCrafterConsistentDepth(TrajCrafter):
                             intrinsic: torch.Tensor, global_pcs: PointClouds,
                             generator: torch.Generator):
         """Render sparse depth from the clouds, align a fresh estimate to it,
-        lift the frames with it and merge -> (clouds, aligned depth)."""
+        lift the frames with it and merge -> (clouds, aligned depth); under a
+        mesh the DepthCrafter estimate runs on every rank, the rest on the
+        leader (the other ranks get (None, None))."""
+        raw = None if self.uses_vda else self._segment_depth(frames01)
+        if not self.leader:
+            return None, None
         hw = frames01.shape[1:3]
         _, sparse_depth, sparse_mask = render_video_from_pcs(global_pcs, poses_source,
                                                              intrinsic, hw)
@@ -200,7 +219,6 @@ class TrajCrafterConsistentDepth(TrajCrafter):
                 poses_source.cpu().numpy(), self.trainer, depth_scale=self.depth_scale,
                 resize_factor=self.resize_factor, epochs=self.align_epochs, device=self.device)
         else:
-            raw = self._segment_depth(frames01)
             aligned = estimate_depth_with_alignment(raw, sparse_depth, sparse_mask,
                                                     steps=self.align_epochs, device=self.device)
         new_pcs = lift_video_to_pcs(self._to_device(frames01), self._to_device(aligned),
@@ -218,45 +236,63 @@ class TrajCrafterConsistentDepth(TrajCrafter):
         cfg = self.cfg
         seg_len = cfg.video_length
         hw, ww = cfg.warp_size
-        with self.timer("read_frames"):
-            frames = self._load_frames()
-        with self.timer("caption"):
-            prompt = self.models.get_caption(frames[seg_len // 2]) + cfg.diffusion.refine_prompt
+        frames = prompt = None
+        if self.leader:
+            with self.timer("read_frames"):
+                frames = self._load_frames()
+            with self.timer("caption"):
+                prompt = self.models.get_caption(frames[seg_len // 2]) + \
+                    cfg.diffusion.refine_prompt
+        if self.mesh is not None:
+            with self.timer("handoff"):
+                (frames,) = self._from_leader(frames)
         with self.timer("depth"):
             depths = self._segment_depth(frames)
 
-        with self.timer("poses"):
-            radius = pose_radius_from_depth(depths[0], cfg.render.radius_scale)
-            K = intrinsics_matrix(cfg.render.focal, cfg.render.cx, cfg.render.cy).to(self.device)
-            # the target chain over every segment; the source is its first pose
-            poses_all = generate_traj_specified(default_c2w(), theta, phi, d_r * radius, d_x, d_y,
-                                                seg_len * n_splits)
-            poses_all[:, 2, 3] += radius
-            poses_all = poses_all.to(self.device)
-            c2ws_init = poses_all[0:1].repeat(seg_len, 1, 1)
-        with self.timer("relift"):
-            global_pcs = lift_video_to_pcs(self._to_device(frames), self._to_device(depths), K,
-                                           c2ws_init)
+        global_pcs = poses_all = poses_source = K = generator = None
+        if self.leader:
+            with self.timer("poses"):
+                radius = pose_radius_from_depth(depths[0], cfg.render.radius_scale)
+                K = intrinsics_matrix(cfg.render.focal, cfg.render.cx,
+                                      cfg.render.cy).to(self.device)
+                # the target chain over every segment; the source is its first pose
+                poses_all = generate_traj_specified(default_c2w(), theta, phi, d_r * radius,
+                                                    d_x, d_y, seg_len * n_splits)
+                poses_all[:, 2, 3] += radius
+                poses_all = poses_all.to(self.device)
+                poses_source = poses_all[0:1].repeat(seg_len, 1, 1)
+            with self.timer("relift"):
+                global_pcs = lift_video_to_pcs(self._to_device(frames), self._to_device(depths),
+                                               K, poses_source)
+            generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
         out_segments: List[np.ndarray] = []
-        cur_frames, poses_source = frames, c2ws_init
+        cur_frames = frames
         base_dir = cfg.save_dir
-        generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         for stage in range(n_splits):
-            poses_target = poses_all[stage * seg_len:(stage + 1) * seg_len]
             stage_dir = os.path.join(base_dir, f"stage_{stage:02d}")
-            if save_stages:
-                os.makedirs(stage_dir, exist_ok=True)
-                np.save(os.path.join(stage_dir, "c2ws_target.npy"), poses_target.cpu().numpy())
-                np.save(os.path.join(stage_dir, "c2ws_source.npy"), poses_source.cpu().numpy())
+            renders = masks = None
+            if self.leader:
+                poses_target = poses_all[stage * seg_len:(stage + 1) * seg_len]
+                if save_stages:
+                    os.makedirs(stage_dir, exist_ok=True)
+                    np.save(os.path.join(stage_dir, "c2ws_target.npy"),
+                            poses_target.cpu().numpy())
+                    np.save(os.path.join(stage_dir, "c2ws_source.npy"),
+                            poses_source.cpu().numpy())
             if stage > 0:
                 with self.timer("align"):
                     global_pcs, _ = self._align_video_to_pcs(cur_frames, poses_source, K,
                                                              global_pcs, generator)
-            if stage % 2 == 0:
-                global_pcs = global_pcs[::-1]
-            with self.timer("render"):
-                renders, _, masks = render_video_from_pcs(global_pcs, poses_target, K, (hw, ww))
+            if self.leader:
+                if stage % 2 == 0:
+                    global_pcs = global_pcs[::-1]
+                with self.timer("render"):
+                    renders, _, masks = render_video_from_pcs(global_pcs, poses_target, K,
+                                                              (hw, ww))
+            if self.mesh is not None:
+                with self.timer("handoff"):
+                    renders, masks = self._from_leader(renders, masks)
 
             cfg.save_dir = stage_dir if save_stages else base_dir
             try:
@@ -267,5 +303,6 @@ class TrajCrafterConsistentDepth(TrajCrafter):
             out_segments.append(gen)
             if stage + 1 < n_splits:
                 cur_frames = resize_video(gen, (hw, ww))
-                poses_source = poses_target
+                if self.leader:
+                    poses_source = poses_target
         return np.concatenate(out_segments, axis=0)

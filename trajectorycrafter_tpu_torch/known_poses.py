@@ -14,6 +14,13 @@ resizes the warp-size conditions as the JAX package does.
 target over the clip (quaternion SLERP of the world-to-camera matrices, lerp
 of the intrinsics: geometry/interpolate.py) and, given the held-out target
 view, scores the last generated frame against it (``evaluate_target_view``).
+
+Under a mesh (orchestrator.py's rule) every rank passes the same clip,
+depth and cameras (scripts/run_w_cam_poses.py reads them on the leader and
+hands them on); a depth left None is estimated by the collective depth
+stage, the caption is the leader's, the warp runs on the mesh and every
+rank runs the pipeline; the leader alone makes directories and writes the
+metrics.
 """
 
 from __future__ import annotations
@@ -342,16 +349,17 @@ class CameraPoseTrajCrafter(TrajCrafter):
         if depths is None:
             with self.timer("depth"):
                 depths = self._estimate_depth(frames)[:, 0]
-        with self.timer("caption"):
-            prompt = (prompt or self.models.get_caption(frames[n // 2])) + \
-                cfg.diffusion.refine_prompt
+        if self.leader:
+            with self.timer("caption"):
+                prompt = (prompt or self.models.get_caption(frames[n // 2])) + \
+                    cfg.diffusion.refine_prompt
         to_dev = self._to_device
         with self.timer("warp"):
             t1 = to_dev(source_cam.w2c)[None].repeat(n, 1, 1)
             k1 = to_dev(source_cam.K)[None].repeat(n, 1, 1)
             warped, masks, _, _ = forward_warp_batch(
                 to_dev(frames * 2.0 - 1.0), to_dev(depths), t1, to_dev(t2), k1, to_dev(k2),
-                use_mask_clean=cfg.render.mask)
+                use_mask_clean=cfg.render.mask, mesh=self.mesh)
             cond = ((warped + 1.0) / 2.0).cpu().numpy()
             masks = masks.cpu().numpy()
         return prompt, cond, masks
@@ -388,7 +396,8 @@ class CameraPoseTrajCrafter(TrajCrafter):
         try:
             for i, cam in enumerate(target_cams):
                 self.cfg.save_dir = os.path.join(base, f"view_{i:02d}")
-                os.makedirs(self.cfg.save_dir, exist_ok=True)
+                if self.leader:
+                    os.makedirs(self.cfg.save_dir, exist_ok=True)
                 outs.append(self.infer_camera_poses(frames, depths, source_cam, cam, prompt))
         finally:
             self.cfg.save_dir = base
@@ -407,7 +416,8 @@ class CameraPoseTrajCrafter(TrajCrafter):
         source's interpolated k / (F - 1) of the way to the target's (the
         dataset's raw world-to-camera matrices SLERPed, the intrinsics
         lerped); with ``target_frames`` the last generated frame is scored
-        against the last ground-truth one -> (gen, metrics or None)."""
+        against the last ground-truth one -> (gen, metrics or None; under a
+        mesh the leader scores and writes, the other ranks get None)."""
         n = frames.shape[0]
         t2 = interpolate_poses(source_cam.w2c, target_cam.w2c, n).numpy()
         k2 = interpolate_intrinsics(source_cam.K, target_cam.K, n).numpy()
@@ -415,7 +425,7 @@ class CameraPoseTrajCrafter(TrajCrafter):
         gen = self._diffuse_and_save(frames, cond, masks, prompt,
                                      ref_slice=slice(0, self.cfg.diffusion.ref_frames))
         metrics = None
-        if target_frames is not None:
+        if target_frames is not None and self.leader:
             metrics = evaluate_target_view(gen, target_frames, self.cfg.save_dir,
                                            seq_name="smooth", fps=self.cfg.fps)
         return gen, metrics

@@ -460,9 +460,13 @@ def vae_decode_tiled(vae: AutoencoderKLCogVideoX, latents: torch.Tensor,
     8 tile - blend pixels, and the mosaic is cropped to 8h x 8w.  The tiles
     are taken in fp32 before blending, as JAX promotes a bf16 tile mixed with
     its fp32 ramp.
+
+    On a spatially sharded twin each tile is decoded on the plane, H on dp
+    and W on sp (``vae_decode``: this rank's slab, the tile gathered over
+    the plane), and every rank blends the whole tiles as the unsharded
+    decode does.  A tile that would leave a rank of the plane without a
+    latent row or column raises before anything runs.
     """
-    if vae.plane is not None:
-        raise ValueError("the tiled decode does not run on a spatially sharded VAE")
     b, t, h, w, c = latents.shape
     stride_h = int(tile_latent_height * (1 - overlap_factor_h))
     stride_w = int(tile_latent_width * (1 - overlap_factor_w))
@@ -470,10 +474,15 @@ def vae_decode_tiled(vae: AutoencoderKLCogVideoX, latents: torch.Tensor,
     blend_w_px = int(8 * tile_latent_width * overlap_factor_w)
     row_limit_h = tile_latent_height * 8 - blend_h_px
     row_limit_w = tile_latent_width * 8 - blend_w_px
+    tops, lefts = range(0, h, stride_h), range(0, w, stride_w)
+    if vae.plane is not None:
+        for i in tops:
+            for j in lefts:
+                vae.plane.extents(min(tile_latent_height, h - i), min(tile_latent_width, w - j))
 
     rows = [[vae_decode(vae, latents[:, :, i:i + tile_latent_height,
                                      j:j + tile_latent_width]).float()
-             for j in range(0, w, stride_w)] for i in range(0, h, stride_h)]
+             for j in lefts] for i in tops]
     out_rows = []
     for i, row in enumerate(rows):
         out_row = []
@@ -533,16 +542,12 @@ def vae_decode_auto(vae: AutoencoderKLCogVideoX, latents: torch.Tensor, memory_b
     latent rows blended over 1/7 of a strip (the JAX ``vae_decode_auto``'s
     rule, chosen before anything runs; the caller passes the memory, e.g.
     ``decode_memory_bytes(device)``).  On a spatially sharded twin the
-    estimate is a rank's (``decode_peak_divisor``) and the one-shot decode
-    runs on the slabs; strips are not sharded, so a size that would need
-    them raises."""
-    divisor = decode_peak_divisor(vae)
-    if not decode_is_tiled(latents.shape, memory_bytes, divisor):
+    estimate is a rank's (``decode_peak_divisor``), and the one-shot decode
+    or each strip runs on the plane (``vae_decode_tiled``), as JAX's
+    ``_decode_jit`` dispatches its strips on latents laid out H on dp and W
+    on sp."""
+    if not decode_is_tiled(latents.shape, memory_bytes, decode_peak_divisor(vae)):
         return vae_decode(vae, latents)
-    if vae.plane is not None:
-        raise ValueError(f"latents of {tuple(latents.shape)} need the strip decode even on a "
-                         f"1/{divisor} slab of {memory_bytes / 2**30:.1f} GiB: the sharded "
-                         "decode has no strips")
     return vae_decode_tiled(vae, latents, tile_latent_height=strip_height,
                             tile_latent_width=latents.shape[3],
                             overlap_factor_h=1.0 / 7.0, overlap_factor_w=0.0)

@@ -16,23 +16,28 @@ gen, viz).  The modes differ in what they warp:
     reference frames are the last ones;
   * ``infer_zoom``: a dolly zoom, the target focal ramped per frame.
 
-Under ``--mesh_dp/--mesh_sp/--mesh_tp`` (ranks started by torchrun, cli.py)
-the four modes run sharded as the JAX package's: the leader (rank 0) reads
-the frames and captions, and hands the frames to every rank; every rank
-runs its share of the depth stage (pipelines/depth.py ``with_mesh``: CLIP
-and the SVD VAE on whole frames over every rank, the UNet's windows with
-frames on dp and latent rows on sp) and ends with the whole depth; the
-leader makes the poses and encodes the prompt, and hands the poses to
-every rank; every rank warps its share of the frames (ops/splat.py, frames
-over every mesh axis) and runs the pipeline (pipelines/trajcrafter.py
-``with_mesh``): its slab of the VAE's condition prep and decode (H on dp,
-W on sp) and its shard of the denoise (the DiT tensor-parallel over tp,
-its tokens on sp, the CFG pair on dp).  Every rank holds the VAE, its DiT
-shard and the depth stage's models (the UNet, the SVD VAE, CLIP); the
-leader also T5 and the captioner.  The leader alone writes the mp4s and
-returns the video; the other ranks return None.  The other entry points
-(autoregressive.py, known_poses.py, consistent_autoregressive.py) are not
-driven under a mesh.
+Under ``--mesh_dp/--mesh_sp/--mesh_tp`` (ranks started by torchrun, cli.py
+``entry_world``) every entry point runs sharded as the JAX package's, by
+one rule: a step that calls a collective runs on every rank, in the same
+order; a step that runs on one device runs on the leader (rank 0) alone,
+and ``_from_leader`` hands its arrays to every rank.  The collective steps
+are the depth stage (pipelines/depth.py ``with_mesh``: CLIP and the SVD VAE
+on whole frames over every rank, the UNet's windows with frames on dp and
+latent rows on sp; every rank ends with the whole depth), the warp (ops/
+splat.py, frames over every mesh axis, every frame's outputs back on every
+rank) and the pipeline (pipelines/trajcrafter.py ``with_mesh``: its slab of
+the VAE's condition prep and decode, H on dp and W on sp, and its shard of
+the denoise, the DiT tensor-parallel over tp, its tokens on sp, the CFG
+pair on dp; the whole video back on every rank).  The leader's steps are
+the frames' reading and the caption, the poses, the prompt encode, and in
+the subclasses the z-buffer renders, the point clouds, the VDA and its
+alignment trainer and the dataset readers (autoregressive.py,
+known_poses.py, consistent_autoregressive.py).  Every rank holds the VAE,
+its DiT shard and the depth stage's models (the UNet, the SVD VAE, CLIP);
+the leader also T5 and the captioner.  ``_diffuse_and_save`` returns the
+generated video on every rank, so a loop that feeds a segment forward runs
+its next collective step on every rank; the leader alone makes directories
+and writes files.
 
 ``build_models`` loads the checkpoints of an HF-layout tree
 (``load_full_bundle``, utils/checkpoints.py) onto the card, or onto the CPU
@@ -270,8 +275,12 @@ def stage_mesh(cfg: TrajCrafterConfig):
     from trajectorycrafter_tpu_torch.parallel.mesh import make_mesh
 
     if not dist.is_initialized():
-        raise RuntimeError("--mesh_dp/--mesh_sp/--mesh_tp need a process group of that many "
-                           "ranks: start them with torchrun (cli.py)")
+        raise RuntimeError(
+            "--mesh_dp/--mesh_sp/--mesh_tp need a process group of that many ranks, which "
+            "the entry points start under torchrun (cli.py and scripts/inference_orbits.py, "
+            "inference_autoregressive.py, autoregressive_global.py, run_w_cam_poses.py, "
+            "inference_alignment.py: cli.entry_world); a caller building TrajCrafter itself "
+            "starts it first (parallel/distributed.py init or init_from_env)")
     return make_mesh(dp=par.dp, sp=par.sp, tp=par.tp)
 
 
@@ -513,18 +522,19 @@ class TrajCrafter:
 
     def _from_leader(self, *xs):
         """Under a mesh, the leader's host arrays (numpy, or torch on the
-        host) on every rank, each of the leader's kind; the other ranks pass
-        as many placeholders.  Without a mesh, ``xs``."""
+        host; None passes as None) on every rank, each of the leader's kind;
+        the other ranks pass as many placeholders.  Without a mesh, ``xs``."""
         if self.mesh is None:
             return xs
         world = self.mesh.world
-        kinds = D.broadcast_object([isinstance(x, np.ndarray) for x in xs]
-                                   if self.leader else None, world)
-        got = D.broadcast_tensors([torch.as_tensor(x) for x in xs] if self.leader else None,
-                                  world, self.device)
+        kinds = D.broadcast_object([None if x is None else isinstance(x, np.ndarray)
+                                    for x in xs] if self.leader else None, world)
+        got = D.broadcast_tensors([None if x is None else torch.as_tensor(x) for x in xs]
+                                  if self.leader else None, world, self.device)
         if self.leader:
             return xs
-        return tuple(g.cpu().numpy() if numpy else g.cpu() for g, numpy in zip(got, kinds))
+        return tuple(None if numpy is None else g.cpu().numpy() if numpy else g.cpu()
+                     for g, numpy in zip(got, kinds))
 
     # -- pose synthesis --------------------------------------------------
     def get_poses(self, depths: np.ndarray, num_frames: int, f_new: Optional[float] = None):
@@ -613,8 +623,8 @@ class TrajCrafter:
         frame k.
 
         Under a mesh every rank runs the pipeline on its own copy of the
-        conditions; the leader alone encodes the prompt and writes the
-        mp4s, and the other ranks return None.
+        conditions (bit-equal on every rank) and gets the generated video
+        back; the leader alone encodes the prompt and writes the mp4s.
         """
         cfg = self.cfg
         hs, ws = cfg.diffusion.sample_size
@@ -649,12 +659,12 @@ class TrajCrafter:
             latents=self._initial_latents(f),
             noise_aug_strength=cfg.diffusion.noise_aug_strength,
         )
+        # fetch as uint8: the mp4 stores 8 bits anyway
+        gen = torch.round(sample[0].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        gen = gen.cpu().numpy().astype(np.float32) / 255.0
         if not self.leader:
-            return None
+            return gen
         with self.timer("write_mp4"):
-            # fetch as uint8: the mp4 stores 8 bits anyway
-            gen = torch.round(sample[0].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-            gen = gen.cpu().numpy().astype(np.float32) / 255.0
             saves.join()
             save_video(gen[save_skip:], os.path.join(cfg.save_dir, "gen.mp4"), fps=cfg.fps)
             # side-by-side viz with a boomerang reverse

@@ -32,8 +32,9 @@ its generator's state to every rank before anything is drawn, so that
 every rank draws the same noise: the condition prep and the decode run on
 every rank, each on its slab, the latents gathered over the plane; every
 rank runs the same sampling loop on bit-equal latents.  The img2img encode
-(strength < 1) runs unsharded on the leader, as the JAX package's.  The
-leader returns the result, the other ranks None.
+(strength < 1) runs unsharded on the leader, as the JAX package's.  Every
+rank returns the result: the final latents are bit-equal on every rank, and
+the decode gathers the whole video on every rank of each plane.
 """
 
 from __future__ import annotations
@@ -112,8 +113,8 @@ class TrajCrafterPipeline:
 
     @property
     def leader(self) -> bool:
-        """True unless a mesh makes this rank one that does not return the
-        result."""
+        """True unless a mesh makes this rank one that takes the sampling
+        arguments from the leader."""
         return self.mesh is None or self.mesh.leader
 
     @property
@@ -398,10 +399,9 @@ class TrajCrafterPipeline:
                                     use_dynamic_cfg, generator, ancestral_noise_override)
 
         if output_type == "latent":
-            return latents if self.leader else None
+            return latents
         with self.timer("vae_decode"):
-            video = self.decode(latents)
-        return video if self.leader else None
+            return self.decode(latents)
 
     @torch.no_grad()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:

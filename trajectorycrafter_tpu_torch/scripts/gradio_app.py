@@ -9,7 +9,8 @@ examples, and a queued generate action (``run_pipeline``: one
 ``infer_gradual`` toward the pose into a timestamped run directory) that
 returns the side-by-side viz video.  ``gradio`` is imported in
 ``build_app`` only, so the module imports without it; serving needs it
-installed.
+installed.  The app serves from one process: it refuses
+``--mesh_dp/--mesh_sp/--mesh_tp`` before it builds anything.
 """
 
 from __future__ import annotations
@@ -161,6 +162,12 @@ def main(argv=None):
     parser = get_parser()
     parser.add_argument("--port", type=int, default=12345)
     args = parser.parse_args(argv)
+    if args.mesh_dp * args.mesh_sp * args.mesh_tp > 1:
+        raise SystemExit(
+            "error: the Gradio app serves from one process and takes no --mesh_dp/--mesh_sp/"
+            "--mesh_tp: a sharded run needs every rank in step, which a queue of web "
+            "requests on one process does not give; run cli.py or a script of scripts/ "
+            "under torchrun for a sharded run")
     require_card()
     args.video_path = args.video_path or "unused"
     cfg = config_from_args(args)

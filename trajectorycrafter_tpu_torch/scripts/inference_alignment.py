@@ -11,7 +11,11 @@ stage's mp4s and cameras to ``stage_XX/`` and the joined video to
 Video-Depth-Anything checkpoint (``.pth``, or a ``.safetensors`` of its
 keys), held to its key manifest as it loads; a file that fails to load is an
 error.  Without the flag, the segment depth is DepthCrafter's, aligned per
-frame to the clouds' renders.
+frame to the clouds' renders.  Under ``--mesh_dp/--mesh_sp/--mesh_tp``
+(torchrun, as cli.py) the leader alone reads and checks the checkpoint and
+holds the VDA (a file that fails to load ends the leader, and torchrun the
+other ranks), the run is sharded (consistent_autoregressive.py), and the
+leader alone writes.
 """
 
 from __future__ import annotations
@@ -19,7 +23,12 @@ from __future__ import annotations
 import os
 
 from trajectorycrafter_tpu_torch import orchestrator
-from trajectorycrafter_tpu_torch.cli import config_from_args, get_parser, require_card
+from trajectorycrafter_tpu_torch.cli import (
+    config_from_args,
+    entry_world,
+    get_parser,
+    require_card,
+)
 from trajectorycrafter_tpu_torch.consistent_autoregressive import TrajCrafterConsistentDepth
 from trajectorycrafter_tpu_torch.orchestrator import check_supported
 from trajectorycrafter_tpu_torch.utils.checkpoints import load_vda
@@ -48,20 +57,27 @@ def main(argv=None):
     cfg = config_from_args(args)
     check_supported(cfg)
     require_card()
-    os.makedirs(cfg.save_dir, exist_ok=True)
-
-    # the checkpoint is read and checked before the bundle is built
-    vda = load_vda(args.vda_ckpt, args.vda_encoder, device="cpu") if args.vda_ckpt else None
-    models = orchestrator.build_models(cfg)
-    if vda is not None:
-        vda = vda.to(models.pipeline.device)
-    tc = TrajCrafterConsistentDepth(cfg, models=models, vda=vda,
-                                    align_epochs=args.align_epochs,
-                                    resize_factor=args.resize_factor, tae_weight=args.tae_weight)
-    video = tc.infer_autoregressive(n_splits=args.n_splits, theta=args.total_theta,
-                                    phi=args.total_phi, d_r=args.total_dr)
-    save_video(video, os.path.join(cfg.save_dir, "autoregressive_aligned.mp4"), fps=cfg.fps)
-    print(f"wrote {video.shape[0]} frames to {cfg.save_dir}")
+    with entry_world(cfg, args.dist_backend) as leader:
+        # the checkpoint is read and checked on the leader before any model is built
+        vda = None
+        if leader:
+            os.makedirs(cfg.save_dir, exist_ok=True)
+            if args.vda_ckpt:
+                vda = load_vda(args.vda_ckpt, args.vda_encoder, device="cpu")
+        mesh = orchestrator.stage_mesh(cfg)
+        models = orchestrator.build_models(cfg, mesh=mesh)
+        if vda is not None:
+            vda = vda.to(models.pipeline.device)
+        tc = TrajCrafterConsistentDepth(cfg, models=models, vda=vda,
+                                        align_epochs=args.align_epochs,
+                                        resize_factor=args.resize_factor,
+                                        tae_weight=args.tae_weight, mesh=mesh)
+        video = tc.infer_autoregressive(n_splits=args.n_splits, theta=args.total_theta,
+                                        phi=args.total_phi, d_r=args.total_dr)
+        if leader:
+            save_video(video, os.path.join(cfg.save_dir, "autoregressive_aligned.mp4"),
+                       fps=cfg.fps)
+            print(f"wrote {video.shape[0]} frames to {cfg.save_dir}")
     return video
 
 

@@ -5,7 +5,10 @@
 
 The port's counterpart of the root ``inference_autoregressive.py``: the CLI's
 flags plus the trajectory's; writes each segment's mp4s to the run's
-directory and the joined video to ``autoregressive.mp4``.
+directory and the joined video to ``autoregressive.mp4``.  Under
+``--mesh_dp/--mesh_sp/--mesh_tp`` (torchrun, as cli.py) it runs sharded
+(autoregressive.py) and the leader alone writes; every rank returns the
+joined video.
 """
 
 from __future__ import annotations
@@ -13,7 +16,12 @@ from __future__ import annotations
 import os
 
 from trajectorycrafter_tpu_torch.autoregressive import TrajCrafterAutoregressive
-from trajectorycrafter_tpu_torch.cli import config_from_args, get_parser, require_card
+from trajectorycrafter_tpu_torch.cli import (
+    config_from_args,
+    entry_world,
+    get_parser,
+    require_card,
+)
 from trajectorycrafter_tpu_torch.orchestrator import check_supported
 from trajectorycrafter_tpu_torch.utils.video import save_video
 
@@ -32,14 +40,17 @@ def main(argv=None):
     cfg = config_from_args(args)
     check_supported(cfg)
     require_card()
-    os.makedirs(cfg.save_dir, exist_ok=True)
-
-    tc = TrajCrafterAutoregressive(cfg)
-    video = tc.infer_autoregressive(n_splits=args.n_splits, overlap_frames=args.overlap_frames,
-                                    theta=args.total_theta, phi=args.total_phi,
-                                    d_r=args.total_dr)
-    save_video(video, os.path.join(cfg.save_dir, "autoregressive.mp4"), fps=cfg.fps)
-    print(f"wrote {video.shape[0]} frames to {cfg.save_dir}/autoregressive.mp4")
+    with entry_world(cfg, args.dist_backend) as leader:
+        if leader:
+            os.makedirs(cfg.save_dir, exist_ok=True)
+        tc = TrajCrafterAutoregressive(cfg)
+        video = tc.infer_autoregressive(n_splits=args.n_splits,
+                                        overlap_frames=args.overlap_frames,
+                                        theta=args.total_theta, phi=args.total_phi,
+                                        d_r=args.total_dr)
+        if leader:
+            save_video(video, os.path.join(cfg.save_dir, "autoregressive.mp4"), fps=cfg.fps)
+            print(f"wrote {video.shape[0]} frames to {cfg.save_dir}/autoregressive.mp4")
     return video
 
 
