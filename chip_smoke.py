@@ -30,18 +30,19 @@ prints no result line):
      ``flash_pv8``, K7 ``int8_flash_attention``) the same way, at the
      attention bench's DiT shape and the main path's shapes (K7 also at
      head dim 128, ``K7_D128_SHAPE``; K5 also at run S's per-rank shape,
-     ``RUN_S_K5_SHAPE``, and at run T1's, ``RUN_T_K5_SHAPES``);
+     ``RUN_S_K5_SHAPE``, and at run T1's and T5's, ``RUN_T_K5_SHAPES``);
   4b. the attention backward (``flash_attention_bwd_dkv``, K4-dkv, and
      ``flash_attention_bwd_dq``, K4-dq, csrc/flash_attention_bwd.cu) against
      ``attention_backward_reference`` at the training shapes (the DiT's (1,
      48, 13,330^2, 64), the Perceiver's (1, 16, 13,104 x 3,024, 128)), at
-     run T1's per-rank shapes (``RUN_T_K5_SHAPES``), a ragged shape, the ragged edges and strided views, within
+     run T1's and T5's per-rank shapes (``RUN_T_K5_SHAPES``: T5's ring hop
+     (1, 24, 1,625^2, 64), odd and no multiple of a tile), a ragged shape, the ragged edges and strided views, within
      ``attention_backward_error`` (per element 2^-6 of the gradient's sum of
      magnitudes, per head a relative L2 error of 2^-6), which must reject di
      left out, the last quarter of the 64-query tiles skipped in dK/dV and
      of the 128-key tiles in dQ (the kernels' own tiles); then each timed at
      full shape in turns with the plain version and flash SDPA's backward,
-     beside its bound (also at run T1's shapes);
+     beside its bound (also at run T1's and T5's shapes);
   5. main path: ``TrajCrafter.infer_gradual`` at the deployed widths (random
      weights from a seed; T5-XXL prompt encode; the DepthCrafter depth
      stage, 5 Euler steps over one 49-frame window at 576x1024; 2 denoise
@@ -119,7 +120,8 @@ prints no result line):
      data and twin: 2 samples of 9 frames (every 6th of the scenes' 49) by
      ``datagen``, and ``scripts/train_lora.main`` unsharded on them
      (``--batch_size 2``, ``RUN_T_STEPS`` steps) on the DiT cut to
-     ``RUN_T_LAYERS`` blocks, its launches derived;
+     ``RUN_T_LAYERS`` blocks, its launches derived; and T5's twin, one
+     unsharded step on the first sample;
   5f. run Q, DiT feature probing (after 5e, on the same bf16 DiT with the
      JAX default route ``auto``, no recomputation): ``probing.
      collect_activation_dataset`` over run P's 2 samples at timesteps 311
@@ -213,10 +215,13 @@ prints no result line):
      ``--mesh_dp 2 --mesh_tp 2 --batch_size 2`` on the full-width bf16 DiT
      cut to ``RUN_T_LAYERS`` blocks over phase 5e's 9-frame samples,
      ``RUN_T_STEPS`` steps, against the twin; T2 the
-     check of the check of the gradient reductions, three planted faults;
+     check of the check of the gradient reductions, three planted faults
+     under dp 2 x tp 2 and three under dp 1 x sp 2 x tp 2;
      T3 GPipe over pp 3 at full depth on the int8 DiT against the
      sequential block loop; T4 GPipe with pp 2 x tp 2 on 4 layers, and a
-     planted skipped hop; ``tools/run_t.py`` runs it alone;
+     planted skipped hop; T5 one LoRA step with the token stream on sp
+     (dp 1 x sp 2 x tp 2, the differentiable ring) against its twin;
+     ``tools/run_t.py`` runs it alone;
   5u. run U, in the same torchrun world once run T's models are freed (see
      RUN_U_ARGV): phase 8's five scripts through ``main(argv)`` on the tree
      under run S's mesh, one bundle a rank: each leader's output against
@@ -1075,7 +1080,7 @@ def phase_variants():
         b, h, sq, skv, d = shape
         scale = d ** -0.5
         q, k, v = (randn(b, n, h, d).bfloat16() for n in (sq, skv, skv))
-        if prefix == "run_t_perceiver":
+        if prefix.endswith("perceiver"):
             q = q * 4.0  # the Perceiver's scores are not QK-normed
         out, lse = flash_lse(q, k, v, scale)
         refs = plain_refs(lambda x: attention_reference(q, k, x, scale), v)
@@ -1267,6 +1272,9 @@ def phase_backward_kernels():
              ("run_t_dit", RUN_T_K5_SHAPES["run_t_dit"], 1.0, ("query_tiles", "key_tiles")),
              ("run_t_perceiver", RUN_T_K5_SHAPES["run_t_perceiver"], 4.0,
               ("di", "query_tiles", "key_tiles")),
+             ("run_t5_hop", RUN_T_K5_SHAPES["run_t5_hop"], 1.0, ("query_tiles", "key_tiles")),
+             ("run_t5_perceiver", RUN_T_K5_SHAPES["run_t5_perceiver"], 4.0,
+              ("di", "query_tiles", "key_tiles")),
              ("ragged", (1, 2, 1000, 777, 64), 2.0, ("di", "query_tiles", "key_tiles"))]
     for label, (b, h, sq, skv, d), gain, planted in cases:
         scale = d ** -0.5
@@ -1322,7 +1330,7 @@ def phase_backward_kernels():
                                       ("perceiver", TRAIN_PERCEIVER_SHAPE),
                                       *RUN_T_K5_SHAPES.items()):
         scale = d ** -0.5
-        gain = 1.0 if label.endswith("dit") else 4.0
+        gain = 1.0 if label.endswith(("dit", "hop")) else 4.0
         q, k, v, out, lse, dout, di = _backward_inputs(randn, b, h, sq, skv, d, gain)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         with torch.enable_grad():
@@ -2722,7 +2730,9 @@ GRAD_MAX_TOL = 2.0 ** -3
 #   T2: the check of the check, on the full-width DiT cut to RUN_T_CHECK_LAYERS
 #     blocks (one Perceiver): one batch's adapter gradients reduced over
 #     RUN_T_MESH against the unsharded model's, sound and with each of
-#     RUN_T_FAULTS planted in every rank; each fault must read
+#     RUN_T_FAULTS planted in every rank, then reduced over RUN_T_SP_MESH
+#     with the token stream on sp (the ring's plain versions), sound and
+#     with each of RUN_T_SP_FAULTS; each fault must read
 #     RUN_S_VAE_FAULT_RATIO times the sound reading on the adapters it
 #     touches.  As run S's VAE check does, it runs in fp32 without TF32 on
 #     the check weights (``check_weights_``) with the plain attention: on
@@ -2744,9 +2754,22 @@ GRAD_MAX_TOL = 2.0 ** -3
 #     its sequential loop within RUN_T_REL_L2; a planted stage that skips its
 #     hop (reads zeros) must read RUN_S_VAE_FAULT_RATIO times the sound
 #     reading.
+#   T5: LoRA training with the token stream on sp: the same four ranks as
+#     RUN_T_SP_MESH (a second ``make_mesh``), one step of ``make_train_step``
+#     (``_run_t5_step``) on T1's DiT (full width cut to RUN_T_LAYERS blocks,
+#     bf16, ``flash_stock``, ``remat``; each rank its tp shard) on the first
+#     of T1's samples (batch 1: 3,250 joint tokens, 1,625 a sp rank), every
+#     block's joint self-attention on the differentiable ring (K5 a hop
+#     forward, K4-dkv and K4-dq a hop backward).  Held: the loss, grad norm
+#     and adapters after the step against its twin (the same step unsharded
+#     in phase 5e, the same sample, adapters and draws) within RUN_T_REL_L2;
+#     the adapters bit-equal on every rank; each rank's launches as derived
+#     (``_training_launches(..., sp=2)``: K5 2 x 6 x 2 + 3 = 27, K4-dkv and
+#     K4-dq 6 x 2 + 3 = 15).  T2 holds RUN_T_SP_FAULTS on the same mesh.
 RUN_T_MESH = (2, 1, 2)  # (dp, sp, tp) of T1 and T2
+RUN_T_SP_MESH = (1, 2, 2)  # (dp, sp, tp) of T5 and T2's sp check
 RUN_T_FRAMES = CUT_FRAMES
-RUN_T_STEPS = 2
+RUN_T_STEPS = 1  # 2 until T5 came: the second step's time went to T5
 # T1 and its twin run the full-width DiT cut to RUN_T_LAYERS blocks (and
 # their Perceivers) before its weights are drawn: the full depth took 24-28
 # s a rank for one step, gloo's pace, which the smoke's clock cut
@@ -2759,12 +2782,23 @@ RUN_T_LATENT_SHAPES = {"gt_latents": (3, 48, 84, 16), "inpaint_latents": (3, 48,
 # Perceiver's 3,024 video queries against the 3 reference latent frames'
 # 3,024 tokens, 8 heads of 128
 RUN_T_K5_SHAPES = {"run_t_dit": (1, 24, 3250, 3250, 64),
-                   "run_t_perceiver": (1, 8, 3024, 3024, 128)}
+                   "run_t_perceiver": (1, 8, 3024, 3024, 128),
+                   # T5's under sp 2 x tp 2: one ring hop of the joint
+                   # self-attention (1,625 queries against a visiting shard
+                   # of 1,625 keys), and the Perceiver of the rank holding
+                   # video tokens alone (its 1,625 against the whole 3,024
+                   # reference tokens; the other rank's 1,399)
+                   "run_t5_hop": (1, 24, 1625, 1625, 64),
+                   "run_t5_perceiver": (1, 8, 1625, 3024, 128)}
 RUN_T_CHECK_LAYERS = 2
 RUN_T_CHECK_LATENTS = (3, 32, 56)
 RUN_T_CHECK_SEED = 7
 RUN_T_FAULTS = ("column input's backward without its tp sum",
                 "replicated proj_out adapter summed over tp", "dp gradients summed")
+RUN_T_SP_FAULTS = ("adapter gradients not summed over sp",
+                   "output gather's backward summed over sp",
+                   "ring backward keeps only its own queries' dK/dV")
+RUN_T5_SEED = 9  # T5's and its twin's adapters and draws
 RUN_T_PP = 3
 RUN_T_MICROBATCHES = 2
 RUN_T_PP_TP = (1, 1, 2, 2)  # (dp, sp, tp, pp)
@@ -2844,19 +2878,23 @@ def write_sceneflow_tree(root: Path, scenes: int, frames: int, seed: int = 0) ->
     return names
 
 
-def _training_launches(dit, steps: int = 1, val_forwards: int = 0) -> dict:
+def _training_launches(dit, steps: int = 1, val_forwards: int = 0, sp: int = 1) -> dict:
     """{kernel: launches} of ``steps`` training steps of ``dit`` with
     ``flash_stock`` and of ``val_forwards`` forwards without gradients, from
     its modules: a step's forward launches K5 once per block and Perceiver,
     the recomputation under ``remat`` once more per block (the Perceivers
     keep their activations, as JAX's ``nn.remat`` wraps the blocks only), the
     backward each backward kernel once per block and Perceiver; a forward
-    without gradients launches K1 once per block and Perceiver."""
+    without gradients launches K1 once per block and Perceiver.  With the
+    tokens on ``sp`` ranks a block's ring launches each kernel once a hop,
+    ``sp`` times (the Perceivers' keys are whole on every rank)."""
     blocks = len(dit.transformer_blocks)
-    layers = blocks + len(dit.perceiver_cross_attention or ())
+    perceivers = len(dit.perceiver_cross_attention or ())
+    layers = blocks + perceivers
     out = {name: 0 for name in KERNELS}
-    out["flash_lse"] = steps * (layers + (blocks if dit.remat else 0))
-    out["flash_attention_bwd_dkv"] = out["flash_attention_bwd_dq"] = steps * layers
+    out["flash_lse"] = steps * (sp * blocks * (2 if dit.remat else 1) + perceivers)
+    out["flash_attention_bwd_dkv"] = out["flash_attention_bwd_dq"] = steps * (
+        sp * blocks + perceivers)
     out["flash_attention"] = val_forwards * layers
     return out
 
@@ -4357,12 +4395,54 @@ def _run_t_argv(t_dir: Path, run: str) -> list:
     return argv
 
 
+def _run_t5_step(dit, data_dir: Path, mesh=None) -> dict:
+    """One step of ``make_train_step`` (under ``mesh``, or unsharded: T5's
+    twin) on the first of T1's samples, batch 1: the adapters drawn from
+    RUN_T5_SEED with B ~ N(0, 0.02) (B = 0 would leave every dA 0), AdamW
+    at TRAIN_LR, dropout TRAIN_DROPOUT drawn from a generator seeded the
+    same way on every rank and in the twin.  Returns the step's launches,
+    seconds, loss and grad norm, and the adapters after it (fp32, flat, on
+    the host)."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.schedulers import CogVideoXDDIMScheduler
+    from trajectorycrafter_tpu_torch.training import init_lora_params
+    from trajectorycrafter_tpu_torch.training import step as tstep
+    from trajectorycrafter_tpu_torch.training.data import LatentsDataset
+
+    batch = {k: v[None] for k, v in LatentsDataset(str(data_dir))[0].items()}
+    g = torch.Generator(device="cuda").manual_seed(RUN_T5_SEED)
+    lora = init_lora_params(g, dit, rank=TRAIN_RANK)
+    with torch.no_grad():
+        for key, v in lora.items():
+            if key.endswith("lora_B"):
+                v.normal_(0.0, 0.02, generator=g)
+    lora = {k: v.requires_grad_() for k, v in lora.items()}
+    sched = CogVideoXDDIMScheduler()
+    opt = tstep.make_optimizer(lr=TRAIN_LR)
+    step = tstep.make_train_step(dit, sched, sched.set_timesteps(50), opt,
+                                 cfg_dropout_prob=TRAIN_DROPOUT, lora_rank=TRAIN_RANK, mesh=mesh)
+    state = tstep.TrainState(lora, opt.init(lora), 0)
+    for kern in _kernel_counters():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, torch.Generator(device="cuda").manual_seed(RUN_T5_SEED))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    flat = torch.cat([v.detach().float().reshape(-1) for v in state.lora.values()])
+    return {"launches": _launch_counts(), "seconds": seconds, "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "adapters": flat.cpu(),
+            "names": list(state.lora)}
+
+
 def _run_t_twin(tc, data_root: Path, t_dir: Path, scenes: list) -> None:
     """Run T1's data and twin, in phase 5e while the bundle is resident:
     RUN_T_FRAMES-frame samples of run P's SceneFlow scenes by ``datagen``
     (every 6th frame),
     then ``train_lora.main`` unsharded over them on T1's DiT (``run_t1_dit``,
-    bf16, ``flash_stock`` and ``remat``), as T1 runs sharded."""
+    bf16, ``flash_stock`` and ``remat``), as T1 runs sharded; then T5's
+    twin, ``_run_t5_step`` on the same DiT unsharded (``t5_twin.pt``)."""
     import numpy as np
     import torch
 
@@ -4402,15 +4482,22 @@ def _run_t_twin(tc, data_root: Path, t_dir: Path, scenes: list) -> None:
         got, want = _launch_counts(), _training_launches(dit, RUN_T_STEPS)
     finally:
         train_lora.build_base_model = real
-    del dit
-    torch.cuda.empty_cache()
+    if got != want:
+        raise AssertionError(f"run T's twin: launches {got}, expected {want}")
     recs = [json.loads(line) for line in open(t_dir / "twin" / "metrics.jsonl")]
     log(f"run T's twin: {len(scenes)} samples of {RUN_T_FRAMES} frames "
         f"({json.dumps(shapes[0])}); train_lora.main unsharded, batch 2, {RUN_T_STEPS} steps on "
         f"the bf16 DiT cut to {RUN_T_LAYERS} layers in {seconds:.2f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses {[r['loss'] for r in recs]}, grad norms {[r['grad_norm'] for r in recs]}")
-    if got != want:
-        raise AssertionError(f"run T's twin: launches {got}, expected {want}")
+    t5 = _run_t5_step(dit, t_dir / "latents")
+    if t5["launches"] != _training_launches(dit):
+        raise AssertionError(f"run T5's twin: launches {t5['launches']}, expected "
+                             f"{_training_launches(dit)}")
+    torch.save(t5, t_dir / "t5_twin.pt")
+    log(f"run T5's twin: one step unsharded, batch 1, in {t5['seconds']:.2f} s; loss "
+        f"{t5['loss']:.6f}, grad norm {t5['grad_norm']:.6f}")
+    del dit
+    torch.cuda.empty_cache()
 
 
 def _blocks_inputs(dit, args, kwargs) -> tuple:
@@ -4493,10 +4580,60 @@ def _run_t1(out_dir: Path, t_dir: Path) -> dict:
     return out
 
 
+def _sp_fault(name: str):
+    """A context that plants one of RUN_T_SP_FAULTS in this rank: the
+    adapters' sp sum left out; the output gather's backward summing the sp
+    ranks' gradients before taking the rank's slice; the ring's backward
+    returning the dK / dV of the rank's own queries against its own shard
+    (the accumulators never travel).  Each is made from the sound pieces."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    import torch
+
+    from trajectorycrafter_tpu_torch.ops import ring_attention as ra
+    from trajectorycrafter_tpu_torch.ops.attention import attention_backward_reference
+    from trajectorycrafter_tpu_torch.parallel import distributed as D
+    from trajectorycrafter_tpu_torch.training import step as tstep
+
+    if name == RUN_T_SP_FAULTS[0]:
+        return mock.patch.object(tstep, "sp_sum", lambda flat, sp: flat)
+    if name == RUN_T_SP_FAULTS[1]:
+        class GatherSummed(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, axis, dim, sizes):
+                ctx.axis, ctx.dim = axis, dim
+                ctx.lo, ctx.n = sum(sizes[:axis.index]), sizes[axis.index]
+                return D.all_gather(x, axis, dim=dim, sizes=sizes)
+
+            @staticmethod
+            def backward(ctx, grad):
+                summed = D.sum_partials(grad.contiguous(), ctx.axis)
+                return summed.narrow(ctx.dim, ctx.lo, ctx.n), None, None, None
+
+        return mock.patch.object(D, "gather_tokens", lambda x, axis, dim, sizes: (
+            GatherSummed.apply(x, axis, dim, list(sizes)) if axis.size > 1 else x))
+    sound = ra.RingAttentionFunction.backward
+
+    def own_queries(ctx, dout):
+        saved = ctx.saved_tensors  # a recomputed block's unpack once
+        dq, _, _, *rest = sound(SimpleNamespace(saved_tensors=saved, **{
+            k: getattr(ctx, k) for k in ("axis", "s_true", "scale", "kernels_on")}), dout)
+        q, k, v, out, lse = saved
+        bshd = lambda x: x.transpose(1, 2)
+        _, dk, dv = attention_backward_reference(bshd(q), bshd(k), bshd(v), bshd(out), lse,
+                                                 bshd(dout), ctx.scale)
+        return (dq, bshd(dk).to(k.dtype), bshd(dv).to(v.dtype), *rest)
+
+    return mock.patch.object(ra.RingAttentionFunction, "backward", staticmethod(own_queries))
+
+
 def _run_t2(out_dir: Path, t_dir: Path) -> dict:
     """T2 on this rank: one batch's adapter gradients reduced over
-    RUN_T_MESH, sound and with each of RUN_T_FAULTS; the leader holds them
-    against the unsharded model's and returns the readings."""
+    RUN_T_MESH, sound and with each of RUN_T_FAULTS, and over RUN_T_SP_MESH
+    (the token stream on sp), sound and with each of RUN_T_SP_FAULTS; the
+    leader holds them against the unsharded model's and returns the
+    readings."""
     from unittest import mock
 
     import torch
@@ -4547,7 +4684,28 @@ def _run_t2(out_dir: Path, t_dir: Path) -> dict:
             got[RUN_T_FAULTS[2]] = reduce(local)
         with mock.patch.object(D, "tp_input_grad", lambda grad, axis: grad):
             got[RUN_T_FAULTS[0]] = reduce(grads(sharded, mesh.dp))
-        readings = {}
+        del sharded
+        # the same batch and adapters under RUN_T_SP_MESH: the token stream on
+        # sp, the ring on its plain versions in fp32 (the "reference" route)
+        sp_mesh = make_mesh(*RUN_T_SP_MESH)
+        on_sp = check_weights_(build_dit(make, "cuda", torch.float32, RUN_T_CHECK_SEED,
+                                         tp=sp_mesh.tp))
+
+        def grads_sp():
+            fn = tstep.make_loss_fn(on_sp, sched, sch_state, cfg_dropout_prob=0.0,
+                                    lora_rank=TRAIN_RANK, dp=sp_mesh.dp, sp=sp_mesh.sp)
+            return torch.autograd.grad(fn(lora, batch, 0), params)
+
+        reduce_sp = lambda gs: tstep.reduce_lora_grads(gs, names, on_sp, sp_mesh)
+        local = grads_sp()
+        got_sp = {"sound": reduce_sp(local)}
+        with _sp_fault(RUN_T_SP_FAULTS[0]):
+            got_sp[RUN_T_SP_FAULTS[0]] = reduce_sp(local)
+        for fault in RUN_T_SP_FAULTS[1:]:
+            with _sp_fault(fault):
+                got_sp[fault] = reduce_sp(grads_sp())
+        del on_sp
+        readings = readings_sp = {}
         if mesh.leader:
             want = grads(check_weights_(build_dit(make, "cuda", torch.float32,
                                                   RUN_T_CHECK_SEED)), None)
@@ -4557,12 +4715,17 @@ def _run_t2(out_dir: Path, t_dir: Path) -> dict:
                                          if not n.startswith((last_ff, "proj_out."))],
                        RUN_T_FAULTS[1]: [n for n in names if n.startswith("proj_out.")],
                        RUN_T_FAULTS[2]: names}
+            touched_sp = {"every adapter": names, RUN_T_SP_FAULTS[0]: names,
+                          RUN_T_SP_FAULTS[1]: names,
+                          RUN_T_SP_FAULTS[2]: [n for n in names
+                                               if ".attn1.to_k." in n or ".attn1.to_v." in n]}
             flat = lambda gs, keys: torch.cat([gs[names.index(k)].reshape(-1) for k in keys])
-            readings = {run: {where: _rel_l2(flat(gs, keys), flat(want, keys))
-                              for where, keys in touched.items()}
-                        for run, gs in got.items()}
+            read = lambda runs, where: {run: {w: _rel_l2(flat(gs, keys), flat(want, keys))
+                                              for w, keys in where.items()}
+                                        for run, gs in runs.items()}
+            readings, readings_sp = read(got, touched), read(got_sp, touched_sp)
         D.barrier(mesh.world)
-        return {"readings": readings, "adapters": len(names)}
+        return {"readings": readings, "readings_sp": readings_sp, "adapters": len(names)}
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
@@ -4671,6 +4834,35 @@ def _run_t4(out_dir: Path, t_dir: Path) -> dict:
             "heads": [dit.transformer_blocks[2 * stages[mesh.pp.index].start].attn1.heads]}
 
 
+def _run_t5(out_dir: Path, t_dir: Path) -> dict:
+    """T5 on this rank: one step of ``make_train_step`` under RUN_T_SP_MESH
+    (the token stream on sp) on T1's DiT, built shard by shard; its
+    launches against those derived from the shard's modules, its loss and
+    grad norm, the adapters' checksum; the leader saves the adapters for the
+    main process to hold against the twin's."""
+    import torch
+
+    from trajectorycrafter_tpu_torch.orchestrator import build_dit
+    from trajectorycrafter_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(*RUN_T_SP_MESH)
+    dit = build_dit(lambda: run_t1_dit("flash_stock"), "cuda", torch.bfloat16, 1, "none",
+                    tp=mesh.tp)
+    dit.remat = True
+    torch.cuda.synchronize()
+    out = {"coords": [mesh.dp.index, mesh.sp.index, mesh.tp.index],
+           "resident_gib": torch.cuda.memory_allocated() / 2**30,
+           "heads": [dit.transformer_blocks[0].attn1.heads,
+                     dit.perceiver_cross_attention[0].heads],
+           "expected": _training_launches(dit, sp=mesh.sp.size)}
+    step = _run_t5_step(dit, t_dir / "latents", mesh)
+    out.update({k: step[k] for k in ("launches", "loss", "grad_norm")},
+               step_seconds=step["seconds"], adapters=list(bits_checksum(step["adapters"])[2:]))
+    if mesh.leader:
+        torch.save(step, out_dir / "t5.pt")
+    return out
+
+
 def run_t_alone_rank(out_dir: str, t_dir: str) -> None:
     """One rank of run T in a torchrun world of its own (``chip_smoke.py
     --run-t-rank DIR T_DIR``, tools/run_t.py): the gloo process group from
@@ -4687,7 +4879,7 @@ def run_t_alone_rank(out_dir: str, t_dir: str) -> None:
 
 
 def run_t_rank(out_dir: str, t_dir: str) -> None:
-    """This rank's part of run T (T1-T4), in run S's torchrun world once run
+    """This rank's part of run T (T1-T5), in run S's torchrun world once run
     S is done; writes its readings to DIR/run_t_rank<r>.json."""
     import traceback
 
@@ -4699,7 +4891,8 @@ def run_t_rank(out_dir: str, t_dir: str) -> None:
     rank = dist.get_rank()
     out = {"rank": rank, "held_before_gib": torch.cuda.memory_allocated() / 2**30}
     try:
-        for name, fn in (("T1", _run_t1), ("T2", _run_t2), ("T3", _run_t3), ("T4", _run_t4)):
+        for name, fn in (("T1", _run_t1), ("T2", _run_t2), ("T3", _run_t3), ("T4", _run_t4),
+                         ("T5", _run_t5)):
             before = dict(D.TRANSPORT)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -4785,6 +4978,19 @@ def _run_t_check(out_dir: Path, t_dir: Path, results: list, t3_reference: dict) 
             f"(limit {RUN_S_VAE_FAULT_RATIO:g}x)")
         if ratio < RUN_S_VAE_FAULT_RATIO:
             failed.append(f"T2 {fault}: {ratio:.1f}x")
+    readings = results[0]["T2"]["readings_sp"]
+    for run, reading in readings.items():
+        log(f"run T2 on {RUN_T_SP_MESH}, {run}: " + "; ".join(
+            f"{where} rel L2 {x:.3e}" for where, x in reading.items()))
+    sound = readings["sound"]
+    if max(sound.values()) > RUN_T_REL_L2:
+        failed.append(f"T2 sp sound: {sound}")
+    for fault in RUN_T_SP_FAULTS:
+        ratio = readings[fault][fault] / max(sound[fault], 1e-30)
+        log(f"run T2 on {RUN_T_SP_MESH}, {fault}: {ratio:.1f}x the sound reading on the "
+            f"adapters it touches (limit {RUN_S_VAE_FAULT_RATIO:g}x)")
+        if ratio < RUN_S_VAE_FAULT_RATIO:
+            failed.append(f"T2 sp {fault}: {ratio:.1f}x")
     # -- T3 --
     stages = [r["T3"] for r in results if not r["T3"].get("idle")]
     idle = [r["rank"] for r in results if r["T3"].get("idle")]
@@ -4830,15 +5036,44 @@ def _run_t_check(out_dir: Path, t_dir: Path, results: list, t3_reference: dict) 
             f"({wrong / max(sound, 1e-30):.1f}x); transport {json.dumps(r['T4']['transport'])}")
         if sound > RUN_T_REL_L2 or wrong < RUN_S_VAE_FAULT_RATIO * sound:
             failed.append(f"T4 rank {r['rank']}: {t4}")
+    # -- T5 --
+    layers = RUN_T_LAYERS // PERCEIVER_INTERVAL
+    sp = RUN_T_SP_MESH[1]
+    for r in results:
+        t5 = r["T5"]
+        want = t5["expected"]
+        if (want["flash_lse"], want["flash_attention_bwd_dkv"], want["flash_attention_bwd_dq"]) \
+                != (2 * RUN_T_LAYERS * sp + layers, RUN_T_LAYERS * sp + layers,
+                    RUN_T_LAYERS * sp + layers):
+            failed.append(f"T5 rank {r['rank']}: derived launches {want}")
+        if t5["launches"] != want:
+            failed.append(f"T5 rank {r['rank']}: launches {t5['launches']}, derived {want}")
+        if t5["adapters"] != results[0]["T5"]["adapters"]:
+            failed.append(f"T5 rank {r['rank']}: adapters differ from rank 0's")
+        log(f"  T5 rank {r['rank']} (dp, sp, tp) {tuple(t5['coords'])}, heads {t5['heads']}: "
+            f"{t5['resident_gib']:.2f} GiB resident after the build, peak {t5['peak_gib']:.2f} "
+            f"GiB, {t5['seconds']:.1f} s (the step {t5['step_seconds']:.2f} s); launches "
+            f"{json.dumps({k: v for k, v in t5['launches'].items() if v})}; transport "
+            f"{json.dumps(t5['transport'])}")
+    got5, twin5 = torch.load(out_dir / "t5.pt"), torch.load(t_dir / "t5_twin.pt")
+    t5 = {"loss": rel(got5["loss"], twin5["loss"]),
+          "grad_norm": rel(got5["grad_norm"], twin5["grad_norm"]),
+          "adapters": _rel_l2(got5["adapters"], twin5["adapters"])}
+    log(f"run T5: one step under (dp, sp, tp) {RUN_T_SP_MESH} against the unsharded twin: "
+        f"loss {got5['loss']:.6f} vs {twin5['loss']:.6f}, grad norm {got5['grad_norm']:.6f} vs "
+        f"{twin5['grad_norm']:.6f}; rel {json.dumps({k: f'{v:.3e}' for k, v in t5.items()})} "
+        f"(limit {RUN_T_REL_L2:.3e}); adapters bit-equal on all ranks")
+    if got5["names"] != twin5["names"] or max(t5.values()) > RUN_T_REL_L2:
+        failed.append(f"T5 against the twin: {t5}")
     if failed:
         raise AssertionError(f"run T: {failed}")
-    log(f"run T: seconds a rank T1 {[round(r['T1']['seconds'], 1) for r in results]}, T2 "
-        f"{[round(r['T2']['seconds'], 1) for r in results]}, T3 "
-        f"{[round(r['T3']['seconds'], 1) for r in results]}, T4 "
-        f"{[round(r['T4']['seconds'], 1) for r in results]}")
+    log(f"run T: seconds a rank " + ", ".join(
+        f"{t} {[round(r[t]['seconds'], 1) for r in results]}"
+        for t in ("T1", "T2", "T3", "T4", "T5")))
     return {"per_rank": {k: {"T1 a step": [r["T1"]["steps"][0]["launches"][k] for r in results],
                              "T3 a stage": [r["T3"].get("launches", {}).get(k, 0)
-                                            for r in results]}
+                                            for r in results],
+                             "T5 a step": [r["T5"]["launches"][k] for r in results]}
                          for k in KERNELS}}
 
 
@@ -5757,7 +5992,8 @@ def _attention_entry(name: str, t: dict, **kw) -> dict:
             "replaces": TPU_KERNELS[name], **kw, **{key: t[key] for key in keys},
             **{key: t[key] for key in t
                if key in ("shape", "library", "with_quantization_ms")
-               or key.startswith(("depth_", "perceiver_", "d128_", "run_s_", "run_t_"))}}
+               or key.startswith(("depth_", "perceiver_", "d128_", "run_s_", "run_t_",
+                                  "run_t5_"))}}
 
 
 def main() -> None:

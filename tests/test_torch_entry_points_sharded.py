@@ -486,7 +486,7 @@ def test_a_failure_on_one_rank_ends_every_rank_under_a_mesh(inputs, tmp_path):
     argv = inputs["orbits"] + MESH_ARGV + ["--out_dir", str(tmp_path / "out")]
     with pytest.raises(RuntimeError, match="ranks failed") as failed:
         run_world(orbit_failure, WORLD, tmp_path / "world", DIMS, WARP_SIZE, argv, 2,
-                  timeout=300.0)
+                  timeout=300.0, linger=120.0)
     text = str(failed.value)
     assert "planted depth failure on rank 2" in text
     assert all(f"rank {r}:" in text for r in range(WORLD))

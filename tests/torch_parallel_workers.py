@@ -550,7 +550,8 @@ def _reduced_grads(mesh, params, dims, lora_np, case, batch, fault=None):
     model = _tiny_training_model(params, dims, mesh.tp)
     sched = CogVideoXDDIMScheduler()
     fn = tstep.make_loss_fn(model, sched, sched.set_timesteps(50), cfg_dropout_prob=0.0,
-                            lora_alpha=case["alpha"], lora_rank=case["rank"], dp=mesh.dp)
+                            lora_alpha=case["alpha"], lora_rank=case["rank"], dp=mesh.dp,
+                            sp=mesh.sp if mesh.sp.size > 1 else None)
     lora = {k: v.requires_grad_() for k, v in lora_from_jax(lora_np).items()}
     grads = torch.autograd.grad(fn(lora, batch, 0), list(lora.values()))
     patches = {"proj_out summed over tp": mock.patch.object(
@@ -853,3 +854,134 @@ def orbit_failure(rank, dims, warp_size, argv, failing_rank):
     argv = list(argv)
     argv[argv.index("--out_dir") + 1] += f"/rank{rank}"
     return inference_orbits.main(argv)
+
+
+# ----------------------------------------------------------------------------
+# LoRA training with the token stream on sp (tests/test_torch_training_sp.py)
+# ----------------------------------------------------------------------------
+
+
+def ring_grads(mesh, cases):
+    """For each case (S, q, k, v, dout, scale) of whole (B, H, S, D) arrays:
+    this rank's rows of ``RingAttentionFunction``'s output and its dq, dk,
+    dv of its shard, with its sp coordinate; None where the mesh idles it."""
+    if not mesh.member:
+        return None
+    out = []
+    for s, *arrays, scale in cases:
+        sizes = shard_sizes(s, mesh.sp.size)
+        lo, n = sum(sizes[:mesh.sp.index]), sizes[mesh.sp.index]
+        q, k, v, dout = (T(x[:, :, lo:lo + n].copy()) for x in arrays)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        o = ra.RingAttentionFunction.apply(q, k, v, mesh.sp, s, scale, False)
+        grads = torch.autograd.grad(o, [q, k, v], dout)
+        out.append([o.detach().numpy(), *(g.numpy() for g in grads)])
+    return mesh.sp.index, out
+
+
+class _GatherSummed(torch.autograd.Function):
+    """The planted fault of the output's gather: backward the sum over sp of
+    the ranks' gradients, then this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, sizes):
+        ctx.axis, ctx.dim, ctx.lo, ctx.n = axis, dim, sum(sizes[:axis.index]), sizes[axis.index]
+        return D.all_gather(x, axis, dim=dim, sizes=sizes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (D.sum_partials(grad.contiguous(), ctx.axis).narrow(ctx.dim, ctx.lo, ctx.n),
+                None, None, None)
+
+
+def _own_queries_backward(sound):
+    """The planted fault of the ring's backward: dq as ``sound`` gives it,
+    dK / dV of the rank's own queries against its own shard only (the
+    accumulators never travel)."""
+    from trajectorycrafter_tpu_torch.ops.attention import attention_backward_reference
+
+    def backward(ctx, dout):
+        from types import SimpleNamespace
+
+        saved = ctx.saved_tensors  # unpacked once (a recomputed block's may not be twice)
+        dq, _, _, *rest = sound(SimpleNamespace(
+            saved_tensors=saved, **{k: getattr(ctx, k) for k in ("axis", "s_true", "scale",
+                                                                 "kernels_on")}), dout)
+        q, k, v, out, lse = saved
+        bshd = lambda x: x.transpose(1, 2)
+        _, dk, dv = attention_backward_reference(bshd(q), bshd(k), bshd(v), bshd(out), lse,
+                                                 bshd(dout), ctx.scale)
+        return (dq, bshd(dk).to(k.dtype), bshd(dv).to(v.dtype), *rest)
+
+    return backward
+
+
+# the planted faults of sp training, by name -> the patch that plants it
+SP_FAULTS = {
+    "adapter gradients not summed over sp": lambda: mock.patch(
+        "trajectorycrafter_tpu_torch.training.step.sp_sum", lambda flat, sp: flat),
+    "output gather's backward summed over sp": lambda: mock.patch.object(
+        D, "gather_tokens", lambda x, axis, dim, sizes: _GatherSummed.apply(
+            x, axis, dim, list(sizes)) if axis.size > 1 else x),
+    "ring backward keeps only its own queries' dK/dV": lambda: mock.patch.object(
+        ra.RingAttentionFunction, "backward",
+        staticmethod(_own_queries_backward(ra.RingAttentionFunction.backward))),
+}
+
+
+def training_sp(rank, ring_meshes, ring_cases_, step_cases, grad_case):
+    """The sp training's rank side: ``RingAttentionFunction``'s gradients at
+    each sp of ``ring_meshes`` on ``ring_cases_``; the train step's cases
+    ({name: (mesh shape, params, dims, adapters, case, batches)}); one
+    batch's reduced adapter gradients under ``grad_case``'s mesh, sound and
+    with each of ``SP_FAULTS``."""
+    out = {"ring": {sp: ring_grads(_mesh((1, sp, 1)), ring_cases_) for sp in ring_meshes}}
+    out["steps"] = {}
+    for name, (shape, *args) in step_cases.items():
+        mesh = _mesh(shape)
+        out["steps"][name] = _sharded_steps(mesh, *args)
+    shape, *args = grad_case
+    mesh = _mesh(shape)
+    out["coords"] = (mesh.dp.index, mesh.sp.index, mesh.tp.index)
+    out["grads"] = {None: _reduced_grads(mesh, *args)}
+    for fault, patch in SP_FAULTS.items():
+        with patch():
+            out["grads"][fault] = _reduced_grads(mesh, *args)
+    return out
+
+
+# ----------------------------------------------------------------------------
+# the worlds themselves (tests/test_torch_worlds.py)
+# ----------------------------------------------------------------------------
+
+
+def mesh_groups_and_decode(rank, shape, latents, memory):
+    """The timeouts ``make_mesh`` gives its process groups; how many ranks
+    of the mesh sit on this rank's device, by the real devices and by
+    planted ones (each rank its own card); and the decode of the dev
+    pipeline sharded over ``shape`` under a planted ``memory`` of the
+    device: whether it took strips."""
+    import torch.distributed as dist
+
+    from trajectorycrafter_tpu_torch.config import TrajCrafterConfig
+    from trajectorycrafter_tpu_torch.models import vae as vae_mod
+    from trajectorycrafter_tpu_torch.pipelines import trajcrafter
+
+    real_group, timeouts = dist.new_group, []
+
+    def group(*a, **kw):
+        timeouts.append(kw.get("timeout"))
+        return real_group(*a, **kw)
+
+    with mock.patch.object(dist, "new_group", group):
+        mesh = _mesh(shape)
+    cfg = TrajCrafterConfig()
+    cfg.diffusion.quant = "none"
+    pipe = build_dev_models(cfg, "cpu").pipeline.with_mesh(mesh)
+    routes, tiled = [], vae_mod.vae_decode_tiled
+    with mock.patch.object(trajcrafter, "decode_memory_bytes", lambda device: memory), \
+            mock.patch.object(vae_mod, "vae_decode_tiled",
+                              lambda *a, **kw: routes.append("strips") or tiled(*a, **kw)):
+        pipe.decode(T(latents))
+    return {"timeouts": timeouts, "device_ranks": pipe.device_ranks, "routes": routes,
+            "own_cards": D.ranks_on_device(mesh.world, f"cuda:{rank}")}

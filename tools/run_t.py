@@ -9,7 +9,7 @@ frees the bundle, and saves a DiT call's inputs for T3 and T4: the two
 samples' latents, noised at one timestep, as a batch of 2 (the smoke uses
 run S's first DiT call, run A9's CFG pair, which needs runs A9 and S).
 Then four ranks on the one card over gloo (``chip_smoke.py --run-t-rank
-DIR T_DIR``) run T1-T4, and their readings are held to the smoke's checks.
+DIR T_DIR``) run T1-T5, and their readings are held to the smoke's checks.
 Its seconds are not a speed figure: the ranks time-share the card and
 stage their hops through host memory.
 """

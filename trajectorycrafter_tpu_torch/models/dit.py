@@ -42,7 +42,16 @@ output.  Layer norms and the modulation run at full width on every rank.
 Training shards the blocks and Perceivers over tp alone (parallel/
 sharding.py ``shard_units_``; ``mesh`` stays None and the step shards the
 batch), and with grad enabled their tp collectives are autograd Functions
-(``distributed.tp_input`` / ``tp_output``).
+(``distributed.tp_input`` / ``tp_output``).  With the forward's ``sp`` (an
+sp axis; training/step.py passes the mesh's) each rank keeps its
+``JointShard`` of the joint tokens as above, the joint self-attention runs
+on the differentiable ring (ops/ring_attention.py
+``RingAttentionFunction``: the blocks keep their ``attention_impl``), the
+Perceivers' queries are the rank's video tokens against the whole
+reference tokens, and the output is gathered over sp with a backward that
+takes the rank's slice.  JAX's ``shard_activations`` puts only the video
+tokens on sp and keeps the text whole; the port shards the joint sequence:
+the same function.
 
 The forward is ``embed`` (steps 1-3: time, patch and text embeddings, the
 reference tokens), ``run_blocks`` (step 4, the block stack: block 2i, then
@@ -168,9 +177,10 @@ class JointAttention(nn.Module):
 
     def forward(self, hidden, encoder, rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 seq: Optional[JointShard] = None):
-        if (seq is not None) != (self.attention_impl == "ring"):
-            raise ValueError("token shards need the ring route and the ring needs token "
-                             "shards: shard the model with the pipeline's with_mesh")
+        if seq is None and self.attention_impl == "ring":
+            raise ValueError("token shards take a ring route and the ring needs token "
+                             "shards: shard the model with the pipeline's with_mesh, or give "
+                             "the training forward its sp axis")
         text_len = encoder.shape[1]
         x = D.tp_input(torch.cat([encoder, hidden], dim=1), self.tp_axis)
         heads = (self.heads, self.head_dim)
@@ -403,6 +413,7 @@ class CrossTransformer3DModel(nn.Module):
         inpaint_latents: Optional[torch.Tensor] = None,  # (B, F, H, W, 17)
         cross_latents: Optional[torch.Tensor] = None,  # (B, F_ref, H, W, 16)
         image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        sp: Optional[D.Axis] = None,  # training: the joint tokens' sp axis
     ) -> torch.Tensor:
         b, f, h, w, _ = hidden_states.shape
         p = self.patch_size
@@ -419,9 +430,12 @@ class CrossTransformer3DModel(nn.Module):
         # 4. transformer blocks with interleaved Perceiver cross-attention;
         #    under sp each rank keeps its shard of the joint token sequence
         seq = None
-        if mesh is not None and mesh.sp.size > 1:
-            seq = JointShard(mesh.sp, text_len, video_tokens.shape[1])
-            text_tokens, video_tokens = text_tokens[:, seq.text], video_tokens[:, seq.video]
+        if mesh is not None and sp is not None:
+            raise ValueError("the forward's sp axis is training's; a sharded model has its mesh")
+        sp = mesh.sp if mesh is not None else sp
+        if sp is not None and sp.size > 1:
+            seq = JointShard(sp, text_len, video_tokens.shape[1])
+            text_tokens, video_tokens = seq.split(text_tokens, video_tokens)
             if image_rotary_emb is not None:
                 image_rotary_emb = tuple(t[seq.video] for t in image_rotary_emb)
             text_len = text_tokens.shape[1]

@@ -374,6 +374,8 @@ _IMPLS = {"auto": (flash_attention, attention_reference),
           "flash_pv8": (_pv8, _pv8_plain),
           "flash_pv8_reference": (None, _pv8_plain),
           "reference": (None, attention_reference), "xla": (None, attention_reference)}
+# the routes a token-sharded training forward takes through the differentiable ring
+_RING_GRAD_IMPLS = ("auto", "flash", "flash_stock", "reference", "xla")
 
 
 def multi_head_attention(
@@ -404,20 +406,32 @@ def multi_head_attention(
     and v are this rank's shards of a sequence sharded over the mesh's sp
     axis, which ``ring`` names (parallel/sharding.py ``JointShard``: the
     axis and every rank's token count; the JAX package finds its sp axis in
-    the ambient mesh).  Without ``ring`` the route raises.
+    the ambient mesh).  Without ``ring`` the route raises; it has no
+    gradient.  With ``ring`` and another ``impl`` (training with the token
+    stream on sp) the shards go through the differentiable ring,
+    ``RingAttentionFunction``: ``"auto"`` / ``"flash"`` / ``"flash_stock"``
+    on its kernels (K5, K4-dkv, K4-dq) for CUDA tensors, ``"reference"`` /
+    ``"xla"`` on its plain versions on any device; any other name raises.
     """
     b, s, h, d = q.shape
     if scale is None:
         scale = d ** -0.5
-    if impl == "ring":
+    if impl == "ring" or ring is not None:
         if ring is None:
             raise ValueError("the ring route needs the sp axis of its mesh: shard the model "
                              "with pipelines/trajcrafter.py with_mesh")
-        from trajectorycrafter_tpu_torch.ops.ring_attention import ring_attention
+        from trajectorycrafter_tpu_torch.ops import ring_attention as ra
 
-        kernels.refuse_grad("ring attention", q, k, v)
-        out = ring_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                             ring.axis, sum(ring.sizes), scale)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if impl == "ring":
+            kernels.refuse_grad("ring attention", q, k, v)
+            out = ra.ring_attention(qt, kt, vt, ring.axis, sum(ring.sizes), scale)
+        elif impl in _RING_GRAD_IMPLS:
+            out = ra.RingAttentionFunction.apply(qt, kt, vt, ring.axis, sum(ring.sizes), scale,
+                                                 _IMPLS[impl][0] is None)
+        else:
+            raise ValueError(f"no differentiable ring for attention impl {impl!r} (expected "
+                             f"one of {sorted(_RING_GRAD_IMPLS)})")
         return out.transpose(1, 2).reshape(b, s, h * d)
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r} (expected one of "

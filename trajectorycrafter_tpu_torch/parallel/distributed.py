@@ -35,12 +35,21 @@ and ``tp_output`` are the two autograd-aware tp collectives: a
 column-parallel layer's input (the identity forward, the sum over tp of the
 gradient backward) and a row-parallel layer's output (``sum_partials``
 forward, the identity backward).  Both reduce in coordinate order, so every
-tp rank holds the same bits.
+tp rank holds the same bits.  ``gather_tokens`` is the sp one: the token
+shards joined on every rank, and backward this rank's slice of the
+gradient, not its sum over sp (every sp rank computes the same loss on the
+whole output, so each already holds the whole gradient).
+
+The groups of a mesh (parallel/mesh.py) wait ``GROUP_TIMEOUT`` for a peer,
+well under the world's ``TIMEOUT``: where a caller started the world (a
+test's gloo world, the smoke's torchrun world) a rank that failed would
+otherwise hold every peer in its sub-group's collective for 20 minutes.
 """
 
 from __future__ import annotations
 
 import os
+import socket
 from collections import Counter
 from dataclasses import dataclass
 from datetime import timedelta
@@ -54,6 +63,7 @@ BACKENDS = ("nccl", "gloo")
 # the operations gloo runs on CUDA tensors itself; the others are staged
 GLOO_CUDA_OPS = ("all_reduce", "broadcast", "all_gather")
 TIMEOUT = timedelta(minutes=20)
+GROUP_TIMEOUT = timedelta(minutes=5)
 # "<op> <direct|staged>" -> calls, "<op> <direct|staged> bytes" -> bytes sent
 TRANSPORT: Counter = Counter()
 
@@ -266,6 +276,42 @@ def tp_output(partial: torch.Tensor, axis: Axis,
     if not torch.is_grad_enabled():
         return sum_partials(partial, axis, bias)
     return _TpOutput.apply(partial, bias, axis)
+
+
+class _GatherTokens(torch.autograd.Function):
+    """The token shards of every rank along sp joined along ``dim``;
+    backward, this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, sizes):
+        ctx.dim, ctx.lo, ctx.n = dim, sum(sizes[:axis.index]), sizes[axis.index]
+        return all_gather(x, axis, dim=dim, sizes=sizes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.lo, ctx.n), None, None, None
+
+
+def gather_tokens(x: torch.Tensor, axis: Axis, dim: int, sizes: Sequence[int]) -> torch.Tensor:
+    """Every sp rank's token shard (``sizes`` tokens each along ``dim``)
+    joined in coordinate order on every rank; with grad enabled the backward
+    pass hands each rank its own slice of the gradient: every sp rank
+    computes the same loss on the joined tokens, so each already holds the
+    whole gradient, and a sum over sp would count it ``axis.size`` times."""
+    if axis.size == 1:
+        return x
+    return _GatherTokens.apply(x, axis, dim, list(sizes))
+
+
+def ranks_on_device(axis: Axis, device) -> int:
+    """How many ranks of ``axis`` compute on this rank's ``device`` (the
+    same host and device), this one included: they share its memory."""
+    if axis.size == 1:
+        return 1
+    mine = (socket.gethostname(), str(torch.device(device)))
+    everyone = [None] * axis.size
+    dist.all_gather_object(everyone, mine, group=axis.group)
+    return sum(d == mine for d in everyone)
 
 
 def barrier(axis: Axis) -> None:

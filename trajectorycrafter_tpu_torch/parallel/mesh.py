@@ -14,7 +14,8 @@ of its devices, pp the fastest axis: rank r of the process group sits
 where device r sits in the JAX mesh.  Each axis has one process group per
 line of ranks along it, and so has the dp x sp ``plane`` (the ranks of one
 tp and pp coordinate, dp-major), over which the CogVideoX VAE's GroupNorm
-statistics are reduced (parallel/spatial.py).
+statistics are reduced (parallel/spatial.py).  The groups' collectives wait
+``distributed.GROUP_TIMEOUT`` for a peer, well under the world's own.
 ``make_mesh`` raises and warns where JAX's does: a mesh larger than the
 world raises, a smaller one warns and leaves the other ranks idle.
 """
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from trajectorycrafter_tpu_torch.parallel.distributed import Axis
+from trajectorycrafter_tpu_torch.parallel.distributed import GROUP_TIMEOUT, Axis
 
 AXES = ("dp", "sp", "tp", "pp")
 
@@ -96,6 +97,12 @@ class Mesh:
         return self.axes["world"]
 
 
+def _group(ranks) -> object:
+    """A process group of ``ranks`` whose collectives wait ``GROUP_TIMEOUT``
+    for a peer (parallel/distributed.py)."""
+    return dist.new_group([int(r) for r in ranks], timeout=GROUP_TIMEOUT)
+
+
 def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, pp: int = 1, device=None) -> Mesh:
     """The mesh over the started process group; every rank calls it (each
     axis group is made collectively).  ``device``: this rank's device (the
@@ -113,18 +120,18 @@ def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, pp: int = 1, device=None) -
         lines = np.moveaxis(ranks, i, -1).reshape(-1, ranks.shape[i])
         mine = None
         for line in lines:
-            group = dist.new_group([int(r) for r in line]) if len(line) > 1 else None
+            group = _group(line) if len(line) > 1 else None
             if rank in line:
                 mine = Axis(name, len(line), int(np.flatnonzero(line == rank)[0]),
                             tuple(int(r) for r in line), group)
         axes[name] = mine
     axes["plane"] = None
     for line in np.moveaxis(ranks, (0, 1), (-2, -1)).reshape(-1, ranks.shape[0] * ranks.shape[1]):
-        group = dist.new_group([int(r) for r in line]) if len(line) > 1 else None
+        group = _group(line) if len(line) > 1 else None
         if rank in line:
             axes["plane"] = Axis("plane", len(line), int(np.flatnonzero(line == rank)[0]),
                                  tuple(int(r) for r in line), group)
     members = tuple(range(ranks.size))
-    group = dist.group.WORLD if ranks.size == world else dist.new_group(list(members))
+    group = dist.group.WORLD if ranks.size == world else _group(members)
     axes["world"] = Axis("world", ranks.size, rank, members, group) if len(here) else None
     return Mesh(ranks, rank, axes, torch.device(device))

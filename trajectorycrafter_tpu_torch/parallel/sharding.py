@@ -33,7 +33,9 @@ the computation, where the port slices what each rank computes with.
 Tokens (``JointShard``): the joint [text; video] sequence of each block is
 split over sp as JAX's ``shard_map`` splits it, in contiguous shards of
 ceil(S / sp) tokens (the last one shorter), so the text tokens sit on the
-first rank(s), once; the batch (the CFG pair) is split over dp.
+first rank(s), once; the batch (the CFG pair) is split over dp.  Training
+takes the same shards (the model's forward with ``sp``), with the split and
+the output's gather differentiable.
 """
 
 from __future__ import annotations
@@ -230,9 +232,20 @@ class JointShard:
             raise ValueError(f"{video_len} video tokens after {text_len} text tokens leave an "
                              f"sp rank of {axis.size} without video tokens")
 
+    def split(self, text: torch.Tensor, video: torch.Tensor) -> tuple:
+        """This rank's (text, video) tokens of the whole streams (B, S, C).
+        With grad enabled the backward pass puts the shard's gradient into
+        zeros of the whole stream, with no sum over sp: the whole gradient
+        of a stream is the sum of the ranks' pieces, but what lies upstream
+        (the patch, text and time embeddings) is frozen in LoRA training,
+        so nothing reads it."""
+        return text[:, self.text], video[:, self.video]
+
     def gather_video(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, local video tokens, C) -> (B, all video tokens, C) on every rank."""
-        return D.all_gather(x, self.axis, dim=1, sizes=self.video_sizes)
+        """(B, local video tokens, C) -> (B, all video tokens, C) on every
+        rank; with grad enabled its backward takes this rank's slice of the
+        gradient (``distributed.gather_tokens``)."""
+        return D.gather_tokens(x, self.axis, 1, self.video_sizes)
 
 
 def batch_shard(x: Optional[torch.Tensor], axis: D.Axis) -> Optional[torch.Tensor]:

@@ -98,6 +98,7 @@ class TrajCrafterPipeline:
     timer: Optional[StageTimer] = None  # shared with the orchestrator's stages
     mesh: object = None  # parallel/mesh.py Mesh, set by with_mesh
     spatial_vae: Optional[AutoencoderKLCogVideoX] = None  # the VAE's sharded twin, ditto
+    device_ranks: int = 1  # the mesh's ranks on this rank's device, ditto
 
     def __post_init__(self):
         if self.timer is None:
@@ -128,13 +129,15 @@ class TrajCrafterPipeline:
         tensor-parallel (parallel/sharding.py rules), its activations over
         dp and sp, its joint self-attention on the ring when sp > 1; the
         VAE's condition prep and decode H on dp, W on sp (``spatial_vae``,
-        a twin sharing the VAE's weights, which every rank holds).  The
+        a twin sharing the VAE's weights, which every rank holds); the
+        mesh's ranks on this rank's device counted (``device_ranks``).  The
         JAX package returns a sharded copy; here the DiT is replaced by its
         shard, so nothing holds the whole DiT beside it."""
         if self.vae is None:
             raise ValueError("a sharded pipeline needs the VAE on every rank")
         shard_dit_(self.transformer, mesh)
         self.spatial_vae = shard_spatially(self.vae, Plane.of(mesh))
+        self.device_ranks = D.ranks_on_device(mesh.world, self.device)
         self.mesh = mesh
         return self
 
@@ -407,8 +410,10 @@ class TrajCrafterPipeline:
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Final latents (B, F', h, w, C) -> video (B, F, H, W, 3) in [0, 1]
         (the JAX ``_decode_jit``).  Under a mesh every rank decodes its slab
-        and every rank of its plane gets the whole video."""
+        and every rank of its plane gets the whole video; ranks that share
+        one device plan the decode in their share of its memory (the
+        device's over ``device_ranks``)."""
         z = latents / self.vae.scaling_factor
         frames = vae_decode_auto(self._cond_vae, z.to(self._vae_dtype),
-                                 decode_memory_bytes(z.device))
+                                 decode_memory_bytes(z.device) // self.device_ranks)
         return (frames.float() / 2.0 + 0.5).clamp(0.0, 1.0)

@@ -19,17 +19,23 @@ holds them, else from the step's ``torch.Generator``: torch cannot replay a
 JAX key, so the parity tests supply them.  The port updates the adapters in
 place.
 
-Under a mesh (``make_train_step(..., mesh)``: dp x tp, the model's blocks
-and Perceivers over tp, parallel/sharding.py ``shard_units_``) every rank
-holds the whole adapters and the global batch, draws the global batch's
-timesteps, noise and dropout masks from the same generator, and runs its dp
-rows (JAX shards the batch on dp).  Before clipping and AdamW the adapter
-gradients are reduced (``reduce_lora_grads``): summed over tp for the
-adapters of tp-sharded layers (each rank holds its slice's part), not for
-the replicated top-level ``proj_out``, whose whole gradient every tp rank
-already holds, then averaged over dp.  Both reductions sum in coordinate
-order, so the adapters stay bit-equal on every rank; with accumulation the
-running mean of the local gradients is reduced once per update.
+Under a mesh (``make_train_step(..., mesh)``: dp x sp x tp, the model's
+blocks and Perceivers over tp, parallel/sharding.py ``shard_units_``) every
+rank holds the whole adapters and the global batch, draws the global
+batch's timesteps, noise and dropout masks from the same generator, and
+runs its dp rows (JAX shards the batch on dp).  With sp > 1 the model's
+forward keeps the rank's shard of the joint token stream (JAX's
+``shard_activations``; models/dit.py with ``sp``) and gathers the output
+over sp before the loss, so every sp rank computes the same loss on the
+whole prediction (the motion term's frame differences cross the shards).
+Before clipping and AdamW the adapter gradients are reduced
+(``reduce_lora_grads``): summed over sp, every adapter (a rank's layers,
+the replicated top-level ``proj_out`` too, see only its tokens); summed
+over tp for the adapters of tp-sharded layers (each rank holds its slice's
+part), not for ``proj_out``, whose whole gradient every tp rank already
+holds; then averaged over dp.  Every reduction sums in coordinate order, so
+the adapters stay bit-equal on every rank; with accumulation the running
+mean of the local gradients is reduced once per update.
 """
 
 from __future__ import annotations
@@ -143,6 +149,12 @@ def dp_mean(flat: torch.Tensor, dp: D.Axis) -> torch.Tensor:
     return D.sum_partials(flat, dp) / dp.size
 
 
+def sp_sum(flat: torch.Tensor, sp: D.Axis) -> torch.Tensor:
+    """The sum over sp of every rank's ``flat`` (each its tokens' share), in
+    coordinate order."""
+    return D.sum_partials(flat, sp)
+
+
 def _reduced(grads: List[torch.Tensor], picked: List[int], fn) -> None:
     """``fn`` of the gradients ``picked``, flattened into one tensor, written
     back in place of them."""
@@ -156,9 +168,12 @@ def _reduced(grads: List[torch.Tensor], picked: List[int], fn) -> None:
 def reduce_lora_grads(grads: Sequence[torch.Tensor], names: Sequence[str], model: nn.Module,
                       mesh) -> List[torch.Tensor]:
     """The adapter gradients of one rank (fp32, in the order of ``names``)
-    -> the mesh's: summed over tp for the adapters of tp-sharded layers,
-    then averaged over dp (one flat collective each)."""
+    -> the mesh's: every adapter summed over sp, then summed over tp for the
+    adapters of tp-sharded layers, then averaged over dp (one flat
+    collective each)."""
     grads = list(grads)
+    if mesh.sp.size > 1:
+        _reduced(grads, list(range(len(grads))), lambda flat: sp_sum(flat, mesh.sp))
     if mesh.tp.size > 1:
         sharded = tp_sharded_adapters(model, names)
         _reduced(grads, [i for i, n in enumerate(names) if n in sharded],
@@ -179,6 +194,7 @@ def make_loss_fn(
     lora_rank: int = 8,
     num_train_timesteps: int = 1000,
     dp: Optional[D.Axis] = None,
+    sp: Optional[D.Axis] = None,
 ) -> Callable:
     """The training objective as loss(lora, batch, rng) -> 0-d fp32 tensor.
 
@@ -191,7 +207,9 @@ def make_loss_fn(
     pass (and, under ``remat``, its recomputation) runs on the merged
     weights.  Under ``dp`` every rank passes the global batch and draws its
     timesteps, noise and masks, then takes its dp rows: the loss is the mean
-    over the rank's rows.
+    over the rank's rows.  Under ``sp`` the model keeps the rank's shard of
+    the joint tokens and gathers its prediction, so the loss is the whole
+    rows' on every sp rank.
     """
     model.requires_grad_(False)
     base = next(model.parameters())
@@ -225,9 +243,10 @@ def make_loss_fn(
         noisy = scheduler.add_noise(sch_state, x0, noise, timesteps)
         text, ref, inpaint = conditions
         rope = batch.get("rope")
+        tokens = {} if sp is None else {"sp": sp}  # the token stream's sp axis
         pred = model(noisy.to(dtype), text.to(dtype), timesteps.float(),
                      inpaint_latents=inpaint.to(dtype), cross_latents=ref.to(dtype),
-                     image_rotary_emb=rope).float()
+                     image_rotary_emb=rope, **tokens).float()
 
         if prediction_type == "v_prediction":
             target = scheduler.get_velocity(sch_state, x0, noise, timesteps)
@@ -259,11 +278,11 @@ def make_train_step(
 ) -> Callable:
     """Returns step(state, batch, rng) -> (state, {"loss", "grad_norm"}), the
     metrics 0-d tensors; ``grad_norm`` is the global norm of the step's
-    gradient before clipping.  Under ``mesh`` (dp x tp) the loss is the
-    mean over dp of the ranks' losses and ``grad_norm`` the norm of the
-    reduced gradient; with accumulation that gradient is the running mean's
-    at the micro-step that updates, and ``grad_norm`` is NaN at the others
-    (their gradients are not reduced).
+    gradient before clipping.  Under ``mesh`` (dp x sp x tp) the loss is
+    the mean over dp of the ranks' losses (every sp rank's is the same) and
+    ``grad_norm`` the norm of the reduced gradient; with accumulation that
+    gradient is the running mean's at the micro-step that updates, and
+    ``grad_norm`` is NaN at the others (their gradients are not reduced).
 
     batch: channel-last latents, already VAE-encoded: gt_latents (B, F, h,
     w, C), prompt_embeds (B, L, De), ref_latents (B, Fr, h, w, C),
@@ -274,7 +293,8 @@ def make_train_step(
         model, scheduler, sch_state, prediction_type=prediction_type,
         cfg_dropout_prob=cfg_dropout_prob, motion_sub_loss=motion_sub_loss,
         lora_alpha=lora_alpha, lora_rank=lora_rank, num_train_timesteps=num_train_timesteps,
-        dp=None if mesh is None else mesh.dp)
+        dp=None if mesh is None else mesh.dp,
+        sp=None if mesh is None or mesh.sp.size == 1 else mesh.sp)
 
     def step(state: TrainState, batch: Batch, rng):
         params = list(state.lora.values())
