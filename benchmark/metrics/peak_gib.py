@@ -1,0 +1,6 @@
+"""peak_gib: torch.cuda.max_memory_allocated() over set-up and window (the
+statistics reset at the start of the process), in GiB."""
+
+
+def read(ctx):
+    return ctx.peak_bytes / 2 ** 30 if ctx.peak_bytes else None
