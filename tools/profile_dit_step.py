@@ -6,6 +6,7 @@
     python3 tools/profile_dit_step.py --quant int8 --fuse   # ... with the fused FF
     python3 tools/profile_dit_step.py --depth [--quant_depth int8]   # the depth stage
     python3 tools/profile_dit_step.py --train        # one LoRA training step
+    python3 tools/profile_dit_step.py --clip [--quant int8]   # a whole clip by stage
 
 One step is one forward of the full-width CrossTransformer3D DiT (random
 bf16 weights from seed 0, quantized by ``build_full_scale_models`` under
@@ -20,19 +21,31 @@ stage).  With ``--train`` it is one LoRA training step at the configuration
 of chip_smoke.py's run P: the full-width bf16 DiT at B = 1 (13,330 joint
 tokens), rank 8 adapters on its 316 target layers, ``remat``,
 ``flash_stock`` (K5 forward, the backward kernels K4-dkv and K4-dq),
-AdamW, on a random batch of run P's latent shapes.  After two warm-up
-forwards (steps) it times one unprofiled (host clock ending in a
-synchronize), then one under ``torch.profiler``, and prints the device
-time per kernel group (with the int8 GEMM groups' int8 operations, counted
-by hooks on the int8 layers in the first warm-up forward, and their TOP/s;
-a training step also the attention kernels' launches), the top kernels,
-and the device's idle share (1 - summed kernel time / profiled wall time).
+AdamW, on a random batch of run P's latent shapes.  With ``--clip`` it is
+one whole ``TrajCrafter.infer_gradual`` clip as the CLI runs it (the
+synthetic 49-frame video, 2 denoise steps, its five mp4s written to a
+temporary directory).  After two warm-up forwards (steps, clips) it times
+one unprofiled (host clock ending in a synchronize), then one under
+``torch.profiler``, and prints the device's idle share (the part of the
+profiled forward that the union of the device's operations leaves
+uncovered, benchmark/trace.py) and the top kernels.  The DiT forward and
+the clip print the port's span table (utils/timing.py: each span's self
+device ms and calls, and its share of the whole); the clip first its stage
+table: per ``StageTimer`` stage its host seconds, the device's busy time
+inside the stage's ``stage.<name>`` ranges of the trace and the span's self
+time (the stage's time on the card's stream outside the spans it holds,
+idle stretches included).  The
+depth UNet and the training step, whose modules have no spans, print the
+device time per kernel group (with the int8 GEMM groups' int8 operations,
+counted by hooks on the int8 layers in the first warm-up forward, and their
+TOP/s; a training step also the attention kernels' launches).
 """
 
 import argparse
 import contextlib
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -186,6 +199,35 @@ def train_step(models, cfg):
     return label, step
 
 
+def clip_run(models, cfg):
+    """(label, run) of one ``TrajCrafter.infer_gradual`` clip."""
+    from trajectorycrafter_tpu_torch.orchestrator import TrajCrafter
+
+    tc = TrajCrafter(cfg, models=models)
+    label = (f"infer_gradual clip, {cfg.video_length} frames, "
+             f"{cfg.diffusion.num_inference_steps} denoise steps")
+    return label, tc.infer_gradual
+
+
+def stage_table(trace, totals, seconds) -> None:
+    """Print, per ``StageTimer`` stage of the profiled clip, its host seconds
+    (``seconds``), the device's busy seconds inside its ``stage.<name>``
+    ranges of ``trace`` and the span's self seconds (``totals``)."""
+    busy = trace.intervals()
+
+    def busy_in(lo: int, hi: int) -> float:
+        return sum(min(e, hi) - max(s, lo) for s, e in busy if s < hi and e > lo) / 1e9
+
+    print(f"{'stage':16s} {'host s':>8s} {'busy s':>8s} {'busy':>6s} {'self s':>8s}  calls")
+    for name, host_s in seconds.items():
+        ranges = [(s, e) for op, s, e in trace.host_ops if op == f"stage.{name}"]
+        inside = sum(busy_in(s, e) for s, e in ranges)
+        total = totals.get(f"stage.{name}")
+        self_s, calls = (total.self_s, total.calls) if total else (0.0, 0)
+        print(f"{name:16s} {host_s:8.3f} {inside:8.3f} {100 * inside / host_s:5.1f}% "
+              f"{self_s:8.3f}  x{calls}")
+
+
 def int8_ops(model, forward) -> dict:
     """{kernel group: int8 operations} of one ``forward``, counted by forward
     hooks on ``model``'s int8 layers (2 M K N per GEMM): an ``Int8Linear``
@@ -224,11 +266,6 @@ def int8_ops(model, forward) -> dict:
 
 def main() -> None:
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from trajectorycrafter_tpu_torch.cli import parse_config
-    from trajectorycrafter_tpu_torch.orchestrator import build_full_scale_models
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--depth", action="store_true", help="profile the depth stage's step")
@@ -238,21 +275,41 @@ def main() -> None:
                         help="the int8 DiT's fused feed-forward (int8_ff_apply)")
     parser.add_argument("--train", action="store_true",
                         help="profile one LoRA training step of the bf16 DiT (run P)")
+    parser.add_argument("--clip", action="store_true",
+                        help="profile one infer_gradual clip, by stage and span")
     args = parser.parse_args()
     if args.train and (args.depth or args.quant != "none"):
         parser.error("--train profiles the bf16 DiT: no --depth, --quant none")
+    if args.clip and (args.depth or args.train):
+        parser.error("--clip profiles the whole clip: no --depth, no --train")
     if not torch.cuda.is_available():
         raise SystemExit("profile_dit_step: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    cfg = parse_config(ARGV + ["--quant", args.quant, "--quant_depth", args.quant_depth])
+    quant = ["--quant", args.quant, "--quant_depth", args.quant_depth]
+    if not args.clip:
+        return profile_one(args, ARGV + quant)
+    with tempfile.TemporaryDirectory(prefix="profile_clip_") as out_dir:
+        profile_one(args, ARGV + quant + ["--mode", "gradual", "--prompt", "a scene",
+                                          "--diffusion_inference_steps", "2",
+                                          "--out_dir", out_dir, "--exp_name", "profile"])
+
+
+def profile_one(args, argv) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from trajectorycrafter_tpu_torch.cli import parse_config
+    from trajectorycrafter_tpu_torch.orchestrator import build_full_scale_models
+
+    cfg = parse_config(argv)
     models = build_full_scale_models(cfg, "cuda")
     for block in models.pipeline.transformer.transformer_blocks:
         block.ff.fuse = args.fuse or None
-    if args.train:
-        label, forward = train_step(models, cfg)
-        forward()  # the first warm-up step
-        ops, grad_mode = {}, contextlib.nullcontext
+    if args.train or args.clip:
+        label, forward = (train_step if args.train else clip_run)(models, cfg)
+        forward()  # the first warm-up step or clip
+        ops, grad_mode = {}, (contextlib.nullcontext if args.train else torch.no_grad)
     else:
         label, forward = (depth_step if args.depth else dit_step)(models, cfg)
         label += f", --quant {args.quant}{' (fused FF)' if args.fuse else ''}, --quant_depth " \
@@ -261,38 +318,55 @@ def main() -> None:
         ops = int8_ops(model, forward)  # also the first warm-up forward
         grad_mode = torch.no_grad
 
+    from benchmark.trace import SPAN, Trace
     from trajectorycrafter_tpu_torch.ops import kernels as kern
+    from trajectorycrafter_tpu_torch.utils import timing
+
     counted = (kern.flash_lse, kern.flash_attention_bwd_dkv, kern.flash_attention_bwd_dq)
     with grad_mode():
         _synced_ms(forward)
         wall = _synced_ms(forward)
         before = [fn.launches for fn in counted]
+        timing.reset_spans()
+        models.pipeline.timer.seconds.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiled_wall = _synced_ms(forward)
+            with record_function(SPAN):
+                profiled_wall = _synced_ms(forward)
     print(f"{label}: {wall:.1f} ms unprofiled, {profiled_wall:.1f} ms profiled")
     if args.train:
         print("launches in the profiled step: " + ", ".join(
             f"{fn.__name__} {fn.launches - n}" for fn, n in zip(counted, before)))
 
-    kernels = defaultdict(lambda: [0.0, 0])  # name -> [device us, launches]
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            kernels[event.name][0] += event.device_time_total
-            kernels[event.name][1] += 1
-    total_us = sum(t for t, _ in kernels.values())
-    print(f"kernel time {total_us / 1e3:.1f} ms in {sum(n for _, n in kernels.values())} "
-          f"launches; device idle share {1 - total_us / 1e3 / profiled_wall:.3f}")
-    groups = defaultdict(lambda: [0.0, 0])
-    for name, (t, n) in kernels.items():
-        groups[kernel_group(name)][0] += t
-        groups[kernel_group(name)][1] += n
-    for group, (t, n) in sorted(groups.items(), key=lambda x: -x[1][0]):
-        rate = f"  {ops[group] / 1e12:.1f} T int8 operations, {ops[group] / t / 1e6:.0f} TOP/s" \
-            if ops.get(group) else ""
-        print(f"{group:36s} {t / 1e3:9.2f} ms {100 * t / total_us:5.1f}%  x{n}{rate}")
+    trace = Trace.from_profiler(prof)
+    kernels = defaultdict(lambda: [0.0, 0])  # name -> [device ms, launches]
+    for name, start, end in trace.device_ops:
+        kernels[name][0] += (end - start) / 1e6
+        kernels[name][1] += 1
+    total_ms = sum(t for t, _ in kernels.values())
+    print(f"kernel time {total_ms:.1f} ms in {len(trace.device_ops)} launches; device busy "
+          f"{trace.busy_s * 1e3:.1f} ms of {trace.window_s * 1e3:.1f}, idle share "
+          f"{1 - trace.busy_s / trace.window_s:.4f}")
+    if not (args.depth or args.train):
+        totals = timing.span_totals()
+        if args.clip:
+            stage_table(trace, totals, models.pipeline.timer.seconds)
+        spanned = sum(t.self_s for t in totals.values())
+        print(f"spans (self device ms, calls), {spanned * 1e3:.1f} ms in all:")
+        for name, t in sorted(totals.items(), key=lambda kv: -kv[1].self_s):
+            print(f"{name:16s} {t.self_s * 1e3:9.2f} ms {100 * t.self_s / spanned:5.1f}%  "
+                  f"x{t.calls}")
+    else:
+        groups = defaultdict(lambda: [0.0, 0])
+        for name, (t, n) in kernels.items():
+            groups[kernel_group(name)][0] += t
+            groups[kernel_group(name)][1] += n
+        for group, (t, n) in sorted(groups.items(), key=lambda x: -x[1][0]):
+            rate = f"  {ops[group] / 1e12:.1f} T int8 operations, " \
+                f"{ops[group] / t / 1e9:.0f} TOP/s" if ops.get(group) else ""
+            print(f"{group:36s} {t:9.2f} ms {100 * t / total_ms:5.1f}%  x{n}{rate}")
     print("top kernels:")
     for name, (t, n) in sorted(kernels.items(), key=lambda x: -x[1][0])[:15]:
-        print(f"{t / 1e3:9.2f} ms {100 * t / total_us:5.1f}%  x{n:5d}  {name[:100]}")
+        print(f"{t:9.2f} ms {100 * t / total_ms:5.1f}%  x{n:5d}  {name[:100]}")
 
 
 if __name__ == "__main__":

@@ -8,9 +8,10 @@ Counterpart of trajectorycrafter_tpu/models/dit.py, in bf16:
     every ``cross_attn_interval``-th block;
   * patch embedding of the 33-channel latent input and the text projection;
   * channel-last (B, F, H, W, C) latents at the public interface;
-  * linear layers are ``nn.Linear`` (plain matrix products); layer norms
-    and softmax run in fp32; attention goes through ops/attention.py, which
-    launches the hand-written flash kernel for CUDA tensors.  The model's
+  * linear layers are ``ops/linear.py Linear`` (``nn.Linear``, each call a
+    ``linear`` span); layer norms and softmax run in fp32; attention goes
+    through ops/attention.py, which launches the hand-written flash kernel
+    for CUDA tensors.  The model's
     ``attention_impl`` reaches both the joint self-attention and the
     Perceivers, as in the JAX model: ``"flash_pv8"`` runs both on the
     PV-int8 kernel.
@@ -58,6 +59,14 @@ reference tokens), ``run_blocks`` (step 4, the block stack: block 2i, then
 Perceiver i added to the residual, then block 2i + 1, as the JAX pipeline's
 superblocks; a GPipe stage runs its share, parallel/pipeline.py) and the
 output head.
+
+Spans (utils/timing.py; traced only under a profiler): ``dit.forward``,
+``dit.embed``, ``dit.block``, ``dit.joint_attn``, ``dit.perceiver`` and
+``dit.ff`` at the modules' forwards; ``dit.norm`` at the fp32 layer norms
+with their modulation (each ``LayerNormZero``, a Perceiver's two norms, the
+head's two); ``linear`` at every linear layer, ``attention`` at
+ops/attention.py ``multi_head_attention``.  Per CFG step at 42 layers: 1, 1,
+42, 42, 21, 42, 106, 404 and 63 calls.
 """
 
 from __future__ import annotations
@@ -72,10 +81,12 @@ from torch.utils.checkpoint import checkpoint as _recompute
 from trajectorycrafter_tpu_torch.ops.attention import multi_head_attention
 from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear, Int8RowParallelLinear
 from trajectorycrafter_tpu_torch.ops.int8_matmul import FF_GROUP, fit_block, int8_ff_apply
+from trajectorycrafter_tpu_torch.ops.linear import Linear
 from trajectorycrafter_tpu_torch.parallel import distributed as D
 from trajectorycrafter_tpu_torch.parallel.sharding import JointShard, batch_shard
 from trajectorycrafter_tpu_torch.ops.posemb import resized_pos_embedding, timestep_embedding
 from trajectorycrafter_tpu_torch.ops.rope import apply_rotary_emb
+from trajectorycrafter_tpu_torch.utils.timing import span
 
 
 def layer_norm_f32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +101,7 @@ class _GELUProj(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out)
+        self.proj = Linear(dim_in, dim_out)
 
     def forward(self, x):
         return F.gelu(self.proj(x), approximate="tanh")
@@ -113,31 +124,37 @@ class FeedForward(nn.Module):
         self.fuse: Optional[bool] = None
         self.tp_axis = None  # set by parallel/sharding.py shard_unit_
         self.net = nn.ModuleList([_GELUProj(dim, dim * mult), nn.Identity(),
-                                  nn.Linear(dim * mult, dim)])
+                                  Linear(dim * mult, dim)])
 
     def forward(self, x):
-        proj_in, proj_out = self.net[0].proj, self.net[2]
-        if self.fuse and isinstance(proj_in, Int8Linear):
-            if not isinstance(proj_out, Int8RowParallelLinear):
-                return int8_ff_apply(x, proj_in.weight_q, proj_in.weight_scale, proj_in.bias,
-                                     proj_out.weight_q, proj_out.weight_scale, proj_out.bias,
-                                     impl=proj_in.int8_impl)
-            # tensor-parallel: this rank's columns of the first GEMM and its
-            # K of the second, whose groups must stay the unsharded ones
-            width = proj_in.out_features * proj_out.tp_axis.size
-            group = fit_block(FF_GROUP, width)
-            if proj_in.out_features % group:
-                raise ValueError(f"the fused int8 FF runs under tp only where {width} / tp is a "
-                                 f"multiple of its {group}-column group; tp="
-                                 f"{proj_out.tp_axis.size} leaves {proj_in.out_features}")
-            return D.sum_partials(int8_ff_apply(
-                x, proj_in.weight_q, proj_in.weight_scale, proj_in.bias, proj_out.weight_q,
-                proj_out.weight_scale, None, group=group, impl=proj_in.int8_impl),
-                proj_out.tp_axis, proj_out.bias)
-        x = D.tp_input(x, self.tp_axis)
-        for layer in self.net:
-            x = layer(x)
-        return x
+        with span("dit.ff", x):
+            proj_in, proj_out = self.net[0].proj, self.net[2]
+            if self.fuse and isinstance(proj_in, Int8Linear):
+                with span("linear", x):  # the fused chain is one linear layer's span
+                    return self._fused(x, proj_in, proj_out)
+            x = D.tp_input(x, self.tp_axis)
+            for layer in self.net:
+                x = layer(x)
+            return x
+
+    @staticmethod
+    def _fused(x, proj_in, proj_out):
+        if not isinstance(proj_out, Int8RowParallelLinear):
+            return int8_ff_apply(x, proj_in.weight_q, proj_in.weight_scale, proj_in.bias,
+                                 proj_out.weight_q, proj_out.weight_scale, proj_out.bias,
+                                 impl=proj_in.int8_impl)
+        # tensor-parallel: this rank's columns of the first GEMM and its K of
+        # the second, whose groups must stay the unsharded ones
+        width = proj_in.out_features * proj_out.tp_axis.size
+        group = fit_block(FF_GROUP, width)
+        if proj_in.out_features % group:
+            raise ValueError(f"the fused int8 FF runs under tp only where {width} / tp is a "
+                             f"multiple of its {group}-column group; tp="
+                             f"{proj_out.tp_axis.size} leaves {proj_in.out_features}")
+        return D.sum_partials(int8_ff_apply(
+            x, proj_in.weight_q, proj_in.weight_scale, proj_in.bias, proj_out.weight_q,
+            proj_out.weight_scale, None, group=group, impl=proj_in.int8_impl),
+            proj_out.tp_axis, proj_out.bias)
 
 
 class LayerNormZero(nn.Module):
@@ -146,17 +163,18 @@ class LayerNormZero(nn.Module):
 
     def __init__(self, conditioning_dim: int, dim: int):
         super().__init__()
-        self.linear = nn.Linear(conditioning_dim, 6 * dim)
+        self.linear = Linear(conditioning_dim, 6 * dim)
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, hidden, encoder, temb):
-        mod = self.linear(F.silu(temb))
-        shift, scale, gate, enc_shift, enc_scale, enc_gate = mod.chunk(6, dim=-1)
-        h = layer_norm_f32(self.norm, hidden)
-        e = layer_norm_f32(self.norm, encoder)
-        h = h * (1 + scale[:, None]) + shift[:, None]
-        e = e * (1 + enc_scale[:, None]) + enc_shift[:, None]
-        return h, e, gate[:, None], enc_gate[:, None]
+        with span("dit.norm", hidden):
+            mod = self.linear(F.silu(temb))
+            shift, scale, gate, enc_shift, enc_scale, enc_gate = mod.chunk(6, dim=-1)
+            h = layer_norm_f32(self.norm, hidden)
+            e = layer_norm_f32(self.norm, encoder)
+            h = h * (1 + scale[:, None]) + shift[:, None]
+            e = e * (1 + enc_scale[:, None]) + enc_shift[:, None]
+            return h, e, gate[:, None], enc_gate[:, None]
 
 
 class JointAttention(nn.Module):
@@ -168,12 +186,12 @@ class JointAttention(nn.Module):
         inner = heads * head_dim
         self.heads, self.head_dim, self.attention_impl = heads, head_dim, attention_impl
         self.tp_axis = None  # set by parallel/sharding.py shard_unit_
-        self.to_q = nn.Linear(dim, inner)
-        self.to_k = nn.Linear(dim, inner)
-        self.to_v = nn.Linear(dim, inner)
+        self.to_q = Linear(dim, inner)
+        self.to_k = Linear(dim, inner)
+        self.to_v = Linear(dim, inner)
         self.norm_q = nn.LayerNorm(head_dim, eps=1e-6)
         self.norm_k = nn.LayerNorm(head_dim, eps=1e-6)
-        self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
+        self.to_out = nn.ModuleList([Linear(inner, dim)])
 
     def forward(self, hidden, encoder, rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 seq: Optional[JointShard] = None):
@@ -181,19 +199,23 @@ class JointAttention(nn.Module):
             raise ValueError("token shards take a ring route and the ring needs token "
                              "shards: shard the model with the pipeline's with_mesh, or give "
                              "the training forward its sp axis")
-        text_len = encoder.shape[1]
-        x = D.tp_input(torch.cat([encoder, hidden], dim=1), self.tp_axis)
-        heads = (self.heads, self.head_dim)
-        q = layer_norm_f32(self.norm_q, self.to_q(x).unflatten(-1, heads))
-        k = layer_norm_f32(self.norm_k, self.to_k(x).unflatten(-1, heads))
-        v = self.to_v(x).unflatten(-1, heads)
-        if rope is not None:
-            # rotate the video tokens in (B, S, H, D): cos/sin (S_vid, 1, D)
-            cos, sin = rope[0][:, None], rope[1][:, None]
-            q = torch.cat([q[:, :text_len], apply_rotary_emb(q[:, text_len:], cos, sin)], dim=1)
-            k = torch.cat([k[:, :text_len], apply_rotary_emb(k[:, text_len:], cos, sin)], dim=1)
-        out = self.to_out[0](multi_head_attention(q, k, v, impl=self.attention_impl, ring=seq))
-        return out[:, text_len:], out[:, :text_len]
+        with span("dit.joint_attn", hidden):
+            text_len = encoder.shape[1]
+            x = D.tp_input(torch.cat([encoder, hidden], dim=1), self.tp_axis)
+            heads = (self.heads, self.head_dim)
+            q = layer_norm_f32(self.norm_q, self.to_q(x).unflatten(-1, heads))
+            k = layer_norm_f32(self.norm_k, self.to_k(x).unflatten(-1, heads))
+            v = self.to_v(x).unflatten(-1, heads)
+            if rope is not None:
+                # rotate the video tokens in (B, S, H, D): cos/sin (S_vid, 1, D)
+                cos, sin = rope[0][:, None], rope[1][:, None]
+                q = torch.cat([q[:, :text_len], apply_rotary_emb(q[:, text_len:], cos, sin)],
+                              dim=1)
+                k = torch.cat([k[:, :text_len], apply_rotary_emb(k[:, text_len:], cos, sin)],
+                              dim=1)
+            out = self.to_out[0](multi_head_attention(q, k, v, impl=self.attention_impl,
+                                                      ring=seq))
+            return out[:, text_len:], out[:, :text_len]
 
 
 class CogVideoXBlock(nn.Module):
@@ -206,17 +228,18 @@ class CogVideoXBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, hidden, encoder, temb, rope, seq: Optional[JointShard] = None):
-        h, e, gate, enc_gate = self.norm1(hidden, encoder, temb)
-        attn_h, attn_e = self.attn1(h, e, rope, seq)
-        hidden = hidden + gate * attn_h
-        encoder = encoder + enc_gate * attn_e
+        with span("dit.block", hidden):
+            h, e, gate, enc_gate = self.norm1(hidden, encoder, temb)
+            attn_h, attn_e = self.attn1(h, e, rope, seq)
+            hidden = hidden + gate * attn_h
+            encoder = encoder + enc_gate * attn_e
 
-        h, e, gate_ff, enc_gate_ff = self.norm2(hidden, encoder, temb)
-        ff_out = self.ff(torch.cat([e, h], dim=1))
-        text_len = encoder.shape[1]
-        hidden = hidden + gate_ff * ff_out[:, text_len:]
-        encoder = encoder + enc_gate_ff * ff_out[:, :text_len]
-        return hidden, encoder
+            h, e, gate_ff, enc_gate_ff = self.norm2(hidden, encoder, temb)
+            ff_out = self.ff(torch.cat([e, h], dim=1))
+            text_len = encoder.shape[1]
+            hidden = hidden + gate_ff * ff_out[:, text_len:]
+            encoder = encoder + enc_gate_ff * ff_out[:, :text_len]
+            return hidden, encoder
 
 
 class PerceiverCrossAttention(nn.Module):
@@ -231,29 +254,33 @@ class PerceiverCrossAttention(nn.Module):
         self.tp_axis = None  # set by parallel/sharding.py shard_unit_
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_kv = nn.Linear(dim, 2 * inner, bias=False)
-        self.to_out = nn.Linear(inner, dim, bias=False)
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_kv = Linear(dim, 2 * inner, bias=False)
+        self.to_out = Linear(inner, dim, bias=False)
 
     def forward(self, x, latents):
-        # x: (B, S_ref, dim) reference tokens; latents: (B, S_vid, dim)
-        x = D.tp_input(layer_norm_f32(self.norm1, x), self.tp_axis)
-        lat = D.tp_input(layer_norm_f32(self.norm2, latents), self.tp_axis)
-        heads = (self.heads, self.head_dim)
-        q = self.to_q(lat).unflatten(-1, heads)
-        # k and v stay strided views of the kv projection: the kernel reads
-        # them in place
-        k, v = (t.unflatten(-1, heads) for t in self.to_kv(x).chunk(2, dim=-1))
-        out = multi_head_attention(q, k, v, scale=self.head_dim ** -0.5,
-                                   impl=self.attention_impl)
-        return self.to_out(out)
+        with span("dit.perceiver", x):
+            # x: (B, S_ref, dim) reference tokens; latents: (B, S_vid, dim)
+            with span("dit.norm", x):
+                x = layer_norm_f32(self.norm1, x)
+                lat = layer_norm_f32(self.norm2, latents)
+            x = D.tp_input(x, self.tp_axis)
+            lat = D.tp_input(lat, self.tp_axis)
+            heads = (self.heads, self.head_dim)
+            q = self.to_q(lat).unflatten(-1, heads)
+            # k and v stay strided views of the kv projection: the kernel reads
+            # them in place
+            k, v = (t.unflatten(-1, heads) for t in self.to_kv(x).chunk(2, dim=-1))
+            out = multi_head_attention(q, k, v, scale=self.head_dim ** -0.5,
+                                       impl=self.attention_impl)
+            return self.to_out(out)
 
 
 class _PatchEmbed(nn.Module):
     def __init__(self, in_channels: int, dim: int, text_dim: int, patch: int):
         super().__init__()
         self.proj = nn.Conv2d(in_channels, dim, patch, stride=patch)
-        self.text_proj = nn.Linear(text_dim, dim)
+        self.text_proj = Linear(text_dim, dim)
 
 
 class _RefPatchEmbed(nn.Module):
@@ -265,8 +292,8 @@ class _RefPatchEmbed(nn.Module):
 class _TimestepEmbedding(nn.Module):
     def __init__(self, in_dim: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = Linear(in_dim, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, x):
         return self.linear_2(F.silu(self.linear_1(x)))
@@ -275,7 +302,7 @@ class _TimestepEmbedding(nn.Module):
 class _AdaNormOut(nn.Module):
     def __init__(self, time_embed_dim: int, dim: int):
         super().__init__()
-        self.linear = nn.Linear(time_embed_dim, 2 * dim)
+        self.linear = Linear(time_embed_dim, 2 * dim)
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
 
@@ -349,42 +376,43 @@ class CrossTransformer3DModel(nn.Module):
         ]) if is_train_cross else None
         self.norm_final = nn.LayerNorm(dim, eps=1e-5)
         self.norm_out = _AdaNormOut(time_embed_dim, dim)
-        self.proj_out = nn.Linear(dim, patch_size * patch_size * out_channels)
+        self.proj_out = Linear(dim, patch_size * patch_size * out_channels)
 
     def embed(self, hidden_states, encoder_hidden_states, timestep, inpaint_latents=None,
               cross_latents=None):
         """Steps 1-3 of the forward: (video tokens (B, S_vid, D), text tokens
         (B, S_txt, D), temb (B, time_embed_dim), reference tokens (B, S_ref,
         D) or None), the block stack's inputs."""
-        f, h, w = hidden_states.shape[1:4]
-        p = self.patch_size
-        dim = self.inner_dim
-        dtype = self.proj_out.weight.dtype
-        # 1. time embedding (fp32 sinusoid -> MLP in the model dtype)
-        temb = self.time_embedding(timestep_embedding(timestep, dim).to(dtype))
+        with span("dit.embed", hidden_states):
+            f, h, w = hidden_states.shape[1:4]
+            p = self.patch_size
+            dim = self.inner_dim
+            dtype = self.proj_out.weight.dtype
+            # 1. time embedding (fp32 sinusoid -> MLP in the model dtype)
+            temb = self.time_embedding(timestep_embedding(timestep, dim).to(dtype))
 
-        # 2. patch embedding of [noise ; inpaint] and the text projection
-        if inpaint_latents is not None:
-            hidden_states = torch.cat([hidden_states, inpaint_latents], dim=-1)
-        video_tokens = _patchify(self.patch_embed.proj, hidden_states)
-        text_tokens = self.patch_embed.text_proj(encoder_hidden_states)
+            # 2. patch embedding of [noise ; inpaint] and the text projection
+            if inpaint_latents is not None:
+                hidden_states = torch.cat([hidden_states, inpaint_latents], dim=-1)
+            video_tokens = _patchify(self.patch_embed.proj, hidden_states)
+            text_tokens = self.patch_embed.text_proj(encoder_hidden_states)
 
-        cross_tokens = None
-        if self.perceiver_cross_attention is not None and cross_latents is not None:
-            cross_tokens = _patchify(self.ref_patch_embed.proj, cross_latents)
+            cross_tokens = None
+            if self.perceiver_cross_attention is not None and cross_latents is not None:
+                cross_tokens = _patchify(self.ref_patch_embed.proj, cross_latents)
 
-        # 3. positional embedding (non-RoPE checkpoints only)
-        if not self.use_rotary_positional_embeddings:
-            table = resized_pos_embedding(
-                dim,
-                (self.sample_frames - 1) // self.temporal_compression_ratio + 1,
-                self.sample_height // p, self.sample_width // p,
-                f, h // p, w // p,
-                self.spatial_interpolation_scale, self.temporal_interpolation_scale,
-            )
-            video_tokens = video_tokens + torch.as_tensor(
-                table, dtype=dtype, device=video_tokens.device)[None]
-        return video_tokens, text_tokens, temb, cross_tokens
+            # 3. positional embedding (non-RoPE checkpoints only)
+            if not self.use_rotary_positional_embeddings:
+                table = resized_pos_embedding(
+                    dim,
+                    (self.sample_frames - 1) // self.temporal_compression_ratio + 1,
+                    self.sample_height // p, self.sample_width // p,
+                    f, h // p, w // p,
+                    self.spatial_interpolation_scale, self.temporal_interpolation_scale,
+                )
+                video_tokens = video_tokens + torch.as_tensor(
+                    table, dtype=dtype, device=video_tokens.device)[None]
+            return video_tokens, text_tokens, temb, cross_tokens
 
     def run_blocks(self, hidden, encoder, temb, rope, cross_tokens,
                    seq: Optional[JointShard] = None, blocks: Optional[range] = None):
@@ -415,47 +443,49 @@ class CrossTransformer3DModel(nn.Module):
         image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         sp: Optional[D.Axis] = None,  # training: the joint tokens' sp axis
     ) -> torch.Tensor:
-        b, f, h, w, _ = hidden_states.shape
-        p = self.patch_size
-        mesh = self.mesh
-        if mesh is not None:  # this dp rank's share of the batch (the CFG pair)
-            hidden_states, encoder_hidden_states, timestep, inpaint_latents, cross_latents = (
-                batch_shard(x, mesh.dp) for x in (hidden_states, encoder_hidden_states,
-                                                  timestep, inpaint_latents, cross_latents))
-
-        video_tokens, text_tokens, temb, cross_tokens = self.embed(
-            hidden_states, encoder_hidden_states, timestep, inpaint_latents, cross_latents)
-        text_len = text_tokens.shape[1]
-
-        # 4. transformer blocks with interleaved Perceiver cross-attention;
-        #    under sp each rank keeps its shard of the joint token sequence
-        seq = None
-        if mesh is not None and sp is not None:
+        if self.mesh is not None and sp is not None:
             raise ValueError("the forward's sp axis is training's; a sharded model has its mesh")
-        sp = mesh.sp if mesh is not None else sp
-        if sp is not None and sp.size > 1:
-            seq = JointShard(sp, text_len, video_tokens.shape[1])
-            text_tokens, video_tokens = seq.split(text_tokens, video_tokens)
-            if image_rotary_emb is not None:
-                image_rotary_emb = tuple(t[seq.video] for t in image_rotary_emb)
+        with span("dit.forward", hidden_states):
+            b, f, h, w, _ = hidden_states.shape
+            p = self.patch_size
+            mesh = self.mesh
+            if mesh is not None:  # this dp rank's share of the batch (the CFG pair)
+                hidden_states, encoder_hidden_states, timestep, inpaint_latents, cross_latents = (
+                    batch_shard(x, mesh.dp) for x in (hidden_states, encoder_hidden_states,
+                                                      timestep, inpaint_latents, cross_latents))
+
+            video_tokens, text_tokens, temb, cross_tokens = self.embed(
+                hidden_states, encoder_hidden_states, timestep, inpaint_latents, cross_latents)
             text_len = text_tokens.shape[1]
-        hidden, encoder = self.run_blocks(video_tokens, text_tokens, temb, image_rotary_emb,
-                                          cross_tokens, seq)
 
-        # 5. final norm on the joint text+video stream (the deployed RoPE
-        #    checkpoint's order), then AdaLN and the projection
-        joint = layer_norm_f32(self.norm_final, torch.cat([encoder, hidden], dim=1))
-        hidden = joint[:, text_len:]
-        shift, scale = self.norm_out.linear(F.silu(temb)).chunk(2, dim=-1)
-        hidden = layer_norm_f32(self.norm_out.norm, hidden)
-        hidden = hidden * (1 + scale[:, None]) + shift[:, None]
-        out = self.proj_out(hidden)
-        if seq is not None:
-            out = seq.gather_video(out)
-        if mesh is not None:
-            out = D.all_gather(out, mesh.dp, dim=0)
+            # 4. transformer blocks with interleaved Perceiver cross-attention;
+            #    under sp each rank keeps its shard of the joint token sequence
+            seq = None
+            sp = mesh.sp if mesh is not None else sp
+            if sp is not None and sp.size > 1:
+                seq = JointShard(sp, text_len, video_tokens.shape[1])
+                text_tokens, video_tokens = seq.split(text_tokens, video_tokens)
+                if image_rotary_emb is not None:
+                    image_rotary_emb = tuple(t[seq.video] for t in image_rotary_emb)
+                text_len = text_tokens.shape[1]
+            hidden, encoder = self.run_blocks(video_tokens, text_tokens, temb, image_rotary_emb,
+                                              cross_tokens, seq)
 
-        # 6. unpatchify -> (B, F, H, W, C) in the reference's [c][i][j] order
-        out = out.reshape(b, f, h // p, w // p, self.out_channels, p, p)
-        out = out.permute(0, 1, 2, 5, 3, 6, 4)  # (b, f, h/p, p, w/p, p, c)
-        return out.reshape(b, f, h, w, self.out_channels)
+            # 5. final norm on the joint text+video stream (the deployed RoPE
+            #    checkpoint's order), then AdaLN and the projection
+            joint = torch.cat([encoder, hidden], dim=1)
+            with span("dit.norm", joint):
+                hidden = layer_norm_f32(self.norm_final, joint)[:, text_len:]
+                shift, scale = self.norm_out.linear(F.silu(temb)).chunk(2, dim=-1)
+                hidden = layer_norm_f32(self.norm_out.norm, hidden)
+                hidden = hidden * (1 + scale[:, None]) + shift[:, None]
+            out = self.proj_out(hidden)
+            if seq is not None:
+                out = seq.gather_video(out)
+            if mesh is not None:
+                out = D.all_gather(out, mesh.dp, dim=0)
+
+            # 6. unpatchify -> (B, F, H, W, C) in the reference's [c][i][j] order
+            out = out.reshape(b, f, h // p, w // p, self.out_channels, p, p)
+            out = out.permute(0, 1, 2, 5, 3, 6, 4)  # (b, f, h/p, p, w/p, p, c)
+            return out.reshape(b, f, h, w, self.out_channels)

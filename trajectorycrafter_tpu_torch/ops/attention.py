@@ -27,6 +27,9 @@ The gradient (LoRA training): ``FlashAttentionFunction`` is the port of the
 csrc/flash_attention_bwd.cu (dK/dV and dQ) with ``attention_backward_reference``
 as their plain version.  Under autograd ``"flash_stock"`` takes it; every
 other kernel route raises on the card, since its kernel has no backward.
+
+Each ``multi_head_attention`` call, whatever its route, is one
+``attention`` span of the tracer (utils/timing.py).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 
 from trajectorycrafter_tpu_torch.ops import attention_variants as av
 from trajectorycrafter_tpu_torch.ops import kernels
+from trajectorycrafter_tpu_torch.utils.timing import span
 from trajectorycrafter_tpu_torch.ops.kernels import (
     flash_attention,
     flash_attention_bwd_dkv,
@@ -413,35 +417,36 @@ def multi_head_attention(
     on its kernels (K5, K4-dkv, K4-dq) for CUDA tensors, ``"reference"`` /
     ``"xla"`` on its plain versions on any device; any other name raises.
     """
-    b, s, h, d = q.shape
-    if scale is None:
-        scale = d ** -0.5
-    if impl == "ring" or ring is not None:
-        if ring is None:
-            raise ValueError("the ring route needs the sp axis of its mesh: shard the model "
-                             "with pipelines/trajcrafter.py with_mesh")
-        from trajectorycrafter_tpu_torch.ops import ring_attention as ra
+    with span("attention", q):
+        b, s, h, d = q.shape
+        if scale is None:
+            scale = d ** -0.5
+        if impl == "ring" or ring is not None:
+            if ring is None:
+                raise ValueError("the ring route needs the sp axis of its mesh: shard the model "
+                                 "with pipelines/trajcrafter.py with_mesh")
+            from trajectorycrafter_tpu_torch.ops import ring_attention as ra
 
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if impl == "ring":
-            kernels.refuse_grad("ring attention", q, k, v)
-            out = ra.ring_attention(qt, kt, vt, ring.axis, sum(ring.sizes), scale)
-        elif impl in _RING_GRAD_IMPLS:
-            out = ra.RingAttentionFunction.apply(qt, kt, vt, ring.axis, sum(ring.sizes), scale,
-                                                 _IMPLS[impl][0] is None)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            if impl == "ring":
+                kernels.refuse_grad("ring attention", q, k, v)
+                out = ra.ring_attention(qt, kt, vt, ring.axis, sum(ring.sizes), scale)
+            elif impl in _RING_GRAD_IMPLS:
+                out = ra.RingAttentionFunction.apply(qt, kt, vt, ring.axis, sum(ring.sizes), scale,
+                                                     _IMPLS[impl][0] is None)
+            else:
+                raise ValueError(f"no differentiable ring for attention impl {impl!r} (expected "
+                                 f"one of {sorted(_RING_GRAD_IMPLS)})")
+            return out.transpose(1, 2).reshape(b, s, h * d)
+        if impl not in _IMPLS:
+            raise ValueError(f"unknown attention impl {impl!r} (expected one of "
+                             f"{sorted((*_IMPLS, 'ring'))})")
+        kernel, plain = _IMPLS[impl]
+        needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+        if needs_grad and impl == "flash_stock":
+            out = FlashAttentionFunction.apply(q, k, v, scale)
+        elif kernel is not None and q.is_cuda:
+            out = kernel(q, k, v, scale)  # under autograd the kernel's wrapper raises
         else:
-            raise ValueError(f"no differentiable ring for attention impl {impl!r} (expected "
-                             f"one of {sorted(_RING_GRAD_IMPLS)})")
-        return out.transpose(1, 2).reshape(b, s, h * d)
-    if impl not in _IMPLS:
-        raise ValueError(f"unknown attention impl {impl!r} (expected one of "
-                         f"{sorted((*_IMPLS, 'ring'))})")
-    kernel, plain = _IMPLS[impl]
-    needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
-    if needs_grad and impl == "flash_stock":
-        out = FlashAttentionFunction.apply(q, k, v, scale)
-    elif kernel is not None and q.is_cuda:
-        out = kernel(q, k, v, scale)  # under autograd the kernel's wrapper raises
-    else:
-        out = plain(q, k, v, scale)
-    return out.reshape(b, s, h * d)
+            out = plain(q, k, v, scale)
+        return out.reshape(b, s, h * d)

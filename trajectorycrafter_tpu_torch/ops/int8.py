@@ -31,6 +31,7 @@ from trajectorycrafter_tpu_torch.ops.int8_matmul import (
     row_scales,
 )
 from trajectorycrafter_tpu_torch.parallel import distributed as D
+from trajectorycrafter_tpu_torch.utils.timing import span
 
 
 @torch.no_grad()
@@ -89,8 +90,9 @@ class Int8Linear(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return int8_dense_apply(x, self.weight_q, self.weight_scale, self.bias,
-                                impl=self.int8_impl)
+        with span("linear", x):
+            return int8_dense_apply(x, self.weight_q, self.weight_scale, self.bias,
+                                    impl=self.int8_impl)
 
     def extra_repr(self) -> str:
         return (f"in_features={self.in_features}, out_features={self.out_features}, "
@@ -114,14 +116,16 @@ class Int8RowParallelLinear(Int8Linear):
         self.tp_axis = axis
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lead, k = x.shape[:-1], x.shape[-1]
-        x2 = x.reshape(-1, k).contiguous()
-        amax = D.all_reduce(x2.abs().amax(dim=1).float(), self.tp_axis, op="max")
-        xs = row_scales(amax)
-        xq = quantize_rows_scaled(x2, xs, self.int8_impl)
-        partial = int8_matmul(xq, self.weight_q, xs, self.weight_scale, None, x.dtype,
-                              self.int8_impl)
-        return D.sum_partials(partial, self.tp_axis, self.bias).reshape(*lead, self.out_features)
+        with span("linear", x):
+            lead, k = x.shape[:-1], x.shape[-1]
+            x2 = x.reshape(-1, k).contiguous()
+            amax = D.all_reduce(x2.abs().amax(dim=1).float(), self.tp_axis, op="max")
+            xs = row_scales(amax)
+            xq = quantize_rows_scaled(x2, xs, self.int8_impl)
+            partial = int8_matmul(xq, self.weight_q, xs, self.weight_scale, None, x.dtype,
+                                  self.int8_impl)
+            return D.sum_partials(partial, self.tp_axis, self.bias).reshape(
+                *lead, self.out_features)
 
 
 def _quantize_paths_(root: nn.Module, paths) -> None:

@@ -48,7 +48,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from trajectorycrafter_tpu_torch.ops.int8 import Int8Linear, Int8RowParallelLinear
+from trajectorycrafter_tpu_torch.ops.linear import Linear
 from trajectorycrafter_tpu_torch.parallel import distributed as D
+from trajectorycrafter_tpu_torch.utils.timing import span
 
 COL_PARALLEL = ("to_q", "to_k", "to_v", "to_kv", "proj_in")
 ROW_PARALLEL = ("to_out", "proj_out")
@@ -110,7 +112,7 @@ def shard_state_dict(sd: Dict[str, torch.Tensor], tp: int, r: int) -> Dict[str, 
     return {key: shard_entry(key, x, tp, r) for key, x in sd.items()}
 
 
-class RowParallelLinear(nn.Linear):
+class RowParallelLinear(Linear):
     """A row-parallel linear layer: this rank's input columns of the weight;
     the partial products of the tp ranks are summed in fp32 and the bias
     added once after."""
@@ -121,7 +123,8 @@ class RowParallelLinear(nn.Linear):
         self.tp_axis = axis
 
     def forward(self, x):
-        return D.tp_output(F.linear(x, self.weight), self.tp_axis, self.bias)
+        with span("linear", x):
+            return D.tp_output(F.linear(x, self.weight), self.tp_axis, self.bias)
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
@@ -147,7 +150,7 @@ def shard_linear(layer: nn.Module, rule: str, axis: D.Axis) -> nn.Module:
         n, k = weight.shape
         kw = dict(device=weight.device, dtype=weight.dtype)
         new = (RowParallelLinear(k, n, bias, axis, **kw) if rule == "row"
-               else nn.Linear(k, n, bias=bias, **kw))
+               else Linear(k, n, bias=bias, **kw))
         new.weight = _param(weight)
     if bias:
         new.bias = _param(cut("bias", layer.bias.detach()))

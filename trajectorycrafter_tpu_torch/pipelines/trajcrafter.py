@@ -65,7 +65,7 @@ from trajectorycrafter_tpu_torch.schedulers import (
     PNDMScheduler,
     Scheduler,
 )
-from trajectorycrafter_tpu_torch.utils.timing import StageTimer
+from trajectorycrafter_tpu_torch.utils.timing import StageTimer, span
 
 # the ``__call__`` arguments every rank of a mesh takes from the leader
 _LEADER_VALUES = ("num_inference_steps", "guidance_scale", "use_dynamic_cfg", "strength",
@@ -227,29 +227,31 @@ class TrajCrafterPipeline:
     def _denoise(self, state, latents, text, inpaint_in, ref_in, rope, num_inference_steps,
                  t_start, guidance_scale, do_cfg, use_dynamic_cfg, generator,
                  ancestral_noise_override):
-        """The sampling loop from entry ``t_start`` to ``num_loop_steps``."""
+        """The sampling loop from entry ``t_start`` to ``num_loop_steps``, each
+        entry one ``sampler.step`` span (utils/timing.py)."""
         sched = self.scheduler
         loop = sched.init_loop_state(latents) if isinstance(sched, PNDMScheduler) else None
         prev_x0 = None
         for i in range(t_start, sched.num_loop_steps(num_inference_steps)):
-            noise_pred = self._model_call(state, latents, i, text, inpaint_in, ref_in, rope,
-                                          num_inference_steps, guidance_scale, do_cfg,
-                                          use_dynamic_cfg)
-            if isinstance(sched, PNDMScheduler):
-                latents, loop = sched.step(state, noise_pred, i, latents, loop)
-            elif isinstance(sched, DPMSolverMultistepScheduler):
-                latents, prev_x0 = sched.step(state, noise_pred, i, latents, prev_x0=prev_x0,
-                                              num_steps=num_inference_steps,
-                                              first_index=t_start)
-            elif isinstance(sched, EulerAncestralDiscreteScheduler):
-                if ancestral_noise_override is None:
-                    noise = torch.randn(latents.shape, generator=generator,
-                                        device=latents.device)
+            with span("sampler.step", latents):
+                noise_pred = self._model_call(state, latents, i, text, inpaint_in, ref_in, rope,
+                                              num_inference_steps, guidance_scale, do_cfg,
+                                              use_dynamic_cfg)
+                if isinstance(sched, PNDMScheduler):
+                    latents, loop = sched.step(state, noise_pred, i, latents, loop)
+                elif isinstance(sched, DPMSolverMultistepScheduler):
+                    latents, prev_x0 = sched.step(state, noise_pred, i, latents, prev_x0=prev_x0,
+                                                  num_steps=num_inference_steps,
+                                                  first_index=t_start)
+                elif isinstance(sched, EulerAncestralDiscreteScheduler):
+                    if ancestral_noise_override is None:
+                        noise = torch.randn(latents.shape, generator=generator,
+                                            device=latents.device)
+                    else:
+                        noise = ancestral_noise_override[i].to(latents.device, torch.float32)
+                    latents = sched.step(state, noise_pred, i, latents, noise=noise)
                 else:
-                    noise = ancestral_noise_override[i].to(latents.device, torch.float32)
-                latents = sched.step(state, noise_pred, i, latents, noise=noise)
-            else:
-                latents = sched.step(state, noise_pred, i, latents)
+                    latents = sched.step(state, noise_pred, i, latents)
         return latents
 
     def _prepare(self, state, t_start, video, mask_video, reference, generator, latents,
